@@ -1,0 +1,193 @@
+#!/usr/bin/env python3
+"""Where the time goes in the PyTorch port's serving path, on one CUDA card.
+
+Run from the root of a checkout, with one H100 visible:
+
+    python3 chip_profile.py
+
+It builds the same full-width engine as chip_smoke.py (ViT-L/14, 144-query
+6-layer perceiver, LLaMA-2-7B, seeded random bf16 weights) and prints:
+  1. times, each as (CUDA events ms, host clock ms), median of 5 after a
+     warm-up call: encode_image of one image; prefill + first-token logits
+     for a 40-token and a 2048-token prompt with one image; one B=1 decode
+     step; the lm_head product in float32 (the path's) and in bf16;
+  2. a torch.profiler trace of a 16-token generate: wall time, the card's
+     busy time (kernel time summed) and busy share, and the top kernels;
+  3. the prefill/decode consistency readings of chip_smoke.py (relative L2
+     of prefill(P) + decode_step(t) against prefill(P + [t]), and of each
+     planted fault) through the kernels in bf16, through the plain attention
+     in bf16, and through the plain attention in float32; the full
+     prefills' logits of the kernels against the plain attention; and the
+     same readings through the kernels on the first 1 and 4 layers alone.
+It is a measurement, not a check: it fails only if something does not run.
+It needs no network and imports nothing of JAX.
+"""
+
+import contextlib
+import dataclasses
+import statistics
+import sys
+import time
+
+import numpy as np
+
+from chip_smoke import decode_vs_prefill, log, rel_l2, smi_line
+
+
+def timed(fn, reps=5):
+    """(CUDA events ms, host ms) of one call, medians of `reps` calls."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    dev_ms, host_ms = [], []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        dev_ms.append(start.elapsed_time(end))
+    return statistics.median(dev_ms), statistics.median(host_ms)
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """Route the decoder's two attention entry points to their plain
+    versions, on CUDA tensors too, for as long as the block runs."""
+    import lhrs_bot_tpu_torch.models.llama as llama
+    from lhrs_bot_tpu_torch.ops.attention import mha_reference
+    from lhrs_bot_tpu_torch.ops.fused_decode import \
+        fused_decode_attention_plain
+
+    def flash(q, k, v, kv_mask=None, *, causal=False, sm_scale=None):
+        return mha_reference(q, k, v, kv_mask, causal=causal,
+                             sm_scale=sm_scale)
+
+    saved = llama.flash_attention, llama.fused_decode_attention
+    llama.flash_attention = flash
+    llama.fused_decode_attention = fused_decode_attention_plain
+    try:
+        yield
+    finally:
+        llama.flash_attention, llama.fused_decode_attention = saved
+
+
+def profile_generate(engine, ids, lens, img):
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from lhrs_bot_tpu_torch.serve.engine import GenerationConfig
+
+    gen_cfg = GenerationConfig(max_new_tokens=16)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.generate(ids, lens, images=img, gen_cfg=gen_cfg)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    busy_ms = sum(e.self_device_time_total for e in events
+                  if e.device_type == DeviceType.CUDA) / 1e3
+    log(f"generate of 16 tokens under the profiler: wall {wall_ms:.1f} ms, "
+        f"card busy {busy_ms:.1f} ms, busy share {busy_ms / wall_ms:.3f}")
+    log(events.table(sort_by="self_device_time_total", row_limit=15,
+                     max_name_column_width=60))
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_profile: no CUDA device visible; this "
+                         "measurement runs on the card")
+    from lhrs_bot_tpu_torch.core import build_engine, eval_config
+    from lhrs_bot_tpu_torch.models import VLMConfig, init_vlm_params
+    from lhrs_bot_tpu_torch.models.vlm import encode_image
+    from lhrs_bot_tpu_torch.serve.engine import GenerationConfig
+
+    dev = torch.device("cuda", 0)
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}; {smi_line()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    config = eval_config()
+    cfg = VLMConfig.from_config_dict(config)
+    engine = build_engine(
+        cfg, init_vlm_params(cfg, seed=0, dtype=torch.bfloat16, device=dev),
+        config, dev)
+    rng = np.random.default_rng(0)
+
+    def request(n):
+        ids = rng.integers(3, cfg.llama.vocab_size, n).astype(np.int32)
+        ids[0], ids[1] = cfg.llama.bos_token_id, -200
+        return ids[None], np.asarray([n], np.int32)
+
+    size = cfg.vit.image_size
+    img = rng.integers(0, 256, (1, size, size, 3)).astype(np.uint8)
+    timg = torch.as_tensor(img, device=dev)
+    log("encode_image, 1 image: %.3f ms (events), %.3f ms (host)" % timed(
+        lambda: encode_image(engine.params, timg, cfg)))
+    one = GenerationConfig(max_new_tokens=1)
+    for n in (40, 2048):
+        ids, lens = request(n)
+        log(f"prefill + first-token logits, {n}-token prompt: "
+            "%.3f ms (events), %.3f ms (host)" % timed(
+                lambda: engine._start(ids, lens, img, one)))
+    ids, lens = request(40)
+    logits, cache, _ = engine._start(ids, lens, img,
+                                     GenerationConfig(max_new_tokens=64))
+    tok = logits.argmax(-1).to(torch.int32)
+    log("decode step, B=1 after a 40-token prompt: %.3f ms (events), "
+        "%.3f ms (host)" % timed(lambda: engine._decode_step(cache, tok)))
+    del cache
+    lm_head = engine.llama_params["lm_head"]
+    x = torch.randn(1, lm_head.shape[0], device=dev, dtype=torch.bfloat16)
+    log("lm_head product, float32: %.3f ms (events), %.3f ms (host)" % timed(
+        lambda: torch.matmul(x.float(), lm_head.float())))
+    log("lm_head product, bf16: %.3f ms (events), %.3f ms (host)" % timed(
+        lambda: torch.matmul(x, lm_head)))
+
+    profile_generate(engine, ids, lens, img)
+
+    lp, lcfg = engine.llama_params, cfg.llama
+    full = {}
+    for name, params, dtype, plain in (
+            ("kernels bf16", lp, torch.bfloat16, False),
+            ("plain bf16", lp, torch.bfloat16, True),
+            ("plain float32", None, torch.float32, True)):
+        if params is None:
+            params = {k: v.float() if torch.is_tensor(v)
+                      else {kk: vv.float() for kk, vv in v.items()}
+                      for k, v in lp.items()}
+        with plain_attention() if plain else contextlib.nullcontext():
+            logits_d, full[name], faulty = decode_vs_prefill(
+                params, lcfg, dev, dtype)
+        log(f"consistency, {name}: rel L2 {rel_l2(logits_d, full[name])}")
+        for fault, logits in faulty.items():
+            log(f"  planted fault, {fault}: rel L2 "
+                f"{rel_l2(logits, full[name])}")
+        del params, faulty
+    for name in ("kernels bf16", "plain bf16"):
+        log(f"full prefill logits, {name} vs plain float32: rel L2 "
+            f"{rel_l2(full[name], full['plain float32'])}")
+    log(f"full prefill logits, kernels bf16 vs plain bf16: rel L2 "
+        f"{rel_l2(full['kernels bf16'], full['plain bf16'])}")
+    # the same check on the first layers alone: bf16 noise grows with depth
+    for depth in (1, 4):
+        cut = {**lp, "layers": {k: v[:depth]
+                                for k, v in lp["layers"].items()}}
+        logits_d, logits_f, faulty = decode_vs_prefill(
+            cut, dataclasses.replace(lcfg, num_hidden_layers=depth), dev,
+            torch.bfloat16)
+        log(f"consistency, kernels bf16, first {depth} layer(s): rel L2 "
+            f"{rel_l2(logits_d, logits_f)}; planted faults " + "; ".join(
+                f"{fault} {rel_l2(logits, logits_f)}"
+                for fault, logits in faulty.items()))
+    log(smi_line())
+
+
+if __name__ == "__main__":
+    sys.exit(main())

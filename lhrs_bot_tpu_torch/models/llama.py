@@ -1,0 +1,190 @@
+"""LLaMA-2 decoder: cached prefill and decode over a static-shape KV cache.
+
+Counterpart of `lhrs_bot_tpu/models/llama.py` (`LlamaConfig`, `KVCache`,
+`llama_prefill`, `llama_decode_step`) for float weights and bf16/f32 caches.
+Prompts are right-padded with per-row lengths; the cache appends at
+`length`, so no left-padding or position remapping is needed. Prefill runs
+the flash-attention entry point; each decode layer runs the fused
+append + attention entry point, which on CUDA always takes the kernel.
+
+Float parameters must already be in the compute dtype (the engine casts
+them once); the compute dtype only sets the activations' dtype.
+
+Unlike the JAX package, the KV cache is updated IN PLACE: `llama_prefill`
+and `llama_decode_step` write into the tensors of the cache they are given
+and return a KVCache over those same tensors with the new lengths.
+
+Not ported here: the int8 cache, W4/int8 weights, the QLoRA side path,
+`llama_apply` and `llama_prefill_continue`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..ops.attention import flash_attention
+from ..ops.fused_decode import fused_decode_attention
+from ..ops.rmsnorm import rms_norm
+from ..ops.rope import apply_rope, rope_cos_sin
+
+
+def _layer(layers, li: int):
+    return {k: t[li] for k, t in layers.items()}
+
+
+def _lm_head_logits(x: torch.Tensor, lm_head: torch.Tensor) -> torch.Tensor:
+    """float32 logits from compute-dtype operands (float32 product)."""
+    return torch.matmul(x.float(), lm_head.float())
+
+
+def _silu_mlp(x: torch.Tensor, lp) -> torch.Tensor:
+    gate = torch.matmul(x, lp["w_gate"])
+    up = torch.matmul(x, lp["w_up"])
+    return torch.matmul(F.silu(gate.float()).to(x.dtype) * up, lp["w_down"])
+
+
+@dataclasses.dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    intermediate_size: int = 11008
+    num_hidden_layers: int = 32
+    num_attention_heads: int = 32
+    max_position_embeddings: int = 2048
+    rms_norm_eps: float = 1e-5
+    rope_theta: float = 10000.0
+    pad_token_id: int = 0
+    bos_token_id: int = 1
+    eos_token_id: int = 2
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_attention_heads
+
+    @classmethod
+    def llama2_7b(cls) -> "LlamaConfig":
+        return cls()
+
+    @classmethod
+    def tiny_test(cls) -> "LlamaConfig":
+        return cls(vocab_size=256, hidden_size=64, intermediate_size=128,
+                   num_hidden_layers=2, num_attention_heads=4,
+                   max_position_embeddings=128)
+
+    @classmethod
+    def from_config_dict(cls, text_cfg) -> "LlamaConfig":
+        """From the `text` section of a config (a plain dict)."""
+        return cls(
+            vocab_size=int(text_cfg["vocab_size"]),
+            hidden_size=int(text_cfg["hidden_size"]),
+            intermediate_size=int(text_cfg["intermediate_size"]),
+            num_hidden_layers=int(text_cfg["num_hidden_layers"]),
+            num_attention_heads=int(text_cfg["num_attention_heads"]),
+            max_position_embeddings=int(text_cfg["max_position_embeddings"]),
+            rms_norm_eps=float(text_cfg["rms_norm_eps"]),
+            pad_token_id=int(text_cfg["pad_token_id"]),
+            bos_token_id=int(text_cfg["bos_token_id"]),
+            eos_token_id=int(text_cfg["eos_token_id"]),
+        )
+
+
+@dataclasses.dataclass
+class KVCache:
+    """Static-shape KV cache: k/v (L, B, H, S_max, D) plus the per-row valid
+    length (B,) int32. Updated in place by prefill and decode."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    length: torch.Tensor
+
+    @classmethod
+    def create(cls, cfg: LlamaConfig, batch: int, max_len: int,
+               dtype: torch.dtype = torch.bfloat16,
+               device="cpu") -> "KVCache":
+        if dtype not in (torch.bfloat16, torch.float32):
+            raise NotImplementedError(f"{dtype} KV cache is not ported "
+                                      "(bf16/f32 only)")
+        shape = (cfg.num_hidden_layers, batch, cfg.num_attention_heads,
+                 max_len, cfg.head_dim)
+        return cls(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device),
+                   length=torch.zeros(batch, dtype=torch.int32,
+                                      device=device))
+
+
+def _qkv(x: torch.Tensor, lp, cfg: LlamaConfig, cos, sin):
+    """Project + RoPE. x (B, S, D) -> contiguous q/k/v (B, H, S, hd)."""
+    b, s, _ = x.shape
+
+    def proj(name):
+        return torch.matmul(x, lp[name]).reshape(
+            b, s, cfg.num_attention_heads, cfg.head_dim)
+
+    def heads(t):
+        return t.transpose(1, 2).contiguous()
+
+    q = heads(apply_rope(proj("wq"), cos, sin))
+    k = heads(apply_rope(proj("wk"), cos, sin))
+    return q, k, heads(proj("wv"))
+
+
+def llama_prefill(params, cfg: LlamaConfig, cache: KVCache, *,
+                  inputs_embeds: torch.Tensor, prompt_len: torch.Tensor,
+                  compute_dtype: torch.dtype = torch.bfloat16
+                  ) -> Tuple[torch.Tensor, KVCache]:
+    """Prefill the cache from right-padded (B, S, D) embeddings; returns
+    (next-token logits (B, V) float32, cache). Writes the first S rows of
+    every layer of `cache` in place; the cache's length becomes prompt_len.
+    Causal masking alone is correct: pads sit after the valid tokens, and
+    their cache rows are overwritten by decode before they are read."""
+    x = inputs_embeds.to(compute_dtype)
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    for li in range(cfg.num_hidden_layers):
+        lp = _layer(params["layers"], li)
+        h = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps)
+        q, k, v = _qkv(h, lp, cfg, cos, sin)
+        attn = flash_attention(q, k, v, causal=True)
+        attn = attn.transpose(1, 2).reshape(b, s, cfg.hidden_size)
+        x = x + torch.matmul(attn, lp["wo"])
+        h2 = rms_norm(x, lp["post_attn_norm"], cfg.rms_norm_eps)
+        x = x + _silu_mlp(h2, lp)
+        cache.k[li, :, :, :s] = k
+        cache.v[li, :, :, :s] = v
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    last = (prompt_len.long() - 1).clamp(min=0)
+    x_last = x[torch.arange(b, device=x.device), last]
+    logits = _lm_head_logits(x_last, params["lm_head"])
+    return logits, KVCache(cache.k, cache.v, prompt_len.to(torch.int32))
+
+
+def llama_decode_step(params, cfg: LlamaConfig, cache: KVCache, *,
+                      inputs_embeds: torch.Tensor,
+                      compute_dtype: torch.dtype = torch.bfloat16
+                      ) -> Tuple[torch.Tensor, KVCache]:
+    """One decode step from the (B, 1, D) embedding of the new token;
+    returns (logits (B, V) float32, cache with length + 1). Every layer
+    appends its K/V row at cache.length in place and attends over
+    length + 1 rows through `fused_decode_attention`."""
+    x = inputs_embeds.to(compute_dtype)
+    b = x.shape[0]
+    cos, sin = rope_cos_sin(cache.length[:, None], cfg.head_dim,
+                            cfg.rope_theta)
+    for li in range(cfg.num_hidden_layers):
+        lp = _layer(params["layers"], li)
+        h = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps)
+        q, k, v = _qkv(h, lp, cfg, cos, sin)  # (B, H, 1, hd)
+        attn, _, _ = fused_decode_attention(q, k, v, cache.k, cache.v,
+                                            cache.length, li)
+        attn = attn.transpose(1, 2).reshape(b, 1, cfg.hidden_size)
+        x = x + torch.matmul(attn, lp["wo"])
+        h2 = rms_norm(x, lp["post_attn_norm"], cfg.rms_norm_eps)
+        x = x + _silu_mlp(h2, lp)
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    logits = _lm_head_logits(x[:, 0, :], params["lm_head"])
+    return logits, KVCache(cache.k, cache.v, cache.length + 1)

@@ -1,0 +1,189 @@
+"""The composed vision-language model: tower -> perceiver -> splice -> LLaMA.
+
+Counterpart of `lhrs_bot_tpu/models/vlm.py` for the serving path
+(`VLMConfig`, `init_vlm_params`, `encode_image`,
+`prepare_multimodal_inputs`) with one image per row. Parameters are a
+nested dict of tensors with the JAX package's structure and layout:
+`{"vit": ..., "pooler": ..., "llama": ...}`, per-layer tensors stacked on a
+leading axis, projection weights (in, out).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from .llama import LlamaConfig
+from .perceiver import PerceiverConfig, perceiver_resample
+from .splice import SplicedBatch, splice_image_embeddings
+from .vit import ViTConfig, vit_encode
+
+
+@dataclasses.dataclass(frozen=True)
+class VLMConfig:
+    vit: ViTConfig = dataclasses.field(default_factory=ViTConfig.vit_large)
+    pooler: PerceiverConfig = dataclasses.field(
+        default_factory=PerceiverConfig)
+    llama: LlamaConfig = dataclasses.field(
+        default_factory=LlamaConfig.llama2_7b)
+    stage: int = 1
+    tune_rgb_bk: bool = False
+    tune_rgb_pooler: bool = True
+
+    @classmethod
+    def tiny_test(cls, stage: int = 1) -> "VLMConfig":
+        vit = ViTConfig.tiny_test()
+        pooler = dataclasses.replace(
+            PerceiverConfig.tiny_test(), hidden_size=vit.width,
+            encoder_hidden_size=vit.width, output_size=64,
+            split_part=(vit.num_patches,) * 3)
+        return cls(vit=vit, pooler=pooler, llama=LlamaConfig.tiny_test(),
+                   stage=stage)
+
+    @classmethod
+    def from_config_dict(cls, cfg) -> "VLMConfig":
+        """From a nested config dict with the schema of `Config/*.yaml`."""
+        arch = cfg["rgb_vision"]["arch"]
+        if arch == "vit_large":
+            vit = ViTConfig.vit_large()
+        elif arch in ("vit_tiny", "vit_tiny_test"):
+            vit = ViTConfig.tiny_test()
+        else:
+            raise NotImplementedError(f"rgb_vision.arch {arch!r} is not "
+                                      "ported")
+        ap = cfg["rgb_vision"]["attn_pooler"]
+        nq = int(ap["num_query"])
+        stage_num = tuple(ap.get("stage_num")
+                          or ((64, 48, 32) if nq == 144 else None)
+                          or (nq // 2, nq - nq // 2 - nq // 4, nq // 4))
+        pooler = PerceiverConfig(
+            num_query=nq, num_layers=int(ap["num_layers"]),
+            heads=int(ap["num_attn_heads"]), hidden_size=vit.width,
+            encoder_hidden_size=vit.width,
+            output_size=int(cfg["text"]["hidden_size"]),
+            stage_num=stage_num,
+            split_part=(vit.num_patches,) * len(stage_num))
+        lora = cfg.get("lora")
+        if lora and (lora.get("enable") or cfg.get("stage") == 3):
+            raise NotImplementedError("LoRA is not ported to "
+                                      "lhrs_bot_tpu_torch yet")
+        return cls(vit=vit, pooler=pooler,
+                   llama=LlamaConfig.from_config_dict(cfg["text"]),
+                   stage=cfg["stage"],
+                   tune_rgb_bk=cfg.get("tune_rgb_bk", False),
+                   tune_rgb_pooler=cfg.get("tune_rgb_pooler", True))
+
+
+def init_vlm_params(cfg: VLMConfig, seed: int = 0,
+                    dtype: torch.dtype = torch.float32, device="cpu"):
+    """Random parameters with the JAX `init_*_params` structure: weights
+    N(0, 0.02), perceiver queries 0.02 * N(0, 1) truncated to [-2, 2], norm
+    scales 1, biases 0. Drawn on `device` from a `torch.Generator` seeded
+    with `seed`; the numbers differ from the JAX package's for the same
+    seed."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def normal(*shape):
+        t = torch.randn(shape, generator=gen, dtype=dtype, device=device)
+        return t.mul_(0.02)
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=dtype, device=device)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    v, p, m = cfg.vit, cfg.pooler, cfg.llama
+    w, lv = v.width, v.layers
+    vit = {
+        "patch_proj": normal(v.patch_size * v.patch_size * 3, w),
+        "class_emb": normal(w),
+        "pos_emb": normal(v.seq_len, w),
+        "pre_ln": {"scale": ones(w), "bias": zeros(w)},
+        "post_ln": {"scale": ones(w), "bias": zeros(w)},
+        "layers": {
+            "ln1_scale": ones(lv, w), "ln1_bias": zeros(lv, w),
+            "wq": normal(lv, w, w), "bq": zeros(lv, w),
+            "wk": normal(lv, w, w), "bk": zeros(lv, w),
+            "wv": normal(lv, w, w), "bv": zeros(lv, w),
+            "wo": normal(lv, w, w), "bo": zeros(lv, w),
+            "ln2_scale": ones(lv, w), "ln2_bias": zeros(lv, w),
+            "w_fc": normal(lv, w, w * v.mlp_ratio),
+            "b_fc": zeros(lv, w * v.mlp_ratio),
+            "w_proj": normal(lv, w * v.mlp_ratio, w), "b_proj": zeros(lv, w),
+        },
+    }
+    h, lp, ffn = p.hidden_size, p.num_layers, p.hidden_size * p.mlp_ratio
+    query = torch.empty(p.num_query, h, dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(query, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    pooler = {
+        "query": query.mul_(0.02).to(dtype),
+        "layers": {
+            "ln1_scale": ones(lp, h), "ln1_bias": zeros(lp, h),
+            "ln_kv_scale": ones(lp, h), "ln_kv_bias": zeros(lp, h),
+            "wq": normal(lp, h, h), "bq": zeros(lp, h),
+            "wk": normal(lp, h, h), "bk": zeros(lp, h),
+            "wv": normal(lp, h, h), "bv": zeros(lp, h),
+            "wo": normal(lp, h, h), "bo": zeros(lp, h),
+            "ln2_scale": ones(lp, h), "ln2_bias": zeros(lp, h),
+            "w_fc": normal(lp, h, ffn), "b_fc": zeros(lp, ffn),
+            "w_proj": normal(lp, ffn, h), "b_proj": zeros(lp, h),
+        },
+        "out_proj_w": normal(h, p.output_size),
+        "out_proj_b": zeros(p.output_size),
+    }
+    d, f, nl, vocab = (m.hidden_size, m.intermediate_size,
+                       m.num_hidden_layers, m.vocab_size)
+    llama = {
+        "embed_tokens": normal(vocab, d),
+        "layers": {
+            "input_norm": ones(nl, d),
+            "wq": normal(nl, d, d), "wk": normal(nl, d, d),
+            "wv": normal(nl, d, d), "wo": normal(nl, d, d),
+            "post_attn_norm": ones(nl, d),
+            "w_gate": normal(nl, d, f), "w_up": normal(nl, d, f),
+            "w_down": normal(nl, f, d),
+        },
+        "final_norm": ones(d),
+        "lm_head": normal(d, vocab),
+    }
+    return {"vit": vit, "pooler": pooler, "llama": llama}
+
+
+def encode_image(params, images: torch.Tensor, cfg: VLMConfig,
+                 compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """uint8 (B, H, W, 3) images -> (B, num_query, llm hidden)."""
+    feats = vit_encode(params["vit"], images, cfg.vit,
+                       compute_dtype=compute_dtype)
+    return perceiver_resample(params["pooler"], feats, cfg.pooler,
+                              compute_dtype=compute_dtype)
+
+
+def prepare_multimodal_inputs(
+    params, cfg: VLMConfig, input_ids: torch.Tensor,
+    images: Optional[torch.Tensor],
+    attention_mask: Optional[torch.Tensor] = None,
+    labels: Optional[torch.Tensor] = None,
+    compute_dtype: torch.dtype = torch.bfloat16,
+    llama_params=None,
+) -> SplicedBatch:
+    """Token ids (+ one image per row) -> spliced decoder inputs. Text-only
+    batches (images None) are embedded directly."""
+    if llama_params is None:
+        llama_params = params["llama"]
+    embed_tokens = llama_params["embed_tokens"]
+    if images is None:
+        embeds = embed_tokens[input_ids.clamp(min=0).long()]
+        if attention_mask is None:
+            attention_mask = torch.ones(input_ids.shape, dtype=torch.bool,
+                                        device=input_ids.device)
+        return SplicedBatch(embeds, attention_mask, labels,
+                            attention_mask.int().sum(dim=1).int())
+    if images.dim() != 4:
+        raise NotImplementedError("one (H, W, 3) image per row only; "
+                                  "multi-image rows are not ported")
+    image_embeds = encode_image(params, images, cfg, compute_dtype)
+    return splice_image_embeddings(input_ids, image_embeds, embed_tokens,
+                                   attention_mask, labels)

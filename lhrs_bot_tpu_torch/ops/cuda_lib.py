@@ -1,0 +1,95 @@
+"""Build and load the hand-written CUDA kernels of `lhrs_bot_tpu_torch/csrc`.
+
+At first use every `csrc/*.cu` file is compiled by `nvcc` for `sm_90a` into
+one shared library with a plain C interface, which is loaded with `ctypes`
+(no PyTorch headers, so a build takes seconds, not minutes). The library
+goes to `build/kernels/<hash of the sources and flags>/` beside the package,
+so an edited source is rebuilt and an unchanged one is reused. Nothing here
+runs at import time: the CPU tests import every module on a machine with no
+`nvcc`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry points: name -> argtypes (each returns its cudaError_t as int)
+_ENTRIES = {
+    # q, k, v, kv_mask, o, B, H, Sq, Skv, D, causal, sm_scale, stream
+    "lhrs_flash_fwd_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            ctypes.c_float, _P],
+    # q, k_new, v_new, k_cache, v_cache, lengths, out, layer, L, B, H, S, D,
+    # sm_scale, stream
+    "lhrs_fused_decode_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _I, _I, ctypes.c_float, _P],
+}
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels of "
+                       "lhrs_bot_tpu_torch are built on the machine with "
+                       "the card, from the CUDA toolkit")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def build() -> Path:
+    """Compile the sources if their library is missing; returns its path.
+    The compiler's output, register and shared-memory use included, is kept
+    in `build.log` beside the library."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    so = BUILD_ROOT / h.hexdigest()[:16] / "liblhrs_kernels.so"
+    if so.exists():
+        return so
+    so.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=so.parent)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    (so.parent / "build.log").write_text(
+        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
+    return so
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library, with typed entries."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _ENTRIES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise on a non-zero cudaError_t returned by a C entry point."""
+    if err != 0:
+        raise RuntimeError(f"{name} failed to launch: cudaError_t {err}")

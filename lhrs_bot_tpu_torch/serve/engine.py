@@ -1,0 +1,275 @@
+"""Generation engine: batched prefill + decode over a static KV cache.
+
+Counterpart of `lhrs_bot_tpu/serve/engine.py` `GenerationEngine.generate`
+and `stream` (without sessions or speculation): greedy and temperature/top-p
+sampling, max_new_tokens and EOS stopping. Prompt widths and cache lengths
+are bucketed and clamped exactly as in the JAX engine, so both engines build
+the same shapes for the same request.
+
+The engine moves every parameter to its device and casts every float
+parameter to the compute dtype once, at construction; the models take them
+as they are. (The JAX engine keeps the vision tower's parameters as given
+and casts the layer stacks per call, so with float32 weights and a bf16
+compute dtype its ViT pre-LayerNorm runs on float32 scale/bias where the
+port's runs on bf16-rounded ones.)
+
+The decode loop is a Python loop of `llama_decode_step` calls whose tokens
+stay on the device; the host reads the tokens once, at the end of
+`generate`. Chunked prefill, sessions, speculative decoding, weight
+quantization, the W8A8 vision tower and meshes are not ported: asking for
+one raises NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+from typing import Iterator, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..models.llama import KVCache, llama_decode_step, llama_prefill
+from ..models.vlm import VLMConfig, prepare_multimodal_inputs
+
+logger = logging.getLogger(__name__)
+
+
+def _cast_params(tree, dtype: torch.dtype, device: torch.device):
+    """A nested dict of tensors on `device`, float leaves cast to `dtype`."""
+    if isinstance(tree, dict):
+        return {k: _cast_params(v, dtype, device) for k, v in tree.items()}
+    if tree.is_floating_point():
+        return tree.to(device=device, dtype=dtype)
+    return tree.to(device)
+
+
+@dataclasses.dataclass(frozen=True)
+class GenerationConfig:
+    max_new_tokens: int = 128
+    do_sample: bool = False
+    temperature: float = 1.0
+    top_p: float = 1.0
+    eos_token_id: int = 2
+    pad_token_id: int = 0
+
+
+def _sample_token(logits: torch.Tensor, generator: Optional[torch.Generator],
+                  gen_cfg: GenerationConfig) -> torch.Tensor:
+    """logits (B, V) -> token ids (B,) int32. Greedy or temperature/top-p
+    (the smallest set of tokens whose probability reaches top_p)."""
+    if not gen_cfg.do_sample:
+        return logits.argmax(dim=-1).to(torch.int32)
+    logits = logits.float() / max(gen_cfg.temperature, 1e-6)
+    if gen_cfg.top_p < 1.0:
+        sorted_logits = logits.sort(dim=-1, descending=True).values
+        cum = torch.softmax(sorted_logits, dim=-1).cumsum(dim=-1)
+        cutoff_idx = (cum < gen_cfg.top_p).sum(dim=-1, keepdim=True)
+        cutoff_idx = cutoff_idx.clamp(max=logits.shape[-1] - 1)
+        cutoff = sorted_logits.gather(-1, cutoff_idx)
+        logits = logits.masked_fill(logits < cutoff, -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0].to(
+        torch.int32)
+
+
+class GenerationEngine:
+    def __init__(
+        self,
+        cfg: VLMConfig,
+        params,
+        *,
+        device="cpu",
+        max_seq_len: int = 2304,  # 2048 text + 144 image + headroom
+        compute_dtype: torch.dtype = torch.bfloat16,
+        cache_dtype: torch.dtype = torch.bfloat16,
+        prompt_bucket: int = 64,
+        cache_bucket: int = 256,
+        quantize_bits=None,
+        lm_head_bits=None,
+        vision_w8a8: bool = False,
+        prefill_chunk: Optional[int] = None,
+        mesh=None,
+    ):
+        unported = {"quantize_bits": quantize_bits,
+                    "lm_head_bits": lm_head_bits,
+                    "vision_w8a8": vision_w8a8,
+                    "prefill_chunk": prefill_chunk, "mesh": mesh}
+        asked = [k for k, v in unported.items() if v]
+        if asked:
+            raise NotImplementedError(f"not ported yet: {', '.join(asked)}")
+        if cache_dtype not in (torch.bfloat16, torch.float32):
+            raise NotImplementedError(f"{cache_dtype} KV cache is not ported")
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.compute_dtype = compute_dtype
+        self.cache_dtype = cache_dtype
+        self.max_seq_len = max_seq_len
+        self.prompt_bucket = prompt_bucket
+        self.cache_bucket = cache_bucket
+
+        # the one place parameters are placed and cast: the models take
+        # every float parameter in the compute dtype
+        self.params = {k: _cast_params(params[k], compute_dtype, self.device)
+                       for k in ("vit", "pooler")}
+        self.llama_params = _cast_params(params["llama"], compute_dtype,
+                                         self.device)
+
+    # -- pieces -------------------------------------------------------------
+
+    def _prefill(self, input_ids: torch.Tensor, images, seq_lens, *,
+                 batch: int, cache_len: int) -> Tuple[torch.Tensor, KVCache]:
+        width = input_ids.shape[1]
+        mask = torch.arange(width, device=self.device)[None, :] \
+            < seq_lens[:, None]
+        spliced = prepare_multimodal_inputs(
+            self.params, self.cfg, input_ids, images, attention_mask=mask,
+            compute_dtype=self.compute_dtype,
+            llama_params=self.llama_params)
+        cache = KVCache.create(self.cfg.llama, batch, cache_len,
+                               dtype=self.cache_dtype, device=self.device)
+        return llama_prefill(self.llama_params, self.cfg.llama, cache,
+                             inputs_embeds=spliced.inputs_embeds,
+                             prompt_len=spliced.seq_len,
+                             compute_dtype=self.compute_dtype)
+
+    def _decode_step(self, cache: KVCache, tokens: torch.Tensor):
+        embeds = self.llama_params["embed_tokens"][tokens.long()][:, None]
+        return llama_decode_step(self.llama_params, self.cfg.llama, cache,
+                                 inputs_embeds=embeds,
+                                 compute_dtype=self.compute_dtype)
+
+    def _bucketed(self, t: int, n_img: int, max_new: int) -> Tuple[int, int]:
+        """(prompt width, cache length) rounded up to bucket multiples."""
+        width = -(-t // self.prompt_bucket) * self.prompt_bucket
+        # the splice expands one image token into n_img embeddings: the
+        # spliced prompt (width + n_img - 1) must fit the cache
+        width = min(width, self.max_seq_len - n_img)
+        cache_len = -(-(width + n_img + max_new) //
+                      self.cache_bucket) * self.cache_bucket
+        return width, min(cache_len, self.max_seq_len)
+
+    def _clamp_new_tokens(self, gen_cfg: GenerationConfig, spliced_max: int,
+                          cache_len: int) -> GenerationConfig:
+        """Clamp max_new_tokens to the cache room left after the longest
+        spliced prompt: the final cache length after max_new tokens is
+        spliced_max + max_new - 1 (the first token comes from the prefill
+        logits and is appended by the first decode step)."""
+        room = max(1, cache_len - spliced_max + 1)
+        if gen_cfg.max_new_tokens <= room:
+            return gen_cfg
+        logger.warning(
+            "max_new_tokens %d exceeds cache room %d after a %d-token "
+            "spliced prompt (cache_len=%d) - clamping",
+            gen_cfg.max_new_tokens, room, spliced_max, cache_len)
+        return dataclasses.replace(gen_cfg, max_new_tokens=room)
+
+    @staticmethod
+    def _pad_ids(input_ids: np.ndarray, width: int,
+                 pad_id: int) -> np.ndarray:
+        t = input_ids.shape[1]
+        if t == width:
+            return input_ids
+        if t > width:
+            return input_ids[:, :width]
+        out = np.full((input_ids.shape[0], width), pad_id, input_ids.dtype)
+        out[:, :t] = input_ids
+        return out
+
+    def _start(self, input_ids, seq_lens, images, gen_cfg):
+        """Bucket, clamp and pad a request, then prefill it. Returns
+        (first-token logits, cache, clamped gen_cfg)."""
+        batch, t = input_ids.shape
+        if images is not None and np.ndim(images) != 4:
+            raise NotImplementedError("one (H, W, 3) image per row only")
+        k_img = 0 if images is None else 1
+        n_img = k_img * self.cfg.pooler.num_query
+        width, cache_len = self._bucketed(t, n_img, gen_cfg.max_new_tokens)
+        seq_lens = np.minimum(np.asarray(seq_lens), width)
+        gen_cfg = self._clamp_new_tokens(
+            gen_cfg,
+            int(seq_lens.max()) + k_img * (self.cfg.pooler.num_query - 1),
+            cache_len)
+        ids = self._pad_ids(np.asarray(input_ids), width,
+                            gen_cfg.pad_token_id)
+        dev = self.device
+        logits, cache = self._prefill(
+            torch.as_tensor(ids, device=dev),
+            None if images is None else torch.as_tensor(images, device=dev),
+            torch.as_tensor(seq_lens, device=dev),
+            batch=batch, cache_len=cache_len)
+        return logits, cache, gen_cfg
+
+    # -- public API ---------------------------------------------------------
+
+    def generate(
+        self,
+        input_ids: np.ndarray,  # (B, T) right-padded
+        seq_lens: np.ndarray,  # (B,)
+        images: Optional[np.ndarray] = None,  # (B, H, W, 3) uint8 or None
+        gen_cfg: Optional[GenerationConfig] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> List[List[int]]:
+        """Returns the newly generated token ids of each row, EOS
+        excluded. Sampling draws from `generator` (a generator on the
+        engine's device; seed 0 when None)."""
+        gen_cfg = gen_cfg or GenerationConfig()
+        if generator is None and gen_cfg.do_sample:
+            generator = torch.Generator(self.device).manual_seed(0)
+        logits, cache, gen_cfg = self._start(input_ids, seq_lens, images,
+                                             gen_cfg)
+        tok = _sample_token(logits, generator, gen_cfg)
+        toks = [tok]
+        done = tok == gen_cfg.eos_token_id
+        for _ in range(gen_cfg.max_new_tokens - 1):
+            logits, cache = self._decode_step(cache, tok)
+            nxt = _sample_token(logits, generator, gen_cfg)
+            tok = torch.where(done, torch.full_like(nxt, gen_cfg.pad_token_id),
+                              nxt)
+            done = done | (tok == gen_cfg.eos_token_id)
+            toks.append(tok)
+        all_toks = torch.stack(toks, dim=1).cpu().numpy()
+
+        out: List[List[int]] = []
+        for row in all_toks:
+            ids = []
+            for t in row.tolist():
+                if t == gen_cfg.eos_token_id:
+                    break
+                ids.append(t)
+            out.append(ids)
+        return out
+
+    def stream(
+        self,
+        input_ids: np.ndarray,  # (1, T)
+        seq_len: int,
+        images: Optional[np.ndarray] = None,
+        gen_cfg: Optional[GenerationConfig] = None,
+        generator: Optional[torch.Generator] = None,
+        stop_fn=None,
+        session: bool = False,
+        speculative: int = 0,
+    ) -> Iterator[int]:
+        """Single-sequence streaming: yields one token id per step."""
+        if session or speculative:
+            raise NotImplementedError("sessions and speculative decoding "
+                                      "are not ported yet")
+        gen_cfg = gen_cfg or GenerationConfig()
+        if generator is None and gen_cfg.do_sample:
+            generator = torch.Generator(self.device).manual_seed(0)
+        logits, cache, gen_cfg = self._start(
+            input_ids, np.asarray([seq_len]), images, gen_cfg)
+        emitted: List[int] = []
+        for i in range(gen_cfg.max_new_tokens):
+            tok_arr = _sample_token(logits, generator, gen_cfg)
+            tok = int(tok_arr[0])
+            if tok == gen_cfg.eos_token_id:
+                return
+            emitted.append(tok)
+            yield tok
+            if stop_fn is not None and stop_fn(emitted):
+                return
+            if i + 1 == gen_cfg.max_new_tokens:
+                return  # the final token's cache append would be wasted
+            logits, cache = self._decode_step(cache, tok_arr)
