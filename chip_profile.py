@@ -5,14 +5,18 @@ Run from the root of a checkout, with one H100 visible:
 
     python3 chip_profile.py
 
-It builds the same full-width engine as chip_smoke.py (ViT-L/14, 144-query
-6-layer perceiver, LLaMA-2-7B, seeded random bf16 weights) and prints:
+It builds the same full-width engines as chip_smoke.py (ViT-L/14, 144-query
+6-layer perceiver, LLaMA-2-7B, seeded random bf16 weights; the bf16 path
+and the W4A8 + int8 lm_head + int8 KV recipe) and prints:
   1. times, each as (CUDA events ms, host clock ms), median of 5 after a
      warm-up call: encode_image of one image; prefill + first-token logits
      for a 40-token and a 2048-token prompt with one image; one B=1 decode
      step; the lm_head product in float32 (the path's) and in bf16;
   2. a torch.profiler trace of a 16-token generate: wall time, the card's
      busy time (kernel time summed) and busy share, and the top kernels;
+     then, for the W4A8 + int8-KV engine, its prefill times, its B=1
+     decode step, the profiler trace of its 16-token generate, and its
+     lm_head product (int8 weights, float32 product);
   3. the prefill/decode consistency readings of chip_smoke.py (relative L2
      of prefill(P) + decode_step(t) against prefill(P + [t]), and of each
      planted fault) through the kernels in bf16, through the plain attention
@@ -115,9 +119,8 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     config = eval_config()
     cfg = VLMConfig.from_config_dict(config)
-    engine = build_engine(
-        cfg, init_vlm_params(cfg, seed=0, dtype=torch.bfloat16, device=dev),
-        config, dev)
+    params = init_vlm_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    engine = build_engine(cfg, params, config, dev)
     rng = np.random.default_rng(0)
 
     def request(n):
@@ -151,6 +154,32 @@ def main():
         lambda: torch.matmul(x, lm_head)))
 
     profile_generate(engine, ids, lens, img)
+
+    log("-- W4A8 weights + int8 lm_head + int8 KV cache --")
+    w4 = build_engine(cfg, params, {**config, "bits": 4, "quant_type": "int4h",
+                                    "kv_bits": 8, "lm_head_bits": 8}, dev)
+    del params
+    for n in (40, 2048):
+        ids, lens = request(n)
+        log(f"prefill + first-token logits, {n}-token prompt: "
+            "%.3f ms (events), %.3f ms (host)" % timed(
+                lambda: w4._start(ids, lens, img, one)))
+    ids, lens = request(40)
+    logits, cache, _ = w4._start(ids, lens, img,
+                                 GenerationConfig(max_new_tokens=64))
+    tok = logits.argmax(-1).to(torch.int32)
+    log("decode step, B=1 after a 40-token prompt: %.3f ms (events), "
+        "%.3f ms (host)" % timed(lambda: w4._decode_step(cache, tok)))
+    del cache
+    from lhrs_bot_tpu_torch.ops.quant import quantized_matmul
+    x = torch.randn(1, cfg.llama.hidden_size, device=dev,
+                    dtype=torch.bfloat16)
+    log("lm_head product, int8: %.3f ms (events), %.3f ms (host)" % timed(
+        lambda: quantized_matmul(x, w4.llama_params["lm_head"],
+                                 out_dtype=torch.float32)))
+    profile_generate(w4, ids, lens, img)
+    del w4
+    torch.cuda.empty_cache()
 
     lp, lcfg = engine.llama_params, cfg.llama
     full = {}

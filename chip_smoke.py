@@ -10,10 +10,14 @@ Phases, one or more lines each:
   2. build: compile the CUDA kernels from lhrs_bot_tpu_torch/csrc;
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the main path's shapes (plus ragged/masked edge cases), with times;
-  4. slice: the bf16 serving path at full width (ViT-L/14, 144-query
-     6-layer perceiver, LLaMA-2-7B, seeded random weights) through
-     build_engine + GenerationEngine.generate: three requests, the kernels'
-     launch counts, and a prefill/decode consistency check.
+  4. slices: the serving paths at full width (ViT-L/14, 144-query 6-layer
+     perceiver, LLaMA-2-7B, one set of seeded random bf16 weights) through
+     build_engine + GenerationEngine.generate: bf16 (three requests), the
+     quantized recipe of W4A8 weights, int8 lm_head and int8 KV cache
+     (three requests, B up to 7), int8 weights and NF4 weights with the
+     int8 cache (one request each); for each path the kernels' launch
+     counts, and for bf16 and W4A8 a prefill/decode consistency check with
+     planted faults.
 Then a JSON line with per-kernel numbers, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}. Any failure raises: the script
 exits non-zero and prints no result. It needs no network and imports nothing
@@ -28,11 +32,13 @@ import time
 
 import numpy as np
 
-# K1/K2 against their plain versions: bf16 kernel output vs the plain
-# version in float32 on the same bf16 inputs. bf16 output rounding is
-# 2^-9 relative and the kernels round probabilities to bf16 before the PV
-# product, so 1e-2 absolute + 1e-2 relative bounds a correct kernel with
-# room to spare while any indexing or masking fault shows as O(1).
+# K1/K2/K4 against their plain versions: bf16 kernel output vs the plain
+# version in float32 on the same inputs. bf16 output rounding is 2^-9
+# relative and the kernels round probabilities (K4: probabilities times
+# the value scales, and q * sm_scale) to bf16 before the products, so 1e-2
+# absolute + 1e-2 relative bounds a correct kernel while any indexing or
+# masking fault shows as O(1). K3 is integer arithmetic and is held to its
+# plain version bit for bit.
 ATOL = RTOL = 1e-2
 # prefill(P + [t]) vs prefill(P) + decode_step(t) at full width in bf16:
 # relative L2 of the logits. Seeded random 7B weights amplify bf16 rounding
@@ -43,6 +49,13 @@ ATOL = RTOL = 1e-2
 # (1.09-1.40 there); each run requires the faults to exceed it, so every run
 # shows that the check can fail.
 CONSISTENCY_REL_L2 = 0.15
+# The same check through the W4A8 + int8-KV engine: its decode side runs
+# per-token int8 activations and the int8 cache, its prefill side bf16
+# activations on fresh K/V, so its noise sits above the bf16 path's. On an
+# H100 at 700 W the noise read 0.233-0.234 and the planted faults
+# 1.15-1.42; the bound sits between, about 2.5x above the noise and 1.9x
+# below the smallest fault.
+CONSISTENCY_REL_L2_W4A8 = 0.6
 
 
 def log(msg):
@@ -57,22 +70,28 @@ def smi_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, warmup=3, reps=15):
-    """Median time of one call on the card, from CUDA events."""
+def cuda_ms(fn, warmup=3, reps=20, rounds=3):
+    """Device time of one call, from CUDA events: the median over `rounds`
+    of a run of `reps` calls divided by `reps`. Each run is queued behind a
+    20 ms spin of the card, so the calls run back to back on the device
+    and the host's enqueue time (tens of microseconds a call) stays out of
+    the reading."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(rounds):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(40_000_000)  # about 20 ms at the H100's clock
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
@@ -99,10 +118,13 @@ FAULTS = {"one row early": lambda n: n - 1,
           "cache ignored": lambda n: n * 0}
 
 
-def decode_vs_prefill(lp, lcfg, dev, dtype):
+def decode_vs_prefill(lp, lcfg, dev, dtype, cache_dtype=None):
     """The logits of prefill(P) then decode_step(t), of prefill(P + [t]),
     and of decode_step(t) with each planted fault of FAULTS (each on a copy
-    of the prefilled cache). Two rows, P of 600 and 451 tokens."""
+    of the prefilled cache). Two rows, P of 600 and 451 tokens; the cache
+    in `cache_dtype` (default: dtype)."""
+    import dataclasses
+
     import torch
 
     from lhrs_bot_tpu_torch.models import (KVCache, llama_decode_step,
@@ -114,21 +136,26 @@ def decode_vs_prefill(lp, lcfg, dev, dtype):
                           device=dev)
     ids[:, 0] = lcfg.bos_token_id
     embed = lp["embed_tokens"]
-    cache = KVCache.create(lcfg, 2, 1024, dtype, dev)
+    cache_dtype = cache_dtype or dtype
+    cache = KVCache.create(lcfg, 2, 1024, cache_dtype, dev)
     logits_p, cache = llama_prefill(lp, lcfg, cache, inputs_embeds=embed[ids],
                                     prompt_len=plen, compute_dtype=dtype)
     tok = logits_p.argmax(dim=-1)
     step = embed[tok][:, None]
     faulty = {}
     for name, length in FAULTS.items():
-        bad = KVCache(cache.k.clone(), cache.v.clone(), length(cache.length))
+        bad = dataclasses.replace(
+            cache, length=length(cache.length),
+            **{f: getattr(cache, f).clone() for f in
+               ("k", "v", "k_scale", "v_scale")
+               if getattr(cache, f) is not None})
         faulty[name], _ = llama_decode_step(lp, lcfg, bad, inputs_embeds=step,
                                             compute_dtype=dtype)
         del bad
     logits_d, _ = llama_decode_step(lp, lcfg, cache, inputs_embeds=step,
                                     compute_dtype=dtype)
     ids[torch.arange(2, device=dev), plen.long()] = tok
-    cache = KVCache.create(lcfg, 2, 1024, dtype, dev)
+    cache = KVCache.create(lcfg, 2, 1024, cache_dtype, dev)
     logits_f, _ = llama_prefill(lp, lcfg, cache, inputs_embeds=embed[ids],
                                 prompt_len=plen + 1, compute_dtype=dtype)
     for name, t in (("decode", logits_d), ("prefill", logits_f)):
@@ -226,10 +253,13 @@ def phase_kernels(dev):
         del kcp, vcp
         log(f"  K2 layer {layer}: cache {(nl, b, h, s, d)} lengths "
             f"{lengths.tolist()}: max_abs_err {err:.3e}, caches exact")
+    # each timed call reads another layer: the cache comes from device
+    # memory, as in decode, not from the 50 MB L2
+    turn = iter(range(10**9))
     k2["ms"] = cuda_ms(lambda: fused_decode_attention_kernel(
-        q, kn, vn, kck, vck, lengths, 5, scale))
+        q, kn, vn, kck, vck, lengths, next(turn) % nl, scale))
     k2["plain_ms"] = cuda_ms(lambda: fused_decode_attention_plain(
-        q, kn, vn, kck, vck, lengths, 5, sm_scale=scale))
+        q, kn, vn, kck, vck, lengths, next(turn) % nl, sm_scale=scale))
     log(f"  K2 time per layer call: kernel {k2['ms']:.4f} ms, plain "
         f"{k2['plain_ms']:.4f} ms")
     del kc, vc, kck, vck
@@ -237,53 +267,144 @@ def phase_kernels(dev):
     return k1, k2
 
 
-def phase_slice(dev):
+def phase_quant_kernels(dev):
+    """K3 (W4A8 matmul) and K4 (int8-cache fused decode) against their plain
+    versions at the quantized decode path's shapes."""
     import torch
 
-    from lhrs_bot_tpu_torch.core import build_engine, eval_config
-    from lhrs_bot_tpu_torch.models import VLMConfig, init_vlm_params
+    from lhrs_bot_tpu_torch.ops.fused_decode import (
+        fused_decode_attention_q_kernel, fused_decode_attention_q_plain)
+    from lhrs_bot_tpu_torch.ops.w4_matmul import (w4a8_matmul_kernel,
+                                                  w4a8_matmul_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    def codes(*shape):
+        return torch.randint(-128, 128, shape, generator=gen, device=dev,
+                             dtype=torch.int8)
+
+    def scales(*shape, lo=0.005, hi=0.03):
+        return torch.rand(shape, generator=gen, device=dev) * (hi - lo) + lo
+
+    # K3: a 32-layer stack of each LLaMA-2-7B projection shape; the kernel
+    # must equal its plain version bit for bit
+    nl = 32
+    k3 = {"max_abs_err": 0.0, "shapes": []}
+    for k, n in ((4096, 4096), (4096, 11008), (11008, 4096)):
+        w, ws = codes(nl, k // 2, n), scales(nl, 1, n, lo=1e-3, hi=5e-3)
+        for b in (1, 7):
+            # the halves of one (B, K) activation, as w4a8_project passes
+            xq, xs = codes(b, k), scales(b, 1)
+            xlo, xhi = xq[:, :k // 2], xq[:, k // 2:]
+            for layer in (0, 31):
+                got = w4a8_matmul_kernel(xlo, xhi, xs, w, ws, layer)
+                ref = w4a8_matmul_plain(xlo, xhi, xs, w, ws, layer)
+                torch.cuda.synchronize()
+                if not torch.equal(got, ref):
+                    err = float((got.float() - ref.float()).abs().max())
+                    raise AssertionError(
+                        f"K3 K{k} N{n} B{b} layer {layer}: differs from the "
+                        f"plain version, max abs err {err:.3e}")
+            # each timed call reads another layer: the weights come from
+            # device memory, as in decode, not from the 50 MB L2
+            turn = iter(range(10**9))
+            ms = cuda_ms(lambda: w4a8_matmul_kernel(
+                xlo, xhi, xs, w, ws, next(turn) % nl))
+            plain = cuda_ms(lambda: w4a8_matmul_plain(
+                xlo, xhi, xs, w, ws, next(turn) % nl))
+            gbs = k // 2 * n / ms / 1e6
+            k3["shapes"].append({"K": k, "N": n, "B": b, "ms": ms,
+                                 "plain_ms": plain, "GB_s": gbs})
+            log(f"  K3 K{k} N{n} B{b}, layers 0/31: bit-identical; kernel "
+                f"{ms:.4f} ms ({gbs:.0f} GB/s), plain {plain:.4f} ms")
+        del w, ws
+    main = next(r for r in k3["shapes"]
+                if (r["K"], r["N"], r["B"]) == (4096, 11008, 1))
+    k3["ms"], k3["plain_ms"] = main["ms"], main["plain_ms"]
+
+    # K4 at the decode shape: L32 H32 S2304 D128, B2 and B7
+    h, s, d = 32, 2304, 128
+    scale = d ** -0.5
+    k4 = {"max_abs_err": 0.0}
+    for lengths in ([2191, 700], [2192, 5, 1000, 2303, 63, 1500, 2000]):
+        b = len(lengths)
+        kc, vc = codes(nl, b, h, s, d), codes(nl, b, h, s, d)
+        ks, vs = scales(nl, b, h, s), scales(nl, b, h, s)
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        q = torch.randn(b, h, 1, d, generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+        kn, vn = codes(b, h, 1, d), codes(b, h, 1, d)
+        kns, vns = scales(b, h, 1), scales(b, h, 1)
+        for layer in (0, 31):
+            mine = [t.clone() for t in (kc, vc, ks, vs)]
+            out = fused_decode_attention_q_kernel(
+                q, kn, kns, vn, vns, *mine, lens, layer, scale)[0]
+            plain = [t.clone() for t in (kc, vc, ks, vs)]
+            ref = fused_decode_attention_q_plain(
+                q.float(), kn, kns, vn, vns, *plain, lens, layer,
+                sm_scale=scale)[0]
+            torch.cuda.synchronize()
+            err = check_close(f"K4 B{b} layer {layer}", out, ref)
+            # the appended rows and scales and every other row: exact
+            if not all(torch.equal(a, c) for a, c in zip(mine, plain)):
+                raise AssertionError(f"K4 B{b} layer {layer}: cache or "
+                                     "scales differ from the plain version's")
+            k4["max_abs_err"] = max(k4["max_abs_err"], err)
+            log(f"  K4 cache {(nl, b, h, s, d)} lengths {lengths}, layer "
+                f"{layer}: max_abs_err {err:.3e}, caches and scales exact")
+            del mine, plain
+        if b == 2:
+            turn = iter(range(10**9))
+            k4["ms"] = cuda_ms(lambda: fused_decode_attention_q_kernel(
+                q, kn, kns, vn, vns, kc, vc, ks, vs, lens, next(turn) % nl,
+                scale))
+            k4["plain_ms"] = cuda_ms(lambda: fused_decode_attention_q_plain(
+                q, kn, kns, vn, vns, kc, vc, ks, vs, lens, next(turn) % nl,
+                sm_scale=scale))
+            log(f"  K4 time per layer call (B2): kernel {k4['ms']:.4f} ms, "
+                f"plain {k4['plain_ms']:.4f} ms")
+        del kc, vc, ks, vs
+    # a row with no room for the append: nothing written, NaN out
+    kc, vc = codes(1, 2, 2, 64, d), codes(1, 2, 2, 64, d)
+    ks, vs = scales(1, 2, 2, 64), scales(1, 2, 2, 64)
+    before = [t.clone() for t in (kc, vc, ks, vs)]
+    lens = torch.tensor([64, 3], dtype=torch.int32, device=dev)
+    q = torch.randn(2, 2, 1, d, generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    out = fused_decode_attention_q_kernel(
+        q, codes(2, 2, 1, d), scales(2, 2, 1), codes(2, 2, 1, d),
+        scales(2, 2, 1), kc, vc, ks, vs, lens, 0, scale)[0]
+    torch.cuda.synchronize()
+    if not (bool(out[0].isnan().all()) and bool(out[1].isfinite().all())
+            and all(torch.equal(a[:, 0], c[:, 0])
+                    for a, c in zip((kc, vc, ks, vs), before))):
+        raise AssertionError("K4: a full row must write nothing and give NaN")
+    log("  K4 full row (lengths[b] == S): nothing written, NaN out")
+    torch.cuda.empty_cache()
+    return k3, k4
+
+
+def kernel_wrappers():
+    """Each kernel's wrapper, whose `launches` counts its launches."""
     from lhrs_bot_tpu_torch.ops.attention import flash_attention_fwd
-    from lhrs_bot_tpu_torch.ops.fused_decode import \
-        fused_decode_attention_kernel
+    from lhrs_bot_tpu_torch.ops.fused_decode import (
+        fused_decode_attention_kernel, fused_decode_attention_q_kernel)
+    from lhrs_bot_tpu_torch.ops.w4_matmul import w4a8_matmul_kernel
+
+    return {"flash_attention_fwd": flash_attention_fwd,
+            "fused_decode_attention": fused_decode_attention_kernel,
+            "fused_decode_attention_q": fused_decode_attention_q_kernel,
+            "w4a8_matmul": w4a8_matmul_kernel}
+
+
+def serve(engine, cfg, requests, new=32):
+    """Each request through `generate`: a warm-up call, a timed prefill
+    (one new token) and a timed call with `new` tokens; checks the rows."""
+    import torch
+
     from lhrs_bot_tpu_torch.serve.engine import GenerationConfig
 
-    config = eval_config()
-    cfg = VLMConfig.from_config_dict(config)
-    t0 = time.time()
-    params = init_vlm_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
-    torch.cuda.synchronize()
-    n_params = sum(t.numel() for part in params.values()
-                   for t in _leaves(part))
-    log(f"  seeded bf16 weights: {n_params / 1e9:.3f} B parameters in "
-        f"{time.time() - t0:.1f} s")
-    engine = build_engine(cfg, params, config, dev)
-    del params
     vocab = cfg.llama.vocab_size
-    rng = np.random.default_rng(0)
-
-    def prompt(n):
-        ids = rng.integers(3, vocab, n).astype(np.int32)
-        ids[0] = cfg.llama.bos_token_id
-        ids[1] = -200  # the image marker
-        return ids
-
-    def batch(*rows):
-        width = max(len(r) for r in rows)
-        ids = np.zeros((len(rows), width), np.int32)
-        for i, r in enumerate(rows):
-            ids[i, :len(r)] = r
-        return ids, np.asarray([len(r) for r in rows], np.int32)
-
-    size = cfg.vit.image_size
-    images = rng.integers(0, 256, (2, size, size, 3)).astype(np.uint8)
-    requests = [("short", batch(prompt(40)), images[:1]),
-                ("long", batch(prompt(2048)), images[:1]),
-                ("batch2", batch(prompt(300), prompt(120)), images[:2])]
-
-    flash_attention_fwd.launches = 0
-    fused_decode_attention_kernel.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    new = 32
     results = []
     for name, (ids, lens), imgs in requests:
         # warm-up: the first call at new shapes loads cuBLAS kernels
@@ -316,40 +437,126 @@ def phase_slice(dev):
         log(f"  {name}: B={len(ids)} spliced {spliced}: prefill "
             f"{t_prefill * 1e3:.1f} ms, decode {rate:.1f} tok/s/seq "
             f"({rate * len(ids):.1f} total); tokens {out[0][:8]}...")
-    launches = {"flash_attention_fwd": flash_attention_fwd.launches,
-                "fused_decode_attention": fused_decode_attention_kernel
-                .launches}
-    log(f"  kernel launches in the main path: {launches}; peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    for kname, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"{kname} was not launched by the main path")
+    return results
 
-    logits_d, logits_f, faulty = decode_vs_prefill(
-        engine.llama_params, cfg.llama, dev, torch.bfloat16)
+
+def check_consistency(name, lp, lcfg, dev, cache_dtype, bound):
+    """decode_vs_prefill through the engine's decoder: the deviation must
+    stay within `bound` and every planted fault must exceed it."""
+    import torch
+
+    logits_d, logits_f, faulty = decode_vs_prefill(lp, lcfg, dev,
+                                                   torch.bfloat16,
+                                                   cache_dtype)
     rel = rel_l2(logits_d, logits_f)
-    faults = {name: rel_l2(logits, logits_f)
-              for name, logits in faulty.items()}
-    diff = logits_d - logits_f
-    max_dev = diff.abs().amax(dim=-1).tolist()
+    faults = {fault: rel_l2(logits, logits_f)
+              for fault, logits in faulty.items()}
+    max_dev = (logits_d - logits_f).abs().amax(dim=-1).tolist()
     top2 = logits_f.topk(2, dim=-1).values
     margin = (top2[:, 0] - top2[:, 1]).tolist()
     agree = (logits_d.argmax(-1) == logits_f.argmax(-1)).tolist()
-    log(f"  consistency: rel L2 {rel}, max abs dev {max_dev}, top-1 margin "
-        f"{margin}, top-1 agree {agree}; rel L2 with each planted fault "
-        f"{faults}")
+    log(f"  consistency ({name}, bound {bound}): rel L2 {rel}, max abs dev "
+        f"{max_dev}, top-1 margin {margin}, top-1 agree {agree}; rel L2 "
+        f"with each planted fault {faults}")
     for r in range(2):
-        if rel[r] > CONSISTENCY_REL_L2:
-            raise AssertionError(f"consistency row {r}: rel L2 {rel[r]:.3e}")
-        for name, fault in faults.items():
-            if fault[r] <= CONSISTENCY_REL_L2:
-                raise AssertionError(f"consistency row {r}: the planted fault "
-                                     f"{name!r} passes the check")
+        if rel[r] > bound:
+            raise AssertionError(f"consistency ({name}) row {r}: rel L2 "
+                                 f"{rel[r]:.3e}")
+        for fault, readings in faults.items():
+            if readings[r] <= bound:
+                raise AssertionError(f"consistency ({name}) row {r}: the "
+                                     f"planted fault {fault!r} passes")
         # a row whose top-2 gap lies within the measured deviation may
         # legitimately flip; every other row must agree
         if margin[r] > max_dev[r] and not agree[r]:
-            raise AssertionError(f"consistency row {r}: top-1 differs")
-    return results, launches
+            raise AssertionError(f"consistency ({name}) row {r}: top-1 "
+                                 "differs")
+    return {"rel_l2": rel, "faults": faults, "bound": bound}
+
+
+def phase_slice(dev):
+    """The serving paths at full width from one set of seeded bf16 weights:
+    bf16, the W4A8 + int8 lm_head + int8 KV recipe, int8 weights + int8 KV,
+    NF4 + int8 KV. Each path's engine is built, its launch counts are set
+    to 0, its requests are served, the counts are read, and the engine is
+    freed before the next."""
+    import torch
+
+    from lhrs_bot_tpu_torch.core import build_engine, eval_config
+    from lhrs_bot_tpu_torch.models import VLMConfig, init_vlm_params
+
+    config = eval_config()
+    cfg = VLMConfig.from_config_dict(config)
+    t0 = time.time()
+    params = init_vlm_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for part in params.values()
+                   for t in _leaves(part))
+    log(f"  seeded bf16 weights: {n_params / 1e9:.3f} B parameters in "
+        f"{time.time() - t0:.1f} s")
+    rng = np.random.default_rng(0)
+
+    def prompt(n):
+        ids = rng.integers(3, cfg.llama.vocab_size, n).astype(np.int32)
+        ids[0] = cfg.llama.bos_token_id
+        ids[1] = -200  # the image marker
+        return ids
+
+    def batch(*rows):
+        width = max(len(r) for r in rows)
+        ids = np.zeros((len(rows), width), np.int32)
+        for i, r in enumerate(rows):
+            ids[i, :len(r)] = r
+        return ids, np.asarray([len(r) for r in rows], np.int32)
+
+    size = cfg.vit.image_size
+    images = rng.integers(0, 256, (7, size, size, 3)).astype(np.uint8)
+    short = ("short", batch(prompt(40)), images[:1])
+    long = ("long", batch(prompt(2048)), images[:1])
+    batch7 = ("batch7", batch(*(prompt(n) for n in (2048, 40, 300, 120,
+                                                      1000, 1500, 700))),
+              images)
+    paths = [
+        ("bf16", {}, [short, long,
+                      ("batch2", batch(prompt(300), prompt(120)),
+                       images[:2])],
+         ("flash_attention_fwd", "fused_decode_attention"),
+         (torch.bfloat16, CONSISTENCY_REL_L2)),
+        ("w4a8", {"bits": 4, "quant_type": "int4h", "kv_bits": 8,
+                  "lm_head_bits": 8}, [short, long, batch7],
+         ("flash_attention_fwd", "fused_decode_attention_q", "w4a8_matmul"),
+         (torch.int8, CONSISTENCY_REL_L2_W4A8)),
+        ("int8", {"bits": 8, "kv_bits": 8}, [short],
+         ("flash_attention_fwd", "fused_decode_attention_q"), None),
+        ("nf4", {"bits": 4, "quant_type": "nf4", "kv_bits": 8}, [short],
+         ("flash_attention_fwd", "fused_decode_attention_q"), None),
+    ]
+    wrappers = kernel_wrappers()
+    out = {}
+    for name, knobs, requests, needed, consistency in paths:
+        t0 = time.time()
+        engine = build_engine(cfg, params, {**config, **knobs}, dev)
+        torch.cuda.synchronize()
+        log(f"  [{name}] engine {knobs or 'bf16'} built in "
+            f"{time.time() - t0:.1f} s")
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        results = serve(engine, cfg, requests)
+        launches = {k: w.launches for k, w in wrappers.items()}
+        log(f"  [{name}] kernel launches in the main path: {launches}; peak "
+            f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        for kname in needed:
+            if launches[kname] <= 0:
+                raise AssertionError(f"{kname} was not launched by the "
+                                     f"{name} path")
+        out[name] = {"requests": results, "launches": launches}
+        if consistency is not None:
+            out[name]["consistency"] = check_consistency(
+                name, engine.llama_params, cfg.llama, dev, *consistency)
+        del engine
+        torch.cuda.empty_cache()
+    return out
 
 
 def _leaves(tree):
@@ -392,25 +599,30 @@ def main():
 
     log("[3/4 kernels vs plain]")
     k1, k2 = phase_kernels(dev)
+    k3, k4 = phase_quant_kernels(dev)
 
-    log("[4/4 slice at full width]")
-    results, launches = phase_slice(dev)
+    log("[4/4 slices at full width]")
+    paths = phase_slice(dev)
+    bf16, w4a8 = paths["bf16"]["launches"], paths["w4a8"]["launches"]
+
+    def row(name, source, replaces, launches, k):
+        return {"name": name, "route": "cuda",
+                "source": f"lhrs_bot_tpu_torch/csrc/{source}",
+                "replaces": f"lhrs_bot_tpu/ops/{replaces}",
+                "launches": launches[name], "max_abs_err": k["max_abs_err"],
+                "ms": k["ms"], "plain_ms": k["plain_ms"]}
 
     kernels = [
-        {"name": "flash_attention_fwd", "route": "cuda",
-         "source": "lhrs_bot_tpu_torch/csrc/flash_fwd.cu",
-         "replaces": "lhrs_bot_tpu/ops/attention.py:84",
-         "launches": launches["flash_attention_fwd"],
-         "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
-         "plain_ms": k1["plain_ms"]},
-        {"name": "fused_decode_attention", "route": "cuda",
-         "source": "lhrs_bot_tpu_torch/csrc/fused_decode.cu",
-         "replaces": "lhrs_bot_tpu/ops/fused_decode.py:43",
-         "launches": launches["fused_decode_attention"],
-         "max_abs_err": k2["max_abs_err"], "ms": k2["ms"],
-         "plain_ms": k2["plain_ms"]},
+        row("flash_attention_fwd", "flash_fwd.cu", "attention.py:84", bf16,
+            k1),
+        row("fused_decode_attention", "fused_decode.cu",
+            "fused_decode.py:43", bf16, k2),
+        row("fused_decode_attention_q", "fused_decode_q.cu",
+            "fused_decode.py:222", w4a8, k4),
+        row("w4a8_matmul", "w4a8_matmul.cu", "w4_matmul.py:43", w4a8, k3),
     ]
-    log(json.dumps({"requests": results}))
+    log(json.dumps({"w4a8_shapes": k3["shapes"]}))
+    log(json.dumps({"paths": paths}))
     log(json.dumps({"kernels": kernels}))
     log(smi_line())
     log(json.dumps({"ok": True, "device": {

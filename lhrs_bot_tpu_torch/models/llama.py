@@ -1,11 +1,20 @@
 """LLaMA-2 decoder: cached prefill and decode over a static-shape KV cache.
 
 Counterpart of `lhrs_bot_tpu/models/llama.py` (`LlamaConfig`, `KVCache`,
-`llama_prefill`, `llama_decode_step`) for float weights and bf16/f32 caches.
-Prompts are right-padded with per-row lengths; the cache appends at
-`length`, so no left-padding or position remapping is needed. Prefill runs
-the flash-attention entry point; each decode layer runs the fused
-append + attention entry point, which on CUDA always takes the kernel.
+`llama_prefill`, `llama_decode_step`) for float or quantized weights
+(`ops.quant.QuantizedTensor`: int8, int4, halves-packed int4 "4h", NF4, and
+an int8 lm_head) and bf16/f32 or int8 caches. Prompts are right-padded with
+per-row lengths; the cache appends at `length`, so no left-padding or
+position remapping is needed. Prefill runs the flash-attention entry point;
+each decode layer runs the fused append + attention entry point (the int8
+one for an int8 cache), which on CUDA always takes the kernel.
+
+Quantized projections keep the JAX package's split between prefill and
+decode: prefill multiplies every QuantizedTensor through `quantized_matmul`
+(bf16 activations, so "4h" weights run W4A16), while decode sends "4h"
+weights through `w4a8_project` (per-token int8 activations, W4A8), which on
+CUDA always takes the W4A8 kernel. The TPU package's backend and shape gates
+for the W4 and fused paths do not carry over.
 
 Float parameters must already be in the compute dtype (the engine casts
 them once); the compute dtype only sets the activations' dtype.
@@ -14,37 +23,72 @@ Unlike the JAX package, the KV cache is updated IN PLACE: `llama_prefill`
 and `llama_decode_step` write into the tensors of the cache they are given
 and return a KVCache over those same tensors with the new lengths.
 
-Not ported here: the int8 cache, W4/int8 weights, the QLoRA side path,
-`llama_apply` and `llama_prefill_continue`.
+Not ported here: the QLoRA side path, `llama_apply` and
+`llama_prefill_continue`.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..ops.attention import flash_attention
-from ..ops.fused_decode import fused_decode_attention
+from ..ops.fused_decode import fused_decode_attention, fused_decode_attention_q
+from ..ops.quant import QuantizedTensor, quantize_activation, quantized_matmul
 from ..ops.rmsnorm import rms_norm
 from ..ops.rope import apply_rope, rope_cos_sin
+from ..ops.w4_matmul import w4a8_project
 
 
-def _layer(layers, li: int):
-    return {k: t[li] for k, t in layers.items()}
+class _W4Layer:
+    """Layer `li` of a stacked halves-packed weight, for the W4A8 decode
+    projection (`w4a8_project` reads the layer's slice of the stack)."""
+
+    __slots__ = ("qt", "li")
+
+    def __init__(self, qt: QuantizedTensor, li: int):
+        self.qt = qt
+        self.li = li
 
 
-def _lm_head_logits(x: torch.Tensor, lm_head: torch.Tensor) -> torch.Tensor:
-    """float32 logits from compute-dtype operands (float32 product)."""
+def _layer(layers, li: int, *, w4a8: bool = False):
+    """The parameters of layer `li`. With w4a8, "4h" weights become
+    `_W4Layer`s (decode); otherwise every weight is the layer's view."""
+    out = {}
+    for k, t in layers.items():
+        if w4a8 and isinstance(t, QuantizedTensor) and t.bits == "4h":
+            out[k] = _W4Layer(t, li)
+        else:
+            out[k] = t[li]
+    return out
+
+
+def _dense(x: torch.Tensor, w) -> torch.Tensor:
+    """x @ w for a compute-dtype matrix, a QuantizedTensor (scale folded
+    into the float32 epilogue) or a `_W4Layer` (W4A8)."""
+    if isinstance(w, _W4Layer):
+        return w4a8_project(x, w.qt, w.li)
+    if isinstance(w, QuantizedTensor):
+        return quantized_matmul(x, w, out_dtype=x.dtype)
+    return torch.matmul(x, w)
+
+
+def _lm_head_logits(x: torch.Tensor, lm_head) -> torch.Tensor:
+    """float32 logits: a compute-dtype head multiplies in float32; an int8
+    QuantizedTensor head takes bf16 activations (not W8A8) with its scale
+    in the float32 epilogue."""
+    if isinstance(lm_head, QuantizedTensor):
+        return quantized_matmul(x, lm_head, out_dtype=torch.float32)
     return torch.matmul(x.float(), lm_head.float())
 
 
 def _silu_mlp(x: torch.Tensor, lp) -> torch.Tensor:
-    gate = torch.matmul(x, lp["w_gate"])
-    up = torch.matmul(x, lp["w_up"])
-    return torch.matmul(F.silu(gate.float()).to(x.dtype) * up, lp["w_down"])
+    gate = _dense(x, lp["w_gate"])
+    up = _dense(x, lp["w_up"])
+    return _dense(F.silu(gate.float()).to(x.dtype) * up, lp["w_down"])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,25 +139,41 @@ class LlamaConfig:
 @dataclasses.dataclass
 class KVCache:
     """Static-shape KV cache: k/v (L, B, H, S_max, D) plus the per-row valid
-    length (B,) int32. Updated in place by prefill and decode."""
+    length (B,) int32. Updated in place by prefill and decode.
+
+    dtype=torch.int8 stores K/V quantized per (position, head) vector with
+    float32 scale planes k_scale/v_scale (L, B, H, S_max) that start at 1;
+    dequantization folds into attention, so no bf16 copy of the cache is
+    made."""
 
     k: torch.Tensor
     v: torch.Tensor
     length: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
 
     @classmethod
     def create(cls, cfg: LlamaConfig, batch: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16,
                device="cpu") -> "KVCache":
-        if dtype not in (torch.bfloat16, torch.float32):
+        if dtype not in (torch.bfloat16, torch.float32, torch.int8):
             raise NotImplementedError(f"{dtype} KV cache is not ported "
-                                      "(bf16/f32 only)")
+                                      "(bf16/f32/int8 only)")
         shape = (cfg.num_hidden_layers, batch, cfg.num_attention_heads,
                  max_len, cfg.head_dim)
+        scales = {}
+        if dtype == torch.int8:
+            scales = {name: torch.ones(shape[:-1], dtype=torch.float32,
+                                       device=device)
+                      for name in ("k_scale", "v_scale")}
         return cls(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device),
                    length=torch.zeros(batch, dtype=torch.int32,
-                                      device=device))
+                                      device=device), **scales)
 
 
 def _qkv(x: torch.Tensor, lp, cfg: LlamaConfig, cos, sin):
@@ -121,7 +181,7 @@ def _qkv(x: torch.Tensor, lp, cfg: LlamaConfig, cos, sin):
     b, s, _ = x.shape
 
     def proj(name):
-        return torch.matmul(x, lp[name]).reshape(
+        return _dense(x, lp[name]).reshape(
             b, s, cfg.num_attention_heads, cfg.head_dim)
 
     def heads(t):
@@ -140,7 +200,9 @@ def llama_prefill(params, cfg: LlamaConfig, cache: KVCache, *,
     (next-token logits (B, V) float32, cache). Writes the first S rows of
     every layer of `cache` in place; the cache's length becomes prompt_len.
     Causal masking alone is correct: pads sit after the valid tokens, and
-    their cache rows are overwritten by decode before they are read."""
+    their cache rows are overwritten by decode before they are read.
+    Attention runs on the fresh K/V; only the write into an int8 cache is
+    quantized (`quantize_activation` per (b, h, s) vector)."""
     x = inputs_embeds.to(compute_dtype)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
@@ -151,16 +213,24 @@ def llama_prefill(params, cfg: LlamaConfig, cache: KVCache, *,
         q, k, v = _qkv(h, lp, cfg, cos, sin)
         attn = flash_attention(q, k, v, causal=True)
         attn = attn.transpose(1, 2).reshape(b, s, cfg.hidden_size)
-        x = x + torch.matmul(attn, lp["wo"])
+        x = x + _dense(attn, lp["wo"])
         h2 = rms_norm(x, lp["post_attn_norm"], cfg.rms_norm_eps)
         x = x + _silu_mlp(h2, lp)
-        cache.k[li, :, :, :s] = k
-        cache.v[li, :, :, :s] = v
+        if cache.quantized:
+            for arr, scale, t in ((cache.k, cache.k_scale, k),
+                                  (cache.v, cache.v_scale, v)):
+                codes, t_scale = quantize_activation(t)
+                arr[li, :, :, :s] = codes
+                scale[li, :, :, :s] = t_scale[..., 0]
+        else:
+            cache.k[li, :, :, :s] = k
+            cache.v[li, :, :, :s] = v
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     last = (prompt_len.long() - 1).clamp(min=0)
     x_last = x[torch.arange(b, device=x.device), last]
     logits = _lm_head_logits(x_last, params["lm_head"])
-    return logits, KVCache(cache.k, cache.v, prompt_len.to(torch.int32))
+    return logits, dataclasses.replace(cache,
+                                       length=prompt_len.to(torch.int32))
 
 
 def llama_decode_step(params, cfg: LlamaConfig, cache: KVCache, *,
@@ -170,21 +240,30 @@ def llama_decode_step(params, cfg: LlamaConfig, cache: KVCache, *,
     """One decode step from the (B, 1, D) embedding of the new token;
     returns (logits (B, V) float32, cache with length + 1). Every layer
     appends its K/V row at cache.length in place and attends over
-    length + 1 rows through `fused_decode_attention`."""
+    length + 1 rows through `fused_decode_attention`, or, for an int8
+    cache, appends the `quantize_activation` codes and scales of the row
+    through `fused_decode_attention_q`. "4h" weights run W4A8."""
     x = inputs_embeds.to(compute_dtype)
     b = x.shape[0]
     cos, sin = rope_cos_sin(cache.length[:, None], cfg.head_dim,
                             cfg.rope_theta)
     for li in range(cfg.num_hidden_layers):
-        lp = _layer(params["layers"], li)
+        lp = _layer(params["layers"], li, w4a8=True)
         h = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps)
         q, k, v = _qkv(h, lp, cfg, cos, sin)  # (B, H, 1, hd)
-        attn, _, _ = fused_decode_attention(q, k, v, cache.k, cache.v,
-                                            cache.length, li)
+        if cache.quantized:
+            k_q, k_s = quantize_activation(k)
+            v_q, v_s = quantize_activation(v)
+            attn = fused_decode_attention_q(
+                q, k_q, k_s[..., 0], v_q, v_s[..., 0], cache.k, cache.v,
+                cache.k_scale, cache.v_scale, cache.length, li)[0]
+        else:
+            attn = fused_decode_attention(q, k, v, cache.k, cache.v,
+                                          cache.length, li)[0]
         attn = attn.transpose(1, 2).reshape(b, 1, cfg.hidden_size)
-        x = x + torch.matmul(attn, lp["wo"])
+        x = x + _dense(attn, lp["wo"])
         h2 = rms_norm(x, lp["post_attn_norm"], cfg.rms_norm_eps)
         x = x + _silu_mlp(h2, lp)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     logits = _lm_head_logits(x[:, 0, :], params["lm_head"])
-    return logits, KVCache(cache.k, cache.v, cache.length + 1)
+    return logits, dataclasses.replace(cache, length=cache.length + 1)

@@ -1,11 +1,17 @@
-"""Compute primitives. Plain torch ops, plus the two hand-written CUDA
-kernels' entry points (`flash_attention`, `fused_decode_attention`), which
-take the plain version for CPU tensors and the kernel for CUDA tensors."""
+"""Compute primitives. Plain torch ops, plus the hand-written CUDA kernels'
+entry points (`flash_attention`, `fused_decode_attention`,
+`fused_decode_attention_q`, `w4a8_matmul_stacked` through `w4a8_project`),
+which take the plain version for CPU tensors and the kernel for CUDA
+tensors."""
 
 from .attention import flash_attention, mha_reference  # noqa: F401
 from .decode_attention import decode_attention as decode_attention_op  # noqa: F401,E501
-from .fused_decode import fused_decode_attention  # noqa: F401
+from .fused_decode import (fused_decode_attention,  # noqa: F401
+                           fused_decode_attention_q)
 from .mlp import dense_any, gelu_mlp, silu_mlp  # noqa: F401
 from .patch_embed import patch_embed as patch_embed_op  # noqa: F401
 from .rmsnorm import layer_norm, rms_norm  # noqa: F401
 from .rope import apply_rope, rope_cos_sin  # noqa: F401
+from .quant import (QuantizedTensor, quantize_activation,  # noqa: F401
+                    quantized_matmul)
+from .w4_matmul import w4a8_matmul_stacked, w4a8_project  # noqa: F401

@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels of `lhrs_bot_tpu_torch/csrc`.
 
-At first use every `csrc/*.cu` file is compiled by `nvcc` for `sm_90a` into
+At first use every `csrc/*.cu` file is compiled by `nvcc` for `sm_90a`, one
+`nvcc` per source, all started together, and the objects are linked into
 one shared library with a plain C interface, which is loaded with `ctypes`
 (no PyTorch headers, so a build takes seconds, not minutes). The library
 goes to `build/kernels/<hash of the sources and flags>/` beside the package,
@@ -23,7 +24,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -36,6 +37,12 @@ _ENTRIES = {
     # sm_scale, stream
     "lhrs_fused_decode_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                _I, _I, ctypes.c_float, _P],
+    # q, k_new, k_new_scale, v_new, v_new_scale, k_cache, v_cache, k_scale,
+    # v_scale, lengths, out, layer, L, B, H, S, D, sm_scale, stream
+    "lhrs_fused_decode_q": [_P] * 11 + [_I] * 6 + [ctypes.c_float, _P],
+    # xq_lo, xq_hi, x_scale, w (layer slice), w_scale (layer slice),
+    # partial, out, B, K2, N, x_stride, ksplit, chunk, out_f32, stream
+    "lhrs_w4a8_matmul": [_P] * 7 + [_I] * 7 + [_P],
 }
 
 
@@ -64,16 +71,33 @@ def build() -> Path:
     if so.exists():
         return so
     so.parent.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    log, procs, objs = [], [], []
+    for src in _sources():
+        objs.append(str(so.parent / (src.stem + ".o")))
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", objs[-1], str(src)]
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    failed = []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{out}")
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=so.parent)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (so.parent / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", tmp, *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"nvcc link failed ({proc.returncode}):\n"
+                          f"{proc.stdout}{proc.stderr}")
+    (so.parent / "build.log").write_text("".join(log))
+    if failed:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
+        raise RuntimeError("\n".join(failed))
     os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
     return so
 

@@ -13,11 +13,24 @@ and casts the layer stacks per call, so with float32 weights and a bf16
 compute dtype its ViT pre-LayerNorm runs on float32 scale/bias where the
 port's runs on bf16-rounded ones.)
 
+Quantized serving: `quantize_bits` 8 (int8), 4 (NF4 for quant_type "nf4",
+halves-packed W4A8 for "int4h", interleaved int4 otherwise) or "4h" (halves
+packed) quantizes the decoder's projection weights, `lm_head_bits=8` the
+lm_head (int8, per vocabulary column), and `cache_dtype=torch.int8` keeps
+an int8 KV cache with float32 scale planes. The weights are quantized by the
+route the JAX engine takes for a numpy parameter tree (the input that
+`core.convert.params_from_numpy` bridges): with bits 8 or "4h" from their
+given float values (`_host_merge_quantize`), the lm_head included; with
+bits 4 after the cast to the compute dtype (`quantize_llama_layers`,
+`quantize_int8` for the lm_head). So both engines produce the same codes on
+the same weights. One stacked weight is quantized at a time, on the
+engine's device.
+
 The decode loop is a Python loop of `llama_decode_step` calls whose tokens
 stay on the device; the host reads the tokens once, at the end of
-`generate`. Chunked prefill, sessions, speculative decoding, weight
-quantization, the W8A8 vision tower and meshes are not ported: asking for
-one raises NotImplementedError.
+`generate`. Chunked prefill, sessions, speculative decoding, LoRA trees, the
+W8A8 vision tower and meshes are not ported: asking for one raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -31,17 +44,63 @@ import torch
 
 from ..models.llama import KVCache, llama_decode_step, llama_prefill
 from ..models.vlm import VLMConfig, prepare_multimodal_inputs
+from ..ops.quant import (_QUANT_TARGETS, QuantizedTensor, quantize_int4h,
+                         quantize_int8, quantize_llama_layers)
 
 logger = logging.getLogger(__name__)
 
 
 def _cast_params(tree, dtype: torch.dtype, device: torch.device):
-    """A nested dict of tensors on `device`, float leaves cast to `dtype`."""
+    """A nested dict of tensors on `device`, float leaves cast to `dtype`;
+    QuantizedTensors move with their scales in float32."""
     if isinstance(tree, dict):
         return {k: _cast_params(v, dtype, device) for k, v in tree.items()}
+    if isinstance(tree, QuantizedTensor):
+        return tree.to(device)
     if tree.is_floating_point():
         return tree.to(device=device, dtype=dtype)
     return tree.to(device)
+
+
+def _quantize_llama(llama, *, compute_dtype: torch.dtype,
+                    device: torch.device, quantize_bits, quant_type: str,
+                    double_quant: bool, lm_head_bits):
+    """The decoder's parameters on `device`, quantized as the JAX engine
+    quantizes a numpy tree (see the module docstring), one stacked weight
+    at a time."""
+    from_given = quantize_bits in (8, "4h")
+    if quantize_bits == "4h":
+        bits, qtype = 4, "int4h"
+    else:
+        bits, qtype = quantize_bits, quant_type
+
+    def quantize(name, w):
+        if from_given:  # from the given float values (_host_merge_quantize)
+            w = w.to(device)
+            return (quantize_int8(w, axis=1) if bits == 8
+                    else quantize_int4h(w, axis=1))
+        w = w.to(device=device, dtype=compute_dtype)
+        return quantize_llama_layers({name: w}, bits=bits, quant_type=qtype,
+                                     double_quant=double_quant)[name]
+
+    layers = {}
+    for name, w in llama["layers"].items():
+        if quantize_bits and name in _QUANT_TARGETS and not isinstance(
+                w, QuantizedTensor):
+            layers[name] = quantize(name, w)
+        else:
+            layers[name] = _cast_params(w, compute_dtype, device)
+    out = {k: _cast_params(v, compute_dtype, device)
+           for k, v in llama.items() if k not in ("layers", "lm_head")}
+    head = llama["lm_head"]
+    if lm_head_bits == 8 and not isinstance(head, QuantizedTensor):
+        head = head.to(device) if from_given else head.to(
+            device=device, dtype=compute_dtype)
+        out["lm_head"] = quantize_int8(head, axis=0)
+    else:
+        out["lm_head"] = _cast_params(head, compute_dtype, device)
+    out["layers"] = layers
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,21 +144,27 @@ class GenerationEngine:
         cache_dtype: torch.dtype = torch.bfloat16,
         prompt_bucket: int = 64,
         cache_bucket: int = 256,
-        quantize_bits=None,
-        lm_head_bits=None,
+        quantize_bits=None,  # 8, 4 or "4h": quantized decoder weights
+        quant_type: str = "nf4",  # bits 4: "nf4", "int4h" or linear int4
+        double_quant: bool = True,  # bits 4 NF4: double-quantized absmax
+        lm_head_bits=None,  # 8: int8 lm_head
         vision_w8a8: bool = False,
         prefill_chunk: Optional[int] = None,
         mesh=None,
     ):
-        unported = {"quantize_bits": quantize_bits,
-                    "lm_head_bits": lm_head_bits,
-                    "vision_w8a8": vision_w8a8,
-                    "prefill_chunk": prefill_chunk, "mesh": mesh}
+        unported = {"vision_w8a8": vision_w8a8,
+                    "prefill_chunk": prefill_chunk, "mesh": mesh,
+                    "lora": params.get("lora")}
         asked = [k for k, v in unported.items() if v]
         if asked:
             raise NotImplementedError(f"not ported yet: {', '.join(asked)}")
-        if cache_dtype not in (torch.bfloat16, torch.float32):
+        if cache_dtype not in (torch.bfloat16, torch.float32, torch.int8):
             raise NotImplementedError(f"{cache_dtype} KV cache is not ported")
+        if quantize_bits not in (None, 8, 4, "4h"):
+            raise ValueError(f"quantize_bits must be 8, 4 or '4h', got "
+                             f"{quantize_bits!r}")
+        if lm_head_bits not in (None, 8):
+            raise ValueError(f"lm_head_bits must be 8, got {lm_head_bits!r}")
         self.cfg = cfg
         self.device = torch.device(device)
         self.compute_dtype = compute_dtype
@@ -112,8 +177,10 @@ class GenerationEngine:
         # every float parameter in the compute dtype
         self.params = {k: _cast_params(params[k], compute_dtype, self.device)
                        for k in ("vit", "pooler")}
-        self.llama_params = _cast_params(params["llama"], compute_dtype,
-                                         self.device)
+        self.llama_params = _quantize_llama(
+            params["llama"], compute_dtype=compute_dtype, device=self.device,
+            quantize_bits=quantize_bits, quant_type=quant_type,
+            double_quant=double_quant, lm_head_bits=lm_head_bits)
 
     # -- pieces -------------------------------------------------------------
 

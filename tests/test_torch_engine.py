@@ -149,15 +149,36 @@ def test_sampling_top_p_and_seed(engines):
     assert runs[0] == runs[1]
 
 
+# quantized weights and the int8 cache are ported: those cases build an
+# engine whose parameters or cache are quantized; the others raise
+PORTED_OPTIONS = ({"quantize_bits": 8}, {"cache_dtype": torch.int8})
+
+
 @pytest.mark.parametrize("kwargs", [{"quantize_bits": 8}, {"mesh": "m"},
                                     {"prefill_chunk": 32},
                                     {"vision_w8a8": True},
                                     {"cache_dtype": torch.int8}], ids=str)
 def test_unported_engine_options_raise(engines, kwargs):
     _, te = engines
-    with pytest.raises(NotImplementedError):
-        t_engine.GenerationEngine(te.cfg, {"vit": {}, "pooler": {},
-                                           "llama": {}}, **kwargs)
+    if kwargs not in PORTED_OPTIONS:
+        with pytest.raises(NotImplementedError):
+            t_engine.GenerationEngine(te.cfg, {"vit": {}, "pooler": {},
+                                               "llama": {}}, **kwargs)
+        return
+    params = {"vit": te.params["vit"], "pooler": te.params["pooler"],
+              "llama": te.llama_params}
+    engine = t_engine.GenerationEngine(te.cfg, params, max_seq_len=96,
+                                       compute_dtype=torch.float32, **kwargs)
+    ids, lens, imgs = _request(5, lens=(7,))
+    _, cache, _ = engine._start(ids, lens, imgs,
+                                t_engine.GenerationConfig(max_new_tokens=2))
+    wq = engine.llama_params["layers"]["wq"]
+    if "quantize_bits" in kwargs:
+        assert wq.bits == 8 and wq.q.dtype == torch.int8
+        assert not cache.quantized
+    else:
+        assert cache.quantized and cache.k.dtype == torch.int8
+        assert wq.dtype == torch.float32
 
 
 def _fields(cfg):
@@ -211,9 +232,27 @@ def test_build_engine():
     out = engine.generate(ids, lens, images=imgs,
                           gen_cfg=t_engine.GenerationConfig(max_new_tokens=3))
     assert len(out) == 1 and len(out[0]) <= 3
-    for bad in ({"bits": 8}, {"kv_bits": 8}, {"vision_w8a8": True}):
+    # bits 8 and kv_bits 8 are ported: int8 weights, an int8 cache
+    int8 = build_engine(vcfg, params, {**cfg, "bits": 8}, "cpu")
+    assert int8.llama_params["layers"]["w_up"].bits == 8
+    assert int8.cache_dtype == torch.bfloat16
+    kv8 = build_engine(vcfg, params, {**cfg, "kv_bits": 8}, "cpu")
+    assert kv8.cache_dtype == torch.int8
+    assert kv8.llama_params["layers"]["w_up"].dtype == torch.bfloat16
+    w4 = build_engine(vcfg, params, {**cfg, "bits": 4, "quant_type": "int4h",
+                                     "kv_bits": 8, "lm_head_bits": 8}, "cpu")
+    assert w4.llama_params["layers"]["wq"].bits == "4h"
+    assert w4.llama_params["lm_head"].bits == 8
+    out = w4.generate(ids, lens, images=imgs,
+                      gen_cfg=t_engine.GenerationConfig(max_new_tokens=3))
+    assert len(out) == 1 and len(out[0]) <= 3
+    nf4 = build_engine(vcfg, params, {**cfg, "bits": 4}, "cpu")
+    assert nf4.llama_params["layers"]["wq"].bits == "nf4"
+    for bad in ({"vision_w8a8": True}, {"prefill_chunk": 64}):
         with pytest.raises(NotImplementedError):
             build_engine(vcfg, params, {**cfg, **bad}, "cpu")
+    with pytest.raises(ValueError):
+        build_engine(vcfg, params, {**cfg, "kv_bits": 4}, "cpu")
 
 
 def test_port_never_imports_jax_or_the_jax_package():

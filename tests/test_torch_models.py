@@ -193,6 +193,12 @@ def test_llama_decode_chain(models):
 
 
 def test_kv_cache_rejects_int8():
+    """An int8 cache comes with float32 scale planes at 1 (the quantized
+    cache); a dtype with no decode path (float16) is rejected."""
+    cfg = t_llama.LlamaConfig.tiny_test()
+    cache = t_llama.KVCache.create(cfg, 1, 8, dtype=torch.int8)
+    assert cache.quantized and cache.k.dtype == torch.int8
+    assert cache.k_scale.shape == cache.k.shape[:-1]
+    assert bool((cache.v_scale == 1).all())
     with pytest.raises(NotImplementedError):
-        t_llama.KVCache.create(t_llama.LlamaConfig.tiny_test(), 1, 8,
-                               dtype=torch.int8)
+        t_llama.KVCache.create(cfg, 1, 8, dtype=torch.float16)

@@ -27,6 +27,7 @@ from lhrs_bot_tpu_torch.ops import mlp as t_mlp
 from lhrs_bot_tpu_torch.ops import patch_embed as t_patch
 from lhrs_bot_tpu_torch.ops import rmsnorm as t_norm
 from lhrs_bot_tpu_torch.ops import rope as t_rope
+from lhrs_bot_tpu_torch.ops import w4_matmul as t_w4
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -208,8 +209,21 @@ def test_cpu_tensors_leave_kernel_counters_at_zero():
     t_fused.fused_decode_attention(x[:, :, :1], x[:, :, :1], x[:, :, :1],
                                    cache, cache.clone(),
                                    torch.tensor([3], dtype=torch.int32), 0)
+    row8, scale = torch.ones(1, 2, 1, 64, dtype=torch.int8), torch.ones(1, 2,
+                                                                        1)
+    cache8, planes = cache.to(torch.int8), torch.ones(1, 1, 2, 8)
+    t_fused.fused_decode_attention_q(x[:, :, :1], row8, scale, row8, scale,
+                                     cache8, cache8.clone(), planes,
+                                     planes.clone(),
+                                     torch.tensor([3], dtype=torch.int32), 0)
+    xq = torch.ones(2, 32, dtype=torch.int8)
+    t_w4.w4a8_matmul_stacked(xq, xq, torch.ones(2, 1),
+                             torch.ones(1, 32, 16, dtype=torch.int8),
+                             torch.ones(1, 1, 16), 0)
     assert t_attention.flash_attention_fwd.launches == 0
     assert t_fused.fused_decode_attention_kernel.launches == 0
+    assert t_fused.fused_decode_attention_q_kernel.launches == 0
+    assert t_w4.w4a8_matmul_kernel.launches == 0
 
 
 def test_kernel_wrappers_reject_cpu_tensors():
@@ -222,5 +236,18 @@ def test_kernel_wrappers_reject_cpu_tensors():
         t_fused.fused_decode_attention_kernel(
             row, row, row, cache, cache.clone(),
             torch.zeros(1, dtype=torch.int32), 0, 0.125)
+    row8, scale = row.to(torch.int8), torch.ones(1, 2, 1)
+    cache8, planes = cache.to(torch.int8), torch.ones(1, 1, 2, 8)
+    with pytest.raises(ValueError):
+        t_fused.fused_decode_attention_q_kernel(
+            row, row8, scale, row8, scale, cache8, cache8.clone(), planes,
+            planes.clone(), torch.zeros(1, dtype=torch.int32), 0, 0.125)
+    xq = torch.ones(2, 32, dtype=torch.int8)
+    with pytest.raises(ValueError):
+        t_w4.w4a8_matmul_kernel(xq, xq, torch.ones(2, 1),
+                                torch.ones(1, 32, 16, dtype=torch.int8),
+                                torch.ones(1, 1, 16), 0)
     assert t_attention.flash_attention_fwd.launches == 0
     assert t_fused.fused_decode_attention_kernel.launches == 0
+    assert t_fused.fused_decode_attention_q_kernel.launches == 0
+    assert t_w4.w4a8_matmul_kernel.launches == 0
