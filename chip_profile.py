@@ -9,7 +9,11 @@ It builds the same full-width engines as chip_smoke.py (ViT-L/14, 144-query
 6-layer perceiver, LLaMA-2-7B, seeded random bf16 weights; the bf16 path
 and the W4A8 + int8 lm_head + int8 KV recipe) and prints:
   1. times, each as (CUDA events ms, host clock ms), median of 5 after a
-     warm-up call: encode_image of one image; prefill + first-token logits
+     warm-up call: encode_image of one image; ViT + perceiver at B=64
+     (images/s) through the bf16, the W8A8 `dense_any` and the fused W8A8
+     towers, encode_image of one image through the fused tower, and
+     profiler traces of one bf16 and one fused batch; prefill +
+     first-token logits
      for a 40-token and a 2048-token prompt with one image; one B=1 decode
      step; the lm_head product in float32 (the path's) and in bf16;
   2. a torch.profiler trace of a 16-token generate: wall time, the card's
@@ -103,6 +107,65 @@ def profile_generate(engine, ids, lens, img):
                      max_name_column_width=60))
 
 
+def towers(params, cfg, dev, batch=64):
+    """ViT + perceiver throughput at B=`batch` for the three towers of
+    `bench.py`'s vit_perceiver_prefill: bf16; the XLA-style W8A8 tower
+    (`quantize_vision_layers` weights through `dense_any`) with the W8A8
+    perceiver; the fused W8A8 tower (`pack_vit_layers_fused`) with the W8A8
+    perceiver, each packed from the same bf16 weights as there. Also
+    `encode_image` of one image through the fused tower, and
+    torch.profiler traces of one bf16 and one fused batch."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from lhrs_bot_tpu_torch.models.perceiver import perceiver_resample
+    from lhrs_bot_tpu_torch.models.vit import vit_encode, vit_encode_fused
+    from lhrs_bot_tpu_torch.models.vlm import encode_image
+    from lhrs_bot_tpu_torch.ops.quant import quantize_vision_layers
+    from lhrs_bot_tpu_torch.ops.vit_block import pack_vit_layers_fused
+
+    vp, pp = params["vit"], params["pooler"]
+    vq = {**vp, "layers": quantize_vision_layers(vp["layers"])}
+    pq = {**pp, "layers": quantize_vision_layers(pp["layers"])}
+    packed = pack_vit_layers_fused(vp["layers"])
+    images = torch.as_tensor(np.random.default_rng(0).integers(
+        0, 255, (batch, cfg.vit.image_size, cfg.vit.image_size, 3),
+        dtype=np.uint8), device=dev)
+    runs = {
+        "bf16": lambda: perceiver_resample(
+            pp, vit_encode(vp, images, cfg.vit), cfg.pooler),
+        "XLA W8A8 (dense_any)": lambda: perceiver_resample(
+            pq, vit_encode(vq, images, cfg.vit), cfg.pooler),
+        "fused W8A8": lambda: perceiver_resample(
+            pq, vit_encode_fused(vp, packed, images, cfg.vit), cfg.pooler),
+    }
+    for name, fn in runs.items():
+        dev_ms, host_ms = timed(fn)
+        log(f"ViT + perceiver, B={batch}, {name}: {dev_ms:.3f} ms (events), "
+            f"{host_ms:.3f} ms (host): {batch / dev_ms * 1e3:.1f} images/s")
+    one = images[:1]
+    pq_params = {**params, "pooler": pq}
+    log("encode_image, 1 image, fused W8A8 tower + W8A8 perceiver: %.3f ms "
+        "(events), %.3f ms (host)" % timed(
+            lambda: encode_image(pq_params, one, cfg, vision_packed=packed)))
+    for name in ("bf16", "fused W8A8"):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            runs[name]()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        events = prof.key_averages()
+        busy_ms = sum(e.self_device_time_total for e in events
+                      if e.device_type == DeviceType.CUDA) / 1e3
+        log(f"{name} ViT + perceiver, B={batch}, under the profiler: wall "
+            f"{wall_ms:.1f} ms, card busy {busy_ms:.1f} ms, busy share "
+            f"{busy_ms / wall_ms:.3f}")
+        log(events.table(sort_by="self_device_time_total", row_limit=12,
+                         max_name_column_width=60))
+
+
 def main():
     import torch
 
@@ -133,6 +196,7 @@ def main():
     timg = torch.as_tensor(img, device=dev)
     log("encode_image, 1 image: %.3f ms (events), %.3f ms (host)" % timed(
         lambda: encode_image(engine.params, timg, cfg)))
+    towers(engine.params, cfg, dev)
     one = GenerationConfig(max_new_tokens=1)
     for n in (40, 2048):
         ids, lens = request(n)

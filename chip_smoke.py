@@ -10,14 +10,20 @@ Phases, one or more lines each:
   2. build: compile the CUDA kernels from lhrs_bot_tpu_torch/csrc;
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the main path's shapes (plus ragged/masked edge cases), with times;
+     The vision kernels too: kernel A (LayerNorm + row quantization) and
+     kernel B (int8 GEMM, int32 accumulators bit for bit) at the W8A8
+     tower's shapes, the fused ViT block (B = 1 and 8), its split form and
+     the fused perceiver block against their plain versions, and the fused
+     W8A8 tower at full depth against the bf16 tower, with a planted fault;
   4. slices: the serving paths at full width (ViT-L/14, 144-query 6-layer
      perceiver, LLaMA-2-7B, one set of seeded random bf16 weights) through
      build_engine + GenerationEngine.generate: bf16 (three requests), the
      quantized recipe of W4A8 weights, int8 lm_head and int8 KV cache
-     (three requests, B up to 7), int8 weights and NF4 weights with the
-     int8 cache (one request each); for each path the kernels' launch
-     counts, and for bf16 and W4A8 a prefill/decode consistency check with
-     planted faults.
+     (three requests, B up to 7), int8 weights with the int8 cache and, by
+     default on the card, the fused W8A8 vision tower and W8A8 perceiver
+     (two requests, B 1 and 8), NF4 weights with the int8 cache (one
+     request); for each path the kernels' launch counts, and for bf16 and
+     W4A8 a prefill/decode consistency check with planted faults.
 Then a JSON line with per-kernel numbers, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}. Any failure raises: the script
 exits non-zero and prints no result. It needs no network and imports nothing
@@ -384,17 +390,374 @@ def phase_quant_kernels(dev):
     return k3, k4
 
 
+VIT_W, VIT_S, VIT_S_PAD = 1024, 257, 272
+# (K, N) of the vision tower's int8 projections: QKV, O (and the
+# perceiver's q), FC, proj, and the perceiver's fused K|V
+GEMM_SHAPES = ((1024, 3072), (1024, 1024), (1024, 4096), (4096, 1024),
+               (1024, 2048))
+# Kernel B's epilogues against their plain versions: each element within
+# BLOCK_TOL of max|plain| plus one bf16 rounding step of its own size (2^-8
+# |plain|: a last-bit difference before the output's rounding to bf16 may
+# land it one step away). The accumulators are exact on both sides; what
+# differs is the last bits of the float32 GELUs. An indexing fault gives
+# O(1). BLOCK_TOL is the JAX package's own grouped-vs-ungrouped bound
+# (tests/test_ops.py:442).
+BLOCK_TOL = 5e-3
+# The fused blocks (A, B and K1 composed) against their plain versions:
+# relative L2 within FUSED_REL_L2 and each element within FUSED_TOL of
+# max|plain| plus one bf16 step. Here K1 rounds the unnormalised
+# probabilities to bf16 where the plain attention rounds the normalised
+# ones, and the block's int8 activation quantization turns that 1.4e-3
+# relative L2 at the attention output into about 4.4e-3 at the block's
+# output: on an H100 at 700 W the plain attention and K1 sat equally far
+# from an attention with float32 probabilities, 4.2e-3 each at the block's
+# output, and the blocks read 4.7-6.0e-3 relative L2 and elements within
+# 7.5e-3 of max|plain| against their plain versions. The bounds sit about
+# 2x above (PERF.md has the readings).
+FUSED_REL_L2 = 1e-2
+FUSED_TOL = 1.5e-2
+# The fused W8A8 tower against the bf16 tower at full depth (22 blocks),
+# relative L2 of the (B, 768, 1024) features: int8 noise read 0.028 on an
+# H100 at 700 W, and the planted fault, one block skipped, 0.39; the fault
+# must exceed the bound in every run.
+TOWER_REL_L2 = 0.08
+
+
+def vit_layers(dev, n_layers, seed):
+    """Seeded random stacked ViT-L layers in float32: weights N(0, 0.02),
+    LayerNorm scales 1 + N(0, 0.1), biases N(0, 0.02)."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(*shape, scale=0.02, mean=0.0):
+        return torch.randn((n_layers,) + shape, generator=gen,
+                           device=dev) * scale + mean
+
+    w, f = VIT_W, 4 * VIT_W
+    return {"ln1_scale": rand(w, scale=0.1, mean=1.0), "ln1_bias": rand(w),
+            "wq": rand(w, w), "bq": rand(w), "wk": rand(w, w), "bk": rand(w),
+            "wv": rand(w, w), "bv": rand(w), "wo": rand(w, w), "bo": rand(w),
+            "ln2_scale": rand(w, scale=0.1, mean=1.0), "ln2_bias": rand(w),
+            "w_fc": rand(w, f), "b_fc": rand(f), "w_proj": rand(f, w),
+            "b_proj": rand(w)}
+
+
+def check_block(name, got, ref, tol=BLOCK_TOL, rel_l2=None):
+    """got vs ref elementwise within tol * max|ref| + 2^-8 |ref|, and within
+    `rel_l2` relative L2 when given, raising past either; returns the max
+    abs error."""
+    got, ref = got.float(), ref.float()
+    if not bool(got.isfinite().all()):
+        raise AssertionError(f"{name}: non-finite kernel output")
+    err = (got - ref).abs()
+    top = float(ref.abs().max())
+    bad = err > tol * top + ref.abs() * 2.0 ** -8
+    if bool(bad.any()):
+        raise AssertionError(f"{name}: {int(bad.sum())} elements off, max "
+                             f"abs err {float(err.max()):.3e} (max|plain| "
+                             f"{top:.3e})")
+    rel = float((got - ref).norm() / ref.norm())
+    if rel_l2 is not None and rel > rel_l2:
+        raise AssertionError(f"{name}: relative L2 {rel:.3e} > {rel_l2}")
+    return float(err.max())
+
+
+def check_fused(name, got, ref):
+    return check_block(name, got, ref, FUSED_TOL, FUSED_REL_L2)
+
+
+def phase_vision_kernels(dev):
+    """Kernel A (LayerNorm + row quantization) and kernel B (int8 GEMM)
+    against their plain versions at the W8A8 vision tower's shapes, then
+    the fused ViT block (B = 1 and 8), its split form and the fused
+    perceiver block at ViT-L / perceiver width against their plain
+    versions, with times."""
+    import torch
+
+    from lhrs_bot_tpu_torch.ops.int8_gemm import (int8_gemm_kernel,
+                                                  int8_gemm_plain)
+    from lhrs_bot_tpu_torch.ops.ln_quant import (ln_quant_kernel,
+                                                 ln_quant_plain)
+    from lhrs_bot_tpu_torch.ops.perceiver_block import (
+        fused_perceiver_block, fused_perceiver_block_plain,
+        pack_perceiver_layers_fused)
+    from lhrs_bot_tpu_torch.ops.quant import transposed_storage
+    from lhrs_bot_tpu_torch.ops.vit_block import (
+        _heads, attend_token_major, fused_vit_block, fused_vit_block_plain,
+        fused_vit_post, fused_vit_post_plain, fused_vit_qkv,
+        fused_vit_qkv_plain, pack_vit_layers_fused)
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    m_big = 64 * VIT_S
+    out = {}
+
+    # -- kernel A -------------------------------------------------------------
+    ka = {"max_abs_err": 0.0}
+    for w, dtype in ((VIT_W, torch.bfloat16), (4 * VIT_W, torch.float32),
+                     (11008, torch.bfloat16)):
+        x = torch.randn(m_big, w, generator=gen, device=dev).to(dtype)
+        x[1] = 0  # amax 0: scale 1, codes 0
+        x[2, 5] = 50.0  # an outlier row
+        q, s = ln_quant_kernel(x)
+        qp, sp = ln_quant_plain(x)
+        torch.cuda.synchronize()
+        if not (torch.equal(q, qp) and torch.equal(s, sp)):
+            raise AssertionError(
+                f"A quantize-only W{w} {dtype}: {int((q != qp).sum())} codes "
+                f"and {int((s != sp).sum())} scales differ from the plain "
+                "version")
+        log(f"  A quantize-only ({m_big}, {w}) {dtype}: codes and scales "
+            "equal")
+    x = torch.randn(m_big, VIT_W, generator=gen, device=dev,
+                    dtype=torch.bfloat16) * 2 + 0.3
+    g = torch.rand(VIT_W, generator=gen, device=dev) + 0.5
+    b = torch.randn(VIT_W, generator=gen, device=dev) * 0.1
+    q, s = ln_quant_kernel(x, g, b, 1e-5)
+    qp, sp = ln_quant_plain(x, g, b, 1e-5)
+    torch.cuda.synchronize()
+    code_diff = (q.int() - qp.int()).abs()
+    s_rel = float(((s - sp).abs() / sp).max())
+    share = float((code_diff > 0).float().mean())
+    if int(code_diff.max()) > 1 or share > 1e-3 or s_rel > 1e-5:
+        raise AssertionError(f"A LayerNorm: codes off by up to "
+                             f"{int(code_diff.max())} ({share:.2e} of them), "
+                             f"scales by {s_rel:.2e} relative")
+    # dequantized, the LayerNorm mode's error is that of one code at most
+    ka["max_abs_err"] = float((q.float() * s - qp.float() * sp).abs().max())
+    log(f"  A LayerNorm ({m_big}, {VIT_W}) bf16: codes within one "
+        f"({share:.2e} differ), scales within {s_rel:.2e} relative, "
+        f"dequantized max abs err {ka['max_abs_err']:.3e}")
+    ka["ms"] = cuda_ms(lambda: ln_quant_kernel(x, g, b, 1e-5))
+    ka["plain_ms"] = cuda_ms(lambda: ln_quant_plain(x, g, b, 1e-5))
+    log(f"  A time, LN1 of 64 images ({m_big}, {VIT_W}): kernel "
+        f"{ka['ms']:.4f} ms, plain {ka['plain_ms']:.4f} ms")
+    out["A"] = ka
+
+    # -- kernel B: int32 accumulators exact, then each epilogue ----------------
+    def codes(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=dev,
+                             dtype=torch.int8)
+
+    kb = {"max_abs_err": 0.0, "shapes": []}
+    for k, n in GEMM_SHAPES:
+        w = transposed_storage(codes(k, n))
+        ws = torch.rand(n, generator=gen, device=dev) * 1e-3 + 1e-4
+        for m in (VIT_S, m_big):
+            a = codes(m, k)
+            xs = torch.rand(m, 1, generator=gen, device=dev) * 0.02 + 1e-3
+            acc = int8_gemm_kernel(a, xs, w, ws, out_dtype=torch.int32)
+            ref = int8_gemm_plain(a, xs, w, ws, out_dtype=torch.int32)
+            torch.cuda.synchronize()
+            if not torch.equal(acc, ref):
+                bad = int((acc != ref).sum())
+                raise AssertionError(f"B K{k} N{n} M{m}: {bad} int32 "
+                                     "accumulators differ from the plain "
+                                     "product")
+        ms = cuda_ms(lambda: int8_gemm_kernel(a, xs, w, ws))
+        plain = cuda_ms(lambda: int8_gemm_plain(a, xs, w, ws))
+        tops = 2 * m_big * n * k / ms / 1e9
+        kb["shapes"].append({"K": k, "N": n, "M": m_big, "ms": ms,
+                             "plain_ms": plain, "TOPS": tops})
+        log(f"  B K{k} N{n}, M {VIT_S} and {m_big}: int32 accumulators "
+            f"bit-identical; bf16 out at M {m_big}: kernel {ms:.4f} ms "
+            f"({tops:.0f} TOPS), plain {plain:.4f} ms")
+    # epilogues at the FC shape (M 64 * 257, K 1024, N 4096)
+    k, n = VIT_W, 4 * VIT_W
+    a, w = codes(m_big, k), transposed_storage(codes(k, n))
+    xs = torch.rand(m_big, 1, generator=gen, device=dev) * 0.02 + 1e-3
+    ws = torch.rand(n, generator=gen, device=dev) * 1e-3 + 1e-4
+    bias = torch.randn(n, generator=gen, device=dev) * 0.1
+    res16 = torch.randn(m_big, n, generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+    res32 = torch.randn(m_big, n, generator=gen, device=dev)
+    epilogues = {
+        "QKV: ws-first, q fold, bf16": dict(
+            bias=bias, ws_first=True, q_fold=0.125, n_fold=n // 3),
+        "O: bf16 residual -> f32": dict(bias=bias, residual=res16,
+                                        out_dtype=torch.float32),
+        "FC: QuickGELU -> f32": dict(bias=bias, act="quick_gelu",
+                                     out_dtype=torch.float32),
+        "proj: f32 residual -> bf16": dict(bias=bias, residual=res32),
+        "XLA W8A8: round, bias, erf GELU": dict(bias=bias, round_mid=True,
+                                                act="gelu"),
+        "perceiver q: ws-first, out_mult": dict(bias=bias, ws_first=True,
+                                                out_mult=0.125),
+        "perceiver FC: tanh GELU -> f32": dict(bias=bias, act="gelu_tanh",
+                                               out_dtype=torch.float32),
+    }
+    for name, kw in epilogues.items():
+        got = int8_gemm_kernel(a, xs, w, ws, **kw)
+        ref = int8_gemm_plain(a, xs, w, ws, **kw)
+        torch.cuda.synchronize()
+        err = check_block(f"B epilogue {name}", got, ref)
+        kb["max_abs_err"] = max(kb["max_abs_err"], err)
+        log(f"  B epilogue {name}: max abs err {err:.3e}")
+    fc = epilogues["FC: QuickGELU -> f32"]
+    kb["ms"] = cuda_ms(lambda: int8_gemm_kernel(a, xs, w, ws, **fc))
+    kb["plain_ms"] = cuda_ms(lambda: int8_gemm_plain(a, xs, w, ws, **fc))
+    log(f"  B time, FC + QuickGELU of 64 images ({m_big} x {k} x {n}): "
+        f"kernel {kb['ms']:.4f} ms, plain {kb['plain_ms']:.4f} ms")
+    del a, w, res16, res32
+    out["B"] = kb
+
+    # -- K1 as the blocks launch it: Q, K and V strided views of one (B, S,
+    # 3W) projection, pad keys masked, float32 output written token-major
+    qkv = torch.randn(8, VIT_S_PAD, 3 * VIT_W, generator=gen, device=dev,
+                      dtype=torch.bfloat16)
+    mask = (torch.arange(VIT_S_PAD, device=dev) < VIT_S).expand(
+        8, VIT_S_PAD).contiguous()
+    q, k, v = _heads(qkv, 3, 16)
+    got = attend_token_major(q, k, v, mask, 0.125, torch.float32)
+    ref = attend_token_major(q, k, v, mask, 0.125, torch.float32, plain=True)
+    torch.cuda.synchronize()
+    err = check_close("K1 strided, float32 out", got, ref)
+    log(f"  K1 as the blocks launch it (strided QKV views, 8 x {VIT_S_PAD} "
+        f"tokens, {VIT_S} valid keys, float32 token-major out): max abs err "
+        f"{err:.3e}")
+    del qkv, q, k, v
+
+    # -- the fused blocks against their plain versions --------------------------
+    lp = {k: v[0] for k, v in pack_vit_layers_fused(
+        vit_layers(dev, 1, seed=4)).items()}
+    blocks = {}
+    for nb in (1, 8):
+        x = torch.zeros(nb, VIT_S_PAD, VIT_W, device=dev, dtype=torch.bfloat16)
+        x[:, :VIT_S] = torch.randn(nb, VIT_S, VIT_W, generator=gen,
+                                   device=dev, dtype=torch.bfloat16)
+        kw = dict(heads=16, s_valid=VIT_S, group=8)
+        got = fused_vit_block(x, lp, **kw)
+        ref = fused_vit_block_plain(x, lp, **kw)
+        torch.cuda.synchronize()
+        err = check_fused(f"fused_vit_block B{nb}", got, ref)
+        ms = cuda_ms(lambda: fused_vit_block(x, lp, **kw), reps=5)
+        plain = cuda_ms(lambda: fused_vit_block_plain(x, lp, **kw), reps=5)
+        blocks[f"fused_vit_block_b{nb}"] = {"max_abs_err": err, "ms": ms,
+                                            "plain_ms": plain}
+        log(f"  fused_vit_block B{nb} (S_pad {VIT_S_PAD}): max abs err "
+            f"{err:.3e}; kernels {ms:.4f} ms, plain {plain:.4f} ms")
+    xg = x.reshape(1, 8 * VIT_S_PAD, VIT_W)
+    got = fused_vit_qkv(xg, lp)
+    err_q = check_fused("fused_vit_qkv", got,
+                        fused_vit_qkv_plain(xg, lp))
+    attn = torch.randn(xg.shape, generator=gen, device=dev,
+                       dtype=torch.bfloat16) * 0.3
+    got = fused_vit_post(xg, attn, lp)
+    err_p = check_fused("fused_vit_post", got,
+                        fused_vit_post_plain(xg, attn, lp))
+    blocks["fused_vit_qkv"] = {"max_abs_err": err_q}
+    blocks["fused_vit_post"] = {"max_abs_err": err_p}
+    log(f"  fused_vit_qkv / fused_vit_post (8 images): max abs err "
+        f"{err_q:.3e} / {err_p:.3e}")
+    players = vit_layers(dev, 1, seed=5)
+    players["ln_kv_scale"] = players["ln1_scale"] * 0.9 + 0.1
+    players["ln_kv_bias"] = players["ln1_bias"] * -1
+    plp = {k: v[0] for k, v in pack_perceiver_layers_fused(players).items()}
+    nq, q_pad, kv_pad = (64, 48, 32), 64, 64 + 256
+    q = torch.zeros(2, 3, q_pad, VIT_W, device=dev, dtype=torch.bfloat16)
+    kv = torch.zeros(2, 3, kv_pad, VIT_W, device=dev, dtype=torch.bfloat16)
+    for gi, n in enumerate(nq):
+        q[:, gi, :n] = torch.randn(2, n, VIT_W, generator=gen, device=dev,
+                                   dtype=torch.bfloat16)
+        kv[:, gi, :n] = q[:, gi, :n]
+        kv[:, gi, q_pad:] = torch.randn(2, 256, VIT_W, generator=gen,
+                                        device=dev, dtype=torch.bfloat16)
+    kw = dict(heads=16, group_nq=nq, kv_valid=tuple(n + 256 for n in nq))
+    got = fused_perceiver_block(q, kv, plp, **kw)
+    err = check_fused("fused_perceiver_block", got,
+                      fused_perceiver_block_plain(q, kv, plp, **kw))
+    ms = cuda_ms(lambda: fused_perceiver_block(q, kv, plp, **kw), reps=5)
+    plain = cuda_ms(lambda: fused_perceiver_block_plain(q, kv, plp, **kw),
+                    reps=5)
+    blocks["fused_perceiver_block"] = {"max_abs_err": err, "ms": ms,
+                                       "plain_ms": plain}
+    log(f"  fused_perceiver_block (2 images, 3 groups): max abs err "
+        f"{err:.3e}; kernels {ms:.4f} ms, plain {plain:.4f} ms")
+    out["blocks"] = blocks
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_tower(dev, n_img=8):
+    """The fused W8A8 tower (22 blocks) against the bf16 tower on the same
+    seeded ViT-L weights: relative L2 of the (B, 768, 1024) features, which
+    must stay within TOWER_REL_L2, and of the fused tower with one block
+    skipped (its O and proj weights and biases zeroed: the block adds
+    nothing to the residual stream), which must exceed it."""
+    import torch
+
+    from lhrs_bot_tpu_torch.models.vit import (ViTConfig, vit_encode,
+                                               vit_encode_fused)
+    from lhrs_bot_tpu_torch.ops.vit_block import pack_vit_layers_fused
+
+    cfg = ViTConfig.vit_large()
+    n_layers = cfg.extract_stages[-1]
+    layers = vit_layers(dev, n_layers, seed=6)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    params = {
+        "patch_proj": torch.randn(14 * 14 * 3, VIT_W, generator=gen,
+                                  device=dev) * 0.02,
+        "class_emb": torch.randn(VIT_W, generator=gen, device=dev) * 0.02,
+        "pos_emb": torch.randn(VIT_S, VIT_W, generator=gen, device=dev) * 0.02,
+        "pre_ln": {"scale": torch.ones(VIT_W, device=dev),
+                   "bias": torch.zeros(VIT_W, device=dev)}}
+    packed = pack_vit_layers_fused(layers)
+    bf16 = {**{k: v.to(torch.bfloat16) for k, v in params.items()
+               if k != "pre_ln"}, "pre_ln": params["pre_ln"],
+            "layers": {k: v.to(torch.bfloat16) for k, v in layers.items()}}
+    del layers
+    images = torch.randint(0, 256, (n_img, 224, 224, 3), generator=gen,
+                           device=dev, dtype=torch.uint8)
+    ref = vit_encode(bf16, images, cfg).float()
+    got = vit_encode_fused(bf16, packed, images, cfg).float()
+    skip = 3  # before the first tap: every tap sees it
+    faulty = dict(packed)
+    for k in ("wo", "bo", "w_proj", "b_proj"):
+        faulty[k] = packed[k].clone()
+        faulty[k][skip] = 0
+    bad = vit_encode_fused(bf16, faulty, images, cfg).float()
+    torch.cuda.synchronize()
+    if got.shape != (n_img, 3 * 256, VIT_W) or not bool(
+            got.isfinite().all()):
+        raise AssertionError(f"fused tower: bad features {tuple(got.shape)}")
+
+    def rel(a):
+        return float((a - ref).norm() / ref.norm())
+
+    dev_rel, fault_rel = rel(got), rel(bad)
+    per_tap = [float((got[:, t * 256:(t + 1) * 256] - ref[:, t * 256:(
+        t + 1) * 256]).norm() / ref[:, t * 256:(t + 1) * 256].norm())
+        for t in range(3)]
+    log(f"  fused W8A8 tower vs bf16 tower, {n_img} images, 22 blocks: rel "
+        f"L2 {dev_rel:.4f} (taps {[round(r, 4) for r in per_tap]}), bound "
+        f"{TOWER_REL_L2}; planted fault (block {skip} skipped): rel L2 "
+        f"{fault_rel:.4f}")
+    if dev_rel > TOWER_REL_L2:
+        raise AssertionError(f"fused tower deviation {dev_rel:.4f} > "
+                             f"{TOWER_REL_L2}")
+    if fault_rel <= TOWER_REL_L2:
+        raise AssertionError(f"the planted fault passes: {fault_rel:.4f}")
+    del packed, faulty, bf16
+    torch.cuda.empty_cache()
+    return {"rel_l2": dev_rel, "taps": per_tap, "fault_rel_l2": fault_rel,
+            "bound": TOWER_REL_L2}
+
+
 def kernel_wrappers():
     """Each kernel's wrapper, whose `launches` counts its launches."""
     from lhrs_bot_tpu_torch.ops.attention import flash_attention_fwd
     from lhrs_bot_tpu_torch.ops.fused_decode import (
         fused_decode_attention_kernel, fused_decode_attention_q_kernel)
+    from lhrs_bot_tpu_torch.ops.int8_gemm import int8_gemm_kernel
+    from lhrs_bot_tpu_torch.ops.ln_quant import ln_quant_kernel
     from lhrs_bot_tpu_torch.ops.w4_matmul import w4a8_matmul_kernel
 
     return {"flash_attention_fwd": flash_attention_fwd,
             "fused_decode_attention": fused_decode_attention_kernel,
             "fused_decode_attention_q": fused_decode_attention_q_kernel,
-            "w4a8_matmul": w4a8_matmul_kernel}
+            "w4a8_matmul": w4a8_matmul_kernel,
+            "ln_quant": ln_quant_kernel,
+            "int8_gemm": int8_gemm_kernel}
 
 
 def serve(engine, cfg, requests, new=32):
@@ -510,11 +873,16 @@ def phase_slice(dev):
         return ids, np.asarray([len(r) for r in rows], np.int32)
 
     size = cfg.vit.image_size
-    images = rng.integers(0, 256, (7, size, size, 3)).astype(np.uint8)
+    images = rng.integers(0, 256, (8, size, size, 3)).astype(np.uint8)
     short = ("short", batch(prompt(40)), images[:1])
     long = ("long", batch(prompt(2048)), images[:1])
     batch7 = ("batch7", batch(*(prompt(n) for n in (2048, 40, 300, 120,
                                                       1000, 1500, 700))),
+              images[:7])
+    # B = 8 images: the fused tower over 8 * 257 tokens (the TPU's grouped
+    # form, group 8)
+    batch8 = ("batch8", batch(*(prompt(n) for n in (40, 300, 120, 1000, 64,
+                                                      200, 500, 80))),
               images)
     paths = [
         ("bf16", {}, [short, long,
@@ -526,8 +894,10 @@ def phase_slice(dev):
                   "lm_head_bits": 8}, [short, long, batch7],
          ("flash_attention_fwd", "fused_decode_attention_q", "w4a8_matmul"),
          (torch.int8, CONSISTENCY_REL_L2_W4A8)),
-        ("int8", {"bits": 8, "kv_bits": 8}, [short],
-         ("flash_attention_fwd", "fused_decode_attention_q"), None),
+        # bits 8 on the card turns the fused W8A8 vision tower on
+        ("int8", {"bits": 8, "kv_bits": 8}, [short, batch8],
+         ("flash_attention_fwd", "fused_decode_attention_q", "ln_quant",
+          "int8_gemm"), None),
         ("nf4", {"bits": 4, "quant_type": "nf4", "kv_bits": 8}, [short],
          ("flash_attention_fwd", "fused_decode_attention_q"), None),
     ]
@@ -538,7 +908,10 @@ def phase_slice(dev):
         engine = build_engine(cfg, params, {**config, **knobs}, dev)
         torch.cuda.synchronize()
         log(f"  [{name}] engine {knobs or 'bf16'} built in "
-            f"{time.time() - t0:.1f} s")
+            f"{time.time() - t0:.1f} s; fused W8A8 vision tower "
+            f"{'on' if engine._vision_packed is not None else 'off'}")
+        if (engine._vision_packed is not None) != (name == "int8"):
+            raise AssertionError(f"{name}: vision_w8a8 default is wrong")
         for w in wrappers.values():
             w.launches = 0
         torch.cuda.reset_peak_memory_stats()
@@ -600,17 +973,24 @@ def main():
     log("[3/4 kernels vs plain]")
     k1, k2 = phase_kernels(dev)
     k3, k4 = phase_quant_kernels(dev)
+    vision = phase_vision_kernels(dev)
+    tower = phase_tower(dev)
 
     log("[4/4 slices at full width]")
     paths = phase_slice(dev)
     bf16, w4a8 = paths["bf16"]["launches"], paths["w4a8"]["launches"]
+    int8 = paths["int8"]["launches"]
 
     def row(name, source, replaces, launches, k):
         return {"name": name, "route": "cuda",
                 "source": f"lhrs_bot_tpu_torch/csrc/{source}",
-                "replaces": f"lhrs_bot_tpu/ops/{replaces}",
+                "replaces": ", ".join(f"lhrs_bot_tpu/ops/{r}"
+                                      for r in replaces.split(", ")),
                 "launches": launches[name], "max_abs_err": k["max_abs_err"],
                 "ms": k["ms"], "plain_ms": k["plain_ms"]}
+
+    vision_tpu = ("vit_block.py:111, vit_block.py:132, vit_block.py:319, "
+                  "vit_block.py:338, perceiver_block.py:53")
 
     kernels = [
         row("flash_attention_fwd", "flash_fwd.cu", "attention.py:84", bf16,
@@ -620,8 +1000,12 @@ def main():
         row("fused_decode_attention_q", "fused_decode_q.cu",
             "fused_decode.py:222", w4a8, k4),
         row("w4a8_matmul", "w4a8_matmul.cu", "w4_matmul.py:43", w4a8, k3),
+        row("ln_quant", "ln_quant.cu", vision_tpu, int8, vision["A"]),
+        row("int8_gemm", "int8_gemm.cu", vision_tpu, int8, vision["B"]),
     ]
     log(json.dumps({"w4a8_shapes": k3["shapes"]}))
+    log(json.dumps({"int8_gemm_shapes": vision["B"]["shapes"],
+                    "vision_blocks": vision["blocks"], "tower": tower}))
     log(json.dumps({"paths": paths}))
     log(json.dumps({"kernels": kernels}))
     log(smi_line())

@@ -8,6 +8,16 @@ import torch
 from ..serve.engine import GenerationEngine
 
 
+def vision_w8a8_setting(cfg, config, bits: int, device) -> bool:
+    """`vision_w8a8` where the config sets it; else the JAX default with a
+    CUDA device in place of the TPU: int8 weights and a ViT head dim that
+    the flash kernel takes."""
+    if config.get("vision_w8a8") is not None:
+        return bool(config["vision_w8a8"])
+    return (bits == 8 and torch.device(device).type == "cuda"
+            and cfg.vit.head_dim in (64, 128))
+
+
 def build_engine(cfg, params, config, device) -> GenerationEngine:
     """A GenerationEngine for `config` (a nested dict with the schema of
     `Config/*.yaml`, e.g. `core.convert.eval_config()`) on `device`.
@@ -16,17 +26,20 @@ def build_engine(cfg, params, config, device) -> GenerationEngine:
     decoder weights, `bits: 4` NF4 (`quant_type: nf4`, the default, with
     `double_quant`) or halves-packed W4A8 (`quant_type: int4h`); `kv_bits: 8`
     an int8 KV cache; `lm_head_bits: 8` an int8 lm_head. max_seq_len is
-    text.max_position_embeddings + 256. `vision_w8a8` defaults to off (the
-    JAX value off the TPU); asking for it, or for `prefill_chunk`, raises
-    NotImplementedError. Other `bits`/`kv_bits` values raise ValueError."""
+    text.max_position_embeddings + 256. `vision_w8a8` (the fused W8A8
+    vision tower) follows the config where it is set; otherwise it is on
+    where the JAX rule puts it on, with a CUDA device in place of the TPU:
+    `bits: 8` on a CUDA device, with a ViT head dim that the flash kernel
+    takes (64 or 128). Off on the CPU, as the JAX default is off the TPU.
+    `prefill_chunk` raises NotImplementedError. Other `bits`/`kv_bits`
+    values raise ValueError."""
     bits = int(config.get("bits", 16) or 16)
     kv_bits = int(config.get("kv_bits", 16) or 16)
     if bits not in (4, 8, 16) or kv_bits not in (8, 16):
         raise ValueError(f"bits={bits} kv_bits={kv_bits}: bits must be 4, 8 "
                          "or 16 and kv_bits 8 or 16")
-    for knob in ("vision_w8a8", "prefill_chunk"):
-        if config.get(knob):
-            raise NotImplementedError(f"{knob} is not ported yet")
+    if config.get("prefill_chunk"):
+        raise NotImplementedError("prefill_chunk is not ported yet")
     return GenerationEngine(
         cfg, params, device=device,
         max_seq_len=int(config["text"]["max_position_embeddings"]) + 256,
@@ -35,4 +48,5 @@ def build_engine(cfg, params, config, device) -> GenerationEngine:
         quantize_bits=bits if bits in (4, 8) else None,
         quant_type=str(config.get("quant_type", "nf4") or "nf4"),
         double_quant=bool(config.get("double_quant", True)),
-        lm_head_bits=int(config.get("lm_head_bits", 0) or 0) or None)
+        lm_head_bits=int(config.get("lm_head_bits", 0) or 0) or None,
+        vision_w8a8=vision_w8a8_setting(cfg, config, bits, device))

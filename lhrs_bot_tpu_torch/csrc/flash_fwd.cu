@@ -1,9 +1,17 @@
-// Flash-attention forward for Hopper (sm_90a), bf16 in, bf16 out, f32 softmax.
+// Flash-attention forward for Hopper (sm_90a), bf16 in, bf16 or float32 out,
+// f32 softmax.
 //
 // Replaces the Pallas TPU kernel `_flash_kernel` (lhrs_bot_tpu/ops/attention.py:84,
 // called through `_flash_attention_pallas` :178). Same semantics: optional
 // kv_mask (B, Skv), top-left causal mask (kv_id <= q_id), rows with no valid
 // key give exactly 0. Segment ids and the LSE output are not ported yet.
+// Also the per-head attention inside the fused W8A8 vision blocks
+// (lhrs_bot_tpu/ops/vit_block.py:111/:132, perceiver_block.py:53), whose
+// output stays float32 until it is quantized: the float32-output variant
+// (template flag) serves them. q, k, v and o are addressed through (batch,
+// head, row) element strides, so the vision blocks read Q, K and V in place
+// from their (tokens, 3 * width) projection and write the output
+// token-major, (B, S, H, D), as the next projection reads it.
 //
 // What bounds it on the H100: at the decoder-prefill shape (H32, D128, S up
 // to 2191, causal) the two matrix products are compute-bound (about 4*S*S*D
@@ -56,31 +64,36 @@ __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// Copies rows [row0, row0 + 64) of a (rows, D) bf16 matrix into shared
-// memory with row stride LD, zero-filling rows at or past `rows`.
+struct Strides {  // element strides of a (B, H, S, D) operand; D is unit
+  long long b, h, s;
+};
+
+// Copies rows [row0, row0 + 64) of a (rows, D) bf16 matrix with row stride
+// `ld` into shared memory with row stride LD, zero-filling rows at or past
+// `rows`.
 template <int D, int LD>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src, int row0,
-                                          int rows) {
+                                          const __nv_bfloat16* src,
+                                          long long ld, int row0, int rows) {
   constexpr int kChunks = D / 8;  // 16-byte chunks per row
   for (int i = threadIdx.x; i < 64 * kChunks; i += kThreads) {
     const int r = i / kChunks, c = i % kChunks;
     uint4 val = make_uint4(0, 0, 0, 0);
     if (row0 + r < rows)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D +
+      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * ld +
                                             c * 8);
     *reinterpret_cast<uint4*>(dst + r * LD + c * 8) = val;
   }
 }
 
-template <int D>
+template <int D, bool kF32Out>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
-                     const uint8_t* __restrict__ kv_mask,
-                     __nv_bfloat16* __restrict__ o, int H, int Sq, int Skv,
-                     int causal, float sm_scale) {
+                     const uint8_t* __restrict__ kv_mask, void* __restrict__ o,
+                     int H, int Sq, int Skv, int causal, float sm_scale,
+                     Strides qs, Strides ks, Strides vs, Strides os) {
   constexpr int LD = D + 8;
   __shared__ __align__(16) __nv_bfloat16 sK[kBK * LD];  // Q is staged here first
   __shared__ __align__(16) __nv_bfloat16 sV[kBK * LD];
@@ -88,17 +101,17 @@ __global__ void __launch_bounds__(kThreads)
 
   const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
   const int bh = blockIdx.y;
-  const int b = bh / H;
+  const int b = bh / H, hd = bh % H;
   const int q0 = qt * kBQ;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
 
-  const __nv_bfloat16* qb = q + (size_t)bh * Sq * D;
-  const __nv_bfloat16* kb = k + (size_t)bh * Skv * D;
-  const __nv_bfloat16* vb = v + (size_t)bh * Skv * D;
+  const __nv_bfloat16* qb = q + b * qs.b + hd * qs.h;
+  const __nv_bfloat16* kb = k + b * ks.b + hd * ks.h;
+  const __nv_bfloat16* vb = v + b * vs.b + hd * vs.h;
 
   // Q tile -> registers (A fragments of the 16 rows this warp owns).
-  load_tile<D, LD>(sK, qb, q0, Sq);
+  load_tile<D, LD>(sK, qb, qs.s, q0, Sq);
   __syncthreads();
   const int r0 = warp * 16 + g;
   uint32_t qf[D / 16][4];
@@ -122,8 +135,8 @@ __global__ void __launch_bounds__(kThreads)
   const int kv_end = causal ? min(Skv, q0 + kBQ) : Skv;
   for (int kv0 = 0; kv0 < kv_end; kv0 += kBK) {
     __syncthreads();  // every warp is done with the previous tile (or Q)
-    load_tile<D, LD>(sK, kb, kv0, Skv);
-    load_tile<D, LD>(sV, vb, kv0, Skv);
+    load_tile<D, LD>(sK, kb, ks.s, kv0, Skv);
+    load_tile<D, LD>(sV, vb, vs.s, kv0, Skv);
     if (threadIdx.x < kBK) {
       const int kv = kv0 + threadIdx.x;
       sValid[threadIdx.x] =
@@ -209,43 +222,66 @@ __global__ void __launch_bounds__(kThreads)
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     inv[r] = l[r] > 0.f ? 1.f / l[r] : 0.f;
   }
-  __nv_bfloat16* ob = o + (size_t)bh * Sq * D;
+  const size_t ob = b * os.b + hd * os.h;
 #pragma unroll
   for (int dt = 0; dt < D / 8; ++dt) {
     const int c = dt * 8 + t * 2;
-    if (qrow[0] < Sq)
-      *reinterpret_cast<uint32_t*>(ob + (size_t)qrow[0] * D + c) =
-          pack_f32(acc[dt][0] * inv[0], acc[dt][1] * inv[0]);
-    if (qrow[1] < Sq)
-      *reinterpret_cast<uint32_t*>(ob + (size_t)qrow[1] * D + c) =
-          pack_f32(acc[dt][2] * inv[1], acc[dt][3] * inv[1]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (qrow[r] >= Sq) continue;
+      const size_t i = ob + (size_t)qrow[r] * os.s + c;
+      const float v0 = acc[dt][2 * r] * inv[r], v1 = acc[dt][2 * r + 1] * inv[r];
+      if (kF32Out)
+        *reinterpret_cast<float2*>(static_cast<float*>(o) + i) =
+            make_float2(v0, v1);
+      else
+        *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(o) + i) =
+            pack_f32(v0, v1);
+    }
   }
+}
+
+template <int D>
+int launch(const __nv_bfloat16* q, const __nv_bfloat16* k,
+           const __nv_bfloat16* v, const uint8_t* mask, void* o, int B, int H,
+           int Sq, int Skv, int causal, float sm_scale, const long long* st,
+           int out_f32, cudaStream_t stream) {
+  const dim3 grid((Sq + kBQ - 1) / kBQ, B * H);
+  const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]},
+      vs{st[6], st[7], st[8]}, os{st[9], st[10], st[11]};
+  if (out_f32)
+    flash_fwd_kernel<D, true><<<grid, kThreads, 0, stream>>>(
+        q, k, v, mask, o, H, Sq, Skv, causal, sm_scale, qs, ks, vs, os);
+  else
+    flash_fwd_kernel<D, false><<<grid, kThreads, 0, stream>>>(
+        q, k, v, mask, o, H, Sq, Skv, causal, sm_scale, qs, ks, vs, os);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q (B,H,Sq,D), k/v (B,H,Skv,D), o (B,H,Sq,D): contiguous bf16, 16-byte
-// aligned. kv_mask: (B,Skv) bytes (0 = masked) or null. Returns cudaError_t.
-extern "C" int lhrs_flash_fwd_bf16(const void* q, const void* k, const void* v,
-                                   const void* kv_mask, void* o, int B, int H,
-                                   int Sq, int Skv, int D, int causal,
-                                   float sm_scale, void* stream) {
+// q (B,H,Sq,D), k/v (B,H,Skv,D), o (B,H,Sq,D): bf16 (o float32 when
+// out_f32), unit stride along D, the other strides in `strides` (12 element
+// strides: batch, head, row of q, k, v, o; multiples of 8, 16-byte aligned
+// bases). kv_mask: (B,Skv) bytes (0 = masked) or null. Returns cudaError_t.
+extern "C" int lhrs_flash_fwd(const void* q, const void* k, const void* v,
+                              const void* kv_mask, void* o, int B, int H,
+                              int Sq, int Skv, int D, int causal,
+                              float sm_scale, const void* strides, int out_f32,
+                              void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0 || Skv <= 0 || B * H > 65535)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((Sq + kBQ - 1) / kBQ, B * H);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* qp = static_cast<const __nv_bfloat16*>(q);
   const auto* kp = static_cast<const __nv_bfloat16*>(k);
   const auto* vp = static_cast<const __nv_bfloat16*>(v);
   const auto* mp = static_cast<const uint8_t*>(kv_mask);
-  auto* op = static_cast<__nv_bfloat16*>(o);
+  const auto* sp = static_cast<const long long*>(strides);
   if (D == 64)
-    flash_fwd_kernel<64><<<grid, kThreads, 0, st>>>(qp, kp, vp, mp, op, H, Sq,
-                                                    Skv, causal, sm_scale);
-  else if (D == 128)
-    flash_fwd_kernel<128><<<grid, kThreads, 0, st>>>(qp, kp, vp, mp, op, H, Sq,
-                                                     Skv, causal, sm_scale);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+    return launch<64>(qp, kp, vp, mp, o, B, H, Sq, Skv, causal, sm_scale, sp,
+                      out_f32, st);
+  if (D == 128)
+    return launch<128>(qp, kp, vp, mp, o, B, H, Sq, Skv, causal, sm_scale, sp,
+                       out_f32, st);
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,8 +1,9 @@
 from .constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX  # noqa: F401
 from .llama import (KVCache, LlamaConfig, llama_decode_step,  # noqa: F401
                     llama_prefill)
-from .perceiver import PerceiverConfig, perceiver_resample  # noqa: F401
+from .perceiver import (PerceiverConfig, perceiver_resample,  # noqa: F401
+                        perceiver_resample_fused)
 from .splice import SplicedBatch, splice_image_embeddings  # noqa: F401
-from .vit import ViTConfig, vit_encode  # noqa: F401
+from .vit import ViTConfig, vit_encode, vit_encode_fused  # noqa: F401
 from .vlm import (VLMConfig, encode_image, init_vlm_params,  # noqa: F401
                   prepare_multimodal_inputs)

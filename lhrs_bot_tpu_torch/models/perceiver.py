@@ -7,7 +7,11 @@ blocks run with q = the evolving group queries and k/v = the fixed concat of
 the group's initial queries and that level's tokens; the group outputs are
 concatenated and projected into LLM space. The hoisted/folded K/V variants
 and the `batch_groups` path are not ported. Float parameters must already
-be in the compute dtype (the engine casts them once).
+be in the compute dtype (the engine casts them once). With int8
+`QuantizedTensor` projections (`quantize_vision_layers`) every projection
+goes W8A8 through `dense_any`, the JAX serving path's perceiver.
+`perceiver_resample_fused` runs the fused W8A8 block
+(ops/perceiver_block.py) instead, as the JAX function of that name does.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import torch
 
 from ..ops.attention import flash_attention
 from ..ops.mlp import dense_any, gelu_mlp
+from ..ops.perceiver_block import fused_perceiver_block
 from ..ops.rmsnorm import layer_norm
 from .llama import _layer
 
@@ -103,3 +108,42 @@ def perceiver_resample(params, image_embs: torch.Tensor,
     # one rounding (preferred_element_type=float32 in the JAX package)
     return (torch.matmul(pooled.float(), params["out_proj_w"].float())
             + params["out_proj_b"]).to(compute_dtype)
+
+
+def perceiver_resample_fused(params, packed_layers, image_embs: torch.Tensor,
+                             cfg: PerceiverConfig) -> torch.Tensor:
+    """perceiver_resample through the fused W8A8 block, in bf16, over
+    `pack_perceiver_layers_fused` layers. The groups are padded to common
+    (q_pad, kv_pad) shapes, the JAX layout, with the padding masked."""
+    if "in_proj_w" in params:
+        raise NotImplementedError("a perceiver whose width differs from the "
+                                  "vision width (in_proj) is not ported")
+    bf16 = torch.bfloat16
+    image_embs = image_embs.to(bf16)
+    b, h = image_embs.shape[0], cfg.hidden_size
+    q_pad = -(-max(cfg.stage_num) // 16) * 16
+    kv_pad = q_pad + (-(-max(cfg.split_part) // 16) * 16)
+    queries = params["query"].to(bf16)
+    q_groups, kv_groups, kv_valid = [], [], []
+    q_off = img_off = 0
+    for nq, nkv in zip(cfg.stage_num, cfg.split_part):
+        q0 = torch.zeros(b, q_pad, h, dtype=bf16, device=image_embs.device)
+        q0[:, :nq] = queries[q_off:q_off + nq]
+        kv = torch.zeros(b, kv_pad, h, dtype=bf16, device=image_embs.device)
+        kv[:, :q_pad] = q0
+        kv[:, q_pad:q_pad + nkv] = image_embs[:, img_off:img_off + nkv]
+        q_groups.append(q0)
+        kv_groups.append(kv)
+        kv_valid.append(nq + nkv)
+        q_off += nq
+        img_off += nkv
+    q_state = torch.stack(q_groups, dim=1)  # (B, G, q_pad, W)
+    kv_fixed = torch.stack(kv_groups, dim=1)  # (B, G, kv_pad, W)
+    for li in range(cfg.num_layers):
+        q_state = fused_perceiver_block(
+            q_state, kv_fixed, _layer(packed_layers, li), heads=cfg.heads,
+            group_nq=cfg.stage_num, kv_valid=kv_valid, ln_eps=cfg.ln_eps)
+    pooled = torch.cat([q_state[:, g, :nq]
+                        for g, nq in enumerate(cfg.stage_num)], dim=1)
+    return (torch.matmul(pooled.float(), params["out_proj_w"].to(bf16).float())
+            + params["out_proj_b"].float()).to(bf16)

@@ -1,12 +1,15 @@
 """CLIP ViT-L/14 vision tower with multi-level taps.
 
-Counterpart of `lhrs_bot_tpu/models/vit.py` (`vit_embed`, `vit_encode`):
-hidden states are tapped after `extract_stages` layers (7/15/22 for ViT-L),
-the CLS token is dropped from each tap, the taps are concatenated along the
-token axis, and layers past the last tap are never computed. Parameters use
-the JAX layout: per-layer tensors stacked on a leading axis, (in, out)
-projection weights. Float parameters must already be in the compute dtype
-(the engine casts them once).
+Counterpart of `lhrs_bot_tpu/models/vit.py` (`vit_embed`, `vit_encode`,
+`vit_encode_fused`): hidden states are tapped after `extract_stages` layers
+(7/15/22 for ViT-L), the CLS token is dropped from each tap, the taps are
+concatenated along the token axis, and layers past the last tap are never
+computed. Parameters use the JAX layout: per-layer tensors stacked on a
+leading axis, (in, out) projection weights. Float layer parameters must
+already be in the compute dtype (the engine casts them once). With int8
+`QuantizedTensor` projections (`quantize_vision_layers`) `vit_encode` is the
+XLA W8A8 tower of the JAX package (`dense_any`); `vit_encode_fused` is the
+fused W8A8 tower (ops/vit_block.py) over `pack_vit_layers_fused` layers.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from ..ops.attention import flash_attention
 from ..ops.mlp import dense_any, gelu_mlp
 from ..ops.patch_embed import patch_embed
 from ..ops.rmsnorm import layer_norm
+from ..ops.vit_block import vit_layer_fused
 from .llama import _layer
 
 
@@ -86,9 +90,9 @@ def vit_embed(params, images: torch.Tensor, cfg: ViTConfig,
     patches = patch_embed(images, params["patch_proj"], patch=cfg.patch_size,
                           compute_dtype=compute_dtype)
     b = patches.shape[0]
-    cls = params["class_emb"].expand(b, 1, cfg.width)
+    cls = params["class_emb"].to(compute_dtype).expand(b, 1, cfg.width)
     x = torch.cat([cls, patches], dim=1)
-    return x + params["pos_emb"][None]
+    return x + params["pos_emb"].to(compute_dtype)[None]
 
 
 def vit_encode(params, images: torch.Tensor, cfg: ViTConfig,
@@ -102,6 +106,31 @@ def vit_encode(params, images: torch.Tensor, cfg: ViTConfig,
     for stage in cfg.extract_stages:
         for li in range(prev, stage):
             x = _encoder_layer(x, _layer(params["layers"], li), cfg)
+        taps.append(x[:, 1:, :])  # drop CLS
+        prev = stage
+    return torch.cat(taps, dim=1)
+
+
+def vit_encode_fused(params, packed_layers, images: torch.Tensor,
+                     cfg: ViTConfig, *, group: int = 8, attn_pair: int = 2,
+                     split_attention: bool = False) -> torch.Tensor:
+    """Multi-level encode through the fused W8A8 block
+    (ops/vit_block.py), in bf16: (B, 3*num_patches, width). Same taps as
+    `vit_encode`. split_attention=True runs each block in the JAX split
+    form (attention output rounded to bf16 before its quantization).
+    `group` and `attn_pair` are the TPU kernel's layout (images per grid
+    step, images per attention matmul): the port computes each image's 257
+    tokens unpadded, which gives the same result, and ignores them."""
+    x = vit_embed(params, images, cfg, torch.bfloat16)
+    x = layer_norm(x, params["pre_ln"]["scale"], params["pre_ln"]["bias"],
+                   cfg.ln_eps)
+    taps = []
+    prev = 0
+    for stage in cfg.extract_stages:
+        for li in range(prev, stage):
+            x = vit_layer_fused(x, _layer(packed_layers, li), heads=cfg.heads,
+                                ln_eps=cfg.ln_eps, quick_gelu=cfg.quick_gelu,
+                                split_attention=split_attention)
         taps.append(x[:, 1:, :])  # drop CLS
         prev = stage
     return torch.cat(taps, dim=1)

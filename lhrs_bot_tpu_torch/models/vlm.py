@@ -18,7 +18,7 @@ import torch
 from .llama import LlamaConfig
 from .perceiver import PerceiverConfig, perceiver_resample
 from .splice import SplicedBatch, splice_image_embeddings
-from .vit import ViTConfig, vit_encode
+from .vit import ViTConfig, vit_encode, vit_encode_fused
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,10 +153,17 @@ def init_vlm_params(cfg: VLMConfig, seed: int = 0,
 
 
 def encode_image(params, images: torch.Tensor, cfg: VLMConfig,
-                 compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """uint8 (B, H, W, 3) images -> (B, num_query, llm hidden)."""
-    feats = vit_encode(params["vit"], images, cfg.vit,
-                       compute_dtype=compute_dtype)
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 vision_packed=None) -> torch.Tensor:
+    """uint8 (B, H, W, 3) images -> (B, num_query, llm hidden). With
+    `vision_packed` (from `ops.vit_block.pack_vit_layers_fused`) the tower
+    is the fused W8A8 one."""
+    if vision_packed is not None:
+        feats = vit_encode_fused(params["vit"], vision_packed, images,
+                                 cfg.vit)
+    else:
+        feats = vit_encode(params["vit"], images, cfg.vit,
+                           compute_dtype=compute_dtype)
     return perceiver_resample(params["pooler"], feats, cfg.pooler,
                               compute_dtype=compute_dtype)
 
@@ -168,6 +175,7 @@ def prepare_multimodal_inputs(
     labels: Optional[torch.Tensor] = None,
     compute_dtype: torch.dtype = torch.bfloat16,
     llama_params=None,
+    vision_packed=None,
 ) -> SplicedBatch:
     """Token ids (+ one image per row) -> spliced decoder inputs. Text-only
     batches (images None) are embedded directly."""
@@ -184,6 +192,7 @@ def prepare_multimodal_inputs(
     if images.dim() != 4:
         raise NotImplementedError("one (H, W, 3) image per row only; "
                                   "multi-image rows are not ported")
-    image_embeds = encode_image(params, images, cfg, compute_dtype)
+    image_embeds = encode_image(params, images, cfg, compute_dtype,
+                                vision_packed)
     return splice_image_embeddings(input_ids, image_embeds, embed_tokens,
                                    attention_mask, labels)

@@ -28,11 +28,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C entry points: name -> argtypes (each returns its cudaError_t as int)
 _ENTRIES = {
-    # q, k, v, kv_mask, o, B, H, Sq, Skv, D, causal, sm_scale, stream
-    "lhrs_flash_fwd_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                            ctypes.c_float, _P],
+    # q, k, v, kv_mask, o, B, H, Sq, Skv, D, causal, sm_scale,
+    # strides (12 int64: batch/head/row of q, k, v, o), out_f32, stream
+    "lhrs_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                       ctypes.c_float, _P, _I, _P],
     # q, k_new, v_new, k_cache, v_cache, lengths, out, layer, L, B, H, S, D,
     # sm_scale, stream
     "lhrs_fused_decode_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -43,6 +45,14 @@ _ENTRIES = {
     # xq_lo, xq_hi, x_scale, w (layer slice), w_scale (layer slice),
     # partial, out, B, K2, N, x_stride, ksplit, chunk, out_f32, stream
     "lhrs_w4a8_matmul": [_P] * 7 + [_I] * 7 + [_P],
+    # x, x_f32, x_stride, gamma, beta, q, s, M, W, eps, stream
+    "lhrs_ln_quant": [_P, _I, _L, _P, _P, _P, _P, _I, _I, ctypes.c_float,
+                      _P],
+    # A, lda, Wt, x_scale, w_scale, bias, residual, res_f32, ws_first,
+    # q_fold, n_fold, round_mid, out_mult, act, out_kind, out, M, N, K,
+    # stream
+    "lhrs_int8_gemm": [_P, _L, _P, _P, _P, _P, _P, _I, _I, ctypes.c_float,
+                       _I, _I, ctypes.c_float, _I, _I, _P, _I, _I, _I, _P],
 }
 
 

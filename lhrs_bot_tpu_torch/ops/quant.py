@@ -16,8 +16,15 @@ NF4 is the QLoRA NormalFloat4 codebook with per-64-block absmax along the
 contraction axis and the JAX package's linear int8 double quantization of
 the absmax plane (a round trip applied at quantize time, stored as f32).
 
-The W8A8 vision pieces (`w8a8_matmul`, `quantize_vision_layers`) belong to
-the vision slice and are not ported here.
+`quantize_activation` is kernel A's quantize-only mode (ops/ln_quant.py):
+the plain version on CPU tensors, csrc/ln_quant.cu on CUDA tensors, bit for
+bit the same. `w8a8_matmul` (per-row int8 activations x int8 weights, int32
+accumulation, scales in the float32 epilogue) runs the int8 GEMM of
+ops/int8_gemm.py, kernel B on CUDA tensors. `quantize_vision_layers`
+int8-quantizes the ViT/perceiver projections; their codes are stored as the
+transposed view of a contiguous (..., out, in) tensor (`transposed_storage`),
+the layout kernel B reads, while the values and the (in, out) shape stay
+the JAX package's.
 """
 
 from __future__ import annotations
@@ -25,6 +32,9 @@ from __future__ import annotations
 from typing import Any, Dict, Tuple
 
 import torch
+
+from .int8_gemm import int8_gemm
+from .ln_quant import div_exact, ln_quant
 
 
 class QuantizedTensor:
@@ -55,7 +65,7 @@ class QuantizedTensor:
 def _symmetric(w: torch.Tensor, axis: int, qmax: float):
     """(codes in [-qmax, qmax] as int8, f32 scale) along `axis`."""
     wf = w.float()
-    scale = wf.abs().amax(dim=axis, keepdim=True) / qmax
+    scale = div_exact(wf.abs().amax(dim=axis, keepdim=True), qmax)
     scale = torch.where(scale == 0, torch.ones_like(scale), scale)
     q = torch.clamp(torch.round(wf / scale), -qmax, qmax).to(torch.int8)
     return q, scale
@@ -71,12 +81,23 @@ def quantize_int8(w: torch.Tensor, axis: int = -2) -> QuantizedTensor:
 def quantize_activation(x: torch.Tensor) -> Tuple[torch.Tensor,
                                                    torch.Tensor]:
     """Dynamic per-vector symmetric int8 over the last axis: (..., d) ->
-    (int8 values, (..., 1) f32 scales)."""
-    xf = x.float()
-    absmax = xf.abs().amax(dim=-1, keepdim=True)
-    scale = torch.where(absmax == 0, torch.ones_like(absmax), absmax / 127.0)
-    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
-    return q, scale
+    (int8 values, (..., 1) f32 scales). Kernel A without the LayerNorm."""
+    return ln_quant(x)
+
+
+def transposed_storage(q: torch.Tensor) -> torch.Tensor:
+    """The same (..., in, out) values, stored as the transposed view of a
+    contiguous (..., out, in) tensor: the weight layout of kernel B."""
+    return q.transpose(-1, -2).contiguous().transpose(-1, -2)
+
+
+def w8a8_matmul(x: torch.Tensor, qt: QuantizedTensor,
+                out_dtype=None) -> torch.Tensor:
+    """Full-int8 matmul: x (..., in) quantized per row, times int8 (in,
+    out) weights, int32 accumulation, (acc * x_scale) * w_scale in float32,
+    then `out_dtype` (default x.dtype)."""
+    xq, xs = quantize_activation(x)
+    return int8_gemm(xq, xs, qt.q, qt.scale, out_dtype=out_dtype or x.dtype)
 
 
 def dequantize(qt: QuantizedTensor) -> torch.Tensor:
@@ -202,7 +223,7 @@ def _double_quant_roundtrip(absmax: torch.Tensor,
     c = flat - offset
     n = flat.numel()
     cp = torch.nn.functional.pad(c, (0, (-n) % block)).reshape(-1, block)
-    s = cp.abs().amax(dim=-1, keepdim=True) / 127.0
+    s = div_exact(cp.abs().amax(dim=-1, keepdim=True), 127.0)
     s = torch.where(s == 0, torch.ones_like(s), s)
     q = torch.clamp(torch.round(cp / s), -127, 127)
     return ((q * s).reshape(-1)[:n] + offset).reshape(absmax.shape)
@@ -287,4 +308,25 @@ def quantize_llama_layers(layers: Dict[str, torch.Tensor], bits=8, *,
 def dequantize_llama_layers(layers: Dict[str, Any]
                             ) -> Dict[str, torch.Tensor]:
     return {name: dequantize(w) if isinstance(w, QuantizedTensor) else w
+            for name, w in layers.items()}
+
+
+_VISION_QUANT_TARGETS = ("wq", "wk", "wv", "wo", "w_fc", "w_proj")
+
+
+def quantize_vision_layers(layers: Dict[str, torch.Tensor],
+                           bits: int = 8) -> Dict[str, Any]:
+    """int8-quantize the stacked (L, in, out) ViT/perceiver projection
+    weights (LayerNorms and biases stay float), so that `dense_any` and
+    `gelu_mlp` take the W8A8 path. Codes in kernel B's layout. The JAX
+    package's bits=4 variant (int4 codes that its W8A8 matmul cannot use)
+    is not ported."""
+    if bits != 8:
+        raise ValueError(f"quantize_vision_layers takes bits=8, got {bits!r}")
+
+    def fn(w):
+        qt = quantize_int8(w, axis=1)
+        return QuantizedTensor(transposed_storage(qt.q), qt.scale, bits=8)
+
+    return {name: fn(w) if name in _VISION_QUANT_TARGETS else w
             for name, w in layers.items()}

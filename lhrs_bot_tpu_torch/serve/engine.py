@@ -8,10 +8,10 @@ the same shapes for the same request.
 
 The engine moves every parameter to its device and casts every float
 parameter to the compute dtype once, at construction; the models take them
-as they are. (The JAX engine keeps the vision tower's parameters as given
-and casts the layer stacks per call, so with float32 weights and a bf16
-compute dtype its ViT pre-LayerNorm runs on float32 scale/bias where the
-port's runs on bf16-rounded ones.)
+as they are. The ViT's pre-LayerNorm scale and bias are the exception: the
+JAX engine keeps the vision tower's parameters as given and casts only what
+its models cast, which leaves that LayerNorm on the given values (float32
+for a float32 tree), so the port keeps them as given too.
 
 Quantized serving: `quantize_bits` 8 (int8), 4 (NF4 for quant_type "nf4",
 halves-packed W4A8 for "int4h", interleaved int4 otherwise) or "4h" (halves
@@ -26,11 +26,16 @@ bits 4 after the cast to the compute dtype (`quantize_llama_layers`,
 the same weights. One stacked weight is quantized at a time, on the
 engine's device.
 
+`vision_w8a8=True` runs the fused W8A8 vision tower (ops/vit_block.py) and
+the W8A8 perceiver (`dense_any` over int8 projections), as the JAX engine
+does: the ViT layers are packed (`pack_vit_layers_fused`) and the pooler's
+projections quantized (`quantize_vision_layers`) from their given values,
+before any cast, so the codes are the JAX engine's.
+
 The decode loop is a Python loop of `llama_decode_step` calls whose tokens
 stay on the device; the host reads the tokens once, at the end of
-`generate`. Chunked prefill, sessions, speculative decoding, LoRA trees, the
-W8A8 vision tower and meshes are not ported: asking for one raises
-NotImplementedError.
+`generate`. Chunked prefill, sessions, speculative decoding, LoRA trees and
+meshes are not ported: asking for one raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -45,14 +50,17 @@ import torch
 from ..models.llama import KVCache, llama_decode_step, llama_prefill
 from ..models.vlm import VLMConfig, prepare_multimodal_inputs
 from ..ops.quant import (_QUANT_TARGETS, QuantizedTensor, quantize_int4h,
-                         quantize_int8, quantize_llama_layers)
+                         quantize_int8, quantize_llama_layers,
+                         quantize_vision_layers)
+from ..ops.vit_block import pack_vit_layers_fused
 
 logger = logging.getLogger(__name__)
 
 
-def _cast_params(tree, dtype: torch.dtype, device: torch.device):
-    """A nested dict of tensors on `device`, float leaves cast to `dtype`;
-    QuantizedTensors move with their scales in float32."""
+def _cast_params(tree, dtype: Optional[torch.dtype], device: torch.device):
+    """A nested dict of tensors on `device`, float leaves cast to `dtype`
+    (kept as they are for None); QuantizedTensors move with their scales in
+    float32."""
     if isinstance(tree, dict):
         return {k: _cast_params(v, dtype, device) for k, v in tree.items()}
     if isinstance(tree, QuantizedTensor):
@@ -152,8 +160,7 @@ class GenerationEngine:
         prefill_chunk: Optional[int] = None,
         mesh=None,
     ):
-        unported = {"vision_w8a8": vision_w8a8,
-                    "prefill_chunk": prefill_chunk, "mesh": mesh,
+        unported = {"prefill_chunk": prefill_chunk, "mesh": mesh,
                     "lora": params.get("lora")}
         asked = [k for k, v in unported.items() if v]
         if asked:
@@ -174,9 +181,21 @@ class GenerationEngine:
         self.cache_bucket = cache_bucket
 
         # the one place parameters are placed and cast: the models take
-        # every float parameter in the compute dtype
-        self.params = {k: _cast_params(params[k], compute_dtype, self.device)
-                       for k in ("vit", "pooler")}
+        # every float parameter in the compute dtype, but the ViT's
+        # pre-LayerNorm, kept as given (see the module docstring)
+        vit = {k: v for k, v in params["vit"].items() if k != "pre_ln"}
+        pooler = params["pooler"]
+        self._vision_packed = None
+        if vision_w8a8:  # quantized from the given values, before any cast
+            self._vision_packed = pack_vit_layers_fused(
+                _cast_params(vit.pop("layers"), None, self.device))
+            pooler = {**pooler, "layers": quantize_vision_layers(
+                _cast_params(pooler["layers"], None, self.device))}
+        self.params = {
+            "vit": {**_cast_params(vit, compute_dtype, self.device),
+                    "pre_ln": _cast_params(params["vit"]["pre_ln"], None,
+                                           self.device)},
+            "pooler": _cast_params(pooler, compute_dtype, self.device)}
         self.llama_params = _quantize_llama(
             params["llama"], compute_dtype=compute_dtype, device=self.device,
             quantize_bits=quantize_bits, quant_type=quant_type,
@@ -192,7 +211,8 @@ class GenerationEngine:
         spliced = prepare_multimodal_inputs(
             self.params, self.cfg, input_ids, images, attention_mask=mask,
             compute_dtype=self.compute_dtype,
-            llama_params=self.llama_params)
+            llama_params=self.llama_params,
+            vision_packed=self._vision_packed)
         cache = KVCache.create(self.cfg.llama, batch, cache_len,
                                dtype=self.cache_dtype, device=self.device)
         return llama_prefill(self.llama_params, self.cfg.llama, cache,

@@ -149,9 +149,11 @@ def test_sampling_top_p_and_seed(engines):
     assert runs[0] == runs[1]
 
 
-# quantized weights and the int8 cache are ported: those cases build an
-# engine whose parameters or cache are quantized; the others raise
-PORTED_OPTIONS = ({"quantize_bits": 8}, {"cache_dtype": torch.int8})
+# quantized weights, the int8 cache and the W8A8 vision tower are ported:
+# those cases build an engine whose parameters or cache are quantized; the
+# others raise
+PORTED_OPTIONS = ({"quantize_bits": 8}, {"cache_dtype": torch.int8},
+                  {"vision_w8a8": True})
 
 
 @pytest.mark.parametrize("kwargs", [{"quantize_bits": 8}, {"mesh": "m"},
@@ -173,12 +175,20 @@ def test_unported_engine_options_raise(engines, kwargs):
     _, cache, _ = engine._start(ids, lens, imgs,
                                 t_engine.GenerationConfig(max_new_tokens=2))
     wq = engine.llama_params["layers"]["wq"]
+    pooler_wq = engine.params["pooler"]["layers"]["wq"]
     if "quantize_bits" in kwargs:
         assert wq.bits == 8 and wq.q.dtype == torch.int8
         assert not cache.quantized
+    elif "vision_w8a8" in kwargs:
+        assert engine._vision_packed["wqkv"].dtype == torch.int8
+        assert pooler_wq.bits == 8 and pooler_wq.q.dtype == torch.int8
+        assert wq.dtype == torch.float32 and not cache.quantized
     else:
         assert cache.quantized and cache.k.dtype == torch.int8
         assert wq.dtype == torch.float32
+    if "vision_w8a8" not in kwargs:
+        assert engine._vision_packed is None
+        assert pooler_wq.dtype == torch.float32
 
 
 def _fields(cfg):
@@ -248,9 +258,16 @@ def test_build_engine():
     assert len(out) == 1 and len(out[0]) <= 3
     nf4 = build_engine(vcfg, params, {**cfg, "bits": 4}, "cpu")
     assert nf4.llama_params["layers"]["wq"].bits == "nf4"
-    for bad in ({"vision_w8a8": True}, {"prefill_chunk": 64}):
-        with pytest.raises(NotImplementedError):
-            build_engine(vcfg, params, {**cfg, **bad}, "cpu")
+    # the fused W8A8 vision tower is ported: off by default on the CPU,
+    # built when the config asks for it
+    assert int8._vision_packed is None
+    w8a8 = build_engine(vcfg, params, {**cfg, "vision_w8a8": True}, "cpu")
+    assert w8a8._vision_packed["w_fc"].dtype == torch.int8
+    out = w8a8.generate(ids, lens, images=imgs,
+                        gen_cfg=t_engine.GenerationConfig(max_new_tokens=3))
+    assert len(out) == 1 and len(out[0]) <= 3
+    with pytest.raises(NotImplementedError):
+        build_engine(vcfg, params, {**cfg, "prefill_chunk": 64}, "cpu")
     with pytest.raises(ValueError):
         build_engine(vcfg, params, {**cfg, "kv_bits": 4}, "cpu")
 
