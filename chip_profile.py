@@ -18,8 +18,10 @@ and the W4A8 + int8 lm_head + int8 KV recipe) and prints:
      step; the lm_head product in float32 (the path's) and in bf16;
   2. a torch.profiler trace of a 16-token generate: wall time, the card's
      busy time (kernel time summed) and busy share, and the top kernels;
-     then, for the W4A8 + int8-KV engine, its prefill times, its B=1
-     decode step, the profiler trace of its 16-token generate, and its
+     a paged decode tick of 16 steps at B=8 (PagedScheduler, bf16 pool)
+     with its profiler trace and busy share; then, for the W4A8 + int8-KV
+     engine, its prefill times, its B=1 decode step, the profiler trace of
+     its 16-token generate, the same paged tick over an int8 pool, and its
      lm_head product (int8 weights, float32 product);
   3. the prefill/decode consistency readings of chip_smoke.py (relative L2
      of prefill(P) + decode_step(t) against prefill(P + [t]), and of each
@@ -39,7 +41,8 @@ import time
 
 import numpy as np
 
-from chip_smoke import decode_vs_prefill, log, rel_l2, smi_line
+from chip_smoke import (decode_vs_prefill, log, plain_attention, rel_l2,
+                        smi_line)
 
 
 def timed(fn, reps=5):
@@ -60,28 +63,6 @@ def timed(fn, reps=5):
         host_ms.append((time.perf_counter() - t0) * 1e3)
         dev_ms.append(start.elapsed_time(end))
     return statistics.median(dev_ms), statistics.median(host_ms)
-
-
-@contextlib.contextmanager
-def plain_attention():
-    """Route the decoder's two attention entry points to their plain
-    versions, on CUDA tensors too, for as long as the block runs."""
-    import lhrs_bot_tpu_torch.models.llama as llama
-    from lhrs_bot_tpu_torch.ops.attention import mha_reference
-    from lhrs_bot_tpu_torch.ops.fused_decode import \
-        fused_decode_attention_plain
-
-    def flash(q, k, v, kv_mask=None, *, causal=False, sm_scale=None):
-        return mha_reference(q, k, v, kv_mask, causal=causal,
-                             sm_scale=sm_scale)
-
-    saved = llama.flash_attention, llama.fused_decode_attention
-    llama.flash_attention = flash
-    llama.fused_decode_attention = fused_decode_attention_plain
-    try:
-        yield
-    finally:
-        llama.flash_attention, llama.fused_decode_attention = saved
 
 
 def profile_generate(engine, ids, lens, img):
@@ -105,6 +86,50 @@ def profile_generate(engine, ids, lens, img):
         f"card busy {busy_ms:.1f} ms, busy share {busy_ms / wall_ms:.3f}")
     log(events.table(sort_by="self_device_time_total", row_limit=15,
                      max_name_column_width=60))
+
+
+def paged_tick(engine, cfg, dev, name, k=16):
+    """A paged decode tick at B=8: eight text requests (2048, 40, 300, 120,
+    1000, 1500, 700 and 443 tokens) admitted into a PagedScheduler with a
+    pool of 4 x max_seq_len tokens in pages of 128, then ticks of `k` decode
+    steps: the tick's time (events, host), per step, and a profiler trace
+    of one tick with the card's busy share."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from lhrs_bot_tpu_torch.serve.paged import PagedScheduler
+    from lhrs_bot_tpu_torch.serve.scheduler import Request
+
+    sched = PagedScheduler(cfg, engine.params, engine.llama_params,
+                           max_batch=8, page_size=128,
+                           num_pages=4 * engine.max_seq_len // 128 + 1,
+                           max_seq_len=engine.max_seq_len,
+                           cache_dtype=engine.cache_dtype, tokens_per_tick=k,
+                           eos_token_id=-1, device=dev)
+    rng = np.random.default_rng(3)
+    reqs = [Request(uid=i, input_ids=rng.integers(
+        3, cfg.llama.vocab_size, n).astype(np.int32), max_new_tokens=200)
+        for i, n in enumerate((2048, 40, 300, 120, 1000, 1500, 700, 443))]
+    assert sched.admit(reqs) == 8
+    dev_ms, host_ms = timed(sched.step, reps=3)
+    log(f"paged decode tick, {name}, B=8, k={k}: {dev_ms:.3f} ms (events), "
+        f"{host_ms:.3f} ms (host); {host_ms / k:.3f} ms a step")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sched.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    busy_ms = sum(e.self_device_time_total for e in events
+                  if e.device_type == DeviceType.CUDA) / 1e3
+    log(f"paged decode tick, {name}, under the profiler: wall {wall_ms:.1f} "
+        f"ms, card busy {busy_ms:.1f} ms, busy share {busy_ms / wall_ms:.3f}")
+    log(events.table(sort_by="self_device_time_total", row_limit=10,
+                     max_name_column_width=60))
+    del sched
+    torch.cuda.empty_cache()
 
 
 def towers(params, cfg, dev, batch=64):
@@ -218,6 +243,7 @@ def main():
         lambda: torch.matmul(x, lm_head)))
 
     profile_generate(engine, ids, lens, img)
+    paged_tick(engine, cfg, dev, "bf16 pool")
 
     log("-- W4A8 weights + int8 lm_head + int8 KV cache --")
     w4 = build_engine(cfg, params, {**config, "bits": 4, "quant_type": "int4h",
@@ -242,6 +268,7 @@ def main():
         lambda: quantized_matmul(x, w4.llama_params["lm_head"],
                                  out_dtype=torch.float32)))
     profile_generate(w4, ids, lens, img)
+    paged_tick(w4, cfg, dev, "int8 pool, W4A8 weights")
     del w4
     torch.cuda.empty_cache()
 

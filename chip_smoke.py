@@ -15,6 +15,12 @@ Phases, one or more lines each:
      tower's shapes, the fused ViT block (B = 1 and 8), its split form and
      the fused perceiver block against their plain versions, and the fused
      W8A8 tower at full depth against the bf16 tower, with a planted fault;
+     the paged decode pair (bf16 and int8 pools) at L32 H32 D128, pages of
+     128 and 16, eight rows around page boundaries and a ghost row,
+     shuffled pages, the null and unallocated pages poisoned, pools
+     byte-equal to plain's; every kernel with its bound (bytes over 3.35
+     TB/s or operations over the dense peak) and, where one PyTorch call
+     computes the same function, that call's time;
   4. slices: the serving paths at full width (ViT-L/14, 144-query 6-layer
      perceiver, LLaMA-2-7B, one set of seeded random bf16 weights) through
      build_engine + GenerationEngine.generate: bf16 (three requests), the
@@ -23,13 +29,26 @@ Phases, one or more lines each:
      default on the card, the fused W8A8 vision tower and W8A8 perceiver
      (two requests, B 1 and 8), NF4 weights with the int8 cache (one
      request); for each path the kernels' launch counts, and for bf16 and
-     W4A8 a prefill/decode consistency check with planted faults.
+     W4A8 a prefill/decode consistency check with planted faults. Then,
+     from the bf16 engine's parameters, paged against contiguous decode on
+     the same cache contents (bf16 and int8 caches, with a swapped-page
+     fault), the paged prefill against the contiguous one in float32 on
+     the first layers (a shared prefix, two planted faults), a 12-request serving wave through the contiguous
+     scheduler, the paged scheduler (a pool of 4 x 2304 tokens), the paged
+     one with prefill_chunk 512, and, from the int8 engine's (bits 8,
+     kv_bits 8), the paged one over an int8 pool: tokens/s, time to first
+     token, admissions (the pool defers one, pages recycle), prefix hits,
+     pool state and launch counts (the paged kernels 32 times a decode
+     step, K2 / K4 never, and the reverse for the contiguous run); and the
+     reference's page-table hazard wave (pages of 16), where no idle
+     slot's table row may name a live page after any tick.
 Then a JSON line with per-kernel numbers, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}. Any failure raises: the script
 exits non-zero and prints no result. It needs no network and imports nothing
 of JAX.
 """
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -62,6 +81,28 @@ CONSISTENCY_REL_L2 = 0.15
 # 1.15-1.42; the bound sits between, about 2.5x above the noise and 1.9x
 # below the smallest fault.
 CONSISTENCY_REL_L2_W4A8 = 0.6
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """Route the decoder's two attention entry points to their plain
+    versions, on CUDA tensors too, for as long as the block runs."""
+    import lhrs_bot_tpu_torch.models.llama as llama
+    from lhrs_bot_tpu_torch.ops.attention import mha_reference
+    from lhrs_bot_tpu_torch.ops.fused_decode import \
+        fused_decode_attention_plain
+
+    def flash(q, k, v, kv_mask=None, *, causal=False, sm_scale=None):
+        return mha_reference(q, k, v, kv_mask, causal=causal,
+                             sm_scale=sm_scale)
+
+    saved = llama.flash_attention, llama.fused_decode_attention
+    llama.flash_attention = flash
+    llama.fused_decode_attention = fused_decode_attention_plain
+    try:
+        yield
+    finally:
+        llama.flash_attention, llama.fused_decode_attention = saved
 
 
 def log(msg):
@@ -230,7 +271,20 @@ def phase_kernels(dev):
                                                   sm_scale=scale))
             line += f"; kernel {ms:.4f} ms, plain {plain:.4f} ms"
             if name == "prefill":
+                import torch.nn.functional as F
+
                 k1["ms"], k1["plain_ms"] = ms, plain
+                k1["library_ms"] = cuda_ms(
+                    lambda: F.scaled_dot_product_attention(q, k, v,
+                                                           is_causal=True))
+                # q, k, v read and o written once; QK^T and PV over the
+                # causal pairs
+                k1["bound_ms"], k1["bound_by"] = bound(
+                    4 * b * h * sq * d * 2,
+                    4.0 * b * h * d * sq * (sq + 1) / 2)
+                line += (f", library (SDPA, causal) {k1['library_ms']:.4f} "
+                         f"ms, bound {k1['bound_ms']:.4f} ms "
+                         f"({k1['bound_by']})")
         log(line)
 
     # K2 at the decode shape: L32 B2 H32 S2304 D128
@@ -266,8 +320,13 @@ def phase_kernels(dev):
         q, kn, vn, kck, vck, lengths, next(turn) % nl, scale))
     k2["plain_ms"] = cuda_ms(lambda: fused_decode_attention_plain(
         q, kn, vn, kck, vck, lengths, next(turn) % nl, sm_scale=scale))
+    k2["library_ms"] = cuda_ms(lambda: masked_sdpa(
+        q, kck[next(turn) % nl], vck[next(turn) % nl], lengths + 1))
+    k2["bound_ms"], k2["bound_by"] = decode_bound(lengths, h, d, 2)
     log(f"  K2 time per layer call: kernel {k2['ms']:.4f} ms, plain "
-        f"{k2['plain_ms']:.4f} ms")
+        f"{k2['plain_ms']:.4f} ms, library (SDPA over the filled cache, "
+        f"append excluded) {k2['library_ms']:.4f} ms, bound "
+        f"{k2['bound_ms']:.4f} ms ({k2['bound_by']})")
     del kc, vc, kck, vck
     torch.cuda.empty_cache()
     return k1, k2
@@ -319,14 +378,21 @@ def phase_quant_kernels(dev):
             plain = cuda_ms(lambda: w4a8_matmul_plain(
                 xlo, xhi, xs, w, ws, next(turn) % nl))
             gbs = k // 2 * n / ms / 1e6
+            # packed weights, their scales, the codes and scales of x, and
+            # a float32 output
+            bms, by = bound(k // 2 * n + 4 * n + b * (k + 4) + 4 * b * n,
+                            2.0 * b * k * n, "int8")
             k3["shapes"].append({"K": k, "N": n, "B": b, "ms": ms,
-                                 "plain_ms": plain, "GB_s": gbs})
+                                 "plain_ms": plain, "GB_s": gbs,
+                                 "bound_ms": bms, "bound_by": by})
             log(f"  K3 K{k} N{n} B{b}, layers 0/31: bit-identical; kernel "
                 f"{ms:.4f} ms ({gbs:.0f} GB/s), plain {plain:.4f} ms")
         del w, ws
     main = next(r for r in k3["shapes"]
                 if (r["K"], r["N"], r["B"]) == (4096, 11008, 1))
-    k3["ms"], k3["plain_ms"] = main["ms"], main["plain_ms"]
+    for key in ("ms", "plain_ms", "bound_ms", "bound_by"):
+        k3[key] = main[key]
+    k3["library_ms"] = None  # no one PyTorch call computes W4A8
 
     # K4 at the decode shape: L32 H32 S2304 D128, B2 and B7
     h, s, d = 32, 2304, 128
@@ -367,8 +433,17 @@ def phase_quant_kernels(dev):
             k4["plain_ms"] = cuda_ms(lambda: fused_decode_attention_q_plain(
                 q, kn, kns, vn, vns, kc, vc, ks, vs, lens, next(turn) % nl,
                 sm_scale=scale))
+            deq = [(c[0].float() * sc[0][..., None]).bfloat16()
+                   for c, sc in ((kc, ks), (vc, vs))]
+            k4["library_ms"] = cuda_ms(lambda: masked_sdpa(
+                q, deq[0], deq[1], lens + 1))
+            k4["bound_ms"], k4["bound_by"] = decode_bound(lens, h, d, 1)
+            del deq
             log(f"  K4 time per layer call (B2): kernel {k4['ms']:.4f} ms, "
-                f"plain {k4['plain_ms']:.4f} ms")
+                f"plain {k4['plain_ms']:.4f} ms, library (SDPA over the "
+                f"dequantized bf16 cache, append excluded) "
+                f"{k4['library_ms']:.4f} ms, bound {k4['bound_ms']:.4f} ms "
+                f"({k4['bound_by']})")
         del kc, vc, ks, vs
     # a row with no room for the append: nothing written, NaN out
     kc, vc = codes(1, 2, 2, 64, d), codes(1, 2, 2, 64, d)
@@ -388,6 +463,240 @@ def phase_quant_kernels(dev):
     log("  K4 full row (lengths[b] == S): nothing written, NaN out")
     torch.cuda.empty_cache()
     return k3, k4
+
+
+HBM_BYTES_S = 3.35e12  # H100 SXM device memory
+PEAK_OPS_S = {"bf16": 989e12, "int8": 1979e12}  # dense tensor-core peaks
+
+
+def bound(n_bytes, ops=0.0, kind="bf16"):
+    """(bound ms, "bytes" or "operations"): the larger of the bytes over
+    the card's memory rate and the operations over its peak rate."""
+    t_bytes = n_bytes / HBM_BYTES_S * 1e3
+    t_ops = ops / PEAK_OPS_S[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def block_bound(n_bytes, int8_ops, bf16_ops):
+    """The bound of a fused block: its bytes over the memory rate, or its
+    int8 and bf16 operations each over their peak, summed."""
+    t_bytes = n_bytes / HBM_BYTES_S * 1e3
+    t_ops = (int8_ops / PEAK_OPS_S["int8"] + bf16_ops / PEAK_OPS_S["bf16"]) \
+        * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def decode_bound(lengths, h, d, elt):
+    """The bound of a decode attention call: the K and V rows (and, for an
+    int8 cache of elt 1, their float32 scales) of each row's lengths + 1
+    positions read once, q / the new rows read and the output written once;
+    4 (len + 1) D operations a head."""
+    n = int((lengths.long() + 1).sum())
+    row = h * (d * elt + (4 if elt == 1 else 0))
+    b = lengths.numel()
+    return bound(2 * n * row + b * h * d * (2 * 2 + 2 * elt), 4.0 * n * h * d)
+
+
+def masked_sdpa(q, k, v, lengths):
+    """The library call beside the decode kernels: one
+    scaled_dot_product_attention of q (B, H, 1, D) over the first
+    lengths[b] rows of contiguous (B, H, S, D) K/V (attention only)."""
+    import torch
+    import torch.nn.functional as F
+
+    mask = (torch.arange(k.shape[2], device=k.device)[None, :]
+            < lengths[:, None])[:, None, None, :]
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+
+# The paged kernels' rows: lengths around page boundaries (128, 127) and the
+# serving wave's spliced lengths; one more row is a ghost (an idle slot:
+# all-null table, a frozen length).
+PAGED_LENGTHS = (2191, 1143, 843, 443, 263, 183, 128, 127)
+GHOST_LENGTH = 300
+POISON = 1.0e4
+
+
+def paged_case(dev, gen, page, int8, nl=32, h=32, d=128, s_max=2304,
+               spare=8):
+    """Pools (L, N, H, page, D) of random rows, a table whose rows hold
+    ceil((len + 1) / page) shuffled pages each and a ghost row of null
+    pages, `spare` unallocated pages; the null and unallocated pages
+    poisoned. Returns a dict of the inputs and the valid page ids."""
+    import torch
+
+    lengths = list(PAGED_LENGTHS) + [GHOST_LENGTH]
+    b, pps = len(lengths), -(-s_max // page)
+    need = [-(-(n + 1) // page) for n in PAGED_LENGTHS]
+    n_pages = 1 + sum(need) + spare
+    perm = torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(
+        page)) + 1
+    table = torch.zeros(b, pps, dtype=torch.int32)
+    at = 0
+    for r, n in enumerate(need):
+        table[r, :n] = perm[at:at + n].int()
+        at += n
+    used = perm[:at].tolist()
+    free = [0] + perm[at:].tolist()
+    shape = (nl, n_pages, h, page, d)
+    if int8:
+        def pool():
+            return torch.randint(-127, 128, shape, generator=gen, device=dev,
+                                 dtype=torch.int8)
+
+        def scales(*sh):
+            return torch.rand(sh, generator=gen, device=dev) * 0.02 + 0.005
+
+        case = {"k_pages": pool(), "v_pages": pool(),
+                "k_scale_pages": scales(*shape[:-1]),
+                "v_scale_pages": scales(*shape[:-1]),
+                "k_new": torch.randint(-127, 128, (b, h, 1, d), generator=gen,
+                                       device=dev, dtype=torch.int8),
+                "v_new": torch.randint(-127, 128, (b, h, 1, d), generator=gen,
+                                       device=dev, dtype=torch.int8),
+                "k_new_scale": scales(b, h, 1), "v_new_scale": scales(b, h, 1)}
+        for name in ("k_pages", "v_pages"):
+            case[name][:, free] = 127
+        for name in ("k_scale_pages", "v_scale_pages"):
+            case[name][:, free] = POISON
+    else:
+        def randn(*sh):
+            return torch.randn(sh, generator=gen, device=dev,
+                               dtype=torch.bfloat16)
+
+        case = {"k_pages": randn(*shape), "v_pages": randn(*shape),
+                "k_new": randn(b, h, 1, d), "v_new": randn(b, h, 1, d)}
+        for name in ("k_pages", "v_pages"):
+            case[name][:, free] = POISON
+    case["q"] = torch.randn(b, h, 1, d, generator=gen, device=dev,
+                            dtype=torch.bfloat16)
+    case["page_table"] = table.to(dev)
+    case["lengths"] = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    return case, used, free
+
+
+POOLS = ("k_pages", "v_pages", "k_scale_pages", "v_scale_pages")
+
+
+def paged_args(case, pools, int8):
+    """The positional arguments of the paged wrappers (kernel and plain)
+    before `layer`, with `pools` in place of the case's pools."""
+    if int8:
+        return (case["q"], case["k_new"], case["k_new_scale"], case["v_new"],
+                case["v_new_scale"], *pools, case["page_table"],
+                case["lengths"])
+    return (case["q"], case["k_new"], case["v_new"], *pools,
+            case["page_table"], case["lengths"])
+
+
+def phase_paged_kernels(dev):
+    """The paged decode pair against their plain versions at L32 H32 D128:
+    eight rows around page boundaries plus a ghost row, shuffled pages, the
+    null and unallocated pages poisoned, pages of 128 and 16, layers 0 and
+    31. Outputs of the live rows within ATOL + RTOL of plain and unmoved by
+    the poison (equal to a run on unpoisoned pools); pools and scale pages
+    byte-equal to plain's and to the inputs with the appended rows written.
+    Times at page 128, with the library call (scaled_dot_product_attention
+    over the gathered, already-appended cache) and the bound."""
+    import torch
+
+    from lhrs_bot_tpu_torch.ops.paged_fused import (
+        _append_target, _gather_pages, paged_fused_decode_kernel,
+        paged_fused_decode_plain,
+        paged_fused_decode_q_kernel, paged_fused_decode_q_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    live = slice(0, len(PAGED_LENGTHS))
+    scale = 128 ** -0.5
+    out = {}
+    for int8 in (False, True):
+        name = "paged_fused_decode_q" if int8 else "paged_fused_decode"
+        kernel = paged_fused_decode_q_kernel if int8 else \
+            paged_fused_decode_kernel
+        plain = paged_fused_decode_q_plain if int8 else \
+            paged_fused_decode_plain
+        pool_names = POOLS if int8 else POOLS[:2]
+        res = {"max_abs_err": 0.0}
+        for page in (128, 16):
+            case, used, free = paged_case(dev, gen, page, int8)
+            pools = [case[p] for p in pool_names]
+            lengths, table = case["lengths"], case["page_table"]
+            for layer in (0, 31):
+                mine = [p.clone() for p in pools]
+                got = kernel(*paged_args(case, mine, int8), layer, scale)[0]
+                ref_pools = [p.clone() for p in pools]
+                args = list(paged_args(case, ref_pools, int8))
+                args[0] = args[0].float()
+                ref = plain(*args, layer, sm_scale=scale)[0]
+                # the expected pools: the inputs with the rows appended
+                want = [p.clone() for p in pools]
+                pg, off = _append_target(table, lengths, page)
+                rows = [case["k_new"][:, :, 0], case["v_new"][:, :, 0]]
+                if int8:
+                    rows += [case["k_new_scale"][:, :, 0],
+                             case["v_new_scale"][:, :, 0]]
+                for w, r in zip(want, rows):
+                    w[layer, pg, :, off] = r
+                # the same call on unpoisoned pools: live outputs unmoved
+                clean = [p.clone() for p in pools]
+                for p in clean:
+                    p[:, free] = 0 if p.dtype == torch.int8 else 1
+                got_clean = kernel(*paged_args(case, clean, int8), layer,
+                                   scale)[0]
+                torch.cuda.synchronize()
+                tag = f"{name} page {page} layer {layer}"
+                err = check_close(tag, got[live], ref[live])
+                if not torch.equal(got[live], got_clean[live]):
+                    raise AssertionError(f"{tag}: live outputs move with the "
+                                         "poisoned null/unallocated pages")
+                if not all(torch.equal(a, c) for a, c in zip(mine, ref_pools)):
+                    raise AssertionError(f"{tag}: pools differ from the "
+                                         "plain version's")
+                if not all(torch.equal(a, c) for a, c in zip(mine, want)):
+                    raise AssertionError(f"{tag}: rows other than the "
+                                         "appended ones changed")
+                res["max_abs_err"] = max(res["max_abs_err"], err)
+                log(f"  {tag}: lengths {lengths.tolist()} (last a ghost row "
+                    f"of null pages), {len(used)} shuffled pages, {len(free)} "
+                    f"poisoned: max_abs_err {err:.3e}, pools exact, poison "
+                    "unseen")
+                del mine, ref_pools, want, clean
+            if page == 128:
+                lens = lengths[live]
+                sub = dict(case)
+                sub["q"] = case["q"][live].contiguous()
+                for key in ("k_new", "v_new", "k_new_scale", "v_new_scale"):
+                    if key in case:
+                        sub[key] = case[key][live].contiguous()
+                sub["page_table"] = table[live].contiguous()
+                sub["lengths"] = lens.contiguous()
+                turn = iter(range(10**9))
+                nl = pools[0].shape[0]
+                res["ms"] = cuda_ms(lambda: kernel(
+                    *paged_args(sub, pools, int8), next(turn) % nl, scale))
+                res["plain_ms"] = cuda_ms(lambda: plain(
+                    *paged_args(sub, pools, int8), next(turn) % nl,
+                    sm_scale=scale))
+                # library: SDPA over the contiguous gathered cache (bf16;
+                # int8 dequantized), the append excluded
+                kv = [_gather_pages(p[0], sub["page_table"]) for p in pools]
+                if int8:
+                    kv = [(kv[0].float() * kv[2][..., None]).bfloat16(),
+                          (kv[1].float() * kv[3][..., None]).bfloat16()]
+                res["library_ms"] = cuda_ms(lambda: masked_sdpa(
+                    sub["q"], kv[0], kv[1], lens + 1))
+                res["bound_ms"], res["bound_by"] = decode_bound(
+                    lens, 32, 128, 1 if int8 else 2)
+                log(f"  {name} time per layer call, B8 page 128: kernel "
+                    f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
+                    f"library (SDPA, append excluded) "
+                    f"{res['library_ms']:.4f} ms, bound {res['bound_ms']:.4f} "
+                    f"ms ({res['bound_by']}); {smi_line()}")
+                del kv
+            del case, pools
+            torch.cuda.empty_cache()
+        out[name] = res
+    return out
 
 
 VIT_W, VIT_S, VIT_S_PAD = 1024, 257, 272
@@ -530,8 +839,13 @@ def phase_vision_kernels(dev):
         f"dequantized max abs err {ka['max_abs_err']:.3e}")
     ka["ms"] = cuda_ms(lambda: ln_quant_kernel(x, g, b, 1e-5))
     ka["plain_ms"] = cuda_ms(lambda: ln_quant_plain(x, g, b, 1e-5))
+    # bf16 rows in; codes and float32 row scales out; gamma, beta
+    ka["bound_ms"], ka["bound_by"] = bound(
+        m_big * VIT_W * 3 + m_big * 4 + 2 * VIT_W * 4)
+    ka["library_ms"] = None  # no one PyTorch call quantizes rows
     log(f"  A time, LN1 of 64 images ({m_big}, {VIT_W}): kernel "
-        f"{ka['ms']:.4f} ms, plain {ka['plain_ms']:.4f} ms")
+        f"{ka['ms']:.4f} ms, plain {ka['plain_ms']:.4f} ms, bound "
+        f"{ka['bound_ms']:.4f} ms ({ka['bound_by']})")
     out["A"] = ka
 
     # -- kernel B: int32 accumulators exact, then each epilogue ----------------
@@ -557,11 +871,15 @@ def phase_vision_kernels(dev):
         ms = cuda_ms(lambda: int8_gemm_kernel(a, xs, w, ws))
         plain = cuda_ms(lambda: int8_gemm_plain(a, xs, w, ws))
         tops = 2 * m_big * n * k / ms / 1e9
+        bms, by = bound(m_big * k + k * n + 4 * (m_big + n) + 2 * m_big * n,
+                        2.0 * m_big * n * k, "int8")
         kb["shapes"].append({"K": k, "N": n, "M": m_big, "ms": ms,
-                             "plain_ms": plain, "TOPS": tops})
+                             "plain_ms": plain, "TOPS": tops,
+                             "bound_ms": bms, "bound_by": by})
         log(f"  B K{k} N{n}, M {VIT_S} and {m_big}: int32 accumulators "
             f"bit-identical; bf16 out at M {m_big}: kernel {ms:.4f} ms "
-            f"({tops:.0f} TOPS), plain {plain:.4f} ms")
+            f"({tops:.0f} TOPS), plain {plain:.4f} ms, bound {bms:.4f} ms "
+            f"({by})")
     # epilogues at the FC shape (M 64 * 257, K 1024, N 4096)
     k, n = VIT_W, 4 * VIT_W
     a, w = codes(m_big, k), transposed_storage(codes(k, n))
@@ -596,8 +914,16 @@ def phase_vision_kernels(dev):
     fc = epilogues["FC: QuickGELU -> f32"]
     kb["ms"] = cuda_ms(lambda: int8_gemm_kernel(a, xs, w, ws, **fc))
     kb["plain_ms"] = cuda_ms(lambda: int8_gemm_plain(a, xs, w, ws, **fc))
+    # codes of A and W, their scales and the bias read once, the float32
+    # output written once; 2 M N K int8 operations
+    kb["bound_ms"], kb["bound_by"] = bound(
+        m_big * k + k * n + 4 * (m_big + 2 * n) + 4 * m_big * n,
+        2.0 * m_big * n * k, "int8")
+    kb["library_ms"] = cuda_ms(lambda: torch._int_mm(a, w))
     log(f"  B time, FC + QuickGELU of 64 images ({m_big} x {k} x {n}): "
-        f"kernel {kb['ms']:.4f} ms, plain {kb['plain_ms']:.4f} ms")
+        f"kernel {kb['ms']:.4f} ms, plain {kb['plain_ms']:.4f} ms, library "
+        f"(torch._int_mm, int32 product only) {kb['library_ms']:.4f} ms, "
+        f"bound {kb['bound_ms']:.4f} ms ({kb['bound_by']})")
     del a, w, res16, res32
     out["B"] = kb
 
@@ -632,10 +958,19 @@ def phase_vision_kernels(dev):
         err = check_fused(f"fused_vit_block B{nb}", got, ref)
         ms = cuda_ms(lambda: fused_vit_block(x, lp, **kw), reps=5)
         plain = cuda_ms(lambda: fused_vit_block_plain(x, lp, **kw), reps=5)
+        # int8 weights (QKV, O, FC, proj: 12 W^2) with their float32 scales
+        # and biases, the bf16 block input and output; the GEMMs over the
+        # valid tokens in int8, the attention in bf16
+        m = nb * VIT_S
+        bms, by = block_bound(
+            12 * VIT_W ** 2 + 8 * 9 * VIT_W + 2 * 2 * nb * VIT_S_PAD * VIT_W,
+            2.0 * m * 12 * VIT_W ** 2, 4.0 * nb * VIT_S ** 2 * VIT_W)
         blocks[f"fused_vit_block_b{nb}"] = {"max_abs_err": err, "ms": ms,
-                                            "plain_ms": plain}
+                                            "plain_ms": plain,
+                                            "bound_ms": bms, "bound_by": by}
         log(f"  fused_vit_block B{nb} (S_pad {VIT_S_PAD}): max abs err "
-            f"{err:.3e}; kernels {ms:.4f} ms, plain {plain:.4f} ms")
+            f"{err:.3e}; kernels {ms:.4f} ms, plain {plain:.4f} ms, bound "
+            f"{bms:.4f} ms ({by})")
     xg = x.reshape(1, 8 * VIT_S_PAD, VIT_W)
     got = fused_vit_qkv(xg, lp)
     err_q = check_fused("fused_vit_qkv", got,
@@ -669,10 +1004,21 @@ def phase_vision_kernels(dev):
     ms = cuda_ms(lambda: fused_perceiver_block(q, kv, plp, **kw), reps=5)
     plain = cuda_ms(lambda: fused_perceiver_block_plain(q, kv, plp, **kw),
                     reps=5)
+    # int8 weights (q, k|v, O, FC, proj: 12 W^2) with float32 scales and
+    # biases, the bf16 queries in and out and the keys/values in; q, O, FC
+    # and proj over the valid queries and k|v over the valid keys in int8,
+    # the attention in bf16
+    m_q, m_kv = 2 * sum(nq), 2 * sum(n + 256 for n in nq)
+    bms, by = block_bound(
+        12 * VIT_W ** 2 + 8 * 9 * VIT_W + 2 * 3 * (2 * q_pad + kv_pad) * VIT_W
+        * 2, 2.0 * (m_q * 10 + m_kv * 2) * VIT_W ** 2,
+        4.0 * 2 * sum(n * (n + 256) for n in nq) * VIT_W)
     blocks["fused_perceiver_block"] = {"max_abs_err": err, "ms": ms,
-                                       "plain_ms": plain}
+                                       "plain_ms": plain, "bound_ms": bms,
+                                       "bound_by": by}
     log(f"  fused_perceiver_block (2 images, 3 groups): max abs err "
-        f"{err:.3e}; kernels {ms:.4f} ms, plain {plain:.4f} ms")
+        f"{err:.3e}; kernels {ms:.4f} ms, plain {plain:.4f} ms, bound "
+        f"{bms:.4f} ms ({by})")
     out["blocks"] = blocks
     torch.cuda.empty_cache()
     return out
@@ -743,6 +1089,447 @@ def phase_tower(dev, n_img=8):
             "bound": TOWER_REL_L2}
 
 
+# Paged decode against contiguous decode on the same cache contents: the
+# paged kernels and K2 / K4 compute the same sums in the same order, so the
+# logits should agree to the last bit; 1e-3 relative L2 leaves room for a
+# reordering, and a page swapped between two rows' tables moves them O(1).
+PAGED_REL_L2 = 1e-3
+
+
+def phase_paged_vs_contiguous(lp, lcfg, dev):
+    """Prefill two rows (600 and 451 tokens) into a contiguous cache, copy
+    the rows into shuffled pages of a pool (`scatter_prefill`), then one
+    decode step through `llama_decode_step` and one through
+    `paged_decode_step`: relative L2 of the logits within PAGED_REL_L2, for
+    a bf16 and an int8 cache; with one table entry swapped between the two
+    rows it must exceed it."""
+    import dataclasses
+
+    import torch
+
+    from lhrs_bot_tpu_torch.models import (KVCache, llama_decode_step,
+                                           llama_prefill)
+    from lhrs_bot_tpu_torch.models.llama_paged import (PagedKVCache,
+                                                       paged_decode_step,
+                                                       scatter_prefill)
+
+    rng = np.random.default_rng(2)
+    plen = torch.tensor([600, 451], dtype=torch.int32, device=dev)
+    ids = torch.as_tensor(rng.integers(3, lcfg.vocab_size, (2, 640)),
+                          device=dev)
+    embed = lp["embed_tokens"]
+    page, pps = 128, 18
+    out = {}
+    for name, cache_dtype in (("bf16", torch.bfloat16), ("int8", torch.int8)):
+        cache = KVCache.create(lcfg, 2, 640, cache_dtype, dev)
+        logits, cache = llama_prefill(lp, lcfg, cache,
+                                      inputs_embeds=embed[ids],
+                                      prompt_len=plen)
+        tok = logits.argmax(dim=-1)
+        step = embed[tok][:, None]
+        n_pages = 1 + 2 * pps
+        perm = torch.randperm(n_pages - 1,
+                              generator=torch.Generator().manual_seed(3)) + 1
+        table = perm.reshape(2, pps).int().to(dev)
+        pcache = PagedKVCache.create(lcfg, 2, n_pages, pps, page,
+                                     cache_dtype, dev)
+        pcache = scatter_prefill(pcache, cache, torch.arange(2, device=dev),
+                                 table, plen)
+        faulty = dataclasses.replace(
+            pcache, **{f: getattr(pcache, f).clone() for f in
+                       ("k_pages", "v_pages", "k_scale_pages",
+                        "v_scale_pages") if getattr(pcache, f) is not None})
+        swapped = table.clone()
+        swapped[0, 1], swapped[1, 1] = table[1, 1], table[0, 1]
+        faulty.page_table = swapped
+        logits_c, _ = llama_decode_step(lp, lcfg, cache, inputs_embeds=step)
+        logits_p, _ = paged_decode_step(lp, lcfg, pcache, inputs_embeds=step)
+        logits_f, _ = paged_decode_step(lp, lcfg, faulty, inputs_embeds=step)
+        del cache, pcache, faulty
+        torch.cuda.empty_cache()
+        if not bool(logits_p.isfinite().all()):
+            raise AssertionError(f"paged decode ({name}): non-finite logits")
+        rel, fault = rel_l2(logits_p, logits_c), rel_l2(logits_f, logits_c)
+        log(f"  paged vs contiguous decode ({name} cache, rows of 600 and "
+            f"451 tokens, shuffled pages of 128): rel L2 {rel}, bound "
+            f"{PAGED_REL_L2}; planted fault (one table entry swapped between "
+            f"the rows) {fault}")
+        if max(rel) > PAGED_REL_L2:
+            raise AssertionError(f"paged decode ({name}) deviates: {rel}")
+        if name == "bf16":
+            out["prefill"] = prefill_readings(lp, lcfg, dev, embed[ids], plen,
+                                              logits, table, n_pages)
+            out["prefill_f32"] = check_paged_prefill(lp, lcfg, dev)
+        if min(fault) <= PAGED_REL_L2:
+            raise AssertionError(f"paged decode ({name}): the planted fault "
+                                 f"passes: {fault}")
+        out[name] = {"rel_l2": rel, "fault_rel_l2": fault,
+                     "bound": PAGED_REL_L2}
+    return out
+
+
+# The paged prefill against the contiguous prefill through the plain
+# attention, both in float32 (weights, activations, pool and cache), on the
+# first PAGED_PREFILL_DEPTH layers at full width: the same function with
+# its sums in another order (the paged scores span the whole table row,
+# masked), so the last-token logits should agree to float32 rounding, about
+# 1e-6 relative L2. Every layer runs the same code, so depth adds nothing
+# but rounding. A suffix written one page early, or a context page read
+# from the null page, moves the logits by orders of magnitude more.
+PAGED_PREFILL_REL_L2 = 1e-4
+PAGED_PREFILL_DEPTH = 4
+
+
+def check_paged_prefill(lp, lcfg, dev):
+    """Two rows of 600 and 451 tokens sharing a 256-token prefix (two pages
+    of 128). The contiguous plain prefill of each whole row against the
+    paged path of a prefix hit: `paged_prefill_with_context` of the prefix
+    alone into two shuffled pages, then of both rows' suffixes with ctx_len
+    256 over tables that name those shared pages first; and against the
+    whole rows through the paged prefill with ctx_len 0. Float32, the first
+    PAGED_PREFILL_DEPTH layers. Relative L2 of the logits within
+    PAGED_PREFILL_REL_L2; each planted fault (ctx_len one page short, so
+    the suffix lands on a shared page at shifted positions; one row's
+    second context page replaced by the null page) must exceed it in a row
+    it touches."""
+    import dataclasses
+
+    import torch
+
+    from lhrs_bot_tpu_torch.models import KVCache, llama_prefill
+    from lhrs_bot_tpu_torch.models.llama_paged import (
+        PagedKVCache, paged_prefill_with_context)
+
+    f32 = torch.float32
+    depth, page, ctx = PAGED_PREFILL_DEPTH, 128, 256
+    cfg = dataclasses.replace(lcfg, num_hidden_layers=depth)
+    params = {"layers": {k: v[:depth].float()
+                         for k, v in lp["layers"].items()},
+              **{k: lp[k].float() for k in ("embed_tokens", "final_norm",
+                                            "lm_head")}}
+    rng = np.random.default_rng(6)
+    plen = torch.tensor([600, 451], dtype=torch.int32, device=dev)
+    ids = torch.as_tensor(rng.integers(3, lcfg.vocab_size, (2, 640)),
+                          device=dev)
+    ids[:, 0] = lcfg.bos_token_id
+    ids[1, :ctx] = ids[0, :ctx]
+    embeds = params["embed_tokens"][ids]
+    with plain_attention():
+        ref, _ = llama_prefill(params, cfg, KVCache.create(cfg, 2, 640, f32,
+                                                           dev),
+                               inputs_embeds=embeds, prompt_len=plen,
+                               compute_dtype=f32)
+    # pages: 2 shared, 3 + 2 fresh for the suffixes, 2 for row 1's own
+    # prefix when ctx_len is 0; shuffled, page 0 the null page. Table rows
+    # of 18 pages (2304 tokens, the serving pool's), the rest null.
+    pps, n_pages = 18, 10
+    perm = (torch.randperm(n_pages - 1,
+                           generator=torch.Generator().manual_seed(7)) + 1
+            ).int().tolist()
+    shared, fresh0, fresh1, own1 = perm[:2], perm[2:5], perm[5:7], perm[7:9]
+    table = torch.tensor([shared + fresh0 + [0] * (pps - 5),
+                          shared + fresh1 + [0] * (pps - 4)],
+                         dtype=torch.int32, device=dev)
+    slots = torch.arange(2, device=dev)
+
+    def paged(table_rows, ctx_len, prefix_pool=None):
+        pc = PagedKVCache.create(cfg, 2, n_pages, pps, page, f32, dev)
+        if ctx_len is None:  # the whole rows, no context
+            return paged_prefill_with_context(
+                params, cfg, pc, inputs_embeds=embeds, suffix_len=plen,
+                ctx_len=torch.zeros_like(plen), slot_idx=slots,
+                table_rows=table_rows, compute_dtype=f32)[0]
+        pc.k_pages.copy_(prefix_pool[0])
+        pc.v_pages.copy_(prefix_pool[1])
+        c = torch.tensor([ctx_len] * 2, dtype=torch.int32, device=dev)
+        return paged_prefill_with_context(
+            params, cfg, pc, inputs_embeds=embeds[:, ctx:],
+            suffix_len=plen - ctx, ctx_len=c, slot_idx=slots,
+            table_rows=table_rows, compute_dtype=f32)[0]
+
+    # the prefix alone, into the shared pages
+    pc = PagedKVCache.create(cfg, 1, n_pages, pps, page, f32, dev)
+    paged_prefill_with_context(
+        params, cfg, pc, inputs_embeds=embeds[:1, :ctx],
+        suffix_len=torch.tensor([ctx], dtype=torch.int32, device=dev),
+        ctx_len=torch.zeros(1, dtype=torch.int32, device=dev),
+        slot_idx=slots[:1], table_rows=table[:1], compute_dtype=f32)
+    prefix_pool = (pc.k_pages, pc.v_pages)
+    own = table.clone()
+    own[1, :2] = torch.tensor(own1, dtype=torch.int32)
+    nulled = table.clone()
+    nulled[1, 1] = 0
+    got = {"context 256": paged(table, ctx, prefix_pool),
+           "context 0": paged(own, None)}
+    faults = {"ctx_len one page short": paged(table, ctx - page, prefix_pool),
+              "context page nulled": paged(nulled, ctx, prefix_pool)}
+    del params, embeds, pc, prefix_pool
+    torch.cuda.empty_cache()
+    out = {"bound": PAGED_PREFILL_REL_L2, "depth": depth}
+    for name, logits in got.items():
+        if not bool(logits.isfinite().all()):
+            raise AssertionError(f"paged prefill ({name}): non-finite logits")
+        out[name] = rel = rel_l2(logits, ref)
+        if max(rel) > PAGED_PREFILL_REL_L2:
+            raise AssertionError(f"paged prefill ({name}) deviates from the "
+                                 f"contiguous prefill in float32: {rel}")
+    for name, logits in faults.items():
+        out[name] = rel = rel_l2(logits, ref)
+        if max(rel) <= PAGED_PREFILL_REL_L2:
+            raise AssertionError(f"paged prefill: the planted fault "
+                                 f"({name}) passes: {rel}")
+    log(f"  paged vs contiguous plain prefill, float32, first {depth} "
+        f"layers, rows of 600 and 451 tokens sharing a 256-token prefix: "
+        f"{out}")
+    return out
+
+
+def prefill_readings(lp, lcfg, dev, embeds, plen, logits_k1, table,
+                     n_pages):
+    """A reading, not a check: the first-token logits of the paged
+    prefill (`paged_prefill_with_context`, plain attention over the
+    gathered table row) against the contiguous prefill through K1 and
+    through the plain attention (`mha_reference`), bf16, with the top-1
+    agreement and each row's top-2 margin."""
+    import torch
+
+    from lhrs_bot_tpu_torch.models import KVCache, llama_prefill
+    from lhrs_bot_tpu_torch.models.llama_paged import (
+        PagedKVCache, paged_prefill_with_context)
+
+    pcache = PagedKVCache.create(lcfg, 2, n_pages, table.shape[1], 128,
+                                 torch.bfloat16, dev)
+    logits_pp, _ = paged_prefill_with_context(
+        lp, lcfg, pcache, inputs_embeds=embeds, suffix_len=plen,
+        ctx_len=torch.zeros_like(plen), slot_idx=torch.arange(2, device=dev),
+        table_rows=table)
+    del pcache
+    with plain_attention():
+        logits_plain, _ = llama_prefill(
+            lp, lcfg, KVCache.create(lcfg, 2, embeds.shape[1],
+                                     torch.bfloat16, dev),
+            inputs_embeds=embeds, prompt_len=plen)
+    top2 = logits_k1.topk(2, dim=-1).values
+    out = {"paged_vs_k1": rel_l2(logits_pp, logits_k1),
+           "paged_vs_plain": rel_l2(logits_pp, logits_plain),
+           "plain_vs_k1": rel_l2(logits_plain, logits_k1),
+           "top1_paged_eq_k1": (logits_pp.argmax(-1)
+                                == logits_k1.argmax(-1)).tolist(),
+           "top1_paged_eq_plain": (logits_pp.argmax(-1)
+                                   == logits_plain.argmax(-1)).tolist(),
+           "k1_top2_margin": (top2[:, 0] - top2[:, 1]).tolist()}
+    log(f"  prefill logits (a reading), bf16, rows of 600 and 451 tokens: "
+        f"{out}")
+    return out
+
+
+def serving_wave(cfg, rng):
+    """The full-width serving wave: 12 requests of 40 to 2048 prompt
+    tokens, four with an image, three sharing a 256-token text prefix
+    (P1 admitted first; P2 and P3 come after the pool defers admission,
+    so they hit P1's pages), 32 new tokens each, greedy."""
+    vocab = cfg.llama.vocab_size
+    prefix = rng.integers(3, vocab, 256).astype(np.int32)
+    prefix[0] = cfg.llama.bos_token_id
+
+    def text(n, shared=False):
+        ids = rng.integers(3, vocab, n).astype(np.int32)
+        ids[0] = cfg.llama.bos_token_id
+        if shared:
+            ids[:256] = prefix
+        return ids
+
+    def image(n):
+        ids = text(n)
+        ids[1] = -200
+        return ids
+
+    size = cfg.vit.image_size
+    images = rng.integers(0, 256, (4, size, size, 3)).astype(np.uint8)
+    # (prompt, image index or None): pages of 128 for prompt + image
+    # + 32 new tokens: 18, 16, 3, 14, 10, 6, 2 fill 69 of the pool's 72;
+    # P2's 4 do not fit, so the pool defers it with a slot free
+    spec = [(image(2048), 0), (text(2000), None), (text(300, True), None),
+            (image(1500), 1), (text(1200), None), (text(700), None),
+            (image(40), 2), (text(356, True), None), (image(800), 3),
+            (text(120), None), (text(316, True), None), (text(90), None)]
+    return [(ids, None if im is None else images[im]) for ids, im in spec]
+
+
+PAGED_KERNELS = ("paged_fused_decode", "paged_fused_decode_q")
+CONTIGUOUS_DECODE = ("fused_decode_attention", "fused_decode_attention_q")
+
+
+def drive(sched, requests, check_tick=None):
+    """Serve `requests` as `ContinuousBatchingScheduler.run` does, timing
+    each request's first token from the start of the wave, counting decode
+    steps (each tick's `last_tick_k`), and logging every admission;
+    `check_tick(sched)` runs after each tick. Returns the wave's numbers."""
+    import torch
+
+    steps = 0
+    admissions, ttft = [], {}
+    pending = list(requests)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+
+    def admit():
+        nonlocal pending
+        free = getattr(sched, "allocator", None)
+        before = None if free is None else free.available()
+        n = sched.admit(pending)
+        if n:
+            admissions.append({
+                "uids": [r.uid for r in pending[:n]],
+                "deferred": len(pending) - n,
+                "free_slots": len(sched._free_slots()),
+                "free_pages_before": before,
+                "free_pages_after": None if free is None
+                else free.available()})
+        pending = pending[n:]
+
+    def mark():
+        now = time.perf_counter() - t0
+        for r in requests:
+            if r.output_ids and r.uid not in ttft:
+                ttft[r.uid] = now * 1e3
+
+    admit()
+    mark()
+    while sched.active.any() or pending:
+        if pending and sched._free_slots():
+            admit()
+            mark()
+        sched.step(waiting=len(pending))
+        steps += sched.last_tick_k
+        mark()
+        if check_tick is not None:
+            check_tick(sched)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tokens = sum(len(r.output_ids) for r in requests)
+    return {"wall_s": wall, "tokens": tokens, "tok_s": tokens / wall,
+            "decode_steps": steps, "admissions": admissions,
+            "ttft_ms": [ttft.get(r.uid) for r in requests]}
+
+
+def check_paged_pool(sched, name):
+    """Every page free or a refcount-0 prefix page, no slot holding one,
+    every table row null."""
+    st = sched.pool_stats()
+    if (st["free_pages"] + st["prefix"]["evictable"] != st["total_pages"]
+            or st["prefix"]["entries"] != st["prefix"]["evictable"]
+            or any(sched.slot_pages) or bool(sched.cache.page_table.any())):
+        raise AssertionError(f"{name}: pool not back to free/evictable: {st}")
+    return st
+
+
+def idle_rows_null(sched):
+    """No idle slot's table row names a page that a live slot holds."""
+    table = sched.cache.page_table.cpu().numpy()
+    held = set(table[sched.active].ravel().tolist()) - {0}
+    for slot in np.flatnonzero(~sched.active):
+        if set(table[slot].tolist()) & held:
+            raise AssertionError(f"idle slot {slot}'s table row names a live "
+                                 f"page: {table}")
+
+
+def serve_wave(name, sched, wave, needed, forbidden, check_tick=None):
+    """One scheduler run over `wave` ((ids, image) pairs, 32 new tokens
+    each): launch counts set to 0 just before and read just after; the
+    kernels of `needed` launched 32 times a decode step, those of
+    `forbidden` never; every request done with 1-32 tokens in the
+    vocabulary."""
+    from lhrs_bot_tpu_torch.serve.scheduler import Request
+
+    wrappers = kernel_wrappers()
+    requests = [Request(uid=i, input_ids=ids, image=img, max_new_tokens=32)
+                for i, (ids, img) in enumerate(wave)]
+    for w in wrappers.values():
+        w.launches = 0
+    res = drive(sched, requests, check_tick)
+    launches = {k: w.launches for k, w in wrappers.items()}
+    vocab = sched.cfg.llama.vocab_size
+    for r in requests:
+        if not r.done or not 1 <= len(r.output_ids) <= r.max_new_tokens or \
+                any(not 0 <= t < vocab for t in r.output_ids):
+            raise AssertionError(f"{name}: request {r.uid} bad: done "
+                                 f"{r.done}, {len(r.output_ids)} tokens")
+    n_layers = sched.cfg.llama.num_hidden_layers
+    for k in needed:
+        if launches[k] != n_layers * res["decode_steps"] or not launches[k]:
+            raise AssertionError(f"{name}: {k} launched {launches[k]} times "
+                                 f"in {res['decode_steps']} decode steps")
+    for k in forbidden:
+        if launches[k]:
+            raise AssertionError(f"{name}: {k} launched {launches[k]} times")
+    res["launches"] = launches
+    res["outputs"] = [r.output_ids for r in requests]
+    if hasattr(sched, "pool_stats"):
+        res["pool_stats"] = check_paged_pool(sched, name)
+    log(f"  [{name}] {len(requests)} requests, {res['tokens']} tokens in "
+        f"{res['wall_s']:.2f} s: {res['tok_s']:.1f} tokens/s; "
+        f"{res['decode_steps']} decode steps; time to first token (ms) "
+        f"{[round(t, 1) for t in res['ttft_ms']]}")
+    log(f"  [{name}] admissions {res['admissions']}")
+    log(f"  [{name}] launches {launches}"
+        + (f"; pool {res['pool_stats']}" if "pool_stats" in res else ""))
+    return res
+
+
+def agreement(a, b):
+    """The share of token positions where two runs' outputs agree, up to
+    the first difference of each request, and the requests equal."""
+    same = sum(x == y for x, y in zip(a, b))
+    prefix = [next((i for i, (s, t) in enumerate(zip(x, y)) if s != t),
+                   min(len(x), len(y))) for x, y in zip(a, b)]
+    return {"requests_equal": same, "of": len(a),
+            "tokens_before_first_difference": prefix}
+
+
+# The reference's page-table fault (ROADMAP Queue 3): prompts of 20, 20, 40
+# and 45 tokens from np.random.default_rng(5).integers(3, 200), budgets 3,
+# 3, 30 and 20; max_batch 3, pages of 16, 6 pages a sequence, 40 pages,
+# prefix cache off, prompt_bucket 16, 2 tokens a tick.
+HAZARD = ((20, 3), (20, 3), (40, 30), (45, 20))
+
+
+def phase_hazard(engine, cfg, dev):
+    """The hazard wave at full width: the paged scheduler (pages of 16, so
+    the kernel's ragged edge too) against the contiguous one, with no idle
+    slot's table row naming a live page after any tick."""
+    from lhrs_bot_tpu_torch.serve.paged import PagedScheduler
+    from lhrs_bot_tpu_torch.serve.scheduler import (
+        ContinuousBatchingScheduler, Request)
+
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(3, 200, size=(n,)).astype(np.int32)
+               for n, _ in HAZARD]
+    common = dict(max_batch=3, prompt_bucket=16, tokens_per_tick=2,
+                  cache_dtype=engine.cache_dtype, device=dev,
+                  eos_token_id=cfg.llama.eos_token_id)
+    outs = {}
+    for name, sched in (
+            ("contiguous", ContinuousBatchingScheduler(
+                cfg, engine.params, engine.llama_params, max_seq_len=96,
+                **common)),
+            ("paged", PagedScheduler(
+                cfg, engine.params, engine.llama_params, num_pages=40,
+                page_size=16, pages_per_seq=6, enable_prefix_cache=False,
+                **common))):
+        reqs = [Request(uid=i, input_ids=p, max_new_tokens=budget)
+                for i, (p, (_, budget)) in enumerate(zip(prompts, HAZARD))]
+        drive(sched, reqs, idle_rows_null if name == "paged" else None)
+        outs[name] = [r.output_ids for r in reqs]
+        if name == "paged":
+            check_paged_pool(sched, "hazard wave")
+        del sched
+    agree = agreement(outs["paged"], outs["contiguous"])
+    log(f"  hazard wave (full width, pages of 16): no idle table row named a "
+        f"live page after any tick; paged vs contiguous greedy ids {agree}")
+    return {"agreement": agree, "outputs": outs}
+
+
 def kernel_wrappers():
     """Each kernel's wrapper, whose `launches` counts its launches."""
     from lhrs_bot_tpu_torch.ops.attention import flash_attention_fwd
@@ -750,6 +1537,8 @@ def kernel_wrappers():
         fused_decode_attention_kernel, fused_decode_attention_q_kernel)
     from lhrs_bot_tpu_torch.ops.int8_gemm import int8_gemm_kernel
     from lhrs_bot_tpu_torch.ops.ln_quant import ln_quant_kernel
+    from lhrs_bot_tpu_torch.ops.paged_fused import (
+        paged_fused_decode_kernel, paged_fused_decode_q_kernel)
     from lhrs_bot_tpu_torch.ops.w4_matmul import w4a8_matmul_kernel
 
     return {"flash_attention_fwd": flash_attention_fwd,
@@ -757,7 +1546,9 @@ def kernel_wrappers():
             "fused_decode_attention_q": fused_decode_attention_q_kernel,
             "w4a8_matmul": w4a8_matmul_kernel,
             "ln_quant": ln_quant_kernel,
-            "int8_gemm": int8_gemm_kernel}
+            "int8_gemm": int8_gemm_kernel,
+            "paged_fused_decode": paged_fused_decode_kernel,
+            "paged_fused_decode_q": paged_fused_decode_q_kernel}
 
 
 def serve(engine, cfg, requests, new=32):
@@ -927,8 +1718,75 @@ def phase_slice(dev):
         if consistency is not None:
             out[name]["consistency"] = check_consistency(
                 name, engine.llama_params, cfg.llama, dev, *consistency)
+        if name == "bf16":
+            out["paged_vs_contiguous"] = phase_paged_vs_contiguous(
+                engine.llama_params, cfg.llama, dev)
+        if name in ("bf16", "int8"):
+            out.update(phase_serving(engine, cfg, dev, name))
         del engine
         torch.cuda.empty_cache()
+    return out
+
+
+def phase_serving(engine, cfg, dev, name):
+    """The serving wave through the schedulers, built from the engine's
+    parameters as `lhrs_serve.py` builds them: with the bf16 engine the
+    contiguous scheduler, the paged one (a pool of 4 x 2304 tokens in pages
+    of 128), the paged one with prefill_chunk 512, and the hazard wave;
+    with the int8 engine (bits 8, kv_bits 8) the paged one over an int8
+    pool."""
+    import torch
+
+    from lhrs_bot_tpu_torch.serve.paged import PagedScheduler
+    from lhrs_bot_tpu_torch.serve.scheduler import ContinuousBatchingScheduler
+
+    wave = serving_wave(cfg, np.random.default_rng(4))
+    common = dict(max_batch=8, tokens_per_tick=16, device=dev,
+                  max_seq_len=engine.max_seq_len,
+                  cache_dtype=engine.cache_dtype,
+                  eos_token_id=cfg.llama.eos_token_id)
+
+    def paged(**kw):
+        return PagedScheduler(cfg, engine.params, engine.llama_params,
+                              num_pages=4 * engine.max_seq_len // 128 + 1,
+                              page_size=128, **common, **kw)
+
+    out = {}
+    if name == "bf16":
+        out["serve_contiguous_bf16"] = serve_wave(
+            "contiguous bf16", ContinuousBatchingScheduler(
+                cfg, engine.params, engine.llama_params, **common), wave,
+            ("fused_decode_attention",), PAGED_KERNELS)
+        torch.cuda.empty_cache()
+        for key, kw in (("serve_paged_bf16", {}),
+                        ("serve_paged_bf16_chunk512", {"prefill_chunk": 512})):
+            out[key] = serve_wave(key[6:], paged(**kw), wave,
+                                  ("paged_fused_decode",),
+                                  CONTIGUOUS_DECODE + PAGED_KERNELS[1:])
+            out[key]["agreement_with_contiguous"] = agree = agreement(
+                out[key]["outputs"], out["serve_contiguous_bf16"]["outputs"])
+            log(f"  [{key[6:]}] greedy ids vs the contiguous run (a reading: "
+                f"random weights have thin margins): {agree}")
+            torch.cuda.empty_cache()
+        out["hazard"] = phase_hazard(engine, cfg, dev)
+    else:
+        out["serve_paged_int8"] = serve_wave(
+            "paged int8 (bits 8, kv_bits 8)", paged(), wave,
+            ("paged_fused_decode_q",), CONTIGUOUS_DECODE + PAGED_KERNELS[:1])
+    for key, res in out.items():
+        if key.startswith("serve_paged"):
+            st = res["pool_stats"]
+            allocated = sum(a["free_pages_before"] - a["free_pages_after"]
+                            for a in res["admissions"])
+            deferred = any(a["deferred"] and a["free_slots"]
+                           for a in res["admissions"])
+            if not (deferred and allocated > st["total_pages"]
+                    and st["prefix"]["hits"] >= 1):
+                raise AssertionError(
+                    f"{key}: the wave must defer admission for pages, "
+                    f"recycle them ({allocated} allocated of "
+                    f"{st['total_pages']}) and hit the prefix cache ({st})")
+    torch.cuda.empty_cache()
     return out
 
 
@@ -975,6 +1833,7 @@ def main():
     k3, k4 = phase_quant_kernels(dev)
     vision = phase_vision_kernels(dev)
     tower = phase_tower(dev)
+    paged = phase_paged_kernels(dev)
 
     log("[4/4 slices at full width]")
     paths = phase_slice(dev)
@@ -987,7 +1846,9 @@ def main():
                 "replaces": ", ".join(f"lhrs_bot_tpu/ops/{r}"
                                       for r in replaces.split(", ")),
                 "launches": launches[name], "max_abs_err": k["max_abs_err"],
-                "ms": k["ms"], "plain_ms": k["plain_ms"]}
+                "ms": k["ms"], "plain_ms": k["plain_ms"],
+                "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+                "library_ms": k["library_ms"]}
 
     vision_tpu = ("vit_block.py:111, vit_block.py:132, vit_block.py:319, "
                   "vit_block.py:338, perceiver_block.py:53")
@@ -1002,11 +1863,17 @@ def main():
         row("w4a8_matmul", "w4a8_matmul.cu", "w4_matmul.py:43", w4a8, k3),
         row("ln_quant", "ln_quant.cu", vision_tpu, int8, vision["A"]),
         row("int8_gemm", "int8_gemm.cu", vision_tpu, int8, vision["B"]),
+        row("paged_fused_decode", "paged_decode.cu", "paged_fused.py:213",
+            paths["serve_paged_bf16"]["launches"],
+            paged["paged_fused_decode"]),
+        row("paged_fused_decode_q", "paged_decode.cu", "paged_fused.py:52",
+            paths["serve_paged_int8"]["launches"],
+            paged["paged_fused_decode_q"]),
     ]
     log(json.dumps({"w4a8_shapes": k3["shapes"]}))
     log(json.dumps({"int8_gemm_shapes": vision["B"]["shapes"],
                     "vision_blocks": vision["blocks"], "tower": tower}))
-    log(json.dumps({"paths": paths}))
+    log(json.dumps({"paths": paths, "paged_kernels": paged}))
     log(json.dumps({"kernels": kernels}))
     log(smi_line())
     log(json.dumps({"ok": True, "device": {

@@ -9,7 +9,9 @@ This package imports torch and never jax.
   ops/     plain torch ops and the hand-written CUDA kernels' wrappers
   csrc/    CUDA C++ sources (sm_90a), built with nvcc at first use
   models/  ViT-L/14 tower, multi-level perceiver, splice, LLaMA-2, VLM
-  serve/   prefill + decode generation engine
+  serve/   generation engine, continuous-batching and paged schedulers,
+           prefix cache
+  device.py  where tensors live: the card unless the caller names the CPU
 """
 
 __version__ = "0.1.0"

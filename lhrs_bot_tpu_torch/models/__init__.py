@@ -1,6 +1,8 @@
 from .constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX  # noqa: F401
 from .llama import (KVCache, LlamaConfig, llama_decode_step,  # noqa: F401
                     llama_prefill)
+from .llama_paged import (PagedKVCache, paged_decode_step,  # noqa: F401
+                          paged_prefill_with_context, scatter_prefill)
 from .perceiver import (PerceiverConfig, perceiver_resample,  # noqa: F401
                         perceiver_resample_fused)
 from .splice import SplicedBatch, splice_image_embeddings  # noqa: F401

@@ -35,6 +35,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..device import resolve_device
 from ..ops.attention import flash_attention
 from ..ops.fused_decode import fused_decode_attention, fused_decode_attention_q
 from ..ops.quant import QuantizedTensor, quantize_activation, quantized_matmul
@@ -159,10 +160,11 @@ class KVCache:
     @classmethod
     def create(cls, cfg: LlamaConfig, batch: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16,
-               device="cpu") -> "KVCache":
+               device="cuda") -> "KVCache":
         if dtype not in (torch.bfloat16, torch.float32, torch.int8):
             raise NotImplementedError(f"{dtype} KV cache is not ported "
                                       "(bf16/f32/int8 only)")
+        device = resolve_device(device)
         shape = (cfg.num_hidden_layers, batch, cfg.num_attention_heads,
                  max_len, cfg.head_dim)
         scales = {}
@@ -194,17 +196,22 @@ def _qkv(x: torch.Tensor, lp, cfg: LlamaConfig, cos, sin):
 
 def llama_prefill(params, cfg: LlamaConfig, cache: KVCache, *,
                   inputs_embeds: torch.Tensor, prompt_len: torch.Tensor,
-                  compute_dtype: torch.dtype = torch.bfloat16
+                  compute_dtype: torch.dtype = torch.bfloat16,
+                  slots: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, KVCache]:
     """Prefill the cache from right-padded (B, S, D) embeddings; returns
     (next-token logits (B, V) float32, cache). Writes the first S rows of
     every layer of `cache` in place; the cache's length becomes prompt_len.
+    With `slots` ((B,) indices into a larger cache's batch, as the
+    continuous-batching scheduler installs an admission) only those rows
+    are written and their lengths set; the other rows keep their contents.
     Causal masking alone is correct: pads sit after the valid tokens, and
     their cache rows are overwritten by decode before they are read.
     Attention runs on the fresh K/V; only the write into an int8 cache is
     quantized (`quantize_activation` per (b, h, s) vector)."""
     x = inputs_embeds.to(compute_dtype)
     b, s, _ = x.shape
+    rows = slice(None) if slots is None else slots.long()
     positions = torch.arange(s, device=x.device).expand(b, s)
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     for li in range(cfg.num_hidden_layers):
@@ -220,17 +227,20 @@ def llama_prefill(params, cfg: LlamaConfig, cache: KVCache, *,
             for arr, scale, t in ((cache.k, cache.k_scale, k),
                                   (cache.v, cache.v_scale, v)):
                 codes, t_scale = quantize_activation(t)
-                arr[li, :, :, :s] = codes
-                scale[li, :, :, :s] = t_scale[..., 0]
+                arr[li, rows, :, :s] = codes
+                scale[li, rows, :, :s] = t_scale[..., 0]
         else:
-            cache.k[li, :, :, :s] = k
-            cache.v[li, :, :, :s] = v
+            cache.k[li, rows, :, :s] = k
+            cache.v[li, rows, :, :s] = v
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     last = (prompt_len.long() - 1).clamp(min=0)
     x_last = x[torch.arange(b, device=x.device), last]
     logits = _lm_head_logits(x_last, params["lm_head"])
-    return logits, dataclasses.replace(cache,
-                                       length=prompt_len.to(torch.int32))
+    length = prompt_len.to(torch.int32)
+    if slots is not None:
+        length = cache.length.clone()
+        length[rows] = prompt_len.to(torch.int32)
+    return logits, dataclasses.replace(cache, length=length)
 
 
 def llama_decode_step(params, cfg: LlamaConfig, cache: KVCache, *,

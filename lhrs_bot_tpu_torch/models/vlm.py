@@ -15,6 +15,7 @@ from typing import Optional
 
 import torch
 
+from ..device import resolve_device
 from .llama import LlamaConfig
 from .perceiver import PerceiverConfig, perceiver_resample
 from .splice import SplicedBatch, splice_image_embeddings
@@ -77,12 +78,13 @@ class VLMConfig:
 
 
 def init_vlm_params(cfg: VLMConfig, seed: int = 0,
-                    dtype: torch.dtype = torch.float32, device="cpu"):
+                    dtype: torch.dtype = torch.float32, device="cuda"):
     """Random parameters with the JAX `init_*_params` structure: weights
     N(0, 0.02), perceiver queries 0.02 * N(0, 1) truncated to [-2, 2], norm
     scales 1, biases 0. Drawn on `device` from a `torch.Generator` seeded
     with `seed`; the numbers differ from the JAX package's for the same
     seed."""
+    device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
 
     def normal(*shape):

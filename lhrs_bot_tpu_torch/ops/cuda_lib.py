@@ -42,6 +42,13 @@ _ENTRIES = {
     # q, k_new, k_new_scale, v_new, v_new_scale, k_cache, v_cache, k_scale,
     # v_scale, lengths, out, layer, L, B, H, S, D, sm_scale, stream
     "lhrs_fused_decode_q": [_P] * 11 + [_I] * 6 + [ctypes.c_float, _P],
+    # q, k_new, v_new, k_pages, v_pages, table, lengths, out, layer, L, N,
+    # B, H, page, P, D, sm_scale, stream
+    "lhrs_paged_decode_bf16": [_P] * 8 + [_I] * 8 + [ctypes.c_float, _P],
+    # q, k_new, k_new_scale, v_new, v_new_scale, k_pages, v_pages, k_scale,
+    # v_scale, table, lengths, out, layer, L, N, B, H, page, P, D, sm_scale,
+    # stream
+    "lhrs_paged_decode_q": [_P] * 12 + [_I] * 8 + [ctypes.c_float, _P],
     # xq_lo, xq_hi, x_scale, w (layer slice), w_scale (layer slice),
     # partial, out, B, K2, N, x_stride, ksplit, chunk, out_f32, stream
     "lhrs_w4a8_matmul": [_P] * 7 + [_I] * 7 + [_P],

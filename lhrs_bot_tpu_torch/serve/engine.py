@@ -47,6 +47,7 @@ from typing import Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..models.llama import KVCache, llama_decode_step, llama_prefill
 from ..models.vlm import VLMConfig, prepare_multimodal_inputs
 from ..ops.quant import (_QUANT_TARGETS, QuantizedTensor, quantize_int4h,
@@ -140,13 +141,42 @@ def _sample_token(logits: torch.Tensor, generator: Optional[torch.Generator],
         torch.int32)
 
 
+def _top_p_logits(logits: torch.Tensor, temp: torch.Tensor,
+                  top_p: torch.Tensor) -> torch.Tensor:
+    """Per-row temperature and top-p of `_sample_token_per_slot`: float32
+    logits / max(temp, 1e-6), with every token below the row's top-p
+    cutoff set to -1e30."""
+    scaled = logits.float() / temp.float().clamp(min=1e-6)[:, None]
+    sorted_logits = scaled.sort(dim=-1, descending=True).values
+    cum = torch.softmax(sorted_logits, dim=-1).cumsum(dim=-1)
+    cutoff_idx = (cum < top_p.float()[:, None]).sum(dim=-1, keepdim=True)
+    cutoff = sorted_logits.gather(
+        -1, cutoff_idx.clamp(max=logits.shape[-1] - 1))
+    return scaled.masked_fill(scaled < cutoff, -1e30)
+
+
+def _sample_token_per_slot(logits: torch.Tensor,
+                           generator: Optional[torch.Generator],
+                           temp: torch.Tensor,
+                           top_p: torch.Tensor) -> torch.Tensor:
+    """Per-row sampling for continuous batches (JAX `serve/engine.py`
+    `_sample_token_per_slot`): logits (B, V), per-slot temperature (B,) and
+    top-p (B,). Rows with temp <= 0 decode greedily; the others draw from
+    `generator` after temperature and top-p, so one batch can mix greedy
+    and sampled requests. Returns (B,) int32."""
+    greedy = logits.argmax(dim=-1).to(torch.int32)
+    probs = torch.softmax(_top_p_logits(logits, temp, top_p), dim=-1)
+    sampled = torch.multinomial(probs, 1, generator=generator)[:, 0]
+    return torch.where(temp > 0, sampled.to(torch.int32), greedy)
+
+
 class GenerationEngine:
     def __init__(
         self,
         cfg: VLMConfig,
         params,
         *,
-        device="cpu",
+        device="cuda",
         max_seq_len: int = 2304,  # 2048 text + 144 image + headroom
         compute_dtype: torch.dtype = torch.bfloat16,
         cache_dtype: torch.dtype = torch.bfloat16,
@@ -173,7 +203,7 @@ class GenerationEngine:
         if lm_head_bits not in (None, 8):
             raise ValueError(f"lm_head_bits must be 8, got {lm_head_bits!r}")
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.compute_dtype = compute_dtype
         self.cache_dtype = cache_dtype
         self.max_seq_len = max_seq_len
@@ -187,8 +217,10 @@ class GenerationEngine:
         pooler = params["pooler"]
         self._vision_packed = None
         if vision_w8a8:  # quantized from the given values, before any cast
+            # the unpacked layers stay in self.params too: the schedulers
+            # run the unpacked tower, as the JAX schedulers do
             self._vision_packed = pack_vit_layers_fused(
-                _cast_params(vit.pop("layers"), None, self.device))
+                _cast_params(vit["layers"], None, self.device))
             pooler = {**pooler, "layers": quantize_vision_layers(
                 _cast_params(pooler["layers"], None, self.device))}
         self.params = {

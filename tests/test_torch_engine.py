@@ -47,7 +47,7 @@ def engines():
         t_vlm.VLMConfig.tiny_test(stage=0),
         params_from_numpy(jax.tree_util.tree_map(np.asarray, params)),
         max_seq_len=96, compute_dtype=torch.float32,
-        cache_dtype=torch.float32)
+        cache_dtype=torch.float32, device="cpu")
     return je, te
 
 
@@ -165,12 +165,14 @@ def test_unported_engine_options_raise(engines, kwargs):
     if kwargs not in PORTED_OPTIONS:
         with pytest.raises(NotImplementedError):
             t_engine.GenerationEngine(te.cfg, {"vit": {}, "pooler": {},
-                                               "llama": {}}, **kwargs)
+                                               "llama": {}},
+                                      device="cpu", **kwargs)
         return
     params = {"vit": te.params["vit"], "pooler": te.params["pooler"],
               "llama": te.llama_params}
     engine = t_engine.GenerationEngine(te.cfg, params, max_seq_len=96,
-                                       compute_dtype=torch.float32, **kwargs)
+                                       compute_dtype=torch.float32,
+                                       device="cpu", **kwargs)
     ids, lens, imgs = _request(5, lens=(7,))
     _, cache, _ = engine._start(ids, lens, imgs,
                                 t_engine.GenerationConfig(max_new_tokens=2))
@@ -234,7 +236,7 @@ def test_build_engine():
                  "num_hidden_layers": 2, "num_attention_heads": 4,
                  "max_position_embeddings": 128}}
     vcfg = t_vlm.VLMConfig.from_config_dict(cfg)
-    params = t_vlm.init_vlm_params(vcfg, seed=0)
+    params = t_vlm.init_vlm_params(vcfg, seed=0, device="cpu")
     engine = build_engine(vcfg, params, cfg, "cpu")
     assert engine.max_seq_len == 128 + 256
     assert engine.compute_dtype == engine.cache_dtype == torch.bfloat16
@@ -270,6 +272,25 @@ def test_build_engine():
         build_engine(vcfg, params, {**cfg, "prefill_chunk": 64}, "cpu")
     with pytest.raises(ValueError):
         build_engine(vcfg, params, {**cfg, "kv_bits": 4}, "cpu")
+
+
+@pytest.mark.parametrize("entry", ["GenerationEngine", "KVCache.create",
+                                   "init_vlm_params"])
+def test_entry_points_default_to_cuda(engines, monkeypatch, entry):
+    """The port's entry points run on the card unless the caller names the
+    CPU: with no card visible and no device given they raise, and never
+    carry on on the CPU."""
+    _, te = engines
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = {
+        "GenerationEngine": lambda: t_engine.GenerationEngine(
+            te.cfg, {"vit": te.params["vit"], "pooler": te.params["pooler"],
+                     "llama": te.llama_params}, max_seq_len=96),
+        "KVCache.create": lambda: t_engine.KVCache.create(te.cfg.llama, 1, 8),
+        "init_vlm_params": lambda: t_vlm.init_vlm_params(te.cfg, seed=0),
+    }
+    with pytest.raises(RuntimeError, match="no CUDA device visible"):
+        calls[entry]()
 
 
 def test_port_never_imports_jax_or_the_jax_package():

@@ -60,7 +60,7 @@ def test_init_params_structure_matches_jax(models):
     """The port's seeded init builds the JAX init's tree: same keys, shapes
     and dtypes."""
     _, _, t_cfg, t_params = models
-    fresh = t_vlm.init_vlm_params(t_cfg, seed=3)
+    fresh = t_vlm.init_vlm_params(t_cfg, seed=3, device="cpu")
 
     def spec(tree):
         if isinstance(tree, dict):
@@ -154,7 +154,8 @@ def _prefill_both(models, s=20, cache_len=32, lens=(20, 13)):
                                   inputs_embeds=jnp.asarray(emb),
                                   prompt_len=jnp.asarray(plen),
                                   compute_dtype=jnp.float32)
-    t_cache = t_llama.KVCache.create(t_cfg.llama, 2, cache_len, dtype=F32)
+    t_cache = t_llama.KVCache.create(t_cfg.llama, 2, cache_len, dtype=F32,
+                                     device="cpu")
     t_out = t_llama.llama_prefill(t_params["llama"], t_cfg.llama, t_cache,
                                   inputs_embeds=torch.from_numpy(emb),
                                   prompt_len=torch.from_numpy(plen),
@@ -196,9 +197,9 @@ def test_kv_cache_rejects_int8():
     """An int8 cache comes with float32 scale planes at 1 (the quantized
     cache); a dtype with no decode path (float16) is rejected."""
     cfg = t_llama.LlamaConfig.tiny_test()
-    cache = t_llama.KVCache.create(cfg, 1, 8, dtype=torch.int8)
+    cache = t_llama.KVCache.create(cfg, 1, 8, dtype=torch.int8, device="cpu")
     assert cache.quantized and cache.k.dtype == torch.int8
     assert cache.k_scale.shape == cache.k.shape[:-1]
     assert bool((cache.v_scale == 1).all())
     with pytest.raises(NotImplementedError):
-        t_llama.KVCache.create(cfg, 1, 8, dtype=torch.float16)
+        t_llama.KVCache.create(cfg, 1, 8, dtype=torch.float16, device="cpu")

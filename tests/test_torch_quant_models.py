@@ -85,7 +85,8 @@ def _prefill(llama, j_params, t_params, cache_dtype, s=20, cache_len=128):
                                   inputs_embeds=jnp.asarray(emb),
                                   prompt_len=jnp.asarray(plen),
                                   compute_dtype=jnp.float32)
-    t_cache = t_llama.KVCache.create(t_cfg, 2, cache_len, dtype=cache_dtype)
+    t_cache = t_llama.KVCache.create(t_cfg, 2, cache_len, dtype=cache_dtype,
+                                     device="cpu")
     t_out = t_llama.llama_prefill(t_params, t_cfg, t_cache,
                                   inputs_embeds=torch.from_numpy(emb),
                                   prompt_len=torch.from_numpy(plen),
@@ -218,7 +219,7 @@ def _engines(vlm_weights, **kwargs):
                                    compute_dtype=jnp.float32, **j_kwargs)
     te = t_engine.GenerationEngine(
         t_vlm.VLMConfig.tiny_test(stage=0), params_from_numpy(np_params),
-        max_seq_len=128, compute_dtype=F32, **kwargs)
+        max_seq_len=128, compute_dtype=F32, device="cpu", **kwargs)
     return je, te
 
 
@@ -304,7 +305,8 @@ def test_nf4_engine_quantizes_after_the_cast(vlm_weights):
 def test_kv_cache_create_int8_matches_jax(llama):
     j_cfg, _, t_cfg, _ = llama
     j_cache = j_llama.KVCache.create(j_cfg, 2, 16, dtype=jnp.int8)
-    t_cache = t_llama.KVCache.create(t_cfg, 2, 16, dtype=torch.int8)
+    t_cache = t_llama.KVCache.create(t_cfg, 2, 16, dtype=torch.int8,
+                                     device="cpu")
     assert t_cache.quantized and j_cache.quantized
     for name in ("k", "v", "k_scale", "v_scale", "length"):
         got, want = getattr(t_cache, name), getattr(j_cache, name)

@@ -485,7 +485,7 @@ def test_encode_image_vision_packed_matches_jax():
             _jtree(params["vit"]["layers"])), interpret=True)
     te = t_engine.GenerationEngine(t_vlm.VLMConfig.tiny_test(stage=0),
                                    params_from_numpy(params),
-                                   vision_w8a8=True)
+                                   vision_w8a8=True, device="cpu")
     got = t_vlm.encode_image(te.params, _t(imgs), te.cfg,
                              vision_packed=te._vision_packed)
     _rel_l2(got, want, TOWER_TOL, "encode_image")
@@ -506,7 +506,7 @@ def test_engine_vision_w8a8_greedy_matches_jax(monkeypatch):
     te = t_engine.GenerationEngine(
         t_vlm.VLMConfig.tiny_test(stage=0), params_from_numpy(params),
         vision_w8a8=True, compute_dtype=torch.float32,
-        cache_dtype=torch.float32, **kw)
+        cache_dtype=torch.float32, device="cpu", **kw)
     assert te._vision_packed is not None
     assert isinstance(te.params["pooler"]["layers"]["wq"],
                       t_quant.QuantizedTensor)
@@ -547,7 +547,7 @@ def test_build_engine_vision_w8a8_mapping():
                  "num_hidden_layers": 2, "num_attention_heads": 4,
                  "max_position_embeddings": 128}}
     vcfg = t_vlm.VLMConfig.from_config_dict(cfg)
-    tparams = t_vlm.init_vlm_params(vcfg, seed=0)
+    tparams = t_vlm.init_vlm_params(vcfg, seed=0, device="cpu")
     assert build_engine(vcfg, tparams, {**cfg, "bits": 8},
                         "cpu")._vision_packed is None
     engine = build_engine(vcfg, tparams, {**cfg, "bits": 8, "kv_bits": 8,
