@@ -28,7 +28,12 @@ and the W4A8 + int8 lm_head + int8 KV recipe) and prints:
      planted fault) through the kernels in bf16, through the plain attention
      in bf16, and through the plain attention in float32; the full
      prefills' logits of the kernels against the plain attention; and the
-     same readings through the kernels on the first 1 and 4 layers alone.
+     same readings through the kernels on the first 1 and 4 layers alone;
+  4. a stage-1 training step (build_trainer with
+     Config/multi_modal_stage1.yaml, chip_smoke.py's caption and packed
+     batches) after a warm-up step, under torch.profiler: wall time, the
+     card's busy share, the time in the forward and in the backward (host
+     clock), and the top kernels.
 It is a measurement, not a check: it fails only if something does not run.
 It needs no network and imports nothing of JAX.
 """
@@ -42,7 +47,7 @@ import time
 import numpy as np
 
 from chip_smoke import (decode_vs_prefill, log, plain_attention, rel_l2,
-                        smi_line)
+                        smi_line, train_batches)
 
 
 def timed(fn, reps=5):
@@ -191,6 +196,59 @@ def towers(params, cfg, dev, batch=64):
                          max_name_column_width=60))
 
 
+def train_profile(dev):
+    """One stage-1 training step of each batch of chip_smoke.py's training
+    phase, after a warm-up step, under torch.profiler; and the same step
+    split by the host clock into the forward (the loss) and the backward
+    with the update."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from lhrs_bot_tpu_torch.core import build_trainer
+    from lhrs_bot_tpu_torch.core.config import load_yaml_config
+    from lhrs_bot_tpu_torch.models import VLMConfig, init_vlm_params
+    from lhrs_bot_tpu_torch.models.vlm import vlm_forward_loss
+
+    config = load_yaml_config("Config/multi_modal_stage1.yaml")
+    cfg = VLMConfig.from_config_dict(config)
+    params = init_vlm_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    caption, packed = train_batches(cfg, np.random.default_rng(11))
+    trainer = build_trainer(config, params, [caption, packed], dev)
+    del params
+    for name, batch in (("caption", caption), ("packed", packed)):
+        batch = trainer._put(batch)
+        trainer._step_fn(trainer.params, batch)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = vlm_forward_loss(trainer.params, cfg, batch)["total_loss"]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        grads = torch.autograd.grad(loss, trainer.optimizer.params)
+        trainer.optimizer.step(grads)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        del loss, grads
+        log(f"training step, {name} batch: forward {(t1 - t0) * 1e3:.1f} ms, "
+            f"backward + update {(t2 - t1) * 1e3:.1f} ms (host clock)")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            trainer._step_fn(trainer.params, batch)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        events = prof.key_averages()
+        busy_ms = sum(e.self_device_time_total for e in events
+                      if e.device_type == DeviceType.CUDA) / 1e3
+        log(f"training step, {name} batch, under the profiler: wall "
+            f"{wall_ms:.1f} ms, card busy {busy_ms:.1f} ms, busy share "
+            f"{busy_ms / wall_ms:.3f}")
+        log(events.table(sort_by="self_device_time_total", row_limit=15,
+                         max_name_column_width=60))
+    del trainer
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
 
@@ -306,6 +364,10 @@ def main():
             f"{rel_l2(logits_d, logits_f)}; planted faults " + "; ".join(
                 f"{fault} {rel_l2(logits, logits_f)}"
                 for fault, logits in faulty.items()))
+    del engine, lp, cut, full
+    torch.cuda.empty_cache()
+    log("-- stage-1 training --")
+    train_profile(dev)
     log(smi_line())
 
 

@@ -18,9 +18,14 @@ Phases, one or more lines each:
      the paged decode pair (bf16 and int8 pools) at L32 H32 D128, pages of
      128 and 16, eight rows around page boundaries and a ghost row,
      shuffled pages, the null and unallocated pages poisoned, pools
-     byte-equal to plain's; every kernel with its bound (bytes over 3.35
-     TB/s or operations over the dense peak) and, where one PyTorch call
-     computes the same function, that call's time;
+     byte-equal to plain's; the training kernels (the forward's LSE and
+     segment ids, the dQ and dK/dV backward kernels) at the decoder's
+     training shapes (B1 H32 S2048 D128 causal, with a kv_mask and with
+     packed segments) and the perceiver's (B8 H16 D64), each against its
+     plain version with a planted fault, twice for bit-identical
+     gradients; every kernel with its bound (bytes over 3.35 TB/s or
+     operations over the dense peak) and, where one PyTorch call computes
+     the same function, that call's time;
   4. slices: the serving paths at full width (ViT-L/14, 144-query 6-layer
      perceiver, LLaMA-2-7B, one set of seeded random bf16 weights) through
      build_engine + GenerationEngine.generate: bf16 (three requests), the
@@ -41,7 +46,17 @@ Phases, one or more lines each:
      pool state and launch counts (the paged kernels 32 times a decode
      step, K2 / K4 never, and the reverse for the contiguous run); and the
      reference's page-table hazard wave (pages of 16), where no idle
-     slot's table row may name a live page after any tick.
+     slot's table row may name a live page after any tick;
+  5. training: stage 1 at full width (ViT-L/14 frozen, the perceiver
+     trained, LLaMA-2-7B frozen in bf16) from seeded weights through
+     build_trainer with Config/multi_modal_stage1.yaml's optimizer and
+     schedule: the first step's pooler gradient through the kernels
+     against the plain attention (two planted faults), then six steps on a
+     caption batch (8 rows, 335 spliced tokens; the loss must fall) and two
+     on a packed batch (2 rows of 2620 spliced tokens with segment ids),
+     each with its loss, grad_norm, lr, time, tokens/s, peak memory and
+     launch counts (72 forward, 50 dQ, 50 dK/dV a step; the plain
+     backward never).
 Then a JSON line with per-kernel numbers, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}. Any failure raises: the script
 exits non-zero and prints no result. It needs no network and imports nothing
@@ -870,16 +885,19 @@ def phase_vision_kernels(dev):
                                      "product")
         ms = cuda_ms(lambda: int8_gemm_kernel(a, xs, w, ws))
         plain = cuda_ms(lambda: int8_gemm_plain(a, xs, w, ws))
+        # the library yardstick: the int32 product alone, no epilogue
+        lib = cuda_ms(lambda: torch._int_mm(a, w))
         tops = 2 * m_big * n * k / ms / 1e9
         bms, by = bound(m_big * k + k * n + 4 * (m_big + n) + 2 * m_big * n,
                         2.0 * m_big * n * k, "int8")
         kb["shapes"].append({"K": k, "N": n, "M": m_big, "ms": ms,
-                             "plain_ms": plain, "TOPS": tops,
-                             "bound_ms": bms, "bound_by": by})
+                             "plain_ms": plain, "library_ms": lib,
+                             "TOPS": tops, "bound_ms": bms, "bound_by": by})
         log(f"  B K{k} N{n}, M {VIT_S} and {m_big}: int32 accumulators "
             f"bit-identical; bf16 out at M {m_big}: kernel {ms:.4f} ms "
-            f"({tops:.0f} TOPS), plain {plain:.4f} ms, bound {bms:.4f} ms "
-            f"({by})")
+            f"({tops:.0f} TOPS), plain {plain:.4f} ms, library "
+            f"(torch._int_mm, int32 product only) {lib:.4f} ms, bound "
+            f"{bms:.4f} ms ({by})")
     # epilogues at the FC shape (M 64 * 257, K 1024, N 4096)
     k, n = VIT_W, 4 * VIT_W
     a, w = codes(m_big, k), transposed_storage(codes(k, n))
@@ -1530,9 +1548,482 @@ def phase_hazard(engine, cfg, dev):
     return {"agreement": agree, "outputs": outs}
 
 
+# The training kernels against their plain versions on the same bf16 inputs:
+# the forward's log-sum-exp within LSE_ATOL, dQ, dK and dV each within
+# GRAD_REL_L2 relative L2 of the plain backward (which follows the TPU
+# kernels' rounding points; the kernels sum in another order and round the
+# probabilities of the forward's PV product unnormalised). Each check has a
+# planted fault that must exceed its bound in every run: the forward with
+# its scale 1% off for the LSE, the backward given an LSE 0.5 too high (P
+# scaled by 0.61) for the gradients.
+LSE_ATOL = 1e-3
+GRAD_REL_L2 = 1e-2
+
+
+def train_attention_cases(dev, gen):
+    """(name, q, k, v, d_out, kv_mask, segment_ids, causal) at the training
+    path's shapes: the decoder (B1 H32 S2048 D128, causal, a kv_mask with
+    1791 valid keys; the same with 4 packed segments and a padding tail),
+    the perceiver's groups (B8 H16 D64, non-causal), and ragged edges."""
+    import torch
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+
+    def segments(b, s, lengths):
+        seg = torch.zeros(b, s, dtype=torch.int32, device=dev)
+        for row in range(b):
+            pos = 0
+            for i, n in enumerate(lengths):
+                seg[row, pos:pos + n] = i + 1
+                pos += n
+        return seg
+
+    specs = [  # name, B, H, Sq, Skv, D, causal, mask / seg
+        ("decoder_kvmask", 1, 32, 2048, 2048, 128, True, ("mask", 1791)),
+        ("decoder_segments", 1, 32, 2048, 2048, 128, True,
+         ("seg", (600, 500, 400, 291))),
+        ("perceiver_g0", 8, 16, 64, 320, 64, False, None),
+        ("perceiver_g1", 8, 16, 48, 304, 64, False, None),
+        ("edge_seg_d64", 2, 2, 200, 200, 64, True, ("seg", (70, 1, 90))),
+        ("edge_mask_d128", 2, 3, 77, 133, 128, False, ("mask", 100)),
+        ("edge_causal_tail_d128", 1, 2, 130, 130, 128, True, None),
+    ]
+    for name, b, h, sq, skv, d, causal, extra in specs:
+        mask = seg = None
+        if extra and extra[0] == "mask":
+            mask = (torch.arange(skv, device=dev) < extra[1]).expand(
+                b, skv).contiguous()
+        elif extra:
+            seg = segments(b, sq, extra[1])
+        yield (name, randn(b, h, sq, d), randn(b, h, skv, d),
+               randn(b, h, skv, d), randn(b, h, sq, d), mask, seg, causal)
+
+
+def attention_bound(valid, mask, seg, b, h, sq, skv, d, products, q_rows,
+                    kv_rows, lse_rows):
+    """Bound of an attention pass over this call's inputs: `products`
+    D-long products of 2 operations a head for each pair that attends (the
+    pairs counted from the mask `valid`, None for all), or the bytes over
+    the memory rate: `q_rows` bf16 (B, H, Sq, D) tensors (Q, dO, O, dQ),
+    `kv_rows` (B, H, Skv, D) tensors (K, V, dK, dV), `lse_rows` float32
+    (B, H, Sq) rows (LSE, delta), and the kv_mask and segment ids, each
+    read or written once."""
+    pairs = (b * sq * skv if valid is None
+             else int(valid.expand(b, 1, sq, skv).sum()))
+    n_bytes = (2 * b * h * d * (q_rows * sq + kv_rows * skv)
+               + 4 * b * h * sq * lse_rows
+               + (0 if mask is None else mask.numel())
+               + (0 if seg is None else 4 * seg.numel()))
+    return bound(n_bytes, 2.0 * products * h * pairs * d)
+
+
+def phase_train_kernels(dev):
+    """The forward's LSE and segment ids, and the dQ and dK/dV kernels,
+    against their plain versions at the training path's shapes, each with a
+    planted fault; times at the decoder shape (and the perceiver's for the
+    backward) beside the plain versions, SDPA and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from lhrs_bot_tpu_torch.ops.attention import (
+        _allowed, flash_attention_bwd, flash_attention_bwd_dkv,
+        flash_attention_bwd_dq, flash_attention_bwd_reference,
+        flash_attention_fwd, mha_reference)
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    out = {"fwd": {"max_abs_err": 0.0, "lse_max_abs_err": 0.0},
+           "dq": {"max_abs_err": 0.0, "rel_l2": 0.0},
+           "dkv": {"max_abs_err": 0.0, "rel_l2": 0.0}, "cases": {}}
+    for name, q, k, v, do, mask, seg, causal in train_attention_cases(
+            dev, gen):
+        b, h, sq, d = q.shape
+        skv = k.shape[2]
+        scale = d ** -0.5
+        lse = torch.empty(b, h, sq, device=dev)
+        o = flash_attention_fwd(q, k, v, mask, causal, scale,
+                                segment_ids=seg, lse=lse)
+        o_p, lse_p = mha_reference(q, k, v, mask, causal=causal,
+                                   sm_scale=scale, segment_ids=seg,
+                                   return_lse=True)
+        lse_f = torch.empty_like(lse)
+        flash_attention_fwd(q, k, v, mask, causal, scale * 1.01,
+                            segment_ids=seg, lse=lse_f)
+        torch.cuda.synchronize()
+        valid = _allowed(sq, skv, mask, seg, causal, dev)
+        rows = (torch.ones(b, sq, dtype=torch.bool, device=dev)
+                if valid is None else valid.expand(b, 1, sq, skv).any(-1)[:, 0])
+        rmask = rows[:, None].expand(b, h, sq)  # rows with a valid key
+        err = check_close(f"fwd {name}", o, mha_reference(
+            q.float(), k.float(), v.float(), mask, causal=causal,
+            sm_scale=scale, segment_ids=seg), rmask)
+        if bool((o[~rmask] != 0).any()):
+            raise AssertionError(f"fwd {name}: rows with no valid key "
+                                 "are not 0")
+        if not bool((lse[~rmask] == 1e30).all()):
+            raise AssertionError(f"fwd {name}: LSE of rows with no valid "
+                                 "key is not 1e30")
+        lse_err = float((lse - lse_p)[rmask].abs().max())
+        lse_fault = float((lse_f - lse_p)[rmask].abs().max())
+        if lse_err > LSE_ATOL or lse_fault <= LSE_ATOL:
+            raise AssertionError(f"fwd {name}: LSE max abs err {lse_err:.3e}"
+                                 f", planted fault {lse_fault:.3e} (bound "
+                                 f"{LSE_ATOL})")
+        dq, dk, dv = flash_attention_bwd(q, k, v, mask, seg, o, lse, do,
+                                         causal, scale)
+        dq_p, dk_p, dv_p = flash_attention_bwd_reference(
+            q, k, v, mask, seg, o_p, lse_p, do, causal, scale)
+        fq, fk, fv = flash_attention_bwd(q, k, v, mask, seg, o, lse + 0.5,
+                                         do, causal, scale)
+        dq2, dk2, dv2 = flash_attention_bwd(q, k, v, mask, seg, o, lse, do,
+                                            causal, scale)
+        torch.cuda.synchronize()
+        if not (torch.equal(dq, dq2) and torch.equal(dk, dk2)
+                and torch.equal(dv, dv2)):
+            raise AssertionError(f"bwd {name}: two runs differ (the kernels "
+                                 "must be deterministic)")
+        reading = {"fwd_max_abs_err": err, "lse_max_abs_err": lse_err,
+                   "lse_fault": lse_fault}
+        for gname, got, ref, fault, key in (("dq", dq, dq_p, fq, "dq"),
+                                            ("dk", dk, dk_p, fk, "dkv"),
+                                            ("dv", dv, dv_p, fv, "dkv")):
+            if not bool(got.isfinite().all()):
+                raise AssertionError(f"{gname} {name}: non-finite")
+            rel = float((got.float() - ref.float()).norm()
+                        / ref.float().norm())
+            rel_f = float((fault.float() - ref.float()).norm()
+                          / ref.float().norm())
+            if rel > GRAD_REL_L2 or rel_f <= GRAD_REL_L2:
+                raise AssertionError(f"{gname} {name}: relative L2 {rel:.3e},"
+                                     f" planted fault {rel_f:.3e} (bound "
+                                     f"{GRAD_REL_L2})")
+            reading[f"{gname}_rel_l2"], reading[f"{gname}_fault"] = rel, rel_f
+            out[key]["rel_l2"] = max(out[key]["rel_l2"], rel)
+            out[key]["max_abs_err"] = max(
+                out[key]["max_abs_err"],
+                float((got.float() - ref.float()).abs().max()))
+        out["fwd"]["max_abs_err"] = max(out["fwd"]["max_abs_err"], err)
+        out["fwd"]["lse_max_abs_err"] = max(out["fwd"]["lse_max_abs_err"],
+                                            lse_err)
+        line = (f"  train {name}: q{(b, h, sq, d)} kv {skv} causal={causal} "
+                f"mask={mask is not None} seg={seg is not None}: fwd "
+                f"{err:.3e}, LSE {lse_err:.3e} (fault {lse_fault:.3e}); rel "
+                f"L2 dq {reading['dq_rel_l2']:.3e} dk {reading['dk_rel_l2']:.3e}"
+                f" dv {reading['dv_rel_l2']:.3e} (faults "
+                f"{reading['dq_fault']:.3f} {reading['dk_fault']:.3f} "
+                f"{reading['dv_fault']:.3f}); deterministic")
+        if name in ("decoder_kvmask", "decoder_segments", "perceiver_g0"):
+            delta = (do.float() * o.float()).sum(-1)
+            attn = valid if valid is not None else None
+            qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+            sdpa = F.scaled_dot_product_attention(
+                qg, kg, vg, attn_mask=attn, scale=scale)
+            t = {
+                "fwd_ms": cuda_ms(lambda: flash_attention_fwd(
+                    q, k, v, mask, causal, scale, segment_ids=seg, lse=lse)),
+                "fwd_plain_ms": cuda_ms(lambda: mha_reference(
+                    q, k, v, mask, causal=causal, sm_scale=scale,
+                    segment_ids=seg, return_lse=True)),
+                "fwd_library_ms": cuda_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        q, k, v, attn_mask=attn, scale=scale)),
+                "dq_ms": cuda_ms(lambda: flash_attention_bwd_dq(
+                    q, k, v, mask, seg, lse, delta, do, causal, scale)),
+                "dkv_ms": cuda_ms(lambda: flash_attention_bwd_dkv(
+                    q, k, v, mask, seg, lse, delta, do, causal, scale)),
+                "bwd_plain_ms": cuda_ms(
+                    lambda: flash_attention_bwd_reference(
+                        q, k, v, mask, seg, o_p, lse_p, do, causal, scale),
+                    reps=5),
+                "bwd_library_ms": cuda_ms(lambda: torch.autograd.grad(
+                    sdpa, (qg, kg, vg), do, retain_graph=True)),
+            }
+            # forward: Q, K, V in, O and the LSE out, QK^T and PV; dQ: Q,
+            # dO, K, V, LSE, delta in, dQ out, QK^T, dO V^T and dS K; dK/dV:
+            # the same in, dK and dV out, P^T dO and dS^T Q besides
+            for key, products, q_rows, kv_rows, lse_rows in (
+                    ("fwd", 2, 2, 2, 1), ("dq", 3, 3, 2, 2),
+                    ("dkv", 4, 2, 4, 2)):
+                t[f"{key}_bound_ms"], t[f"{key}_bound_by"] = attention_bound(
+                    valid, mask, seg, b, h, sq, skv, d, products, q_rows,
+                    kv_rows, lse_rows)
+            reading.update(t)
+            line += (f"; fwd+LSE {t['fwd_ms']:.4f} ms (plain "
+                     f"{t['fwd_plain_ms']:.4f}, SDPA {t['fwd_library_ms']:.4f},"
+                     f" bound {t['fwd_bound_ms']:.4f}), dq {t['dq_ms']:.4f} ms "
+                     f"(bound {t['dq_bound_ms']:.4f}), dkv {t['dkv_ms']:.4f} "
+                     f"ms (bound {t['dkv_bound_ms']:.4f}), plain backward "
+                     f"{t['bwd_plain_ms']:.4f} ms, SDPA backward "
+                     f"{t['bwd_library_ms']:.4f} ms")
+            del sdpa, qg, kg, vg
+        out["cases"][name] = reading
+        log(line)
+        del q, k, v, do, o, o_p, lse, lse_p, dq, dk, dv, dq_p, dk_p, dv_p
+        torch.cuda.empty_cache()
+    timed = out["cases"]["decoder_segments"]
+    for key, kname in (("dq", "dq"), ("dkv", "dkv")):
+        out[key].update(ms=timed[f"{kname}_ms"],
+                        plain_ms=timed["bwd_plain_ms"],
+                        library_ms=timed["bwd_library_ms"],
+                        bound_ms=timed[f"{kname}_bound_ms"],
+                        bound_by=timed[f"{kname}_bound_by"])
+    out["fwd"].update(ms=timed["fwd_ms"], plain_ms=timed["fwd_plain_ms"],
+                      library_ms=timed["fwd_library_ms"],
+                      bound_ms=timed["fwd_bound_ms"],
+                      bound_by=timed["fwd_bound_by"])
+    return out
+
+
+@contextlib.contextmanager
+def patched(module, **names):
+    """Set attributes of `module` for as long as the block runs."""
+    saved = {k: getattr(module, k) for k in names}
+    for k, v in names.items():
+        setattr(module, k, v)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(module, k, v)
+
+
+def plain_differentiable_attention(q, k, v, kv_mask=None, *, causal=False,
+                                   sm_scale=None, segment_ids=None):
+    """The plain attention under autograd, on CUDA tensors too: the
+    gradient reading's yardstick for the flash kernels' forward and
+    backward."""
+    from lhrs_bot_tpu_torch.ops.attention import mha_reference
+
+    return mha_reference(q, k, v, kv_mask, causal=causal, sm_scale=sm_scale,
+                         segment_ids=segment_ids)
+
+
+# The first training step's pooler gradient through the flash kernels
+# against the same step through the plain attention (bf16, autograd of
+# mha_reference in the decoder and the perceiver): relative L2 over every
+# pooler leaf. On an H100 at 700 W it read 0.045 (bf16 rounding at other
+# points through 32 layers). Each planted fault, a gross one (dK and dV
+# swapped) and a moderate one (dV scaled by 0.9 in every attention call),
+# must exceed the bound in every run.
+TRAIN_GRAD_REL_L2 = 0.1
+TRAIN_GRAD_FAULTS = (
+    ("dK and dV swapped", lambda dq, dk, dv: (dq, dv, dk)),
+    ("dV scaled by 0.9", lambda dq, dk, dv: (dq, dk, dv * 0.9)),
+)
+STEPS_CAPTION, STEPS_PACKED = 6, 2
+
+
+def train_batches(cfg, rng):
+    """The two seeded synthetic batches of the training phase: (a) captions,
+    8 rows of one 224 x 224 image and 64-192 text tokens, padded by
+    SupervisedCollator to 192 (335 spliced tokens); (b) packed,
+    PackingCollator with 2 rows of 2048 tokens and up to 4 images a row
+    (2620 spliced tokens a row, segment ids)."""
+    import types
+
+    from lhrs_bot_tpu_torch.data import PackingCollator, SupervisedCollator
+
+    tok = types.SimpleNamespace(pad_token_id=cfg.llama.pad_token_id,
+                                model_max_length=2048)
+    size = cfg.vit.image_size
+
+    def sample(n):
+        ids = rng.integers(3, cfg.llama.vocab_size, n)
+        ids[0] = cfg.llama.bos_token_id
+        ids[1] = -200  # the image marker
+        labels = ids.copy()
+        labels[:2] = -100  # the prompt: BOS and the image
+        img = rng.integers(0, 256, (size, size, 3)).astype(np.uint8)
+        return {"input_ids": ids, "labels": labels, "image": img}
+
+    lengths = rng.integers(64, 193, 8)
+    lengths[3] = 192
+    caption = SupervisedCollator(tok, pad_multiple=64)(
+        [sample(int(n)) for n in lengths])
+    packed = PackingCollator(tok, target_len=2048, rows_per_batch=2,
+                             max_images_per_row=4)(
+        [sample(int(n)) for n in rng.integers(400, 512, 8)])
+    if caption["input_ids"].shape != (8, 192):
+        raise AssertionError(f"caption batch {caption['input_ids'].shape}")
+    if (packed["images"].shape[:2] != (2, 4)
+            or packed["segment_ids"].max() != 4):
+        raise AssertionError("packed batch: 2 rows of 4 images and 4 "
+                             "segments expected")
+    return caption, packed
+
+
+def spliced_tokens(cfg, batch):
+    """(B x spliced width, valid spliced tokens) of a collated batch."""
+    n = cfg.pooler.num_query - 1
+    b, t = batch["input_ids"].shape
+    k = batch["images"].shape[1] if batch["images"].ndim == 5 else 1
+    markers = int((batch["input_ids"] == -200).sum())
+    return b * (t + k * n), int(batch["attention_mask"].sum()) + markers * n
+
+
+def pooler_grads(params, cfg, batch):
+    """The pooler's gradient of the batch's loss (no update), flattened."""
+    import torch
+
+    from lhrs_bot_tpu_torch.models import vlm_forward_loss
+
+    leaves = list(_leaves(params["pooler"]))
+    loss = vlm_forward_loss(params, cfg, batch)["total_loss"]
+    grads = torch.autograd.grad(loss, leaves)
+    return float(loss.detach()), torch.cat([g.float().reshape(-1)
+                                           for g in grads])
+
+
+def check_train_grads(params, cfg, batch):
+    """The first step's pooler gradient through the kernels against the
+    plain attention (both bf16), and the planted fault."""
+    import lhrs_bot_tpu_torch.models.llama as llama
+    import lhrs_bot_tpu_torch.models.perceiver as perceiver
+    import lhrs_bot_tpu_torch.ops.attention as attention
+
+    loss_k, g_k = pooler_grads(params, cfg, batch)
+    with patched(llama, flash_attention=plain_differentiable_attention), \
+            patched(perceiver, flash_attention=plain_differentiable_attention):
+        loss_p, g_p = pooler_grads(params, cfg, batch)
+    bwd = attention.flash_attention_bwd
+    rel = float((g_k - g_p).norm() / g_p.norm())
+    log(f"  pooler gradient, kernels vs plain attention (bf16, "
+        f"{g_k.numel()} values): loss {loss_k:.5f} vs {loss_p:.5f}, "
+        f"relative L2 {rel:.4e} (bound {TRAIN_GRAD_REL_L2})")
+    faults = {}
+    for name, fault in TRAIN_GRAD_FAULTS:
+        with patched(attention, flash_attention_bwd=lambda *a, f=fault: f(
+                *bwd(*a))):
+            _, g_f = pooler_grads(params, cfg, batch)
+        faults[name] = float((g_f - g_p).norm() / g_p.norm())
+        log(f"  planted fault ({name}): relative L2 {faults[name]:.4f}")
+    if not (bool(g_k.isfinite().all()) and rel <= TRAIN_GRAD_REL_L2
+            and min(faults.values()) > TRAIN_GRAD_REL_L2):
+        raise AssertionError(f"pooler gradient: relative L2 {rel:.4e}, "
+                             f"faults {faults}, bound {TRAIN_GRAD_REL_L2}")
+    return {"rel_l2": rel, "faults": faults, "bound": TRAIN_GRAD_REL_L2,
+            "loss_kernels": loss_k, "loss_plain": loss_p}
+
+
+TRAIN_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv")
+
+
+def phase_train(dev):
+    """Stage-1 training at full width (ViT-L/14 frozen, the 144-query
+    6-layer perceiver trained, LLaMA-2-7B frozen in bf16) from seeded
+    weights, through build_trainer with Config/multi_modal_stage1.yaml's
+    optimizer and schedule: the gradient reading, then six steps on the
+    caption batch and two on the packed batch, with per-step loss,
+    grad_norm, lr, time, tokens/s, peak memory and launch counts."""
+    import torch
+
+    import lhrs_bot_tpu_torch.ops.attention as attention
+    from lhrs_bot_tpu_torch.core import (build_trainer,
+                                         training_params_from_numpy)
+    from lhrs_bot_tpu_torch.core.config import load_yaml_config
+    from lhrs_bot_tpu_torch.models import VLMConfig, init_vlm_params
+    from lhrs_bot_tpu_torch.train import HookBase
+
+    config = load_yaml_config("Config/multi_modal_stage1.yaml")
+    cfg = VLMConfig.from_config_dict(config)
+    t0 = time.time()
+    seeded = init_vlm_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    params = training_params_from_numpy(seeded, cfg, torch.bfloat16, dev)
+    del seeded
+    torch.cuda.synchronize()
+    n_train = sum(t.numel() for t in _leaves(params["pooler"]))
+    log(f"  seeded weights in {time.time() - t0:.1f} s; trainable (pooler) "
+        f"{n_train / 1e6:.2f} M float32, the rest frozen in bf16; "
+        f"optimizer {config['optimizer']}, lr {config['lr']}, "
+        f"max_grad_norm {config['max_grad_norm']}, schedule "
+        f"{config['schedule']['name']} with {config['schedule']['warmup_epochs']}"
+        f" warmup iters")
+    caption, packed = train_batches(cfg, np.random.default_rng(11))
+    out = {"grad_check": check_train_grads(params, cfg, caption)}
+    torch.cuda.empty_cache()
+
+    wrappers = kernel_wrappers()
+    steps = []
+
+    class StepProbe(HookBase):
+        """Per step: device time (synchronised), peak memory, launches."""
+
+        def before_iter(self):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            self.counts = {k: wrappers[k].launches for k in wrappers}
+            self.t0 = time.perf_counter()
+
+        def after_iter(self):
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - self.t0) * 1e3
+            batch = caption if self.trainer.cur_iter < STEPS_CAPTION \
+                else packed
+            total, valid = spliced_tokens(cfg, batch)
+            steps.append({
+                "batch": "caption" if batch is caption else "packed",
+                "ms": ms, "spliced_tokens": total, "valid_tokens": valid,
+                "tokens_per_s": total / ms * 1e3,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "launches": {k: wrappers[k].launches - self.counts[k]
+                             for k in wrappers
+                             if wrappers[k].launches - self.counts[k]}})
+
+    plain_calls = []
+    plain_bwd = attention.flash_attention_bwd_reference
+
+    def counted_plain(*args):
+        plain_calls.append(1)
+        return plain_bwd(*args)
+
+    loader = [caption] * STEPS_CAPTION + [packed] * STEPS_PACKED
+    trainer = build_trainer(config, params, loader, dev, log_period=1,
+                            work_dir="build/train_smoke")
+    del params
+    trainer.register_hook(StepProbe())
+    for w in wrappers.values():
+        w.launches = 0
+    with patched(attention, flash_attention_bwd_reference=counted_plain):
+        trainer.train()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    ms_ = trainer.metric_storage
+    for key in ("total_loss", "grad_norm", "lr"):
+        for s, v in zip(steps, ms_[key].values):
+            s[key] = v
+    for i, s in enumerate(steps):
+        log(f"  step {i} ({s['batch']}): loss {s['total_loss']:.5f}, "
+            f"grad_norm {s['grad_norm']:.4f}, lr {s['lr']:.4e}, "
+            f"{s['ms']:.1f} ms, {s['tokens_per_s']:.0f} spliced tokens/s "
+            f"({s['spliced_tokens']} spliced, {s['valid_tokens']} valid), "
+            f"peak {s['peak_gib']:.2f} GiB, launches {s['launches']}")
+    curve = [s["total_loss"] for s in steps[:STEPS_CAPTION]]
+    log(f"  caption loss curve: {curve}; plain backward calls on the card: "
+        f"{len(plain_calls)}; launches in the run: {launches}")
+    expect = {"flash_attention_fwd": 72, "flash_attention_bwd_dq": 50,
+              "flash_attention_bwd_dkv": 50}
+    for i, s in enumerate(steps):
+        if not all(np.isfinite([s["total_loss"], s["grad_norm"]])):
+            raise AssertionError(f"step {i}: non-finite loss or grad_norm")
+        if s["launches"] != expect:
+            raise AssertionError(f"step {i}: launches {s['launches']}, "
+                                 f"expected {expect}")
+    if plain_calls:
+        raise AssertionError("the plain backward ran on the card")
+    if not curve[-1] < curve[0]:
+        raise AssertionError(f"the caption loss did not fall: {curve}")
+    out.update(steps=steps, caption_loss_curve=curve, launches=launches)
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
 def kernel_wrappers():
     """Each kernel's wrapper, whose `launches` counts its launches."""
-    from lhrs_bot_tpu_torch.ops.attention import flash_attention_fwd
+    from lhrs_bot_tpu_torch.ops.attention import (flash_attention_bwd_dkv,
+                                                  flash_attention_bwd_dq,
+                                                  flash_attention_fwd)
     from lhrs_bot_tpu_torch.ops.fused_decode import (
         fused_decode_attention_kernel, fused_decode_attention_q_kernel)
     from lhrs_bot_tpu_torch.ops.int8_gemm import int8_gemm_kernel
@@ -1548,7 +2039,9 @@ def kernel_wrappers():
             "ln_quant": ln_quant_kernel,
             "int8_gemm": int8_gemm_kernel,
             "paged_fused_decode": paged_fused_decode_kernel,
-            "paged_fused_decode_q": paged_fused_decode_q_kernel}
+            "paged_fused_decode_q": paged_fused_decode_q_kernel,
+            "flash_attention_bwd_dq": flash_attention_bwd_dq,
+            "flash_attention_bwd_dkv": flash_attention_bwd_dkv}
 
 
 def serve(engine, cfg, requests, new=32):
@@ -1828,17 +2321,21 @@ def main():
     for ln in usage:
         log(f"  {ln}")
 
-    log("[3/4 kernels vs plain]")
+    log("[3/5 kernels vs plain]")
     k1, k2 = phase_kernels(dev)
+    train_k = phase_train_kernels(dev)
     k3, k4 = phase_quant_kernels(dev)
     vision = phase_vision_kernels(dev)
     tower = phase_tower(dev)
     paged = phase_paged_kernels(dev)
 
-    log("[4/4 slices at full width]")
+    log("[4/5 serving slices at full width]")
     paths = phase_slice(dev)
     bf16, w4a8 = paths["bf16"]["launches"], paths["w4a8"]["launches"]
     int8 = paths["int8"]["launches"]
+
+    log("[5/5 stage-1 training at full width]")
+    train = phase_train(dev)
 
     def row(name, source, replaces, launches, k):
         return {"name": name, "route": "cuda",
@@ -1853,9 +2350,14 @@ def main():
     vision_tpu = ("vit_block.py:111, vit_block.py:132, vit_block.py:319, "
                   "vit_block.py:338, perceiver_block.py:53")
 
+    fwd_row = row("flash_attention_fwd", "flash_fwd.cu", "attention.py:84",
+                  bf16, k1)
+    fwd_row["note"] = ("also carries the LSE output and segment ids: "
+                       f"{train['launches']['flash_attention_fwd']} launches "
+                       "on the training path; times at the packed decoder "
+                       "shape in train_kernels")
     kernels = [
-        row("flash_attention_fwd", "flash_fwd.cu", "attention.py:84", bf16,
-            k1),
+        fwd_row,
         row("fused_decode_attention", "fused_decode.cu",
             "fused_decode.py:43", bf16, k2),
         row("fused_decode_attention_q", "fused_decode_q.cu",
@@ -1869,11 +2371,16 @@ def main():
         row("paged_fused_decode_q", "paged_decode.cu", "paged_fused.py:52",
             paths["serve_paged_int8"]["launches"],
             paged["paged_fused_decode_q"]),
+        row("flash_attention_bwd_dq", "flash_bwd.cu", "attention.py:291",
+            train["launches"], train_k["dq"]),
+        row("flash_attention_bwd_dkv", "flash_bwd.cu", "attention.py:357",
+            train["launches"], train_k["dkv"]),
     ]
     log(json.dumps({"w4a8_shapes": k3["shapes"]}))
     log(json.dumps({"int8_gemm_shapes": vision["B"]["shapes"],
                     "vision_blocks": vision["blocks"], "tower": tower}))
     log(json.dumps({"paths": paths, "paged_kernels": paged}))
+    log(json.dumps({"train_kernels": train_k, "train": train}))
     log(json.dumps({"kernels": kernels}))
     log(smi_line())
     log(json.dumps({"ok": True, "device": {

@@ -1,5 +1,7 @@
-"""Engine assembly from the config surface (counterpart of
-lhrs_bot_tpu/core/bootstrap.py `build_engine`)."""
+"""Engine and trainer assembly from the config surface (counterpart of
+lhrs_bot_tpu/core/bootstrap.py `build_engine`, and of what
+`main_pretrain_stage1.py` / `main_pretrain_stage3.py` compose around the
+trainer)."""
 
 from __future__ import annotations
 
@@ -50,3 +52,45 @@ def build_engine(cfg, params, config, device) -> GenerationEngine:
         double_quant=bool(config.get("double_quant", True)),
         lm_head_bits=int(config.get("lm_head_bits", 0) or 0) or None,
         vision_w8a8=vision_w8a8_setting(cfg, config, bits, device))
+
+
+def build_trainer(config, params, loader, device="cuda", *,
+                  compute_dtype: torch.dtype = torch.bfloat16,
+                  work_dir: str = "output", log_period: int = 50):
+    """The trainer of `config` (a nested dict with the schema of
+    `Config/*.yaml`, e.g. from `core.config.load_yaml_config`) over
+    `params` (the JAX parameter pytree as numpy, or tensors) and `loader`
+    (an iterable of collated batches) on `device`, composed as the JAX
+    entry points compose it: the parameters for training
+    (`training_params_from_numpy`), the schedule from the config, the
+    optimizer over `trainable_mask`, and an epoch-based trainer over
+    `epochs` x len(loader) iterations (stages 1 and 2) or an
+    iteration-based one over `epochs` iterations (stage 3, whose recipe
+    treats epochs as iterations). `use_checkpoint` turns on remat. The
+    trainer's parameters are `trainer.params`. Checkpoints are not ported:
+    a config that sets `ckpt_period` raises NotImplementedError."""
+    from ..models.vlm import VLMConfig, trainable_mask
+    from ..train import (EpochBasedTrainer, IterBasedTrainer,
+                         build_optimizer, build_schedule)
+    from .convert import training_params_from_numpy
+
+    cfg = VLMConfig.from_config_dict(config)
+    params = training_params_from_numpy(params, cfg, compute_dtype, device)
+    common = dict(work_dir=work_dir, compute_dtype=compute_dtype,
+                  remat=bool(config.get("use_checkpoint", False)),
+                  log_period=log_period,
+                  ckpt_period=config.get("ckpt_period"))
+    if int(config["stage"]) == 3:
+        max_iters = int(config["epochs"])
+        schedule = build_schedule(config, max_iters)
+        optimizer = build_optimizer(config, params,
+                                    trainable_mask(params, cfg), schedule)
+        return IterBasedTrainer(cfg, params, optimizer, loader,
+                                max_iters=max_iters, schedule=schedule,
+                                **common)
+    epochs = int(config["epochs"])
+    schedule = build_schedule(config, epochs * len(loader))
+    optimizer = build_optimizer(config, params, trainable_mask(params, cfg),
+                                schedule)
+    return EpochBasedTrainer(cfg, params, optimizer, loader, epochs=epochs,
+                             schedule=schedule, **common)

@@ -6,7 +6,9 @@ arrays (`{"vit", "pooler", "llama"}` from `init_vlm_params` or
 of tensors. The port keeps the JAX layout, per-layer tensors stacked on a
 leading axis and projection weights (in, out), so `x @ w` needs no
 transpose; a layout change for a kernel belongs in this module and nowhere
-else.
+else. `training_params_from_numpy` gives the parameters for training:
+float32 masters of the trainable leaves, the frozen ones in the compute
+dtype.
 
 `eval_config()` holds the fields of `Config/multi_modal_eval.yaml` that the
 serving slice reads, so the serving path needs no YAML parser.
@@ -17,6 +19,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import resolve_device
+
+
+def _tensor(leaf) -> torch.Tensor:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach()
+    arr = np.asarray(leaf)
+    if not (arr.flags.writeable and arr.flags.c_contiguous):
+        arr = np.array(arr, order="C")  # torch wants a writable buffer
+    return torch.from_numpy(arr)
+
 
 def params_from_numpy(tree):
     """numpy pytree -> nested dict of CPU tensors with the same dtypes.
@@ -24,10 +37,37 @@ def params_from_numpy(tree):
     job (`GenerationEngine.__init__`)."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v) for k, v in tree.items()}
-    arr = np.asarray(tree)
-    if not (arr.flags.writeable and arr.flags.c_contiguous):
-        arr = np.array(arr, order="C")  # torch wants a writable buffer
-    return torch.from_numpy(arr)
+    return _tensor(tree)
+
+
+def training_params_from_numpy(tree, cfg,
+                               compute_dtype: torch.dtype = torch.bfloat16,
+                               device="cuda"):
+    """The JAX parameter pytree (numpy arrays, or tensors) -> the port's
+    parameters for training on `device`, by `models.vlm.trainable_mask`:
+    each trainable leaf a float32 master tensor with requires_grad (the JAX
+    trainer keeps float32 parameters); each frozen float leaf cast once to
+    the compute dtype, without grad (at 7B that saves 14 GB against float32
+    copies, and it is the cast the JAX model functions make on every call),
+    but the ViT's pre-LayerNorm, kept as given as the JAX tower uses it.
+    Integer leaves move as they are."""
+    from ..models.vlm import trainable_mask
+
+    device = resolve_device(device)
+
+    def walk(t, mask, keep):
+        if isinstance(t, dict):
+            return {k: walk(v, mask[k], keep or k == "pre_ln")
+                    for k, v in t.items()}
+        x = _tensor(t)
+        if not x.is_floating_point():
+            return x.to(device)
+        if mask:
+            return x.to(device=device, dtype=torch.float32,
+                        copy=True).requires_grad_(True)
+        return x.to(device=device, dtype=None if keep else compute_dtype)
+
+    return walk(tree, trainable_mask(tree, cfg), False)
 
 
 def eval_config() -> dict:

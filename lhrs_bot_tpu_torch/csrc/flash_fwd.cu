@@ -4,7 +4,12 @@
 // Replaces the Pallas TPU kernel `_flash_kernel` (lhrs_bot_tpu/ops/attention.py:84,
 // called through `_flash_attention_pallas` :178). Same semantics: optional
 // kv_mask (B, Skv), top-left causal mask (kv_id <= q_id), rows with no valid
-// key give exactly 0. Segment ids and the LSE output are not ported yet.
+// key give exactly 0. Optional sequence-packing segment ids (B, S): position
+// i attends j iff seg[i] == seg[j] > 0, combined with the masks above
+// (`:139-145`); and an optional float32 log-sum-exp output (B, H, Sq) for
+// the backward, m + log(l) per row and 1e30 for a row with no valid key, so
+// that exp(s - lse) underflows to 0 there (`:172-175`). Null pointers mean
+// "not given": the serving and vision launches are unchanged.
 // Also the per-head attention inside the fused W8A8 vision blocks
 // (lhrs_bot_tpu/ops/vit_block.py:111/:132, perceiver_block.py:53), whose
 // output stays float32 until it is quantized: the float32-output variant
@@ -86,17 +91,19 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
   }
 }
 
-template <int D, bool kF32Out>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     const uint8_t* __restrict__ kv_mask, void* __restrict__ o,
-                     int H, int Sq, int Skv, int causal, float sm_scale,
-                     Strides qs, Strides ks, Strides vs, Strides os) {
+// One CTA's work. The segment test and the LSE write are compiled in only
+// where they are asked for (kSeg, kLse).
+template <int D, bool kF32Out, bool kSeg, bool kLse>
+__device__ __forceinline__ void flash_fwd_tile(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const uint8_t* __restrict__ kv_mask,
+    const int* __restrict__ seg, void* __restrict__ o,
+    float* __restrict__ lse, int H, int Sq, int Skv, int causal,
+    float sm_scale, Strides qs, Strides ks, Strides vs, Strides os) {
   constexpr int LD = D + 8;
   __shared__ __align__(16) __nv_bfloat16 sK[kBK * LD];  // Q is staged here first
   __shared__ __align__(16) __nv_bfloat16 sV[kBK * LD];
+  __shared__ int sSeg[kBK];  // segment ids of the kv tile (with seg only)
   __shared__ uint8_t sValid[kBK];
 
   const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
@@ -131,6 +138,10 @@ __global__ void __launch_bounds__(kThreads)
   float m[2] = {kNegInf, kNegInf};
   float l[2] = {0.f, 0.f};  // per-thread partial row sums
   const int qrow[2] = {q0 + r0, q0 + r0 + 8};
+  int segq[2] = {0, 0};  // rows past Sq are segment 0: they attend nothing
+  if (kSeg)
+    for (int r = 0; r < 2; ++r)
+      if (qrow[r] < Sq) segq[r] = seg[(size_t)b * Sq + qrow[r]];
 
   const int kv_end = causal ? min(Skv, q0 + kBQ) : Skv;
   for (int kv0 = 0; kv0 < kv_end; kv0 += kBK) {
@@ -141,6 +152,7 @@ __global__ void __launch_bounds__(kThreads)
       const int kv = kv0 + threadIdx.x;
       sValid[threadIdx.x] =
           kv < Skv && (kv_mask == nullptr || kv_mask[(size_t)b * Skv + kv]);
+      if (kSeg) sSeg[threadIdx.x] = kv < Skv ? seg[(size_t)b * Skv + kv] : 0;
     }
     __syncthreads();
 
@@ -165,8 +177,10 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = nt * 8 + t * 2 + (e & 1);
+        const int r = e >> 1;
         const bool ok =
-            sValid[col] && (!causal || kv0 + col <= qrow[e >> 1]);
+            sValid[col] && (!causal || kv0 + col <= qrow[r]) &&
+            (!kSeg || (segq[r] > 0 && segq[r] == sSeg[col]));
         s[nt][e] = ok ? s[nt][e] * sm_scale : kNegInf;
         mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
       }
@@ -221,6 +235,8 @@ __global__ void __launch_bounds__(kThreads)
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     inv[r] = l[r] > 0.f ? 1.f / l[r] : 0.f;
+    if (kLse && t == 0 && qrow[r] < Sq)
+      lse[(size_t)bh * Sq + qrow[r]] = l[r] > 0.f ? m[r] + logf(l[r]) : 1e30f;
   }
   const size_t ob = b * os.b + hd * os.h;
 #pragma unroll
@@ -241,20 +257,60 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+#define LHRS_FWD_PARAMS                                                      \
+  const __nv_bfloat16 *__restrict__ q, const __nv_bfloat16 *__restrict__ k, \
+      const __nv_bfloat16 *__restrict__ v,                                  \
+      const uint8_t *__restrict__ kv_mask, const int *__restrict__ seg,     \
+      void *__restrict__ o, float *__restrict__ lse, int H, int Sq, int Skv, \
+      int causal, float sm_scale, Strides qs, Strides ks, Strides vs,       \
+      Strides os
+#define LHRS_FWD_ARGS \
+  q, k, v, kv_mask, seg, o, lse, H, Sq, Skv, causal, sm_scale, qs, ks, vs, os
+
+// Serving and vision: no segments, no LSE; the kernel as it was built
+// before either existed (ptxas's own register choice).
+template <int D, bool kF32Out>
+__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(LHRS_FWD_PARAMS) {
+  flash_fwd_tile<D, kF32Out, false, false>(LHRS_FWD_ARGS);
+}
+
+// Training: bf16 output with segments and / or the LSE, at most 168
+// registers a thread so that three 128-thread CTAs fit an SM (at 170 the
+// allocation rounds to 176 and only two fit; capped, ptxas spills a few
+// values instead).
+template <int D, bool kSeg, bool kLse>
+__global__ void __launch_bounds__(kThreads, 3)
+    flash_fwd_train_kernel(LHRS_FWD_PARAMS) {
+  flash_fwd_tile<D, false, kSeg, kLse>(LHRS_FWD_ARGS);
+}
+
 template <int D>
 int launch(const __nv_bfloat16* q, const __nv_bfloat16* k,
-           const __nv_bfloat16* v, const uint8_t* mask, void* o, int B, int H,
-           int Sq, int Skv, int causal, float sm_scale, const long long* st,
-           int out_f32, cudaStream_t stream) {
+           const __nv_bfloat16* v, const uint8_t* mask, const int* seg,
+           void* o, float* lse, int B, int H, int Sq, int Skv, int causal,
+           float sm_scale, const long long* st, int out_f32,
+           cudaStream_t stream) {
   const dim3 grid((Sq + kBQ - 1) / kBQ, B * H);
   const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]},
       vs{st[6], st[7], st[8]}, os{st[9], st[10], st[11]};
-  if (out_f32)
-    flash_fwd_kernel<D, true><<<grid, kThreads, 0, stream>>>(
-        q, k, v, mask, o, H, Sq, Skv, causal, sm_scale, qs, ks, vs, os);
-  else
-    flash_fwd_kernel<D, false><<<grid, kThreads, 0, stream>>>(
-        q, k, v, mask, o, H, Sq, Skv, causal, sm_scale, qs, ks, vs, os);
+  const bool seg_on = seg != nullptr, lse_on = lse != nullptr;
+  const uint8_t* kv_mask = mask;
+#define LHRS_TRAIN(SEG, LSE) \
+  flash_fwd_train_kernel<D, SEG, LSE><<<grid, kThreads, 0, stream>>>( \
+      LHRS_FWD_ARGS)
+  if (out_f32) {
+    if (seg_on || lse_on) return (int)cudaErrorInvalidValue;
+    flash_fwd_kernel<D, true><<<grid, kThreads, 0, stream>>>(LHRS_FWD_ARGS);
+  } else if (seg_on && lse_on) {
+    LHRS_TRAIN(true, true);
+  } else if (seg_on) {
+    LHRS_TRAIN(true, false);
+  } else if (lse_on) {
+    LHRS_TRAIN(false, true);
+  } else {
+    flash_fwd_kernel<D, false><<<grid, kThreads, 0, stream>>>(LHRS_FWD_ARGS);
+  }
+#undef LHRS_TRAIN
   return (int)cudaGetLastError();
 }
 
@@ -263,13 +319,16 @@ int launch(const __nv_bfloat16* q, const __nv_bfloat16* k,
 // q (B,H,Sq,D), k/v (B,H,Skv,D), o (B,H,Sq,D): bf16 (o float32 when
 // out_f32), unit stride along D, the other strides in `strides` (12 element
 // strides: batch, head, row of q, k, v, o; multiples of 8, 16-byte aligned
-// bases). kv_mask: (B,Skv) bytes (0 = masked) or null. Returns cudaError_t.
+// bases). kv_mask: (B,Skv) bytes (0 = masked) or null. seg: (B,S) int32
+// segment ids with S = Sq = Skv, or null. lse: (B,H,Sq) float32 output, or
+// null. Segments and the LSE take a bf16 output only. Returns cudaError_t.
 extern "C" int lhrs_flash_fwd(const void* q, const void* k, const void* v,
-                              const void* kv_mask, void* o, int B, int H,
-                              int Sq, int Skv, int D, int causal,
-                              float sm_scale, const void* strides, int out_f32,
-                              void* stream) {
-  if (B <= 0 || H <= 0 || Sq <= 0 || Skv <= 0 || B * H > 65535)
+                              const void* kv_mask, const void* seg, void* o,
+                              void* lse, int B, int H, int Sq, int Skv, int D,
+                              int causal, float sm_scale, const void* strides,
+                              int out_f32, void* stream) {
+  if (B <= 0 || H <= 0 || Sq <= 0 || Skv <= 0 || B * H > 65535 ||
+      (seg != nullptr && Sq != Skv))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* qp = static_cast<const __nv_bfloat16*>(q);
@@ -277,11 +336,13 @@ extern "C" int lhrs_flash_fwd(const void* q, const void* k, const void* v,
   const auto* vp = static_cast<const __nv_bfloat16*>(v);
   const auto* mp = static_cast<const uint8_t*>(kv_mask);
   const auto* sp = static_cast<const long long*>(strides);
+  const auto* gp = static_cast<const int*>(seg);
+  auto* lp = static_cast<float*>(lse);
   if (D == 64)
-    return launch<64>(qp, kp, vp, mp, o, B, H, Sq, Skv, causal, sm_scale, sp,
-                      out_f32, st);
+    return launch<64>(qp, kp, vp, mp, gp, o, lp, B, H, Sq, Skv, causal,
+                      sm_scale, sp, out_f32, st);
   if (D == 128)
-    return launch<128>(qp, kp, vp, mp, o, B, H, Sq, Skv, causal, sm_scale, sp,
-                       out_f32, st);
+    return launch<128>(qp, kp, vp, mp, gp, o, lp, B, H, Sq, Skv, causal,
+                       sm_scale, sp, out_f32, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -23,8 +23,13 @@ Unlike the JAX package, the KV cache is updated IN PLACE: `llama_prefill`
 and `llama_decode_step` write into the tensors of the cache they are given
 and return a KVCache over those same tensors with the new lengths.
 
-Not ported here: the QLoRA side path, `llama_apply` and
-`llama_prefill_continue`.
+`llama_apply` is the cacheless training forward (float32 logits of every
+position, `kv_mask` or packing `segment_ids` attention, `remat` through
+`torch.utils.checkpoint`) and `causal_lm_loss` its loss; gradients of the
+attention go through the flash backward (`ops.attention.FlashAttention`).
+
+Not ported here: the QLoRA side path, context parallelism (`cp_axis_name`)
+and `llama_prefill_continue`.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from ..device import resolve_device
 from ..ops.attention import flash_attention
@@ -42,6 +48,7 @@ from ..ops.quant import QuantizedTensor, quantize_activation, quantized_matmul
 from ..ops.rmsnorm import rms_norm
 from ..ops.rope import apply_rope, rope_cos_sin
 from ..ops.w4_matmul import w4a8_project
+from .constants import IGNORE_INDEX
 
 
 class _W4Layer:
@@ -241,6 +248,104 @@ def llama_prefill(params, cfg: LlamaConfig, cache: KVCache, *,
         length = cache.length.clone()
         length[rows] = prompt_len.to(torch.int32)
     return logits, dataclasses.replace(cache, length=length)
+
+
+def _block_full(x: torch.Tensor, lp, cfg: LlamaConfig, cos, sin,
+                kv_mask: Optional[torch.Tensor],
+                segment_ids: Optional[torch.Tensor]) -> torch.Tensor:
+    """Full-sequence causal block (training / cacheless forward). With
+    `segment_ids` (B, S) the attention is block-diagonal: i attends j iff
+    seg[i] == seg[j] != 0 and j <= i (`kv_mask` is then not used, as in the
+    JAX block); otherwise `kv_mask` masks keys."""
+    b, s, _ = x.shape
+    h = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps)
+    q, k, v = _qkv(h, lp, cfg, cos, sin)
+    if segment_ids is not None:
+        attn = flash_attention(q, k, v, causal=True, segment_ids=segment_ids)
+    else:
+        attn = flash_attention(q, k, v, kv_mask, causal=True)
+    attn = attn.transpose(1, 2).reshape(b, s, cfg.hidden_size)
+    x = x + _dense(attn, lp["wo"])
+    h2 = rms_norm(x, lp["post_attn_norm"], cfg.rms_norm_eps)
+    return x + _silu_mlp(h2, lp)
+
+
+def segment_positions(segment_ids: torch.Tensor) -> torch.Tensor:
+    """RoPE positions that restart at every segment boundary: the index
+    minus the index of its segment's first token."""
+    b, s = segment_ids.shape
+    idx = torch.arange(s, device=segment_ids.device).expand(b, s)
+    boundary = torch.ones_like(segment_ids, dtype=torch.bool)
+    boundary[:, 1:] = segment_ids[:, 1:] != segment_ids[:, :-1]
+    start = torch.cummax(torch.where(boundary, idx, 0), dim=1).values
+    return idx - start
+
+
+def llama_apply(params, cfg: LlamaConfig, *,
+                input_ids: Optional[torch.Tensor] = None,
+                inputs_embeds: Optional[torch.Tensor] = None,
+                attention_mask: Optional[torch.Tensor] = None,
+                positions: Optional[torch.Tensor] = None,
+                compute_dtype: torch.dtype = torch.bfloat16,
+                remat: bool = False, cp_axis_name: Optional[str] = None,
+                segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Cacheless forward -> logits (B, S, V) float32. Positions default to
+    cumsum(attention_mask) - 1 clipped at 0 (or arange), and restart at
+    every segment with `segment_ids` (sequence packing, block-diagonal
+    attention). `remat` recomputes each block in the backward
+    (`torch.utils.checkpoint`, non-reentrant). Float parameters are cast to
+    the compute dtype on the fly, differentiably; frozen ones should already
+    be in it (`core.convert.training_params_from_numpy`)."""
+    if cp_axis_name is not None:
+        raise NotImplementedError("context parallelism (cp_axis_name) is not "
+                                  "ported to lhrs_bot_tpu_torch yet")
+    if inputs_embeds is None:
+        inputs_embeds = params["embed_tokens"][input_ids.long()]
+    x = inputs_embeds.to(compute_dtype)
+    b, s, _ = x.shape
+    if segment_ids is not None and positions is None:
+        positions = segment_positions(segment_ids)
+    if positions is None:
+        if attention_mask is not None:
+            positions = (attention_mask.int().cumsum(dim=1) - 1).clamp(min=0)
+        else:
+            positions = torch.arange(s, device=x.device).expand(b, s)
+    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    layers = {k: _cast(t, compute_dtype)
+              for k, t in params["layers"].items()}
+    for li in range(cfg.num_hidden_layers):
+        lp = _layer(layers, li)
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(
+                _block_full, x, lp, cfg, cos, sin, attention_mask,
+                segment_ids, use_reentrant=False)
+        else:
+            x = _block_full(x, lp, cfg, cos, sin, attention_mask,
+                            segment_ids)
+    x = rms_norm(x, _cast(params["final_norm"], compute_dtype),
+                 cfg.rms_norm_eps)
+    return _lm_head_logits(x, _cast(params["lm_head"], compute_dtype))
+
+
+def _cast(t, dtype):
+    """A float tensor in `dtype` (differentiable); a QuantizedTensor as is."""
+    if isinstance(t, QuantizedTensor) or t.dtype == dtype:
+        return t
+    return t.to(dtype)
+
+
+def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor
+                   ) -> torch.Tensor:
+    """Shifted cross-entropy in float32, IGNORE_INDEX masked, mean over the
+    valid tokens (at least 1)."""
+    shift_logits = logits[:, :-1, :].float()
+    shift_labels = labels[:, 1:].long()
+    valid = shift_labels != IGNORE_INDEX
+    safe = torch.where(valid, shift_labels, 0)
+    logz = torch.logsumexp(shift_logits, dim=-1)
+    gold = torch.gather(shift_logits, -1, safe[..., None])[..., 0]
+    nll = (logz - gold) * valid
+    return nll.sum() / valid.sum().clamp(min=1)
 
 
 def llama_decode_step(params, cfg: LlamaConfig, cache: KVCache, *,

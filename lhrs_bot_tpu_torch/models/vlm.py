@@ -1,8 +1,10 @@
 """The composed vision-language model: tower -> perceiver -> splice -> LLaMA.
 
-Counterpart of `lhrs_bot_tpu/models/vlm.py` for the serving path
-(`VLMConfig`, `init_vlm_params`, `encode_image`,
-`prepare_multimodal_inputs`) with one image per row. Parameters are a
+Counterpart of `lhrs_bot_tpu/models/vlm.py`: `VLMConfig`,
+`init_vlm_params`, `encode_image`, `prepare_multimodal_inputs` (one image
+a row, or (B, K, H, W, 3) image slots with packing segment ids), and for
+training `vlm_forward_loss` ({"text_loss", "total_loss"}) and
+`trainable_mask` (the stage rules of which leaves train). Parameters are a
 nested dict of tensors with the JAX package's structure and layout:
 `{"vit": ..., "pooler": ..., "llama": ...}`, per-layer tensors stacked on a
 leading axis, projection weights (in, out).
@@ -11,14 +13,15 @@ leading axis, projection weights (in, out).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
 from ..device import resolve_device
-from .llama import LlamaConfig
+from .llama import LlamaConfig, causal_lm_loss, llama_apply
 from .perceiver import PerceiverConfig, perceiver_resample
-from .splice import SplicedBatch, splice_image_embeddings
+from .splice import (SplicedBatch, splice_image_embeddings,
+                     splice_image_embeddings_multi)
 from .vit import ViTConfig, vit_encode, vit_encode_fused
 
 
@@ -154,18 +157,28 @@ def init_vlm_params(cfg: VLMConfig, seed: int = 0,
     return {"vit": vit, "pooler": pooler, "llama": llama}
 
 
+def _requires_grad(tree) -> bool:
+    if isinstance(tree, dict):
+        return any(_requires_grad(v) for v in tree.values())
+    return isinstance(tree, torch.Tensor) and tree.requires_grad
+
+
 def encode_image(params, images: torch.Tensor, cfg: VLMConfig,
                  compute_dtype: torch.dtype = torch.bfloat16,
                  vision_packed=None) -> torch.Tensor:
     """uint8 (B, H, W, 3) images -> (B, num_query, llm hidden). With
     `vision_packed` (from `ops.vit_block.pack_vit_layers_fused`) the tower
-    is the fused W8A8 one."""
-    if vision_packed is not None:
-        feats = vit_encode_fused(params["vit"], vision_packed, images,
-                                 cfg.vit)
-    else:
-        feats = vit_encode(params["vit"], images, cfg.vit,
-                           compute_dtype=compute_dtype)
+    is the fused W8A8 one. A tower none of whose parameters requires a
+    gradient (the frozen tower of training) runs without building a
+    graph."""
+    with torch.set_grad_enabled(torch.is_grad_enabled()
+                                and _requires_grad(params["vit"])):
+        if vision_packed is not None:
+            feats = vit_encode_fused(params["vit"], vision_packed, images,
+                                     cfg.vit)
+        else:
+            feats = vit_encode(params["vit"], images, cfg.vit,
+                               compute_dtype=compute_dtype)
     return perceiver_resample(params["pooler"], feats, cfg.pooler,
                               compute_dtype=compute_dtype)
 
@@ -178,9 +191,14 @@ def prepare_multimodal_inputs(
     compute_dtype: torch.dtype = torch.bfloat16,
     llama_params=None,
     vision_packed=None,
+    segment_ids: Optional[torch.Tensor] = None,
 ) -> SplicedBatch:
-    """Token ids (+ one image per row) -> spliced decoder inputs. Text-only
-    batches (images None) are embedded directly."""
+    """Token ids (+ images) -> spliced decoder inputs. Text-only batches
+    (images None) are embedded directly. (B, H, W, 3) images splice one a
+    row; (B, K, H, W, 3) image slots (multi-image and packed rows) are
+    encoded in one tower batch and marker k takes slot k, with
+    `segment_ids` carried through. Packing with one image a row raises
+    ValueError, as in the JAX package."""
     if llama_params is None:
         llama_params = params["llama"]
     embed_tokens = llama_params["embed_tokens"]
@@ -190,11 +208,96 @@ def prepare_multimodal_inputs(
             attention_mask = torch.ones(input_ids.shape, dtype=torch.bool,
                                         device=input_ids.device)
         return SplicedBatch(embeds, attention_mask, labels,
-                            attention_mask.int().sum(dim=1).int())
-    if images.dim() != 4:
-        raise NotImplementedError("one (H, W, 3) image per row only; "
-                                  "multi-image rows are not ported")
+                            attention_mask.int().sum(dim=1).int(),
+                            segment_ids)
+    if images.dim() == 5:
+        b, k = images.shape[:2]
+        image_embeds = encode_image(params, images.reshape(
+            (b * k,) + tuple(images.shape[2:])), cfg, compute_dtype,
+            vision_packed)
+        image_embeds = image_embeds.reshape(b, k, *image_embeds.shape[1:])
+        return splice_image_embeddings_multi(
+            input_ids, image_embeds, embed_tokens, attention_mask, labels,
+            segment_ids=segment_ids)
+    if segment_ids is not None:
+        raise ValueError("sequence packing requires (B, K, H, W, 3) images "
+                         "(PackingCollator) or text-only batches")
     image_embeds = encode_image(params, images, cfg, compute_dtype,
                                 vision_packed)
     return splice_image_embeddings(input_ids, image_embeds, embed_tokens,
                                    attention_mask, labels)
+
+
+def cast_floats(tree, dtype: torch.dtype, keep=()):
+    """The tree with every float tensor in `dtype` (a differentiable cast;
+    a tensor already in it is returned as is), QuantizedTensors and the
+    keys in `keep` as they are."""
+    if isinstance(tree, dict):
+        return {k: (v if k in keep else cast_floats(v, dtype))
+                for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor) and tree.is_floating_point():
+        return tree.to(dtype)
+    return tree
+
+
+def _batch_tensor(batch, key, device):
+    value = batch.get(key)
+    if value is None:
+        return None
+    return torch.as_tensor(value, device=device)
+
+
+def vlm_forward_loss(params, cfg: VLMConfig, batch: Dict,
+                     compute_dtype: torch.dtype = torch.bfloat16,
+                     remat: bool = False, cp_mesh=None
+                     ) -> Dict[str, torch.Tensor]:
+    """Training forward -> {"text_loss", "total_loss"} (equal for the
+    published recipes). `batch` holds `input_ids`, `labels` and optionally
+    `attention_mask`, `images` and `segment_ids`, as tensors or numpy
+    arrays (moved to the parameters' device). Float parameters are cast to
+    the compute dtype on the fly, as the JAX model functions cast them (the
+    ViT's pre-LayerNorm stays as given); the frozen tower runs without a
+    graph; the decoder backward runs through the flash backward kernels.
+    `cp_mesh` (context parallelism) is not ported and raises."""
+    if cp_mesh is not None:
+        raise NotImplementedError("context parallelism (cp_mesh) is not "
+                                  "ported to lhrs_bot_tpu_torch yet")
+    llama = params["llama"]
+    device = llama["embed_tokens"].device
+    run = {"vit": cast_floats(params["vit"], compute_dtype, keep=("pre_ln",)),
+           "pooler": cast_floats(params["pooler"], compute_dtype)}
+    spliced = prepare_multimodal_inputs(
+        run, cfg, _batch_tensor(batch, "input_ids", device).long(),
+        _batch_tensor(batch, "images", device),
+        attention_mask=_batch_tensor(batch, "attention_mask", device),
+        labels=_batch_tensor(batch, "labels", device),
+        compute_dtype=compute_dtype, llama_params=llama,
+        segment_ids=_batch_tensor(batch, "segment_ids", device))
+    logits = llama_apply(llama, cfg.llama,
+                         inputs_embeds=spliced.inputs_embeds,
+                         attention_mask=spliced.attention_mask,
+                         compute_dtype=compute_dtype, remat=remat,
+                         segment_ids=spliced.segment_ids)
+    text_loss = causal_lm_loss(logits, spliced.labels)
+    return {"text_loss": text_loss, "total_loss": text_loss}
+
+
+def trainable_mask(params, cfg: VLMConfig):
+    """Nested dict of bools like `params` marking the trainable leaves, by
+    the stage rules of the JAX `trainable_mask`: stage 1 trains the pooler
+    (and the tower with `tune_rgb_bk`), never the decoder; stage 0 (eval)
+    trains nothing. LoRA (stages 2 and 3) is not ported."""
+    if "lora" in params:
+        raise NotImplementedError("LoRA is not ported to lhrs_bot_tpu_torch "
+                                  "yet")
+
+    def full(tree, value):
+        if isinstance(tree, dict):
+            return {k: full(v, value) for k, v in tree.items()}
+        return value
+
+    return {"vit": full(params["vit"], bool(cfg.tune_rgb_bk
+                                            and cfg.stage != 0)),
+            "pooler": full(params["pooler"], bool(cfg.tune_rgb_pooler
+                                                  and cfg.stage != 0)),
+            "llama": full(params["llama"], False)}

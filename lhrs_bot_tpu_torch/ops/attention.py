@@ -1,50 +1,76 @@
-"""Multi-head attention: the plain reference and the CUDA flash forward.
+"""Multi-head attention: the plain versions and the CUDA flash kernels,
+forward and backward.
 
 Counterpart of `lhrs_bot_tpu/ops/attention.py`. Layout: q (B, H, Sq, D),
-k/v (B, H, Skv, D), optional kv_mask (B, Skv) bool (True = attend); the
-causal mask is top-left aligned (kv_id <= q_id). Returns (B, H, Sq, D) in
-q.dtype; `mha_reference` and `flash_attention_fwd` also give it in float32
-(`out_dtype`), for the W8A8 vision blocks, which quantize the attention
-output before any rounding.
+k/v (B, H, Skv, D), optional kv_mask (B, Skv) bool (True = attend),
+optional segment_ids (B, S) int32 for sequence packing (S = Sq = Skv;
+position i attends j iff seg[i] == seg[j] > 0); the causal mask is top-left
+aligned (kv_id <= q_id). Returns (B, H, Sq, D) in q.dtype; `mha_reference`
+and `flash_attention_fwd` also give it in float32 (`out_dtype`), for the
+W8A8 vision blocks, which quantize the attention output before any
+rounding. A row with no valid key gives 0 and a log-sum-exp of 1e30, as the
+TPU kernels do.
 
-`flash_attention` is the entry point. CPU tensors take `mha_reference`;
-CUDA tensors always take the hand-written kernel `flash_attention_fwd`
-(csrc/flash_fwd.cu), at every length: the TPU's flash-vs-XLA length cutoff
-does not carry over to the port. There is no fallback: what the kernel does
-not take raises.
+`flash_attention` is the entry point. CPU tensors take the plain versions;
+CUDA tensors always take the hand-written kernels (csrc/flash_fwd.cu,
+csrc/flash_bwd.cu), at every length: the TPU's flash-vs-XLA length cutoff
+does not carry over to the port. There is no fallback: what the kernels do
+not take raises. When a gradient is wanted, the call goes through
+`FlashAttention`, a `torch.autograd.Function` that saves q, k, v, the output
+and its log-sum-exp and runs the two-pass backward (the dQ kernel, then the
+dK/dV kernel) on CUDA tensors, or `flash_attention_bwd_reference` on CPU
+tensors: the same object on both devices, only the launchers differ.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from . import cuda_lib
 
 _NEG_INF = -1e30
+_LSE_EMPTY = 1e30  # log-sum-exp of a row with no valid key
+
+
+def _allowed(sq: int, skv: int, kv_mask, segment_ids, causal: bool,
+             device) -> Optional[torch.Tensor]:
+    """(B or 1, 1, Sq, Skv) bool of the pairs that attend, or None for
+    all."""
+    allowed = None
+    if kv_mask is not None:
+        allowed = kv_mask[:, None, None, :]
+    if segment_ids is not None:
+        seg = segment_ids
+        same = (seg[:, :, None] == seg[:, None, :]) & (seg > 0)[:, :, None]
+        same = same[:, None]
+        allowed = same if allowed is None else allowed & same
+    if causal:
+        tri = torch.ones(sq, skv, dtype=torch.bool, device=device).tril()
+        allowed = tri if allowed is None else allowed & tri
+    return allowed
 
 
 def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   kv_mask: Optional[torch.Tensor] = None, *,
                   causal: bool = False,
                   sm_scale: Optional[float] = None,
-                  out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                  out_dtype: Optional[torch.dtype] = None,
+                  segment_ids: Optional[torch.Tensor] = None,
+                  return_lse: bool = False):
     """Plain attention: float32 scores and softmax, probabilities rounded to
     v.dtype before the PV product (float32 accumulation). A row with no
-    valid key gives 0, as the kernels do."""
+    valid key gives 0, as the kernels do. With `return_lse`, also the float32
+    log-sum-exp of the scaled scores (B, H, Sq) with the kernels'
+    conventions: 1e30 for a row with no valid key."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
-    allowed = None
-    if kv_mask is not None:
-        allowed = kv_mask[:, None, None, :]
-    if causal:
-        sq, skv = q.shape[2], k.shape[2]
-        tri = torch.ones(sq, skv, dtype=torch.bool, device=q.device).tril()
-        allowed = tri if allowed is None else allowed & tri
+    allowed = _allowed(q.shape[2], k.shape[2], kv_mask, segment_ids, causal,
+                       q.device)
     if allowed is not None:
         scores = scores.masked_fill(~allowed, _NEG_INF)
     probs = torch.softmax(scores, dim=-1)
@@ -52,36 +78,104 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         # masked entries are 0 already, except in a row with no valid key
         probs = probs.masked_fill(~allowed, 0.0)
     out = torch.matmul(probs.to(v.dtype).float(), v.float())
-    return out.to(out_dtype or q.dtype)
+    out = out.to(out_dtype or q.dtype)
+    if not return_lse:
+        return out
+    m = scores.amax(dim=-1, keepdim=True)
+    e = torch.exp(scores - m)
+    if allowed is not None:
+        e = e.masked_fill(~allowed, 0.0)
+    total = e.sum(dim=-1)
+    lse = torch.where(total > 0, m[..., 0] + torch.log(total),
+                      torch.full_like(total, _LSE_EMPTY))
+    return out, lse
+
+
+def flash_attention_bwd_reference(q, k, v, kv_mask, segment_ids, out, lse,
+                                  d_out, causal: bool, sm_scale: float
+                                  ) -> Tuple[torch.Tensor, torch.Tensor,
+                                             torch.Tensor]:
+    """Plain backward with the TPU kernels' rounding points
+    (`_flash_bwd_dq_kernel` / `_flash_bwd_dkv_kernel`): delta = rowsum(dO O)
+    and P = exp(s * scale - lse) in float32; dP = dO V^T and dV = P^T dO
+    with P and dO in float32; dS = P (dP - delta) scale in float32, rounded
+    to the input dtype only as the operand of dQ = dS K and dK = dS^T Q
+    (float32 accumulation). Returns (dq, dk, dv) in q/k/v's dtypes."""
+    delta = (d_out.float() * out.float()).sum(dim=-1)
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
+    allowed = _allowed(q.shape[2], k.shape[2], kv_mask, segment_ids, causal,
+                       q.device)
+    if allowed is not None:
+        s = s.masked_fill(~allowed, _NEG_INF)
+    p = torch.exp(s - lse[..., None])
+    do = d_out.float()
+    dp = torch.matmul(do, v.float().transpose(-1, -2))
+    ds = p * (dp - delta[..., None]) * sm_scale
+    dv = torch.matmul(p.transpose(-1, -2), do)
+    dq = torch.matmul(ds.to(k.dtype).float(), k.float())
+    dk = torch.matmul(ds.to(q.dtype).transpose(-1, -2).float(), q.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_masks(kv_mask, segment_ids, b, sq, skv, device, name):
+    if kv_mask is not None:
+        if (kv_mask.dtype != torch.bool or kv_mask.shape != (b, skv)
+                or kv_mask.device != device or not kv_mask.is_contiguous()):
+            raise ValueError(f"{name}: kv_mask must be a contiguous (B, Skv) "
+                             "bool tensor on q's device")
+    if segment_ids is not None:
+        if (segment_ids.dtype != torch.int32 or sq != skv
+                or segment_ids.shape != (b, sq)
+                or segment_ids.device != device
+                or not segment_ids.is_contiguous()):
+            raise ValueError(f"{name}: segment_ids must be a contiguous "
+                             "(B, S) int32 tensor on q's device, with S = "
+                             "Sq = Skv")
+
+
+def _check_qkv(q, k, v, name):
+    if not (q.is_cuda and k.device == q.device and v.device == q.device):
+        raise ValueError(f"{name} takes CUDA tensors on one device")
+    if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
+        raise ValueError(f"{name} takes bf16, got {q.dtype}, {k.dtype}, "
+                         f"{v.dtype}")
+    if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
+        raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)}")
+    b, h, _, d = q.shape
+    if k.shape[:2] != (b, h) or k.shape[3] != d or d not in (64, 128):
+        raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)}; "
+                         "D must be 64 or 128")
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         kv_mask: Optional[torch.Tensor], causal: bool,
                         sm_scale: float, out_dtype=torch.bfloat16,
-                        out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        out: Optional[torch.Tensor] = None, *,
+                        segment_ids: Optional[torch.Tensor] = None,
+                        lse: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch the CUDA flash-attention forward. Takes bf16 CUDA tensors
     with D of 64 or 128, unit stride along D, the other strides multiples of
     8 and 16-byte aligned bases (so Q, K and V can be strided views of one
     projection), any Sq/Skv; writes a bf16 or float32 (B, H, Sq, D) result,
     into `out` when given (any such strides, e.g. the (B, H, Sq, D) view of
-    a token-major (B, Sq, H, D) buffer). Raises on anything else. Counts its
-    launches in `flash_attention_fwd.launches`."""
-    if not (q.is_cuda and k.device == q.device and v.device == q.device):
-        raise ValueError("flash_attention_fwd takes CUDA tensors on one "
-                         "device")
-    if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
-        raise ValueError(f"flash_attention_fwd takes bf16, got {q.dtype}, "
-                         f"{k.dtype}, {v.dtype}")
-    if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
-        raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
-                         f"v {tuple(v.shape)}")
+    a token-major (B, Sq, H, D) buffer). `segment_ids`: (B, S) int32 packing
+    ids. `lse`: a contiguous float32 (B, H, Sq) tensor that receives the
+    log-sum-exp of each row. Segments and the LSE take a bf16 output only.
+    Raises on anything else. Counts its launches in
+    `flash_attention_fwd.launches`."""
+    _check_qkv(q, k, v, "flash_attention_fwd")
     b, h, sq, d = q.shape
     skv = k.shape[2]
-    if k.shape[:2] != (b, h) or k.shape[3] != d or d not in (64, 128):
-        raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)}; "
-                         "D must be 64 or 128")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"out_dtype must be bf16 or float32, got {out_dtype}")
+    if out_dtype == torch.float32 and (segment_ids is not None
+                                       or lse is not None):
+        raise ValueError("segment_ids and lse take a bf16 output")
     if out is None:
         out = torch.empty(q.shape, dtype=out_dtype, device=q.device)
     elif (out.shape != q.shape or out.dtype != out_dtype
@@ -96,17 +190,20 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              "that are multiples of 8 and a 16-byte aligned "
                              "base")
         strides += t.stride()[:3]
-    if kv_mask is not None:
-        if (kv_mask.dtype != torch.bool or kv_mask.shape != (b, skv)
-                or kv_mask.device != q.device or not kv_mask.is_contiguous()):
-            raise ValueError("kv_mask must be a contiguous (B, Skv) bool "
-                             "tensor on q's device")
+    _check_masks(kv_mask, segment_ids, b, sq, skv, q.device,
+                 "flash_attention_fwd")
+    if lse is not None and (lse.dtype != torch.float32
+                            or lse.shape != (b, h, sq)
+                            or lse.device != q.device
+                            or not lse.is_contiguous()):
+        raise ValueError("lse must be a contiguous float32 (B, H, Sq) tensor "
+                         "on q's device")
     lib = cuda_lib.load_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.lhrs_flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if kv_mask is None else kv_mask.data_ptr(), out.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_mask),
+            _ptr(segment_ids), out.data_ptr(), _ptr(lse),
             b, h, sq, skv, d, int(causal), float(sm_scale),
             (ctypes.c_longlong * 12)(*strides),
             int(out_dtype == torch.float32), stream)
@@ -118,22 +215,148 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention_fwd.launches = 0
 
 
+def _bwd_args(q, k, v, kv_mask, segment_ids, lse, delta, d_out, name):
+    """Checks shared by the two backward kernels; returns contiguous
+    q, k, v, dO."""
+    _check_qkv(q, k, v, name)
+    b, h, sq, _ = q.shape
+    _check_masks(kv_mask, segment_ids, b, sq, k.shape[2], q.device, name)
+    if (d_out.shape != q.shape or d_out.device != q.device
+            or d_out.dtype != torch.bfloat16):
+        raise ValueError(f"{name}: d_out must be a bf16 tensor of q's shape")
+    for t_name, t in (("lse", lse), ("delta", delta)):
+        if (t.dtype != torch.float32 or t.shape != (b, h, sq)
+                or t.device != q.device or not t.is_contiguous()):
+            raise ValueError(f"{name}: {t_name} must be a contiguous float32 "
+                             "(B, H, Sq) tensor on q's device")
+    return q.contiguous(), k.contiguous(), v.contiguous(), d_out.contiguous()
+
+
+def flash_attention_bwd_dq(q, k, v, kv_mask, segment_ids, lse, delta, d_out,
+                           causal: bool, sm_scale: float) -> torch.Tensor:
+    """Launch the dQ kernel (csrc/flash_bwd.cu): bf16 CUDA q (B, H, Sq, D),
+    k/v (B, H, Skv, D) and d_out, float32 lse and delta = rowsum(dO O)
+    (B, H, Sq), the forward's masks; returns dq (B, H, Sq, D) bf16. Counts
+    its launches in `flash_attention_bwd_dq.launches`."""
+    q, k, v, d_out = _bwd_args(q, k, v, kv_mask, segment_ids, lse, delta,
+                               d_out, "flash_attention_bwd_dq")
+    b, h, sq, d = q.shape
+    dq = torch.empty_like(q)
+    lib = cuda_lib.load_library()
+    with torch.cuda.device(q.device):
+        err = lib.lhrs_flash_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), d_out.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), _ptr(kv_mask),
+            _ptr(segment_ids), dq.data_ptr(), b, h, sq, k.shape[2], d,
+            int(causal), float(sm_scale),
+            torch.cuda.current_stream().cuda_stream)
+    cuda_lib.check(err, "flash_attention_bwd_dq")
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+flash_attention_bwd_dq.launches = 0
+
+
+def flash_attention_bwd_dkv(q, k, v, kv_mask, segment_ids, lse, delta, d_out,
+                            causal: bool, sm_scale: float
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the dK/dV kernel (csrc/flash_bwd.cu) on the inputs of
+    `flash_attention_bwd_dq`; returns (dk, dv) (B, H, Skv, D) bf16. Counts
+    its launches in `flash_attention_bwd_dkv.launches`."""
+    q, k, v, d_out = _bwd_args(q, k, v, kv_mask, segment_ids, lse, delta,
+                               d_out, "flash_attention_bwd_dkv")
+    b, h, sq, d = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    lib = cuda_lib.load_library()
+    with torch.cuda.device(q.device):
+        err = lib.lhrs_flash_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), d_out.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), _ptr(kv_mask),
+            _ptr(segment_ids), dk.data_ptr(), dv.data_ptr(), b, h, sq,
+            k.shape[2], d, int(causal), float(sm_scale),
+            torch.cuda.current_stream().cuda_stream)
+    cuda_lib.check(err, "flash_attention_bwd_dkv")
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dkv.launches = 0
+
+
+def flash_attention_bwd(q, k, v, kv_mask, segment_ids, out, lse, d_out,
+                        causal: bool, sm_scale: float
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The CUDA backward: delta = rowsum(dO O) in float32 (a plain
+    reduction, as XLA computes it beside the TPU kernels), then the dQ
+    kernel and the dK/dV kernel. Returns (dq, dk, dv) bf16; each kernel
+    counts its own launches."""
+    if not d_out.is_cuda:
+        raise ValueError("flash_attention_bwd takes CUDA tensors")
+    delta = (d_out.float() * out.float()).sum(dim=-1)
+    dq = flash_attention_bwd_dq(q, k, v, kv_mask, segment_ids, lse, delta,
+                                d_out, causal, sm_scale)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, kv_mask, segment_ids, lse,
+                                     delta, d_out, causal, sm_scale)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with the flash backward. Forward: the CUDA kernel with its
+    log-sum-exp on CUDA tensors, `mha_reference(return_lse=True)` on CPU
+    tensors. Backward: `flash_attention_bwd` on CUDA tensors,
+    `flash_attention_bwd_reference` on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, segment_ids, causal, sm_scale):
+        if q.is_cuda:
+            lse = torch.empty(q.shape[:3], dtype=torch.float32,
+                              device=q.device)
+            out = flash_attention_fwd(q, k, v, kv_mask, causal, sm_scale,
+                                      segment_ids=segment_ids, lse=lse)
+        else:
+            out, lse = mha_reference(q, k, v, kv_mask, causal=causal,
+                                     sm_scale=sm_scale,
+                                     segment_ids=segment_ids,
+                                     return_lse=True)
+        ctx.save_for_backward(q, k, v, kv_mask, segment_ids, out, lse)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, d_out):
+        q, k, v, kv_mask, segment_ids, out, lse = ctx.saved_tensors
+        bwd = (flash_attention_bwd if q.is_cuda
+               else flash_attention_bwd_reference)
+        dq, dk, dv = bwd(q, k, v, kv_mask, segment_ids, out, lse, d_out,
+                         ctx.causal, ctx.sm_scale)
+        return dq, dk, dv, None, None, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     kv_mask: Optional[torch.Tensor] = None, *,
                     causal: bool = False,
                     sm_scale: Optional[float] = None,
                     segment_ids: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
-    """Multi-head attention. CUDA tensors launch `flash_attention_fwd`; CPU
-    tensors run `mha_reference`. Sequence packing (`segment_ids`) is not
-    ported yet and raises."""
-    if segment_ids is not None:
-        raise NotImplementedError("segment_ids (sequence packing) is not "
-                                  "ported to lhrs_bot_tpu_torch yet")
+    """Multi-head attention. CUDA tensors launch the flash kernels, CPU
+    tensors run the plain versions. A call that needs no gradient (grad
+    mode off, as for the frozen vision tower, or no input that requires
+    one) runs the forward alone, without the log-sum-exp; otherwise it goes
+    through `FlashAttention`."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    if q.is_cuda:
-        return flash_attention_fwd(q, k, v, kv_mask, causal, sm_scale)
-    if q.device.type != "cpu":
+    if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"no attention path for device {q.device}")
-    return mha_reference(q, k, v, kv_mask, causal=causal, sm_scale=sm_scale)
+    if segment_ids is not None:
+        segment_ids = segment_ids.to(torch.int32).contiguous()
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, kv_mask, segment_ids, causal,
+                                    sm_scale)
+    if q.is_cuda:
+        return flash_attention_fwd(q, k, v, kv_mask, causal, sm_scale,
+                                   segment_ids=segment_ids)
+    return mha_reference(q, k, v, kv_mask, causal=causal, sm_scale=sm_scale,
+                         segment_ids=segment_ids)

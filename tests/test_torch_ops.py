@@ -158,11 +158,25 @@ def test_flash_attention_plain_path(case):
         assert not got[~rows].any()  # exactly 0, as the kernels give
 
 
-def test_flash_attention_segment_ids_not_ported():
-    x = torch.zeros(1, 1, 4, 64)
-    with pytest.raises(NotImplementedError):
-        t_attention.flash_attention(x, x, x, causal=True,
-                                    segment_ids=torch.ones(1, 4))
+def test_flash_attention_segment_ids_plain_path():
+    """Sequence packing: two segments and a segment-0 padding tail per row,
+    against the JAX kernel (interpret mode) with in-kernel segment masking.
+    Padding rows attend nothing and give exactly 0 on both sides."""
+    rng = np.random.default_rng(9)
+    b, h, s, d = 2, 2, 60, 64
+    q, k, v = (_normal(rng, b, h, s, d) for _ in range(3))
+    seg = np.zeros((b, s), np.int32)
+    seg[0, :25], seg[0, 25:52] = 1, 2
+    seg[1, :40] = 1
+    got = t_attention.flash_attention(_t(q), _t(k), _t(v), causal=True,
+                                      segment_ids=_t(seg))
+    want = j_attention._flash_attention_pallas(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), None, True,
+        d ** -0.5, interpret=True, block_q=128, block_k=128,
+        segment_ids=jnp.asarray(seg))
+    _close(got, want)
+    assert not got.numpy()[np.broadcast_to((seg == 0)[:, None, :],
+                                           (b, h, s))].any()
 
 
 def test_decode_attention():
