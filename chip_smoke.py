@@ -23,7 +23,16 @@ Phases, one or more lines each:
      training shapes (B1 H32 S2048 D128 causal, with a kv_mask and with
      packed segments) and the perceiver's (B8 H16 D64), each against its
      plain version with a planted fault, twice for bit-identical
-     gradients; every kernel with its bound (bytes over 3.35 TB/s or
+     gradients; the bench path's kernels: the int8-dots variant of the
+     int8-cache decode kernel (L32 B2 H32 S2304 D128, lengths around a
+     block edge and the main path's, block_s 512 and 96, within 1e-5, a
+     planted fault: the probability row's scale over the whole row), the
+     cache row write (B8 H32 S2304 D128 bf16, byte-equal, a full row
+     untouched), the two HBM readers over 1.4 GB buffers (a unique
+     maximum planted at six places in turn, and a reader that skips a
+     word must fail) and the five product chains (int8 bit for bit, the
+     bf16 window and total apart);
+     every kernel with its bound (bytes over 3.35 TB/s or
      operations over the dense peak) and, where one PyTorch call computes
      the same function, that call's time;
   4. slices: the serving paths at full width (ViT-L/14, 144-query 6-layer
@@ -46,7 +55,9 @@ Phases, one or more lines each:
      pool state and launch counts (the paged kernels 32 times a decode
      step, K2 / K4 never, and the reverse for the contiguous run); and the
      reference's page-table hazard wave (pages of 16), where no idle
-     slot's table row may name a live page after any tick;
+     slot's table row may name a live page after any tick; the W4A8
+     engine again with LHRS_DECODE_INT8_DOTS=1: the int8-dots kernel 32
+     times a decode step and K4 never, and its consistency check;
   5. training: stage 1 at full width (ViT-L/14 frozen, the perceiver
      trained, LLaMA-2-7B frozen in bf16) from seeded weights through
      build_trainer with Config/multi_modal_stage1.yaml's optimizer and
@@ -56,7 +67,11 @@ Phases, one or more lines each:
      on a packed batch (2 rows of 2620 spliced tokens with segment ids),
      each with its loss, grad_norm, lr, time, tokens/s, peak memory and
      launch counts (72 forward, 50 dQ, 50 dK/dV a step; the plain
-     backward never).
+     backward never);
+  6. the bench path: `lhrs_bot_tpu_torch.bench`'s decode cells and prefill
+     towers at the bench's geometry (one timed run a cell) and its JSON
+     line, the int8-dots A/B's line and the two probes' lines; every value
+     positive, each kernel of the path launched.
 Then a JSON line with per-kernel numbers, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}. Any failure raises: the script
 exits non-zero and prints no result. It needs no network and imports nothing
@@ -65,6 +80,7 @@ of JAX.
 
 import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -80,6 +96,11 @@ import numpy as np
 # masking fault shows as O(1). K3 is integer arithmetic and is held to its
 # plain version bit for bit.
 ATOL = RTOL = 1e-2
+# the int8-dots kernel against its plain version: both take the same float32
+# steps (exp, the two quotients, the scalings) in the same order, so they
+# agree to the bit; the bound leaves room for one ulp of an output, not for
+# a probability code that moves across a rounding tie
+INT8DOTS_ATOL = 1e-5
 # prefill(P + [t]) vs prefill(P) + decode_step(t) at full width in bf16:
 # relative L2 of the logits. Seeded random 7B weights amplify bf16 rounding
 # (chip_profile.py measures the same check with the plain attention in bf16
@@ -155,6 +176,18 @@ def cuda_ms(fn, warmup=3, reps=20, rounds=3):
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+def check_within(name, got, ref, atol):
+    """Max abs error of got vs ref (float32), raising past atol."""
+    got, ref = got.float(), ref.float()
+    if not bool(got.isfinite().all()):
+        raise AssertionError(f"{name}: non-finite kernel output")
+    err = (got - ref).abs()
+    if bool((err > atol).any()):
+        raise AssertionError(f"{name}: {int((err > atol).sum())} elements "
+                             f"off, max abs err {float(err.max()):.3e}")
+    return float(err.max())
 
 
 def check_close(name, got, ref, valid_rows=None):
@@ -478,6 +511,285 @@ def phase_quant_kernels(dev):
     log("  K4 full row (lengths[b] == S): nothing written, NaN out")
     torch.cuda.empty_cache()
     return k3, k4
+
+
+def int8dots_fault_case(dev, gen, nl, h, s, d, scale):
+    """A row of length 2191 (five blocks of 512) whose scores are flat but
+    for one key 6 above the rest, and whose values lean one way: most of
+    the probability mass lies in small p's outside the peak's block, which
+    a p scale taken over the whole row rounds to 0 and a per-block scale
+    keeps. Returns the int8-dots kernel's inputs before `layer`."""
+    import torch
+
+    from lhrs_bot_tpu_torch.ops.ln_quant import div_exact
+
+    length, peak = 2191, 100
+    q = torch.randn(1, h, 1, d, generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    qf = q.float()[0, :, 0] * scale
+    qs = div_exact(qf.abs().amax(dim=-1, keepdim=True), 127.0) + 1e-12
+    qi = torch.round(qf / qs)
+    kc = torch.zeros(nl, 1, h, s, d, dtype=torch.int8, device=dev)
+    kc[:, 0, :, peak] = (torch.sign(qi) * 127).to(torch.int8)
+    ks = torch.full((nl, 1, h, s), 1e-4, device=dev)
+    dot = qi.abs().sum(dim=-1) * 127                       # (H,)
+    ks[:, 0, :, peak] = 6.0 / (dot * qs[:, 0])
+    vc = torch.randint(60, 127, (nl, 1, h, s, d), generator=gen, device=dev,
+                       dtype=torch.int8)
+    vs = torch.rand(nl, 1, h, s, generator=gen, device=dev) * 0.02 + 0.01
+    kn = torch.zeros(1, h, 1, d, dtype=torch.int8, device=dev)
+    kns = torch.full((1, h, 1), 1e-4, device=dev)
+    vn = torch.randint(60, 127, (1, h, 1, d), generator=gen, device=dev,
+                       dtype=torch.int8)
+    vns = torch.full((1, h, 1), 0.02, device=dev)
+    lens = torch.tensor([length], dtype=torch.int32, device=dev)
+    return q, kn, kns, vn, vns, kc, vc, ks, vs, lens
+
+
+def phase_bench_kernels(dev):
+    """The bench path's kernels against their plain versions: the int8-dots
+    variant of the int8-cache decode kernel at L32 B2 H32 S2304 D128
+    (lengths around a block edge and the main path's, block_s 512 and 96;
+    output within INT8DOTS_ATOL, caches and planes byte-equal; a planted
+    fault, the p scale taken over the whole row, must exceed that bound at
+    the main path's lengths and on a crafted row), the cache row write at B8
+    H32 S2304 D128 bf16 (byte-equal; rows 0 and S - 1, a full row left
+    untouched), the HBM readers over 1.4 GB int8 and bf16 buffers (a
+    unique maximum planted at six places in turn, each read back; a reader
+    that skips the last word must fail that check) and the five chain
+    variants at M 2048, K = N 1024, 16 products (int8 bit for bit; bf16's
+    window and total each within 1e-2 relative of their own scale). Each
+    with its time, its plain version's, its bound and a library call's."""
+    import torch
+
+    from lhrs_bot_tpu_torch.benchmarks import hbm_peak_probe as hbm
+    from lhrs_bot_tpu_torch.benchmarks import int8_probe as chains
+    from lhrs_bot_tpu_torch.ops.cache_update import (
+        cache_row_update_kernel, cache_row_update_plain)
+    from lhrs_bot_tpu_torch.ops.fused_decode import (
+        fused_decode_attention_q_int8dots_kernel,
+        fused_decode_attention_q_int8dots_plain,
+        fused_decode_attention_q_kernel)
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    out = {}
+
+    def codes(*shape):
+        return torch.randint(-128, 128, shape, generator=gen, device=dev,
+                             dtype=torch.int8)
+
+    def scales(*shape):
+        return torch.rand(shape, generator=gen, device=dev) * 0.025 + 0.005
+
+    # the int8-dots decode kernel
+    nl, h, s, d = 32, 32, 2304, 128
+    scale = d ** -0.5
+    dots = {"max_abs_err": 0.0}
+    kc, vc = codes(nl, 2, h, s, d), codes(nl, 2, h, s, d)
+    ks, vs = scales(nl, 2, h, s), scales(nl, 2, h, s)
+    q = torch.randn(2, h, 1, d, generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    kn, vn = codes(2, h, 1, d), codes(2, h, 1, d)
+    kns, vns = scales(2, h, 1), scales(2, h, 1)
+    for lengths in ([511, 2191], [512, 700], [2191, 700]):
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        for block_s, layer in ((512, 0), (512, 31), (96, 5)):
+            mine = [t.clone() for t in (kc, vc, ks, vs)]
+            got = fused_decode_attention_q_int8dots_kernel(
+                q, kn, kns, vn, vns, *mine, lens, layer, scale, block_s)[0]
+            plain = [t.clone() for t in (kc, vc, ks, vs)]
+            ref = fused_decode_attention_q_int8dots_plain(
+                q, kn, kns, vn, vns, *plain, lens, layer, sm_scale=scale,
+                block_s=block_s)[0]
+            torch.cuda.synchronize()
+            err = check_within(f"int8 dots lengths {lengths} block_s "
+                               f"{block_s} layer {layer}", got, ref,
+                               INT8DOTS_ATOL)
+            if not all(torch.equal(a, c) for a, c in zip(mine, plain)):
+                raise AssertionError(f"int8 dots lengths {lengths} layer "
+                                     f"{layer}: caches or planes differ")
+            dots["max_abs_err"] = max(dots["max_abs_err"], err)
+            log(f"  int8 dots cache {(nl, 2, h, s, d)} lengths {lengths} "
+                f"block_s {block_s} layer {layer}: max_abs_err {err:.3e} "
+                f"(bound {INT8DOTS_ATOL:g}), caches and planes exact")
+            if lengths == [2191, 700] and block_s == 512 and layer == 0:
+                main_case = (got, lens, layer)
+            del mine, plain
+
+    def whole_row_fault(name, q, kn, kns, vn, vns, kc, vc, ks, vs, lens,
+                        layer, got):
+        # the planted fault: the p scale over the whole row (one block of
+        # S), held to the kernel's output by the same comparison
+        bad = fused_decode_attention_q_int8dots_plain(
+            q, kn, kns, vn, vns, kc.clone(), vc.clone(), ks.clone(),
+            vs.clone(), lens, layer, sm_scale=scale, block_s=s)[0]
+        torch.cuda.synchronize()
+        try:
+            check_within(name, got, bad, INT8DOTS_ATOL)
+        except AssertionError:
+            return float((bad.float() - got.float()).abs().max())
+        raise AssertionError(f"int8 dots {name}: the whole-row p scale "
+                             "passes the kernel's check")
+
+    got, lens, layer = main_case
+    fault = whole_row_fault("lengths [2191, 700]", q, kn, kns, vn, vns, kc,
+                            vc, ks, vs, lens, layer, got)
+    dots["fault_max_abs_diff"] = fault
+    log(f"  int8 dots lengths [2191, 700] block_s 512 layer 0: planted fault "
+        f"(p scale over the whole row) {fault:.3e}, above the bound")
+    case = int8dots_fault_case(dev, gen, nl, h, s, d, scale)
+    got = fused_decode_attention_q_int8dots_kernel(
+        *[t.clone() for t in case[:9]], case[9], 0, scale, 512)[0]
+    ref = fused_decode_attention_q_int8dots_plain(
+        *[t.clone() for t in case[:9]], case[9], 0, sm_scale=scale,
+        block_s=512)[0]
+    torch.cuda.synchronize()
+    err = check_within("int8 dots, mass outside the peak's block", got, ref,
+                       INT8DOTS_ATOL)
+    fault = whole_row_fault("mass outside the peak's block", *case, 0, got)
+    dots["crafted_fault_max_abs_diff"] = fault
+    log(f"  int8 dots, mass outside the peak's block (length 2191): "
+        f"max_abs_err {err:.3e}; planted fault (p scale over the whole row) "
+        f"{fault:.3e}, above the bound")
+    del case, main_case
+    lens = torch.tensor([2191, 700], dtype=torch.int32, device=dev)
+    turn = iter(range(10**9))
+    dots["ms"] = cuda_ms(lambda: fused_decode_attention_q_int8dots_kernel(
+        q, kn, kns, vn, vns, kc, vc, ks, vs, lens, next(turn) % nl, scale))
+    dots["k4_ms"] = cuda_ms(lambda: fused_decode_attention_q_kernel(
+        q, kn, kns, vn, vns, kc, vc, ks, vs, lens, next(turn) % nl, scale))
+    dots["plain_ms"] = cuda_ms(
+        lambda: fused_decode_attention_q_int8dots_plain(
+            q, kn, kns, vn, vns, kc, vc, ks, vs, lens, next(turn) % nl,
+            sm_scale=scale), reps=5)
+    deq = [(c[0].float() * sc[0][..., None]).bfloat16()
+           for c, sc in ((kc, ks), (vc, vs))]
+    dots["library_ms"] = cuda_ms(lambda: masked_sdpa(q, deq[0], deq[1],
+                                                     lens + 1))
+    dots["bound_ms"], dots["bound_by"] = decode_bound(lens, h, d, 1)
+    log(f"  int8 dots time per layer call (B2, lengths [2191, 700], block_s "
+        f"512): kernel {dots['ms']:.4f} ms (K4, bf16 dots, same call: "
+        f"{dots['k4_ms']:.4f} ms), plain {dots['plain_ms']:.4f} ms, library "
+        f"(SDPA over the dequantized bf16 cache) {dots['library_ms']:.4f} "
+        f"ms, bound {dots['bound_ms']:.4f} ms ({dots['bound_by']})")
+    out["int8dots"] = dots
+    del kc, vc, ks, vs, deq
+    torch.cuda.empty_cache()
+
+    # the cache row write
+    b, s_max = 8, 2304
+    cache = torch.randn(b, h, s_max, d, generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+    new = torch.randn(b, h, 1, d, generator=gen, device=dev,
+                      dtype=torch.bfloat16)
+    lengths = [0, s_max - 1, 5, 2191, 700, 1, 2300, s_max]  # last: full
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    mine = cache_row_update_kernel(cache.clone(), new, lens)
+    ref = cache.clone()
+    cache_row_update_plain(ref[:-1], new[:-1], lens[:-1])
+    torch.cuda.synchronize()
+    if not torch.equal(mine, ref):
+        raise AssertionError("cache_row_update: differs from the plain "
+                             "version (or wrote into the full row)")
+    upd = {"max_abs_err": 0.0}
+    rows = torch.arange(b - 1, device=dev)
+    idx = (rows[:, None], torch.arange(h, device=dev)[None, :],
+           lens[:-1].long()[:, None])
+    part = (cache[:-1].clone(), new[:-1], lens[:-1])
+    upd["ms"] = cuda_ms(lambda: cache_row_update_kernel(*part))
+    upd["plain_ms"] = cuda_ms(lambda: cache_row_update_plain(*part))
+    vals = new[:-1, :, 0]
+    upd["library_ms"] = cuda_ms(lambda: part[0].index_put_(idx, vals))
+    upd["bound_ms"], upd["bound_by"] = bound(2 * (b - 1) * h * d * 2)
+    log(f"  cache_row_update B{b} H{h} S{s_max} D{d} bf16, lengths "
+        f"{lengths} (the last row full): byte-equal to plain, full row "
+        f"untouched; kernel {upd['ms']:.4f} ms, plain {upd['plain_ms']:.4f} "
+        f"ms, library (index_put_) {upd['library_ms']:.4f} ms, bound "
+        f"{upd['bound_ms']:.5f} ms ({upd['bound_by']})")
+    out["cache_row_update"] = upd
+    del cache, mine, ref, part
+    torch.cuda.empty_cache()
+
+    # the HBM readers
+    x8, xb = hbm.buffers(dev, gen)
+    reader = {"max_abs_err": 0.0, "shapes": []}
+    for name, x in (("int8", x8), ("bf16", xb)):
+        half, half2 = x[:x.shape[0] // 2], x[x.shape[0] // 2:]
+        for dual, args in ((False, (x,)), (True, (half, half2))):
+            checked = hbm.check_reader(*args, seed=len(reader["shapes"]),
+                                       plants=6, read=hbm.hbm_read_kernel)
+            n = x.numel() * x.element_size()
+            ms = cuda_ms(lambda: hbm.hbm_read_kernel(*args), reps=5)
+            plain_ms = cuda_ms(lambda: (hbm.hbm_dual_read_plain(*args)
+                                        if dual else
+                                        hbm.hbm_read_plain(*args)), reps=3)
+            lib_ms = cuda_ms(lambda: [torch.amax(a) for a in args], reps=5)
+            bms, by = bound(n)
+            reader["shapes"].append({
+                "dtype": name, "dual": dual, "bytes": n, "ms": ms,
+                "GB_s": n / ms / 1e6, "plain_ms": plain_ms,
+                "library_ms": lib_ms, "bound_ms": bms, "bound_by": by})
+            log(f"  HBM reader {name} {'dual' if dual else 'single'} over "
+                f"{n / 1e9:.2f} GB: a unique maximum planted at {checked} "
+                f"places in turn, each read back and equal to plain; kernel "
+                f"{ms:.4f} ms "
+                f"({n / ms / 1e6:.0f} GB/s), plain {plain_ms:.4f} ms, "
+                f"library (torch.amax) {lib_ms:.4f} ms, bound {bms:.4f} ms")
+        # planted fault: a reader that skips the array's last 16-byte word
+        skip = 16 // x.element_size()
+        try:
+            hbm.check_reader(x, seed=9, plants=2, read=lambda a: (
+                hbm.hbm_read_kernel(a.view(-1)[:-skip])))
+        except AssertionError as e:
+            log(f"  HBM reader {name}, planted fault (the last 16-byte word "
+                f"skipped) caught: {e}")
+        else:
+            raise AssertionError(f"HBM reader {name}: the planted-maximum "
+                                 "check passes a reader that skips a word")
+    main = reader["shapes"][0]
+    for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"):
+        reader[key] = main[key]
+    out["hbm_read"] = reader
+    del x8, xb, half, half2, args
+    torch.cuda.empty_cache()
+
+    # the chains
+    ops = chains.operands(dev, gen)
+    chain = {"max_abs_err": 0.0, "variants": []}
+    for variant in chains.VARIANTS:
+        xg, ws = ops["bf16" if variant == "bf16" else "int8"]
+        err = chains.check_chain(xg, ws, variant)
+        verdict = (f"window and total each within {err:.2e} relative"
+                   if variant == "bf16" else "bit-identical")
+        ms = cuda_ms(lambda: chains.int8_chain_kernel(xg, ws, variant),
+                     warmup=1, reps=3)
+        plain_ms = cuda_ms(lambda: chains.int8_chain_plain(xg, ws, variant),
+                           warmup=1, reps=1, rounds=1)
+        lib_ms = cuda_ms(lambda: chains.library_chain(xg, ws, variant),
+                         warmup=1, reps=3)
+        n_ops = chains.chain_ops(xg, ws)
+        n_bytes = (xg.numel() * xg.element_size()
+                   + ws.numel() * ws.element_size() + xg.shape[0] * 4096)
+        bms, by = bound(n_bytes, n_ops, "bf16" if variant == "bf16"
+                        else "int8")
+        chain["variants"].append({
+            "variant": variant, "ms": ms, "TOPS": n_ops / ms / 1e9,
+            "plain_ms": plain_ms, "library_ms": lib_ms,
+            "library_TOPS": n_ops / lib_ms / 1e9, "bound_ms": bms,
+            "bound_by": by, "max_rel_err": err})
+        log(f"  chain {variant} (g {xg.shape[0]}, M {xg.shape[1]}, K "
+            f"{xg.shape[2]}, N {ws.shape[2]}, {ws.shape[0]} products): "
+            f"{verdict}; "
+            f"kernel {ms:.4f} ms ({n_ops / ms / 1e9:.0f} TOPS), plain "
+            f"{plain_ms:.2f} ms, library {lib_ms:.4f} ms "
+            f"({n_ops / lib_ms / 1e9:.0f} TOPS), bound {bms:.4f} ms ({by})")
+    main = chain["variants"][0]
+    for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"):
+        chain[key] = main[key]
+    out["int8_chain"] = chain
+    del ops
+    torch.cuda.empty_cache()
+    return out
 
 
 HBM_BYTES_S = 3.35e12  # H100 SXM device memory
@@ -2024,8 +2336,12 @@ def kernel_wrappers():
     from lhrs_bot_tpu_torch.ops.attention import (flash_attention_bwd_dkv,
                                                   flash_attention_bwd_dq,
                                                   flash_attention_fwd)
+    from lhrs_bot_tpu_torch.benchmarks.hbm_peak_probe import hbm_read_kernel
+    from lhrs_bot_tpu_torch.benchmarks.int8_probe import int8_chain_kernel
+    from lhrs_bot_tpu_torch.ops.cache_update import cache_row_update_kernel
     from lhrs_bot_tpu_torch.ops.fused_decode import (
-        fused_decode_attention_kernel, fused_decode_attention_q_kernel)
+        fused_decode_attention_kernel, fused_decode_attention_q_int8dots_kernel,
+        fused_decode_attention_q_kernel)
     from lhrs_bot_tpu_torch.ops.int8_gemm import int8_gemm_kernel
     from lhrs_bot_tpu_torch.ops.ln_quant import ln_quant_kernel
     from lhrs_bot_tpu_torch.ops.paged_fused import (
@@ -2035,6 +2351,11 @@ def kernel_wrappers():
     return {"flash_attention_fwd": flash_attention_fwd,
             "fused_decode_attention": fused_decode_attention_kernel,
             "fused_decode_attention_q": fused_decode_attention_q_kernel,
+            "fused_decode_attention_q_int8dots":
+                fused_decode_attention_q_int8dots_kernel,
+            "cache_row_update": cache_row_update_kernel,
+            "hbm_read": hbm_read_kernel,
+            "int8_chain": int8_chain_kernel,
             "w4a8_matmul": w4a8_matmul_kernel,
             "ln_quant": ln_quant_kernel,
             "int8_gemm": int8_gemm_kernel,
@@ -2211,6 +2532,9 @@ def phase_slice(dev):
         if consistency is not None:
             out[name]["consistency"] = check_consistency(
                 name, engine.llama_params, cfg.llama, dev, *consistency)
+        if name == "w4a8":
+            out["w4a8_int8dots"] = phase_int8dots_engine(
+                engine, cfg, dev, requests[:2], wrappers)
         if name == "bf16":
             out["paged_vs_contiguous"] = phase_paged_vs_contiguous(
                 engine.llama_params, cfg.llama, dev)
@@ -2219,6 +2543,74 @@ def phase_slice(dev):
         del engine
         torch.cuda.empty_cache()
     return out
+
+
+@contextlib.contextmanager
+def environ(name, value):
+    """Set an environment variable for as long as the block runs."""
+    saved = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if saved is None:
+            del os.environ[name]
+        else:
+            os.environ[name] = saved
+
+
+def phase_int8dots_engine(engine, cfg, dev, requests, wrappers):
+    """The W4A8 + int8 lm_head + int8-KV engine with
+    LHRS_DECODE_INT8_DOTS=1, as a user turns the int8 dots on: its
+    requests, its launch counts (the int8-dots kernel and never the
+    bf16-dot K4; exactly 32 a decode step, counted over three
+    `llama_decode_step`s), and the prefill/decode consistency check with
+    the W4A8 bound and planted faults."""
+    import torch
+
+    from lhrs_bot_tpu_torch.models import (KVCache, llama_decode_step,
+                                           llama_prefill)
+
+    lcfg, lp = cfg.llama, engine.llama_params
+    with environ("LHRS_DECODE_INT8_DOTS", "1"):
+        for w in wrappers.values():
+            w.launches = 0
+        results = serve(engine, cfg, requests)
+        launches = {k: w.launches for k, w in wrappers.items()}
+        log(f"  [w4a8, LHRS_DECODE_INT8_DOTS=1] kernel launches in the main "
+            f"path: {launches}")
+        if (launches["fused_decode_attention_q_int8dots"] <= 0
+                or launches["fused_decode_attention_q"] != 0):
+            raise AssertionError("int8 dots on: the int8-dots kernel must "
+                                 "run and K4 never")
+        ids = torch.as_tensor(np.random.default_rng(5).integers(
+            3, lcfg.vocab_size, (1, 40)), device=dev)
+        cache = KVCache.create(lcfg, 1, 128, torch.int8, dev)
+        _, cache = llama_prefill(lp, lcfg, cache,
+                                 inputs_embeds=lp["embed_tokens"][ids],
+                                 prompt_len=torch.tensor([40], device=dev))
+        for w in wrappers.values():
+            w.launches = 0
+        tok = torch.zeros(1, dtype=torch.long, device=dev)
+        for _ in range(3):
+            logits, cache = llama_decode_step(
+                lp, lcfg, cache, inputs_embeds=lp["embed_tokens"][tok][:, None])
+            tok = logits.argmax(dim=-1)
+        torch.cuda.synchronize()
+        per_step = {k: w.launches / 3 for k, w in wrappers.items()
+                    if w.launches}
+        log(f"  [w4a8, LHRS_DECODE_INT8_DOTS=1] launches a decode step: "
+            f"{per_step}")
+        if (per_step.get("fused_decode_attention_q_int8dots") !=
+                lcfg.num_hidden_layers
+                or "fused_decode_attention_q" in per_step):
+            raise AssertionError(f"int8 dots on: {per_step} launches a "
+                                 "decode step")
+        consistency = check_consistency(
+            "w4a8, int8 dots", lp, lcfg, dev, torch.int8,
+            CONSISTENCY_REL_L2_W4A8)
+    return {"requests": results, "launches": launches,
+            "launches_a_decode_step": per_step, "consistency": consistency}
 
 
 def phase_serving(engine, cfg, dev, name):
@@ -2283,6 +2675,52 @@ def phase_serving(engine, cfg, dev, name):
     return out
 
 
+BENCH_KERNELS = ("flash_attention_fwd", "fused_decode_attention",
+                 "fused_decode_attention_q",
+                 "fused_decode_attention_q_int8dots", "w4a8_matmul",
+                 "ln_quant", "int8_gemm", "hbm_read", "int8_chain")
+
+
+def phase_bench(dev, reps=1):
+    """The bench path: `lhrs_bot_tpu_torch.bench`'s decode cells (at
+    `reps` timed runs each) and prefill towers at the bench's geometry, its
+    JSON line; the int8-dots A/B's line; the two probes' `main()`s. Every
+    value must be a positive number, and each kernel of the path must have
+    been launched."""
+    import torch
+
+    from lhrs_bot_tpu_torch import bench
+    from lhrs_bot_tpu_torch.benchmarks import (hbm_peak_probe, int8_probe,
+                                               int8dots_ab)
+    from lhrs_bot_tpu_torch.models import LlamaConfig, VLMConfig
+
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.time()
+    lcfg = LlamaConfig.llama2_7b()
+    line = bench.bench_line(bench.bench_decode(lcfg, device=dev, reps=reps),
+                            bench.bench_prefill(VLMConfig(), device=dev),
+                            bench.device_line())
+    log(json.dumps(line))
+    ab = int8dots_ab.run_ab(lcfg, device=dev, reps=reps)
+    if not all(v > 0 for v in ab.values()):
+        raise AssertionError(f"int8-dots A/B: {ab}")
+    ab["device"] = line["device"]
+    log(json.dumps(ab))
+    probes = {"hbm": hbm_peak_probe.main([]), "int8": int8_probe.main([])}
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    log(f"  [bench] {time.time() - t0:.1f} s; kernel launches: {launches}")
+    for kname in BENCH_KERNELS:
+        if launches[kname] <= 0:
+            raise AssertionError(f"{kname} was not launched by the bench "
+                                 "path")
+    torch.cuda.empty_cache()
+    return {"line": line, "int8dots_ab": ab, "probes": probes,
+            "launches": launches}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2301,7 +2739,7 @@ def main():
 
     dev = torch.device("cuda", 0)
     smi = smi_line()
-    log(f"[1/4 device] torch {torch.__version__}, CUDA {torch.version.cuda}, "
+    log(f"[1/6 device] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}, capability "
         f"{torch.cuda.get_device_capability(0)}, count "
         f"{torch.cuda.device_count()}")
@@ -2316,32 +2754,37 @@ def main():
     usage = [ln.strip() for ln in
              (so.parent / "build.log").read_text().splitlines()
              if "Used" in ln or "Compiling entry" in ln]
-    log(f"[2/4 build] {so.relative_to(cuda_lib.BUILD_ROOT.parents[1])} in "
+    log(f"[2/6 build] {so.relative_to(cuda_lib.BUILD_ROOT.parents[1])} in "
         f"{build_s:.1f} s")
     for ln in usage:
         log(f"  {ln}")
 
-    log("[3/5 kernels vs plain]")
+    log("[3/6 kernels vs plain]")
     k1, k2 = phase_kernels(dev)
     train_k = phase_train_kernels(dev)
     k3, k4 = phase_quant_kernels(dev)
     vision = phase_vision_kernels(dev)
     tower = phase_tower(dev)
     paged = phase_paged_kernels(dev)
+    bench_k = phase_bench_kernels(dev)
 
-    log("[4/5 serving slices at full width]")
+    log("[4/6 serving slices at full width]")
     paths = phase_slice(dev)
     bf16, w4a8 = paths["bf16"]["launches"], paths["w4a8"]["launches"]
     int8 = paths["int8"]["launches"]
 
-    log("[5/5 stage-1 training at full width]")
+    log("[5/6 stage-1 training at full width]")
     train = phase_train(dev)
+
+    log("[6/6 the bench path]")
+    bench = phase_bench(dev)
 
     def row(name, source, replaces, launches, k):
         return {"name": name, "route": "cuda",
                 "source": f"lhrs_bot_tpu_torch/csrc/{source}",
-                "replaces": ", ".join(f"lhrs_bot_tpu/ops/{r}"
-                                      for r in replaces.split(", ")),
+                "replaces": ", ".join(
+                    r if r.startswith("benchmarks/") else
+                    f"lhrs_bot_tpu/ops/{r}" for r in replaces.split(", ")),
                 "launches": launches[name], "max_abs_err": k["max_abs_err"],
                 "ms": k["ms"], "plain_ms": k["plain_ms"],
                 "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
@@ -2375,12 +2818,27 @@ def main():
             train["launches"], train_k["dq"]),
         row("flash_attention_bwd_dkv", "flash_bwd.cu", "attention.py:357",
             train["launches"], train_k["dkv"]),
+        row("fused_decode_attention_q_int8dots", "fused_decode_q.cu",
+            "fused_decode.py:222", paths["w4a8_int8dots"]["launches"],
+            bench_k["int8dots"]),
+        # no path launches it, as in the JAX package
+        row("cache_row_update", "cache_update.cu", "cache_update.py:20",
+            {"cache_row_update": 0}, bench_k["cache_row_update"]),
+        row("hbm_read", "hbm_probe.cu",
+            "benchmarks/hbm_peak_probe.py:41, benchmarks/hbm_peak_probe.py:83",
+            bench["launches"], bench_k["hbm_read"]),
+        row("int8_chain", "int8_probe.cu", "benchmarks/int8_probe.py:95",
+            bench["launches"], bench_k["int8_chain"]),
     ]
+    kernels[-4]["note"] = ("int8_dots=True; launches on the W4A8 path with "
+                           "LHRS_DECODE_INT8_DOTS=1")
     log(json.dumps({"w4a8_shapes": k3["shapes"]}))
     log(json.dumps({"int8_gemm_shapes": vision["B"]["shapes"],
                     "vision_blocks": vision["blocks"], "tower": tower}))
     log(json.dumps({"paths": paths, "paged_kernels": paged}))
     log(json.dumps({"train_kernels": train_k, "train": train}))
+    log(json.dumps({"bench_kernels": bench_k,
+                    "bench_launches": bench["launches"]}))
     log(json.dumps({"kernels": kernels}))
     log(smi_line())
     log(json.dumps({"ok": True, "device": {

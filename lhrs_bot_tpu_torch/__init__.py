@@ -11,6 +11,9 @@ This package imports torch and never jax.
   models/  ViT-L/14 tower, multi-level perceiver, splice, LLaMA-2, VLM
   serve/   generation engine, continuous-batching and paged schedulers,
            prefix cache
+  train/   stage-1 trainer, optimizers, schedules; data/ its collators
+  bench.py the bench's cells on the card (`python -m lhrs_bot_tpu_torch.bench`)
+  benchmarks/  the HBM and int8 probes and the int8-dots A/B
   device.py  where tensors live: the card unless the caller names the CPU
 """
 

@@ -350,14 +350,17 @@ def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor
 
 def llama_decode_step(params, cfg: LlamaConfig, cache: KVCache, *,
                       inputs_embeds: torch.Tensor,
-                      compute_dtype: torch.dtype = torch.bfloat16
+                      compute_dtype: torch.dtype = torch.bfloat16,
+                      int8_dots: Optional[bool] = None
                       ) -> Tuple[torch.Tensor, KVCache]:
     """One decode step from the (B, 1, D) embedding of the new token;
     returns (logits (B, V) float32, cache with length + 1). Every layer
     appends its K/V row at cache.length in place and attends over
     length + 1 rows through `fused_decode_attention`, or, for an int8
     cache, appends the `quantize_activation` codes and scales of the row
-    through `fused_decode_attention_q`. "4h" weights run W4A8."""
+    through `fused_decode_attention_q` with `int8_dots` (None: the
+    LHRS_DECODE_INT8_DOTS default, read at each call). "4h" weights run
+    W4A8."""
     x = inputs_embeds.to(compute_dtype)
     b = x.shape[0]
     cos, sin = rope_cos_sin(cache.length[:, None], cfg.head_dim,
@@ -371,7 +374,8 @@ def llama_decode_step(params, cfg: LlamaConfig, cache: KVCache, *,
             v_q, v_s = quantize_activation(v)
             attn = fused_decode_attention_q(
                 q, k_q, k_s[..., 0], v_q, v_s[..., 0], cache.k, cache.v,
-                cache.k_scale, cache.v_scale, cache.length, li)[0]
+                cache.k_scale, cache.v_scale, cache.length, li,
+                int8_dots=int8_dots)[0]
         else:
             attn = fused_decode_attention(q, k, v, cache.k, cache.v,
                                           cache.length, li)[0]

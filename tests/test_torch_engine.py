@@ -303,6 +303,13 @@ def test_port_never_imports_jax_or_the_jax_package():
     assert len(files) > 10
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert offenders == []
+    # the bench path's modules are among them, and each imports torch
+    bench_path = [REPO / "lhrs_bot_tpu_torch" / rel for rel in (
+        "bench.py", "ops/cache_update.py", "benchmarks/hbm_peak_probe.py",
+        "benchmarks/int8_probe.py", "benchmarks/int8dots_ab.py")]
+    assert set(bench_path) <= set(files)
+    assert all(re.search(r"^import torch$", f.read_text(), re.MULTILINE)
+               for f in bench_path)
 
 
 @pytest.mark.parametrize("name,alone", [("chip_smoke.py", False),

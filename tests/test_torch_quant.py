@@ -303,14 +303,3 @@ def test_fused_decode_attention_q_plain_path(s, layer):
     for mine, theirs in zip(caches, (jk, jv, jks, jvs)):
         _equal(mine, theirs)
 
-
-def test_fused_decode_attention_q_int8_dots_raises():
-    z8 = torch.zeros(1, 1, 1, 64, dtype=torch.int8)
-    s1 = torch.ones(1, 1, 1)
-    cache = torch.zeros(1, 1, 1, 8, 64, dtype=torch.int8)
-    planes = torch.ones(1, 1, 1, 8)
-    with pytest.raises(NotImplementedError):
-        t_fused.fused_decode_attention_q(
-            torch.zeros(1, 1, 1, 64), z8, s1, z8, s1, cache, cache.clone(),
-            planes, planes.clone(), torch.zeros(1, dtype=torch.int32), 0,
-            int8_dots=True)
