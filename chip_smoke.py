@@ -12,8 +12,12 @@ Phases, one or more lines each:
      the main path's shapes (plus ragged/masked edge cases), with times;
      The vision kernels too: kernel A (LayerNorm + row quantization) and
      kernel B (int8 GEMM, int32 accumulators bit for bit) at the W8A8
-     tower's shapes, the fused ViT block (B = 1 and 8), its split form and
-     the fused perceiver block against their plain versions, and the fused
+     tower's shapes and at the edges of its 128 x 128 tile and 128-byte K
+     stage (M of 40 to 16448, N 1032 and 8, K 1088 and 64, a strided A),
+     one epilogue each; K1 at kv lengths one past its 64-row tiles (129)
+     and strided at a ragged 257 rows; the fused ViT block (B = 1 and 8),
+     its split form and the fused perceiver block against their plain
+     versions, and the fused
      W8A8 tower at full depth against the bf16 tower, with a planted fault;
      the paged decode pair (bf16 and int8 pools) at L32 H32 D128, pages of
      128 and 16, eight rows around page boundaries and a ghost row,
@@ -21,7 +25,8 @@ Phases, one or more lines each:
      byte-equal to plain's; the training kernels (the forward's LSE and
      segment ids, the dQ and dK/dV backward kernels) at the decoder's
      training shapes (B1 H32 S2048 D128 causal, with a kv_mask and with
-     packed segments) and the perceiver's (B8 H16 D64), each against its
+     packed segments, and 1000 rows with a padding tail) and the
+     perceiver's (B8 H16 D64), each against its
      plain version with a planted fault, twice for bit-identical
      gradients; the bench path's kernels: the int8-dots variant of the
      int8-cache decode kernel (L32 B2 H32 S2304 D128, lengths around a
@@ -74,17 +79,21 @@ Phases, one or more lines each:
      positive, each kernel of the path launched.
 Then a JSON line with per-kernel numbers, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}. Any failure raises: the script
-exits non-zero and prints no result. It needs no network and imports nothing
-of JAX.
+exits non-zero and prints no result, and the failing phase's traceback is
+kept in chiprun_out/chip_smoke_<phase>.err (a crash of the interpreter
+leaves its stacks in chiprun_out/chip_smoke_crash.txt). It needs no network
+and imports nothing of JAX.
 """
 
 import contextlib
+import faulthandler
 import json
 import os
 import statistics
 import subprocess
 import sys
 import time
+import traceback
 
 import numpy as np
 
@@ -290,6 +299,10 @@ def phase_kernels(dev):
         ("edge_mask_d64", 3, 2, 65, 200, 64, False, True),
         ("edge_causal_rect", 1, 4, 100, 150, 64, True, False),
         ("edge_causal_tail", 2, 2, 130, 130, 128, True, False),
+        # one row past the 64-row q and kv tiles (two of them)
+        ("edge_skv129", 2, 2, 129, 129, 128, False, False),
+        ("edge_skv129_causal_mask_d64", 2, 3, 129, 129, 64, True, True),
+        ("edge_q48_kv129_d64", 2, 3, 48, 129, 64, False, True),
     ]
     k1 = {"max_abs_err": 0.0}
     for name, b, h, sq, skv, d, causal, masked in cases:
@@ -1031,6 +1044,33 @@ VIT_W, VIT_S, VIT_S_PAD = 1024, 257, 272
 # perceiver's q), FC, proj, and the perceiver's fused K|V
 GEMM_SHAPES = ((1024, 3072), (1024, 1024), (1024, 4096), (4096, 1024),
                (1024, 2048))
+# Kernel B at the edges of its 128 x 128 output tile and 128-byte K stage:
+# (M, K, N, row stride of A or None, epilogue). M below one wgmma's 64 rows
+# and not a multiple of 128; N a multiple of 8 but not of 128; K a multiple
+# of 64 but not of 128; A a strided view (lda > K).
+GEMM_EDGES = ((40, 1024, 1024, None, "O"), (257, 1088, 1032, None, "QKV"),
+              (VIT_S * 64, 1088, 1032, None, "FC"),
+              (300, 1024, 3072, 1152, "proj"), (513, 64, 8, None, "XLA"))
+
+
+def gemm_edge_epilogue(name, m, n, gen, dev):
+    """Keyword arguments of one of kernel B's epilogues at (m, n)."""
+    import torch
+
+    bias = torch.randn(n, generator=gen, device=dev) * 0.1
+    if name == "QKV":
+        return dict(bias=bias, ws_first=True, q_fold=0.125, n_fold=n // 3)
+    if name == "O":
+        return dict(bias=bias, out_dtype=torch.float32, residual=torch.randn(
+            m, n, generator=gen, device=dev, dtype=torch.bfloat16))
+    if name == "FC":
+        return dict(bias=bias, act="quick_gelu", out_dtype=torch.float32)
+    if name == "proj":
+        return dict(bias=bias, residual=torch.randn(m, n, generator=gen,
+                                                    device=dev))
+    return dict(bias=bias, round_mid=True, act="gelu")
+
+
 # Kernel B's epilogues against their plain versions: each element within
 # BLOCK_TOL of max|plain| plus one bf16 rounding step of its own size (2^-8
 # |plain|: a last-bit difference before the output's rounding to bf16 may
@@ -1210,6 +1250,27 @@ def phase_vision_kernels(dev):
             f"({tops:.0f} TOPS), plain {plain:.4f} ms, library "
             f"(torch._int_mm, int32 product only) {lib:.4f} ms, bound "
             f"{bms:.4f} ms ({by})")
+    # the edges of the 128 x 128 tile and the 128-byte K stage: int32
+    # accumulators bit for bit, then one epilogue each
+    for m, k, n, lda, epi in GEMM_EDGES:
+        w = transposed_storage(codes(k, n))
+        ws = torch.rand(n, generator=gen, device=dev) * 1e-3 + 1e-4
+        a = codes(m, lda or k)[:, :k]
+        xs = torch.rand(m, 1, generator=gen, device=dev) * 0.02 + 1e-3
+        acc = int8_gemm_kernel(a, xs, w, ws, out_dtype=torch.int32)
+        ref = int8_gemm_plain(a, xs, w, ws, out_dtype=torch.int32)
+        torch.cuda.synchronize()
+        if not torch.equal(acc, ref):
+            raise AssertionError(f"B edge M{m} K{k} N{n} lda {lda or k}: "
+                                 f"{int((acc != ref).sum())} int32 "
+                                 "accumulators differ from the plain product")
+        kw = gemm_edge_epilogue(epi, m, n, gen, dev)
+        err = check_block(f"B edge M{m} K{k} N{n} {epi}",
+                          int8_gemm_kernel(a, xs, w, ws, **kw),
+                          int8_gemm_plain(a, xs, w, ws, **kw))
+        kb["max_abs_err"] = max(kb["max_abs_err"], err)
+        log(f"  B edge M{m} K{k} N{n} lda {lda or k}: int32 accumulators "
+            f"bit-identical; epilogue {epi}: max abs err {err:.3e}")
     # epilogues at the FC shape (M 64 * 257, K 1024, N 4096)
     k, n = VIT_W, 4 * VIT_W
     a, w = codes(m_big, k), transposed_storage(codes(k, n))
@@ -1271,6 +1332,17 @@ def phase_vision_kernels(dev):
     log(f"  K1 as the blocks launch it (strided QKV views, 8 x {VIT_S_PAD} "
         f"tokens, {VIT_S} valid keys, float32 token-major out): max abs err "
         f"{err:.3e}")
+    # the same at a ragged length, no pad: 257 rows, one past four 64-row
+    # tiles, so the last q and kv tiles hold one row
+    qkv = torch.randn(4, VIT_S, 3 * VIT_W, generator=gen, device=dev,
+                      dtype=torch.bfloat16)
+    q, k, v = _heads(qkv, 3, 16)
+    got = attend_token_major(q, k, v, None, 0.125, torch.float32)
+    ref = attend_token_major(q, k, v, None, 0.125, torch.float32, plain=True)
+    torch.cuda.synchronize()
+    err = check_close("K1 strided, ragged, float32 out", got, ref)
+    log(f"  K1 strided QKV views, 4 x {VIT_S} tokens, no pad, float32 "
+        f"token-major out: max abs err {err:.3e}")
     del qkv, q, k, v
 
     # -- the fused blocks against their plain versions --------------------------
@@ -1901,6 +1973,10 @@ def train_attention_cases(dev, gen):
         ("edge_seg_d64", 2, 2, 200, 200, 64, True, ("seg", (70, 1, 90))),
         ("edge_mask_d128", 2, 3, 77, 133, 128, False, ("mask", 100)),
         ("edge_causal_tail_d128", 1, 2, 130, 130, 128, True, None),
+        # segments at a length that is no multiple of the 64-row tiles,
+        # with a padding tail of segment 0
+        ("edge_seg_d128_ragged", 1, 4, 1000, 1000, 128, True,
+         ("seg", (300, 129, 450))),
     ]
     for name, b, h, sq, skv, d, causal, extra in specs:
         mask = seg = None
@@ -2721,6 +2797,23 @@ def phase_bench(dev, reps=1):
             "launches": launches}
 
 
+# where a failing phase leaves its traceback, and a crash of the
+# interpreter its stacks: the output directory a remote run copies back
+OUT_DIR = "chiprun_out"
+
+
+def phase(name, fn, *args):
+    """Run one phase; if it raises, keep the traceback in
+    OUT_DIR/chip_smoke_<name>.err before passing the exception on."""
+    try:
+        return fn(*args)
+    except BaseException:
+        os.makedirs(OUT_DIR, exist_ok=True)
+        with open(os.path.join(OUT_DIR, f"chip_smoke_{name}.err"), "w") as f:
+            traceback.print_exc(file=f)
+        raise
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2737,6 +2830,9 @@ def main():
                          "runs on the card")
     from lhrs_bot_tpu_torch.ops import cuda_lib
 
+    os.makedirs(OUT_DIR, exist_ok=True)
+    faults = open(os.path.join(OUT_DIR, "chip_smoke_crash.txt"), "w")
+    faulthandler.enable(faults)  # a segfault or abort leaves its stacks
     dev = torch.device("cuda", 0)
     smi = smi_line()
     log(f"[1/6 device] torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -2760,24 +2856,24 @@ def main():
         log(f"  {ln}")
 
     log("[3/6 kernels vs plain]")
-    k1, k2 = phase_kernels(dev)
-    train_k = phase_train_kernels(dev)
-    k3, k4 = phase_quant_kernels(dev)
-    vision = phase_vision_kernels(dev)
-    tower = phase_tower(dev)
-    paged = phase_paged_kernels(dev)
-    bench_k = phase_bench_kernels(dev)
+    k1, k2 = phase("kernels", phase_kernels, dev)
+    train_k = phase("train_kernels", phase_train_kernels, dev)
+    k3, k4 = phase("quant_kernels", phase_quant_kernels, dev)
+    vision = phase("vision_kernels", phase_vision_kernels, dev)
+    tower = phase("tower", phase_tower, dev)
+    paged = phase("paged_kernels", phase_paged_kernels, dev)
+    bench_k = phase("bench_kernels", phase_bench_kernels, dev)
 
     log("[4/6 serving slices at full width]")
-    paths = phase_slice(dev)
+    paths = phase("slice", phase_slice, dev)
     bf16, w4a8 = paths["bf16"]["launches"], paths["w4a8"]["launches"]
     int8 = paths["int8"]["launches"]
 
     log("[5/6 stage-1 training at full width]")
-    train = phase_train(dev)
+    train = phase("train", phase_train, dev)
 
     log("[6/6 the bench path]")
-    bench = phase_bench(dev)
+    bench = phase("bench", phase_bench, dev)
 
     def row(name, source, replaces, launches, k):
         return {"name": name, "route": "cuda",

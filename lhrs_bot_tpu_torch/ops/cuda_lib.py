@@ -3,11 +3,13 @@
 At first use every `csrc/*.cu` file is compiled by `nvcc` for `sm_90a`, one
 `nvcc` per source, all started together, and the objects are linked into
 one shared library with a plain C interface, which is loaded with `ctypes`
-(no PyTorch headers, so a build takes seconds, not minutes). The library
-goes to `build/kernels/<hash of the sources and flags>/` beside the package,
-so an edited source is rebuilt and an unchanged one is reused. Nothing here
-runs at import time: the CPU tests import every module on a machine with no
-`nvcc`.
+(no PyTorch headers, so a build takes seconds, not minutes). The wgmma
+kernels share `csrc/sm90.cuh`, which fetches the driver's TMA tensor-map
+encoder through the runtime, so nothing links against libcuda. The library
+goes to `build/kernels/<hash of the sources, headers and flags>/` beside
+the package, so an edited source or header is rebuilt and an unchanged one
+is reused. Nothing here runs at import time: the CPU tests import every
+module on a machine with no `nvcc`.
 """
 
 from __future__ import annotations
@@ -90,15 +92,26 @@ def _sources():
     return sorted(CSRC.glob("*.cu"))
 
 
+def _headers():
+    return sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    """Where the library of the current sources goes: a directory named by
+    the hash of the flags and of every source and header, so that editing
+    any of them (a header included by several sources too) rebuilds."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources() + _headers():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_ROOT / h.hexdigest()[:16] / "liblhrs_kernels.so"
+
+
 def build() -> Path:
     """Compile the sources if their library is missing; returns its path.
     The compiler's output, register and shared-memory use included, is kept
     in `build.log` beside the library."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    so = BUILD_ROOT / h.hexdigest()[:16] / "liblhrs_kernels.so"
+    so = library_path()
     if so.exists():
         return so
     so.parent.mkdir(parents=True, exist_ok=True)

@@ -21,7 +21,7 @@ result is `out_dtype` (bf16 or float32), or the raw int32 accumulators for
 `out_dtype=torch.int32`.
 
 The weight is given in the JAX (K, N) layout. The kernel reads it as
-(N, K) rows, K contiguous (the layout mma.sync's s8 B operand wants), so a
+(N, K) rows, K contiguous (wgmma takes 8-bit operands K-major only), so a
 weight given to `int8_gemm_kernel` must be the transposed view of a
 contiguous (N, K) tensor: `quant.transposed_storage` makes one, and every
 weight the port packs or quantizes for the vision tower is stored so.
@@ -119,7 +119,8 @@ def int8_gemm_kernel(xq: torch.Tensor, x_scale: torch.Tensor,
     stride, float32 x_scale (M elements); w (K, N) int8, the transposed view
     of a contiguous (N, K) tensor; float32 w_scale and bias of N elements,
     contiguous; residual (M, N) contiguous; K a multiple of 64, N of 8;
-    16-byte aligned bases. Raises on anything else. Counts its launches in
+    16-byte aligned bases (the kernel's TMA copies and 16-byte epilogue
+    loads need them). Raises on anything else. Counts its launches in
     `int8_gemm_kernel.launches`."""
     _check_args(act, out_dtype, residual, ws_first, round_mid, n_fold)
     tensors = [t for t in (xq, x_scale, w, w_scale, bias, residual)
@@ -153,8 +154,10 @@ def int8_gemm_kernel(xq: torch.Tensor, x_scale: torch.Tensor,
             raise ValueError(f"{name} must be a contiguous float32 tensor of "
                              f"{size} elements")
     if residual is not None and (residual.numel() != m * n
-                                 or not residual.is_contiguous()):
-        raise ValueError(f"residual must be a contiguous ({m}, {n}) tensor")
+                                 or not residual.is_contiguous()
+                                 or residual.data_ptr() % 16):
+        raise ValueError(f"residual must be a contiguous ({m}, {n}) tensor "
+                         "with a 16-byte aligned base")
     out = torch.empty((m, n), dtype=out_dtype, device=xq.device)
     lib = cuda_lib.load_library()
     with torch.cuda.device(xq.device):

@@ -21,6 +21,7 @@ from lhrs_bot_tpu.ops import patch_embed as j_patch
 from lhrs_bot_tpu.ops import rmsnorm as j_norm
 from lhrs_bot_tpu.ops import rope as j_rope
 from lhrs_bot_tpu_torch.ops import attention as t_attention
+from lhrs_bot_tpu_torch.ops import cuda_lib
 from lhrs_bot_tpu_torch.ops import decode_attention as t_decode
 from lhrs_bot_tpu_torch.ops import fused_decode as t_fused
 from lhrs_bot_tpu_torch.ops import mlp as t_mlp
@@ -265,3 +266,24 @@ def test_kernel_wrappers_reject_cpu_tensors():
     assert t_fused.fused_decode_attention_kernel.launches == 0
     assert t_fused.fused_decode_attention_q_kernel.launches == 0
     assert t_w4.w4a8_matmul_kernel.launches == 0
+
+
+def test_kernel_library_key_covers_shared_headers(tmp_path, monkeypatch):
+    """The wgmma kernels include csrc/sm90.cuh: the library's build
+    directory must change when that header changes, and not otherwise."""
+    assert "sm90.cuh" in [h.name for h in cuda_lib._headers()]
+    src = tmp_path / "csrc"
+    src.mkdir()
+    (src / "a.cu").write_text('#include "sm90.cuh"\n')
+    (src / "sm90.cuh").write_text("// v1\n")
+    monkeypatch.setattr(cuda_lib, "CSRC", src)
+    monkeypatch.setattr(cuda_lib, "BUILD_ROOT", tmp_path / "build")
+    first = cuda_lib.library_path()
+    assert first == cuda_lib.library_path()
+    assert first.parent.parent == tmp_path / "build"
+    (src / "sm90.cuh").write_text("// v2\n")
+    assert cuda_lib.library_path() != first
+    (src / "sm90.cuh").write_text("// v1\n")
+    assert cuda_lib.library_path() == first
+    (src / "a.cu").write_text("// edited\n")
+    assert cuda_lib.library_path() != first
