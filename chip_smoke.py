@@ -1948,20 +1948,22 @@ def train_attention_cases(dev, gen):
     """(name, q, k, v, d_out, kv_mask, segment_ids, causal) at the training
     path's shapes: the decoder (B1 H32 S2048 D128, causal, a kv_mask with
     1791 valid keys; the same with 4 packed segments and a padding tail),
-    the perceiver's groups (B8 H16 D64, non-causal), and ragged edges."""
+    the perceiver's groups (B8 H16 D64, non-causal), and ragged edges,
+    among them the edges of the backward's 64-row tiles and of its skip
+    rule: unsorted segment ids, a q tile all of segment 0, a kv_mask whose
+    holes mask whole tiles, and lengths that are no multiple of 64."""
     import torch
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev,
                            dtype=torch.bfloat16)
 
-    def segments(b, s, lengths):
+    def segments(b, s, runs):  # runs of (segment id, length)
         seg = torch.zeros(b, s, dtype=torch.int32, device=dev)
-        for row in range(b):
-            pos = 0
-            for i, n in enumerate(lengths):
-                seg[row, pos:pos + n] = i + 1
-                pos += n
+        pos = 0
+        for i, n in runs:
+            seg[:, pos:pos + n] = i
+            pos += n
         return seg
 
     specs = [  # name, B, H, Sq, Skv, D, causal, mask / seg
@@ -1977,13 +1979,34 @@ def train_attention_cases(dev, gen):
         # with a padding tail of segment 0
         ("edge_seg_d128_ragged", 1, 4, 1000, 1000, 128, True,
          ("seg", (300, 129, 450))),
+        # segment ids out of order (2, 1, 2, 1) and a padding tail
+        ("edge_seg_unsorted_d128", 1, 4, 700, 700, 128, True,
+         ("runs", ((2, 150), (1, 130), (2, 200), (1, 90)))),
+        # rows 100-249 of segment 0: q tile 2 (rows 128-191) all padding
+        ("edge_seg_zero_tile_d64", 2, 2, 400, 400, 64, True,
+         ("runs", ((1, 100), (0, 150), (2, 150)))),
+        # kv_masks whose holes mask whole 64-row kv tiles mid-sequence
+        ("edge_mask_holes_d128", 2, 2, 150, 400, 128, False,
+         ("hole", (128, 256))),
+        ("edge_mask_hole_causal_d64", 1, 3, 333, 333, 64, True,
+         ("hole", (64, 130))),
+        # causal, Sq and Skv no multiple of 64 nor of each other
+        ("edge_ragged_d128", 2, 2, 95, 161, 128, True, None),
+        ("edge_ragged_d64", 3, 2, 161, 95, 64, True, None),
     ]
     for name, b, h, sq, skv, d, causal, extra in specs:
         mask = seg = None
-        if extra and extra[0] == "mask":
+        kind = extra[0] if extra else None
+        if kind == "mask":
             mask = (torch.arange(skv, device=dev) < extra[1]).expand(
                 b, skv).contiguous()
-        elif extra:
+        elif kind == "hole":
+            pos = torch.arange(skv, device=dev)
+            mask = ((pos < extra[1][0]) | (pos >= extra[1][1])).expand(
+                b, skv).contiguous()
+        elif kind == "seg":
+            seg = segments(b, sq, [(i + 1, n) for i, n in enumerate(extra[1])])
+        elif kind == "runs":
             seg = segments(b, sq, extra[1])
         yield (name, randn(b, h, sq, d), randn(b, h, skv, d),
                randn(b, h, skv, d), randn(b, h, sq, d), mask, seg, causal)
@@ -2007,18 +2030,64 @@ def attention_bound(valid, mask, seg, b, h, sq, skv, d, products, q_rows,
     return bound(n_bytes, 2.0 * products * h * pairs * d)
 
 
-def phase_train_kernels(dev):
-    """The forward's LSE and segment ids, and the dQ and dK/dV kernels,
-    against their plain versions at the training path's shapes, each with a
-    planted fault; times at the decoder shape (and the perceiver's for the
-    backward) beside the plain versions, SDPA and the bound."""
+def check_tile_table(name, args, runs, valid, want):
+    """That both backward kernels run exactly the tile pairs of the table
+    `runs` they are given: with every pair set they give `want` (their
+    result on the rule's table) bit for bit, so the pairs the rule skips
+    add exactly 0; with none set, zeros; with one pair cleared that holds a
+    pair that attends, another result. `args` are the launchers' (q, k, v,
+    kv_mask, segment_ids, lse, delta, d_out, causal, sm_scale)."""
     import torch
     import torch.nn.functional as F
 
     from lhrs_bot_tpu_torch.ops.attention import (
-        _allowed, flash_attention_bwd, flash_attention_bwd_dkv,
-        flash_attention_bwd_dq, flash_attention_bwd_reference,
-        flash_attention_fwd, mha_reference)
+        BWD_TILE, flash_attention_bwd_dkv, flash_attention_bwd_dq)
+
+    def grads(table):
+        return (flash_attention_bwd_dq(*args, table),
+                *flash_attention_bwd_dkv(*args, table))
+
+    b, nq, nk = runs.shape
+    sq, skv = args[0].shape[2], args[1].shape[2]
+    if valid is None:
+        valid = torch.ones(1, 1, sq, skv, dtype=torch.bool,
+                           device=runs.device)
+    # the tile pairs that hold a pair that attends
+    attends = F.pad(valid.expand(b, 1, sq, skv)[:, 0],
+                    (0, nk * BWD_TILE - skv, 0, nq * BWD_TILE - sq)).view(
+        b, nq, BWD_TILE, nk, BWD_TILE).any(4).any(2)
+    if bool((attends & ~runs).any()):
+        raise AssertionError(f"bwd {name}: the table skips a tile pair that "
+                             "holds a pair that attends")
+    full = grads(torch.ones_like(runs))
+    if not all(torch.equal(x, y) for x, y in zip(full, want)):
+        raise AssertionError(f"bwd {name}: running every tile pair changes "
+                             "the gradients (a skipped pair is not 0)")
+    if any(bool(x.any()) for x in grads(torch.zeros_like(runs))):
+        raise AssertionError(f"bwd {name}: with no tile pair to run the "
+                             "gradients are not 0")
+    cut = runs.clone()
+    cut.view(-1)[int(attends.view(-1).nonzero()[-1])] = False
+    if any(torch.equal(x, y) for x, y in zip(grads(cut), want)):
+        raise AssertionError(f"bwd {name}: clearing a tile pair that "
+                             "attends leaves a gradient unchanged")
+
+
+def phase_train_kernels(dev):
+    """The forward's LSE and segment ids, and the dQ and dK/dV kernels,
+    against their plain versions at the training path's shapes, each with a
+    planted fault; that the backward kernels run exactly the tile pairs of
+    the table they are given; times at the decoder shape (and the
+    perceiver's for the backward) beside the plain versions, SDPA and the
+    bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from lhrs_bot_tpu_torch.ops.attention import (
+        BWD_TILE, _allowed, bwd_tile_pairs, bwd_tile_table,
+        flash_attention_bwd,
+        flash_attention_bwd_dkv, flash_attention_bwd_dq,
+        flash_attention_bwd_reference, flash_attention_fwd, mha_reference)
 
     gen = torch.Generator(device=dev).manual_seed(7)
     out = {"fwd": {"max_abs_err": 0.0, "lse_max_abs_err": 0.0},
@@ -2071,6 +2140,10 @@ def phase_train_kernels(dev):
                 and torch.equal(dv, dv2)):
             raise AssertionError(f"bwd {name}: two runs differ (the kernels "
                                  "must be deterministic)")
+        delta = (do.float() * o.float()).sum(-1)
+        runs = bwd_tile_table(mask, seg, b, sq, skv, causal, dev)
+        check_tile_table(name, (q, k, v, mask, seg, lse, delta, do, causal,
+                                scale), runs, valid, (dq, dk, dv))
         reading = {"fwd_max_abs_err": err, "lse_max_abs_err": lse_err,
                    "lse_fault": lse_fault}
         for gname, got, ref, fault, key in (("dq", dq, dq_p, fq, "dq"),
@@ -2102,7 +2175,9 @@ def phase_train_kernels(dev):
                 f"{reading['dq_fault']:.3f} {reading['dk_fault']:.3f} "
                 f"{reading['dv_fault']:.3f}); deterministic")
         if name in ("decoder_kvmask", "decoder_segments", "perceiver_g0"):
-            delta = (do.float() * o.float()).sum(-1)
+            # each launcher timed as a caller with no table calls it (it
+            # builds the table); the whole backward (delta, the table, both
+            # kernels) as the training path calls it, against SDPA's
             attn = valid if valid is not None else None
             qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
             sdpa = F.scaled_dot_product_attention(
@@ -2120,6 +2195,10 @@ def phase_train_kernels(dev):
                     q, k, v, mask, seg, lse, delta, do, causal, scale)),
                 "dkv_ms": cuda_ms(lambda: flash_attention_bwd_dkv(
                     q, k, v, mask, seg, lse, delta, do, causal, scale)),
+                "bwd_ms": cuda_ms(lambda: flash_attention_bwd(
+                    q, k, v, mask, seg, o, lse, do, causal, scale)),
+                "table_ms": cuda_ms(lambda: bwd_tile_table(
+                    mask, seg, b, sq, skv, causal, dev)),
                 "bwd_plain_ms": cuda_ms(
                     lambda: flash_attention_bwd_reference(
                         q, k, v, mask, seg, o_p, lse_p, do, causal, scale),
@@ -2136,12 +2215,23 @@ def phase_train_kernels(dev):
                 t[f"{key}_bound_ms"], t[f"{key}_bound_by"] = attention_bound(
                     valid, mask, seg, b, h, sq, skv, d, products, q_rows,
                     kv_rows, lse_rows)
+            # the 64 x 64 tile pairs the kernels run (those of the table
+            # they read, which check_tile_table showed they obey), and those
+            # skipped of the pairs on or below the causal diagonal
+            nq, nk = -(-sq // BWD_TILE), -(-skv // BWD_TILE)
+            ran = int(runs.sum()) * h
+            t["tile_pairs_run"] = ran
+            t["tile_pairs_skipped"] = b * h * int(bwd_tile_pairs(
+                None, None, nq, nk, causal).sum()) - ran
             reading.update(t)
             line += (f"; fwd+LSE {t['fwd_ms']:.4f} ms (plain "
                      f"{t['fwd_plain_ms']:.4f}, SDPA {t['fwd_library_ms']:.4f},"
                      f" bound {t['fwd_bound_ms']:.4f}), dq {t['dq_ms']:.4f} ms "
                      f"(bound {t['dq_bound_ms']:.4f}), dkv {t['dkv_ms']:.4f} "
-                     f"ms (bound {t['dkv_bound_ms']:.4f}), plain backward "
+                     f"ms (bound {t['dkv_bound_ms']:.4f}), backward "
+                     f"{t['bwd_ms']:.4f} ms (table {t['table_ms']:.4f}), "
+                     f"64 x 64 tile pairs run {ran} skipped "
+                     f"{t['tile_pairs_skipped']}, plain backward "
                      f"{t['bwd_plain_ms']:.4f} ms, SDPA backward "
                      f"{t['bwd_library_ms']:.4f} ms")
             del sdpa, qg, kg, vg
@@ -2150,6 +2240,10 @@ def phase_train_kernels(dev):
         del q, k, v, do, o, o_p, lse, lse_p, dq, dk, dv, dq_p, dk_p, dv_p
         torch.cuda.empty_cache()
     timed = out["cases"]["decoder_segments"]
+    if timed["bwd_ms"] >= timed["bwd_library_ms"]:
+        log(f"  note: the flash backward ({timed['bwd_ms']:.4f} ms) is not "
+            f"below SDPA's ({timed['bwd_library_ms']:.4f} ms) at the packed "
+            "decoder shape")
     for key, kname in (("dq", "dq"), ("dkv", "dkv")):
         out[key].update(ms=timed[f"{kname}_ms"],
                         plain_ms=timed["bwd_plain_ms"],
@@ -2847,13 +2941,21 @@ def main():
     so = cuda_lib.build()
     cuda_lib.load_library()
     build_s = time.time() - t0
-    usage = [ln.strip() for ln in
-             (so.parent / "build.log").read_text().splitlines()
-             if "Used" in ln or "Compiling entry" in ln]
+    build_log = (so.parent / "build.log").read_text().splitlines()
+    usage = [ln.strip() for ln in build_log
+             if "Used" in ln or "spill" in ln or "Compiling entry" in ln]
     log(f"[2/6 build] {so.relative_to(cuda_lib.BUILD_ROOT.parents[1])} in "
         f"{build_s:.1f} s")
     for ln in usage:
         log(f"  {ln}")
+    # ptxas serializes the wgmmas of a kernel (C7514) when it sees other
+    # code read their registers while they run (a register fence missing,
+    # or code it will not keep apart from them): the kernels would run
+    # right but slowly, so the build fails the run
+    serialized = [ln.strip() for ln in build_log if "C7514" in ln]
+    if serialized:
+        raise SystemExit("chip_smoke: ptxas serialized wgmma (C7514):\n"
+                         + "\n".join(serialized))
 
     log("[3/6 kernels vs plain]")
     k1, k2 = phase("kernels", phase_kernels, dev)
@@ -2928,6 +3030,16 @@ def main():
     ]
     kernels[-4]["note"] = ("int8_dots=True; launches on the W4A8 path with "
                            "LHRS_DECODE_INT8_DOTS=1")
+    packed = train_k["cases"]["decoder_segments"]
+    for k in kernels:
+        if k["name"].startswith("flash_attention_bwd"):
+            k["note"] = (
+                "wgmma + TMA; times at the packed decoder shape, the "
+                "launcher building the run table itself "
+                f"({packed['table_ms']:.4f} ms); the whole backward "
+                f"{packed['bwd_ms']:.4f} ms; the kernels ran the "
+                f"{packed['tile_pairs_run']} 64 x 64 tile pairs the table "
+                f"sets and skipped {packed['tile_pairs_skipped']}")
     log(json.dumps({"w4a8_shapes": k3["shapes"]}))
     log(json.dumps({"int8_gemm_shapes": vision["B"]["shapes"],
                     "vision_blocks": vision["blocks"], "tower": tower}))

@@ -1,6 +1,7 @@
-"""Kernel B (int8 GEMM) and K1 (flash-attention forward) of one checkout of
-the repository, timed on the card at the main path's shapes, and the end
-to end numbers they move.
+"""Kernel B (int8 GEMM), K1 (flash-attention forward) and the flash
+backward (dQ and dK/dV kernels) of one checkout of the repository, timed
+on the card at the main path's shapes, and the end to end numbers they
+move.
 
     python3 lhrs_bot_tpu_torch/benchmarks/wgmma_ab.py --root DIR --part P
 
@@ -17,12 +18,22 @@ change, parent). Parts:
       S257 D64, Q/K/V strided views of one projection, float32 token-major
       output) and the perceiver's group 0 (B64 H16 64 x 320 D64, float32
       output); each beside one PyTorch call of the same function
-      (`torch._int_mm` for the product alone, SDPA) and its bound.
+      (`torch._int_mm` for the product alone, SDPA) and its bound. The
+      backward's dQ and dK/dV kernels at the training path's shapes
+      (`bwd_shapes`: the packed decoder batch, the kv-mask decoder shape,
+      the caption batch and the perceiver's group 0), each launcher as a
+      caller with no run table calls it, and the whole backward
+      (`flash_attention_bwd`: delta, the run table, both kernels) as the
+      training path calls it, beside SDPA's backward, the bounds of
+      `chip_smoke.attention_bound` and, where the checkout has the skip
+      rule, the time of its run table, each kernel's time given the table,
+      and the 64 x 64 tile pairs run and skipped.
   e2e: the bench's three tower cells (`bench.bench_prefill`, B=64), the
       2,191-token bf16 prefill (`generate`'s first step, as
-      chip_profile.py times it), and one packed stage-1 training step
-      (host clock) with the flash forward's share of the card's busy time
-      under torch.profiler.
+      chip_profile.py times it), and a stage-1 training step on the packed
+      batch and on the caption batch (host clock), each with the card's
+      busy time and the flash forward's and backward's shares of it under
+      torch.profiler.
 """
 
 from __future__ import annotations
@@ -122,14 +133,140 @@ def _kernels(dev):
                                          torch.float32),
              lambda: F.scaled_dot_product_attention(q, k, v),
              b * 64 * 320, 4 * b * 16 * 64 * 64)
+    out.update(_backward(dev, gen))
+    return out
+
+
+def bwd_shapes(dev, gen):
+    """(name, q, k, v, d_out, kv_mask, segment_ids, causal) of the flash
+    backward on the training path: the packed decoder batch (B1 H32 S2048
+    D128, 4 segments and a padding tail), the kv-mask decoder shape (1791
+    valid keys), the caption batch (B8 H32 S335 D128, each row's padding
+    tail masked) and the perceiver's group 0 (B8 H16 64 x 320 D64)."""
+    import torch
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+
+    def qkvd(b, h, sq, skv, d):
+        return (randn(b, h, sq, d), randn(b, h, skv, d), randn(b, h, skv, d),
+                randn(b, h, sq, d))
+
+    s = 2048
+    seg = torch.zeros(1, s, dtype=torch.int32, device=dev)
+    pos = 0
+    for i, n in enumerate((600, 500, 400, 291)):
+        seg[:, pos:pos + n] = i + 1
+        pos += n
+    yield ("packed", *qkvd(1, 32, s, s, 128), None, seg, True)
+    mask = (torch.arange(s, device=dev) < 1791)[None].contiguous()
+    yield ("kvmask", *qkvd(1, 32, s, s, 128), mask, None, True)
+    pos = torch.arange(335, device=dev)
+    mask = torch.stack([pos < n for n in CAPTION_VALID]).contiguous()
+    yield ("caption", *qkvd(8, 32, 335, 335, 128), mask, None, True)
+    yield ("perceiver_g0", *qkvd(8, 16, 64, 320, 64), None, None, False)
+
+
+# valid spliced rows of each caption row: BOS, 143 image tokens and 64-192
+# text tokens, padded to 335
+CAPTION_VALID = (335, 279, 207, 335, 244, 301, 226, 318)
+
+
+def _backward(dev, gen):
+    import torch
+    import torch.nn.functional as F
+
+    import chip_smoke as c
+    from lhrs_bot_tpu_torch.ops import attention
+
+    out = {}
+    for name, q, k, v, do, mask, seg, causal in bwd_shapes(dev, gen):
+        b, h, sq, d = q.shape
+        skv = k.shape[2]
+        scale = d ** -0.5
+        lse = torch.empty(b, h, sq, device=dev)
+        o = attention.flash_attention_fwd(q, k, v, mask, causal, scale,
+                                          segment_ids=seg, lse=lse)
+        delta = (do.float() * o.float()).sum(-1)
+        valid = attention._allowed(sq, skv, mask, seg, causal, dev)
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        sdpa = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=valid,
+                                              scale=scale)
+        # each launcher as a caller with no run table calls it (the change's
+        # builds its table), and the whole backward (delta, the table, both
+        # kernels) as the training path calls it, held against SDPA's
+        row = {
+            "dq_ms": c.cuda_ms(lambda: attention.flash_attention_bwd_dq(
+                q, k, v, mask, seg, lse, delta, do, causal, scale)),
+            "dkv_ms": c.cuda_ms(lambda: attention.flash_attention_bwd_dkv(
+                q, k, v, mask, seg, lse, delta, do, causal, scale)),
+            "bwd_ms": c.cuda_ms(lambda: attention.flash_attention_bwd(
+                q, k, v, mask, seg, o, lse, do, causal, scale)),
+            "library_ms": c.cuda_ms(lambda: torch.autograd.grad(
+                sdpa, (qg, kg, vg), do, retain_graph=True)),
+        }
+        for key, products, q_rows, kv_rows in (("dq", 3, 3, 2),
+                                               ("dkv", 4, 2, 4)):
+            row[f"{key}_bound_ms"], row[f"{key}_bound_by"] = (
+                c.attention_bound(valid, mask, seg, b, h, sq, skv, d,
+                                  products, q_rows, kv_rows, 2))
+        if hasattr(attention, "bwd_tile_table"):  # the change's skip rule
+            runs = attention.bwd_tile_table(mask, seg, b, sq, skv, causal,
+                                            dev)
+            row["table_ms"] = c.cuda_ms(lambda: attention.bwd_tile_table(
+                mask, seg, b, sq, skv, causal, dev))
+            # the kernels alone, given the table
+            row["dq_kernel_ms"] = c.cuda_ms(
+                lambda: attention.flash_attention_bwd_dq(
+                    q, k, v, mask, seg, lse, delta, do, causal, scale, runs))
+            row["dkv_kernel_ms"] = c.cuda_ms(
+                lambda: attention.flash_attention_bwd_dkv(
+                    q, k, v, mask, seg, lse, delta, do, causal, scale, runs))
+            nq, nk = runs.shape[1:]
+            row["tile_pairs_run"] = h * int(runs.sum())
+            row["tile_pairs_skipped"] = b * h * int(attention.bwd_tile_pairs(
+                None, None, nq, nk, causal).sum()) - row["tile_pairs_run"]
+        out[f"bwd_{name}"] = row
+        del sdpa, qg, kg, vg
+        torch.cuda.empty_cache()
+    return out
+
+
+def _step(trainer, batch):
+    """Median host-clock ms of 3 steps after a warm-up step, then the busy
+    ms of one profiled step and the flash kernels' shares of it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    steps = []
+    for i in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer._step_fn(trainer.params, batch)
+        torch.cuda.synchronize()
+        if i:
+            steps.append((time.perf_counter() - t0) * 1e3)
+    out = {"step_ms": sorted(steps)[len(steps) // 2]}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer._step_fn(trainer.params, batch)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    out["busy_ms"] = busy
+    for key in ("flash_fwd", "flash_bwd"):
+        ms = sum(e.self_device_time_total for e in events
+                 if key in e.key) / 1e3
+        out[f"{key}_ms"], out[f"{key}_share"] = ms, ms / busy
     return out
 
 
 def _e2e(dev):
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     import chip_smoke as c
     from lhrs_bot_tpu_torch import bench
@@ -166,30 +303,12 @@ def _e2e(dev):
     config = load_yaml_config("Config/multi_modal_stage1.yaml")
     cfg = VLMConfig.from_config_dict(config)
     params = init_vlm_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
-    _, packed = c.train_batches(cfg, np.random.default_rng(11))
+    caption, packed = c.train_batches(cfg, np.random.default_rng(11))
     trainer = build_trainer(config, params, [packed], dev)
     del params
-    batch = trainer._put(packed)
-    steps = []
-    for i in range(4):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        trainer._step_fn(trainer.params, batch)
-        torch.cuda.synchronize()
-        if i:
-            steps.append((time.perf_counter() - t0) * 1e3)
-    out["train_packed_step_ms"] = sorted(steps)[len(steps) // 2]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        trainer._step_fn(trainer.params, batch)
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in events) / 1e3
-    fwd = sum(e.self_device_time_total for e in events
-              if "flash_fwd" in e.key) / 1e3
-    out.update(train_busy_ms=busy, train_flash_fwd_ms=fwd,
-               train_flash_fwd_share=fwd / busy)
+    for name, batch in (("packed", packed), ("caption", caption)):
+        for key, value in _step(trainer, trainer._put(batch)).items():
+            out[f"train_{name}_{key}"] = value
     return out
 
 

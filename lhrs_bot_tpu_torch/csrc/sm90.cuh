@@ -1,9 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the wgmma kernels
-// (int8_gemm.cu, flash_fwd.cu): mbarriers, TMA tile loads, the wgmma shared
-// memory descriptor for 128-byte swizzled tiles, the wgmma instructions the
-// kernels issue (inline PTX, generated from a list of operands), and the host
-// side encoder of TMA tensor maps, fetched from the driver at first use so
-// that the library needs no -lcuda.
+// (int8_gemm.cu, flash_fwd.cu, flash_bwd.cu): mbarriers, TMA tile loads, the
+// wgmma shared memory descriptor for 128-byte swizzled tiles, the wgmma
+// instructions the kernels issue (inline PTX, generated from a list of
+// operands), and the host side encoder of TMA tensor maps, fetched from the
+// driver at first use so that the library needs no -lcuda.
 //
 // Tiles are copied by TMA with CU_TENSOR_MAP_SWIZZLE_128B: each tile row is
 // 128 bytes (128 int8 or 64 bf16), and the 16-byte chunk c of row r lands at
@@ -258,6 +258,30 @@ __device__ __forceinline__ void wgmma_bf16_rs_m64n128k16(
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[32] (+)= A (64 x 16 bf16, registers) B (64 x 16 bf16, smem, K-major)^T;
+// scale_d 0 overwrites d
+__device__ __forceinline__ void wgmma_bf16_rs_m64n64k16_kmajor(
+    float* d, const uint32_t* a, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
 // ---- host: TMA tensor maps ----------------------------------------------------

@@ -19,7 +19,11 @@ not take raises. When a gradient is wanted, the call goes through
 `FlashAttention`, a `torch.autograd.Function` that saves q, k, v, the output
 and its log-sum-exp and runs the two-pass backward (the dQ kernel, then the
 dK/dV kernel) on CUDA tensors, or `flash_attention_bwd_reference` on CPU
-tensors: the same object on both devices, only the launchers differ.
+tensors: the same object on both devices, only the launchers differ. The
+backward kernels run the (64-row q tile, 64-row kv tile) pairs that
+`bwd_tile_table` sets, and skip the rest: the pairs in which no pair can
+attend, by `bwd_tile_pairs`'s rule on the per-tile ranges of segment ids
+that `bwd_tile_ranges` reduces (plain reductions, as delta is).
 """
 
 from __future__ import annotations
@@ -52,6 +56,77 @@ def _allowed(sq: int, skv: int, kv_mask, segment_ids, causal: bool,
         tri = torch.ones(sq, skv, dtype=torch.bool, device=device).tril()
         allowed = tri if allowed is None else allowed & tri
     return allowed
+
+
+BWD_TILE = 64  # rows of the backward kernels' q and kv tiles
+_INT32_MAX = 2 ** 31 - 1
+
+
+def tile_key_ranges(keys: torch.Tensor, tile: int) -> torch.Tensor:
+    """(B, ceil(S / tile), 2) int32: the least and the greatest key > 0
+    among each `tile` rows of `keys` (B, S) (a row's segment id, 1 for a
+    row that attends without segments, 0 for a row that attends nothing);
+    a tile with no such row gets an empty range (2^31 - 1, 0)."""
+    b, s = keys.shape
+    n = -(-s // tile)
+    k = keys.to(torch.int32)
+    if n * tile != s:
+        k = torch.nn.functional.pad(k, (0, n * tile - s))
+    k = k.view(b, n, tile)
+    lo = torch.where(k > 0, k, _INT32_MAX).amin(-1)
+    return torch.stack([lo, k.amax(-1)], -1)
+
+
+def bwd_tile_ranges(kv_mask, segment_ids, tile: int = BWD_TILE):
+    """The per-tile key ranges of the backward's skip rule: (q ranges, kv
+    ranges), each a `tile_key_ranges` table or None for "any key". The q
+    rows' keys are their segment ids (None without segments); the kv rows'
+    the segment ids, or 1, times kv_mask (None with neither)."""
+    q_ranges = (None if segment_ids is None
+                else tile_key_ranges(segment_ids, tile))
+    if kv_mask is None:
+        return q_ranges, q_ranges
+    kv_keys = (kv_mask.to(torch.int32) if segment_ids is None
+               else segment_ids * kv_mask)
+    return q_ranges, tile_key_ranges(kv_keys, tile)
+
+
+def bwd_tile_pairs(q_ranges, kv_ranges, nq: int, nk: int, causal: bool,
+                   tile_q: int = BWD_TILE, tile_kv: int = BWD_TILE,
+                   device=None) -> torch.Tensor:
+    """(B or 1, nq, nk) bool: the (q tile, kv tile) pairs the backward runs.
+    A pair is skipped when no (i, j) in it can attend: it lies above the
+    causal diagonal (its first kv row past its last q row), or its tiles'
+    key ranges are disjoint, which also skips a kv tile of masked keys and
+    a q tile of segment 0 (an empty range). A skipped pair would add exactly
+    0 to every gradient. The tensor lies on the ranges' device, else on
+    `device` (default the CPU)."""
+    sides = [r for r in ((None if q_ranges is None else q_ranges[:, :, None]),
+                         (None if kv_ranges is None
+                          else kv_ranges[:, None, :])) if r is not None]
+    dev = sides[0].device if sides else device
+    run = torch.ones(1, nq, nk, dtype=torch.bool, device=dev)
+    if sides:
+        lo, hi = sides[0][..., 0], sides[0][..., 1]
+        for r in sides[1:]:
+            lo, hi = torch.maximum(lo, r[..., 0]), torch.minimum(hi, r[..., 1])
+        run = run & (lo <= hi)
+    if causal:
+        iq = torch.arange(nq, device=dev)[:, None]
+        ik = torch.arange(nk, device=dev)[None, :]
+        run = run & (ik * tile_kv <= iq * tile_q + tile_q - 1)
+    return run
+
+
+def bwd_tile_table(kv_mask, segment_ids, b: int, sq: int, skv: int,
+                   causal: bool, device) -> torch.Tensor:
+    """(B, ceil(Sq / 64), ceil(Skv / 64)) contiguous bool on `device`: the
+    64 x 64 tile pairs that both backward kernels run, and the only ones,
+    by `bwd_tile_pairs`'s rule."""
+    run = bwd_tile_pairs(*bwd_tile_ranges(kv_mask, segment_ids),
+                         -(-sq // BWD_TILE), -(-skv // BWD_TILE), causal,
+                         device=device)
+    return run.expand(b, *run.shape[1:]).contiguous()
 
 
 def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -215,12 +290,15 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention_fwd.launches = 0
 
 
-def _bwd_args(q, k, v, kv_mask, segment_ids, lse, delta, d_out, name):
-    """Checks shared by the two backward kernels; returns contiguous
-    q, k, v, dO."""
+def _bwd_args(q, k, v, kv_mask, segment_ids, lse, delta, d_out, causal,
+              runs, name):
+    """Checks shared by the two backward kernels; returns contiguous q, k,
+    v, dO and the tile pairs to run (`bwd_tile_table`, built here when
+    `runs` is None)."""
     _check_qkv(q, k, v, name)
     b, h, sq, _ = q.shape
-    _check_masks(kv_mask, segment_ids, b, sq, k.shape[2], q.device, name)
+    skv = k.shape[2]
+    _check_masks(kv_mask, segment_ids, b, sq, skv, q.device, name)
     if (d_out.shape != q.shape or d_out.device != q.device
             or d_out.dtype != torch.bfloat16):
         raise ValueError(f"{name}: d_out must be a bf16 tensor of q's shape")
@@ -229,17 +307,35 @@ def _bwd_args(q, k, v, kv_mask, segment_ids, lse, delta, d_out, name):
                 or t.device != q.device or not t.is_contiguous()):
             raise ValueError(f"{name}: {t_name} must be a contiguous float32 "
                              "(B, H, Sq) tensor on q's device")
-    return q.contiguous(), k.contiguous(), v.contiguous(), d_out.contiguous()
+    if runs is None:
+        runs = bwd_tile_table(kv_mask, segment_ids, b, sq, skv, causal,
+                              q.device)
+    if (runs.dtype != torch.bool or runs.device != q.device
+            or runs.shape != (b, -(-sq // BWD_TILE), -(-skv // BWD_TILE))
+            or not runs.is_contiguous()):
+        raise ValueError(f"{name}: runs must be a contiguous bool (B, "
+                         "ceil(Sq / 64), ceil(Skv / 64)) tensor on q's "
+                         "device")
+    out = [t.contiguous() for t in (q, k, v, d_out)]
+    if (any(t.data_ptr() % 16 for t in out)
+            or (kv_mask is not None and kv_mask.data_ptr() % 4)):
+        raise ValueError(f"{name}: q, k, v and d_out need 16-byte aligned "
+                         "bases, kv_mask a 4-byte aligned one")
+    return (*out, runs)
 
 
 def flash_attention_bwd_dq(q, k, v, kv_mask, segment_ids, lse, delta, d_out,
-                           causal: bool, sm_scale: float) -> torch.Tensor:
+                           causal: bool, sm_scale: float, runs=None
+                           ) -> torch.Tensor:
     """Launch the dQ kernel (csrc/flash_bwd.cu): bf16 CUDA q (B, H, Sq, D),
     k/v (B, H, Skv, D) and d_out, float32 lse and delta = rowsum(dO O)
-    (B, H, Sq), the forward's masks; returns dq (B, H, Sq, D) bf16. Counts
-    its launches in `flash_attention_bwd_dq.launches`."""
-    q, k, v, d_out = _bwd_args(q, k, v, kv_mask, segment_ids, lse, delta,
-                               d_out, "flash_attention_bwd_dq")
+    (B, H, Sq), the forward's masks, and `runs`, the tile pairs to run
+    (`bwd_tile_table` of the masks, built here when None); returns dq
+    (B, H, Sq, D) bf16. Counts its launches in
+    `flash_attention_bwd_dq.launches`."""
+    q, k, v, d_out, runs = _bwd_args(
+        q, k, v, kv_mask, segment_ids, lse, delta, d_out, causal, runs,
+        "flash_attention_bwd_dq")
     b, h, sq, d = q.shape
     dq = torch.empty_like(q)
     lib = cuda_lib.load_library()
@@ -247,8 +343,8 @@ def flash_attention_bwd_dq(q, k, v, kv_mask, segment_ids, lse, delta, d_out,
         err = lib.lhrs_flash_bwd_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), d_out.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), _ptr(kv_mask),
-            _ptr(segment_ids), dq.data_ptr(), b, h, sq, k.shape[2], d,
-            int(causal), float(sm_scale),
+            _ptr(segment_ids), runs.data_ptr(), dq.data_ptr(), b, h, sq,
+            k.shape[2], d, int(causal), float(sm_scale),
             torch.cuda.current_stream().cuda_stream)
     cuda_lib.check(err, "flash_attention_bwd_dq")
     flash_attention_bwd_dq.launches += 1
@@ -259,22 +355,25 @@ flash_attention_bwd_dq.launches = 0
 
 
 def flash_attention_bwd_dkv(q, k, v, kv_mask, segment_ids, lse, delta, d_out,
-                            causal: bool, sm_scale: float
+                            causal: bool, sm_scale: float, runs=None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the dK/dV kernel (csrc/flash_bwd.cu) on the inputs of
     `flash_attention_bwd_dq`; returns (dk, dv) (B, H, Skv, D) bf16. Counts
     its launches in `flash_attention_bwd_dkv.launches`."""
-    q, k, v, d_out = _bwd_args(q, k, v, kv_mask, segment_ids, lse, delta,
-                               d_out, "flash_attention_bwd_dkv")
+    q, k, v, d_out, runs = _bwd_args(
+        q, k, v, kv_mask, segment_ids, lse, delta, d_out, causal, runs,
+        "flash_attention_bwd_dkv")
     b, h, sq, d = q.shape
+    runs_t = runs.transpose(1, 2).contiguous()  # a row a kv tile
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     lib = cuda_lib.load_library()
     with torch.cuda.device(q.device):
         err = lib.lhrs_flash_bwd_dkv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), d_out.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), _ptr(kv_mask),
-            _ptr(segment_ids), dk.data_ptr(), dv.data_ptr(), b, h, sq,
-            k.shape[2], d, int(causal), float(sm_scale),
+            _ptr(segment_ids), runs_t.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), b, h, sq, k.shape[2], d, int(causal),
+            float(sm_scale),
             torch.cuda.current_stream().cuda_stream)
     cuda_lib.check(err, "flash_attention_bwd_dkv")
     flash_attention_bwd_dkv.launches += 1
@@ -288,16 +387,19 @@ def flash_attention_bwd(q, k, v, kv_mask, segment_ids, out, lse, d_out,
                         causal: bool, sm_scale: float
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The CUDA backward: delta = rowsum(dO O) in float32 (a plain
-    reduction, as XLA computes it beside the TPU kernels), then the dQ
+    reduction, as XLA computes it beside the TPU kernels) and the tile
+    pairs to run (`bwd_tile_table`, plain reductions too), then the dQ
     kernel and the dK/dV kernel. Returns (dq, dk, dv) bf16; each kernel
     counts its own launches."""
     if not d_out.is_cuda:
         raise ValueError("flash_attention_bwd takes CUDA tensors")
     delta = (d_out.float() * out.float()).sum(dim=-1)
+    runs = bwd_tile_table(kv_mask, segment_ids, q.shape[0], q.shape[2],
+                          k.shape[2], causal, q.device)
     dq = flash_attention_bwd_dq(q, k, v, kv_mask, segment_ids, lse, delta,
-                                d_out, causal, sm_scale)
+                                d_out, causal, sm_scale, runs)
     dk, dv = flash_attention_bwd_dkv(q, k, v, kv_mask, segment_ids, lse,
-                                     delta, d_out, causal, sm_scale)
+                                     delta, d_out, causal, sm_scale, runs)
     return dq, dk, dv
 
 

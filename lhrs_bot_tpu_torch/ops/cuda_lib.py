@@ -36,11 +36,11 @@ _ENTRIES = {
     # q, k, v, kv_mask, seg, o, lse, B, H, Sq, Skv, D, causal, sm_scale,
     # strides (12 int64: batch/head/row of q, k, v, o), out_f32, stream
     "lhrs_flash_fwd": [_P] * 7 + [_I] * 6 + [ctypes.c_float, _P, _I, _P],
-    # q, k, v, dout, lse, delta, kv_mask, seg, dq, B, H, Sq, Skv, D, causal,
-    # sm_scale, stream
-    "lhrs_flash_bwd_dq": [_P] * 9 + [_I] * 6 + [ctypes.c_float, _P],
+    # q, k, v, dout, lse, delta, kv_mask, seg, runs, dq, B, H, Sq, Skv, D,
+    # causal, sm_scale, stream
+    "lhrs_flash_bwd_dq": [_P] * 10 + [_I] * 6 + [ctypes.c_float, _P],
     # the same with dk, dv in place of dq
-    "lhrs_flash_bwd_dkv": [_P] * 10 + [_I] * 6 + [ctypes.c_float, _P],
+    "lhrs_flash_bwd_dkv": [_P] * 11 + [_I] * 6 + [ctypes.c_float, _P],
     # q, k_new, v_new, k_cache, v_cache, lengths, out, layer, L, B, H, S, D,
     # sm_scale, stream
     "lhrs_fused_decode_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
