@@ -10,7 +10,15 @@ Phases, one or more lines each:
   2. build: compile the CUDA kernels from lhrs_bot_tpu_torch/csrc;
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the main path's shapes (plus ragged/masked edge cases), with times;
-     The vision kernels too: kernel A (LayerNorm + row quantization) and
+     K3 (the W4A8 decode product) in both modes, the fused one quantizing
+     its own bf16 activation, bit for bit against the plain quantize +
+     product at the decoder's three projection shapes, B = 1, 2, 7, 8, 9,
+     layers 0 and 31, a zero row and an outlier row, every cluster size,
+     and two planted faults (a peer's row maximum, a CTA's sums left out
+     of the cluster's exchange) that must differ;
+     the vision kernels too: kernel A (LayerNorm + row quantization; the
+     quantize-only mode bit for bit at every path shape and the row
+     grouping's edges, outputs poisoned, and at near ties) and
      kernel B (int8 GEMM, int32 accumulators bit for bit) at the W8A8
      tower's shapes and at the edges of its 128 x 128 tile and 128-byte K
      stage (M of 40 to 16448, N 1032 and 8, K 1088 and 64, a strided A),
@@ -47,7 +55,9 @@ Phases, one or more lines each:
      (three requests, B up to 7), int8 weights with the int8 cache and, by
      default on the card, the fused W8A8 vision tower and W8A8 perceiver
      (two requests, B 1 and 8), NF4 weights with the int8 cache (one
-     request); for each path the kernels' launch counts, and for bf16 and
+     request); for each path the kernels' launch counts (a W4A8 decode
+     step: K3 7 times a layer, A twice a layer with the int8 cache and
+     never with the bf16 one), and for bf16 and
      W4A8 a prefill/decode consistency check with planted faults. Then,
      from the bf16 engine's parameters, paged against contiguous decode on
      the same cache contents (bf16 and int8 caches, with a swapped-page
@@ -103,7 +113,7 @@ import numpy as np
 # the value scales, and q * sm_scale) to bf16 before the products, so 1e-2
 # absolute + 1e-2 relative bounds a correct kernel while any indexing or
 # masking fault shows as O(1). K3 is integer arithmetic and is held to its
-# plain version bit for bit.
+# plain version bit for bit, its fused quantize too.
 ATOL = RTOL = 1e-2
 # the int8-dots kernel against its plain version: both take the same float32
 # steps (exp, the two quotients, the scalings) in the same order, so they
@@ -393,6 +403,135 @@ def phase_kernels(dev):
     return k1, k2
 
 
+# K3's projection shapes (K, N) and the decode batches it is checked at: 9
+# crosses its 8-row group
+K3_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096))
+K3_BATCHES = (1, 2, 7, 8, 9)
+
+
+def k3_activation(gen, dev, b, k, chunk):
+    """A (B, K) bf16 activation with a row of zeros (scale 1) and a row
+    whose one outlier lies in the second CTA's chunk of the low half, so
+    that only the amax exchange brings it to the other CTAs."""
+    import torch
+
+    x = torch.randn(b, k, generator=gen, device=dev).to(torch.bfloat16)
+    if b > 1:
+        x[0] = 0
+        x[1, min(chunk + 3, k // 2 - 1)] = 40.0
+    return x
+
+
+def phase_k3(dev, gen, nl):
+    """K3 (W4A8 matmul) in both modes against the plain quantize +
+    product, bit for bit, at the decoder's three projection shapes, B in
+    K3_BATCHES, layers 0 and 31, and at every cluster size for B = 7; the
+    planted faults (a peer's amax, a CTA's sums left out) must differ;
+    times of the fused projection, mode (a), and A + mode (a)."""
+    import torch
+
+    from lhrs_bot_tpu_torch.ops.ln_quant import ln_quant_kernel, ln_quant_plain
+    from lhrs_bot_tpu_torch.ops.w4_matmul import (
+        FAULT_PEER_AMAX, FAULT_PEER_SUMS, w4a8_matmul_kernel,
+        w4a8_launch_plan, w4a8_matmul_plain, w4a8_max_clusters, w4a8_plan,
+        w4a8_project_kernel)
+
+    def plain(x, w, ws, layer):
+        xq, xs = ln_quant_plain(x)
+        k2 = x.shape[1] // 2
+        return w4a8_matmul_plain(xq[:, :k2], xq[:, k2:], xs, w, ws, layer)
+
+    def same(name, got, ref):
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            err = float((got.float() - ref.float()).abs().max())
+            raise AssertionError(f"{name}: differs from the plain version, "
+                                 f"{int((got != ref).sum())} outputs, max abs "
+                                 f"err {err:.3e}")
+
+    k3 = {"max_abs_err": 0.0, "shapes": []}
+    for k, n in K3_SHAPES:
+        w = torch.randint(-128, 128, (nl, k // 2, n), generator=gen,
+                          device=dev, dtype=torch.int8)
+        ws = torch.rand(nl, 1, n, generator=gen, device=dev) * 4e-3 + 1e-3
+        for b in K3_BATCHES:
+            cluster, chunk = w4a8_launch_plan(dev, b, k // 2, n)
+            x = k3_activation(gen, dev, b, k, chunk)
+            xq, xs = ln_quant_plain(x)
+            xlo, xhi = xq[:, :k // 2], xq[:, k // 2:]
+            for layer in (0, nl - 1):
+                ref = plain(x, w, ws, layer)
+                same(f"K3 fused K{k} N{n} B{b} layer {layer}",
+                     w4a8_project_kernel(x, w, ws, layer), ref)
+                same(f"K3 mode (a) K{k} N{n} B{b} layer {layer}",
+                     w4a8_matmul_kernel(xlo, xhi, xs, w, ws, layer), ref)
+            if b == 7:
+                ref = plain(x, w, ws, 3)
+                for c in (1, 2, 4, 8):
+                    same(f"K3 fused K{k} N{n} B7 cluster {c}",
+                         w4a8_project_kernel(x, w, ws, 3, cluster=c), ref)
+                    same(f"K3 mode (a) K{k} N{n} B7 cluster {c}",
+                         w4a8_matmul_kernel(xlo, xhi, xs, w, ws, 3,
+                                            cluster=c), ref)
+                # the faults in a cluster of 4, the outlier in rank 1's chunk
+                xf = k3_activation(gen, dev, b, k, w4a8_plan(k // 2, n, 4)[1])
+                ref = plain(xf, w, ws, 3)
+                for fault, name in ((FAULT_PEER_AMAX, "a peer's amax"),
+                                    (FAULT_PEER_SUMS, "a CTA's sums")):
+                    got = w4a8_project_kernel(xf, w, ws, 3, cluster=4,
+                                              fault=fault)
+                    torch.cuda.synchronize()
+                    if torch.equal(got, ref):
+                        raise AssertionError(f"K3 K{k} N{n}: the planted "
+                                             f"fault ({name} left out) "
+                                             "passes")
+            log(f"  K3 K{k} N{n} B{b} (cluster {cluster}, chunk {chunk}), "
+                "layers 0/31: fused and mode (a) bit-identical to the plain "
+                "quantize + product" + (
+                    "; clusters 1/2/4/8 too; both planted faults differ"
+                    if b == 7 else ""))
+            if b not in (1, 7):
+                continue
+            # each timed call reads another layer: the weights come from
+            # device memory, as in decode, not from the 50 MB L2
+            turn = iter(range(10**9))
+            fused = cuda_ms(lambda: w4a8_project_kernel(
+                x, w, ws, next(turn) % nl))
+            mode_a = cuda_ms(lambda: w4a8_matmul_kernel(
+                xlo, xhi, xs, w, ws, next(turn) % nl))
+
+            def two_launches():
+                q, s_ = ln_quant_kernel(x)
+                return w4a8_matmul_kernel(q[:, :k // 2], q[:, k // 2:], s_,
+                                          w, ws, next(turn) % nl)
+
+            a_then_k3 = cuda_ms(two_launches)
+            plain_ms = cuda_ms(lambda: plain(x, w, ws, next(turn) % nl))
+            # packed weights and their scales, x in bf16, a bf16 output
+            bms, by = bound(k // 2 * n + 4 * n + 2 * b * k + 2 * b * n,
+                            2.0 * b * k * n, "int8")
+            row = {"K": k, "N": n, "B": b, "cluster": cluster,
+                   "chunk": chunk, "ms": fused, "mode_a_ms": mode_a,
+                   "a_then_mode_a_ms": a_then_k3, "plain_ms": plain_ms,
+                   "GB_s": k // 2 * n / fused / 1e6, "bound_ms": bms,
+                   "bound_by": by,
+                   "max_active_clusters": w4a8_max_clusters(
+                       b, k // 2, n, cluster=cluster)}
+            k3["shapes"].append(row)
+            log(f"  K3 K{k} N{n} B{b}: fused {fused:.4f} ms "
+                f"({row['GB_s']:.0f} GB/s), mode (a) {mode_a:.4f}, A + mode "
+                f"(a) {a_then_k3:.4f}, plain {plain_ms:.4f}, bound "
+                f"{bms:.4f} ms ({by}); {row['max_active_clusters']} clusters "
+                "resident at most")
+        del w, ws
+    main = next(r for r in k3["shapes"]
+                if (r["K"], r["N"], r["B"]) == (4096, 11008, 1))
+    for key in ("ms", "mode_a_ms", "plain_ms", "bound_ms", "bound_by"):
+        k3[key] = main[key]
+    k3["library_ms"] = None  # no one PyTorch call computes W4A8
+    return k3
+
+
 def phase_quant_kernels(dev):
     """K3 (W4A8 matmul) and K4 (int8-cache fused decode) against their plain
     versions at the quantized decode path's shapes."""
@@ -400,8 +539,6 @@ def phase_quant_kernels(dev):
 
     from lhrs_bot_tpu_torch.ops.fused_decode import (
         fused_decode_attention_q_kernel, fused_decode_attention_q_plain)
-    from lhrs_bot_tpu_torch.ops.w4_matmul import (w4a8_matmul_kernel,
-                                                  w4a8_matmul_plain)
 
     gen = torch.Generator(device=dev).manual_seed(2)
 
@@ -412,49 +549,8 @@ def phase_quant_kernels(dev):
     def scales(*shape, lo=0.005, hi=0.03):
         return torch.rand(shape, generator=gen, device=dev) * (hi - lo) + lo
 
-    # K3: a 32-layer stack of each LLaMA-2-7B projection shape; the kernel
-    # must equal its plain version bit for bit
     nl = 32
-    k3 = {"max_abs_err": 0.0, "shapes": []}
-    for k, n in ((4096, 4096), (4096, 11008), (11008, 4096)):
-        w, ws = codes(nl, k // 2, n), scales(nl, 1, n, lo=1e-3, hi=5e-3)
-        for b in (1, 7):
-            # the halves of one (B, K) activation, as w4a8_project passes
-            xq, xs = codes(b, k), scales(b, 1)
-            xlo, xhi = xq[:, :k // 2], xq[:, k // 2:]
-            for layer in (0, 31):
-                got = w4a8_matmul_kernel(xlo, xhi, xs, w, ws, layer)
-                ref = w4a8_matmul_plain(xlo, xhi, xs, w, ws, layer)
-                torch.cuda.synchronize()
-                if not torch.equal(got, ref):
-                    err = float((got.float() - ref.float()).abs().max())
-                    raise AssertionError(
-                        f"K3 K{k} N{n} B{b} layer {layer}: differs from the "
-                        f"plain version, max abs err {err:.3e}")
-            # each timed call reads another layer: the weights come from
-            # device memory, as in decode, not from the 50 MB L2
-            turn = iter(range(10**9))
-            ms = cuda_ms(lambda: w4a8_matmul_kernel(
-                xlo, xhi, xs, w, ws, next(turn) % nl))
-            plain = cuda_ms(lambda: w4a8_matmul_plain(
-                xlo, xhi, xs, w, ws, next(turn) % nl))
-            gbs = k // 2 * n / ms / 1e6
-            # packed weights, their scales, the codes and scales of x, and
-            # a float32 output
-            bms, by = bound(k // 2 * n + 4 * n + b * (k + 4) + 4 * b * n,
-                            2.0 * b * k * n, "int8")
-            k3["shapes"].append({"K": k, "N": n, "B": b, "ms": ms,
-                                 "plain_ms": plain, "GB_s": gbs,
-                                 "bound_ms": bms, "bound_by": by})
-            log(f"  K3 K{k} N{n} B{b}, layers 0/31: bit-identical; kernel "
-                f"{ms:.4f} ms ({gbs:.0f} GB/s), plain {plain:.4f} ms")
-        del w, ws
-    main = next(r for r in k3["shapes"]
-                if (r["K"], r["N"], r["B"]) == (4096, 11008, 1))
-    for key in ("ms", "plain_ms", "bound_ms", "bound_by"):
-        k3[key] = main[key]
-    k3["library_ms"] = None  # no one PyTorch call computes W4A8
-
+    k3 = phase_k3(dev, gen, nl)
     # K4 at the decode shape: L32 H32 S2304 D128, B2 and B7
     h, s, d = 32, 2304, 128
     scale = d ** -0.5
@@ -1143,6 +1239,139 @@ def check_fused(name, got, ref):
     return check_block(name, got, ref, FUSED_TOL, FUSED_REL_L2)
 
 
+# kernel A's quantize-only checks: (M, W, dtype name) of every path shape
+# (the tower's 16448 rows of 1024 and its FC's 4096 in float32, the int8
+# cache's K/V rows at B = 7, the decoder's single rows of 4096 and 11008)
+# and the row grouping's edges: a CTA of 32 rows of 128 cut short (229), a
+# width that is not a multiple of 16 (4100), 11008 rows at M = 16448
+A_QUANT_SHAPES = ((16448, 1024, "bfloat16"), (16448, 1024, "float32"),
+                  (16448, 4096, "float32"), (16448, 11008, "bfloat16"),
+                  (7 * 32, 128, "bfloat16"), (229, 128, "bfloat16"),
+                  (1, 4096, "bfloat16"), (1, 11008, "bfloat16"),
+                  (1, 4100, "bfloat16"), (3, 4100, "float32"))
+# and its LayerNorm mode: LN1 (bf16 in), LN2 (float32 in), a strided
+# ragged width (rows of 4100 in a 4104-wide buffer)
+A_LN_SHAPES = ((16448, 1024, "bfloat16"), (16448, 1024, "float32"),
+               (5, 4100, "bfloat16"))
+
+
+def a_outputs_poisoned(dev, m, w):
+    """Fill blocks of the sizes of A's outputs with a code no row takes
+    (-128) and NaN scales, then free them: the caching allocator hands them
+    to the next call of those sizes, so an element the kernel leaves
+    unwritten cannot equal the plain version's. Returns the codes' block
+    address, to tell whether the kernel got it."""
+    import torch
+
+    q = torch.full((m, w), -128, dtype=torch.int8, device=dev)
+    s = torch.full((m, 1), float("nan"), device=dev)
+    ptr = q.data_ptr()
+    del q, s
+    return ptr
+
+
+def phase_a(dev, gen):
+    """Kernel A against its plain version: quantize-only bit for bit at
+    A_QUANT_SHAPES (a zero row and an outlier row in each, the outputs'
+    blocks poisoned), the LayerNorm mode within one code at A_LN_SHAPES,
+    with times."""
+    import torch
+
+    from lhrs_bot_tpu_torch.ops.ln_quant import (div_exact, ln_quant_kernel,
+                                                 ln_quant_plain, row_plan)
+
+    def rows(m, w, dtype, width=None, mul=1.0, shift=0.0):
+        x = (torch.randn(m, width or w, generator=gen, device=dev) * mul
+             + shift).to(getattr(torch, dtype))[:, :w]
+        if m > 2:
+            x[1] = 0  # amax 0: scale 1, codes 0
+            x[2, w - 1] = 50.0  # an outlier in the row's last element
+        return x
+
+    ka = {"max_abs_err": 0.0, "shapes": []}
+    for m, w, dtype in A_QUANT_SHAPES:
+        # rows of a width that is not a multiple of 8 lie in a wider buffer
+        x = rows(m, w, dtype, width=-(-w // 8) * 8)
+        ptr = a_outputs_poisoned(dev, m, w)
+        q, s = ln_quant_kernel(x)
+        qp, sp = ln_quant_plain(x)
+        torch.cuda.synchronize()
+        if not (torch.equal(q, qp) and torch.equal(s, sp)):
+            raise AssertionError(
+                f"A quantize-only ({m}, {w}) {dtype}: {int((q != qp).sum())} "
+                f"codes and {int((s != sp).sum())} scales differ from the "
+                "plain version")
+        ms = cuda_ms(lambda: ln_quant_kernel(x))
+        bms, by = bound(m * w * (x.element_size() + 1) + 4 * m)
+        lanes, chunks, per_cta = row_plan(w)
+        ka["shapes"].append({"M": m, "W": w, "dtype": dtype, "ln": False,
+                             "ms": ms, "bound_ms": bms, "bound_by": by,
+                             "lanes": lanes, "chunks": chunks})
+        log(f"  A quantize-only ({m}, {w}) {dtype}: codes and scales equal "
+            f"(outputs poisoned: {q.data_ptr() == ptr}); {lanes} lanes x "
+            f"{chunks} chunks a row, {per_cta} rows a CTA; {ms:.4f} ms, "
+            f"bound {bms:.4f} ms")
+    # near ties: float32 rows whose values lie at (k + 1/2) s and one ulp
+    # to either side, where a quotient one ulp off would round to another
+    # code; some rows' scales small (1e-17, still the reciprocal route) or
+    # tiny (1e-27, the IEEE division's)
+    m, w = 256, 1024
+    amax = torch.rand(m, 1, generator=gen, device=dev) * 10 + 1e-3
+    amax[:64] *= 1e-15
+    amax[64:96] *= 1e-25
+    s_ = div_exact(amax, 127.0)
+    k = torch.randint(-126, 126, (m, w), generator=gen, device=dev).float()
+    x = (k + 0.5) * s_
+    step = torch.randint(-1, 2, (m, w), generator=gen, device=dev)
+    x = torch.where(step == 0, x, torch.nextafter(x, x + step * amax))
+    x[:, 0] = amax[:, 0]
+    q, s = ln_quant_kernel(x)
+    qp, sp = ln_quant_plain(x)
+    torch.cuda.synchronize()
+    if not (torch.equal(q, qp) and torch.equal(s, sp)):
+        raise AssertionError(f"A quantize-only, near ties: "
+                             f"{int((q != qp).sum())} codes and "
+                             f"{int((s != sp).sum())} scales differ")
+    log(f"  A quantize-only, near ties ({m}, {w}) float32, scales down to "
+        f"{float(s.min()):.1e}: codes and scales equal")
+    for m, w, dtype in A_LN_SHAPES:
+        x = rows(m, w, dtype, width=-(-w // 8) * 8, mul=2.0, shift=0.3)
+        g = torch.rand(w, generator=gen, device=dev) + 0.5
+        b = torch.randn(w, generator=gen, device=dev) * 0.1
+        a_outputs_poisoned(dev, m, w)
+        q, s = ln_quant_kernel(x, g, b, 1e-5)
+        qp, sp = ln_quant_plain(x, g, b, 1e-5)
+        torch.cuda.synchronize()
+        code_diff = (q.int() - qp.int()).abs()
+        s_rel = float(((s - sp).abs() / sp).max())
+        share = float((code_diff > 0).float().mean())
+        if int(code_diff.max()) > 1 or share > 1e-3 or s_rel > 1e-5:
+            raise AssertionError(f"A LayerNorm ({m}, {w}) {dtype}: codes off "
+                                 f"by up to {int(code_diff.max())} "
+                                 f"({share:.2e} of them), scales by "
+                                 f"{s_rel:.2e} relative")
+        # dequantized, the LayerNorm mode's error is that of one code at most
+        err = float((q.float() * s - qp.float() * sp).abs().max())
+        ka["max_abs_err"] = max(ka["max_abs_err"], err)
+        ms = cuda_ms(lambda: ln_quant_kernel(x, g, b, 1e-5))
+        # rows in; codes and float32 row scales out; gamma, beta
+        bms, by = bound(m * w * (x.element_size() + 1) + 4 * m + 8 * w)
+        ka["shapes"].append({"M": m, "W": w, "dtype": dtype, "ln": True,
+                             "ms": ms, "bound_ms": bms, "bound_by": by})
+        log(f"  A LayerNorm ({m}, {w}) {dtype}: codes within one "
+            f"({share:.2e} differ), scales within {s_rel:.2e} relative, "
+            f"dequantized max abs err {err:.3e}; {ms:.4f} ms, bound "
+            f"{bms:.4f} ms")
+        if (m, w, dtype) == (64 * VIT_S, VIT_W, "bfloat16"):  # LN1
+            ka["ms"], ka["bound_ms"], ka["bound_by"] = ms, bms, by
+            ka["plain_ms"] = cuda_ms(lambda: ln_quant_plain(x, g, b, 1e-5))
+            log(f"  A time, LN1 of 64 images ({m}, {w}): kernel {ms:.4f} "
+                f"ms, plain {ka['plain_ms']:.4f} ms, bound {bms:.4f} ms "
+                f"({by})")
+    ka["library_ms"] = None  # no one PyTorch call quantizes rows
+    return ka
+
+
 def phase_vision_kernels(dev):
     """Kernel A (LayerNorm + row quantization) and kernel B (int8 GEMM)
     against their plain versions at the W8A8 vision tower's shapes, then
@@ -1169,51 +1398,7 @@ def phase_vision_kernels(dev):
     out = {}
 
     # -- kernel A -------------------------------------------------------------
-    ka = {"max_abs_err": 0.0}
-    for w, dtype in ((VIT_W, torch.bfloat16), (4 * VIT_W, torch.float32),
-                     (11008, torch.bfloat16)):
-        x = torch.randn(m_big, w, generator=gen, device=dev).to(dtype)
-        x[1] = 0  # amax 0: scale 1, codes 0
-        x[2, 5] = 50.0  # an outlier row
-        q, s = ln_quant_kernel(x)
-        qp, sp = ln_quant_plain(x)
-        torch.cuda.synchronize()
-        if not (torch.equal(q, qp) and torch.equal(s, sp)):
-            raise AssertionError(
-                f"A quantize-only W{w} {dtype}: {int((q != qp).sum())} codes "
-                f"and {int((s != sp).sum())} scales differ from the plain "
-                "version")
-        log(f"  A quantize-only ({m_big}, {w}) {dtype}: codes and scales "
-            "equal")
-    x = torch.randn(m_big, VIT_W, generator=gen, device=dev,
-                    dtype=torch.bfloat16) * 2 + 0.3
-    g = torch.rand(VIT_W, generator=gen, device=dev) + 0.5
-    b = torch.randn(VIT_W, generator=gen, device=dev) * 0.1
-    q, s = ln_quant_kernel(x, g, b, 1e-5)
-    qp, sp = ln_quant_plain(x, g, b, 1e-5)
-    torch.cuda.synchronize()
-    code_diff = (q.int() - qp.int()).abs()
-    s_rel = float(((s - sp).abs() / sp).max())
-    share = float((code_diff > 0).float().mean())
-    if int(code_diff.max()) > 1 or share > 1e-3 or s_rel > 1e-5:
-        raise AssertionError(f"A LayerNorm: codes off by up to "
-                             f"{int(code_diff.max())} ({share:.2e} of them), "
-                             f"scales by {s_rel:.2e} relative")
-    # dequantized, the LayerNorm mode's error is that of one code at most
-    ka["max_abs_err"] = float((q.float() * s - qp.float() * sp).abs().max())
-    log(f"  A LayerNorm ({m_big}, {VIT_W}) bf16: codes within one "
-        f"({share:.2e} differ), scales within {s_rel:.2e} relative, "
-        f"dequantized max abs err {ka['max_abs_err']:.3e}")
-    ka["ms"] = cuda_ms(lambda: ln_quant_kernel(x, g, b, 1e-5))
-    ka["plain_ms"] = cuda_ms(lambda: ln_quant_plain(x, g, b, 1e-5))
-    # bf16 rows in; codes and float32 row scales out; gamma, beta
-    ka["bound_ms"], ka["bound_by"] = bound(
-        m_big * VIT_W * 3 + m_big * 4 + 2 * VIT_W * 4)
-    ka["library_ms"] = None  # no one PyTorch call quantizes rows
-    log(f"  A time, LN1 of 64 images ({m_big}, {VIT_W}): kernel "
-        f"{ka['ms']:.4f} ms, plain {ka['plain_ms']:.4f} ms, bound "
-        f"{ka['bound_ms']:.4f} ms ({ka['bound_by']})")
-    out["A"] = ka
+    out["A"] = phase_a(dev, gen)
 
     # -- kernel B: int32 accumulators exact, then each epilogue ----------------
     def codes(*shape):
@@ -2703,6 +2888,8 @@ def phase_slice(dev):
             out[name]["consistency"] = check_consistency(
                 name, engine.llama_params, cfg.llama, dev, *consistency)
         if name == "w4a8":
+            out[name]["launches_a_decode_step"] = check_w4a8_step_launches(
+                engine.llama_params, cfg.llama, dev, wrappers)
             out["w4a8_int8dots"] = phase_int8dots_engine(
                 engine, cfg, dev, requests[:2], wrappers)
         if name == "bf16":
@@ -2712,6 +2899,57 @@ def phase_slice(dev):
             out.update(phase_serving(engine, cfg, dev, name))
         del engine
         torch.cuda.empty_cache()
+    return out
+
+
+def decode_step_launches(lp, lcfg, dev, wrappers, cache_dtype, steps=3):
+    """Kernel launches a decode step through `llama_decode_step` over a
+    fresh cache of `cache_dtype` (a 40-token prefill, then `steps` steps),
+    each count over the steps."""
+    import torch
+
+    from lhrs_bot_tpu_torch.models import (KVCache, llama_decode_step,
+                                           llama_prefill)
+
+    ids = torch.as_tensor(np.random.default_rng(5).integers(
+        3, lcfg.vocab_size, (1, 40)), device=dev)
+    cache = KVCache.create(lcfg, 1, 128, cache_dtype, dev)
+    _, cache = llama_prefill(lp, lcfg, cache,
+                             inputs_embeds=lp["embed_tokens"][ids],
+                             prompt_len=torch.tensor([40], device=dev))
+    for w in wrappers.values():
+        w.launches = 0
+    tok = torch.zeros(1, dtype=torch.long, device=dev)
+    for _ in range(steps):
+        logits, cache = llama_decode_step(
+            lp, lcfg, cache, inputs_embeds=lp["embed_tokens"][tok][:, None])
+        tok = logits.argmax(dim=-1)
+    torch.cuda.synchronize()
+    return {k: w.launches / steps for k, w in wrappers.items() if w.launches}
+
+
+def check_w4a8_step_launches(lp, lcfg, dev, wrappers):
+    """The W4A8 decode step's launches: K3 once a projection (7 a layer,
+    its quantize inside the launch, no split-K epilogue kernel), kernel A
+    twice a layer with the int8 cache (the new K and V rows) and never with
+    the bf16 cache."""
+    import torch
+
+    nl = lcfg.num_hidden_layers
+    out = {}
+    for name, dtype, a_want, attn in (
+            ("int8 cache", torch.int8, 2 * nl, "fused_decode_attention_q"),
+            ("bf16 cache", torch.bfloat16, 0, "fused_decode_attention")):
+        per_step = decode_step_launches(lp, lcfg, dev, wrappers, dtype)
+        log(f"  [w4a8, {name}] launches a decode step: {per_step}; split-K "
+            "epilogue kernel: none (0)")
+        want = {"w4a8_matmul": 7 * nl, attn: nl}
+        if a_want:
+            want["ln_quant"] = a_want
+        if per_step != want:
+            raise AssertionError(f"w4a8 {name}: {per_step} launches a decode "
+                                 f"step, want {want}")
+        out[name] = {**per_step, "w4a8_epilogue": 0}
     return out
 
 
@@ -3030,6 +3268,15 @@ def main():
     ]
     kernels[-4]["note"] = ("int8_dots=True; launches on the W4A8 path with "
                            "LHRS_DECODE_INT8_DOTS=1")
+    step = paths["w4a8"]["launches_a_decode_step"]["int8 cache"]
+    kernels[3]["note"] = (
+        "one clustered launch a projection; times of the fused mode (b), "
+        "which quantizes the bf16 activation itself, at B1 K4096 N11008 "
+        f"(mode (a) {k3['mode_a_ms']:.4f} ms); a W4A8 decode "
+        f"step launches it {step['w4a8_matmul']:.0f} times and kernel A "
+        f"{step['ln_quant']:.0f} times (int8 cache), no epilogue kernel")
+    kernels[4]["note"] = ("row groups held in registers; times at LN1 of 64 "
+                          "images (16448, 1024) bf16")
     packed = train_k["cases"]["decoder_segments"]
     for k in kernels:
         if k["name"].startswith("flash_attention_bwd"):
@@ -3040,7 +3287,8 @@ def main():
                 f"{packed['bwd_ms']:.4f} ms; the kernels ran the "
                 f"{packed['tile_pairs_run']} 64 x 64 tile pairs the table "
                 f"sets and skipped {packed['tile_pairs_skipped']}")
-    log(json.dumps({"w4a8_shapes": k3["shapes"]}))
+    log(json.dumps({"w4a8_shapes": k3["shapes"],
+                    "ln_quant_shapes": vision["A"]["shapes"]}))
     log(json.dumps({"int8_gemm_shapes": vision["B"]["shapes"],
                     "vision_blocks": vision["blocks"], "tower": tower}))
     log(json.dumps({"paths": paths, "paged_kernels": paged}))

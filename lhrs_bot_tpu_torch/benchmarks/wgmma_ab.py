@@ -1,7 +1,8 @@
-"""Kernel B (int8 GEMM), K1 (flash-attention forward) and the flash
-backward (dQ and dK/dV kernels) of one checkout of the repository, timed
-on the card at the main path's shapes, and the end to end numbers they
-move.
+"""The redesigned hand-written kernels of one checkout of the repository,
+timed on the card at the main path's shapes, and the end to end numbers
+they move: kernel B (int8 GEMM), K1 (flash-attention forward), the flash
+backward (dQ and dK/dV kernels), kernel A (LayerNorm + int8 rows) and K3
+(the W4A8 decode product).
 
     python3 lhrs_bot_tpu_torch/benchmarks/wgmma_ab.py --root DIR --part P
 
@@ -28,9 +29,23 @@ change, parent). Parts:
       `chip_smoke.attention_bound` and, where the checkout has the skip
       rule, the time of its run table, each kernel's time given the table,
       and the 64 x 64 tile pairs run and skipped.
-  e2e: the bench's three tower cells (`bench.bench_prefill`, B=64), the
+  quant: kernel A through `ln_quant` at every shape a path gives it
+      (`A_SHAPES`: the tower's four calls a layer and the perceiver's five
+      at B = 64, the int8 cache's K/V rows at decode B = 1, 2, 7 and at the
+      2,191-token prefill, single decoder rows of 4096 and 11008), and K3
+      at the decoder's three projection shapes for B = 1 and 7 through
+      `w4a8_matmul_stacked` (pre-quantized halves) and `w4a8_project` (the
+      bf16 activation: the parent's A + K3 + split-K epilogue, the
+      change's one launch), each with its bound; where the checkout
+      chooses a cluster, its choice, and `w4a8_project` and the resident
+      clusters at 2, 4 and 8 CTAs.
+  e2e: the bench's three tower cells (`bench.bench_prefill`, B=64), its
+      W4A8 and int8-cache decode cells (`DECODE_CELLS`), a W4A8 + int8
+      lm_head + int8-cache decode step at B = 1 from 2,192 filled rows
+      (host-clock ms, busy ms under torch.profiler, and the launches a step
+      of K3, its split-K epilogue and A), and, unless --no-train, the
       2,191-token bf16 prefill (`generate`'s first step, as
-      chip_profile.py times it), and a stage-1 training step on the packed
+      chip_profile.py times it) and a stage-1 training step on the packed
       batch and on the caption batch (host clock), each with the card's
       busy time and the flash forward's and backward's shares of it under
       torch.profiler.
@@ -233,6 +248,166 @@ def _backward(dev, gen):
     return out
 
 
+# (name, M, W, dtype, LayerNorm) of kernel A's calls on the paths: the ViT
+# at B = 64 (LN1, the attention output, LN2, the FC output), the perceiver
+# at B = 64 (3 groups of 64 query rows and 320 key rows: LN1, LN_kv, then
+# the block's back half), the int8 cache's new K/V rows (B * 32 heads of
+# 128) at decode and at the 2,191-token prefill, and single decoder rows
+A_SHAPES = (
+    ("vit_ln1", 64 * 257, 1024, "bfloat16", True),
+    ("vit_attn", 64 * 257, 1024, "float32", False),
+    ("vit_ln2", 64 * 257, 1024, "float32", True),
+    ("vit_fc", 64 * 257, 4096, "float32", False),
+    ("perceiver_ln1", 64 * 3 * 64, 1024, "bfloat16", True),
+    ("perceiver_ln_kv", 64 * 3 * 320, 1024, "bfloat16", True),
+    ("perceiver_attn", 64 * 3 * 64, 1024, "float32", False),
+    ("perceiver_ln2", 64 * 3 * 64, 1024, "float32", True),
+    ("perceiver_fc", 64 * 3 * 64, 4096, "float32", False),
+    ("kv_b1", 32, 128, "bfloat16", False),
+    ("kv_b2", 2 * 32, 128, "bfloat16", False),
+    ("kv_b7", 7 * 32, 128, "bfloat16", False),
+    ("kv_prefill_2191", 32 * 2191, 128, "bfloat16", False),
+    ("row_4096", 1, 4096, "bfloat16", False),
+    ("row_11008", 1, 11008, "bfloat16", False),
+)
+# the decoder's projections (K, N) and how many a layer has
+PROJECTIONS = ((4096, 4096, 4), (4096, 11008, 2), (11008, 4096, 1))
+
+
+def _quant(dev):
+    import torch
+
+    import chip_smoke as c
+    from lhrs_bot_tpu_torch.ops import w4_matmul as w4
+    from lhrs_bot_tpu_torch.ops.ln_quant import ln_quant
+    from lhrs_bot_tpu_torch.ops.quant import QuantizedTensor
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+    for name, m, w, dtype, ln in A_SHAPES:
+        x = (torch.randn(m, w, generator=gen, device=dev) * 2 + 0.3).to(
+            getattr(torch, dtype))
+        g = b = None
+        if ln:
+            g = torch.rand(w, generator=gen, device=dev) + 0.5
+            b = torch.randn(w, generator=gen, device=dev) * 0.1
+        bms, by = c.bound(m * w * (x.element_size() + 1) + 4 * m
+                          + (8 * w if ln else 0))
+        out[f"A_{name}"] = {"M": m, "W": w, "dtype": dtype, "ln": ln,
+                            "ms": c.cuda_ms(lambda: ln_quant(x, g, b)),
+                            "bound_ms": bms, "bound_by": by}
+        del x
+    nl = 32
+    for k, n, _ in PROJECTIONS:
+        wq = torch.randint(-128, 128, (nl, k // 2, n), generator=gen,
+                           device=dev, dtype=torch.int8)
+        ws = torch.rand(nl, 1, n, generator=gen, device=dev) * 4e-3 + 1e-3
+        qt = QuantizedTensor(wq, ws, "4h")
+        for bsz in (1, 7):
+            x = torch.randn(bsz, 1, k, generator=gen, device=dev).to(
+                torch.bfloat16)
+            xq = torch.randint(-127, 128, (bsz, k), generator=gen,
+                               device=dev, dtype=torch.int8)
+            xs = torch.rand(bsz, 1, generator=gen, device=dev) * 0.02 + 1e-3
+            turn = iter(range(10**9))  # another layer each call: from HBM
+            row = {
+                "stacked_ms": c.cuda_ms(lambda: w4.w4a8_matmul_stacked(
+                    xq[:, :k // 2], xq[:, k // 2:], xs, wq, ws,
+                    next(turn) % nl)),
+                "project_ms": c.cuda_ms(lambda: w4.w4a8_project(
+                    x, qt, next(turn) % nl)),
+            }
+            # packed weights and scales, the activation (int8 halves and
+            # scales, or bf16), a bf16 output
+            row["stacked_bound_ms"], row["bound_by"] = c.bound(
+                k // 2 * n + 4 * n + bsz * (k + 4) + 2 * bsz * n,
+                2.0 * bsz * k * n, "int8")
+            row["project_bound_ms"], _ = c.bound(
+                k // 2 * n + 4 * n + 2 * bsz * k + 2 * bsz * n,
+                2.0 * bsz * k * n, "int8")
+            if hasattr(w4, "w4a8_launch_plan"):  # the change's clusters
+                row["plan"] = w4.w4a8_launch_plan(dev, bsz, k // 2, n)
+                for cl in (2, 4, 8):
+                    row[f"project_c{cl}_ms"] = c.cuda_ms(
+                        lambda: w4.w4a8_project_kernel(
+                            x[:, 0], wq, ws, next(turn) % nl, cluster=cl))
+                    row[f"resident_clusters_c{cl}"] = w4.w4a8_max_clusters(
+                        bsz, k // 2, n, cluster=cl)
+            else:
+                row["ksplit"], row["chunk"] = w4.split_k(k // 2, n)
+            out[f"K3_K{k}_N{n}_B{bsz}"] = row
+        del wq, ws, qt
+        torch.cuda.empty_cache()
+    return out
+
+
+# the bench's decode cells this comparison reads: W4A8 (K3) and the int8
+# cache (A on the new K/V rows)
+DECODE_CELLS = ("decode_b1_s2304_w4a8_lm8_tok_s",
+                "decode_b1_s2304_int8cache_tok_s",
+                "decode_b7_s2304_int8cache_total_tok_s",
+                "decode_b1_s2304_int8cache_lm8_tok_s")
+
+
+def _w4a8_step(dev, steps=20):
+    """One W4A8 + int8 lm_head + int8-cache decode step at B = 1 from 2,192
+    filled rows (bench.py's headline cell): median host-clock ms of
+    `steps` steps, each ended by a synchronize; the card's busy ms a step
+    under torch.profiler; and the launches a step of K3, the split-K
+    epilogue kernel (the parent's, one per K3 call whose plan splits K) and
+    kernel A."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from lhrs_bot_tpu_torch import bench
+    from lhrs_bot_tpu_torch.models import LlamaConfig, llama_decode_step
+    from lhrs_bot_tpu_torch.ops import w4_matmul as w4
+    from lhrs_bot_tpu_torch.ops.ln_quant import ln_quant_kernel
+
+    lcfg = LlamaConfig.llama2_7b()
+    params = bench.make_decoder_params(lcfg, "4h", True, device=dev)
+    cache = bench.filled_cache(lcfg, 1, 2304, torch.int8, device=dev)
+    bench.decode_run(params, lcfg, cache, 2192, 4)  # warm-up
+    cache.length.fill_(2192)
+    tok = torch.zeros(1, dtype=torch.long, device=dev)
+
+    def step():
+        nonlocal cache, tok
+        logits, cache = llama_decode_step(
+            params, lcfg, cache,
+            inputs_embeds=params["embed_tokens"][tok][:, None])
+        tok = logits.argmax(dim=-1)
+
+    times = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    w4.w4a8_matmul_kernel.launches = ln_quant_kernel.launches = 0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            step()
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / 4
+    k3 = w4.w4a8_matmul_kernel.launches / 4
+    epilogue = 0.0
+    if hasattr(w4, "split_k"):  # the parent: one more launch a split call
+        split = sum(count for k, n, count in PROJECTIONS
+                    if w4.split_k(k // 2, n)[0] > 1)
+        epilogue = k3 * split / 7
+    del params, cache
+    torch.cuda.empty_cache()
+    return {"w4a8_step_host_ms": sorted(times)[len(times) // 2],
+            "w4a8_step_busy_ms": busy, "w4a8_step_k3_launches": k3,
+            "w4a8_step_epilogue_launches": epilogue,
+            "w4a8_step_a_launches": ln_quant_kernel.launches / 4}
+
+
 def _step(trainer, batch):
     """Median host-clock ms of 3 steps after a warm-up step, then the busy
     ms of one profiled step and the flash kernels' shares of it."""
@@ -264,7 +439,7 @@ def _step(trainer, batch):
     return out
 
 
-def _e2e(dev):
+def _e2e(dev, train=True):
     import numpy as np
     import torch
 
@@ -272,11 +447,19 @@ def _e2e(dev):
     from lhrs_bot_tpu_torch import bench
     from lhrs_bot_tpu_torch.core import build_engine, build_trainer, eval_config
     from lhrs_bot_tpu_torch.core.config import load_yaml_config
-    from lhrs_bot_tpu_torch.models import VLMConfig, init_vlm_params
+    from lhrs_bot_tpu_torch.models import (LlamaConfig, VLMConfig,
+                                           init_vlm_params)
     from lhrs_bot_tpu_torch.serve.engine import GenerationConfig
 
     out = dict(bench.bench_prefill(VLMConfig(), device=dev))
     torch.cuda.empty_cache()
+    out.update(bench.bench_decode(
+        LlamaConfig.llama2_7b(), device=dev,
+        cells=[cell for cell in bench.decode_cells()
+               if cell[0] in DECODE_CELLS]))
+    out.update(_w4a8_step(dev))
+    if not train:
+        return out
     config = eval_config()
     cfg = VLMConfig.from_config_dict(config)
     params = init_vlm_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
@@ -316,7 +499,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", required=True,
                     help="checkout whose lhrs_bot_tpu_torch is measured")
-    ap.add_argument("--part", choices=("kernels", "e2e"), required=True)
+    ap.add_argument("--part", choices=("kernels", "quant", "e2e"),
+                    required=True)
+    ap.add_argument("--no-train", action="store_true",
+                    help="e2e: leave out the prefill and the training steps")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -332,7 +518,12 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.time()
-    res = _kernels(dev) if args.part == "kernels" else _e2e(dev)
+    if args.part == "kernels":
+        res = _kernels(dev)
+    elif args.part == "quant":
+        res = _quant(dev)
+    else:
+        res = _e2e(dev, train=not args.no_train)
     line = {"root": args.root, "part": args.part, "result": res,
             "seconds": time.time() - t0, "device": c.smi_line()}
     print(json.dumps(line), flush=True)

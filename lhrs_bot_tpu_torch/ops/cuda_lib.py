@@ -65,12 +65,17 @@ _ENTRIES = {
     # v_scale, table, lengths, out, layer, L, N, B, H, page, P, D, sm_scale,
     # stream
     "lhrs_paged_decode_q": [_P] * 12 + [_I] * 8 + [ctypes.c_float, _P],
-    # xq_lo, xq_hi, x_scale, w (layer slice), w_scale (layer slice),
-    # partial, out, B, K2, N, x_stride, ksplit, chunk, out_f32, stream
-    "lhrs_w4a8_matmul": [_P] * 7 + [_I] * 7 + [_P],
-    # x, x_f32, x_stride, gamma, beta, q, s, M, W, eps, stream
-    "lhrs_ln_quant": [_P, _I, _L, _P, _P, _P, _P, _I, _I, ctypes.c_float,
-                      _P],
+    # xq_lo, xq_hi, x_scale, w (layer slice), w_scale (layer slice), out,
+    # B, K2, N, x_stride, cluster, chunk, out_f32, fault, stream
+    "lhrs_w4a8_matmul": [_P] * 6 + [_I] * 8 + [_P],
+    # x, x_f32, w, w_scale, out, B, K2, N, x_stride, cluster, chunk,
+    # out_f32, fault, stream
+    "lhrs_w4a8_project": [_P, _I, _P, _P, _P] + [_I] * 8 + [_P],
+    # fused, x_f32, B, K2, N, cluster, chunk, count (int*)
+    "lhrs_w4a8_max_clusters": [_I] * 7 + [_P],
+    # x, x_f32, x_stride, gamma, beta, q, s, M, W, lanes, chunks, eps, stream
+    "lhrs_ln_quant": [_P, _I, _L, _P, _P, _P, _P, _I, _I, _I, _I,
+                      ctypes.c_float, _P],
     # A, lda, Wt, x_scale, w_scale, bias, residual, res_f32, ws_first,
     # q_fold, n_fold, round_mid, out_mult, act, out_kind, out, M, N, K,
     # stream

@@ -3,11 +3,11 @@
 The stage that opens each int8 projection of the W8A8 vision blocks
 (`lhrs_bot_tpu/ops/vit_block.py` `_ln_f32` + `_quant_act`,
 `perceiver_block.py` `_ln_rows` + `_quant_rows`), and, with no LayerNorm,
-`quantize_activation`. Per row of width W: the LayerNorm in float32 (mean,
-then the mean of squared deviations, then `(x - mu) * rsqrt(var + eps) *
-scale + bias`), then amax, s = amax / 127 (1 where amax is 0), codes
-clip(round_half_even(h / s), +-127). Returns (int8 codes (..., W), float32
-scales (..., 1)).
+`quantize_activation` (the int8 cache's new K/V rows). Per row of width W:
+the LayerNorm in float32 (mean, then the mean of squared deviations, then
+`(x - mu) * rsqrt(var + eps) * scale + bias`), then amax, s = amax / 127 (1
+where amax is 0), codes clip(round_half_even(h / s), +-127). Returns (int8
+codes (..., W), float32 scales (..., 1)).
 
 `ln_quant` is the entry point. CPU tensors take `ln_quant_plain`; CUDA
 tensors always take the hand-written kernel `ln_quant_kernel`
@@ -19,6 +19,19 @@ kernel is bit-identical to the plain version (amax is exact, the quotient an
 IEEE division, rounding half to even); with it the mean and variance are
 summed in another order, so a code may differ by one where h / s lies
 within float32 rounding of a half.
+
+The kernel replaces the `_ln_f32` / `_quant_act` stages of the Pallas TPU
+kernels of `lhrs_bot_tpu/ops/vit_block.py` (:111, :132, :319, :338) and
+`perceiver_block.py` (:53). On the H100 it is bound by device-memory
+bandwidth where the work per element is small (the quantize-only rows);
+the LayerNorm's three dependent row reductions and arithmetic set the
+LayerNorm mode's time. It holds each row in registers: a group of lanes
+(`row_plan`: 8 lanes for the 128-wide K/V rows, a warp for the ViT's
+1024, several warps for 4096 and 11008) owns a row and reads it in 16-byte
+words, once, and writes its codes in 16-byte words; reductions are warp
+shuffles, and only a group of several warps meets in shared memory, once
+per reduction. Rows up to 32768 wide (the first design staged a float32
+row in shared memory and stopped at 12032).
 """
 
 from __future__ import annotations
@@ -29,7 +42,26 @@ import torch
 
 from . import cuda_lib
 
-_MAX_WIDTH = 12032  # the kernel stages a float32 row in 47 KB of smem
+_VEC = 16          # elements a lane takes at a time (csrc/ln_quant.cu)
+_MAX_LANES = 512   # threads of the widest row group
+_MAX_CHUNKS = 4    # 16-element chunks a lane holds in registers
+_MIN_THREADS = 256  # a CTA of narrow groups holds 256 / lanes rows
+_MAX_WIDTH = _MAX_LANES * _MAX_CHUNKS * _VEC  # 32768
+
+
+def row_plan(w: int) -> Tuple[int, int, int]:
+    """(lanes a row, 16-element chunks a lane, rows a CTA) for rows of
+    width w: the smallest power-of-two group (8 to 512 lanes) in which
+    each lane holds at most two chunks, more chunks (up to four) only past
+    512 lanes. Chunk j of a row goes to lane j % lanes."""
+    if not 0 < w <= _MAX_WIDTH:
+        raise ValueError(f"row width {w} outside (0, {_MAX_WIDTH}]")
+    nvec = -(-w // _VEC)
+    lanes = 8
+    while lanes < _MAX_LANES and 2 * lanes < nvec:
+        lanes *= 2
+    chunks = -(-nvec // lanes)
+    return lanes, chunks, max(lanes, _MIN_THREADS) // lanes
 
 
 def div_exact(x: torch.Tensor, c: float) -> torch.Tensor:
@@ -60,7 +92,7 @@ def ln_quant_kernel(x: torch.Tensor, scale: Optional[torch.Tensor] = None,
                     eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch kernel A. Takes a bf16 or float32 CUDA tensor (..., W) whose
     rows have unit column stride and one row stride (a multiple of 8), W up
-    to 12032; scale and bias float32 (W) on the same device for the
+    to 32768; scale and bias float32 (W) on the same device for the
     LayerNorm, or both None. Raises on anything else. Counts its launches
     in `ln_quant_kernel.launches`."""
     if not x.is_cuda:
@@ -71,11 +103,13 @@ def ln_quant_kernel(x: torch.Tensor, scale: Optional[torch.Tensor] = None,
     if (scale is None) != (bias is None):
         raise ValueError("scale and bias go together")
     w = x.shape[-1]
-    if not 0 < w <= _MAX_WIDTH or x.numel() == 0:
-        raise ValueError(f"row width {w} outside (0, {_MAX_WIDTH}]")
+    if x.numel() == 0:
+        raise ValueError("ln_quant_kernel takes a non-empty x")
+    lanes, chunks, _ = row_plan(w)
     rows = x.reshape(-1, w)  # a view wherever the rows share one stride
     m = rows.shape[0]
-    stride = rows.stride(0) if m > 1 else w
+    # one row has no stride: any multiple of 8 past its end will do
+    stride = rows.stride(0) if m > 1 else -(-w // 8) * 8
     if rows.stride(1) != 1 or stride % 8 or rows.data_ptr() % 16:
         raise ValueError("x must have unit column stride, a row stride that "
                          "is a multiple of 8 and a 16-byte aligned base")
@@ -94,7 +128,7 @@ def ln_quant_kernel(x: torch.Tensor, scale: Optional[torch.Tensor] = None,
             rows.data_ptr(), int(x.dtype == torch.float32), stride,
             None if scale is None else scale.data_ptr(),
             None if bias is None else bias.data_ptr(), q.data_ptr(),
-            s.data_ptr(), m, w, float(eps), stream)
+            s.data_ptr(), m, w, lanes, chunks, float(eps), stream)
     cuda_lib.check(err, "ln_quant_kernel")
     ln_quant_kernel.launches += 1
     return q.reshape(x.shape), s.reshape(*x.shape[:-1], 1)

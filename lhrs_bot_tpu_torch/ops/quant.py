@@ -18,7 +18,10 @@ the absmax plane (a round trip applied at quantize time, stored as f32).
 
 `quantize_activation` is kernel A's quantize-only mode (ops/ln_quant.py):
 the plain version on CPU tensors, csrc/ln_quant.cu on CUDA tensors, bit for
-bit the same. `w8a8_matmul` (per-row int8 activations x int8 weights, int32
+bit the same. On the card the W4A8 projection (`w4_matmul.w4a8_project`)
+no longer calls it: K3 quantizes its own activation inside its launch, to
+the same bits; the int8 cache's new K/V rows and the W8A8 products still
+do. `w8a8_matmul` (per-row int8 activations x int8 weights, int32
 accumulation, scales in the float32 epilogue) runs the int8 GEMM of
 ops/int8_gemm.py, kernel B on CUDA tensors. `quantize_vision_layers`
 int8-quantizes the ViT/perceiver projections; their codes are stored as the
@@ -81,7 +84,9 @@ def quantize_int8(w: torch.Tensor, axis: int = -2) -> QuantizedTensor:
 def quantize_activation(x: torch.Tensor) -> Tuple[torch.Tensor,
                                                    torch.Tensor]:
     """Dynamic per-vector symmetric int8 over the last axis: (..., d) ->
-    (int8 values, (..., 1) f32 scales). Kernel A without the LayerNorm."""
+    (int8 values, (..., 1) f32 scales). Kernel A without the LayerNorm
+    (csrc/ln_quant.cu on CUDA tensors: the int8 cache's K/V rows, the W8A8
+    products); the W4A8 projection does the same inside K3's launch."""
     return ln_quant(x)
 
 

@@ -262,6 +262,10 @@ def test_kernel_wrappers_reject_cpu_tensors():
         t_w4.w4a8_matmul_kernel(xq, xq, torch.ones(2, 1),
                                 torch.ones(1, 32, 16, dtype=torch.int8),
                                 torch.ones(1, 1, 16), 0)
+    with pytest.raises(ValueError):
+        t_w4.w4a8_project_kernel(torch.ones(2, 64, dtype=torch.bfloat16),
+                                 torch.ones(1, 32, 16, dtype=torch.int8),
+                                 torch.ones(1, 1, 16), 0)
     assert t_attention.flash_attention_fwd.launches == 0
     assert t_fused.fused_decode_attention_kernel.launches == 0
     assert t_fused.fused_decode_attention_q_kernel.launches == 0

@@ -22,6 +22,7 @@ from lhrs_bot_tpu.ops import quant as j_quant
 from lhrs_bot_tpu.ops import w4_matmul as j_w4
 from lhrs_bot_tpu_torch.ops import decode_attention as t_decode
 from lhrs_bot_tpu_torch.ops import fused_decode as t_fused
+from lhrs_bot_tpu_torch.ops import ln_quant as t_lnq
 from lhrs_bot_tpu_torch.ops import quant as t_quant
 from lhrs_bot_tpu_torch.ops import w4_matmul as t_w4
 
@@ -190,8 +191,11 @@ def test_quantized_tensor_layer_view_and_to():
 
 
 # (B, K, N) with layer 1 of a 2-layer stack; N = 640 is above 512 and not
-# a multiple of it (the TPU kernel's ragged 512-wide block)
-W4_CASES = [(1, 64, 640), (5, 64, 640), (5, 128, 96)]
+# a multiple of it (the TPU kernel's ragged 512-wide block). B = 9 crosses
+# the CUDA kernel's 8-row group; K = 776 gives K/2 = 388, not a multiple of
+# its 128-row chunks.
+W4_CASES = [(1, 64, 640), (5, 64, 640), (5, 128, 96), (3, 64, 640),
+            (9, 64, 640), (1, 776, 96), (9, 776, 96)]
 
 
 @pytest.mark.parametrize("case", W4_CASES, ids=str)
@@ -231,12 +235,91 @@ def test_w4a8_matmul_stacked_every_byte():
                                       np.asarray(want, np.float32))
 
 
-def test_w4a8_split_k_covers_every_row():
+def _kernel_rows(k2, cluster, chunk):
+    """The packed rows each CTA of a cluster reads, walked as
+    csrc/w4a8_matmul.cu walks them: 32 four-row groups a 128-row step."""
+    seen = []
+    for rank in range(cluster):
+        begin, end = rank * chunk, min((rank + 1) * chunk, k2)
+        rows = [r + i for g in range(32)
+                for r in range(begin + 4 * g, end, 128) for i in range(4)]
+        assert rows, f"CTA {rank} of {cluster} is empty"
+        seen += rows
+    return seen
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 3, 4, 6, 8])
+def test_w4a8_split_k_covers_every_row(cluster):
+    """`w4a8_plan`, the cluster geometry that replaced the split-K plan:
+    every packed row read exactly once, chunks of whole 128-row steps (at
+    most 2048 rows), at most 8 CTAs, none of them empty."""
     for k2, n in ((2048, 4096), (2048, 11008), (5504, 4096), (32, 640),
-                  (44, 96)):
-        ksplit, chunk = t_w4.split_k(k2, n)
-        assert chunk % 32 == 0 and ksplit >= 1
-        assert (ksplit - 1) * chunk < k2 <= ksplit * chunk
+                  (44, 96), (388, 96), (16384, 4096)):
+        c, chunk = t_w4.w4a8_plan(k2, n, cluster)
+        assert 1 <= c <= 8 and chunk % 128 == 0 and chunk <= 2048
+        assert (c - 1) * chunk < k2 <= c * chunk
+        assert c <= max(cluster, -(-k2 // 2048))
+        assert sorted(_kernel_rows(k2, c, chunk)) == list(range(k2))
+    assert t_w4.w4a8_plan(2048, 4096) == (8, 256)
+    assert t_w4.w4a8_plan(5504, 4096, 4) == (4, 1408)
+    with pytest.raises(ValueError):
+        t_w4.w4a8_plan(2048, 4096, 9)
+
+
+def test_w4a8_pick_cluster_fits_one_wave():
+    """The largest cluster whose clusters all fit on the card at once, 1
+    where none does, read from the occupancy the card reports."""
+    resident = {8: 45, 6: 62, 4: 92, 3: 124, 2: 198}.__getitem__
+    assert t_w4.pick_cluster(32, resident) == 8
+    assert t_w4.pick_cluster(86, resident) == 4
+    assert t_w4.pick_cluster(124, resident) == 3
+    assert t_w4.pick_cluster(500, resident) == 1
+
+
+LNQ_ROWS = [((32, 128), "kv_b1"), ((7 * 32, 128), "kv_b7"),
+            ((1, 11008), "wide"), ((1, 4100), "ragged")]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [r[0] for r in LNQ_ROWS],
+                         ids=[r[1] for r in LNQ_ROWS])
+def test_ln_quant_plain_matches_jax_quantize_activation(shape, dtype):
+    """Kernel A's plain quantize-only mode against JAX's
+    `quantize_activation` at the int8 cache's K/V rows (B * 32 rows of 128)
+    and at single wide rows, codes and scales exact; a zero row and a row
+    of exact .5 ties included where there are several rows."""
+    rng = np.random.default_rng(12)
+    x = rng.standard_normal(shape).astype(np.float32)
+    if shape[0] > 2:
+        x[0] = 0.0
+        x[1] = rng.integers(-127, 127, shape[1]) + 0.5
+        x[1, 0] = 127.0
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    q, s = t_lnq.ln_quant_plain(tx)
+    jq, js = j_quant.quantize_activation(
+        jnp.asarray(tx.float().numpy()).astype(getattr(jnp, dtype)))
+    _equal(q, jq)
+    _equal(s, js)
+
+
+@pytest.mark.parametrize("w", [128, 1024, 4096, 4100, 11008])
+def test_ln_quant_row_plan_covers_every_element(w):
+    """Kernel A's row groups: every column of a row read by one lane once,
+    every row by one group once, power-of-two groups of 8 to 512 lanes, at
+    most 4 chunks a lane, and no lane past the row's end in every chunk."""
+    lanes, chunks, rows = t_lnq.row_plan(w)
+    assert lanes & (lanes - 1) == 0 and 8 <= lanes <= 512
+    assert 1 <= chunks <= 4 and lanes * (chunks - 1) * 16 < w
+    assert rows == max(lanes, 256) // lanes
+    cols = [col + i for lane in range(lanes) for c in range(chunks)
+            for col in [(c * lanes + lane) * 16] for i in range(16)
+            if col + i < w]
+    assert sorted(cols) == list(range(w))
+    for m in (1, 7 * 32, 16448, 16449):
+        ctas = -(-m // rows)
+        got = [cta * rows + g for cta in range(ctas) for g in range(rows)
+               if cta * rows + g < m]
+        assert got == list(range(m))
 
 
 def _int8_cache(rng, shape):
