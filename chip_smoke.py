@@ -10,6 +10,12 @@ Phases, one or more lines each:
   2. build: compile the CUDA kernels from lhrs_bot_tpu_torch/csrc;
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the main path's shapes (plus ragged/masked edge cases), with times;
+     K2 and K4 (the contiguous-cache decode kernels, rows split across a
+     cluster) at B1, B2 and B7 at the plan's cluster size and every forced
+     one (1, 2, 4, 8), caches exact, at the edge lengths (0, 127, 128,
+     S - 1, a full row, S not a multiple of 4), one CTA a head bit for bit
+     against the paged kernel, and a planted merge fault (the last rank
+     left out) that must fail and match the plain split-and-merge's;
      K3 (the W4A8 decode product) in both modes, the fused one quantizing
      its own bf16 activation, bit for bit against the plain quantize +
      product at the decoder's three projection shapes, B = 1, 2, 7, 8, 9,
@@ -288,8 +294,6 @@ def phase_kernels(dev):
 
     from lhrs_bot_tpu_torch.ops.attention import (flash_attention_fwd,
                                                   mha_reference)
-    from lhrs_bot_tpu_torch.ops.fused_decode import (
-        fused_decode_attention_kernel, fused_decode_attention_plain)
 
     gen = torch.Generator(device=dev).manual_seed(1)
 
@@ -358,49 +362,312 @@ def phase_kernels(dev):
                          f"({k1['bound_by']})")
         log(line)
 
-    # K2 at the decode shape: L32 B2 H32 S2304 D128
-    nl, b, h, s, d = 32, 2, 32, 2304, 128
-    kc, vc = randn(nl, b, h, s, d), randn(nl, b, h, s, d)
-    lengths = torch.tensor([2191, 700], dtype=torch.int32, device=dev)
-    q, kn, vn = randn(b, h, 1, d), randn(b, h, 1, d), randn(b, h, 1, d)
-    scale = d ** -0.5
-    k2 = {"max_abs_err": 0.0}
-    for layer in (0, 31):
-        kck, vck = kc.clone(), vc.clone()
-        out, _, _ = fused_decode_attention_kernel(q, kn, vn, kck, vck,
-                                                  lengths, layer, scale)
-        kcp, vcp = kc.float(), vc.float()
-        ref, _, _ = fused_decode_attention_plain(
-            q.float(), kn.float(), vn.float(), kcp, vcp, lengths, layer,
-            sm_scale=scale)
-        torch.cuda.synchronize()
-        err = check_close(f"K2 layer {layer}", out, ref)
-        # the appended rows and every other row: exactly equal
-        if not (torch.equal(kck.float(), kcp) and torch.equal(vck.float(),
-                                                              vcp)):
-            raise AssertionError(f"K2 layer {layer}: cache differs from the "
-                                 "plain version's")
-        k2["max_abs_err"] = max(k2["max_abs_err"], err)
-        del kcp, vcp
-        log(f"  K2 layer {layer}: cache {(nl, b, h, s, d)} lengths "
-            f"{lengths.tolist()}: max_abs_err {err:.3e}, caches exact")
-    # each timed call reads another layer: the cache comes from device
-    # memory, as in decode, not from the 50 MB L2
-    turn = iter(range(10**9))
-    k2["ms"] = cuda_ms(lambda: fused_decode_attention_kernel(
-        q, kn, vn, kck, vck, lengths, next(turn) % nl, scale))
-    k2["plain_ms"] = cuda_ms(lambda: fused_decode_attention_plain(
-        q, kn, vn, kck, vck, lengths, next(turn) % nl, sm_scale=scale))
-    k2["library_ms"] = cuda_ms(lambda: masked_sdpa(
-        q, kck[next(turn) % nl], vck[next(turn) % nl], lengths + 1))
-    k2["bound_ms"], k2["bound_by"] = decode_bound(lengths, h, d, 2)
-    log(f"  K2 time per layer call: kernel {k2['ms']:.4f} ms, plain "
-        f"{k2['plain_ms']:.4f} ms, library (SDPA over the filled cache, "
-        f"append excluded) {k2['library_ms']:.4f} ms, bound "
-        f"{k2['bound_ms']:.4f} ms ({k2['bound_by']})")
-    del kc, vc, kck, vck
-    torch.cuda.empty_cache()
+    k2 = phase_decode_split(dev, gen, int8=False)
     return k1, k2
+
+
+# K2 and K4 (the contiguous-cache decode kernels, csrc/decode_split.cuh) at
+# the decode shapes: L32 H32 S2304 D128, the bench's B1 row, the B2 rows of
+# the serving paths and a B7 batch; each at the plan's cluster size and at
+# every forced one. Edge lengths: 0, one whole block (127), the appended
+# row alone in a new block (128: a share boundary), S - 1 and a share
+# boundary of C = 4 (640); a full row (S: NaN, nothing written); S % 4 != 0
+# (the int8 kernel reads the scales without bulk copies).
+DECODE_LENGTHS = {"B1": [2191], "B2": [2191, 700],
+                  "B7": [2192, 5, 1000, 2303, 63, 1500, 2000]}
+DECODE_EDGES = [0, 127, 128, 2303, 640]
+
+
+def decode_case(dev, gen, int8, lengths, nl, s=2304, h=32, d=128):
+    """Seeded inputs of K2 (bf16) or K4 (int8 codes, scales in [0.005,
+    0.03]): q, the new rows (and scales), the stacked caches (and planes)
+    and the lengths, as a dict."""
+    import torch
+
+    b = len(lengths)
+
+    def bf(*shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+
+    def codes(*shape):
+        return torch.randint(-128, 128, shape, generator=gen, device=dev,
+                             dtype=torch.int8)
+
+    def scales(*shape):
+        return torch.rand(shape, generator=gen, device=dev) * 0.025 + 0.005
+
+    x = {"q": bf(b, h, 1, d),
+         "lens": torch.tensor(lengths, dtype=torch.int32, device=dev)}
+    if int8:
+        x.update(kn=codes(b, h, 1, d), kns=scales(b, h, 1),
+                 vn=codes(b, h, 1, d), vns=scales(b, h, 1),
+                 kc=codes(nl, b, h, s, d), vc=codes(nl, b, h, s, d),
+                 ks=scales(nl, b, h, s), vs=scales(nl, b, h, s))
+    else:
+        x.update(kn=bf(b, h, 1, d), vn=bf(b, h, 1, d),
+                 kc=bf(nl, b, h, s, d), vc=bf(nl, b, h, s, d))
+    return x
+
+
+def decode_caches(x):
+    return [x[k] for k in (("kc", "vc", "ks", "vs") if "ks" in x else
+                           ("kc", "vc"))]
+
+
+def decode_kernel(x, caches, layer, **kw):
+    """K2 or K4 on x's inputs and the given caches (updated in place)."""
+    from lhrs_bot_tpu_torch.ops import fused_decode as fd
+
+    d = x["q"].shape[-1]
+    if "ks" in x:
+        return fd.fused_decode_attention_q_kernel(
+            x["q"], x["kn"], x["kns"], x["vn"], x["vns"], *caches, x["lens"],
+            layer, d ** -0.5, **kw)[0]
+    return fd.fused_decode_attention_kernel(
+        x["q"], x["kn"], x["vn"], *caches, x["lens"], layer, d ** -0.5,
+        **kw)[0]
+
+
+def decode_plain(x, layer, split=None, fault=0):
+    """The plain version on a float32 (bf16) or int8 copy of the layer:
+    (output, the layer's caches after the append). `split` runs the plain
+    split-and-merge with that many ranks (and the planted `fault`)."""
+    from lhrs_bot_tpu_torch.ops import fused_decode as fd
+
+    int8 = "ks" in x
+    lay = [t[layer:layer + 1].clone() if int8 else t[layer:layer + 1].float()
+           for t in decode_caches(x)]
+    q = x["q"].float()
+    rows = ((x["kn"], x["kns"], x["vn"], x["vns"]) if int8 else
+            (x["kn"].float(), x["vn"].float()))
+    kw = dict(sm_scale=x["q"].shape[-1] ** -0.5)
+    if split is None:
+        fn = (fd.fused_decode_attention_q_plain if int8 else
+              fd.fused_decode_attention_plain)
+    else:
+        fn = (fd.fused_decode_attention_q_split_plain if int8 else
+              fd.fused_decode_attention_split_plain)
+        kw.update(splits=split, fault=fault)
+    return fn(q, *rows, *lay, x["lens"], 0, **kw)[0], lay
+
+
+def decode_plain_in_place(x, layer):
+    """The plain version as the CPU path runs it, on x's own (bf16 or
+    int8) caches, in place: the time beside the kernel's."""
+    from lhrs_bot_tpu_torch.ops import fused_decode as fd
+
+    d = x["q"].shape[-1]
+    if "ks" in x:
+        return fd.fused_decode_attention_q_plain(
+            x["q"], x["kn"], x["kns"], x["vn"], x["vns"], *decode_caches(x),
+            x["lens"], layer, sm_scale=d ** -0.5)[0]
+    return fd.fused_decode_attention_plain(
+        x["q"], x["kn"], x["vn"], *decode_caches(x), x["lens"], layer,
+        sm_scale=d ** -0.5)[0]
+
+
+def decode_written(x, caches, lay, layer, name):
+    """The kernel's caches equal the inputs but for the layer, which equals
+    the plain version's after its append: the written rows (and scales) and
+    every other row exact."""
+    import torch
+
+    for got, orig, want in zip(caches, decode_caches(x), lay):
+        want = want[0].to(got.dtype)
+        if not torch.equal(got[layer], want):
+            raise AssertionError(f"{name}: layer {layer} differs from the "
+                                 "plain version's")
+        others = [i for i in range(got.shape[0]) if i != layer]
+        if not torch.equal(got[others], orig[others]):
+            raise AssertionError(f"{name}: another layer was written")
+
+
+def as_pages(x, page=256):
+    """x's first two layers as a paged pool (a null page 0, then each
+    row's pages in order) and its page table, for the paged kernels."""
+    import torch
+
+    b, h, s = x["kc"].shape[1:4]
+    npg = s // page
+
+    def pool(t):
+        tail = t.shape[4:]
+        p = t[:2].reshape(2, b, h, npg, page, *tail).transpose(2, 3)
+        p = p.reshape(2, b * npg, h, page, *tail)
+        return torch.cat([torch.zeros_like(p[:, :1]), p], 1).contiguous()
+
+    table = (1 + torch.arange(b * npg, dtype=torch.int32,
+                              device=x["kc"].device)).reshape(b, npg)
+    return [pool(t) for t in decode_caches(x)], table
+
+
+def phase_decode_split(dev, gen, int8):
+    """K2 (bf16 cache) or K4 (int8 cache) against its plain version at
+    DECODE_LENGTHS, at the plan's cluster size and at every forced one (1,
+    2, 4, 8), outputs within ATOL + RTOL and caches exact; the edge
+    lengths; C = 1 against the paged kernel bit for bit (the one-CTA
+    design); a planted fault (rank 0 leaves the last rank's state out)
+    that must fail the check and match the plain split-and-merge's fault;
+    the plan's clusters resident in one wave; times at B1, B2 and B7 with
+    every cluster size, the plain version, SDPA and the bound. Returns the
+    kernel row's numbers (at B2) with the other shapes under "shapes"."""
+    import torch
+
+    from lhrs_bot_tpu_torch.ops import fused_decode as fd
+    from lhrs_bot_tpu_torch.ops import paged_fused as pf
+
+    name = "K4" if int8 else "K2"
+    elt = 1 if int8 else 2
+    nl, h, s, d = 32, 32, 2304, 128
+    out = {"max_abs_err": 0.0, "shapes": {}}
+    for key, lengths in DECODE_LENGTHS.items():
+        x = decode_case(dev, gen, int8, lengths, nl)
+        b = len(lengths)
+        plan = fd.decode_launch_splits(dev, b, h, s, d, elt)
+        resident = fd.decode_max_clusters(d, plan, int8=int8)
+        if resident < b * h:
+            raise AssertionError(f"{name} {key}: the plan's {b * h} clusters "
+                                 f"of {plan} exceed the {resident} resident")
+        layer = nl - 1
+        ref, lay = decode_plain(x, layer)
+        for splits in (None, 1, 2, 4, 8):
+            caches = [t.clone() for t in decode_caches(x)]
+            got = decode_kernel(x, caches, layer, splits=splits)
+            torch.cuda.synchronize()
+            label = f"{name} {key} C={splits or plan}"
+            err = check_close(label, got, ref)
+            decode_written(x, caches, lay, layer, label)
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+            log(f"  {label}{' (plan)' if splits is None else ''}: lengths "
+                f"{lengths}, layer {layer}: max_abs_err {err:.3e}, caches "
+                "exact")
+            del caches
+        del ref, lay
+        # C = 1 is the one-CTA design: the paged kernel's bits
+        pools, table = as_pages(x)
+        one = decode_kernel(x, [t[:2].clone() for t in decode_caches(x)], 1,
+                            splits=1)
+        if int8:
+            paged = pf.paged_fused_decode_q_kernel(
+                x["q"], x["kn"], x["kns"], x["vn"], x["vns"], *pools, table,
+                x["lens"], 1, d ** -0.5)[0]
+        else:
+            paged = pf.paged_fused_decode_kernel(
+                x["q"], x["kn"], x["vn"], *pools, table, x["lens"], 1,
+                d ** -0.5)[0]
+        if not torch.equal(one, paged):
+            raise AssertionError(f"{name} {key}: C = 1 differs from the "
+                                 "paged kernel's bits")
+        del pools, table, one, paged
+        # times: the plan, every cluster size, plain, SDPA; each timed call
+        # reads another layer, so the cache comes from device memory
+        caches = decode_caches(x)
+        turn = iter(range(10**9))
+        row = {"splits": plan, "resident_clusters": resident,
+               "ms": cuda_ms(lambda: decode_kernel(x, caches,
+                                                   next(turn) % nl))}
+        for splits in fd.SPLITS:
+            row[f"ms_c{splits}"] = cuda_ms(lambda: decode_kernel(
+                x, caches, next(turn) % nl, splits=splits))
+        row["plain_ms"] = cuda_ms(lambda: decode_plain_in_place(
+            x, next(turn) % nl))
+        # SDPA over the filled cache (int8: two layers dequantized to bf16,
+        # taken in turns, so that neither stays in the 50 MB L2)
+        if int8:
+            deq = [[(c[i].float() * sc[i][..., None]).bfloat16()
+                    for i in (0, 1)]
+                   for c, sc in ((x["kc"], x["ks"]), (x["vc"], x["vs"]))]
+        else:
+            deq = [list(x["kc"]), list(x["vc"])]
+        row["library_ms"] = cuda_ms(lambda: (lambda i: masked_sdpa(
+            x["q"], deq[0][i], deq[1][i], x["lens"] + 1))(
+                next(turn) % len(deq[0])))
+        row["bound_ms"], row["bound_by"] = decode_bound(x["lens"], h, d, elt)
+        del deq
+        log(f"  {name} {key} time per layer call: kernel {row['ms']:.4f} ms "
+            f"(C = {plan}; " + ", ".join(
+                f"C={c} {row[f'ms_c{c}']:.4f}" for c in sorted(fd.SPLITS))
+            + f"), plain {row['plain_ms']:.4f} ms, library (SDPA over the "
+            f"{'dequantized ' if int8 else ''}filled cache, append "
+            f"excluded) {row['library_ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}), "
+            f"{row['bound_ms'] / row['ms']:.0%} of it")
+        out["shapes"][key] = row
+        del x, caches
+        torch.cuda.empty_cache()
+    for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "splits"):
+        out[key] = out["shapes"]["B2"][key]
+    # clusters of each size resident at once, and the fixed cost of a
+    # launch: one row (length 0) at B1, every C
+    out["resident_clusters"] = {f"c{c}": fd.decode_max_clusters(
+        d, c, int8=int8) for c in sorted(fd.SPLITS)}
+    log(f"  {name} clusters resident at once: {out['resident_clusters']}")
+    x = decode_case(dev, gen, int8, [0], nl)
+    caches = decode_caches(x)
+    turn = iter(range(10**9))
+    out["length0_ms"] = {f"c{c}": cuda_ms(lambda: decode_kernel(
+        x, caches, next(turn) % nl, splits=c)) for c in sorted(fd.SPLITS)}
+    out["empty_kernel_ms"] = cuda_ms(lambda: torch.cuda._sleep(1))
+    log(f"  {name} B1 length 0 (the fixed cost of a launch): " + ", ".join(
+        f"C={k[1:]} {v:.4f} ms" for k, v in out["length0_ms"].items())
+        + f"; an empty kernel in the same queue {out['empty_kernel_ms']:.4f}"
+        " ms")
+    del x, caches
+    # edge lengths, at every cluster size
+    x = decode_case(dev, gen, int8, DECODE_EDGES, 2)
+    ref, lay = decode_plain(x, 1)
+    for splits in fd.SPLITS:
+        caches = [t.clone() for t in decode_caches(x)]
+        label = f"{name} edges C={splits}"
+        err = check_close(label, decode_kernel(x, caches, 1, splits=splits),
+                          ref)
+        decode_written(x, caches, lay, 1, label)
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+    log(f"  {name} edge lengths {DECODE_EDGES} at C = 1, 2, 4, 8: within "
+        "the bound, caches exact")
+    # a full row (lengths[b] == S) next to a live one, and S % 4 != 0
+    for s_small, lengths in ((64, [64, 3]), (130, [129, 64, 0, 130])):
+        x = decode_case(dev, gen, int8, lengths, 1, s=s_small)
+        full = [i for i, n in enumerate(lengths) if n >= s_small]
+        live = [i for i, n in enumerate(lengths) if n < s_small]
+        xr = dict(x, lens=x["lens"].clamp(max=s_small - 1))
+        ref, _ = decode_plain(xr, 0)
+        for splits in fd.SPLITS:
+            caches = [t.clone() for t in decode_caches(x)]
+            got = decode_kernel(x, caches, 0, splits=splits)
+            torch.cuda.synchronize()
+            check_close(f"{name} S{s_small} C={splits}", got[live], ref[live])
+            if not (all(bool(got[i].isnan().all()) for i in full) and all(
+                    torch.equal(c[:, i], o[:, i]) for c, o in
+                    zip(caches, decode_caches(x)) for i in full)):
+                raise AssertionError(f"{name} S{s_small} C={splits}: a full "
+                                     "row must write nothing and give NaN")
+    log(f"  {name} full row (lengths[b] == S) at every C: nothing written, "
+        "NaN out; S = 130 (not a multiple of 4) within the bound")
+    # the planted fault: rank 0 leaves the last rank's state out
+    x = decode_case(dev, gen, int8, [2191], 2)
+    x["vc"][:, :, :, 1920:] = 120 if int8 else 4  # the last rank at C = 4
+    ref, _ = decode_plain(x, 1)
+    bad_ref, _ = decode_plain(x, 1, split=4, fault=1)
+    bad = decode_kernel(x, [t.clone() for t in decode_caches(x)], 1,
+                        splits=4, fault=1)
+    try:
+        check_close(f"{name} planted fault", bad, ref)
+    except AssertionError as e:
+        log(f"  {name} planted fault (rank 0 leaves rank 3 out) fails the "
+            f"check as it must: {e}")
+    else:
+        raise AssertionError(f"{name}: the planted merge fault passes")
+    err = check_close(f"{name} planted fault vs the plain split", bad,
+                      bad_ref)
+    log(f"  {name} planted fault vs the plain split-and-merge's: max_abs_err "
+        f"{err:.3e}")
+    out["fault_err"] = float((bad.float() - ref.float()).abs().max())
+    del x
+    torch.cuda.empty_cache()
+    return out
 
 
 # K3's projection shapes (K, N) and the decode batches it is checked at: 9
@@ -537,87 +804,9 @@ def phase_quant_kernels(dev):
     versions at the quantized decode path's shapes."""
     import torch
 
-    from lhrs_bot_tpu_torch.ops.fused_decode import (
-        fused_decode_attention_q_kernel, fused_decode_attention_q_plain)
-
     gen = torch.Generator(device=dev).manual_seed(2)
-
-    def codes(*shape):
-        return torch.randint(-128, 128, shape, generator=gen, device=dev,
-                             dtype=torch.int8)
-
-    def scales(*shape, lo=0.005, hi=0.03):
-        return torch.rand(shape, generator=gen, device=dev) * (hi - lo) + lo
-
-    nl = 32
-    k3 = phase_k3(dev, gen, nl)
-    # K4 at the decode shape: L32 H32 S2304 D128, B2 and B7
-    h, s, d = 32, 2304, 128
-    scale = d ** -0.5
-    k4 = {"max_abs_err": 0.0}
-    for lengths in ([2191, 700], [2192, 5, 1000, 2303, 63, 1500, 2000]):
-        b = len(lengths)
-        kc, vc = codes(nl, b, h, s, d), codes(nl, b, h, s, d)
-        ks, vs = scales(nl, b, h, s), scales(nl, b, h, s)
-        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
-        q = torch.randn(b, h, 1, d, generator=gen, device=dev,
-                        dtype=torch.bfloat16)
-        kn, vn = codes(b, h, 1, d), codes(b, h, 1, d)
-        kns, vns = scales(b, h, 1), scales(b, h, 1)
-        for layer in (0, 31):
-            mine = [t.clone() for t in (kc, vc, ks, vs)]
-            out = fused_decode_attention_q_kernel(
-                q, kn, kns, vn, vns, *mine, lens, layer, scale)[0]
-            plain = [t.clone() for t in (kc, vc, ks, vs)]
-            ref = fused_decode_attention_q_plain(
-                q.float(), kn, kns, vn, vns, *plain, lens, layer,
-                sm_scale=scale)[0]
-            torch.cuda.synchronize()
-            err = check_close(f"K4 B{b} layer {layer}", out, ref)
-            # the appended rows and scales and every other row: exact
-            if not all(torch.equal(a, c) for a, c in zip(mine, plain)):
-                raise AssertionError(f"K4 B{b} layer {layer}: cache or "
-                                     "scales differ from the plain version's")
-            k4["max_abs_err"] = max(k4["max_abs_err"], err)
-            log(f"  K4 cache {(nl, b, h, s, d)} lengths {lengths}, layer "
-                f"{layer}: max_abs_err {err:.3e}, caches and scales exact")
-            del mine, plain
-        if b == 2:
-            turn = iter(range(10**9))
-            k4["ms"] = cuda_ms(lambda: fused_decode_attention_q_kernel(
-                q, kn, kns, vn, vns, kc, vc, ks, vs, lens, next(turn) % nl,
-                scale))
-            k4["plain_ms"] = cuda_ms(lambda: fused_decode_attention_q_plain(
-                q, kn, kns, vn, vns, kc, vc, ks, vs, lens, next(turn) % nl,
-                sm_scale=scale))
-            deq = [(c[0].float() * sc[0][..., None]).bfloat16()
-                   for c, sc in ((kc, ks), (vc, vs))]
-            k4["library_ms"] = cuda_ms(lambda: masked_sdpa(
-                q, deq[0], deq[1], lens + 1))
-            k4["bound_ms"], k4["bound_by"] = decode_bound(lens, h, d, 1)
-            del deq
-            log(f"  K4 time per layer call (B2): kernel {k4['ms']:.4f} ms, "
-                f"plain {k4['plain_ms']:.4f} ms, library (SDPA over the "
-                f"dequantized bf16 cache, append excluded) "
-                f"{k4['library_ms']:.4f} ms, bound {k4['bound_ms']:.4f} ms "
-                f"({k4['bound_by']})")
-        del kc, vc, ks, vs
-    # a row with no room for the append: nothing written, NaN out
-    kc, vc = codes(1, 2, 2, 64, d), codes(1, 2, 2, 64, d)
-    ks, vs = scales(1, 2, 2, 64), scales(1, 2, 2, 64)
-    before = [t.clone() for t in (kc, vc, ks, vs)]
-    lens = torch.tensor([64, 3], dtype=torch.int32, device=dev)
-    q = torch.randn(2, 2, 1, d, generator=gen, device=dev,
-                    dtype=torch.bfloat16)
-    out = fused_decode_attention_q_kernel(
-        q, codes(2, 2, 1, d), scales(2, 2, 1), codes(2, 2, 1, d),
-        scales(2, 2, 1), kc, vc, ks, vs, lens, 0, scale)[0]
-    torch.cuda.synchronize()
-    if not (bool(out[0].isnan().all()) and bool(out[1].isfinite().all())
-            and all(torch.equal(a[:, 0], c[:, 0])
-                    for a, c in zip((kc, vc, ks, vs), before))):
-        raise AssertionError("K4: a full row must write nothing and give NaN")
-    log("  K4 full row (lengths[b] == S): nothing written, NaN out")
+    k3 = phase_k3(dev, gen, 32)
+    k4 = phase_decode_split(dev, gen, int8=True)
     torch.cuda.empty_cache()
     return k3, k4
 
@@ -1677,8 +1866,10 @@ def phase_tower(dev, n_img=8):
 
 
 # Paged decode against contiguous decode on the same cache contents: the
-# paged kernels and K2 / K4 compute the same sums in the same order, so the
-# logits should agree to the last bit; 1e-3 relative L2 leaves room for a
+# paged kernels and K2 / K4 at one CTA a head (splits=1: the contiguous
+# side is forced to it, since the plan's clusters fold the softmax in
+# another order) compute the same sums in the same order, so the logits
+# should agree to the last bit; 1e-3 relative L2 leaves room for a
 # reordering, and a page swapped between two rows' tables moves them O(1).
 PAGED_REL_L2 = 1e-3
 
@@ -1691,6 +1882,8 @@ def phase_paged_vs_contiguous(lp, lcfg, dev):
     a bf16 and an int8 cache; with one table entry swapped between the two
     rows it must exceed it."""
     import dataclasses
+    import functools
+    import math
 
     import torch
 
@@ -1699,7 +1892,17 @@ def phase_paged_vs_contiguous(lp, lcfg, dev):
     from lhrs_bot_tpu_torch.models.llama_paged import (PagedKVCache,
                                                        paged_decode_step,
                                                        scatter_prefill)
+    import lhrs_bot_tpu_torch.models.llama as llama
+    from lhrs_bot_tpu_torch.ops import fused_decode as fd
 
+    # the contiguous side through K2 / K4 at one CTA a head (splits=1): the
+    # paged kernels' sums, in their order
+    scale = 1.0 / math.sqrt(lcfg.head_dim)
+    splits1 = {
+        "fused_decode_attention": functools.partial(
+            fd.fused_decode_attention_kernel, sm_scale=scale, splits=1),
+        "fused_decode_attention_q": lambda *args, int8_dots=None: (
+            fd.fused_decode_attention_q_kernel(*args, scale, splits=1))}
     rng = np.random.default_rng(2)
     plen = torch.tensor([600, 451], dtype=torch.int32, device=dev)
     ids = torch.as_tensor(rng.integers(3, lcfg.vocab_size, (2, 640)),
@@ -1729,7 +1932,9 @@ def phase_paged_vs_contiguous(lp, lcfg, dev):
         swapped = table.clone()
         swapped[0, 1], swapped[1, 1] = table[1, 1], table[0, 1]
         faulty.page_table = swapped
-        logits_c, _ = llama_decode_step(lp, lcfg, cache, inputs_embeds=step)
+        with patched(llama, **splits1):
+            logits_c, _ = llama_decode_step(lp, lcfg, cache,
+                                            inputs_embeds=step)
         logits_p, _ = paged_decode_step(lp, lcfg, pcache, inputs_embeds=step)
         logits_f, _ = paged_decode_step(lp, lcfg, faulty, inputs_embeds=step)
         del cache, pcache, faulty
@@ -3268,6 +3473,13 @@ def main():
     ]
     kernels[-4]["note"] = ("int8_dots=True; launches on the W4A8 path with "
                            "LHRS_DECODE_INT8_DOTS=1")
+    for k, numbers in ((kernels[1], k2), (kernels[2], k4)):
+        k["note"] = (
+            "rows split across a cluster of C CTAs (decode_split_plan), "
+            "bulk-copy ring, merge over distributed shared memory; times at "
+            f"L32 B2 H32 S2304 D128 (C = {numbers['splits']}); B1, B2, B7 "
+            "and every C under shapes")
+        k["shapes"] = numbers["shapes"]
     step = paths["w4a8"]["launches_a_decode_step"]["int8 cache"]
     kernels[3]["note"] = (
         "one clustered launch a projection; times of the fused mode (b), "

@@ -1,8 +1,9 @@
 """The redesigned hand-written kernels of one checkout of the repository,
 timed on the card at the main path's shapes, and the end to end numbers
 they move: kernel B (int8 GEMM), K1 (flash-attention forward), the flash
-backward (dQ and dK/dV kernels), kernel A (LayerNorm + int8 rows) and K3
-(the W4A8 decode product).
+backward (dQ and dK/dV kernels), kernel A (LayerNorm + int8 rows), K3
+(the W4A8 decode product) and K2 / K4 (the contiguous-cache decode
+attention, bf16 and int8 cache).
 
     python3 lhrs_bot_tpu_torch/benchmarks/wgmma_ab.py --root DIR --part P
 
@@ -39,11 +40,20 @@ change, parent). Parts:
       change's one launch), each with its bound; where the checkout
       chooses a cluster, its choice, and `w4a8_project` and the resident
       clusters at 2, 4 and 8 CTAs.
+  decode: K2 and K4 at L32 H32 S2304 D128, B1 (lengths [2191]), B2
+      ([2191, 700]) and B7 (seven lengths up to 2303), each time beside its
+      bound (bytes over 3.35 TB/s), the share of the bound, one SDPA call
+      over the filled cache (int8: dequantized to bf16) and, where the
+      checkout splits the rows across a cluster, the C its plan chooses and
+      the time at every C; the registers of the decode kernels from the
+      checkout's build log.
   e2e: the bench's three tower cells (`bench.bench_prefill`, B=64), its
-      W4A8 and int8-cache decode cells (`DECODE_CELLS`), a W4A8 + int8
-      lm_head + int8-cache decode step at B = 1 from 2,192 filled rows
-      (host-clock ms, busy ms under torch.profiler, and the launches a step
-      of K3, its split-K epilogue and A), and, unless --no-train, the
+      decode cells (`DECODE_CELLS`: W4A8, int8 cache, bf16 cache), a W4A8
+      + int8 lm_head + int8-cache decode step and an int8-weight +
+      bf16-cache decode step at B = 1 from 2,192 filled rows (host-clock
+      ms, busy ms under torch.profiler, the decode attention kernel's
+      device ms, and the launches a step of K3, its split-K epilogue, A,
+      K2 and K4), and, unless --no-train, the
       2,191-token bf16 prefill (`generate`'s first step, as
       chip_profile.py times it) and a stage-1 training step on the packed
       batch and on the caption batch (host clock), each with the card's
@@ -341,33 +351,132 @@ def _quant(dev):
     return out
 
 
-# the bench's decode cells this comparison reads: W4A8 (K3) and the int8
-# cache (A on the new K/V rows)
+# the bench's decode cells this comparison reads: W4A8 (K3), the int8
+# cache (A on the new K/V rows, K4) and the bf16 cache (K2)
 DECODE_CELLS = ("decode_b1_s2304_w4a8_lm8_tok_s",
                 "decode_b1_s2304_int8cache_tok_s",
                 "decode_b7_s2304_int8cache_total_tok_s",
-                "decode_b1_s2304_int8cache_lm8_tok_s")
+                "decode_b1_s2304_int8cache_lm8_tok_s",
+                "decode_b1_s2304_int8w_bf16cache_tok_s",
+                "decode_b2_s2304_total_tok_s",
+                "decode_b3_s2304_total_tok_s",
+                "decode_b1_s512_tok_s")
+
+# K2 / K4's decode batches: the bench's B1 row, the serving paths' B2 rows,
+# a B7 batch (chip_smoke.py's DECODE_LENGTHS)
+DECODE_LENGTHS = {"B1": [2191], "B2": [2191, 700],
+                  "B7": [2192, 5, 1000, 2303, 63, 1500, 2000]}
 
 
-def _w4a8_step(dev, steps=20):
-    """One W4A8 + int8 lm_head + int8-cache decode step at B = 1 from 2,192
-    filled rows (bench.py's headline cell): median host-clock ms of
-    `steps` steps, each ended by a synchronize; the card's busy ms a step
-    under torch.profiler; and the launches a step of K3, the split-K
-    epilogue kernel (the parent's, one per K3 call whose plan splits K) and
-    kernel A."""
+def _decode_registers(so):
+    """Registers of each decode attention kernel of the checkout's build
+    log (ptxas -v), by its mangled name."""
+    import re
+
+    regs, name = {}, None
+    for ln in (so.parent / "build.log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name and "decode" in name and "paged" not in name:
+            regs[name] = int(m.group(1))
+            name = None
+    return regs
+
+
+def _decode(dev):
+    import torch
+
+    import chip_smoke as c
+    from lhrs_bot_tpu_torch.ops import cuda_lib
+    from lhrs_bot_tpu_torch.ops import fused_decode as fd
+
+    out = {"registers": _decode_registers(cuda_lib.build())}
+    split = hasattr(fd, "decode_split_plan")  # the change's clusters
+    nl, h, s, d = 32, 32, 2304, 128
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for int8 in (False, True):
+        name, elt = ("K4", 1) if int8 else ("K2", 2)
+        if split:
+            out[f"{name}_smem_bytes"] = fd.decode_smem_bytes(d, elt)
+        for key, lengths in DECODE_LENGTHS.items():
+            b = len(lengths)
+            lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+            q = torch.randn(b, h, 1, d, generator=gen, device=dev,
+                            dtype=torch.bfloat16)
+            if int8:
+                def codes(*shape):
+                    return torch.randint(-128, 128, shape, generator=gen,
+                                         device=dev, dtype=torch.int8)
+
+                def scales(*shape):
+                    return torch.rand(shape, generator=gen,
+                                      device=dev) * 0.025 + 0.005
+
+                rows = (codes(b, h, 1, d), scales(b, h, 1),
+                        codes(b, h, 1, d), scales(b, h, 1))
+                caches = (codes(nl, b, h, s, d), codes(nl, b, h, s, d),
+                          scales(nl, b, h, s), scales(nl, b, h, s))
+                kernel = fd.fused_decode_attention_q_kernel
+                deq = [[(kc[i].float() * ks[i][..., None]).bfloat16()
+                        for i in (0, 1)]
+                       for kc, ks in ((caches[0], caches[2]),
+                                      (caches[1], caches[3]))]
+            else:
+                rows = tuple(torch.randn(b, h, 1, d, generator=gen,
+                                         device=dev, dtype=torch.bfloat16)
+                             for _ in range(2))
+                caches = tuple(torch.randn(nl, b, h, s, d, generator=gen,
+                                           device=dev, dtype=torch.bfloat16)
+                               for _ in range(2))
+                kernel = fd.fused_decode_attention_kernel
+                deq = [list(caches[0]), list(caches[1])]
+            turn = iter(range(10**9))  # another layer each call: from HBM
+
+            def call(**kw):
+                return kernel(q, *rows, *caches, lens, next(turn) % nl,
+                              d ** -0.5, **kw)
+
+            row = {"ms": c.cuda_ms(call)}
+            row["bound_ms"], row["bound_by"] = c.decode_bound(lens, h, d,
+                                                              elt)
+            row["share_of_bound"] = row["bound_ms"] / row["ms"]
+            row["library_ms"] = c.cuda_ms(lambda: (lambda i: c.masked_sdpa(
+                q, deq[0][i], deq[1][i], lens + 1))(next(turn) %
+                                                    len(deq[0])))
+            if split:
+                row["splits"] = fd.decode_launch_splits(dev, b, h, s, d, elt)
+                for cl in fd.SPLITS:
+                    row[f"ms_c{cl}"] = c.cuda_ms(lambda: call(splits=cl))
+            out[f"{name}_{key}"] = row
+            del caches, deq
+            torch.cuda.empty_cache()
+    return out
+
+
+def _decode_step(dev, name, bits, lm8, cache_dtype, steps=20):
+    """One decode step at B = 1 from 2,192 filled rows of one of the
+    bench's weight sets and cache dtypes: median host-clock ms of `steps`
+    steps, each ended by a synchronize; the card's busy ms a step under
+    torch.profiler and the decode attention kernel's share of it; and the
+    launches a step of K3, the split-K epilogue kernel (the parent's, one
+    per K3 call whose plan splits K), kernel A, K2 and K4. Keys start with
+    `name`."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from lhrs_bot_tpu_torch import bench
     from lhrs_bot_tpu_torch.models import LlamaConfig, llama_decode_step
+    from lhrs_bot_tpu_torch.ops import fused_decode as fd
     from lhrs_bot_tpu_torch.ops import w4_matmul as w4
     from lhrs_bot_tpu_torch.ops.ln_quant import ln_quant_kernel
 
     lcfg = LlamaConfig.llama2_7b()
-    params = bench.make_decoder_params(lcfg, "4h", True, device=dev)
-    cache = bench.filled_cache(lcfg, 1, 2304, torch.int8, device=dev)
+    params = bench.make_decoder_params(lcfg, bits, lm8, device=dev)
+    cache = bench.filled_cache(lcfg, 1, 2304, cache_dtype, device=dev)
     bench.decode_run(params, lcfg, cache, 2192, 4)  # warm-up
     cache.length.fill_(2192)
     tok = torch.zeros(1, dtype=torch.long, device=dev)
@@ -386,26 +495,39 @@ def _w4a8_step(dev, steps=20):
         step()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-    w4.w4a8_matmul_kernel.launches = ln_quant_kernel.launches = 0
+    counters = (w4.w4a8_matmul_kernel, ln_quant_kernel,
+                fd.fused_decode_attention_kernel,
+                fd.fused_decode_attention_q_kernel)
+    for k in counters:
+        k.launches = 0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(4):
             step()
         torch.cuda.synchronize()
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3 / 4
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in events) / 1e3 / 4
+    attn = sum(e.self_device_time_total for e in events
+               if "decode" in e.key and "int8dots" not in e.key) / 1e3 / 4
     k3 = w4.w4a8_matmul_kernel.launches / 4
     epilogue = 0.0
-    if hasattr(w4, "split_k"):  # the parent: one more launch a split call
-        split = sum(count for k, n, count in PROJECTIONS
+    if hasattr(w4, "split_k") and bits == "4h":  # the parent: one more
+        split = sum(count for k, n, count in PROJECTIONS  # a split call
                     if w4.split_k(k // 2, n)[0] > 1)
         epilogue = k3 * split / 7
     del params, cache
     torch.cuda.empty_cache()
-    return {"w4a8_step_host_ms": sorted(times)[len(times) // 2],
-            "w4a8_step_busy_ms": busy, "w4a8_step_k3_launches": k3,
-            "w4a8_step_epilogue_launches": epilogue,
-            "w4a8_step_a_launches": ln_quant_kernel.launches / 4}
+    return {f"{name}_step_host_ms": sorted(times)[len(times) // 2],
+            f"{name}_step_busy_ms": busy,
+            f"{name}_step_decode_attention_ms": attn,
+            f"{name}_step_k3_launches": k3,
+            f"{name}_step_epilogue_launches": epilogue,
+            f"{name}_step_a_launches": ln_quant_kernel.launches / 4,
+            f"{name}_step_k2_launches":
+                fd.fused_decode_attention_kernel.launches / 4,
+            f"{name}_step_k4_launches":
+                fd.fused_decode_attention_q_kernel.launches / 4}
 
 
 def _step(trainer, batch):
@@ -457,7 +579,8 @@ def _e2e(dev, train=True):
         LlamaConfig.llama2_7b(), device=dev,
         cells=[cell for cell in bench.decode_cells()
                if cell[0] in DECODE_CELLS]))
-    out.update(_w4a8_step(dev))
+    out.update(_decode_step(dev, "w4a8", "4h", True, torch.int8))
+    out.update(_decode_step(dev, "bf16cache", 8, False, torch.bfloat16))
     if not train:
         return out
     config = eval_config()
@@ -499,7 +622,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", required=True,
                     help="checkout whose lhrs_bot_tpu_torch is measured")
-    ap.add_argument("--part", choices=("kernels", "quant", "e2e"),
+    ap.add_argument("--part", choices=("kernels", "quant", "decode", "e2e"),
                     required=True)
     ap.add_argument("--no-train", action="store_true",
                     help="e2e: leave out the prefill and the training steps")
@@ -522,6 +645,8 @@ def main(argv=None):
         res = _kernels(dev)
     elif args.part == "quant":
         res = _quant(dev)
+    elif args.part == "decode":
+        res = _decode(dev)
     else:
         res = _e2e(dev, train=not args.no_train)
     line = {"root": args.root, "part": args.part, "result": res,

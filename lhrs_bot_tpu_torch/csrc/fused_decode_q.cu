@@ -18,20 +18,24 @@
 // 2 * (len + 1) * (D + 4) bytes of codes and scales, far below the card's
 // ridge point; int8 halves the bf16 kernel's (fused_decode.cu) cache bytes.
 //
-// Design: K2's (fused_decode.cu). One CTA of 256 threads per (b, h); the
-// CTA appends the row and its scales first, then `__syncthreads()`, so every
-// thread reads the new row and scales from the cache (the cache pointers
-// are not read-only). Eight lanes share one key row, each loading its
-// D / 8 codes with one 16-byte (D = 128) or 8-byte (D = 64) load; 32 key
-// groups keep 4 keys of K and V rows in flight, each group with its own
-// running max, sum and accumulator slice, merged through shared memory at
-// the end. The codes become floats by a byte permute and a subtraction
-// (`codes_to_float`), not the integer-to-float conversion, whose quarter
-// rate would bound the kernel on the few SMs that one CTA per (b, h) uses
-// at small batch. A row whose length leaves no room (lengths[b] >= S)
-// writes nothing and returns NaN, as K2 does.
+// Design: decode_split.cuh, shared with K2 (fused_decode.cu). The rows of
+// a (b, h) are split across a cluster of C CTAs (C from
+// `ops.fused_decode.decode_split_plan`: all of the grid's CTAs resident at
+// once), each streaming its share of codes and scales through a ring of
+// bulk copies into shared memory (3 stages of 16 KB of K codes, 16 KB of V
+// codes and their scales), and rank 0 merges the CTAs' softmax states
+// over distributed shared memory in the same launch. Inside a CTA the walk
+// and the arithmetic are the one-CTA kernel's, so C = 1 gives its bits:
+// eight lanes a key row, each with D / 8 codes; 32 key groups, each with
+// its own running max, sum and accumulator slice. The codes become floats
+// by a byte permute and a subtraction (`codes_to_float`), not the
+// integer-to-float conversion, whose quarter rate would bound the kernel.
+// What bounds it: at B = 1-2 its walk's instructions (half the bytes of K2
+// take as long to walk), then a fixed ~5.5 us a launch (PERF.md section
+// 6). A row whose length leaves no room (lengths[b] >= S) writes nothing
+// and returns NaN, as K2 does.
 //
-// The int8-dots variant (template flag Int8Dots, entry
+// The int8-dots variant (kernel fused_decode_q_int8dots_kernel, entry
 // lhrs_fused_decode_q_int8dots) replaces the same kernel with
 // `int8_dots=True` (fused_decode.py:332-336, :374-379, :417-426): q *
 // sm_scale is quantized per head to int8 in float32 (absmax / 127 + 1e-12,
@@ -45,12 +49,17 @@
 // int32 __dp4a sum per column (four rows' value bytes transposed into one
 // word per column), scaled by p's scale in float32 and added to the
 // accumulator after alpha, as on the TPU; the denominator sums the float
-// p, not the codes. Still bytes-bound: the cache bytes are read once.
+// p, not the codes. Still bytes-bound: the cache bytes are read once. It
+// keeps the one-CTA-per-(b, h) design: the CTA appends the row and its
+// scales first, then `__syncthreads()`, so every thread reads the new row
+// and scales from the cache.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "decode_split.cuh"
 
 namespace {
 
@@ -70,22 +79,6 @@ template <>
 struct Vec<8> {
   using T = uint2;
 };
-
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-// The 4 int8 codes of a word as exact floats, without the quarter-rate
-// integer-to-float conversion: each code, offset by 128, goes into the low
-// mantissa byte of 2^23 (one byte permute), and one subtraction removes
-// 2^23 + 128.
-__device__ __forceinline__ void codes_to_float(uint32_t w, float* f) {
-  const uint32_t u = w ^ 0x80808080u;  // signed code c -> byte c + 128
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    f[i] = __int_as_float(__byte_perm(u, 0x4B000000u, 0x7440 + i)) -
-           8388736.0f;
-}
 
 // Block-wide max and sum over the CTA's 256 threads (in a fixed order);
 // every thread calls them, and every thread gets the result.
@@ -260,125 +253,19 @@ __device__ void attend_int8_dots(const __nv_bfloat16* __restrict__ q,
   if (tid < D) out[tid] = __float2bfloat16(__fdiv_rn(acc, l));
 }
 
-// The bf16-dot attention of one (b, h) over rows [0, len] of its appended
-// cache (the `int8_dots=False` kernel); writes the D outputs.
 template <int D>
-__device__ void attend_bf16_dots(const __nv_bfloat16* __restrict__ q,
-                                 const int8_t* kc, const int8_t* vc,
-                                 const float* ksc, const float* vsc, int len,
-                                 float sm_scale,
-                                 __nv_bfloat16* __restrict__ out) {
-  constexpr int kDims = D / kLanesPerKey;  // codes per lane per row
-  using VecT = typename Vec<kDims>::T;
-  __shared__ float s_m[kGroups], s_l[kGroups];
-  __shared__ float s_acc[kGroups][D];
-  const int tid = threadIdx.x;
-  const int sub = tid & (kLanesPerKey - 1);  // dim slice of this lane
-  const int grp = tid / kLanesPerKey;        // key group
-  float qv[kDims];
-  {
-    const uint4* qp = reinterpret_cast<const uint4*>(q + sub * kDims);
-#pragma unroll
-    for (int i = 0; i < kDims / 8; ++i) {
-      const uint4 w = qp[i];
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&w);
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        qv[i * 8 + j] = bf16_round(__bfloat162float(e[j]) * sm_scale);
-    }
-  }
-
-  float m = kNegInf, l = 0.f, acc[kDims];
-#pragma unroll
-  for (int i = 0; i < kDims; ++i) acc[i] = 0.f;
-
-  const int n_valid = len + 1;
-  for (int base = 0; base < n_valid; base += kGroups * kUnroll) {
-    VecT kr[kUnroll], vr[kUnroll];
-    float ks[kUnroll], vs[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int j = base + u * kGroups + grp;
-      kr[u] = vr[u] = VecT{};
-      ks[u] = vs[u] = 0.f;
-      if (j < n_valid) {
-        kr[u] = *reinterpret_cast<const VecT*>(kc + (size_t)j * D +
-                                               sub * kDims);
-        vr[u] = *reinterpret_cast<const VecT*>(vc + (size_t)j * D +
-                                               sub * kDims);
-        ks[u] = ksc[j];
-        vs[u] = vsc[j];
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int j = base + u * kGroups + grp;
-      const uint32_t* kw = reinterpret_cast<const uint32_t*>(&kr[u]);
-      float s = 0.f;
-#pragma unroll
-      for (int i = 0; i < kDims / 4; ++i) {
-        float kf[4];
-        codes_to_float(kw[i], kf);
-#pragma unroll
-        for (int x = 0; x < 4; ++x) s += qv[i * 4 + x] * kf[x];
-      }
-      // reduce over the 8 lanes of this key (all lanes take part)
-      s += __shfl_xor_sync(0xffffffffu, s, 1);
-      s += __shfl_xor_sync(0xffffffffu, s, 2);
-      s += __shfl_xor_sync(0xffffffffu, s, 4);
-      if (j < n_valid) {
-        s *= ks[u];
-        const float m_new = fmaxf(m, s);
-        const float alpha = __expf(m - m_new);
-        const float p = __expf(s - m_new);
-        const float pv = bf16_round(p * vs[u]);
-        l = l * alpha + p;
-        const uint32_t* vw = reinterpret_cast<const uint32_t*>(&vr[u]);
-#pragma unroll
-        for (int i = 0; i < kDims / 4; ++i) {
-          float vf[4];
-          codes_to_float(vw[i], vf);
-#pragma unroll
-          for (int x = 0; x < 4; ++x)
-            acc[i * 4 + x] = acc[i * 4 + x] * alpha + pv * vf[x];
-        }
-        m = m_new;
-      }
-    }
-  }
-
-  // Merge the 32 group states.
-  if (sub == 0) {
-    s_m[grp] = m;
-    s_l[grp] = l;
-  }
-#pragma unroll
-  for (int i = 0; i < kDims; ++i) s_acc[grp][sub * kDims + i] = acc[i];
-  __syncthreads();
-  if (tid < D) {
-    float mx = kNegInf;
-    for (int gi = 0; gi < kGroups; ++gi) mx = fmaxf(mx, s_m[gi]);
-    float den = 0.f, num = 0.f;
-    for (int gi = 0; gi < kGroups; ++gi) {
-      const float sc = __expf(s_m[gi] - mx);  // 0 for groups with no key
-      den += s_l[gi] * sc;
-      num += s_acc[gi][tid] * sc;
-    }
-    out[tid] = __float2bfloat16(num / den);
-  }
-}
-
-template <int D, bool Int8Dots>
 __global__ void __launch_bounds__(kThreads)
-    fused_decode_q_kernel(const __nv_bfloat16* __restrict__ q,
-                          const int8_t* __restrict__ k_new,
-                          const float* __restrict__ k_new_scale,
-                          const int8_t* __restrict__ v_new,
-                          const float* __restrict__ v_new_scale,
-                          int8_t* k_cache, int8_t* v_cache, float* k_scale,
-                          float* v_scale, const int* __restrict__ lengths,
-                          __nv_bfloat16* __restrict__ out, int layer, int B,
-                          int H, int S, float sm_scale, int block_s) {
+    fused_decode_q_int8dots_kernel(const __nv_bfloat16* __restrict__ q,
+                                   const int8_t* __restrict__ k_new,
+                                   const float* __restrict__ k_new_scale,
+                                   const int8_t* __restrict__ v_new,
+                                   const float* __restrict__ v_new_scale,
+                                   int8_t* k_cache, int8_t* v_cache,
+                                   float* k_scale, float* v_scale,
+                                   const int* __restrict__ lengths,
+                                   __nv_bfloat16* __restrict__ out, int layer,
+                                   int B, int H, int S, float sm_scale,
+                                   int block_s) {
   const int h = blockIdx.x, b = blockIdx.y;
   const int tid = threadIdx.x;
   const size_t bh = (size_t)b * H + h;
@@ -404,27 +291,67 @@ __global__ void __launch_bounds__(kThreads)
     vsc[len] = v_new_scale[bh];
   }
   __syncthreads();
-  if constexpr (Int8Dots)
-    attend_int8_dots<D>(q + row, kc, vc, ksc, vsc, len + 1, block_s,
-                        sm_scale, out + row);
-  else
-    attend_bf16_dots<D>(q + row, kc, vc, ksc, vsc, len, sm_scale, out + row);
+  attend_int8_dots<D>(q + row, kc, vc, ksc, vsc, len + 1, block_s, sm_scale,
+                      out + row);
 }
 
 }  // namespace
 
 // q/out (B,H,1,D) bf16; k_new/v_new (B,H,1,D) int8; k_new_scale/v_new_scale
 // (B,H,1) f32; caches (L,B,H,S,D) int8; scale planes (L,B,H,S) f32; lengths
-// (B,) int32 on the device. All contiguous, 16-byte aligned. block_s 0 runs
-// the bf16-dot kernel, block_s > 0 the int8-dot one. Returns cudaError_t.
-static int launch_q(const void* q, const void* k_new, const void* k_new_scale,
-                    const void* v_new, const void* v_new_scale, void* k_cache,
-                    void* v_cache, void* k_scale, void* v_scale,
-                    const void* lengths, void* out, int layer, int L, int B,
-                    int H, int S, int D, float sm_scale, int block_s,
-                    void* stream) {
+// (B,) int32 on the device. All contiguous, 16-byte aligned. splits: the
+// cluster's CTAs (1, 2, 4 or 8). fault: 0, or a planted error for a check.
+// Returns cudaError_t.
+extern "C" int lhrs_fused_decode_q(const void* q, const void* k_new,
+                                   const void* k_new_scale, const void* v_new,
+                                   const void* v_new_scale, void* k_cache,
+                                   void* v_cache, void* k_scale,
+                                   void* v_scale, const void* lengths,
+                                   void* out, int layer, int L, int B, int H,
+                                   int S, int D, float sm_scale, int splits,
+                                   int fault, void* stream) {
+  decode_split::Args a{static_cast<const __nv_bfloat16*>(q),
+                       k_new,
+                       v_new,
+                       static_cast<const float*>(k_new_scale),
+                       static_cast<const float*>(v_new_scale),
+                       k_cache,
+                       v_cache,
+                       static_cast<float*>(k_scale),
+                       static_cast<float*>(v_scale),
+                       static_cast<const int*>(lengths),
+                       static_cast<__nv_bfloat16*>(out),
+                       layer,
+                       B,
+                       H,
+                       S,
+                       sm_scale,
+                       fault};
+  return decode_split::dispatch<decode_split::Int8Rows>(a, L, D, splits,
+                                                        stream, nullptr);
+}
+
+// How many clusters of `splits` CTAs of the D = 64 or 128 kernel can be
+// resident on the device at once, into *count. Returns cudaError_t.
+extern "C" int lhrs_fused_decode_q_max_clusters(int D, int splits,
+                                                int* count) {
+  decode_split::Args a{};
+  a.B = a.H = a.S = 1;
+  return decode_split::dispatch<decode_split::Int8Rows>(a, 1, D, splits,
+                                                        nullptr, count);
+}
+
+// The int8-dots variant: the same arguments but splits and fault, then
+// block_s (1..S; at most 4096 keeps the shared memory under 48 KB).
+// Returns cudaError_t.
+extern "C" int lhrs_fused_decode_q_int8dots(
+    const void* q, const void* k_new, const void* k_new_scale,
+    const void* v_new, const void* v_new_scale, void* k_cache, void* v_cache,
+    void* k_scale, void* v_scale, const void* lengths, void* out, int layer,
+    int L, int B, int H, int S, int D, float sm_scale, int block_s,
+    void* stream) {
   if (layer < 0 || layer >= L || B <= 0 || H <= 0 || S <= 0 || B > 65535 ||
-      block_s < 0 || block_s > S)
+      block_s <= 0 || block_s > S || block_s > 4096)
     return (int)cudaErrorInvalidValue;
   const dim3 grid(H, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -439,48 +366,16 @@ static int launch_q(const void* q, const void* k_new, const void* k_new_scale,
   auto* vs = static_cast<float*>(v_scale);
   const auto* lp = static_cast<const int*>(lengths);
   auto* op = static_cast<__nv_bfloat16*>(out);
-  const int smem = block_s ? int8dots_smem(block_s) : 0;
-#define LHRS_LAUNCH_Q(DIM, DOTS)                                          \
-  fused_decode_q_kernel<DIM, DOTS><<<grid, kThreads, smem, st>>>(         \
-      qp, kn, kns, vn, vns, kc, vc, ks, vs, lp, op, layer, B, H, S, sm_scale, \
-      block_s)
-  if (D == 64 && block_s)
-    LHRS_LAUNCH_Q(64, true);
-  else if (D == 64)
-    LHRS_LAUNCH_Q(64, false);
-  else if (D == 128 && block_s)
-    LHRS_LAUNCH_Q(128, true);
+  const int smem = int8dots_smem(block_s);
+  if (D == 64)
+    fused_decode_q_int8dots_kernel<64><<<grid, kThreads, smem, st>>>(
+        qp, kn, kns, vn, vns, kc, vc, ks, vs, lp, op, layer, B, H, S,
+        sm_scale, block_s);
   else if (D == 128)
-    LHRS_LAUNCH_Q(128, false);
+    fused_decode_q_int8dots_kernel<128><<<grid, kThreads, smem, st>>>(
+        qp, kn, kns, vn, vns, kc, vc, ks, vs, lp, op, layer, B, H, S,
+        sm_scale, block_s);
   else
     return (int)cudaErrorInvalidValue;
-#undef LHRS_LAUNCH_Q
   return (int)cudaGetLastError();
-}
-
-extern "C" int lhrs_fused_decode_q(const void* q, const void* k_new,
-                                   const void* k_new_scale, const void* v_new,
-                                   const void* v_new_scale, void* k_cache,
-                                   void* v_cache, void* k_scale,
-                                   void* v_scale, const void* lengths,
-                                   void* out, int layer, int L, int B, int H,
-                                   int S, int D, float sm_scale,
-                                   void* stream) {
-  return launch_q(q, k_new, k_new_scale, v_new, v_new_scale, k_cache,
-                  v_cache, k_scale, v_scale, lengths, out, layer, L, B, H, S,
-                  D, sm_scale, 0, stream);
-}
-
-// The same arguments and block_s (1..S; at most 4096 keeps the shared
-// memory under 48 KB).
-extern "C" int lhrs_fused_decode_q_int8dots(
-    const void* q, const void* k_new, const void* k_new_scale,
-    const void* v_new, const void* v_new_scale, void* k_cache, void* v_cache,
-    void* k_scale, void* v_scale, const void* lengths, void* out, int layer,
-    int L, int B, int H, int S, int D, float sm_scale, int block_s,
-    void* stream) {
-  if (block_s <= 0 || block_s > 4096) return (int)cudaErrorInvalidValue;
-  return launch_q(q, k_new, k_new_scale, v_new, v_new_scale, k_cache,
-                  v_cache, k_scale, v_scale, lengths, out, layer, L, B, H, S,
-                  D, sm_scale, block_s, stream);
 }

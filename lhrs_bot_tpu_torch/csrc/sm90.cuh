@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the wgmma kernels
-// (int8_gemm.cu, flash_fwd.cu, flash_bwd.cu): mbarriers, TMA tile loads, the
+// (int8_gemm.cu, flash_fwd.cu, flash_bwd.cu) and the split decode kernels
+// (decode_split.cuh): mbarriers, TMA tile loads and 1-D bulk copies, the
 // wgmma shared memory descriptor for 128-byte swizzled tiles, the wgmma
 // instructions the kernels issue (inline PTX, generated from a list of
 // operands), and the host side encoder of TMA tensor maps, fetched from the
@@ -76,6 +77,26 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
+// ---- cluster barriers ---------------------------------------------------------
+
+// Arrival at the cluster's barrier with no memory ordering: says only that
+// this thread has started (a CTA's shared memory may be written by its
+// peers once the barrier completes).
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+}
+
+// Arrival that releases this thread's prior writes (shared memory of any
+// CTA of the cluster included) to the threads that wait.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+
+// Waits for every thread of the cluster to arrive (acquire).
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
 // ---- TMA --------------------------------------------------------------------
 
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
@@ -96,6 +117,19 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// A 1-D bulk copy of `bytes` contiguous bytes from global memory to this
+// CTA's shared memory, completing on `bar` (announce the bytes with
+// mbar_arrive_tx first). Both addresses 16-byte aligned, bytes a multiple
+// of 16.
+__device__ __forceinline__ void bulk_load_1d(void* dst, const void* src,
+                                             uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

@@ -4,12 +4,12 @@ At first use every `csrc/*.cu` file is compiled by `nvcc` for `sm_90a`, one
 `nvcc` per source, all started together, and the objects are linked into
 one shared library with a plain C interface, which is loaded with `ctypes`
 (no PyTorch headers, so a build takes seconds, not minutes). The wgmma
-kernels share `csrc/sm90.cuh`, which fetches the driver's TMA tensor-map
-encoder through the runtime, so nothing links against libcuda. The library
-goes to `build/kernels/<hash of the sources, headers and flags>/` beside
-the package, so an edited source or header is rebuilt and an unchanged one
-is reused. Nothing here runs at import time: the CPU tests import every
-module on a machine with no `nvcc`.
+kernels and the split decode kernels share `csrc/sm90.cuh`, which fetches
+the TMA tensor-map encoder (cuTensorMapEncodeTiled) through the runtime,
+so nothing links against libcuda. The library goes to `build/kernels/<hash of the sources,
+headers and flags>/` beside the package, so an edited source or header is
+rebuilt and an unchanged one is reused. Nothing here runs at import time:
+the CPU tests import every module on a machine with no `nvcc`.
 """
 
 from __future__ import annotations
@@ -42,13 +42,19 @@ _ENTRIES = {
     # the same with dk, dv in place of dq
     "lhrs_flash_bwd_dkv": [_P] * 11 + [_I] * 6 + [ctypes.c_float, _P],
     # q, k_new, v_new, k_cache, v_cache, lengths, out, layer, L, B, H, S, D,
-    # sm_scale, stream
-    "lhrs_fused_decode_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                               _I, _I, ctypes.c_float, _P],
+    # sm_scale, splits, fault, stream
+    "lhrs_fused_decode_bf16": [_P] * 7 + [_I] * 6 + [ctypes.c_float, _I, _I,
+                                                     _P],
+    # D, splits, count (int*)
+    "lhrs_fused_decode_bf16_max_clusters": [_I, _I, _P],
     # q, k_new, k_new_scale, v_new, v_new_scale, k_cache, v_cache, k_scale,
-    # v_scale, lengths, out, layer, L, B, H, S, D, sm_scale, stream
-    "lhrs_fused_decode_q": [_P] * 11 + [_I] * 6 + [ctypes.c_float, _P],
-    # the same, then block_s, stream
+    # v_scale, lengths, out, layer, L, B, H, S, D, sm_scale, splits, fault,
+    # stream
+    "lhrs_fused_decode_q": [_P] * 11 + [_I] * 6 + [ctypes.c_float, _I, _I,
+                                                   _P],
+    # D, splits, count (int*)
+    "lhrs_fused_decode_q_max_clusters": [_I, _I, _P],
+    # q .. sm_scale as lhrs_fused_decode_q, then block_s, stream
     "lhrs_fused_decode_q_int8dots": [_P] * 11 + [_I] * 6 + [ctypes.c_float,
                                                             _I, _P],
     # cache, new_vals, lengths, B, H, S, row bytes, stream

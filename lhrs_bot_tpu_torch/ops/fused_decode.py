@@ -16,6 +16,12 @@ csrc/fused_decode_q.cu), which read `lengths` on the device, so a decode
 step never waits on the host. There is no fallback: what a kernel does not
 take raises.
 
+K2 and K4 (the bf16-dot kernel of the int8 cache) split each head's rows
+across a thread-block cluster of C CTAs in one launch
+(csrc/decode_split.cuh); `decode_split_plan` picks C per shape, and
+`decode_shares` / `split_decode_attention_plain` are the plain picture of
+the split and its merge, for the tests and the card's checks.
+
 `int8_dots=None` reads `LHRS_DECODE_INT8_DOTS` at every call ("1" turns it
 on), as the JAX package resolves it outside its jit; with no jit here, a
 change of the variable takes effect at the next call.
@@ -23,9 +29,10 @@ change of the variable takes effect at the next call.
 
 from __future__ import annotations
 
+import functools
 import math
 import os
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -64,12 +71,204 @@ def fused_decode_attention_plain(q, k_new, v_new, k_cache, v_cache, lengths,
     return out, k_cache, v_cache
 
 
+# A CTA's share of a head's rows starts at a multiple of SPLIT_ROWS (the 32
+# key groups times 4 keys of the one-CTA walk), so key j stays in group
+# j % 32 whatever the split.
+SPLIT_ROWS = 128
+SPLITS = (8, 4, 2, 1)  # the cluster sizes the kernels take
+# The sizes the plan picks from, the largest first. On the H100 (PERF.md
+# section 6) 2 beat 4 and 8 for K2 and K4 at B = 1 and 2 with 32
+# heads: a GPC holds fewer clusters of 4 or 8 than its SMs would allow (62
+# of 4 and 30 of 8 resident, not 66 and 33), so 32 clusters of 8 take two
+# waves and 4-CTA clusters share SMs.
+PLAN_SPLITS = (2, 1)
+# Per CTA of the split kernels (csrc/decode_split.cuh `Layout`): a ring of
+# 3 stages of 16 KB of K rows and 16 KB of V rows (and 4 bytes a row of
+# each scale plane for int8), the ranks' folded states, the new rows and
+# a row of zeros, the barriers.
+_STAGES, _STAGE_BYTES = 3, 16384
+# An SM's shared memory, what each CTA reserves of it, and the CTAs its
+# registers hold (288 threads held to 112 registers: 2 CTAs)
+_SM_SHARED, _CTA_RESERVED, _REGISTER_CTAS = 233472, 1024, 2
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def decode_smem_bytes(d: int, elt: int) -> int:
+    """Shared memory of one CTA of the split kernel for head dim d and
+    cache elements of elt bytes (2: bf16, 1: int8 with scales)."""
+    row = d * elt
+    scales = 2 * (_STAGE_BYTES // row) * 4 if elt == 1 else 0
+    return (_STAGES * (2 * _STAGE_BYTES + scales) + max(SPLITS) * (d + 4) * 4
+            + 3 * row + 16 + 2 * _STAGES * 8)
+
+
+def decode_resident_ctas(d: int, elt: int, sm_count: int) -> int:
+    """CTAs of the split kernel that `sm_count` SMs hold at once, by its
+    shared memory and registers."""
+    per_sm = min(_REGISTER_CTAS,
+                 _SM_SHARED // (decode_smem_bytes(d, elt) + _CTA_RESERVED))
+    return per_sm * sm_count
+
+
+@functools.lru_cache(maxsize=None)
+def decode_split_plan(b: int, h: int, s: int, d: int, elt: int,
+                      sm_count: int) -> int:
+    """C, the CTAs of a cluster that split each (b, h)'s rows: 1 wherever
+    B * H alone reaches the SM count, else the largest of PLAN_SPLITS whose
+    B * H * C CTAs are all resident at once (one wave) and that is no more
+    than S's SPLIT_ROWS blocks. Cached per shape."""
+    if min(b, h, s, sm_count) <= 0 or d not in (64, 128) or elt not in (1, 2):
+        raise ValueError(f"bad decode shape B{b} H{h} S{s} D{d} elt {elt} "
+                         f"on {sm_count} SMs")
+    if b * h >= sm_count:
+        return 1
+    for c in PLAN_SPLITS:
+        if (c * b * h <= decode_resident_ctas(d, elt, sm_count)
+                and c <= _cdiv(s, SPLIT_ROWS)):
+            return c
+    return 1
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: int) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def decode_launch_splits(device, b: int, h: int, s: int, d: int,
+                         elt: int) -> int:
+    """The C that the kernel wrappers launch with on the card `device`:
+    `decode_split_plan` at its SM count, read once."""
+    idx = torch.device(device).index
+    return decode_split_plan(b, h, s, d, elt,
+                             _sm_count(0 if idx is None else idx))
+
+
+def decode_shares(n_valid: int, splits: int) -> List[Tuple[int, int]]:
+    """Rows [start, end) of each rank of a cluster of `splits` CTAs over a
+    head's n_valid rows, as the kernels take them on the device: whole
+    SPLIT_ROWS blocks, as many for every rank (the last non-empty one may
+    end early, trailing ones may be empty)."""
+    share = _cdiv(_cdiv(n_valid, SPLIT_ROWS), splits) * SPLIT_ROWS
+    return [(min(r * share, n_valid), min((r + 1) * share, n_valid))
+            for r in range(splits)]
+
+
+# the kernels' key groups: 8 lanes a key, 256 threads
+_GROUPS = 32
+
+
+def split_decode_attention_plain(q, kl, vl, lengths, splits: int, *,
+                                 sm_scale: float, k_scale=None, v_scale=None,
+                                 fault: int = 0) -> torch.Tensor:
+    """The split kernels' softmax in plain float32: q (B, H, 1, D) over the
+    first lengths[b] + 1 rows of the (already appended) layer views kl, vl
+    (B, H, S, D), with the int8 cache's (B, H, S) scale planes if given.
+    Row j of rank r's share (`decode_shares`) goes to state r * 32 + j % 32;
+    each state keeps its max, sum and accumulator; each rank folds its 32
+    states, then rank 0 folds the ranks' in order. fault=1 leaves the last
+    rank out, as the kernels' planted fault does. Used by the tests and the
+    card's checks; returns float32 (B, H, 1, D)."""
+    b, h, _, d = kl.shape
+    out = torch.empty((b, h, d), dtype=torch.float32, device=q.device)
+    qf = q.float()[:, :, 0] * sm_scale                         # (B, H, D)
+    for bi in range(b):
+        n = int(lengths[bi]) + 1
+        share = decode_shares(n, splits)[0][1]
+        rows = torch.arange(n, device=q.device)
+        state = (rows // share) * _GROUPS + rows % _GROUPS    # (n,)
+        ns = splits * _GROUPS
+        sc = torch.einsum("hd,hnd->hn", qf[bi], kl[bi, :, :n].float())
+        if k_scale is not None:
+            sc = sc * k_scale[bi, :, :n].float()
+        m = torch.full((h, ns), _NEG_INF, device=q.device).scatter_reduce(
+            1, state.expand(h, n), sc, "amax")
+        p = torch.exp(sc - m[:, state])
+        pw = p * v_scale[bi, :, :n].float() if v_scale is not None else p
+        l = torch.zeros(h, ns, device=q.device).index_add(1, state, p)
+        acc = torch.zeros(h, ns, d, device=q.device).index_add(
+            1, state, pw[..., None] * vl[bi, :, :n].float())
+        m = m.view(h, splits, _GROUPS)
+        mx = m.amax(-1)                                        # (H, C)
+        w = torch.exp(m - mx[..., None])
+        den = (l.view(h, splits, _GROUPS) * w).sum(-1)
+        num = (acc.view(h, splits, _GROUPS, d) * w[..., None]).sum(-2)
+        if fault == 1 and splits > 1:
+            mx, den, num = mx[:, :-1], den[:, :-1], num[:, :-1]
+        w = torch.exp(mx - mx.amax(-1, keepdim=True))
+        out[bi] = (num * w[..., None]).sum(1) / (den * w).sum(1)[..., None]
+    return out[:, :, None, :]
+
+
+def fused_decode_attention_split_plain(q, k_new, v_new, k_cache, v_cache,
+                                       lengths, layer: int, *, splits: int,
+                                       sm_scale: Optional[float] = None,
+                                       fault: int = 0):
+    """`fused_decode_attention_plain` with the attention of
+    `split_decode_attention_plain` (float32 output)."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    kl = _write_at(k_cache[layer], k_new, lengths)
+    vl = _write_at(v_cache[layer], v_new, lengths)
+    out = split_decode_attention_plain(q, kl, vl, lengths, splits,
+                                       sm_scale=sm_scale, fault=fault)
+    return out, k_cache, v_cache
+
+
+def fused_decode_attention_q_split_plain(q, k_new, k_new_scale, v_new,
+                                         v_new_scale, k_cache, v_cache,
+                                         k_scale, v_scale, lengths,
+                                         layer: int, *, splits: int,
+                                         sm_scale: Optional[float] = None,
+                                         fault: int = 0):
+    """`fused_decode_attention_q_plain` with the attention of
+    `split_decode_attention_plain` (float32 output)."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    kl = _write_at(k_cache[layer], k_new, lengths)
+    vl = _write_at(v_cache[layer], v_new, lengths)
+    ksl = _write_scale_at(k_scale[layer], k_new_scale, lengths)
+    vsl = _write_scale_at(v_scale[layer], v_new_scale, lengths)
+    out = split_decode_attention_plain(q, kl, vl, lengths, splits,
+                                       sm_scale=sm_scale, k_scale=ksl,
+                                       v_scale=vsl, fault=fault)
+    return out, k_cache, v_cache, k_scale, v_scale
+
+
+def _check_splits(splits: Optional[int]) -> None:
+    if splits is not None and splits not in SPLITS:
+        raise ValueError(f"splits must be one of {sorted(SPLITS)}, got "
+                         f"{splits}")
+
+
+def decode_max_clusters(d: int, splits: int, *, int8: bool) -> int:
+    """How many clusters of `splits` CTAs of K4 (int8) or K2 can be
+    resident on the current card at once (`cudaOccupancyMaxActiveClusters`)."""
+    import ctypes
+
+    _check_splits(splits)
+    count = ctypes.c_int(0)
+    lib = cuda_lib.load_library()
+    fn = (lib.lhrs_fused_decode_q_max_clusters if int8 else
+          lib.lhrs_fused_decode_bf16_max_clusters)
+    cuda_lib.check(fn(int(d), int(splits), ctypes.addressof(count)),
+                   "decode_max_clusters")
+    return count.value
+
+
 def fused_decode_attention_kernel(q, k_new, v_new, k_cache, v_cache, lengths,
-                                  layer: int, sm_scale: float):
-    """Launch the CUDA fused decode kernel. Takes contiguous bf16 CUDA
+                                  layer: int, sm_scale: float, *,
+                                  splits: Optional[int] = None,
+                                  fault: int = 0):
+    """Launch the CUDA fused decode kernel (K2). Takes contiguous bf16 CUDA
     tensors (D 64 or 128) and int32 lengths on the same device; raises on
-    anything else. Counts its launches in
+    anything else. `splits` forces the cluster size that
+    `decode_launch_splits` picks (for the card's checks and the A/B);
+    `fault` plants an error for a check. Counts its launches in
     `fused_decode_attention_kernel.launches`."""
+    _check_splits(splits)
     tensors = (q, k_new, v_new, k_cache, v_cache, lengths)
     if not all(t.is_cuda and t.device == q.device for t in tensors):
         raise ValueError("fused_decode_attention_kernel takes CUDA tensors "
@@ -95,6 +294,7 @@ def fused_decode_attention_kernel(q, k_new, v_new, k_cache, v_cache, lengths,
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     if not 0 <= int(layer) < nl:
         raise ValueError(f"layer {layer} out of range [0, {nl})")
+    splits = splits or decode_launch_splits(q.device, b, h, s, d, 2)
     lib = cuda_lib.load_library()
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
@@ -103,7 +303,7 @@ def fused_decode_attention_kernel(q, k_new, v_new, k_cache, v_cache, lengths,
             q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
             k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
             out.data_ptr(), int(layer), nl, b, h, s, d, float(sm_scale),
-            stream)
+            int(splits), int(fault), stream)
     cuda_lib.check(err, "fused_decode_attention_kernel")
     fused_decode_attention_kernel.launches += 1
     return out, k_cache, v_cache
@@ -159,23 +359,29 @@ def fused_decode_attention_q_plain(q, k_new, k_new_scale, v_new, v_new_scale,
 def fused_decode_attention_q_kernel(q, k_new, k_new_scale, v_new,
                                     v_new_scale, k_cache, v_cache, k_scale,
                                     v_scale, lengths, layer: int,
-                                    sm_scale: float):
-    """Launch the CUDA int8-cache fused decode kernel. Takes contiguous
+                                    sm_scale: float, *,
+                                    splits: Optional[int] = None,
+                                    fault: int = 0):
+    """Launch the CUDA int8-cache fused decode kernel (K4). Takes contiguous
     CUDA tensors on one device: bf16 q (B, H, 1, D) with D 64 or 128, int8
     k/v rows (B, H, 1, D) and caches (L, B, H, S, D), float32 row scales
     (B, H, 1) and scale planes (L, B, H, S), int32 lengths (B,). Raises on
-    anything else. Counts its launches in
+    anything else. `splits` and `fault` as in
+    `fused_decode_attention_kernel`. Counts its launches in
     `fused_decode_attention_q_kernel.launches`."""
+    _check_splits(splits)
     return _launch_q(q, k_new, k_new_scale, v_new, v_new_scale, k_cache,
                      v_cache, k_scale, v_scale, lengths, layer, sm_scale, 0,
-                     fused_decode_attention_q_kernel)
+                     fused_decode_attention_q_kernel, splits, fault)
 
 
 def _launch_q(q, k_new, k_new_scale, v_new, v_new_scale, k_cache, v_cache,
-              k_scale, v_scale, lengths, layer, sm_scale, block_s, wrapper):
+              k_scale, v_scale, lengths, layer, sm_scale, block_s, wrapper,
+              splits=None, fault=0):
     """Check the int8-cache kernels' inputs and launch one of them: the
-    bf16-dot kernel for block_s 0, the int8-dot kernel otherwise; count the
-    launch on `wrapper`."""
+    split bf16-dot kernel for block_s 0 (`splits` CTAs a head, or the
+    plan's), the int8-dot kernel otherwise; count the launch on
+    `wrapper`."""
     names = ("q", "k_new", "k_new_scale", "v_new", "v_new_scale", "k_cache",
              "v_cache", "k_scale", "v_scale", "lengths")
     tensors = (q, k_new, k_new_scale, v_new, v_new_scale, k_cache, v_cache,
@@ -220,9 +426,11 @@ def _launch_q(q, k_new, k_new_scale, v_new, v_new_scale, k_cache, v_cache,
                 int(layer), nl, b, h, s, d, float(sm_scale), int(block_s),
                 stream)
         else:
+            splits = splits or decode_launch_splits(q.device, b, h, s, d, 1)
             err = lib.lhrs_fused_decode_q(
                 *(t.data_ptr() for t in tensors), out.data_ptr(),
-                int(layer), nl, b, h, s, d, float(sm_scale), stream)
+                int(layer), nl, b, h, s, d, float(sm_scale), int(splits),
+                int(fault), stream)
     cuda_lib.check(err, wrapper.__name__)
     wrapper.launches += 1
     return out, k_cache, v_cache, k_scale, v_scale
