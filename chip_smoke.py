@@ -34,7 +34,10 @@ Phases, one or more lines each:
      versions, and the fused
      W8A8 tower at full depth against the bf16 tower, with a planted fault;
      the paged decode pair (bf16 and int8 pools) at L32 H32 D128, pages of
-     128 and 16, eight rows around page boundaries and a ghost row,
+     128 and 16 (int8, split across a cluster: also 48, at the plan's C and
+     at 1, 2, 4, 8, bit for bit K4 at the same C on the gathered rows, a
+     bad page id in rank 1's share giving NaN and no write, a planted
+     merge fault), eight rows around page boundaries and a ghost row,
      shuffled pages, the null and unallocated pages poisoned, pools
      byte-equal to plain's; the training kernels (the forward's LSE and
      segment ids, the dQ and dK/dV backward kernels) at the decoder's
@@ -44,8 +47,10 @@ Phases, one or more lines each:
      plain version with a planted fault, twice for bit-identical
      gradients; the bench path's kernels: the int8-dots variant of the
      int8-cache decode kernel (L32 B2 H32 S2304 D128, lengths around a
-     block edge and the main path's, block_s 512 and 96, within 1e-5, a
-     planted fault: the probability row's scale over the whole row), the
+     block edge and the main path's, block_s 512 and 96, at the plan's
+     cluster size and at 1, 2, 4, 8, within 1e-5; planted faults: the
+     probability row's scale over the whole row, the last rank's int32
+     P.V left out of the cluster's exchange), the
      cache row write (B8 H32 S2304 D128 bf16, byte-equal, a full row
      untouched), the two HBM readers over 1.4 GB buffers (a unique
      maximum planted at six places in turn, and a reader that skips a
@@ -67,7 +72,7 @@ Phases, one or more lines each:
      W4A8 a prefill/decode consistency check with planted faults. Then,
      from the bf16 engine's parameters, paged against contiguous decode on
      the same cache contents (bf16 and int8 caches, with a swapped-page
-     fault), the paged prefill against the contiguous one in float32 on
+     fault; the int8 side as served, equal logits), the paged prefill against the contiguous one in float32 on
      the first layers (a shared prefix, two planted faults), a 12-request serving wave through the contiguous
      scheduler, the paged scheduler (a pool of 4 x 2304 tokens), the paged
      one with prefill_chunk 512, and, from the int8 engine's (bits 8,
@@ -544,14 +549,15 @@ def phase_decode_split(dev, gen, int8):
                 "exact")
             del caches
         del ref, lay
-        # C = 1 is the one-CTA design: the paged kernel's bits
+        # C = 1 is the one-CTA design: the bf16 paged kernel's bits, and
+        # the int8 paged kernel's at one CTA a head
         pools, table = as_pages(x)
         one = decode_kernel(x, [t[:2].clone() for t in decode_caches(x)], 1,
                             splits=1)
         if int8:
             paged = pf.paged_fused_decode_q_kernel(
                 x["q"], x["kn"], x["kns"], x["vn"], x["vns"], *pools, table,
-                x["lens"], 1, d ** -0.5)[0]
+                x["lens"], 1, d ** -0.5, splits=1)[0]
         else:
             paged = pf.paged_fused_decode_kernel(
                 x["q"], x["kn"], x["vn"], *pools, table, x["lens"], 1,
@@ -847,10 +853,13 @@ def int8dots_fault_case(dev, gen, nl, h, s, d, scale):
 def phase_bench_kernels(dev):
     """The bench path's kernels against their plain versions: the int8-dots
     variant of the int8-cache decode kernel at L32 B2 H32 S2304 D128
-    (lengths around a block edge and the main path's, block_s 512 and 96;
-    output within INT8DOTS_ATOL, caches and planes byte-equal; a planted
-    fault, the p scale taken over the whole row, must exceed that bound at
-    the main path's lengths and on a crafted row), the cache row write at B8
+    (lengths around a block edge and the main path's, block_s 512 and 96,
+    at the plan's cluster size and at C = 1, 2, 4, 8; output within
+    INT8DOTS_ATOL, caches and planes byte-equal; a planted fault, the p
+    scale taken over the whole row, must exceed that bound at every C at
+    the main path's lengths and on a crafted row; a planted exchange fault,
+    the last rank's int32 P.V left out, must exceed it at C = 2, 4, 8 and
+    match the plain split's), the cache row write at B8
     H32 S2304 D128 bf16 (byte-equal; rows 0 and S - 1, a full row left
     untouched), the HBM readers over 1.4 GB int8 and bf16 buffers (a
     unique maximum planted at six places in turn, each read back; a reader
@@ -865,9 +874,11 @@ def phase_bench_kernels(dev):
     from lhrs_bot_tpu_torch.ops.cache_update import (
         cache_row_update_kernel, cache_row_update_plain)
     from lhrs_bot_tpu_torch.ops.fused_decode import (
-        fused_decode_attention_q_int8dots_kernel,
+        SPLITS, fused_decode_attention_q_int8dots_kernel,
         fused_decode_attention_q_int8dots_plain,
-        fused_decode_attention_q_kernel)
+        fused_decode_attention_q_int8dots_split_plain,
+        fused_decode_attention_q_kernel, int8dots_launch_splits,
+        int8dots_max_clusters)
 
     gen = torch.Generator(device=dev).manual_seed(6)
     out = {}
@@ -879,7 +890,8 @@ def phase_bench_kernels(dev):
     def scales(*shape):
         return torch.rand(shape, generator=gen, device=dev) * 0.025 + 0.005
 
-    # the int8-dots decode kernel
+    # the int8-dots decode kernel, at the plan's cluster size and every
+    # forced one
     nl, h, s, d = 32, 32, 2304, 128
     scale = d ** -0.5
     dots = {"max_abs_err": 0.0}
@@ -889,30 +901,35 @@ def phase_bench_kernels(dev):
                     dtype=torch.bfloat16)
     kn, vn = codes(2, h, 1, d), codes(2, h, 1, d)
     kns, vns = scales(2, h, 1), scales(2, h, 1)
+    split_runs = (None,) + tuple(sorted(SPLITS))
+    main_case = {}
     for lengths in ([511, 2191], [512, 700], [2191, 700]):
         lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
         for block_s, layer in ((512, 0), (512, 31), (96, 5)):
-            mine = [t.clone() for t in (kc, vc, ks, vs)]
-            got = fused_decode_attention_q_int8dots_kernel(
-                q, kn, kns, vn, vns, *mine, lens, layer, scale, block_s)[0]
             plain = [t.clone() for t in (kc, vc, ks, vs)]
             ref = fused_decode_attention_q_int8dots_plain(
                 q, kn, kns, vn, vns, *plain, lens, layer, sm_scale=scale,
                 block_s=block_s)[0]
-            torch.cuda.synchronize()
-            err = check_within(f"int8 dots lengths {lengths} block_s "
-                               f"{block_s} layer {layer}", got, ref,
-                               INT8DOTS_ATOL)
-            if not all(torch.equal(a, c) for a, c in zip(mine, plain)):
-                raise AssertionError(f"int8 dots lengths {lengths} layer "
-                                     f"{layer}: caches or planes differ")
-            dots["max_abs_err"] = max(dots["max_abs_err"], err)
-            log(f"  int8 dots cache {(nl, 2, h, s, d)} lengths {lengths} "
-                f"block_s {block_s} layer {layer}: max_abs_err {err:.3e} "
-                f"(bound {INT8DOTS_ATOL:g}), caches and planes exact")
-            if lengths == [2191, 700] and block_s == 512 and layer == 0:
-                main_case = (got, lens, layer)
-            del mine, plain
+            plan = int8dots_launch_splits(dev, 2, h, s, d, block_s)
+            for splits in split_runs:
+                mine = [t.clone() for t in (kc, vc, ks, vs)]
+                got = fused_decode_attention_q_int8dots_kernel(
+                    q, kn, kns, vn, vns, *mine, lens, layer, scale, block_s,
+                    splits=splits)[0]
+                torch.cuda.synchronize()
+                label = (f"int8 dots lengths {lengths} block_s {block_s} "
+                         f"layer {layer} C={splits or plan}")
+                err = check_within(label, got, ref, INT8DOTS_ATOL)
+                if not all(torch.equal(a, c) for a, c in zip(mine, plain)):
+                    raise AssertionError(f"{label}: caches or planes differ")
+                dots["max_abs_err"] = max(dots["max_abs_err"], err)
+                log(f"  {label}{' (plan)' if splits is None else ''}: "
+                    f"max_abs_err {err:.3e} (bound {INT8DOTS_ATOL:g}), "
+                    "caches and planes exact")
+                if lengths == [2191, 700] and block_s == 512 and layer == 0:
+                    main_case[splits or plan] = got
+                del mine
+            del plain
 
     def whole_row_fault(name, q, kn, kns, vn, vns, kc, vc, ks, vs, lens,
                         layer, got):
@@ -929,31 +946,72 @@ def phase_bench_kernels(dev):
         raise AssertionError(f"int8 dots {name}: the whole-row p scale "
                              "passes the kernel's check")
 
-    got, lens, layer = main_case
-    fault = whole_row_fault("lengths [2191, 700]", q, kn, kns, vn, vns, kc,
-                            vc, ks, vs, lens, layer, got)
-    dots["fault_max_abs_diff"] = fault
+    lens = torch.tensor([2191, 700], dtype=torch.int32, device=dev)
+    dots["fault_max_abs_diff"] = {}
+    for c, got in sorted(main_case.items()):
+        fault = whole_row_fault(f"lengths [2191, 700] C={c}", q, kn, kns, vn,
+                                vns, kc, vc, ks, vs, lens, 0, got)
+        dots["fault_max_abs_diff"][f"c{c}"] = fault
     log(f"  int8 dots lengths [2191, 700] block_s 512 layer 0: planted fault "
-        f"(p scale over the whole row) {fault:.3e}, above the bound")
+        f"(p scale over the whole row) off by {dots['fault_max_abs_diff']} "
+        "at C = 1, 2, 4, 8, above the bound")
     case = int8dots_fault_case(dev, gen, nl, h, s, d, scale)
-    got = fused_decode_attention_q_int8dots_kernel(
-        *[t.clone() for t in case[:9]], case[9], 0, scale, 512)[0]
     ref = fused_decode_attention_q_int8dots_plain(
         *[t.clone() for t in case[:9]], case[9], 0, sm_scale=scale,
         block_s=512)[0]
-    torch.cuda.synchronize()
-    err = check_within("int8 dots, mass outside the peak's block", got, ref,
-                       INT8DOTS_ATOL)
-    fault = whole_row_fault("mass outside the peak's block", *case, 0, got)
-    dots["crafted_fault_max_abs_diff"] = fault
-    log(f"  int8 dots, mass outside the peak's block (length 2191): "
-        f"max_abs_err {err:.3e}; planted fault (p scale over the whole row) "
-        f"{fault:.3e}, above the bound")
+    dots["crafted_fault_max_abs_diff"] = {}
+    for splits in sorted(SPLITS):
+        got = fused_decode_attention_q_int8dots_kernel(
+            *[t.clone() for t in case[:9]], case[9], 0, scale, 512,
+            splits=splits)[0]
+        torch.cuda.synchronize()
+        err = check_within(f"int8 dots, mass outside the peak's block, "
+                           f"C={splits}", got, ref, INT8DOTS_ATOL)
+        dots["max_abs_err"] = max(dots["max_abs_err"], err)
+        dots["crafted_fault_max_abs_diff"][f"c{splits}"] = whole_row_fault(
+            f"mass outside the peak's block C={splits}", *case, 0, got)
+    log(f"  int8 dots, mass outside the peak's block (length 2191), C = 1, "
+        f"2, 4, 8: within the bound; planted fault (p scale over the whole "
+        f"row) off by {dots['crafted_fault_max_abs_diff']}, above it")
+    # the planted exchange fault: rank 0 leaves the last rank's int32 P.V
+    # columns out; it must fail the check and match the plain split's
+    dots["exchange_fault_max_abs_diff"] = {}
+    for splits in (2, 4, 8):
+        bad = fused_decode_attention_q_int8dots_kernel(
+            q, kn, kns, vn, vns, kc.clone(), vc.clone(), ks.clone(),
+            vs.clone(), lens, 0, scale, 512, splits=splits, fault=1)[0]
+        bad_ref = fused_decode_attention_q_int8dots_split_plain(
+            q, kn, kns, vn, vns, kc.clone(), vc.clone(), ks.clone(),
+            vs.clone(), lens, 0, sm_scale=scale, block_s=512, splits=splits,
+            fault=1)[0]
+        torch.cuda.synchronize()
+        try:
+            check_within(f"int8 dots exchange fault C={splits}", bad,
+                         main_case[splits], INT8DOTS_ATOL)
+        except AssertionError as e:
+            log(f"  int8 dots planted exchange fault (rank 0 leaves rank "
+                f"{splits - 1}'s int32 P.V out) fails the check as it must: "
+                f"{e}")
+        else:
+            raise AssertionError(f"int8 dots C={splits}: the planted "
+                                 "exchange fault passes")
+        err = check_within(f"int8 dots exchange fault C={splits} vs the "
+                           "plain split", bad, bad_ref, INT8DOTS_ATOL)
+        dots["exchange_fault_max_abs_diff"][f"c{splits}"] = float(
+            (bad.float() - main_case[splits].float()).abs().max())
+        log(f"  int8 dots planted exchange fault C={splits} vs the plain "
+            f"split's: max_abs_err {err:.3e}")
     del case, main_case
-    lens = torch.tensor([2191, 700], dtype=torch.int32, device=dev)
     turn = iter(range(10**9))
+    dots["splits"] = int8dots_launch_splits(dev, 2, h, s, d, 512)
+    dots["resident_clusters"] = int8dots_max_clusters(d, 512, dots["splits"])
     dots["ms"] = cuda_ms(lambda: fused_decode_attention_q_int8dots_kernel(
         q, kn, kns, vn, vns, kc, vc, ks, vs, lens, next(turn) % nl, scale))
+    for c in sorted(SPLITS):
+        dots[f"ms_c{c}"] = cuda_ms(
+            lambda: fused_decode_attention_q_int8dots_kernel(
+                q, kn, kns, vn, vns, kc, vc, ks, vs, lens, next(turn) % nl,
+                scale, splits=c))
     dots["k4_ms"] = cuda_ms(lambda: fused_decode_attention_q_kernel(
         q, kn, kns, vn, vns, kc, vc, ks, vs, lens, next(turn) % nl, scale))
     dots["plain_ms"] = cuda_ms(
@@ -966,10 +1024,12 @@ def phase_bench_kernels(dev):
                                                      lens + 1))
     dots["bound_ms"], dots["bound_by"] = decode_bound(lens, h, d, 1)
     log(f"  int8 dots time per layer call (B2, lengths [2191, 700], block_s "
-        f"512): kernel {dots['ms']:.4f} ms (K4, bf16 dots, same call: "
-        f"{dots['k4_ms']:.4f} ms), plain {dots['plain_ms']:.4f} ms, library "
-        f"(SDPA over the dequantized bf16 cache) {dots['library_ms']:.4f} "
-        f"ms, bound {dots['bound_ms']:.4f} ms ({dots['bound_by']})")
+        f"512): kernel {dots['ms']:.4f} ms (C = {dots['splits']}; "
+        + ", ".join(f"C={c} {dots[f'ms_c{c}']:.4f}" for c in sorted(SPLITS))
+        + f"; K4, bf16 dots, same call: {dots['k4_ms']:.4f} ms), plain "
+        f"{dots['plain_ms']:.4f} ms, library (SDPA over the dequantized bf16 "
+        f"cache) {dots['library_ms']:.4f} ms, bound {dots['bound_ms']:.4f} "
+        f"ms ({dots['bound_by']})")
     out["int8dots"] = dots
     del kc, vc, ks, vs, deq
     torch.cuda.empty_cache()
@@ -1214,21 +1274,50 @@ def paged_args(case, pools, int8):
             case["page_table"], case["lengths"])
 
 
+PAGED_SIZES = (128, 48, 16)  # pages: the serving paths', stages that
+# cross pages (48: a 128-row stage spans three), the CPU tests' 16
+PAGED_BAD_ENTRY = 12  # row 0's entry in rank 1's share at C = 2 (page 128)
+
+
+def paged_gathered_k4(case, pools, layer, splits):
+    """K4 at `splits` on the case's rows gathered from the pools (before
+    the append) into a one-layer contiguous cache: the paged int8 kernel's
+    bits at that C."""
+    from lhrs_bot_tpu_torch.ops import fused_decode as fd
+    from lhrs_bot_tpu_torch.ops.paged_fused import _gather_pages
+
+    cont = [_gather_pages(p[layer], case["page_table"])[None].contiguous()
+            for p in pools]
+    return fd.fused_decode_attention_q_kernel(
+        case["q"], case["k_new"], case["k_new_scale"], case["v_new"],
+        case["v_new_scale"], *cont, case["lengths"], 0, 128 ** -0.5,
+        splits=splits)[0]
+
+
 def phase_paged_kernels(dev):
     """The paged decode pair against their plain versions at L32 H32 D128:
     eight rows around page boundaries plus a ghost row, shuffled pages, the
-    null and unallocated pages poisoned, pages of 128 and 16, layers 0 and
-    31. Outputs of the live rows within ATOL + RTOL of plain and unmoved by
-    the poison (equal to a run on unpoisoned pools); pools and scale pages
-    byte-equal to plain's and to the inputs with the appended rows written.
-    Times at page 128, with the library call (scaled_dot_product_attention
-    over the gathered, already-appended cache) and the bound."""
+    null and unallocated pages poisoned, layers 0 and 31; the bf16 pool at
+    pages of 128 and 16, the int8 pool (the split kernel) at pages of 128,
+    48 and 16 at the plan's cluster size and every forced one. Outputs of
+    the live rows within ATOL + RTOL of plain and unmoved by the poison
+    (equal to a run on unpoisoned pools); pools and scale pages byte-equal
+    to plain's and to the inputs with the appended rows written. The int8
+    kernel also: bit for bit K4 at the same C on the rows gathered from the
+    pages; a page id outside the pool in rank 1's share of row 0 gives NaN
+    for row 0 alone and writes nothing of it, at every C (no hang); a
+    planted merge fault (the last rank left out) fails the check and
+    matches the plain split's. Times at page 128 (int8: every C), with the
+    library call (scaled_dot_product_attention over the gathered,
+    already-appended cache) and the bound."""
     import torch
 
+    from lhrs_bot_tpu_torch.ops import fused_decode as fd
     from lhrs_bot_tpu_torch.ops.paged_fused import (
         _append_target, _gather_pages, paged_fused_decode_kernel,
-        paged_fused_decode_plain,
-        paged_fused_decode_q_kernel, paged_fused_decode_q_plain)
+        paged_fused_decode_plain, paged_fused_decode_q_kernel,
+        paged_fused_decode_q_plain, paged_fused_decode_q_split_plain,
+        paged_max_clusters)
 
     gen = torch.Generator(device=dev).manual_seed(9)
     live = slice(0, len(PAGED_LENGTHS))
@@ -1241,14 +1330,17 @@ def phase_paged_kernels(dev):
         plain = paged_fused_decode_q_plain if int8 else \
             paged_fused_decode_plain
         pool_names = POOLS if int8 else POOLS[:2]
+        # the int8 kernel at the plan's C and every forced one; the bf16
+        # kernel takes no cluster
+        split_runs = (None,) + tuple(sorted(fd.SPLITS)) if int8 else (None,)
         res = {"max_abs_err": 0.0}
-        for page in (128, 16):
+        for page in PAGED_SIZES if int8 else (128, 16):
             case, used, free = paged_case(dev, gen, page, int8)
             pools = [case[p] for p in pool_names]
             lengths, table = case["lengths"], case["page_table"]
+            plan = fd.decode_launch_splits(dev, len(PAGED_LENGTHS) + 1, 32,
+                                           table.shape[1] * page, 128, 1)
             for layer in (0, 31):
-                mine = [p.clone() for p in pools]
-                got = kernel(*paged_args(case, mine, int8), layer, scale)[0]
                 ref_pools = [p.clone() for p in pools]
                 args = list(paged_args(case, ref_pools, int8))
                 args[0] = args[0].float()
@@ -1262,30 +1354,57 @@ def phase_paged_kernels(dev):
                              case["v_new_scale"][:, :, 0]]
                 for w, r in zip(want, rows):
                     w[layer, pg, :, off] = r
-                # the same call on unpoisoned pools: live outputs unmoved
+                # unpoisoned pools: live outputs unmoved by the poison
                 clean = [p.clone() for p in pools]
                 for p in clean:
                     p[:, free] = 0 if p.dtype == torch.int8 else 1
-                got_clean = kernel(*paged_args(case, clean, int8), layer,
-                                   scale)[0]
-                torch.cuda.synchronize()
-                tag = f"{name} page {page} layer {layer}"
-                err = check_close(tag, got[live], ref[live])
-                if not torch.equal(got[live], got_clean[live]):
-                    raise AssertionError(f"{tag}: live outputs move with the "
-                                         "poisoned null/unallocated pages")
-                if not all(torch.equal(a, c) for a, c in zip(mine, ref_pools)):
-                    raise AssertionError(f"{tag}: pools differ from the "
-                                         "plain version's")
-                if not all(torch.equal(a, c) for a, c in zip(mine, want)):
-                    raise AssertionError(f"{tag}: rows other than the "
-                                         "appended ones changed")
-                res["max_abs_err"] = max(res["max_abs_err"], err)
-                log(f"  {tag}: lengths {lengths.tolist()} (last a ghost row "
-                    f"of null pages), {len(used)} shuffled pages, {len(free)} "
-                    f"poisoned: max_abs_err {err:.3e}, pools exact, poison "
-                    "unseen")
-                del mine, ref_pools, want, clean
+                for splits in split_runs:
+                    kw = {"splits": splits} if int8 else {}
+                    mine = [p.clone() for p in pools]
+                    got = kernel(*paged_args(case, mine, int8), layer, scale,
+                                 **kw)[0]
+                    got_clean = kernel(
+                        *paged_args(case, [p.clone() for p in clean], int8),
+                        layer, scale, **kw)[0]
+                    torch.cuda.synchronize()
+                    c = splits or plan
+                    tag = (f"{name} page {page} layer {layer}"
+                           + (f" C={c}" if int8 else ""))
+                    err = check_close(tag, got[live], ref[live])
+                    if not torch.equal(got[live], got_clean[live]):
+                        raise AssertionError(f"{tag}: live outputs move "
+                                             "with the poisoned null/"
+                                             "unallocated pages")
+                    if not all(torch.equal(a, c_) for a, c_ in
+                               zip(mine, ref_pools)):
+                        raise AssertionError(f"{tag}: pools differ from the "
+                                             "plain version's")
+                    if not all(torch.equal(a, w) for a, w in
+                               zip(mine, want)):
+                        raise AssertionError(f"{tag}: rows other than the "
+                                             "appended ones changed")
+                    bits = ""
+                    if int8:
+                        k4 = paged_gathered_k4(case, pools, layer, c)
+                        if not torch.equal(got[live], k4[live]):
+                            raise AssertionError(f"{tag}: differs from K4 at "
+                                                 f"C = {c} on the gathered "
+                                                 "rows")
+                        bits = f", K4 at C = {c} bit for bit"
+                    res["max_abs_err"] = max(res["max_abs_err"], err)
+                    log(f"  {tag}{' (plan)' if int8 and not splits else ''}:"
+                        f" lengths {lengths.tolist()} (last a ghost row of "
+                        f"null pages), {len(used)} shuffled pages, "
+                        f"{len(free)} poisoned: max_abs_err {err:.3e}, pools "
+                        f"exact, poison unseen{bits}")
+                    del mine
+                del ref_pools, want, clean
+            if int8 and page in (128, 48):
+                paged_bad_page(case, pools, page, scale, kernel)
+            if int8 and page == 128:
+                res["fault_err"] = paged_merge_fault(
+                    case, pools, scale, kernel,
+                    paged_fused_decode_q_split_plain)
             if page == 128:
                 lens = lengths[live]
                 sub = dict(case)
@@ -1299,6 +1418,22 @@ def phase_paged_kernels(dev):
                 nl = pools[0].shape[0]
                 res["ms"] = cuda_ms(lambda: kernel(
                     *paged_args(sub, pools, int8), next(turn) % nl, scale))
+                if int8:
+                    res["splits"] = fd.decode_launch_splits(
+                        dev, len(PAGED_LENGTHS), 32, table.shape[1] * page,
+                        128, 1)
+                    res["resident_clusters"] = paged_max_clusters(
+                        128, res["splits"])
+                    sms = torch.cuda.get_device_properties(
+                        dev).multi_processor_count
+                    if res["resident_clusters"] * res["splits"] < 2 * sms:
+                        raise AssertionError(
+                            f"{name}: {res['resident_clusters']} clusters of "
+                            f"{res['splits']} resident, not 2 CTAs an SM")
+                    for c in sorted(fd.SPLITS):
+                        res[f"ms_c{c}"] = cuda_ms(lambda: kernel(
+                            *paged_args(sub, pools, int8), next(turn) % nl,
+                            scale, splits=c))
                 res["plain_ms"] = cuda_ms(lambda: plain(
                     *paged_args(sub, pools, int8), next(turn) % nl,
                     sm_scale=scale))
@@ -1312,9 +1447,14 @@ def phase_paged_kernels(dev):
                     sub["q"], kv[0], kv[1], lens + 1))
                 res["bound_ms"], res["bound_by"] = decode_bound(
                     lens, 32, 128, 1 if int8 else 2)
+                sweep = ""
+                if int8:
+                    sweep = (f" (C = {res['splits']}; " + ", ".join(
+                        f"C={c} {res[f'ms_c{c}']:.4f}"
+                        for c in sorted(fd.SPLITS)) + ")")
                 log(f"  {name} time per layer call, B8 page 128: kernel "
-                    f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
-                    f"library (SDPA, append excluded) "
+                    f"{res['ms']:.4f} ms{sweep}, plain {res['plain_ms']:.4f}"
+                    f" ms, library (SDPA, append excluded) "
                     f"{res['library_ms']:.4f} ms, bound {res['bound_ms']:.4f} "
                     f"ms ({res['bound_by']}); {smi_line()}")
                 del kv
@@ -1322,6 +1462,87 @@ def phase_paged_kernels(dev):
             torch.cuda.empty_cache()
         out[name] = res
     return out
+
+
+def paged_bad_page(case, pools, page, scale, kernel):
+    """Row 0's table entry PAGED_BAD_ENTRY names a page past the pool: at
+    every C row 0 gives NaN and nothing of it is written (its append page
+    unchanged), the other rows' outputs and appends are the good table's;
+    every rank checks every valid entry, so no rank waits for one that
+    left (a hang would trap in the barrier wait and fail the launch)."""
+    import torch
+
+    from lhrs_bot_tpu_torch.ops import fused_decode as fd
+
+    bad = dict(case)
+    bad["page_table"] = case["page_table"].clone()
+    n_pages = pools[0].shape[1]
+    bad["page_table"][0, PAGED_BAD_ENTRY * 128 // page] = n_pages + 7
+    for splits in sorted(fd.SPLITS):
+        mine = [p.clone() for p in pools]
+        good = [p.clone() for p in pools]
+        got = kernel(*paged_args(bad, mine, True), 0, scale,
+                     splits=splits)[0]
+        ref = kernel(*paged_args(case, good, True), 0, scale,
+                     splits=splits)[0]
+        torch.cuda.synchronize()
+        ap = int(case["page_table"][0, int(case["lengths"][0]) // page])
+        if not bool(got[0].isnan().all()):
+            raise AssertionError(f"paged int8 page {page} C={splits}: a bad "
+                                 "page id must give NaN")
+        if not torch.equal(got[1:len(PAGED_LENGTHS)],
+                           ref[1:len(PAGED_LENGTHS)]):
+            raise AssertionError(f"paged int8 page {page} C={splits}: a bad "
+                                 "page in row 0 moved other rows")
+        for m, g, p in zip(mine, good, pools):
+            if not torch.equal(m[0, ap], p[0, ap]):
+                raise AssertionError(f"paged int8 page {page} C={splits}: "
+                                     "row 0 wrote its append page")
+            others = [i for i in range(p.shape[1]) if i != ap]
+            if not torch.equal(m[:, others], g[:, others]):
+                raise AssertionError(f"paged int8 page {page} C={splits}: "
+                                     "other rows' appends differ")
+        del mine, good
+    log(f"  paged_fused_decode_q page {page}: row 0's entry "
+        f"{PAGED_BAD_ENTRY * 128 // page} past the pool (rank 1's share at "
+        "C = 2): NaN for row 0, nothing of it written, other rows "
+        "unchanged, at C = 1, 2, 4, 8")
+
+
+def paged_merge_fault(case, pools, scale, kernel, split_plain):
+    """The planted merge fault at C = 4 (rank 0 leaves rank 3 out, which
+    holds row 0's rows 1920.. and values of 120) must fail the check and
+    match the plain split's own fault."""
+    import torch
+
+    from lhrs_bot_tpu_torch.ops.paged_fused import paged_fused_decode_q_plain
+
+    pools = [p.clone() for p in pools]
+    pools[1][0, case["page_table"][0, 15:18].long()] = 120
+    live = slice(0, len(PAGED_LENGTHS))
+
+    def plain(fn, **kw):
+        args = list(paged_args(case, [p.clone() for p in pools], True))
+        args[0] = args[0].float()
+        return fn(*args, 0, sm_scale=scale, **kw)[0]
+
+    ref = plain(paged_fused_decode_q_plain)
+    bad_ref = plain(split_plain, splits=4, fault=1)
+    bad = kernel(*paged_args(case, [p.clone() for p in pools], True), 0,
+                 scale, splits=4, fault=1)[0]
+    torch.cuda.synchronize()
+    try:
+        check_close("paged int8 planted fault", bad[live], ref[live])
+    except AssertionError as e:
+        log(f"  paged_fused_decode_q planted fault (rank 0 leaves rank 3 "
+            f"out) fails the check as it must: {e}")
+    else:
+        raise AssertionError("paged int8: the planted merge fault passes")
+    err = check_close("paged int8 planted fault vs the plain split",
+                      bad[live], bad_ref[live])
+    log(f"  paged_fused_decode_q planted fault vs the plain split-and-merge's"
+        f": max_abs_err {err:.3e}")
+    return float((bad[live].float() - ref[live].float()).abs().max())
 
 
 VIT_W, VIT_S, VIT_S_PAD = 1024, 257, 272
@@ -1880,7 +2101,8 @@ def phase_paged_vs_contiguous(lp, lcfg, dev):
     decode step through `llama_decode_step` and one through
     `paged_decode_step`: relative L2 of the logits within PAGED_REL_L2, for
     a bf16 and an int8 cache; with one table entry swapped between the two
-    rows it must exceed it."""
+    rows it must exceed it. The int8 side runs both paths as served (the
+    plan's C on both, the same shares), so their logits must be equal."""
     import dataclasses
     import functools
     import math
@@ -1895,14 +2117,14 @@ def phase_paged_vs_contiguous(lp, lcfg, dev):
     import lhrs_bot_tpu_torch.models.llama as llama
     from lhrs_bot_tpu_torch.ops import fused_decode as fd
 
-    # the contiguous side through K2 / K4 at one CTA a head (splits=1): the
-    # paged kernels' sums, in their order
+    # the bf16 side's contiguous path through K2 at one CTA a head
+    # (splits=1): the bf16 paged kernel is not split, and C = 1 gives its
+    # sums in its order. The int8 side runs as served: K4 and the paged
+    # int8 kernel both at the plan's C (2 here), the same shares.
     scale = 1.0 / math.sqrt(lcfg.head_dim)
     splits1 = {
         "fused_decode_attention": functools.partial(
-            fd.fused_decode_attention_kernel, sm_scale=scale, splits=1),
-        "fused_decode_attention_q": lambda *args, int8_dots=None: (
-            fd.fused_decode_attention_q_kernel(*args, scale, splits=1))}
+            fd.fused_decode_attention_kernel, sm_scale=scale, splits=1)}
     rng = np.random.default_rng(2)
     plen = torch.tensor([600, 451], dtype=torch.int32, device=dev)
     ids = torch.as_tensor(rng.integers(3, lcfg.vocab_size, (2, 640)),
@@ -1932,7 +2154,7 @@ def phase_paged_vs_contiguous(lp, lcfg, dev):
         swapped = table.clone()
         swapped[0, 1], swapped[1, 1] = table[1, 1], table[0, 1]
         faulty.page_table = swapped
-        with patched(llama, **splits1):
+        with patched(llama, **(splits1 if name == "bf16" else {})):
             logits_c, _ = llama_decode_step(lp, lcfg, cache,
                                             inputs_embeds=step)
         logits_p, _ = paged_decode_step(lp, lcfg, pcache, inputs_embeds=step)
@@ -1948,6 +2170,9 @@ def phase_paged_vs_contiguous(lp, lcfg, dev):
             f"the rows) {fault}")
         if max(rel) > PAGED_REL_L2:
             raise AssertionError(f"paged decode ({name}) deviates: {rel}")
+        if name == "int8" and not torch.equal(logits_p, logits_c):
+            raise AssertionError(f"paged decode (int8, as served) differs "
+                                 f"from the contiguous one: {rel}")
         if name == "bf16":
             out["prefill"] = prefill_readings(lp, lcfg, dev, embed[ids], plen,
                                               logits, table, n_pages)
@@ -3452,7 +3677,7 @@ def main():
         row("paged_fused_decode", "paged_decode.cu", "paged_fused.py:213",
             paths["serve_paged_bf16"]["launches"],
             paged["paged_fused_decode"]),
-        row("paged_fused_decode_q", "paged_decode.cu", "paged_fused.py:52",
+        row("paged_fused_decode_q", "paged_decode_q.cu", "paged_fused.py:52",
             paths["serve_paged_int8"]["launches"],
             paged["paged_fused_decode_q"]),
         row("flash_attention_bwd_dq", "flash_bwd.cu", "attention.py:291",
@@ -3471,8 +3696,19 @@ def main():
         row("int8_chain", "int8_probe.cu", "benchmarks/int8_probe.py:95",
             bench["launches"], bench_k["int8_chain"]),
     ]
-    kernels[-4]["note"] = ("int8_dots=True; launches on the W4A8 path with "
-                           "LHRS_DECODE_INT8_DOTS=1")
+    dots = bench_k["int8dots"]
+    kernels[-4]["note"] = (
+        "int8_dots=True, block_s 512; launches on the W4A8 path with "
+        "LHRS_DECODE_INT8_DOTS=1; each block's rows split across a cluster "
+        f"of C CTAs (int8dots_split_plan: C = {dots['splits']} here), a "
+        "bulk-copy ring, the block max, p scale and int32 P.V exchanged "
+        "over distributed shared memory; every C: " + ", ".join(
+            f"C={c} {dots[f'ms_c{c}']:.4f} ms" for c in (1, 2, 4, 8)))
+    pq = paged["paged_fused_decode_q"]
+    kernels[7]["note"] = (
+        "K4's split design over pages (decode_split.cuh, one bulk copy a "
+        f"page piece); B8 page 128 at C = {pq['splits']}; every C: "
+        + ", ".join(f"C={c} {pq[f'ms_c{c}']:.4f} ms" for c in (1, 2, 4, 8)))
     for k, numbers in ((kernels[1], k2), (kernels[2], k4)):
         k["note"] = (
             "rows split across a cluster of C CTAs (decode_split_plan), "

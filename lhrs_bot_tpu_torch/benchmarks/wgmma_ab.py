@@ -2,8 +2,9 @@
 timed on the card at the main path's shapes, and the end to end numbers
 they move: kernel B (int8 GEMM), K1 (flash-attention forward), the flash
 backward (dQ and dK/dV kernels), kernel A (LayerNorm + int8 rows), K3
-(the W4A8 decode product) and K2 / K4 (the contiguous-cache decode
-attention, bf16 and int8 cache).
+(the W4A8 decode product), K2 / K4 (the contiguous-cache decode
+attention, bf16 and int8 cache), the int8-dots decode kernel 5b and the
+paged int8 decode kernel.
 
     python3 lhrs_bot_tpu_torch/benchmarks/wgmma_ab.py --root DIR --part P
 
@@ -45,7 +46,13 @@ change, parent). Parts:
       bound (bytes over 3.35 TB/s), the share of the bound, one SDPA call
       over the filled cache (int8: dequantized to bf16) and, where the
       checkout splits the rows across a cluster, the C its plan chooses and
-      the time at every C; the registers of the decode kernels from the
+      the time at every C; 5b on K4's caches with block_s 512 and 96 (and,
+      where the checkout takes `splits`, its plan and every C); the paged
+      int8 kernel at B1, B2, B7 as pages of 128 and at chip_smoke's skewed
+      B8 serving case (`PAGED_LENGTHS`, with K4 on the same lengths and
+      SDPA over the gathered, dequantized rows), every C where the checkout
+      takes `splits`; the bf16 paged kernel at the B8 case; the registers
+      of the decode kernels (contiguous, paged, int8 dots) from the
       checkout's build log.
   e2e: the bench's three tower cells (`bench.bench_prefill`, B=64), its
       decode cells (`DECODE_CELLS`: W4A8, int8 cache, bf16 cache), a W4A8
@@ -53,7 +60,9 @@ change, parent). Parts:
       bf16-cache decode step at B = 1 from 2,192 filled rows (host-clock
       ms, busy ms under torch.profiler, the decode attention kernel's
       device ms, and the launches a step of K3, its split-K epilogue, A,
-      K2 and K4), and, unless --no-train, the
+      K2 and K4), the W4A8 step again under LHRS_DECODE_INT8_DOTS=1 (5b's
+      device ms, share of the busy ms and launches), and, unless
+      --no-train, the
       2,191-token bf16 prefill (`generate`'s first step, as
       chip_profile.py times it) and a stage-1 training step on the packed
       batch and on the caption batch (host clock), each with the card's
@@ -370,7 +379,8 @@ DECODE_LENGTHS = {"B1": [2191], "B2": [2191, 700],
 
 def _decode_registers(so):
     """Registers of each decode attention kernel of the checkout's build
-    log (ptxas -v), by its mangled name."""
+    log (ptxas -v), by its mangled name: the contiguous, paged and
+    int8-dots kernels."""
     import re
 
     regs, name = {}, None
@@ -380,10 +390,58 @@ def _decode_registers(so):
             name = m.group(1)
             continue
         m = re.search(r"Used (\d+) registers", ln)
-        if m and name and "decode" in name and "paged" not in name:
+        if m and name and "decode" in name:
             regs[name] = int(m.group(1))
             name = None
     return regs
+
+
+def _takes(fn, name):
+    """Whether the checkout's wrapper `fn` takes the keyword `name` (the
+    parent's paged int8 and int8-dots kernels take no `splits`)."""
+    import inspect
+
+    return name in inspect.signature(fn).parameters
+
+
+# the paged int8 kernel's batches: DECODE_LENGTHS as pages of 128, and
+# chip_smoke's skewed B8 serving case
+PAGED_PAGE = 128
+
+
+def _paged_pools(gen, dev, lengths, nl, h, s, d, int8=True, page=PAGED_PAGE):
+    """Random int8 pools (L, N, H, page, D) with scale pages (or bf16
+    pools), each row's S / page pages in shuffled order (page 0 null), the
+    new rows and q: the paged kernel's inputs before `layer`."""
+    import torch
+
+    b, pps = len(lengths), s // page
+    n_pages = 1 + b * pps
+    table = (torch.randperm(n_pages - 1, generator=torch.Generator()
+                            .manual_seed(b)) + 1).int().reshape(b, pps)
+
+    def codes(*shape):
+        return torch.randint(-128, 128, shape, generator=gen, device=dev,
+                             dtype=torch.int8)
+
+    def scales(*shape):
+        return torch.rand(shape, generator=gen, device=dev) * 0.025 + 0.005
+
+    shape = (nl, n_pages, h, page, d)
+    q = torch.randn(b, h, 1, d, generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    if not int8:
+        def randn(*sh):
+            return torch.randn(sh, generator=gen, device=dev,
+                               dtype=torch.bfloat16)
+
+        return (q, randn(b, h, 1, d), randn(b, h, 1, d), randn(*shape),
+                randn(*shape), table.to(dev),
+                torch.tensor(lengths, dtype=torch.int32, device=dev))
+    return (q, codes(b, h, 1, d), scales(b, h, 1), codes(b, h, 1, d),
+            scales(b, h, 1), codes(*shape), codes(*shape),
+            scales(*shape[:-1]), scales(*shape[:-1]), table.to(dev),
+            torch.tensor(lengths, dtype=torch.int32, device=dev))
 
 
 def _decode(dev):
@@ -392,9 +450,13 @@ def _decode(dev):
     import chip_smoke as c
     from lhrs_bot_tpu_torch.ops import cuda_lib
     from lhrs_bot_tpu_torch.ops import fused_decode as fd
+    from lhrs_bot_tpu_torch.ops import paged_fused as pf
 
     out = {"registers": _decode_registers(cuda_lib.build())}
     split = hasattr(fd, "decode_split_plan")  # the change's clusters
+    paged_split = _takes(pf.paged_fused_decode_q_kernel, "splits")
+    dots_split = _takes(fd.fused_decode_attention_q_int8dots_kernel,
+                        "splits")
     nl, h, s, d = 32, 32, 2304, 128
     gen = torch.Generator(device=dev).manual_seed(0)
     for int8 in (False, True):
@@ -451,19 +513,119 @@ def _decode(dev):
                 for cl in fd.SPLITS:
                     row[f"ms_c{cl}"] = c.cuda_ms(lambda: call(splits=cl))
             out[f"{name}_{key}"] = row
+            if int8:
+                # 5b on the same caches, block_s 512 and 96, every C
+                dots = fd.fused_decode_attention_q_int8dots_kernel
+                for block_s in (512, 96):
+                    def dcall(**kw):
+                        return dots(q, *rows, *caches, lens,
+                                    next(turn) % nl, d ** -0.5, block_s,
+                                    **kw)
+
+                    drow = {"ms": c.cuda_ms(dcall),
+                            "k4_ms": row["ms"],
+                            "bound_ms": row["bound_ms"],
+                            "library_ms": row["library_ms"]}
+                    drow["share_of_bound"] = drow["bound_ms"] / drow["ms"]
+                    if dots_split:
+                        drow["splits"] = fd.int8dots_launch_splits(
+                            dev, b, h, s, d, block_s)
+                        for cl in fd.SPLITS:
+                            drow[f"ms_c{cl}"] = c.cuda_ms(
+                                lambda: dcall(splits=cl))
+                    out[f"5b_{key}_block{block_s}"] = drow
             del caches, deq
             torch.cuda.empty_cache()
+    if dots_split:
+        out["5b_smem_bytes_block512_c2"] = fd.int8dots_smem_bytes(d, 512, 2)
+    # the paged int8 kernel: DECODE_LENGTHS and chip_smoke's B8 case as
+    # pages of 128, each beside K4 on the same lengths (B8: K4 timed here)
+    if paged_split:
+        out["paged_q_smem_bytes"] = fd.decode_smem_bytes(d, 1, paged=True)
+    cases = dict(DECODE_LENGTHS, B8=list(c.PAGED_LENGTHS))
+    for key, lengths in cases.items():
+        b = len(lengths)
+        args = _paged_pools(gen, dev, lengths, nl, h, s, d)
+        turn = iter(range(10**9))
+
+        def pcall(**kw):
+            return pf.paged_fused_decode_q_kernel(
+                *args[:-2], args[-2], args[-1], next(turn) % nl, d ** -0.5,
+                **kw)
+
+        row = {"ms": c.cuda_ms(pcall)}
+        row["bound_ms"], row["bound_by"] = c.decode_bound(args[-1], h, d, 1)
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        if paged_split:
+            row["splits"] = fd.decode_launch_splits(dev, b, h, s, d, 1)
+            for cl in fd.SPLITS:
+                row[f"ms_c{cl}"] = c.cuda_ms(lambda: pcall(splits=cl))
+        if key == "B8":
+            cont = [pf._gather_pages(t[0], args[-2]) for t in args[5:9]]
+            deq = [(cont[i].float() * cont[i + 2][..., None]).bfloat16()
+                   for i in (0, 1)]
+            row["library_ms"] = c.cuda_ms(lambda: c.masked_sdpa(
+                args[0], deq[0], deq[1], args[-1] + 1))
+            del cont, deq
+            kc = torch.randint(-128, 128, (nl, b, h, s, d), generator=gen,
+                               device=dev, dtype=torch.int8)
+            vc = torch.randint_like(kc, -128, 128)
+            ks = torch.rand(nl, b, h, s, generator=gen, device=dev) * 0.025
+            vs = torch.rand_like(ks) * 0.025
+
+            def k4call(**kw):
+                return fd.fused_decode_attention_q_kernel(
+                    *args[:5], kc, vc, ks, vs, args[-1], next(turn) % nl,
+                    d ** -0.5, **kw)
+
+            row["k4_ms"] = c.cuda_ms(k4call)
+            if split:
+                for cl in fd.SPLITS:
+                    row[f"k4_ms_c{cl}"] = c.cuda_ms(
+                        lambda: k4call(splits=cl))
+            del kc, vc, ks, vs
+        else:
+            row["k4_ms"] = out[f"K4_{key}"]["ms"]
+        out[f"paged_q_{key}"] = row
+        del args
+        torch.cuda.empty_cache()
+    # the bf16 paged kernel (one CTA a head) at the B8 case
+    args = _paged_pools(gen, dev, list(c.PAGED_LENGTHS), nl, h, s, d,
+                        int8=False)
+    turn = iter(range(10**9))
+    row = {"ms": c.cuda_ms(lambda: pf.paged_fused_decode_kernel(
+        *args, next(turn) % nl, d ** -0.5))}
+    row["bound_ms"], row["bound_by"] = c.decode_bound(args[-1], h, d, 2)
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    kv = [pf._gather_pages(t[0], args[-2]) for t in args[3:5]]
+    row["library_ms"] = c.cuda_ms(lambda: c.masked_sdpa(
+        args[0], kv[0], kv[1], args[-1] + 1))
+    out["paged_bf16_B8"] = row
     return out
 
 
-def _decode_step(dev, name, bits, lm8, cache_dtype, steps=20):
+def _decode_step(dev, name, bits, lm8, cache_dtype, steps=20,
+                 int8_dots=False):
     """One decode step at B = 1 from 2,192 filled rows of one of the
     bench's weight sets and cache dtypes: median host-clock ms of `steps`
     steps, each ended by a synchronize; the card's busy ms a step under
     torch.profiler and the decode attention kernel's share of it; and the
     launches a step of K3, the split-K epilogue kernel (the parent's, one
-    per K3 call whose plan splits K), kernel A, K2 and K4. Keys start with
-    `name`."""
+    per K3 call whose plan splits K), kernel A, K2 and K4 (with
+    `int8_dots`, LHRS_DECODE_INT8_DOTS=1: the int8-dots kernel 5b's device
+    ms, share and launches too). Keys start with `name`."""
+    saved = os.environ.get("LHRS_DECODE_INT8_DOTS")
+    os.environ["LHRS_DECODE_INT8_DOTS"] = "1" if int8_dots else "0"
+    try:
+        return _decode_step_run(dev, name, bits, lm8, cache_dtype, steps)
+    finally:
+        if saved is None:
+            del os.environ["LHRS_DECODE_INT8_DOTS"]
+        else:
+            os.environ["LHRS_DECODE_INT8_DOTS"] = saved
+
+
+def _decode_step_run(dev, name, bits, lm8, cache_dtype, steps):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -497,7 +659,8 @@ def _decode_step(dev, name, bits, lm8, cache_dtype, steps=20):
         times.append((time.perf_counter() - t0) * 1e3)
     counters = (w4.w4a8_matmul_kernel, ln_quant_kernel,
                 fd.fused_decode_attention_kernel,
-                fd.fused_decode_attention_q_kernel)
+                fd.fused_decode_attention_q_kernel,
+                fd.fused_decode_attention_q_int8dots_kernel)
     for k in counters:
         k.launches = 0
     with profile(activities=[ProfilerActivity.CPU,
@@ -510,6 +673,8 @@ def _decode_step(dev, name, bits, lm8, cache_dtype, steps=20):
     busy = sum(e.self_device_time_total for e in events) / 1e3 / 4
     attn = sum(e.self_device_time_total for e in events
                if "decode" in e.key and "int8dots" not in e.key) / 1e3 / 4
+    dots = sum(e.self_device_time_total for e in events
+               if "int8dots" in e.key) / 1e3 / 4
     k3 = w4.w4a8_matmul_kernel.launches / 4
     epilogue = 0.0
     if hasattr(w4, "split_k") and bits == "4h":  # the parent: one more
@@ -527,7 +692,11 @@ def _decode_step(dev, name, bits, lm8, cache_dtype, steps=20):
             f"{name}_step_k2_launches":
                 fd.fused_decode_attention_kernel.launches / 4,
             f"{name}_step_k4_launches":
-                fd.fused_decode_attention_q_kernel.launches / 4}
+                fd.fused_decode_attention_q_kernel.launches / 4,
+            f"{name}_step_5b_ms": dots,
+            f"{name}_step_5b_share": dots / busy,
+            f"{name}_step_5b_launches":
+                fd.fused_decode_attention_q_int8dots_kernel.launches / 4}
 
 
 def _step(trainer, batch):
@@ -580,6 +749,8 @@ def _e2e(dev, train=True):
         cells=[cell for cell in bench.decode_cells()
                if cell[0] in DECODE_CELLS]))
     out.update(_decode_step(dev, "w4a8", "4h", True, torch.int8))
+    out.update(_decode_step(dev, "w4a8_int8dots", "4h", True, torch.int8,
+                            int8_dots=True))
     out.update(_decode_step(dev, "bf16cache", 8, False, torch.bfloat16))
     if not train:
         return out

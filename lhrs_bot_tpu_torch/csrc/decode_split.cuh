@@ -1,9 +1,10 @@
 // Split decode attention for Hopper (sm_90a): the design that the
 // contiguous-cache decode kernels share, K2 (fused_decode.cu, bf16 cache)
 // and K4 (fused_decode_q.cu, int8 cache with float32 scale planes, bf16
-// dots). One launch appends the new token's K/V row (and scales) of
-// (layer, b, h) at row lengths[b] and attends the query over rows
-// [0, lengths[b]] with an f32 online softmax.
+// dots), and the paged int8 kernel (paged_decode_q.cu, the same rows held
+// in the pages of a pool). One launch appends the new token's K/V row (and
+// scales) of (layer, b, h) at row lengths[b] and attends the query over
+// rows [0, lengths[b]] with an f32 online softmax.
 //
 // What bounds it on the H100: device-memory bandwidth. A head streams
 // 2 * (len + 1) * D * elt bytes (+ 8 a row of scales for int8) for
@@ -46,6 +47,21 @@
 //    a bulk copy would need a proxy fence. A row with len < 0 or len >= S
 //    writes nothing and gives NaN; every CTA of the cluster reads the same
 //    lengths[b], so all of them leave before the first barrier.
+//
+// 5. Where the rows come from is a policy of the producer (`Contiguous`,
+//    `Paged`); the consumers see a stage of rows either way. A paged row j
+//    is offset j % page of page table[b, j / page] of the (L, N, H, page,
+//    D) pool. Before its first copy each CTA stages its share's page ids in
+//    shared memory and checks EVERY valid page id of the row (the first
+//    ceil((len + 1) / page) entries) against [0, N): all ranks of a cluster
+//    see the same ids, so they all leave before the first cluster barrier
+//    when one is bad (NaN out, nothing written), and none waits for a rank
+//    that left. A stage that spans several pages takes one bulk copy a
+//    page piece, all on the stage's barrier; pages are multiples of 16
+//    rows and stages start at multiples of 128, so every piece (and its
+//    scales) starts 16-byte aligned, and only the piece that ends at row
+//    len pads its scales, inside its own page. No page past the last
+//    valid one is read.
 //
 // Alignment: K/V rows are D * elt bytes (64-256), so every row starts 16-
 // byte aligned and a stage of rows moves a multiple of 16 bytes. A scale
@@ -125,28 +141,52 @@ struct Int8Rows {
   static constexpr bool kScales = true;
 };
 
+constexpr int kMaxPages = 2048;  // page-table entries of one row
+
 struct Args {
   const __nv_bfloat16* q;       // (B, H, 1, D)
   const void* k_new;            // (B, H, 1, D)
   const void* v_new;
   const float* k_new_scale;     // (B, H, 1), int8 only
   const float* v_new_scale;
-  void* k_cache;                // (L, B, H, S, D)
+  void* k_cache;                // (L, B, H, S, D), or the pool
   void* v_cache;
-  float* k_scale;               // (L, B, H, S), int8 only
+  float* k_scale;               // (L, B, H, S), int8 only; or scale pages
   float* v_scale;
   const int* lengths;           // (B,)
   __nv_bfloat16* out;           // (B, H, 1, D)
-  int layer, B, H, S;
+  int layer, B, H, S;           // paged: S = P * page
   float sm_scale;
   int fault;
+};
+
+// The paged kernel's arguments: Args with the pools in k_cache .. v_scale
+// (and S = P * page), then the page table and its sizes.
+struct PagedArgs : Args {
+  const int* table;             // (B, P) page ids
+  int N, page, P;               // pool pages, rows a page, table entries
+};
+
+// Rows of a contiguous (L, B, H, S, D) cache with (L, B, H, S) planes.
+// (Its kernel takes the plain Args: the contiguous kernels' parameters,
+// and so their code, are what they were before the paged source.)
+struct Contiguous {
+  static constexpr bool kPaged = false;
+  using A = Args;
+};
+
+// Rows in the pages of an (L, N, H, page, D) pool with (L, N, H, page)
+// scale pages, named by the (B, P) page table.
+struct Paged {
+  static constexpr bool kPaged = true;
+  using A = PagedArgs;
 };
 
 // Shared memory of one CTA: the ring (its first bytes hold the 32 group
 // states once the walk is done), the ranks' folded states (rank 0's are
 // read), the new K and V rows, a row of zeros and the new scales, the
-// ring's barriers.
-template <class P, int D>
+// ring's barriers, and (paged) the share's page ids.
+template <class P, int D, class Src = Contiguous>
 struct Layout {
   static constexpr int kRowBytes = D * P::kElt;
   static constexpr int kStageRows = kStageBytes / kRowBytes;  // 64-256
@@ -156,7 +196,9 @@ struct Layout {
   // each rank's folded state, in rank 0: acc[D], max, sum, padding
   static constexpr int kFold = kMaxSplits * (D + 4) * 4;
   static constexpr int kNew = 3 * kRowBytes + 16;  // new K, V; zeros
-  static constexpr int kSmem = kRing + kFold + kNew + 2 * kStages * 8;
+  static constexpr int kPageIds = Src::kPaged ? kMaxPages * 4 : 0;
+  static constexpr int kSmem = kRing + kFold + kNew + 2 * kStages * 8 +
+                               kPageIds;
   static_assert(kGroups * (D + 2) * 4 <= kRing, "states must fit the ring");
   static_assert(kStageRows % kGroups == 0 && kStageRows % 4 == 0, "stage");
 };
@@ -200,10 +242,20 @@ __device__ __forceinline__ void slice_to_float(const uint32_t (&w)[kWords],
   }
 }
 
-template <class P, int D>
+// Paged: the pool row of position j of head h's row, offset j % page of
+// its page, which s_pages holds at j / page - page0.
+__device__ __forceinline__ size_t page_row(const PagedArgs& a,
+                                           const int* s_pages, int page0,
+                                           int h, int j) {
+  const int pj = j / a.page;
+  return (((size_t)a.layer * a.N + s_pages[pj - page0]) * a.H + h) * a.page +
+         (j - pj * a.page);
+}
+
+template <class P, class Src, int D>
 __global__ void __launch_bounds__(kBlock, 2)
-    split_decode_kernel(const Args a) {
-  using L = Layout<P, D>;
+    split_decode_kernel(const typename Src::A a) {
+  using L = Layout<P, D, Src>;
   using Elem = typename P::Elem;
   constexpr int kDims = D / kLanesPerKey;          // elements a lane
   constexpr int kWords = kDims * P::kElt / 4;      // 32-bit words a lane
@@ -217,6 +269,7 @@ __global__ void __launch_bounds__(kBlock, 2)
   float* s_new_scale = reinterpret_cast<float*>(s_new + 3 * L::kRowBytes);
   uint64_t* full = reinterpret_cast<uint64_t*>(s_new + L::kNew);
   uint64_t* empty = full + kStages;
+  int* s_pages = reinterpret_cast<int*>(empty + kStages);  // paged only
 
   const int rank = blockIdx.x, csize = gridDim.x;
   const int h = blockIdx.y, b = blockIdx.z;
@@ -242,22 +295,44 @@ __global__ void __launch_bounds__(kBlock, 2)
     if (rank == 0 && tid < D) a.out[row + tid] = __float2bfloat16(nanf(""));
     return;
   }
-  sm90::cluster_arrive_relaxed();  // this CTA has started
+  if constexpr (!Src::kPaged) sm90::cluster_arrive_relaxed();  // started
   const int n_valid = len + 1;
   const int share =
       ((n_valid + kShareRows - 1) / kShareRows + csize - 1) / csize *
       kShareRows;
   const int s0 = min(rank * share, n_valid);
   const int s1 = min(s0 + share, n_valid);
+  // paged: the share's page ids into shared memory, every valid id of the
+  // row checked by every rank (the same decision in all of them)
+  int page0 = 0;  // the share's first page
+  if constexpr (Src::kPaged) {
+    page0 = s0 / a.page;
+    const int np_valid = (len + a.page) / a.page;
+    const int np_share = s1 > s0 ? (s1 - 1) / a.page - page0 + 1 : 0;
+    bool bad = false;
+    for (int i = tid; i < np_valid; i += kBlock) {
+      const int pg = a.table[(size_t)b * a.P + i];
+      bad = bad || pg < 0 || pg >= a.N;
+      if (i >= page0 && i - page0 < np_share) s_pages[i - page0] = pg;
+    }
+    if (__syncthreads_or(bad)) {  // a page outside the pool: never write
+      if (rank == 0 && tid < D) a.out[row + tid] = __float2bfloat16(nanf(""));
+      return;
+    }
+    sm90::cluster_arrive_relaxed();  // this CTA has started
+  }
   const bool appends = len >= s0 && len < s1;  // row len is in this share
   const int copy_end = min(s1, len);           // rows from the cache
   const int n_stages = (s1 - s0 + R - 1) / R;
-  const size_t plane = ((size_t)a.layer * a.B + b) * a.H + h;
+  // contiguous: the (layer, b, h) plane; paged: the pools, whose rows
+  // `page_row` names
+  const size_t plane =
+      Src::kPaged ? 0 : ((size_t)a.layer * a.B + b) * a.H + h;
   Elem* kc = static_cast<Elem*>(a.k_cache) + plane * a.S * D;
   Elem* vc = static_cast<Elem*>(a.v_cache) + plane * a.S * D;
   float* ksc = P::kScales ? a.k_scale + plane * a.S : nullptr;
   float* vsc = P::kScales ? a.v_scale + plane * a.S : nullptr;
-  const bool copy_scales = P::kScales && a.S % 4 == 0;
+  const bool copy_scales = P::kScales && (Src::kPaged || a.S % 4 == 0);
   const Elem* kn = static_cast<const Elem*>(a.k_new) + row;
   const Elem* vn = static_cast<const Elem*>(a.v_new) + row;
 
@@ -273,7 +348,26 @@ __global__ void __launch_bounds__(kBlock, 2)
     const uint32_t sc_bytes = copy_scales ? (n + 3) / 4 * 16 : 0;
     unsigned char* st = ring + slot * L::kStage;
     sm90::mbar_arrive_tx(&full[slot], 2 * (kv_bytes + sc_bytes));
-    if (n > 0) {
+    if constexpr (Src::kPaged) {
+      // one copy a page piece; every piece but the one ending at row len
+      // is whole 16-row groups, so the bytes sum to the announced ones
+      for (int r = r0; r < r0 + n;) {
+        const int e = min(r0 + n, (r / a.page + 1) * a.page);
+        const size_t pr = page_row(a, s_pages, page0, h, r);
+        const uint32_t rb = (e - r) * L::kRowBytes;
+        unsigned char* dst = st + (r - r0) * L::kRowBytes;
+        sm90::bulk_load_1d(dst, kc + pr * D, rb, &full[slot]);
+        sm90::bulk_load_1d(dst + kStageBytes, vc + pr * D, rb, &full[slot]);
+        if (sc_bytes) {
+          const uint32_t sb = (e - r + 3) / 4 * 16;
+          unsigned char* sdst = st + 2 * kStageBytes + (r - r0) * 4;
+          sm90::bulk_load_1d(sdst, ksc + pr, sb, &full[slot]);
+          sm90::bulk_load_1d(sdst + L::kScaleBytes, vsc + pr, sb,
+                             &full[slot]);
+        }
+        r = e;
+      }
+    } else if (n > 0) {
       sm90::bulk_load_1d(st, kc + (size_t)r0 * D, kv_bytes, &full[slot]);
       sm90::bulk_load_1d(st + kStageBytes, vc + (size_t)r0 * D, kv_bytes,
                          &full[slot]);
@@ -410,13 +504,27 @@ __global__ void __launch_bounds__(kBlock, 2)
     for (int i = 0; i < kDims; ++i) st_acc[grp * D + sub * kDims + i] = acc[i];
   }
   // the appended row and its scales, now that this CTA's walk is done
-  if (appends && tid < D) {
-    kc[(size_t)len * D + tid] = kn[tid];
-    vc[(size_t)len * D + tid] = vn[tid];
-  }
-  if (P::kScales && appends && tid == 0) {
-    ksc[len] = a.k_new_scale[bh];
-    vsc[len] = a.v_new_scale[bh];
+  if constexpr (Src::kPaged) {
+    if (appends) {
+      const size_t at = page_row(a, s_pages, page0, h, len);
+      if (tid < D) {
+        kc[at * D + tid] = kn[tid];
+        vc[at * D + tid] = vn[tid];
+      }
+      if (tid == 0) {
+        ksc[at] = a.k_new_scale[bh];
+        vsc[at] = a.v_new_scale[bh];
+      }
+    }
+  } else {
+    if (appends && tid < D) {
+      kc[(size_t)len * D + tid] = kn[tid];
+      vc[(size_t)len * D + tid] = vn[tid];
+    }
+    if (P::kScales && appends && tid == 0) {
+      ksc[len] = a.k_new_scale[bh];
+      vsc[len] = a.v_new_scale[bh];
+    }
   }
   __syncthreads();
   // Fold the 32 group states in the one-CTA kernels' order, into this
@@ -475,21 +583,23 @@ __global__ void __launch_bounds__(kBlock, 2)
 
 // Launch (or, with max_clusters, ask how many clusters of `splits` CTAs can
 // be resident at once: cudaOccupancyMaxActiveClusters). Returns cudaError_t.
-template <class P, int D>
-int launch(const Args& a, int splits, cudaStream_t st, int* max_clusters) {
-  auto* kernel = split_decode_kernel<P, D>;
+template <class P, class Src, int D>
+int launch(const typename Src::A& a, int splits, cudaStream_t st,
+           int* max_clusters) {
+  auto* kernel = split_decode_kernel<P, Src, D>;
+  constexpr int kSmem = Layout<P, D, Src>::kSmem;
   static bool sized = false;  // one opt-in a kernel
   if (!sized) {
     const cudaError_t err = cudaFuncSetAttribute(
         (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        Layout<P, D>::kSmem);
+        kSmem);
     if (err != cudaSuccess) return (int)err;
     sized = true;
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(splits, a.H, a.B);
   cfg.blockDim = dim3(kBlock);
-  cfg.dynamicSmemBytes = Layout<P, D>::kSmem;
+  cfg.dynamicSmemBytes = kSmem;
   cfg.stream = st;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -507,16 +617,21 @@ int launch(const Args& a, int splits, cudaStream_t st, int* max_clusters) {
 
 // Checks the shape and the cluster size, then launches the D = 64 or 128
 // kernel on `stream` (or answers the occupancy query).
-template <class P>
-int dispatch(const Args& a, int L, int D, int splits, void* stream,
-             int* max_clusters) {
+template <class P, class Src = Contiguous>
+int dispatch(const typename Src::A& a, int L, int D, int splits,
+             void* stream, int* max_clusters) {
   if (a.layer < 0 || a.layer >= L || a.B <= 0 || a.B > 65535 || a.H <= 0 ||
       a.H > 65535 || a.S <= 0 ||
       (splits != 1 && splits != 2 && splits != 4 && splits != 8))
     return (int)cudaErrorInvalidValue;
+  if constexpr (Src::kPaged) {
+    if (a.N <= 0 || a.page < 16 || a.page > 256 || a.page % 16 ||
+        a.P <= 0 || a.P > kMaxPages || a.S != a.P * a.page)
+      return (int)cudaErrorInvalidValue;
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64) return launch<P, 64>(a, splits, st, max_clusters);
-  if (D == 128) return launch<P, 128>(a, splits, st, max_clusters);
+  if (D == 64) return launch<P, Src, 64>(a, splits, st, max_clusters);
+  if (D == 128) return launch<P, Src, 128>(a, splits, st, max_clusters);
   return (int)cudaErrorInvalidValue;
 }
 

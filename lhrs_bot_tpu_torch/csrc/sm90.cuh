@@ -77,6 +77,40 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
+// Asynchronous stores into the shared memory of CTA `rank` of the cluster
+// (this CTA's own included), at the offsets of `dst` and `bar` here: 4 or
+// 16 bytes that complete as transaction bytes on that CTA's barrier, as a
+// bulk copy's do. The receiver announces the bytes (mbar_arrive_tx) and
+// waits on the barrier's phase; the data is visible once it completes, with
+// no fence or release on the sender's side.
+__device__ __forceinline__ void st_async_b32(void* dst, uint32_t v,
+                                             uint64_t* bar, uint32_t rank) {
+  asm volatile(
+      "{\n"
+      ".reg .b32 ra, rb;\n"
+      "mapa.shared::cluster.u32 ra, %0, %3;\n"
+      "mapa.shared::cluster.u32 rb, %1, %3;\n"
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [ra], %2, "
+      "[rb];\n"
+      "}\n" ::"r"(smem_u32(dst)),
+      "r"(smem_u32(bar)), "r"(v), "r"(rank)
+      : "memory");
+}
+
+__device__ __forceinline__ void st_async_v4(void* dst, uint4 v,
+                                            uint64_t* bar, uint32_t rank) {
+  asm volatile(
+      "{\n"
+      ".reg .b32 ra, rb;\n"
+      "mapa.shared::cluster.u32 ra, %0, %6;\n"
+      "mapa.shared::cluster.u32 rb, %1, %6;\n"
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [ra], "
+      "{%2, %3, %4, %5}, [rb];\n"
+      "}\n" ::"r"(smem_u32(dst)),
+      "r"(smem_u32(bar)), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"(rank)
+      : "memory");
+}
+
 // ---- cluster barriers ---------------------------------------------------------
 
 // Arrival at the cluster's barrier with no memory ordering: says only that

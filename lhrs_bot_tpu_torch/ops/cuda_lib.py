@@ -6,8 +6,10 @@ one shared library with a plain C interface, which is loaded with `ctypes`
 (no PyTorch headers, so a build takes seconds, not minutes). The wgmma
 kernels and the split decode kernels share `csrc/sm90.cuh`, which fetches
 the TMA tensor-map encoder (cuTensorMapEncodeTiled) through the runtime,
-so nothing links against libcuda. The library goes to `build/kernels/<hash of the sources,
-headers and flags>/` beside the package, so an edited source or header is
+so nothing links against libcuda; the split decode kernels (contiguous and
+paged) share `csrc/decode_split.cuh`. The library goes to
+`build/kernels/<hash of the sources, headers and flags>/` beside the
+package, so an edited source or header is
 rebuilt and an unchanged one is reused. Nothing here runs at import time:
 the CPU tests import every module on a machine with no `nvcc`.
 """
@@ -54,9 +56,12 @@ _ENTRIES = {
                                                    _P],
     # D, splits, count (int*)
     "lhrs_fused_decode_q_max_clusters": [_I, _I, _P],
-    # q .. sm_scale as lhrs_fused_decode_q, then block_s, stream
+    # q .. sm_scale as lhrs_fused_decode_q, then block_s, splits, fault,
+    # stream
     "lhrs_fused_decode_q_int8dots": [_P] * 11 + [_I] * 6 + [ctypes.c_float,
-                                                            _I, _P],
+                                                            _I, _I, _I, _P],
+    # D, block_s, splits, count (int*)
+    "lhrs_fused_decode_q_int8dots_max_clusters": [_I, _I, _I, _P],
     # cache, new_vals, lengths, B, H, S, row bytes, stream
     "lhrs_cache_row_update": [_P] * 3 + [_I] * 4 + [_P],
     # x, y (or null), n16 (16-byte words of each), bf16, unroll, ctas,
@@ -69,8 +74,11 @@ _ENTRIES = {
     "lhrs_paged_decode_bf16": [_P] * 8 + [_I] * 8 + [ctypes.c_float, _P],
     # q, k_new, k_new_scale, v_new, v_new_scale, k_pages, v_pages, k_scale,
     # v_scale, table, lengths, out, layer, L, N, B, H, page, P, D, sm_scale,
-    # stream
-    "lhrs_paged_decode_q": [_P] * 12 + [_I] * 8 + [ctypes.c_float, _P],
+    # splits, fault, stream (csrc/paged_decode_q.cu)
+    "lhrs_paged_decode_q": [_P] * 12 + [_I] * 8 + [ctypes.c_float, _I, _I,
+                                                   _P],
+    # D, splits, count (int*)
+    "lhrs_paged_decode_q_max_clusters": [_I, _I, _P],
     # xq_lo, xq_hi, x_scale, w (layer slice), w_scale (layer slice), out,
     # B, K2, N, x_stride, cluster, chunk, out_f32, fault, stream
     "lhrs_w4a8_matmul": [_P] * 6 + [_I] * 8 + [_P],

@@ -20,7 +20,9 @@ K2 and K4 (the bf16-dot kernel of the int8 cache) split each head's rows
 across a thread-block cluster of C CTAs in one launch
 (csrc/decode_split.cuh); `decode_split_plan` picks C per shape, and
 `decode_shares` / `split_decode_attention_plain` are the plain picture of
-the split and its merge, for the tests and the card's checks.
+the split and its merge, for the tests and the card's checks. The int8-dots
+kernel (5b) splits each `block_s` block's rows across its cluster instead
+(`int8dots_split_plan`; plain picture `int8_dots_attention_split`).
 
 `int8_dots=None` reads `LHRS_DECODE_INT8_DOTS` at every call ("1" turns it
 on), as the JAX package resolves it outside its jit; with no jit here, a
@@ -96,21 +98,33 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def decode_smem_bytes(d: int, elt: int) -> int:
+# Page-table entries of one row that the paged split kernel stages (4
+# bytes each, csrc/decode_split.cuh kMaxPages)
+MAX_PAGES = 2048
+
+
+def decode_smem_bytes(d: int, elt: int, paged: bool = False) -> int:
     """Shared memory of one CTA of the split kernel for head dim d and
-    cache elements of elt bytes (2: bf16, 1: int8 with scales)."""
+    cache elements of elt bytes (2: bf16, 1: int8 with scales); `paged`:
+    the paged int8 kernel, which also stages a row's page ids."""
     row = d * elt
     scales = 2 * (_STAGE_BYTES // row) * 4 if elt == 1 else 0
     return (_STAGES * (2 * _STAGE_BYTES + scales) + max(SPLITS) * (d + 4) * 4
-            + 3 * row + 16 + 2 * _STAGES * 8)
+            + 3 * row + 16 + 2 * _STAGES * 8 + (4 * MAX_PAGES if paged
+                                                 else 0))
+
+
+def _resident(smem: int, sm_count: int) -> int:
+    """CTAs of `smem` bytes of shared memory (288 threads) that `sm_count`
+    SMs hold at once, by shared memory and registers."""
+    per_sm = min(_REGISTER_CTAS, _SM_SHARED // (smem + _CTA_RESERVED))
+    return per_sm * sm_count
 
 
 def decode_resident_ctas(d: int, elt: int, sm_count: int) -> int:
     """CTAs of the split kernel that `sm_count` SMs hold at once, by its
     shared memory and registers."""
-    per_sm = min(_REGISTER_CTAS,
-                 _SM_SHARED // (decode_smem_bytes(d, elt) + _CTA_RESERVED))
-    return per_sm * sm_count
+    return _resident(decode_smem_bytes(d, elt), sm_count)
 
 
 @functools.lru_cache(maxsize=None)
@@ -379,8 +393,8 @@ def _launch_q(q, k_new, k_new_scale, v_new, v_new_scale, k_cache, v_cache,
               k_scale, v_scale, lengths, layer, sm_scale, block_s, wrapper,
               splits=None, fault=0):
     """Check the int8-cache kernels' inputs and launch one of them: the
-    split bf16-dot kernel for block_s 0 (`splits` CTAs a head, or the
-    plan's), the int8-dot kernel otherwise; count the launch on
+    split bf16-dot kernel for block_s 0, the int8-dot kernel otherwise,
+    each with `splits` CTAs a head (or its plan's); count the launch on
     `wrapper`."""
     names = ("q", "k_new", "k_new_scale", "v_new", "v_new_scale", "k_cache",
              "v_cache", "k_scale", "v_scale", "lengths")
@@ -421,10 +435,12 @@ def _launch_q(q, k_new, k_new_scale, v_new, v_new_scale, k_cache, v_cache,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         if block_s:
+            splits = splits or int8dots_launch_splits(q.device, b, h, s, d,
+                                                      block_s)
             err = lib.lhrs_fused_decode_q_int8dots(
                 *(t.data_ptr() for t in tensors), out.data_ptr(),
                 int(layer), nl, b, h, s, d, float(sm_scale), int(block_s),
-                stream)
+                int(splits), int(fault), stream)
         else:
             splits = splits or decode_launch_splits(q.device, b, h, s, d, 1)
             err = lib.lhrs_fused_decode_q(
@@ -487,6 +503,75 @@ def int8_dots_attention(q, kl, vl, ksl, vsl, n_valid, *, sm_scale: float,
     return (acc / l)[:, :, None, :].to(q.dtype)
 
 
+def int8dots_parts(rows: int, splits: int) -> List[Tuple[int, int]]:
+    """Rows [start, end) of a block of `rows` rows that each rank of the
+    int8-dots kernel's cluster takes: ceil(rows / splits) rounded up to 4
+    rows each (the P.V quads, 16 bytes of scales), trailing ranks possibly
+    empty."""
+    part = _cdiv(_cdiv(rows, splits), 4) * 4
+    return [(min(r * part, rows), min((r + 1) * part, rows))
+            for r in range(splits)]
+
+
+def int8_dots_attention_split(q, kl, vl, ksl, vsl, n_valid, *,
+                              sm_scale: float, block_s: int, splits: int,
+                              fault: int = 0,
+                              trace: Optional[dict] = None) -> torch.Tensor:
+    """`int8_dots_attention` as the int8-dots kernel computes it on a
+    cluster of `splits` CTAs: each `block_s` block of a row's n_valid[b]
+    rows cut into `int8dots_parts`; the block max, the p scale (absmax of p
+    * v scale) and the sum of p over every part; each part's int32 P.V
+    columns summed in rank order (fault=1 leaves the last rank's out, as
+    the kernel's planted fault does); the sum of p taken in float64 and
+    rounded to float32 once a block, as the kernel takes it. So the q
+    codes, p codes, p scales and int32 sums are `int8_dots_attention`'s at
+    every C. `trace`, a dict, receives per batch row the q codes and each
+    block's p codes and int32 P.V sums (for the tests). Returns (B, H, 1,
+    D) in q's dtype."""
+    b, h, s, d = kl.shape
+    block_s = min(block_s, s)
+    out = torch.empty((b, h, d), dtype=torch.float32, device=q.device)
+    for bi in range(b):
+        n = int(n_valid[bi])
+        qf = q[bi, :, 0].float() * sm_scale                       # (H, D)
+        q_qscale = div_exact(qf.abs().amax(dim=-1, keepdim=True),
+                             127.0) + 1e-12
+        q_i8 = torch.round(qf / q_qscale)
+        m = torch.full((h, 1), _NEG_INF, device=q.device)
+        l = torch.zeros((h, 1), device=q.device)
+        acc = torch.zeros((h, d), device=q.device)
+        blocks = []
+        for start in range(0, n, block_s):
+            rows = min(block_s, n - start)
+            cols = slice(start, start + rows)
+            sc = _exact_int_dot(q_i8[:, None, :],
+                                kl[bi, :, cols].transpose(-1, -2))[:, 0]
+            sc = sc * q_qscale * ksl[bi, :, cols]
+            new_m = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
+            alpha = torch.exp(m - new_m)
+            p = torch.exp(sc - new_m)
+            ps = p * vsl[bi, :, cols]
+            p_qscale = div_exact(ps.abs().amax(dim=-1, keepdim=True),
+                                 127.0) + 1e-12
+            p_i8 = torch.round(ps / p_qscale)
+            parts = int8dots_parts(rows, splits)
+            if fault == 1 and splits > 1:
+                parts = parts[:-1]
+            pv = torch.zeros((h, d), dtype=torch.int64, device=q.device)
+            for p0, p1 in parts:
+                pv += _exact_int_dot(
+                    p_i8[:, None, p0:p1],
+                    vl[bi, :, start + p0:start + p1])[:, 0].long()
+            acc = acc * alpha + pv.float() * p_qscale
+            l = l * alpha + p.double().sum(dim=-1, keepdim=True).float()
+            m = new_m
+            blocks.append((p_i8.to(torch.int8), pv))
+        out[bi] = acc / l
+        if trace is not None:
+            trace[bi] = {"q_codes": q_i8.to(torch.int8), "blocks": blocks}
+    return out[:, :, None, :].to(q.dtype)
+
+
 def fused_decode_attention_q_int8dots_plain(
         q, k_new, k_new_scale, v_new, v_new_scale, k_cache, v_cache, k_scale,
         v_scale, lengths, layer: int, *, sm_scale: Optional[float] = None,
@@ -505,19 +590,117 @@ def fused_decode_attention_q_int8dots_plain(
     return out, k_cache, v_cache, k_scale, v_scale
 
 
-# Shared memory of the int8-dots kernel bounds its block (a float score and
-# an int8 code for each of its rows).
+def fused_decode_attention_q_int8dots_split_plain(
+        q, k_new, k_new_scale, v_new, v_new_scale, k_cache, v_cache, k_scale,
+        v_scale, lengths, layer: int, *, splits: int,
+        sm_scale: Optional[float] = None, block_s: int = 512,
+        fault: int = 0):
+    """`fused_decode_attention_q_int8dots_plain` with the attention of
+    `int8_dots_attention_split` (the card's checks of the kernel's planted
+    exchange fault)."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    kl = _write_at(k_cache[layer], k_new, lengths)
+    vl = _write_at(v_cache[layer], v_new, lengths)
+    ksl = _write_scale_at(k_scale[layer], k_new_scale, lengths)
+    vsl = _write_scale_at(v_scale[layer], v_new_scale, lengths)
+    out = int8_dots_attention_split(q, kl, vl, ksl, vsl, lengths + 1,
+                                    sm_scale=sm_scale, block_s=block_s,
+                                    splits=splits, fault=fault)
+    return out, k_cache, v_cache, k_scale, v_scale
+
+
+# Shared memory of the int8-dots kernel bounds its block (for each row of a
+# rank's part, a float score and a v scale for two blocks and a p code).
 MAX_BLOCK_S = 4096
+# Per CTA of the int8-dots kernel (csrc/fused_decode_q.cu `int8dots::
+# Layout`): a ring of 4 stages (K stages carry both scale rows), the new
+# rows, q's codes, the per-warp partials and the ranks' slots (two sets) of
+# the three exchanges, the barriers; then two blocks' part scores and v
+# scales and one block's part p codes.
+_WARPS, _DOTS_STAGES = 8, 4
+
+
+def int8dots_smem_bytes(d: int, block_s: int, splits: int) -> int:
+    """Shared memory of one CTA of the int8-dots kernel for head dim d,
+    blocks of block_s rows and clusters of `splits` CTAs."""
+    rows = _STAGE_BYTES // d
+    fixed = (_DOTS_STAGES * (_STAGE_BYTES + 2 * rows * 4) + 2 * d + 16 + d
+             + _WARPS * (4 + 16 + 4 * d)
+             + 2 * max(SPLITS) * (4 + 16 + 4 * d)
+             + (2 * _DOTS_STAGES + 6) * 8)
+    part = _cdiv(_cdiv(block_s, splits), 4) * 4
+    return _cdiv(fixed, 16) * 16 + _cdiv(17 * part, 16) * 16
+
+
+# The sizes the int8-dots kernel's plan picks from, the largest first, and
+# the fewest rows a rank's part of a block keeps for C > 1. Its time goes
+# to each block's reductions and exchanges more than to its bytes, so on
+# the H100 (PERF.md section 6) 4 beat 2 where the parts stay large
+# (block_s 512 at B1 / B2: 0.0209 / 0.0213 ms against 0.0212 / 0.0220) and
+# lost where they do not (block_s 96: parts of 24 rows, 0.0730 against
+# 0.0598-0.0601 at C = 2); 8 lost everywhere.
+INT8DOTS_PLAN_SPLITS = (4, 2, 1)
+INT8DOTS_PART_ROWS = 32
+
+
+@functools.lru_cache(maxsize=None)
+def int8dots_split_plan(b: int, h: int, s: int, d: int, block_s: int,
+                        sm_count: int) -> int:
+    """C for the int8-dots kernel (block_s clamped to S): 1 wherever B * H
+    alone reaches the SM count, else the largest of INT8DOTS_PLAN_SPLITS
+    whose B * H * C CTAs are all resident at once (by this kernel's shared
+    memory) and whose parts of a block keep INT8DOTS_PART_ROWS rows. Cached
+    per shape."""
+    if (min(b, h, s, sm_count, block_s) <= 0 or d not in (64, 128)):
+        raise ValueError(f"bad int8-dots shape B{b} H{h} S{s} D{d} block_s "
+                         f"{block_s} on {sm_count} SMs")
+    block_s = min(block_s, s)
+    if b * h >= sm_count:
+        return 1
+    for c in INT8DOTS_PLAN_SPLITS[:-1]:
+        if (c * b * h <= _resident(int8dots_smem_bytes(d, block_s, c),
+                                   sm_count)
+                and _cdiv(block_s, c) >= INT8DOTS_PART_ROWS):
+            return c
+    return 1
+
+
+def int8dots_launch_splits(device, b: int, h: int, s: int, d: int,
+                           block_s: int) -> int:
+    """The C that the int8-dots wrapper launches with on the card
+    `device`: `int8dots_split_plan` at its SM count."""
+    idx = torch.device(device).index
+    return int8dots_split_plan(b, h, s, d, block_s,
+                               _sm_count(0 if idx is None else idx))
+
+
+def int8dots_max_clusters(d: int, block_s: int, splits: int) -> int:
+    """How many clusters of `splits` CTAs of the int8-dots kernel with
+    blocks of block_s rows can be resident on the current card at once."""
+    import ctypes
+
+    _check_splits(splits)
+    count = ctypes.c_int(0)
+    lib = cuda_lib.load_library()
+    cuda_lib.check(lib.lhrs_fused_decode_q_int8dots_max_clusters(
+        int(d), int(block_s), int(splits), ctypes.addressof(count)),
+        "int8dots_max_clusters")
+    return count.value
 
 
 def fused_decode_attention_q_int8dots_kernel(
         q, k_new, k_new_scale, v_new, v_new_scale, k_cache, v_cache, k_scale,
-        v_scale, lengths, layer: int, sm_scale: float, block_s: int = 512):
+        v_scale, lengths, layer: int, sm_scale: float, block_s: int = 512, *,
+        splits: Optional[int] = None, fault: int = 0):
     """Launch the CUDA int8-dots variant of the int8-cache fused decode
     kernel (`fused_decode_attention_q_kernel`'s inputs, plus `block_s`,
-    clamped to S as in the JAX package, at most MAX_BLOCK_S). Counts its
+    clamped to S as in the JAX package, at most MAX_BLOCK_S). `splits`
+    forces the cluster size that `int8dots_launch_splits` picks and `fault`
+    plants an error (both for the card's checks and the A/B). Counts its
     launches in `fused_decode_attention_q_int8dots_kernel.launches`, apart
     from the bf16-dot kernel's."""
+    _check_splits(splits)
     block_s = int(block_s)
     if k_cache.dim() == 5:
         block_s = min(block_s, k_cache.shape[3])
@@ -526,7 +709,8 @@ def fused_decode_attention_q_int8dots_kernel(
                          f"clamping to S, got {block_s}")
     return _launch_q(q, k_new, k_new_scale, v_new, v_new_scale, k_cache,
                      v_cache, k_scale, v_scale, lengths, layer, sm_scale,
-                     block_s, fused_decode_attention_q_int8dots_kernel)
+                     block_s, fused_decode_attention_q_int8dots_kernel,
+                     splits, fault)
 
 
 fused_decode_attention_q_int8dots_kernel.launches = 0

@@ -12,21 +12,31 @@ lengths[b] + 1 positions through the table.
 tensors take the plain versions, which are the JAX package's reference path
 (`llama_paged.py` `_append_rows` + `paged_attention_reference`, kept here so
 that models/llama_paged.py can import them); CUDA tensors always take the
-hand-written kernels of csrc/paged_decode.cu, which read the lengths and the
+hand-written kernels (csrc/paged_decode.cu for a bf16 pool,
+csrc/paged_decode_q.cu for an int8 pool), which read the lengths and the
 table on the device. There is no fallback: what a kernel does not take
 raises. The TPU wrappers' `interpret` and `vmem_limit` are TPU settings and
 are not taken.
+
+The int8 pool's kernel is K4's design (csrc/decode_split.cuh) over pages:
+a head's rows split across a cluster of C CTAs (`decode_split_plan` at S
+= P * page), a ring of bulk copies, one a page piece. Its plain picture:
+`paged_fused_decode_q_split_plain` (the split and merge) and
+`stage_page_pieces` (the copies of each stage).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import torch
 
 from . import cuda_lib
 from .decode_attention import decode_attention
+from .fused_decode import (MAX_PAGES, _check_splits,
+                           decode_launch_splits, decode_shares,
+                           split_decode_attention_plain)
 
 
 def _append_target(page_table: torch.Tensor, lengths: torch.Tensor,
@@ -97,6 +107,9 @@ def _shapes(q, k_pages, v_pages, page_table, lengths, layer):
     if d not in (64, 128) or page % 16 or not 16 <= page <= 256:
         raise ValueError(f"pool {tuple(k_pages.shape)}: D must be 64 or 128 "
                          "and the page a multiple of 16 up to 256")
+    if pps > MAX_PAGES:
+        raise ValueError(f"the table's {pps} entries a row exceed "
+                         f"{MAX_PAGES}")
     if q.shape != (b, h, 1, d) or lengths.shape != (b,):
         raise ValueError(f"q {tuple(q.shape)} / lengths "
                          f"{tuple(lengths.shape)} do not match the table "
@@ -198,16 +211,86 @@ def paged_fused_decode_q_plain(q, k_new, k_new_scale, v_new, v_new_scale,
     return out, k_pages, v_pages, k_scale_pages, v_scale_pages
 
 
+def paged_fused_decode_q_split_plain(q, k_new, k_new_scale, v_new,
+                                     v_new_scale, k_pages, v_pages,
+                                     k_scale_pages, v_scale_pages,
+                                     page_table, lengths, layer: int, *,
+                                     splits: int,
+                                     sm_scale: Optional[float] = None,
+                                     fault: int = 0):
+    """`paged_fused_decode_q_plain` with the attention of the split
+    kernel: the appends (in place), then the row's pages gathered into a
+    contiguous view and `split_decode_attention_plain` over lengths + 1
+    rows with `splits` ranks (and the planted `fault`). Float32 output."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    page_ids, offs = _append_target(page_table, lengths, k_pages.shape[3])
+    _append_rows(k_pages, layer, page_ids, offs, k_new[:, :, 0])
+    _append_rows(v_pages, layer, page_ids, offs, v_new[:, :, 0])
+    _append_rows(k_scale_pages, layer, page_ids, offs, k_new_scale[:, :, 0])
+    _append_rows(v_scale_pages, layer, page_ids, offs, v_new_scale[:, :, 0])
+    out = split_decode_attention_plain(
+        q, _gather_pages(k_pages[layer], page_table),
+        _gather_pages(v_pages[layer], page_table), lengths, splits,
+        sm_scale=sm_scale,
+        k_scale=_gather_pages(k_scale_pages[layer], page_table),
+        v_scale=_gather_pages(v_scale_pages[layer], page_table), fault=fault)
+    return out, k_pages, v_pages, k_scale_pages, v_scale_pages
+
+
+def stage_page_pieces(n_valid: int, splits: int, rank: int, page: int,
+                      stage_rows: int) -> List[List[Tuple[int, int, int,
+                                                          int]]]:
+    """The bulk copies of each ring stage of one rank of the paged split
+    kernel, in its producer's order: for a head of n_valid rows, the
+    rank's share (`decode_shares`) in stages of stage_rows rows (128 at
+    D128, 256 at D64), rows up to the appended one (row n_valid - 1 comes
+    from k_new), each stage cut at page boundaries. Returns per stage a
+    list of (table entry, offset in the page, rows, first row in the
+    stage); the scales of a piece are copied as ceil(rows / 4) 16-byte
+    words from the same offset."""
+    s0, s1 = decode_shares(n_valid, splits)[rank]
+    copy_end = min(s1, n_valid - 1)
+    stages = []
+    for r0 in range(s0, s1, stage_rows):
+        n = max(0, min(r0 + stage_rows, copy_end) - r0)
+        pieces, r = [], r0
+        while r < r0 + n:
+            e = min(r0 + n, (r // page + 1) * page)
+            pieces.append((r // page, r % page, e - r, r - r0))
+            r = e
+        stages.append(pieces)
+    return stages
+
+
+def paged_max_clusters(d: int, splits: int) -> int:
+    """How many clusters of `splits` CTAs of the paged int8 kernel can be
+    resident on the current card at once (`cudaOccupancyMaxActiveClusters`)."""
+    import ctypes
+
+    _check_splits(splits)
+    count = ctypes.c_int(0)
+    lib = cuda_lib.load_library()
+    cuda_lib.check(lib.lhrs_paged_decode_q_max_clusters(
+        int(d), int(splits), ctypes.addressof(count)), "paged_max_clusters")
+    return count.value
+
+
 def paged_fused_decode_q_kernel(q, k_new, k_new_scale, v_new, v_new_scale,
                                 k_pages, v_pages, k_scale_pages,
                                 v_scale_pages, page_table, lengths,
-                                layer: int, sm_scale: float):
+                                layer: int, sm_scale: float, *,
+                                splits: Optional[int] = None,
+                                fault: int = 0):
     """Launch the CUDA paged decode kernel over an int8 pool. Takes
     contiguous CUDA tensors on one device: bf16 q (B, H, 1, D) with D 64 or
     128, int8 k/v rows (B, H, 1, D) and pools (L, N, H, page, D), float32
     row scales (B, H, 1) and scale pools (L, N, H, page), int32 table (B,
-    P) and lengths (B,). Raises on anything else. Counts its launches in
-    `paged_fused_decode_q_kernel.launches`."""
+    P) and lengths (B,). Raises on anything else. `splits` forces the
+    cluster size (else `decode_launch_splits` at S = P * page) and `fault`
+    plants a merge fault, both for the card's checks and the A/B. Counts
+    its launches in `paged_fused_decode_q_kernel.launches`."""
+    _check_splits(splits)
     names = ("q", "k_new", "k_new_scale", "v_new", "v_new_scale", "k_pages",
              "v_pages", "k_scale_pages", "v_scale_pages", "page_table",
              "lengths")
@@ -230,13 +313,15 @@ def paged_fused_decode_q_kernel(q, k_new, k_new_scale, v_new, v_new_scale,
         if t.shape != shape:
             raise ValueError(f"{name} must be {tuple(shape)}, got "
                              f"{tuple(t.shape)}")
+    splits = splits or decode_launch_splits(q.device, b, h, pps * page, d, 1)
     lib = cuda_lib.load_library()
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.lhrs_paged_decode_q(
             *(t.data_ptr() for t in tensors), out.data_ptr(), int(layer), nl,
-            n, b, h, page, pps, d, float(sm_scale), stream)
+            n, b, h, page, pps, d, float(sm_scale), int(splits), int(fault),
+            stream)
     cuda_lib.check(err, "paged_fused_decode_q_kernel")
     paged_fused_decode_q_kernel.launches += 1
     return out, k_pages, v_pages, k_scale_pages, v_scale_pages
