@@ -52,10 +52,13 @@ Phases, one or more lines each:
      probability row's scale over the whole row, the last rank's int32
      P.V left out of the cluster's exchange), the
      cache row write (B8 H32 S2304 D128 bf16, byte-equal, a full row
-     untouched), the two HBM readers over 1.4 GB buffers (a unique
-     maximum planted at six places in turn, and a reader that skips a
-     word must fail) and the five product chains (int8 bit for bit, the
-     bf16 window and total apart);
+     untouched, beside an empty kernel's time), the two HBM readers over
+     1.4 GB buffers (a unique maximum planted at six places in turn, and
+     a reader that skips a word must fail) and the five product chains
+     (on the card two computations, accumulating and requantized; int8
+     bit for bit at 16 products and at 3, where int8_alt's window is
+     transposed, the requantized ones on clusters of 1 to 4 CTAs, the bf16
+     window and total apart, a refused shape);
      every kernel with its bound (bytes over 3.35 TB/s or
      operations over the dense peak) and, where one PyTorch call computes
      the same function, that call's time;
@@ -861,18 +864,25 @@ def phase_bench_kernels(dev):
     the last rank's int32 P.V left out, must exceed it at C = 2, 4, 8 and
     match the plain split's), the cache row write at B8
     H32 S2304 D128 bf16 (byte-equal; rows 0 and S - 1, a full row left
-    untouched), the HBM readers over 1.4 GB int8 and bf16 buffers (a
+    untouched; beside it an empty kernel on its grid, the launch floor),
+    the HBM readers over 1.4 GB int8 and bf16 buffers (a
     unique maximum planted at six places in turn, each read back; a reader
     that skips the last word must fail that check) and the five chain
-    variants at M 2048, K = N 1024, 16 products (int8 bit for bit; bf16's
-    window and total each within 1e-2 relative of their own scale). Each
-    with its time, its plain version's, its bound and a library call's."""
+    variants (the two computations of `chain_form`) at M 2048, K = N 1024,
+    16 products and at M = K = N 256, 3 products (int8_alt's transposed
+    window), two blocks each (int8 bit for bit; bf16's window and total
+    each within 1e-2 relative of their own scale), int8_req and int8_alt
+    also at M 128, K = N 512 and 768 (the requantized kernel's clusters of
+    2 and 3 CTAs; bit for bit), and a refused shape (M 192) that must
+    raise. Each with its time, its plain version's, its
+    bound and a library call's."""
     import torch
 
     from lhrs_bot_tpu_torch.benchmarks import hbm_peak_probe as hbm
     from lhrs_bot_tpu_torch.benchmarks import int8_probe as chains
     from lhrs_bot_tpu_torch.ops.cache_update import (
-        cache_row_update_kernel, cache_row_update_plain)
+        cache_row_update_kernel, cache_row_update_plain, empty_kernel,
+        row_write_blocks)
     from lhrs_bot_tpu_torch.ops.fused_decode import (
         SPLITS, fused_decode_attention_q_int8dots_kernel,
         fused_decode_attention_q_int8dots_plain,
@@ -1049,6 +1059,19 @@ def phase_bench_kernels(dev):
     if not torch.equal(mine, ref):
         raise AssertionError("cache_row_update: differs from the plain "
                              "version (or wrote into the full row)")
+    for dtype in (torch.float32, torch.int8):  # the other dtypes it takes
+        small = torch.randint(-100, 100, (4, 4, 64, 64), generator=gen,
+                              device=dev).to(dtype)
+        vals4 = torch.randint(-100, 100, (4, 4, 1, 64), generator=gen,
+                              device=dev).to(dtype)
+        lens4 = torch.tensor([0, 63, 17, 64], dtype=torch.int32, device=dev)
+        got4 = cache_row_update_kernel(small.clone(), vals4, lens4)
+        ref4 = small.clone()
+        cache_row_update_plain(ref4[:-1], vals4[:-1], lens4[:-1])
+        torch.cuda.synchronize()
+        if not torch.equal(got4, ref4):
+            raise AssertionError(f"cache_row_update {dtype}: differs from "
+                                 "the plain version")
     upd = {"max_abs_err": 0.0}
     rows = torch.arange(b - 1, device=dev)
     idx = (rows[:, None], torch.arange(h, device=dev)[None, :],
@@ -1059,9 +1082,13 @@ def phase_bench_kernels(dev):
     vals = new[:-1, :, 0]
     upd["library_ms"] = cuda_ms(lambda: part[0].index_put_(idx, vals))
     upd["bound_ms"], upd["bound_by"] = bound(2 * (b - 1) * h * d * 2)
+    # the launch floor: a kernel that does nothing, on the row write's grid
+    upd["empty_ms"] = cuda_ms(lambda: empty_kernel(
+        dev, row_write_blocks(b - 1, h, d * 2)))
     log(f"  cache_row_update B{b} H{h} S{s_max} D{d} bf16, lengths "
         f"{lengths} (the last row full): byte-equal to plain, full row "
-        f"untouched; kernel {upd['ms']:.4f} ms, plain {upd['plain_ms']:.4f} "
+        f"untouched (float32 and int8 at B4 H4 S64 D64 too); kernel {upd['ms']:.4f} ms, empty kernel on its grid "
+        f"{upd['empty_ms']:.4f} ms, plain {upd['plain_ms']:.4f} "
         f"ms, library (index_put_) {upd['library_ms']:.4f} ms, bound "
         f"{upd['bound_ms']:.5f} ms ({upd['bound_by']})")
     out["cache_row_update"] = upd
@@ -1111,12 +1138,40 @@ def phase_bench_kernels(dev):
     del x8, xb, half, half2, args
     torch.cuda.empty_cache()
 
-    # the chains
+    # the chains: every variant against its plain version at the probe's
+    # shape, at an odd number of products (int8_alt's transposed window)
+    # and over two blocks whose rows 0-7 differ; the requantized kernel
+    # also on clusters of 2 and 3 CTAs; a refused shape raises
     ops = chains.operands(dev, gen)
     chain = {"max_abs_err": 0.0, "variants": []}
+
+    def int8_case(g, m, n, ndots):
+        return (torch.randint(-127, 127, (g, m, n), generator=gen,
+                              device=dev, dtype=torch.int8),
+                chains.weight_storage(torch.randint(
+                    -127, 127, (ndots, n, n), generator=gen, device=dev,
+                    dtype=torch.int8)))
+
+    def odd_case(dtype):
+        if dtype == "int8":
+            return int8_case(2, 256, 256, 3)
+        return ((torch.randn(2, 256, 256, generator=gen, device=dev) * 0.1
+                 ).to(torch.bfloat16),
+                chains.weight_storage((torch.randn(
+                    3, 256, 256, generator=gen, device=dev) * 0.1
+                ).to(torch.bfloat16)))
+
+    odd = {"int8": odd_case("int8"), "bf16": odd_case("bf16")}
     for variant in chains.VARIANTS:
-        xg, ws = ops["bf16" if variant == "bf16" else "int8"]
+        kind = "bf16" if variant == "bf16" else "int8"
+        xg, ws = ops[kind]
+        if torch.equal(xg[0, :8], xg[1, :8]):
+            raise AssertionError("chains: blocks 0 and 1 share rows 0-7")
         err = chains.check_chain(xg, ws, variant)
+        xo, wo = odd[kind]
+        err = max(err, chains.check_chain(xo, wo, variant))
+        form = chains.chain_form(variant, ws.shape[0])[0]
+        odd_trans = chains.chain_form(variant, wo.shape[0])[1]
         verdict = (f"window and total each within {err:.2e} relative"
                    if variant == "bf16" else "bit-identical")
         ms = cuda_ms(lambda: chains.int8_chain_kernel(xg, ws, variant),
@@ -1126,21 +1181,35 @@ def phase_bench_kernels(dev):
         lib_ms = cuda_ms(lambda: chains.library_chain(xg, ws, variant),
                          warmup=1, reps=3)
         n_ops = chains.chain_ops(xg, ws)
-        n_bytes = (xg.numel() * xg.element_size()
-                   + ws.numel() * ws.element_size() + xg.shape[0] * 4096)
-        bms, by = bound(n_bytes, n_ops, "bf16" if variant == "bf16"
-                        else "int8")
+        bms, by = chain_bound(xg, ws, variant)
         chain["variants"].append({
-            "variant": variant, "ms": ms, "TOPS": n_ops / ms / 1e9,
+            "variant": variant, "form": form, "ms": ms,
+            "TOPS": n_ops / ms / 1e9,
             "plain_ms": plain_ms, "library_ms": lib_ms,
             "library_TOPS": n_ops / lib_ms / 1e9, "bound_ms": bms,
-            "bound_by": by, "max_rel_err": err})
-        log(f"  chain {variant} (g {xg.shape[0]}, M {xg.shape[1]}, K "
-            f"{xg.shape[2]}, N {ws.shape[2]}, {ws.shape[0]} products): "
-            f"{verdict}; "
-            f"kernel {ms:.4f} ms ({n_ops / ms / 1e9:.0f} TOPS), plain "
-            f"{plain_ms:.2f} ms, library {lib_ms:.4f} ms "
+            "bound_by": by, "bound_share": bms / ms, "max_rel_err": err})
+        log(f"  chain {variant} ({form}; g {xg.shape[0]}, M {xg.shape[1]}, "
+            f"K {xg.shape[2]}, N {ws.shape[2]}, {ws.shape[0]} products; and "
+            f"g 2, M = K = N 256, 3 products, window "
+            f"{'transposed' if odd_trans else 'plain'}): {verdict}; kernel "
+            f"{ms:.4f} ms ({n_ops / ms / 1e9:.0f} TOPS, {bms / ms:.0%} of "
+            f"the bound), plain {plain_ms:.2f} ms, library {lib_ms:.4f} ms "
             f"({n_ops / lib_ms / 1e9:.0f} TOPS), bound {bms:.4f} ms ({by})")
+    try:
+        chains.int8_chain_kernel(ops["int8"][0][:1, :192], ops["int8"][1],
+                                 "int8")
+    except ValueError as e:
+        log(f"  chain int8 at M 192 refused: {e}")
+    else:
+        raise AssertionError("int8_chain_kernel took M 192")
+    # N 1024 and 256 ran above: clusters of 4 and 1 CTAs
+    for n, ndots in ((512, 2), (768, 3)):
+        xc, wc = int8_case(1, 128, n, ndots)
+        for variant in ("int8_req", "int8_alt"):
+            chains.check_chain(xc, wc, variant)
+        log(f"  chain int8_req / int8_alt at g 1, M 128, K = N {n}, "
+            f"{ndots} products (a cluster of {n // 256}): bit-identical")
+    del odd, xc, wc
     main = chain["variants"][0]
     for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"):
         chain[key] = main[key]
@@ -1148,6 +1217,17 @@ def phase_bench_kernels(dev):
     del ops
     torch.cuda.empty_cache()
     return out
+
+
+def chain_bound(xg, ws, variant):
+    """The bound of a chain call: its blocks and weights read once, its
+    (g, 8, 128) output written once; 2 M K N operations a product."""
+    from lhrs_bot_tpu_torch.benchmarks import int8_probe as chains
+
+    n_bytes = (xg.numel() * xg.element_size()
+               + ws.numel() * ws.element_size() + xg.shape[0] * 4096)
+    return bound(n_bytes, chains.chain_ops(xg, ws),
+                 "bf16" if variant == "bf16" else "int8")
 
 
 HBM_BYTES_S = 3.35e12  # H100 SXM device memory
@@ -3696,6 +3776,17 @@ def main():
         row("int8_chain", "int8_probe.cu", "benchmarks/int8_probe.py:95",
             bench["launches"], bench_k["int8_chain"]),
     ]
+    upd = bench_k["cache_row_update"]
+    kernels[-3]["note"] = (
+        "one thread a 16-byte unit, value and length loaded together; "
+        f"launch floor (an empty kernel on its grid) {upd['empty_ms']:.4f} "
+        "ms")
+    kernels[-1]["note"] = (
+        "the int8 variant; on the card the five are two computations "
+        "(chain_form): " + ", ".join(
+            f"{v['variant']} ({v['form']}) {v['ms']:.4f} ms, "
+            f"{v['bound_share']:.0%} of {v['bound_ms']:.4f}"
+            for v in bench_k["int8_chain"]["variants"]))
     dots = bench_k["int8dots"]
     kernels[-4]["note"] = (
         "int8_dots=True, block_s 512; launches on the W4A8 path with "

@@ -15,10 +15,22 @@ of the TPU kernels, acc[:8, :128] + sum(acc) per block:
 
 Integer sums wrap modulo 2^32, as JAX's int32 sum does. CPU tensors take
 the plain versions (products in float64, exact here); CUDA tensors the
-kernel (csrc/int8_probe.cu), which reads the weights as (N, K) rows: a ws
-given to it must be the transposed view of a contiguous (NDOTS, N, K)
+kernels (csrc/int8_probe.cu), which read the weights as (N, K) rows: a ws
+given to them must be the transposed view of a contiguous (NDOTS, N, K)
 tensor (`weight_storage`). M, K, N and NDOTS come from the operands' shapes;
 the module's constants are the TPU probe's.
+
+On the card the five variants are two computations (`chain_form`): the
+accumulating one (int8, int8_lhsT, bf16: acc = sum_i x . w_i in the (M, N)
+form) and the requantized one (int8_req, int8_alt: the per-row requantized
+chain h . w_i). int8_lhsT's (N, M) accumulator is the transpose of int8's,
+and int8_alt's transposed products requantized per column are the
+transposes of int8_req's requantized per row, so each variant is its
+form's (M, N) computation with the (8, 128) window taken as acc[:8, :128]
+or, transposed, acc[:128, :8]^T (int8_lhsT; int8_alt at odd NDOTS, whose
+last product is a transposed one). `kernel_plan` states the shapes the
+kernels take (M % 128, N % 256, K bytes % 128; the requantized chain K ==
+N <= 1024) and raises on any other.
 
 `main()` (`python -m lhrs_bot_tpu_torch.benchmarks.int8_probe` on the card)
 checks each variant against its plain version and reports its TOPS (2 M K
@@ -42,8 +54,7 @@ from ..ops.quant import transposed_storage
 M, K, N = 2048, 1024, 1024
 NDOTS = 16  # products per chain
 G = 16      # activation blocks a call (the TPU probe's G_HI)
-VARIANTS = {"int8": 0, "int8_req": 1, "int8_lhsT": 2, "int8_alt": 3,
-            "bf16": 4}
+VARIANTS = ("int8", "int8_req", "int8_lhsT", "int8_alt", "bf16")
 INV127 = 1.0 / 127.0
 
 
@@ -117,9 +128,28 @@ def int8_chain_plain(xg: torch.Tensor, ws: torch.Tensor,
     return torch.stack(outs)
 
 
+def chain_form(variant: str, ndots: int):
+    """(kind, window_transposed) of a variant's chain of `ndots` products
+    on the card: kind "accumulate" (acc = sum_i x . w_i) or "requant" (h <-
+    requantize(h . w_i) per row, acc the last product), both in the (M, N)
+    form; window_transposed: the (8, 128) window is acc[:128, :8]^T, not
+    acc[:8, :128]."""
+    if variant not in VARIANTS:
+        raise ValueError(f"variant must be one of {VARIANTS}")
+    if variant in ("int8", "bf16"):
+        return "accumulate", False
+    if variant == "int8_lhsT":
+        return "accumulate", True
+    if variant == "int8_req":
+        return "requant", False
+    # int8_alt: product i is in the transposed form for even i, so the last
+    # one (i = ndots - 1) is transposed at odd ndots
+    return "requant", ndots % 2 == 1
+
+
 def _check(xg, ws, variant):
     if variant not in VARIANTS:
-        raise ValueError(f"variant must be one of {tuple(VARIANTS)}")
+        raise ValueError(f"variant must be one of {VARIANTS}")
     want = torch.bfloat16 if variant == "bf16" else torch.int8
     if xg.dtype != want or ws.dtype != want:
         raise ValueError(f"{variant} takes {want} operands, got {xg.dtype} / "
@@ -138,20 +168,53 @@ def _check(xg, ws, variant):
     return g, m, k, n
 
 
+# csrc/int8_probe.cu's tiles: 128 rows a CTA, 256 columns (the
+# accumulating kernel's tile, the requantized kernel's share of N), K in
+# 128-byte slices; the requantized kernel keeps its 128 x K rows of h in
+# shared memory, K <= 1024 bytes, one CTA of a cluster per 256 columns
+ROWS, COLS, SLICE, REQ_MAX_K = 128, 256, 128, 1024
+
+
+def kernel_plan(g: int, m: int, k: int, n: int, ndots: int, variant: str,
+                elt: int):
+    """(requant, window_transposed) of the launch for a chain of g blocks
+    (M, K) x ndots (K, N) weights of `elt` bytes; raises ValueError on a
+    shape the kernels do not take: M % 128, N % 256 and K bytes % 128 ==
+    0; the requantized chain (int8_req, int8_alt, on clusters of N / 256
+    CTAs) K == N <= 1024 and at most 65535 row tiles of 128."""
+    kind, trans = chain_form(variant, ndots)
+    kb = k * elt
+    if min(g, m, k, n, ndots) <= 0:
+        raise ValueError(f"empty chain: g {g}, M {m}, K {k}, N {n}, "
+                         f"{ndots} products")
+    if m % ROWS or n % COLS or kb % SLICE:
+        raise ValueError(f"the kernels need M % {ROWS}, N % {COLS} and K "
+                         f"bytes % {SLICE} == 0, got M {m}, N {n}, K bytes "
+                         f"{kb}")
+    tiles = g * m // ROWS
+    if kind == "requant":
+        if k != n or kb > REQ_MAX_K:
+            raise ValueError(f"the requantized kernel needs K == N <= "
+                             f"{REQ_MAX_K}, got K {k}, N {n}")
+        if tiles > 65535:
+            raise ValueError(f"g M / {ROWS} = {tiles} row tiles, the "
+                             "requantized kernel takes at most 65535")
+    return kind == "requant", trans
+
+
 def int8_chain_kernel(xg: torch.Tensor, ws: torch.Tensor, variant: str,
                       with_total: bool = False):
-    """Launch the CUDA chain. xg (g, M, K) contiguous, ws in
-    `weight_storage` layout, both CUDA, int8 (bf16 for "bf16"); M % 32 == 0,
-    N % 128 == 0, K bytes % 64 == 0. With `with_total`, also returns the
-    (g,) sum(acc) that the kernel added to the window. Counts its launches
-    in `int8_chain_kernel.launches`."""
+    """Launch the CUDA chain: `chain_form`'s computation, on the shapes
+    `kernel_plan` takes. xg (g, M, K) contiguous, ws in `weight_storage`
+    layout, both CUDA, int8 (bf16 for "bf16"). With `with_total`, also
+    returns the (g,) sum(acc) that the kernel added to the window. Counts
+    its launches in `int8_chain_kernel.launches`."""
     g, m, k, n = _check(xg, ws, variant)
     if not (xg.is_cuda and ws.device == xg.device):
         raise ValueError("int8_chain_kernel takes CUDA tensors on one device")
+    requant, trans = kernel_plan(g, m, k, n, ws.shape[0], variant,
+                                 xg.element_size())
     kb = k * xg.element_size()
-    if m % 32 or n % 128 or kb % 64:
-        raise ValueError(f"the kernel needs M % 32, N % 128 and K bytes % 64 "
-                         f"== 0, got M {m}, N {n}, K bytes {kb}")
     if not xg.is_contiguous() or not ws.transpose(1, 2).is_contiguous():
         raise ValueError("xg must be contiguous and ws the transposed view "
                          "of a contiguous (NDOTS, N, K) tensor")
@@ -165,7 +228,8 @@ def int8_chain_kernel(xg: torch.Tensor, ws: torch.Tensor, variant: str,
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.lhrs_int8_chain(xg.data_ptr(), ws.data_ptr(),
                                   win.data_ptr(), total.data_ptr(), g, m, n,
-                                  kb, ws.shape[0], VARIANTS[variant], stream)
+                                  kb, ws.shape[0], int(requant), int(trans),
+                                  int(variant == "bf16"), stream)
     cuda_lib.check(err, "int8_chain_kernel")
     int8_chain_kernel.launches += 1
     return (win, total) if with_total else win

@@ -3,8 +3,9 @@ timed on the card at the main path's shapes, and the end to end numbers
 they move: kernel B (int8 GEMM), K1 (flash-attention forward), the flash
 backward (dQ and dK/dV kernels), kernel A (LayerNorm + int8 rows), K3
 (the W4A8 decode product), K2 / K4 (the contiguous-cache decode
-attention, bf16 and int8 cache), the int8-dots decode kernel 5b and the
-paged int8 decode kernel.
+attention, bf16 and int8 cache), the int8-dots decode kernel 5b, the
+paged int8 decode kernel, and the probes' kernels (the int8 / bf16 chains,
+the cache row write, the HBM readers).
 
     python3 lhrs_bot_tpu_torch/benchmarks/wgmma_ab.py --root DIR --part P
 
@@ -68,6 +69,15 @@ change, parent). Parts:
       batch and on the caption batch (host clock), each with the card's
       busy time and the flash forward's and backward's shares of it under
       torch.profiler.
+  probes: the five int8 / bf16 product chains at the probe's shape (g16
+      M2048 K = N 1024, 16 products; where the checkout has `chain_form`,
+      each with its form), each beside its bound, its share of it and the
+      library chain (`torch._int_mm`, `torch.matmul` for bf16); the cache
+      row write at B7 H32 S2304 D128 bf16 beside its bound, `index_put_`
+      and, where the checkout has one, an empty kernel on its grid (the
+      launch floor); the HBM readers (int8 and bf16, one array and two
+      halves) over 1.5 GB; the probe kernels' registers and spills from the
+      checkout's build log.
 """
 
 from __future__ import annotations
@@ -377,23 +387,98 @@ DECODE_LENGTHS = {"B1": [2191], "B2": [2191, 700],
                   "B7": [2192, 5, 1000, 2303, 63, 1500, 2000]}
 
 
-def _decode_registers(so):
-    """Registers of each decode attention kernel of the checkout's build
-    log (ptxas -v), by its mangled name: the contiguous, paged and
-    int8-dots kernels."""
+def _build_usage(so, keys):
+    """{mangled name: {"registers", "spill_stores"}} of the kernels of the
+    checkout's build log (ptxas -v) whose names hold one of `keys`."""
     import re
 
-    regs, name = {}, None
+    usage, name = {}, None
     for ln in (so.parent / "build.log").read_text().splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
-            name = m.group(1)
+            name = m.group(1) if any(k in m.group(1) for k in keys) else None
             continue
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m and name:
+            usage.setdefault(name, {})["spill_stores"] = int(m.group(1))
         m = re.search(r"Used (\d+) registers", ln)
-        if m and name and "decode" in name:
-            regs[name] = int(m.group(1))
+        if m and name:
+            usage.setdefault(name, {})["registers"] = int(m.group(1))
             name = None
-    return regs
+    return usage
+
+
+def _probes(dev):
+    import torch
+
+    import chip_smoke as c
+    from lhrs_bot_tpu_torch.benchmarks import hbm_peak_probe as hbm
+    from lhrs_bot_tpu_torch.benchmarks import int8_probe as chains
+    from lhrs_bot_tpu_torch.ops import cache_update as cu
+    from lhrs_bot_tpu_torch.ops import cuda_lib
+
+    # the chain, row-write and reader kernels, and A and K3, which share
+    # csrc/rowquant.cuh with the requantized chain
+    out = {"registers": _build_usage(cuda_lib.build(), (
+        "int8_probe", "cache_update", "hbm_probe", "ln_quant", "w4a8"))}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ops = chains.operands(dev, gen)
+    for variant in chains.VARIANTS:
+        xg, ws = ops["bf16" if variant == "bf16" else "int8"]
+        n_ops = chains.chain_ops(xg, ws)
+        # chip_smoke.chain_bound's count (the parent's chip_smoke has none)
+        bms, by = c.bound(xg.numel() * xg.element_size()
+                          + ws.numel() * ws.element_size()
+                          + xg.shape[0] * 4096, n_ops,
+                          "bf16" if variant == "bf16" else "int8")
+        ms = c.cuda_ms(lambda: chains.int8_chain_kernel(xg, ws, variant),
+                       warmup=1, reps=5)
+        lib = c.cuda_ms(lambda: chains.library_chain(xg, ws, variant),
+                        warmup=1, reps=5)
+        row = {"ms": ms, "TOPS": n_ops / ms / 1e9, "bound_ms": bms,
+               "bound_by": by, "bound_share": bms / ms, "library_ms": lib,
+               "library_TOPS": n_ops / lib / 1e9}
+        if hasattr(chains, "chain_form"):
+            row["form"] = chains.chain_form(variant, ws.shape[0])[0]
+        out[f"chain_{variant}"] = row
+    del ops
+    torch.cuda.empty_cache()
+
+    b, h, s, d = 7, 32, 2304, 128
+    cache = torch.randn(b, h, s, d, generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+    new = torch.randn(b, h, 1, d, generator=gen, device=dev,
+                      dtype=torch.bfloat16)
+    lens = torch.tensor([0, s - 1, 5, 2191, 700, 1, 2300], dtype=torch.int32,
+                        device=dev)
+    idx = (torch.arange(b, device=dev)[:, None],
+           torch.arange(h, device=dev)[None, :], lens.long()[:, None])
+    row = {"ms": c.cuda_ms(lambda: cu.cache_row_update_kernel(cache, new,
+                                                                lens)),
+           "library_ms": c.cuda_ms(lambda: cache.index_put_(idx,
+                                                            new[:, :, 0]))}
+    row["bound_ms"], row["bound_by"] = c.bound(2 * b * h * d * 2)
+    if hasattr(cu, "empty_kernel"):
+        blocks = cu.row_write_blocks(b, h, d * 2)
+        row["empty_ms"] = c.cuda_ms(lambda: cu.empty_kernel(dev, blocks))
+        row["blocks"] = blocks
+    out["cache_row_update"] = row
+    del cache
+    torch.cuda.empty_cache()
+
+    x8, xb = hbm.buffers(dev, gen)
+    for name, x in (("int8", x8), ("bf16", xb)):
+        half, half2 = x[:x.shape[0] // 2], x[x.shape[0] // 2:]
+        for dual, args in ((False, (x,)), (True, (half, half2))):
+            n = x.numel() * x.element_size()
+            ms = c.cuda_ms(lambda: hbm.hbm_read_kernel(*args), reps=5)
+            bms, by = c.bound(n)
+            out[f"hbm_{name}_{'dual' if dual else 'single'}"] = {
+                "bytes": n, "ms": ms, "GB_s": n / ms / 1e6, "bound_ms": bms,
+                "bound_by": by, "bound_share": bms / ms,
+                "library_ms": c.cuda_ms(
+                    lambda: [torch.amax(a) for a in args], reps=5)}
+    return out
 
 
 def _takes(fn, name):
@@ -452,7 +537,8 @@ def _decode(dev):
     from lhrs_bot_tpu_torch.ops import fused_decode as fd
     from lhrs_bot_tpu_torch.ops import paged_fused as pf
 
-    out = {"registers": _decode_registers(cuda_lib.build())}
+    out = {"registers": {k: v["registers"] for k, v in _build_usage(
+        cuda_lib.build(), ("decode",)).items()}}
     split = hasattr(fd, "decode_split_plan")  # the change's clusters
     paged_split = _takes(pf.paged_fused_decode_q_kernel, "splits")
     dots_split = _takes(fd.fused_decode_attention_q_int8dots_kernel,
@@ -793,7 +879,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", required=True,
                     help="checkout whose lhrs_bot_tpu_torch is measured")
-    ap.add_argument("--part", choices=("kernels", "quant", "decode", "e2e"),
+    ap.add_argument("--part", choices=("kernels", "quant", "decode", "e2e",
+                                       "probes"),
                     required=True)
     ap.add_argument("--no-train", action="store_true",
                     help="e2e: leave out the prefill and the training steps")
@@ -818,6 +905,8 @@ def main(argv=None):
         res = _quant(dev)
     elif args.part == "decode":
         res = _decode(dev)
+    elif args.part == "probes":
+        res = _probes(dev)
     else:
         res = _e2e(dev, train=not args.no_train)
     line = {"root": args.root, "part": args.part, "result": res,

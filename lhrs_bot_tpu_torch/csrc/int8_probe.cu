@@ -5,174 +5,132 @@
 // `_k_int8_req` (:131), `_k_int8_lhsT` (:147), `_k_int8_alt` (:161) and
 // `_k_bf16` (:189). Grid step i takes its own (M, K) activation block of xg
 // and the NDOTS resident (K, N) weights and writes acc[:8, :128] + sum(acc)
-// as its (8, 128) output, where acc is
-//   variant 0 (int8):    sum_i x . w_i, int32;
-//   variant 1 (int8_req): the chain h <- requant(h . w_i) (f = acc * (1/127),
-//                        per-row s = amax / 127 or 1, h = clip(round(f / s),
-//                        +-127)), acc the last product;
-//   variant 2 (int8_lhsT): sum_i w_i^T . x^T, an (N, M) int32 accumulator;
-//   variant 3 (int8_alt): the requantized chain with the even products in
-//                        the transposed form w^T . h^T (requantized per
-//                        column, i.e. per row m of h) and the odd ones in
-//                        the plain form;
-//   variant 4 (bf16):    sum_i x . w_i in float32 of bf16 operands.
-// Integer sums wrap modulo 2^32, as JAX's int32 sum does, so any order of
-// the partial sums gives the same bits.
+// as its (8, 128) output. On the TPU the five were five MXU forms; here they
+// are two computations, which `chain_form` (lhrs_bot_tpu_torch/benchmarks/
+// int8_probe.py) picks with the orientation of the window:
+//   accumulate (int8, int8_lhsT, bf16): acc = sum_i x . w_i, int32 (float32
+//       of bf16 operands for bf16). int8_lhsT's (N, M) accumulator
+//       sum_i w_i^T . x^T is its transpose, so its window is acc[:128, :8]^T
+//       and its total the same;
+//   requant (int8_req, int8_alt): the chain h <- requant(h . w_i), with
+//       f = acc * (1/127), per-row s = amax / 127 (1 where amax is 0),
+//       h = clip(rint(f / s), +-127), acc the last product. int8_alt's
+//       transposed products w^T . h^T, requantized per column, are the
+//       transposes of h . w requantized per row, so its chain is
+//       int8_req's bit for bit; at odd NDOTS its last product is the
+//       transposed one and its window is acc[:128, :8]^T.
+// Integer sums wrap modulo 2^32, as JAX's int32 sum does (wgmma's s32
+// accumulation and the unsigned atomics both wrap), so any order of the
+// partial sums gives the same bits.
 //
 // What bounds it on the H100: operations (2 M N K NDOTS a grid step, at the
-// 1,979 TOP/s int8 / 989 TFLOP/s bf16 dense peaks), since the weights
-// (NDOTS K N bytes) stay in the 50 MB L2 across CTAs.
+// 1,979 TOP/s int8 / 989 TFLOP/s bf16 dense peaks). The weights (NDOTS K N
+// elements) stay in the 50 MB L2, but each CTA streams all NDOTS of them
+// past its 128 rows, so the L2 carries (g M / 128) NDOTS K N elements a
+// call: 4 GiB for the probe's int8 shape, 7.7 TB/s at the int8 peak. Only
+// wgmma reaches the tensor cores' rate, and int8 wgmma takes only K-major
+// operands, which is why every variant is computed in the (M, N) form.
 //
-// Design: every requantization is local to a row m (the alt variant's
-// per-column step is per m too), so one CTA owns 32 rows of one grid step's
-// activation block, kept in shared memory, and runs the whole chain on
-// them. A CTA of 8 warps computes 128 output columns at a time, 16 a warp,
-// with mma.sync m16n8k32 (s8 -> s32) or m16n8k16 (bf16 -> f32), whose
-// fragments take the same bytes; the weights are read as (N, K) rows, K
-// contiguous (the transposed view of a contiguous (N, K) tensor, as kernel
-// B reads them), in 64-byte K slices double-buffered with cp.async. The
-// transposed form swaps the operands: the weight tile is the A fragment
-// (16 n rows), the activations the B fragment (8 m columns). The
-// accumulating variants keep the 128 columns' sums in registers across all
-// NDOTS products; the chained ones store each product's int32 rows in
-// shared memory (32 x N) until the rows are requantized into the next
-// activation. Each CTA adds its part of sum(acc) to the grid step's total
-// with one atomic; a second kernel adds the total to the (8, 128) window.
+// Design. Each kernel's consumer warpgroups run wgmma on 128-byte K slices
+// that TMA copies into 128-byte swizzled shared memory through a ring,
+// announced on "full" mbarriers and handed back on "empty" ones once the
+// wgmmas that read them have retired; one producer thread issues the
+// copies. The weights are read as (N, K) rows, K contiguous
+// (`weight_storage`: the transposed view of a contiguous (NDOTS, N, K)
+// tensor), as kernel B reads them.
+//   The accumulating kernel: a CTA of two consumer warpgroups (64 rows
+// each) and a producer warp owns a 128 x 256 output tile of one block and
+// sums all NDOTS products into one register accumulator (wgmma m64n256k32
+// s8 / m64n256k16 bf16, 128 registers a thread). Its loop runs K slices
+// outside and the NDOTS weights inside, so one 16 KB activation slice (two
+// slots) serves NDOTS weight tiles (a 6-stage ring of 32 KB): x is read
+// once a tile, and the bf16 block, 256 KB, never needs to be resident. (A
+// cluster of 2 CTAs along M sharing each weight tile by TMA multicast ran
+// 2.3x slower on an H100, whose L2 feeds single CTAs at 6.5 TB/s: PERF.md,
+// row 15.) The CTA holding rows 0-127
+// and columns 0-255 of a block writes its window (rows 0-7, or for lhsT
+// the transposed columns 0-7); every CTA adds its part of sum(acc) with one
+// atomic.
+//   The requantized kernel: requantization is per row over all N columns,
+// and the int32 rows of one 128-row product do not fit one CTA's
+// registers, so N is split across a cluster of C = N / 256 CTAs over the
+// same 128 rows. Each keeps the whole int8 h (128 x K, K = N <= 1024) in
+// shared memory, and streams its 256 columns of w_i as 16 KB tiles of 128
+// columns, each read by the two of its four consumer warpgroups that own
+// that column half (one per 64-row half: m64n128k32, 64 accumulators a
+// thread). After each product a warpgroup takes its rows' partial max|acc|
+// within the quads and sends it to every CTA of the cluster by
+// st.async, completing on the receivers' mbarrier (a rank has sent all its
+// rows only once its wgmmas stopped reading h). Each CTA then forms the
+// rows' scales (rowquant.cuh: the exact quotient from one RN reciprocal a
+// row), writes its 256 columns' codes into its own h at their 128-byte
+// swizzled positions (fence.proxy.async before the wgmmas and bulk copies
+// read them), and sends that 32 KB to every peer by one bulk copy each,
+// completing on the peer's mbarrier; the producer meanwhile streams the
+// next product's first weight tiles. The producer is a warpgroup that
+// hands its registers over (setmaxnreg: 24 for it, 112 for each consumer
+// thread); with two consumer warpgroups of 128 accumulators each, the
+// requantization spilled even at 240. The window and total come from the
+// last product, as in the accumulating kernel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "rowquant.cuh"
+#include "sm90.cuh"
+
 namespace {
 
-constexpr int kRows = 32;       // rows m of a CTA
-constexpr int kBN = 128;        // output columns per pass, 16 a warp
-constexpr int kBK = 64;         // bytes of K per staged weight tile
-constexpr int kLdw = kBK + 16;  // padded weight tile row, bytes
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-enum { kInt8 = 0, kInt8Req = 1, kInt8LhsT = 2, kInt8Alt = 3, kBf16 = 4 };
+constexpr int kBM = 128;                   // rows of a CTA
+constexpr int kSlice = 128;                // bytes of K a tile row holds
+constexpr int kConsumers = 256;            // two warpgroups of 64 rows
+constexpr int kThreads = kConsumers + 32;  // and the producer warp
+constexpr int kWarps = kConsumers / 32;
+constexpr int kTile = kBM * kSlice;        // 128 rows of one K slice: 16 KB
+constexpr float kInv127 = (float)(1.0 / 127.0);
 
-__device__ __forceinline__ void mma(int c[4], const uint32_t a[4],
-                                    const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+// the accumulating kernel: 128 x 256 tiles, a 6-stage ring of 32 KB
+constexpr int kAccN = 256;
+constexpr int kAccStages = 6;
+constexpr int kAccW = kAccN * kSlice;
+constexpr int kAccRing = 2 * kTile + kAccStages * kAccW;
+constexpr int kAccSmem = 1024 + kAccRing + (2 * kAccStages + 4) * 8 +
+                         kWarps * 4;
+
+// the requantized kernel: 256 columns a CTA, a 5-stage ring of 16 KB, h
+// resident; a producer warpgroup, whose thread 0 issues the loads and which
+// hands its registers to four consumer warpgroups, one for each (64-row
+// half, 128-column half). setmaxnreg moves registers within the CTA's
+// pool, which the launch sizes at 640 x (registers at launch): 640 x 96
+// (ptxas's limit for 640 threads) holds 128 x 24 + 512 x 112, not 120 for
+// the consumers. A pool too small would leave setmaxnreg.inc waiting for
+// ever, so the host refuses to launch a build that gives fewer (req_pool_ok)
+constexpr int kReqN = 256;
+constexpr int kReqStages = 5;
+constexpr int kMaxCluster = 4;  // N <= 1024
+constexpr int kProducers = 128;
+constexpr int kReqConsumers = 512;
+constexpr int kReqThreads = kProducers + kReqConsumers;
+constexpr int kProducerRegs = 24, kConsumerRegs = 112;
+// its small state first, at fixed offsets: the barriers, the consumers'
+// sums, the row maxima of each (rank, column half); then h (nk K slices)
+// and the ring
+constexpr int kReqBars = 3 * kReqStages + 2;
+constexpr int kReqHead = 6144;  // 1024-aligned
+static_assert(kReqBars * 8 + kReqConsumers / 32 * 4 +
+                      2 * kMaxCluster * kBM * 4 <=
+                  kReqHead,
+              "the requantized kernel's small state must fit its head");
+__host__ __device__ constexpr int req_smem(int nk) {
+  return 1024 + kReqHead + nk * kTile + kReqStages * kTile;
 }
 
-__device__ __forceinline__ void mma(float c[4], const uint32_t a[4],
-                                    const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t lds32(const unsigned char* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Weight rows [n0, n0 + 128) x bytes [k0, k0 + 64) of a (N, Kb) matrix into
-// a padded shared tile, 16 bytes a copy.
-__device__ __forceinline__ void load_w(unsigned char* dst,
-                                       const unsigned char* w, int Kb, int n0,
-                                       int k0) {
-#pragma unroll
-  for (int i = threadIdx.x; i < kBN * (kBK / 16); i += kThreads) {
-    const int r = i / (kBK / 16), c = i % (kBK / 16);
-    const uint32_t s =
-        static_cast<uint32_t>(__cvta_generic_to_shared(dst + r * kLdw + c * 16));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-                 "l"(w + (size_t)(n0 + r) * Kb + k0 + c * 16));
-  }
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// acc += the products of the CTA's 32 activation rows h (row stride ldh
-// bytes) with weight rows [n0, n0 + 128) of w (N, Kb). The warp's 16
-// columns: plain form, acc[(mi * 2 + ni) * 4 + e] is row mi * 16 + g +
-// 8 (e >> 1), column 16 warp + 8 ni + 2 t + (e & 1); transposed form,
-// acc[mj * 4 + e] is column 16 warp + g + 8 (e >> 1), row 8 mj + 2 t +
-// (e & 1).
-template <typename Acc, bool Trans>
-__device__ void chunk_products(Acc acc[16], const unsigned char* h, int ldh,
-                               const unsigned char* w, int Kb, int n0,
-                               unsigned char* sw) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int nk = Kb / kBK;
-  load_w(sw, w, Kb, n0, 0);
-  for (int kt = 0; kt < nk; ++kt) {
-    unsigned char* cur = sw + (kt & 1) * kBN * kLdw;
-    if (kt + 1 < nk) {
-      load_w(sw + ((kt + 1) & 1) * kBN * kLdw, w, Kb, n0, (kt + 1) * kBK);
-      asm volatile("cp.async.wait_group 1;\n" ::);
-    } else {
-      asm volatile("cp.async.wait_group 0;\n" ::);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 32) {
-      const int hk = kt * kBK + kk + 4 * t;
-      if constexpr (!Trans) {
-        uint32_t a[2][4], b[2][2];
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          const unsigned char* p = h + (mi * 16 + g) * ldh + hk;
-          a[mi][0] = lds32(p);
-          a[mi][1] = lds32(p + 8 * ldh);
-          a[mi][2] = lds32(p + 16);
-          a[mi][3] = lds32(p + 8 * ldh + 16);
-        }
-#pragma unroll
-        for (int ni = 0; ni < 2; ++ni) {
-          const unsigned char* p = cur + (warp * 16 + ni * 8 + g) * kLdw +
-                                   kk + 4 * t;
-          b[ni][0] = lds32(p);
-          b[ni][1] = lds32(p + 16);
-        }
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-          for (int ni = 0; ni < 2; ++ni)
-            mma(acc + (mi * 2 + ni) * 4, a[mi], b[ni]);
-      } else {
-        uint32_t a[4], b[4][2];
-        const unsigned char* p = cur + (warp * 16 + g) * kLdw + kk + 4 * t;
-        a[0] = lds32(p);
-        a[1] = lds32(p + 8 * kLdw);
-        a[2] = lds32(p + 16);
-        a[3] = lds32(p + 8 * kLdw + 16);
-#pragma unroll
-        for (int mj = 0; mj < 4; ++mj) {
-          const unsigned char* q = h + (mj * 8 + g) * ldh + hk;
-          b[mj][0] = lds32(q);
-          b[mj][1] = lds32(q + 16);
-        }
-#pragma unroll
-        for (int mj = 0; mj < 4; ++mj) mma(acc + mj * 4, a, b[mj]);
-      }
-    }
-    __syncthreads();  // the stage is refilled two iterations on
-  }
-}
-
-// Row m (of the CTA's 32) and column n (of the pass's 128) of acc[i].
-template <bool Trans>
-__device__ __forceinline__ void coords(int i, int& m, int& n) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3, e = i & 3;
-  if (!Trans) {
-    const int mi = i >> 3, ni = (i >> 2) & 1;
-    m = mi * 16 + g + 8 * (e >> 1);
-    n = warp * 16 + ni * 8 + 2 * t + (e & 1);
-  } else {
-    m = (i >> 2) * 8 + 2 * t + (e & 1);
-    n = warp * 16 + g + 8 * (e >> 1);
-  }
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
 }
 
 __device__ __forceinline__ unsigned add_wrap(unsigned a, unsigned b) {
@@ -180,154 +138,348 @@ __device__ __forceinline__ unsigned add_wrap(unsigned a, unsigned b) {
 }
 __device__ __forceinline__ float add_wrap(float a, float b) { return a + b; }
 
-// The CTA's sum of `part` (wrapping for integers) into *total.
+// The consumers' sum of `part` (wrapping for integers) into *total: one
+// atomic a CTA. ctid: the consumer thread's index, of `consumers`.
 template <typename Sum>
-__device__ void add_to_total(Sum part, Sum* total) {
-  __shared__ Sum red[kWarps];
+__device__ void add_to_total(Sum part, Sum* red, Sum* total, int ctid,
+                             int consumers) {
 #pragma unroll
   for (int o = 16; o; o >>= 1)
     part = add_wrap(part, __shfl_xor_sync(0xffffffffu, part, o));
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = part;
-  __syncthreads();
-  if (threadIdx.x == 0) {
+  if ((ctid & 31) == 0) red[ctid >> 5] = part;
+  sm90::bar_sync(1, consumers);
+  if (ctid == 0) {
     Sum s = red[0];
-    for (int i = 1; i < kWarps; ++i) s = add_wrap(s, red[i]);
+    for (int i = 1; i < consumers / 32; ++i) s = add_wrap(s, red[i]);
     atomicAdd(total, s);
   }
 }
 
-// Window element (r, c) < (8, 128) of the grid step's output: plain form
-// (m, n) = (r, c); transposed (lhsT) form (n, m) = (r, c).
+// Element e of a thread's m64nN wgmma accumulator lies in row r_lo + 8
+// ((e >> 1) & 1) of the CTA's 128 (r_lo = 64 wg + 16 (warp % 4) + lane / 4)
+// and column 8 (e >> 2) + 2 (lane % 4) + (e & 1) of the tile.
+__device__ __forceinline__ int acc_row(int r_lo, int e) {
+  return r_lo + 8 * ((e >> 1) & 1);
+}
+__device__ __forceinline__ int acc_col(int lane, int e) {
+  return 8 * (e >> 2) + 2 * (lane & 3) + (e & 1);
+}
+
+// Window element of tile element (r, c) of a block's rows 0-127 and columns
+// 0-127: (r, c) < (8, 128), or transposed (c, r).
 template <typename Out, typename Acc>
-__device__ __forceinline__ void window(Out* win, int gm, int gn, bool lhsT,
+__device__ __forceinline__ void window(Out* win, int r, int c, bool trans,
                                        Acc v) {
-  const int r = lhsT ? gn : gm, c = lhsT ? gm : gn;
-  if (r < 8 && c < 128) win[r * 128 + c] = (Out)v;
+  const int wr = trans ? c : r, wc = trans ? r : c;
+  if (wr < 8 && wc < 128) win[wr * 128 + wc] = (Out)v;
 }
 
-// One grid step of the accumulating variants (int8, int8_lhsT, bf16).
-template <typename Acc, typename Sum, bool Trans>
-__device__ void accumulate(const unsigned char* h, int ldh,
-                           const unsigned char* w, Sum* win, Sum* total,
-                           int m0, int N, int Kb, int ndots,
-                           unsigned char* sw) {
-  Sum part = 0;
-  for (int n0 = 0; n0 < N; n0 += kBN) {
-    Acc acc[16];
-#pragma unroll
-    for (int i = 0; i < 16; ++i) acc[i] = 0;
-    for (int d = 0; d < ndots; ++d)
-      chunk_products<Acc, Trans>(acc, h, ldh, w + (size_t)d * N * Kb, Kb, n0,
-                                 sw);
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      int m, n;
-      coords<Trans>(i, m, n);
-      part = add_wrap(part, (Sum)acc[i]);
-      window(win, m0 + m, n0 + n, Trans, acc[i]);
+// ---- the accumulating kernel (int8, int8_lhsT, bf16) -----------------------
+
+template <bool kBf16>
+__global__ void __launch_bounds__(kThreads, 1)
+    accumulate_kernel(const __grid_constant__ CUtensorMap tm_x,
+                      const __grid_constant__ CUtensorMap tm_w, void* win,
+                      void* total, int M, int N, int Kb, int ndots,
+                      int trans) {
+  using Acc = typename std::conditional<kBf16, float, int>::type;
+  using Sum = typename std::conditional<kBf16, float, unsigned>::type;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sa = align1024(smem_raw);  // two activation slices
+  uint8_t* sw = sa + 2 * kTile;       // the weight ring
+  uint64_t* full = reinterpret_cast<uint64_t*>(sa + kAccRing);
+  uint64_t* empty = full + kAccStages;
+  uint64_t* a_full = empty + kAccStages;
+  uint64_t* a_empty = a_full + 2;
+  Sum* red = reinterpret_cast<Sum*>(a_empty + 2);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tiles_m = M / kBM;
+  const int gi = blockIdx.x / tiles_m, m0 = (blockIdx.x % tiles_m) * kBM;
+  const int n0 = blockIdx.y * kAccN;
+  const int nk = Kb / kSlice;
+
+  if (tid == 0) {
+    for (int s = 0; s < kAccStages; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], kWarps);
     }
-  }
-  add_to_total(part, total);
-}
-
-// One grid step of the requantized chains (int8_req, int8_alt); K == N.
-__device__ void chain(unsigned char* h, int ldh, const unsigned char* w,
-                      unsigned* win, unsigned* total, int m0, int N,
-                      int ndots, bool alt, unsigned char* sw, int* accs) {
-  const float inv127 = (float)(1.0 / 127.0);
-  for (int d = 0; d < ndots; ++d) {
-    const bool trans = alt && d % 2 == 0;
-    for (int n0 = 0; n0 < N; n0 += kBN) {
-      int acc[16];
-#pragma unroll
-      for (int i = 0; i < 16; ++i) acc[i] = 0;
-      const unsigned char* wd = w + (size_t)d * N * N;
-      if (trans)
-        chunk_products<int, true>(acc, h, ldh, wd, N, n0, sw);
-      else
-        chunk_products<int, false>(acc, h, ldh, wd, N, n0, sw);
-#pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        int m, n;
-        if (trans)
-          coords<true>(i, m, n);
-        else
-          coords<false>(i, m, n);
-        accs[m * N + n0 + n] = acc[i];
-      }
+    for (int j = 0; j < 2; ++j) {
+      sm90::mbar_init(&a_full[j], 1);
+      sm90::mbar_init(&a_empty[j], kWarps);
     }
-    __syncthreads();
-    if (d + 1 == ndots) break;
-    // requantize each row into the next activation: 8 threads a row
-    const int row = threadIdx.x >> 3, part = threadIdx.x & 7;
-    const int* ar = accs + row * N;
-    float amax = 0.f;
-    for (int n = part; n < N; n += 8)
-      amax = fmaxf(amax, fabsf(__fmul_rn(__int2float_rn(ar[n]), inv127)));
-    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 1));
-    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 2));
-    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 4));
-    const float s = amax == 0.f ? 1.f : __fdiv_rn(amax, 127.f);
-    for (int n = part; n < N; n += 8) {
-      const float f = __fmul_rn(__int2float_rn(ar[n]), inv127);
-      const float qv = fminf(fmaxf(rintf(__fdiv_rn(f, s)), -127.f), 127.f);
-      h[row * ldh + n] = (unsigned char)(int8_t)qv;
-    }
-    __syncthreads();
-  }
-  unsigned part = 0;
-  for (int i = threadIdx.x; i < kRows * N; i += kThreads) {
-    const int m = i / N, n = i - m * N;
-    part += (unsigned)accs[i];
-    window(win, m0 + m, n, false, (unsigned)accs[i]);
-  }
-  add_to_total(part, total);
-}
-
-// Dynamic shared memory: the CTA's activation rows, the two weight stages
-// and, for the chains, the 32 x N int32 products.
-__host__ __device__ __forceinline__ int ldh_of(int Kb) { return Kb + 16; }
-__host__ __device__ __forceinline__ int smem_of(int Kb, int N, int chained) {
-  return kRows * ldh_of(Kb) + 2 * kBN * kLdw + (chained ? kRows * N * 4 : 0);
-}
-
-__global__ void __launch_bounds__(kThreads)
-    chain_kernel(const unsigned char* __restrict__ x,
-                 const unsigned char* __restrict__ w, void* win, void* total,
-                 int M, int N, int Kb, int ndots, int variant) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int ldh = ldh_of(Kb);
-  unsigned char* h = smem;
-  unsigned char* sw = smem + kRows * ldh;
-  int* accs = reinterpret_cast<int*>(sw + 2 * kBN * kLdw);
-  const int gi = blockIdx.y, m0 = blockIdx.x * kRows;
-
-  const unsigned char* xs = x + ((size_t)gi * M + m0) * Kb;
-  for (int i = threadIdx.x; i < kRows * (Kb / 16); i += kThreads) {
-    const int r = i / (Kb / 16), c = i % (Kb / 16);
-    *reinterpret_cast<uint4*>(h + r * ldh + c * 16) =
-        *reinterpret_cast<const uint4*>(xs + (size_t)r * Kb + c * 16);
+    sm90::mbar_fence_init();
   }
   __syncthreads();
-  unsigned* wi = static_cast<unsigned*>(win) + (size_t)gi * 8 * 128;
-  unsigned* ti = static_cast<unsigned*>(total) + gi;
-  switch (variant) {
-    case kInt8:
-      accumulate<int, unsigned, false>(h, ldh, w, wi, ti, m0, N, Kb, ndots,
-                                       sw);
-      break;
-    case kInt8LhsT:
-      accumulate<int, unsigned, true>(h, ldh, w, wi, ti, m0, N, Kb, ndots,
-                                      sw);
-      break;
-    case kBf16:
-      accumulate<float, float, false>(
-          h, ldh, w, static_cast<float*>(win) + (size_t)gi * 8 * 128,
-          static_cast<float*>(total) + gi, m0, N, Kb, ndots, sw);
-      break;
-    default:
-      chain(h, ldh, w, wi, ti, m0, N, ndots, variant == kInt8Alt, sw, accs);
+
+  if (warp == kWarps) {  // the producer: one thread issues
+    if (lane == 0) {
+      int it = 0;
+      for (int kt = 0; kt < nk; ++kt) {
+        const int as = kt & 1;
+        sm90::mbar_wait(&a_empty[as], ((kt >> 1) & 1) ^ 1);
+        sm90::mbar_arrive_tx(&a_full[as], kTile);
+        sm90::tma_load_2d(sa + as * kTile, &tm_x, &a_full[as], kt * kSlice,
+                          gi * M + m0);
+        for (int d = 0; d < ndots; ++d, ++it) {
+          const int s = it % kAccStages;
+          sm90::mbar_wait(&empty[s], ((it / kAccStages) & 1) ^ 1);
+          sm90::mbar_arrive_tx(&full[s], kAccW);
+          sm90::tma_load_2d(sw + s * kAccW, &tm_w, &full[s], kt * kSlice,
+                            d * N + n0);
+        }
+      }
+    }
+    return;
   }
+
+  const int wg = warp >> 2;
+  Acc acc[kAccN / 2];
+#pragma unroll
+  for (int e = 0; e < kAccN / 2; ++e) acc[e] = 0;
+  int it = 0;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int as = kt & 1;
+    sm90::mbar_wait(&a_full[as], (kt >> 1) & 1);
+    const uint8_t* a = sa + as * kTile + wg * 64 * kSlice;
+    for (int d = 0; d < ndots; ++d, ++it) {
+      const int s = it % kAccStages;
+      sm90::mbar_wait(&full[s], (it / kAccStages) & 1);
+      const uint8_t* w = sw + s * kAccW;
+      sm90::fence_regs(acc);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kSlice / 32; ++kk) {
+        const uint64_t da = sm90::desc_sw128(a + kk * 32, 16, 1024);
+        const uint64_t dw = sm90::desc_sw128(w + kk * 32, 16, 1024);
+        if constexpr (kBf16)
+          sm90::wgmma_bf16_ss_m64n256k16(acc, da, dw, 1);
+        else
+          sm90::wgmma_s8_m64n256k32(acc, da, dw, 1);
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<1>();  // the previous stage's products have retired
+      sm90::fence_regs(acc);
+      if (it > 0 && lane == 0) {
+        sm90::mbar_arrive(&empty[(it - 1) % kAccStages]);
+        if (d == 0) sm90::mbar_arrive(&a_empty[(kt - 1) & 1]);
+      }
+    }
+  }
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(acc);
+
+  const int r_lo = wg * 64 + (warp & 3) * 16 + (lane >> 2);
+  Sum part = 0;
+#pragma unroll
+  for (int e = 0; e < kAccN / 2; ++e) part = add_wrap(part, (Sum)acc[e]);
+  if (m0 == 0 && n0 == 0) {
+    Sum* wi = static_cast<Sum*>(win) + (size_t)gi * 8 * 128;
+#pragma unroll
+    for (int e = 0; e < kAccN / 2; ++e)
+      window(wi, acc_row(r_lo, e), acc_col(lane, e), trans, acc[e]);
+  }
+  add_to_total(part, red, static_cast<Sum*>(total) + gi, tid, kConsumers);
+}
+
+// ---- the requantized kernel (int8_req, int8_alt) ------------------------
+
+// The scale of a row whose max |acc| is `maxabs`: amax = max |f| =
+// RN(RN(maxabs) * (1/127)) (f = RN(acc * (1/127)) is monotone in |acc|),
+// s = RN(amax / 127), 1 where amax is 0. amax is 0 or at least 1/127, so s
+// >= 2^-14 and needs none of rowquant.cuh's pre-scaling.
+__device__ __forceinline__ float chain_scale(int maxabs) {
+  const float amax = __fmul_rn(__int2float_rn(maxabs), kInv127);
+  return amax == 0.f ? 1.f : __fdiv_rn(amax, 127.f);
+}
+
+// The int8 code of acc in a row of scale s, y = RN(1 / s): rint(RN(acc *
+// (1/127)) / s), the quotient correctly rounded (rowquant.cuh), |code| <=
+// 127, rounded half to even by adding 1.5 * 2^23, whose low byte is then
+// the code.
+__device__ __forceinline__ uint32_t code_of(int acc, float s, float y) {
+  const float f = __fmul_rn(__int2float_rn(acc), kInv127);
+  return __float_as_uint(__fadd_rn(quotient_steps(f, s, y), 12582912.f)) &
+         0xffu;
+}
+
+__global__ void __launch_bounds__(kReqThreads, 1)
+    requant_kernel(const __grid_constant__ CUtensorMap tm_x,
+                   const __grid_constant__ CUtensorMap tm_w,
+                   unsigned* __restrict__ win, unsigned* __restrict__ total,
+                   int M, int N, int ndots, int trans) {
+  extern __shared__ uint8_t smem_raw[];
+  const int nk = N / kSlice;  // K == N: h's K slices
+  const int C = N / kReqN;    // the cluster's CTAs
+  uint8_t* base = align1024(smem_raw);
+  // a slot's "full" barrier for each column half: the two halves take
+  // alternate stages, and a waiter must see every phase of its barrier
+  uint64_t* full = reinterpret_cast<uint64_t*>(base);  // [half][slot]
+  uint64_t* empty = full + 2 * kReqStages;
+  uint64_t* h_full = empty + kReqStages;
+  uint64_t* amax_full = h_full + 1;
+  unsigned* red = reinterpret_cast<unsigned*>(full + kReqBars);
+  uint32_t* amax_in = red + kReqConsumers / 32;  // [rank][half][row]
+  uint8_t* sh = base + kReqHead;  // h, nk slices of 128 rows
+  uint8_t* sw = sh + nk * kTile;  // the weight ring
+
+  const uint32_t rank = sm90::cluster_rank();
+  const int tiles_m = M / kBM;
+  const uint32_t amax_bytes = 2 * C * kBM * 4;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kReqStages; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&full[kReqStages + s], 1);
+      sm90::mbar_init(&empty[s], kWarps);  // the two warpgroups of a half
+    }
+    sm90::mbar_init(h_full, 1);
+    sm90::mbar_init(amax_full, 1);
+    sm90::mbar_fence_init();
+    if (ndots > 1) sm90::mbar_arrive_tx(amax_full, amax_bytes);
+  }
+  sm90::cluster_arrive();  // the peers' barriers exist before any
+  sm90::cluster_wait();    // st.async or bulk copy reaches them
+
+  if (threadIdx.x < kProducers) {  // the producer warpgroup: one thread
+    sm90::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      const int col0 = rank * kReqN;  // this CTA's columns of every product
+      sm90::mbar_arrive_tx(h_full, nk * kTile);  // h_0: x's rows
+      for (int kt = 0; kt < nk; ++kt)
+        sm90::tma_load_2d(sh + kt * kTile, &tm_x, h_full, kt * kSlice,
+                          blockIdx.y * kBM);
+      int it = 0;  // then every product's weights: each K slice of both
+      for (int i = 0; i < ndots; ++i)  // column halves in turn
+        for (int kt = 0; kt < nk; ++kt)
+          for (int half = 0; half < 2; ++half, ++it) {
+            const int s = it % kReqStages;
+            uint64_t* f = &full[half * kReqStages + s];
+            sm90::mbar_wait(&empty[s], ((it / kReqStages) & 1) ^ 1);
+            sm90::mbar_arrive_tx(f, kTile);
+            sm90::tma_load_2d(sw + s * kTile, &tm_w, f, kt * kSlice,
+                              i * N + col0 + half * 128);
+          }
+    }
+    sm90::cluster_arrive();
+    sm90::cluster_wait();
+    return;
+  }
+  sm90::setmaxnreg_inc<kConsumerRegs>();
+
+  const int ctid = threadIdx.x - kProducers, warp = ctid >> 5;
+  const int lane = ctid & 31, wg = warp >> 2;
+  const int rows = wg & 1, half = wg >> 1;  // 64-row and 128-column halves
+  const int r_lo = rows * 64 + (warp & 3) * 16 + (lane >> 2);
+  int acc[64];
+  for (int i = 0;; ++i) {
+    // h_i complete: x's rows (phase 0), then the peers' columns of each
+    // requantization (C - 1 bulk copies of 32 KB); this CTA's own columns
+    // were written by the consumers before their last barrier
+    sm90::mbar_wait(h_full, i & 1);
+    if (ctid == 0 && i + 1 < ndots)
+      sm90::mbar_arrive_tx(h_full, (C - 1) * 2 * kTile);
+    for (int kt = 0; kt < nk; ++kt) {
+      // this half's stage: its slot's barrier of the half completes once
+      // every 2 kReqStages stages
+      const int st = (i * nk + kt) * 2 + half;
+      const int s = st % kReqStages;
+      sm90::mbar_wait(&full[half * kReqStages + s],
+                      (st / (2 * kReqStages)) & 1);
+      const uint8_t* a = sh + kt * kTile + rows * 64 * kSlice;
+      const uint8_t* w = sw + s * kTile;
+      sm90::fence_regs(acc);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kSlice / 32; ++kk)
+        sm90::wgmma_s8_m64n128k32(acc,
+                                  sm90::desc_sw128(a + kk * 32, 16, 1024),
+                                  sm90::desc_sw128(w + kk * 32, 16, 1024),
+                                  kt | kk);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<1>();
+      sm90::fence_regs(acc);
+      if (kt > 0 && lane == 0)  // the half's previous stage has retired
+        sm90::mbar_arrive(&empty[(st - 2) % kReqStages]);
+    }
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(acc);
+    if (lane == 0)
+      sm90::mbar_arrive(&empty[((i * nk + nk - 1) * 2 + half) % kReqStages]);
+    if (i + 1 == ndots) break;
+
+    // the rows' max |acc| over this warpgroup's 128 columns, to every
+    // CTA's slot of (rank, half): lane q of a quad sends both its rows to
+    // rank q
+    int mx[2] = {0, 0};
+#pragma unroll
+    for (int e = 0; e < 64; ++e)
+      mx[(e >> 1) & 1] = max(mx[(e >> 1) & 1], abs(acc[e]));
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = max(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = max(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    }
+    if ((lane & 3) < C)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        sm90::st_async_b32(&amax_in[(rank * 2 + half) * kBM + r_lo + 8 * h],
+                           mx[h], amax_full, lane & 3);
+    sm90::mbar_wait(amax_full, i & 1);
+    if (ctid == 0 && i + 2 < ndots)
+      sm90::mbar_arrive_tx(amax_full, amax_bytes);
+
+    float sc[2], y[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      int m = 0;
+      for (int r = 0; r < 2 * C; ++r)
+        m = max(m, (int)amax_in[r * kBM + r_lo + 8 * h]);
+      sc[h] = chain_scale(m);
+      y[h] = __frcp_rn(sc[h]);
+    }
+    // this warpgroup's codes, K slice 2 rank + half of h_{i+1}, at the
+    // swizzled positions the next product's descriptors read: a pair of
+    // columns a store, a warp's 8 rows on 8 distinct 16-byte chunks. Rows
+    // r_lo and r_lo + 8 share their swizzle (row % 8); column 8 j + 2 (lane
+    // % 4) lies in chunk j / 2 at byte 8 (j % 2) + 2 (lane % 4)
+    uint8_t* rowp = sh + (2 * rank + half) * kTile + r_lo * kSlice +
+                    2 * (lane & 3);
+    const int swz = (r_lo & 7) << 4;
+#pragma unroll
+    for (int e = 0; e < 64; e += 2) {
+      const int h = (e >> 1) & 1, j = e >> 2;
+      const uint32_t pair = code_of(acc[e], sc[h], y[h]) |
+                            (code_of(acc[e + 1], sc[h], y[h]) << 8);
+      *reinterpret_cast<uint16_t*>(rowp + h * 8 * kSlice +
+                                   (((j >> 1) << 4) ^ swz) + 8 * (j & 1)) =
+          (uint16_t)pair;
+      // blocks of 4 codes: ptxas interleaves no more, and spills nothing
+      if (e % 4 == 2) __syncwarp();
+    }
+    sm90::fence_proxy_async();  // the codes, to the wgmmas and bulk copies
+    sm90::bar_sync(1, kReqConsumers);
+    if (ctid == 0)  // every peer has sent its maxima: its wgmmas are done
+      for (int r = 0; r < C; ++r)
+        if (r != (int)rank)
+          sm90::bulk_copy_to_peer(sh + 2 * rank * kTile,
+                                  sh + 2 * rank * kTile, 2 * kTile, h_full,
+                                  r);
+  }
+
+  unsigned part = 0;
+#pragma unroll
+  for (int e = 0; e < 64; ++e) part += (unsigned)acc[e];
+  const int gi = blockIdx.y / tiles_m;  // the block; its rows 0-127 first
+  if (rank == 0 && half == 0 && blockIdx.y % tiles_m == 0) {
+    unsigned* wi = win + (size_t)gi * 8 * 128;
+#pragma unroll
+    for (int e = 0; e < 64; ++e)  // columns 0-127
+      window(wi, acc_row(r_lo, e), acc_col(lane, e), trans, acc[e]);
+  }
+  add_to_total(part, red, total + gi, ctid, kReqConsumers);
+  sm90::cluster_arrive();  // every bulk copy out of this CTA has landed
+  sm90::cluster_wait();
 }
 
 // out = window + the grid step's total, wrapping for the integer variants.
@@ -341,33 +493,93 @@ __global__ void chain_finish(void* win, const void* total, int g, int bf16) {
         static_cast<const unsigned*>(total)[i >> 10];
 }
 
+// Whether the requantized kernel's launch pool holds the registers its
+// warpgroups take by setmaxnreg: read from the build once.
+bool req_pool_ok() {
+  static const bool ok = [] {
+    cudaFuncAttributes attr;
+    return cudaFuncGetAttributes(&attr, requant_kernel) == cudaSuccess &&
+           attr.numRegs * kReqThreads >=
+               kProducers * kProducerRegs + kReqConsumers * kConsumerRegs;
+  }();
+  return ok;
+}
+
+template <typename Kernel, typename... Args>
+cudaError_t launch(Kernel kernel, dim3 grid, int threads, int cluster,
+                   int smem, cudaStream_t st, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
 }  // namespace
 
 // x (g, M, K) int8 or bf16; w (ndots, N, K) of its dtype (the transposed
 // storage of the (ndots, K, N) weights); win (g, 8, 128) int32 / float32
-// output; total (g,) zeroed scratch of the same type; Kb = K bytes. M % 32,
-// N % 128, Kb % 64 == 0; the window needs M >= 8 (lhsT: M >= 128) and
-// N >= 128 (lhsT: N >= 8); the chains need K == N. Returns cudaError_t.
+// output; total (g,) zeroed scratch of the same type; Kb = K bytes. requant
+// 0: the accumulating kernel; requant 1 (int8 only): the requantized chain,
+// K == N <= 1024, on clusters of N / 256 CTAs. trans: the window taken as
+// acc[:128, :8]^T. M % 128, N % 256 and Kb % 128 == 0. Returns
+// cudaError_t (cudaErrorInvalidValue also for a requantized kernel built
+// with too few registers at launch for its hand-over).
 extern "C" int lhrs_int8_chain(const void* x, const void* w, void* win,
                                void* total, int g, int M, int N, int Kb,
-                               int ndots, int variant, void* stream) {
-  if (g <= 0 || g > 65535 || M <= 0 || M % kRows || N <= 0 || N % kBN ||
-      Kb <= 0 || Kb % kBK || ndots <= 0 || variant < 0 || variant > 4)
+                               int ndots, int requant, int trans, int bf16,
+                               void* stream) {
+  if (g <= 0 || M <= 0 || M % kBM || N <= 0 || N % kAccN || Kb <= 0 ||
+      Kb % kSlice || ndots <= 0 || (long long)ndots * N > (1ll << 30) ||
+      (long long)g * M > (1ll << 30))
     return (int)cudaErrorInvalidValue;
-  const int chained = variant == kInt8Req || variant == kInt8Alt;
-  if (chained && Kb != N) return (int)cudaErrorInvalidValue;
-  const int smem = smem_of(Kb, N, chained);
-  cudaError_t err = cudaFuncSetAttribute(
-      chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
+  const int tiles = g * (M / kBM), cluster = N / kReqN;
+  if (requant) {
+    if (bf16 || Kb != N || cluster > kMaxCluster || tiles > 65535 ||
+        !req_pool_ok())
+      return (int)cudaErrorInvalidValue;
+  } else if (N / kAccN > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  // TMA boxes of 128 bytes of K by 128 rows of x, and by 128 (requant) or
+  // 256 weight rows
+  CUtensorMap tm_x, tm_w;
+  const cuuint64_t x_dims[2] = {(cuuint64_t)Kb, (cuuint64_t)g * M};
+  const cuuint64_t w_dims[2] = {(cuuint64_t)Kb, (cuuint64_t)ndots * N};
+  const cuuint64_t strides[1] = {(cuuint64_t)Kb};
+  const cuuint32_t x_box[2] = {kSlice, kBM};
+  const cuuint32_t w_box[2] = {kSlice, (cuuint32_t)(requant ? 128 : kAccN)};
+  if (!sm90::make_tensor_map(&tm_x, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, x,
+                             x_dims, strides, x_box) ||
+      !sm90::make_tensor_map(&tm_w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, w,
+                             w_dims, strides, w_box))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  chain_kernel<<<dim3(M / kRows, g), kThreads, smem, st>>>(
-      static_cast<const unsigned char*>(x), static_cast<const unsigned char*>(w),
-      win, total, M, N, Kb, ndots, variant);
-  err = cudaGetLastError();
+  cudaError_t err;
+  if (requant) {
+    err = launch(requant_kernel, dim3(cluster, tiles), kReqThreads, cluster,
+                 req_smem(Kb / kSlice), st, tm_x, tm_w,
+                 static_cast<unsigned*>(win), static_cast<unsigned*>(total),
+                 M, N, ndots, trans);
+  } else {
+    err = launch(bf16 ? accumulate_kernel<true> : accumulate_kernel<false>,
+                 dim3(tiles, N / kAccN), kThreads, 1, kAccSmem, st, tm_x,
+                 tm_w, win, total, M, N, Kb, ndots, trans);
+  }
   if (err != cudaSuccess) return (int)err;
   const int n = g * 8 * 128;
-  chain_finish<<<(n + 255) / 256, 256, 0, st>>>(win, total, g,
-                                                variant == kBf16);
+  chain_finish<<<(n + 255) / 256, 256, 0, st>>>(win, total, g, bf16);
   return (int)cudaGetLastError();
 }

@@ -47,12 +47,18 @@ __device__ __forceinline__ RowScale row_scale(float amax) {
   return row_scale_of(amax == 0.f ? 1.f : __fdiv_rn(amax, 127.f));
 }
 
+// RN(a / sp) for y = RN(1 / sp), |a| <= 127 sp or so: q0 = RN(a y), then
+// two remainder steps
+__device__ __forceinline__ float quotient_steps(float a, float sp, float y) {
+  float q = __fmul_rn(a, y);
+  q = __fmaf_rn(__fmaf_rn(-q, sp, a), y, q);
+  return __fmaf_rn(__fmaf_rn(-q, sp, a), y, q);
+}
+
 // RN(h / s) for |h| <= 127 s or so
 __device__ __forceinline__ float row_quotient(float h, const RowScale& r) {
-  const float a = __fmul_rn(h, r.pre);  // exact: a power of two, no overflow
-  float q = __fmul_rn(a, r.y);
-  q = __fmaf_rn(__fmaf_rn(-q, r.sp, a), r.y, q);
-  return __fmaf_rn(__fmaf_rn(-q, r.sp, a), r.y, q);
+  // exact: a power of two, no overflow
+  return quotient_steps(__fmul_rn(h, r.pre), r.sp, r.y);
 }
 
 // The codes of 4 values of the row, packed into a word (the first value

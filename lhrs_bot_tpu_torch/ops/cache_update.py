@@ -4,8 +4,10 @@ Counterpart of `lhrs_bot_tpu/ops/cache_update.py` `cache_row_update`: the
 (H, D) row new_vals[b] is written at position lengths[b] of the (B, H, S, D)
 cache, in place. CPU tensors take the plain version (`_write_at`, the
 indexed assignment of the decode path); CUDA tensors always take the
-hand-written kernel (csrc/cache_update.cu). No path of the port calls it,
-as in the JAX package, where only its test does.
+hand-written kernel (csrc/cache_update.cu: one thread per 16-byte unit,
+its value and length loaded together). No path of the port calls it, as in
+the JAX package, where only its test does. `empty_kernel` times the launch
+floor beside it.
 
 A row with lengths[b] >= S has no room: the kernel writes nothing there,
 the plain version raises an IndexError (the TPU kernel's 8-row window
@@ -58,6 +60,8 @@ def cache_row_update_kernel(cache: torch.Tensor, new_vals: torch.Tensor,
     if d * cache.element_size() % 16:
         raise ValueError(f"a row of D * element size bytes must be a multiple "
                          f"of 16, got {d * cache.element_size()}")
+    if b > 65535:
+        raise ValueError(f"the kernel takes at most 65535 batch rows, got {b}")
     lib = cuda_lib.load_library()
     with torch.cuda.device(cache.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -70,6 +74,28 @@ def cache_row_update_kernel(cache: torch.Tensor, new_vals: torch.Tensor,
 
 
 cache_row_update_kernel.launches = 0
+
+THREADS = 256  # csrc/cache_update.cu: one thread per 16-byte unit
+
+
+def row_write_blocks(b: int, h: int, row_bytes: int) -> int:
+    """CTAs of the row write's launch: one thread per 16-byte unit of the
+    H rows of a batch row, 256 a CTA, for each of the B batch rows."""
+    return -(-h * (row_bytes // 16) // THREADS) * b
+
+
+def empty_kernel(device: torch.device, blocks: int = 1) -> None:
+    """Launch a kernel that does nothing, `blocks` CTAs of 256 threads, on
+    the current stream of CUDA `device`: timed beside the row write (on a
+    grid of its size, `row_write_blocks`), its time is the launch floor."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError("empty_kernel runs on a CUDA device")
+    lib = cuda_lib.load_library()
+    with torch.cuda.device(device):
+        err = lib.lhrs_empty_kernel(blocks,
+                                    torch.cuda.current_stream().cuda_stream)
+    cuda_lib.check(err, "empty_kernel")
 
 
 def cache_row_update(cache: torch.Tensor, new_vals: torch.Tensor,

@@ -64,11 +64,14 @@ _ENTRIES = {
     "lhrs_fused_decode_q_int8dots_max_clusters": [_I, _I, _I, _P],
     # cache, new_vals, lengths, B, H, S, row bytes, stream
     "lhrs_cache_row_update": [_P] * 3 + [_I] * 4 + [_P],
+    # blocks, stream: a kernel that does nothing (the launch floor)
+    "lhrs_empty_kernel": [_I, _P],
     # x, y (or null), n16 (16-byte words of each), bf16, unroll, ctas,
     # partial (2 floats a CTA), out, stream
     "lhrs_hbm_read": [_P, _P, _L, _I, _I, _I, _P, _P, _P],
-    # x, w, win, sums, g, M, N, K bytes, ndots, variant, stream
-    "lhrs_int8_chain": [_P] * 4 + [_I] * 6 + [_P],
+    # x, w, win, sums, g, M, N, K bytes, ndots, requant, trans, bf16,
+    # stream
+    "lhrs_int8_chain": [_P] * 4 + [_I] * 8 + [_P],
     # q, k_new, v_new, k_pages, v_pages, table, lengths, out, layer, L, N,
     # B, H, page, P, D, sm_scale, stream
     "lhrs_paged_decode_bf16": [_P] * 8 + [_I] * 8 + [ctypes.c_float, _P],
