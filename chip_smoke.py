@@ -100,7 +100,26 @@ Phases, one or more lines each:
   6. the bench path: `lhrs_bot_tpu_torch.bench`'s decode cells and prefill
      towers at the bench's geometry (one timed run a cell) and its JSON
      line, the int8-dots A/B's line and the two probes' lines; every value
-     positive, each kernel of the path launched.
+     positive, each kernel of the path launched;
+  7. checkpoints at full width: the reference's artifacts written from
+     named seeds under build/ (an HF LLaMA-2-7B directory of two fp16
+     safetensors shards, an HF CLIP directory, FINAL.pt with the nested
+     other_ckpt and embed_tokens resized to 32,004 rows, TextLoRA/ at r
+     128 on all 7 linears with B != 0; free disk and host memory checked
+     first, the directory deleted at the end), loaded at stage 0 through
+     `load_pretrained` bit for bit against trees built from the seeds
+     (three planted faults: alpha / r swapped, a layer's q_proj / k_proj
+     swapped in the shard's header, the w_down adapters dropped), the bf16
+     and W4A8 + int8 lm_head + int8 KV engines over the loaded tree bit for
+     bit against engines over the expected tree; stage 2
+     (`Config/multi_modal_stage2.yaml` through build_model: int8 base,
+     live adapters) with the adapters' and pooler's gradient against the
+     plain attention (the training phase's bound and faults), six steps
+     (loss, ms, tokens/s, peak memory, busy share, launches; the loss must
+     fall) and save_final; stage 3 (`multi_modal_stage3.yaml`) from that
+     output, the adapters bit for bit, two steps, save_final; and the eval
+     load of stage 3's output (adapters merged) served bit for bit against
+     the plainly merged tree; each part's seconds.
 Then a JSON line with per-kernel numbers, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}. Any failure raises: the script
 exits non-zero and prints no result, and the failing phase's traceback is
@@ -3039,46 +3058,50 @@ def spliced_tokens(cfg, batch):
     return b * (t + k * n), int(batch["attention_mask"].sum()) + markers * n
 
 
-def pooler_grads(params, cfg, batch):
-    """The pooler's gradient of the batch's loss (no update), flattened."""
+def pooler_grads(params, cfg, batch, groups=("pooler",)):
+    """The gradient of the batch's loss with respect to the leaves of
+    `groups` (the pooler; the adapters too at stages 2 and 3), no update,
+    flattened."""
     import torch
 
     from lhrs_bot_tpu_torch.models import vlm_forward_loss
 
-    leaves = list(_leaves(params["pooler"]))
+    leaves = [t for g in groups for t in _leaves(params[g])]
     loss = vlm_forward_loss(params, cfg, batch)["total_loss"]
     grads = torch.autograd.grad(loss, leaves)
     return float(loss.detach()), torch.cat([g.float().reshape(-1)
                                            for g in grads])
 
 
-def check_train_grads(params, cfg, batch):
-    """The first step's pooler gradient through the kernels against the
-    plain attention (both bf16), and the planted fault."""
+def check_train_grads(params, cfg, batch, groups=("pooler",)):
+    """The first step's gradient of the leaves of `groups` through the
+    kernels against the plain attention (both bf16), and the planted
+    faults."""
     import lhrs_bot_tpu_torch.models.llama as llama
     import lhrs_bot_tpu_torch.models.perceiver as perceiver
     import lhrs_bot_tpu_torch.ops.attention as attention
 
-    loss_k, g_k = pooler_grads(params, cfg, batch)
+    loss_k, g_k = pooler_grads(params, cfg, batch, groups)
     with patched(llama, flash_attention=plain_differentiable_attention), \
             patched(perceiver, flash_attention=plain_differentiable_attention):
-        loss_p, g_p = pooler_grads(params, cfg, batch)
+        loss_p, g_p = pooler_grads(params, cfg, batch, groups)
     bwd = attention.flash_attention_bwd
     rel = float((g_k - g_p).norm() / g_p.norm())
-    log(f"  pooler gradient, kernels vs plain attention (bf16, "
-        f"{g_k.numel()} values): loss {loss_k:.5f} vs {loss_p:.5f}, "
+    log(f"  {' + '.join(groups)} gradient, kernels vs plain attention "
+        f"(bf16, {g_k.numel()} values): loss {loss_k:.5f} vs {loss_p:.5f}, "
         f"relative L2 {rel:.4e} (bound {TRAIN_GRAD_REL_L2})")
     faults = {}
     for name, fault in TRAIN_GRAD_FAULTS:
         with patched(attention, flash_attention_bwd=lambda *a, f=fault: f(
                 *bwd(*a))):
-            _, g_f = pooler_grads(params, cfg, batch)
+            _, g_f = pooler_grads(params, cfg, batch, groups)
         faults[name] = float((g_f - g_p).norm() / g_p.norm())
         log(f"  planted fault ({name}): relative L2 {faults[name]:.4f}")
     if not (bool(g_k.isfinite().all()) and rel <= TRAIN_GRAD_REL_L2
             and min(faults.values()) > TRAIN_GRAD_REL_L2):
-        raise AssertionError(f"pooler gradient: relative L2 {rel:.4e}, "
-                             f"faults {faults}, bound {TRAIN_GRAD_REL_L2}")
+        raise AssertionError(f"{' + '.join(groups)} gradient: relative "
+                             f"L2 {rel:.4e}, faults {faults}, bound "
+                             f"{TRAIN_GRAD_REL_L2}")
     return {"rel_l2": rel, "faults": faults, "bound": TRAIN_GRAD_REL_L2,
             "loss_kernels": loss_k, "loss_plain": loss_p}
 
@@ -3639,6 +3662,858 @@ def phase_bench(dev, reps=1):
             "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# 7. checkpoints at full width: write, load, serve, stage 2 -> 3 -> eval
+# ---------------------------------------------------------------------------
+
+CKPT_RESIZED_VOCAB = 32004  # the reference resizes embed_tokens for its
+# special tokens; FINAL.pt carries the resized rows
+CKPT_LORA_R, CKPT_LORA_ALPHA = 128, 256
+CKPT_SWAP_LAYER = 3  # the layer whose q_proj / k_proj a fault swaps
+CKPT_STEPS_STAGE2, CKPT_STEPS_STAGE3 = 6, 2
+CKPT_NEW_TOKENS = 8
+
+
+def seeded(name, shape, dev, base=0.0, scale=0.02):
+    """The written checkpoint's tensor `name`: base + scale * N(0, 1)
+    drawn on the card from a generator seeded by the name, rounded to
+    fp16. The writer and the expected trees both call it."""
+    import zlib
+
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(zlib.crc32(name.encode()))
+    return (base + scale * torch.randn(shape, generator=g, device=dev,
+                                       dtype=torch.float32)).half()
+
+
+def llama_specs(lc):
+    """HF LlamaForCausalLM key -> (shape, base) of the written decoder."""
+    d, f, vocab = lc.hidden_size, lc.intermediate_size, lc.vocab_size
+    specs = {"model.embed_tokens.weight": ((vocab, d), 0.0)}
+    for i in range(lc.num_hidden_layers):
+        p = f"model.layers.{i}."
+        specs[p + "input_layernorm.weight"] = ((d,), 1.0)
+        for n in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            specs[p + f"self_attn.{n}.weight"] = ((d, d), 0.0)
+        specs[p + "post_attention_layernorm.weight"] = ((d,), 1.0)
+        specs[p + "mlp.gate_proj.weight"] = ((f, d), 0.0)
+        specs[p + "mlp.up_proj.weight"] = ((f, d), 0.0)
+        specs[p + "mlp.down_proj.weight"] = ((d, f), 0.0)
+    specs["model.norm.weight"] = ((d,), 1.0)
+    specs["lm_head.weight"] = ((vocab, d), 0.0)
+    return specs
+
+
+def clip_specs(vc, prefix="vision_model."):
+    """HF CLIPVisionModel key -> (shape, base): norms around 1, every
+    weight and bias drawn (so a swapped bias shows)."""
+    w, p, ffn = vc.width, vc.patch_size, vc.width * vc.mlp_ratio
+    specs = {
+        prefix + "embeddings.patch_embedding.weight": ((w, 3, p, p), 0.0),
+        prefix + "embeddings.class_embedding": ((w,), 0.0),
+        prefix + "embeddings.position_embedding.weight": ((vc.seq_len, w),
+                                                          0.0)}
+    for ln in ("pre_layrnorm", "post_layernorm"):
+        specs[prefix + ln + ".weight"] = ((w,), 1.0)
+        specs[prefix + ln + ".bias"] = ((w,), 0.0)
+    for i in range(vc.layers):
+        lp = prefix + f"encoder.layers.{i}."
+        for n in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            specs[lp + f"self_attn.{n}.weight"] = ((w, w), 0.0)
+            specs[lp + f"self_attn.{n}.bias"] = ((w,), 0.0)
+        for ln in ("layer_norm1", "layer_norm2"):
+            specs[lp + ln + ".weight"] = ((w,), 1.0)
+            specs[lp + ln + ".bias"] = ((w,), 0.0)
+        specs[lp + "mlp.fc1.weight"] = ((ffn, w), 0.0)
+        specs[lp + "mlp.fc1.bias"] = ((ffn,), 0.0)
+        specs[lp + "mlp.fc2.weight"] = ((w, ffn), 0.0)
+        specs[lp + "mlp.fc2.bias"] = ((w,), 0.0)
+    return specs
+
+
+def pooler_specs(pc):
+    """The reference AttnPooler's state-dict key -> (shape, base)."""
+    h, ffn = pc.hidden_size, pc.hidden_size * pc.mlp_ratio
+    specs = {"query": ((1, pc.num_query, h), 0.0)}
+    for i in range(pc.num_layers):
+        p = f"layers.{i}."
+        specs[p + "attn.in_proj_weight"] = ((3 * h, h), 0.0)
+        specs[p + "attn.in_proj_bias"] = ((3 * h,), 0.0)
+        specs[p + "attn.out_proj.weight"] = ((h, h), 0.0)
+        specs[p + "attn.out_proj.bias"] = ((h,), 0.0)
+        for ln in ("ln_1", "ln_1_kv", "ln_2"):
+            specs[p + ln + ".weight"] = ((h,), 1.0)
+            specs[p + ln + ".bias"] = ((h,), 0.0)
+        specs[p + "mlp.c_fc.weight"] = ((ffn, h), 0.0)
+        specs[p + "mlp.c_fc.bias"] = ((ffn,), 0.0)
+        specs[p + "mlp.c_proj.weight"] = ((h, ffn), 0.0)
+        specs[p + "mlp.c_proj.bias"] = ((h,), 0.0)
+    specs["out_proj.weight"] = ((pc.output_size, h), 0.0)
+    specs["out_proj.bias"] = ((pc.output_size,), 0.0)
+    return specs
+
+
+LORA_MODULES = (("q_proj", "self_attn", "wq"), ("k_proj", "self_attn", "wk"),
+                ("v_proj", "self_attn", "wv"), ("o_proj", "self_attn", "wo"),
+                ("gate_proj", "mlp", "w_gate"), ("up_proj", "mlp", "w_up"),
+                ("down_proj", "mlp", "w_down"))
+
+
+def lora_specs(lc, r):
+    """peft TextLoRA key -> (shape, base, scale): A (r, d_in) at 0.01,
+    B (d_out, r) at 0.002 (B != 0: a trained adapter's)."""
+    d, f = lc.hidden_size, lc.intermediate_size
+    dims = {"q_proj": (d, d), "k_proj": (d, d), "v_proj": (d, d),
+            "o_proj": (d, d), "gate_proj": (d, f), "up_proj": (d, f),
+            "down_proj": (f, d)}
+    specs = {}
+    for i in range(lc.num_hidden_layers):
+        for peft, group, _ in LORA_MODULES:
+            base = f"base_model.model.model.layers.{i}.{group}.{peft}."
+            din, dout = dims[peft]
+            specs[base + "lora_A.weight"] = ((r, din), 0.0, 0.01)
+            specs[base + "lora_B.weight"] = ((dout, r), 0.0, 0.002)
+    return specs
+
+
+def write_reference_checkpoint(root, cfg, dev):
+    """The reference's artifacts at full width under `root`, seeded by
+    name: llama/ (config.json, two fp16 safetensors shards with their
+    index), clip/ (fp16), FINAL.pt (rgb_ckpt under "encoder.", nested
+    other_ckpt, embed_tokens resized to 32,004 rows, float32 of fp16
+    values) and TextLoRA/ (r 128, alpha 256, all 7 targets, float32 of
+    fp16 values). Returns {artifact: bytes written}."""
+    import torch
+
+    from lhrs_bot_tpu_torch.core.safetensors_io import save_file
+
+    lc, vc = cfg.llama, cfg.vit
+    llama_dir = os.path.join(root, "llama")
+    os.makedirs(llama_dir)
+    with open(os.path.join(llama_dir, "config.json"), "w") as fh:
+        json.dump({"architectures": ["LlamaForCausalLM"],
+                   "model_type": "llama", "hidden_size": lc.hidden_size,
+                   "intermediate_size": lc.intermediate_size,
+                   "num_hidden_layers": lc.num_hidden_layers,
+                   "num_attention_heads": lc.num_attention_heads,
+                   "num_key_value_heads": lc.num_attention_heads,
+                   "vocab_size": lc.vocab_size,
+                   "max_position_embeddings": lc.max_position_embeddings,
+                   "rms_norm_eps": lc.rms_norm_eps,
+                   "torch_dtype": "float16"}, fh)
+    half = lc.num_hidden_layers // 2
+    shards = {"model-00001-of-00002.safetensors": {},
+              "model-00002-of-00002.safetensors": {}}
+    names = list(shards)
+    for key, (shape, base) in llama_specs(lc).items():
+        later = key in ("model.norm.weight", "lm_head.weight") or (
+            ".layers." in key and int(key.split(".")[2]) >= half)
+        shards[names[later]][key] = (shape, base)
+    weight_map = {}
+    for name, specs in shards.items():
+        save_file({k: seeded(k, s, dev, b) for k, (s, b) in specs.items()},
+                  os.path.join(llama_dir, name))
+        weight_map.update({k: name for k in specs})
+        torch.cuda.empty_cache()
+    with open(os.path.join(llama_dir, "model.safetensors.index.json"),
+              "w") as fh:
+        json.dump({"metadata": {"total_size": 0}, "weight_map": weight_map},
+                  fh)
+
+    clip_dir = os.path.join(root, "clip")
+    os.makedirs(clip_dir)
+    with open(os.path.join(clip_dir, "config.json"), "w") as fh:
+        json.dump({"model_type": "clip_vision_model",
+                   "hidden_size": vc.width, "num_hidden_layers": vc.layers,
+                   "num_attention_heads": vc.heads,
+                   "image_size": vc.image_size, "patch_size": vc.patch_size,
+                   "intermediate_size": vc.width * vc.mlp_ratio,
+                   "hidden_act": "quick_gelu"}, fh)
+    save_file({k: seeded(k, s, dev, b) for k, (s, b) in
+               clip_specs(vc).items()},
+              os.path.join(clip_dir, "model.safetensors"))
+
+    def f32(name, shape, base=0.0, scale=0.02):
+        return seeded(name, shape, dev, base, scale).float().cpu()
+
+    rgb = {"encoder." + k: f32("rgb:" + k, s, b)
+           for k, (s, b) in clip_specs(vc).items()}
+    pooler = {k: f32("pooler:" + k, s, b)
+              for k, (s, b) in pooler_specs(cfg.pooler).items()}
+    overlay = f32("embed_overlay", (CKPT_RESIZED_VOCAB, lc.hidden_size))
+    torch.save({"rgb_ckpt": rgb, "other_ckpt": {
+        "rgb_pooler": pooler, "text_proj": {},
+        "embed_tokens": {"weight": overlay}, "lm_head": {}}},
+        os.path.join(root, "FINAL.pt"))
+    del rgb, pooler, overlay
+    write_text_lora(os.path.join(root, "TextLoRA"), lc, dev)
+    sizes = {}
+    for art in ("llama", "clip", "FINAL.pt", "TextLoRA"):
+        path = os.path.join(root, art)
+        sizes[art] = (os.path.getsize(path) if os.path.isfile(path) else
+                      sum(os.path.getsize(os.path.join(path, f))
+                          for f in os.listdir(path)))
+    return sizes
+
+
+def write_text_lora(lora_dir, lc, dev, skip=()):
+    """TextLoRA/ (adapter_model.bin + adapter_config.json), leaving out
+    the peft modules in `skip`."""
+    import torch
+
+    os.makedirs(lora_dir, exist_ok=True)
+    sd = {k: seeded(k, s, dev, b, sc).float().cpu()
+          for k, (s, b, sc) in lora_specs(lc, CKPT_LORA_R).items()
+          if not any(f".{m}." in k for m in skip)}
+    torch.save(sd, os.path.join(lora_dir, "adapter_model.bin"))
+    with open(os.path.join(lora_dir, "adapter_config.json"), "w") as fh:
+        json.dump({"peft_type": "LORA", "r": CKPT_LORA_R,
+                   "lora_alpha": CKPT_LORA_ALPHA,
+                   "target_modules": [m for m, _, _ in LORA_MODULES]}, fh)
+
+
+def ckpt_bytes(cfg):
+    """{artifact: bytes} of the tensors written: fp16 llama/ and clip/,
+    float32 FINAL.pt and TextLoRA/; "outputs": what save_final writes at
+    stages 2 and 3 together (FINAL.pt without the overlay, TextLoRA/)."""
+    n = {k: sum(int(np.prod(s)) for s, *_ in specs.values()) for k, specs in
+         (("llama", llama_specs(cfg.llama)), ("clip", clip_specs(cfg.vit)),
+          ("pooler", pooler_specs(cfg.pooler)),
+          ("lora", lora_specs(cfg.llama, CKPT_LORA_R)))}
+    overlay = CKPT_RESIZED_VOCAB * cfg.llama.hidden_size
+    return {"llama": 2 * n["llama"], "clip": 2 * n["clip"],
+            "FINAL.pt": 4 * (n["clip"] + n["pooler"] + overlay),
+            "TextLoRA": 4 * n["lora"],
+            "outputs": 2 * 4 * (n["clip"] + n["pooler"] + n["lora"])}
+
+
+def expected_vit(vc, dev, name=lambda k: k):
+    """The port's ViT parameters (float32, on the host) of the written
+    CLIP tensors (seed names through `name`: FINAL.pt's rgb_ckpt has its
+    own), from their seeds, laid out independently of
+    core/torch_import.py."""
+    import torch
+
+    prefix = "vision_model."
+    specs = clip_specs(vc, prefix)
+
+    def get(key):
+        s, b = specs[prefix + key]
+        return seeded(name(prefix + key), s, dev, b).float()
+
+    def stack(key, t=False):
+        return torch.stack([get(f"encoder.layers.{i}.{key}").T if t else
+                            get(f"encoder.layers.{i}.{key}")
+                            for i in range(vc.layers)]).cpu()
+
+    conv = get("embeddings.patch_embedding.weight")
+    return {
+        "patch_proj": conv.permute(2, 3, 1, 0).reshape(-1, vc.width).cpu(),
+        "class_emb": get("embeddings.class_embedding").cpu(),
+        "pos_emb": get("embeddings.position_embedding.weight").cpu(),
+        "pre_ln": {"scale": get("pre_layrnorm.weight").cpu(),
+                   "bias": get("pre_layrnorm.bias").cpu()},
+        "post_ln": {"scale": get("post_layernorm.weight").cpu(),
+                    "bias": get("post_layernorm.bias").cpu()},
+        "layers": {
+            "ln1_scale": stack("layer_norm1.weight"),
+            "ln1_bias": stack("layer_norm1.bias"),
+            "wq": stack("self_attn.q_proj.weight", True),
+            "bq": stack("self_attn.q_proj.bias"),
+            "wk": stack("self_attn.k_proj.weight", True),
+            "bk": stack("self_attn.k_proj.bias"),
+            "wv": stack("self_attn.v_proj.weight", True),
+            "bv": stack("self_attn.v_proj.bias"),
+            "wo": stack("self_attn.out_proj.weight", True),
+            "bo": stack("self_attn.out_proj.bias"),
+            "ln2_scale": stack("layer_norm2.weight"),
+            "ln2_bias": stack("layer_norm2.bias"),
+            "w_fc": stack("mlp.fc1.weight", True),
+            "b_fc": stack("mlp.fc1.bias"),
+            "w_proj": stack("mlp.fc2.weight", True),
+            "b_proj": stack("mlp.fc2.bias")}}
+
+
+def expected_pooler(pc, dev):
+    import torch
+
+    specs = pooler_specs(pc)
+
+    def get(key):
+        s, b = specs[key]
+        return seeded("pooler:" + key, s, dev, b).float()
+
+    h = pc.hidden_size
+
+    def stack(fn):
+        return torch.stack([fn(f"layers.{i}.") for i in
+                            range(pc.num_layers)]).cpu()
+
+    return {
+        "query": get("query")[0].cpu(),
+        "layers": {
+            "ln1_scale": stack(lambda p: get(p + "ln_1.weight")),
+            "ln1_bias": stack(lambda p: get(p + "ln_1.bias")),
+            "ln_kv_scale": stack(lambda p: get(p + "ln_1_kv.weight")),
+            "ln_kv_bias": stack(lambda p: get(p + "ln_1_kv.bias")),
+            "wq": stack(lambda p: get(p + "attn.in_proj_weight")[:h].T),
+            "bq": stack(lambda p: get(p + "attn.in_proj_bias")[:h]),
+            "wk": stack(lambda p: get(p + "attn.in_proj_weight")[h:2 * h].T),
+            "bk": stack(lambda p: get(p + "attn.in_proj_bias")[h:2 * h]),
+            "wv": stack(lambda p: get(p + "attn.in_proj_weight")[2 * h:].T),
+            "bv": stack(lambda p: get(p + "attn.in_proj_bias")[2 * h:]),
+            "wo": stack(lambda p: get(p + "attn.out_proj.weight").T),
+            "bo": stack(lambda p: get(p + "attn.out_proj.bias")),
+            "ln2_scale": stack(lambda p: get(p + "ln_2.weight")),
+            "ln2_bias": stack(lambda p: get(p + "ln_2.bias")),
+            "w_fc": stack(lambda p: get(p + "mlp.c_fc.weight").T),
+            "b_fc": stack(lambda p: get(p + "mlp.c_fc.bias")),
+            "w_proj": stack(lambda p: get(p + "mlp.c_proj.weight").T),
+            "b_proj": stack(lambda p: get(p + "mlp.c_proj.bias"))},
+        "out_proj_w": get("out_proj.weight").T.contiguous().cpu(),
+        "out_proj_b": get("out_proj.bias").cpu()}
+
+
+def expected_lora(lc, dev):
+    """The written TextLoRA as the port's stacked float32 adapters."""
+    import torch
+
+    specs = lora_specs(lc, CKPT_LORA_R)
+    out = {}
+    for peft, group, ours in LORA_MODULES:
+        parts = {}
+        for part, kind in (("a", "lora_A"), ("b", "lora_B")):
+            keys = [f"base_model.model.model.layers.{i}.{group}.{peft}."
+                    f"{kind}.weight" for i in range(lc.num_hidden_layers)]
+            parts[part] = torch.stack([
+                seeded(k, specs[k][0], dev, specs[k][1], specs[k][2])
+                .float().T for k in keys]).cpu()
+        out[ours] = parts
+    return out
+
+
+def expected_llama(lc, dev, overlay=True, lora=None):
+    """The port's decoder parameters (float32, host) of the written
+    files: the HF directory's tensors, embed_tokens' first rows from
+    FINAL.pt's resized overlay (with `overlay`), and `lora` (stacked
+    float32 adapters) merged as W + (A @ B) * alpha / r in float32."""
+    import torch
+
+    specs = llama_specs(lc)
+
+    def get(key):
+        s, b = specs[key]
+        return seeded(key, s, dev, b).float()
+
+    def stack(key, t=True):
+        return torch.stack([get(f"model.layers.{i}.{key}").T if t else
+                            get(f"model.layers.{i}.{key}")
+                            for i in range(lc.num_hidden_layers)]).cpu()
+
+    embed = (seeded("embed_overlay", (CKPT_RESIZED_VOCAB, lc.hidden_size),
+                    dev).float()[:lc.vocab_size] if overlay
+             else get("model.embed_tokens.weight"))
+    layers = {"input_norm": stack("input_layernorm.weight", False),
+              "wq": stack("self_attn.q_proj.weight"),
+              "wk": stack("self_attn.k_proj.weight"),
+              "wv": stack("self_attn.v_proj.weight"),
+              "wo": stack("self_attn.o_proj.weight"),
+              "post_attn_norm": stack("post_attention_layernorm.weight",
+                                      False),
+              "w_gate": stack("mlp.gate_proj.weight"),
+              "w_up": stack("mlp.up_proj.weight"),
+              "w_down": stack("mlp.down_proj.weight")}
+    scale = CKPT_LORA_ALPHA / CKPT_LORA_R
+    for name, ab in (lora or {}).items():
+        layers[name] = layers[name] + torch.matmul(
+            ab["a"].float(), ab["b"].float()) * scale
+    return {"embed_tokens": embed.contiguous().cpu(), "layers": layers,
+            "final_norm": get("model.norm.weight").cpu(),
+            "lm_head": get("lm_head.weight").T.contiguous().cpu()}
+
+
+def tree_paths(tree, path=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_paths(tree[k], f"{path}/{k}" if path else k)
+    else:
+        yield path, tree
+
+
+def tree_mismatches(got, want):
+    """Paths whose leaves differ in keys, shape, dtype or any bit (numpy
+    or tensor leaves, compared as float32 tensors on the host)."""
+    import torch
+
+    got, want = dict(tree_paths(got)), dict(tree_paths(want))
+    bad = sorted(set(got) ^ set(want))
+    for p in sorted(set(got) & set(want)):
+        g, w = torch.as_tensor(got[p]), torch.as_tensor(want[p])
+        if g.dtype != w.dtype or g.shape != w.shape or not torch.equal(g, w):
+            bad.append(p)
+    return bad
+
+
+def ckpt_requests(cfg):
+    """One seeded B=2 request with an image a row (40 and 25 tokens)."""
+    rng = np.random.default_rng(21)
+    ids = rng.integers(3, cfg.llama.vocab_size, (2, 40)).astype(np.int32)
+    ids[:, 0] = cfg.llama.bos_token_id
+    ids[:, 1] = -200
+    ids[1, 25:] = 0
+    size = cfg.vit.image_size
+    images = rng.integers(0, 256, (2, size, size, 3)).astype(np.uint8)
+    return ids, np.asarray([40, 25], np.int32), images
+
+
+def engine_outputs(cfg, params, config, knobs, dev, wrappers):
+    """build_engine over `params` with `knobs`: the prefill logits of
+    ckpt_requests, its greedy ids, and the kernels' launches."""
+    import torch
+
+    from lhrs_bot_tpu_torch.core import build_engine
+    from lhrs_bot_tpu_torch.serve.engine import GenerationConfig
+
+    engine = build_engine(cfg, params, {**config, **knobs}, dev)
+    ids, lens, images = ckpt_requests(cfg)
+    for w in wrappers.values():
+        w.launches = 0
+    gen = GenerationConfig(max_new_tokens=CKPT_NEW_TOKENS)
+    logits = engine._start(ids, lens, images, gen)[0].float().cpu()
+    out = engine.generate(ids, lens, images=images, gen_cfg=gen)
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items() if w.launches}
+    del engine
+    torch.cuda.empty_cache()
+    return logits, out, launches
+
+
+def check_engines(name, cfg, loaded, expected, config, knobs, dev, wrappers,
+                  needed):
+    """Engines over the loaded and the expected tree: prefill logits and
+    greedy ids bit for bit, and the path's kernels launched."""
+    import torch
+
+    got = engine_outputs(cfg, loaded, config, knobs, dev, wrappers)
+    want = engine_outputs(cfg, expected, config, knobs, dev, wrappers)
+    same = torch.equal(got[0], want[0]) and got[1] == want[1]
+    log(f"  [{name}] prefill logits {tuple(got[0].shape)} and greedy ids "
+        f"{got[1]} vs the expected tree's: "
+        f"{'bit for bit' if same else 'DIFFER'} (max abs "
+        f"{float((got[0] - want[0]).abs().max()):.3e}); launches {got[2]}")
+    if not (same and bool(got[0].isfinite().all())):
+        raise AssertionError(f"{name}: the engine over the loaded tree "
+                             "differs from the one over the expected tree")
+    for k in needed:
+        if not got[2].get(k):
+            raise AssertionError(f"{name}: {k} was not launched")
+    return {"ids": got[1], "launches": got[2]}
+
+
+def swap_header_offsets(path, a, b):
+    """Exchange two same-shape tensors of a safetensors file by swapping
+    their offsets in its header (the header keeps its length)."""
+    import struct
+
+    with open(path, "r+b") as fh:
+        (n,) = struct.unpack("<Q", fh.read(8))
+        header = json.loads(fh.read(n))
+        header[a]["data_offsets"], header[b]["data_offsets"] = \
+            header[b]["data_offsets"], header[a]["data_offsets"]
+        blob = json.dumps(header, separators=(",", ":")).encode()
+        if len(blob) > n:
+            raise AssertionError("the swapped header does not fit")
+        fh.seek(8)
+        fh.write(blob + b" " * (n - len(blob)))
+
+
+def host_gib_available():
+    with open("/proc/meminfo") as fh:
+        for line in fh:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) / 2**20
+    raise AssertionError("no MemAvailable in /proc/meminfo")
+
+
+def phase_checkpoint(dev):
+    """The checkpoint formats and stages 2 and 3 at full width (ViT-L/14,
+    the 144-query perceiver, LLaMA-2-7B): (a) write the reference's
+    artifacts from seeds, (b) load them at stage 0 bit for bit, with three
+    planted faults, (c) serve the loaded tree (bf16 and W4A8 engines) bit
+    for bit against the expected tree, (d) build_model + build_trainer at
+    stage 2 (int8 base, live LoRA): the gradient check, six steps,
+    save_final, (e) stage 3 from stage 2's output: the adapters bit for
+    bit, two steps, save_final, (f) eval: stage 3's output loaded at stage
+    0 and served bit for bit against the plainly merged tree."""
+    import dataclasses
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    import lhrs_bot_tpu_torch.ops.attention as attention
+    from lhrs_bot_tpu_torch.core import (build_model, build_trainer,
+                                         eval_config, load_pretrained,
+                                         save_final)
+    from lhrs_bot_tpu_torch.core.config import load_yaml_config
+    from lhrs_bot_tpu_torch.core.torch_import import load_hf_clip_vision
+    from lhrs_bot_tpu_torch.models import LoraConfig, VLMConfig
+    from lhrs_bot_tpu_torch.train import HookBase
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {"seconds": {}}
+    config0 = eval_config()
+    cfg0 = VLMConfig.from_config_dict(config0)
+    need = ckpt_bytes(cfg0)
+    to_write = sum(v for k, v in need.items() if k != "outputs")
+    tree_bytes = 2 * (need["llama"] + need["clip"])  # as float32
+    os.makedirs("build", exist_ok=True)
+    free = shutil.disk_usage("build").free
+    ram = host_gib_available()
+    ram_need = 2 * tree_bytes / 2**30 + 8
+    log(f"  to write {to_write / 1e9:.2f} GB, then {need['outputs'] / 1e9:.2f}"
+        f" GB of stage 2 and 3 outputs; free disk under build/ "
+        f"{free / 1e9:.2f} GB; host RAM available {ram:.1f} GiB (needed "
+        f"{ram_need:.1f}: two float32 trees and 8 GiB)")
+    if free < 1.1 * (to_write + need["outputs"]) or ram < ram_need:
+        raise AssertionError("not enough disk or host memory for the "
+                             "checkpoint phase")
+    root = tempfile.mkdtemp(prefix="ckpt_smoke_", dir="build")
+    paths = {"model_path": os.path.join(root, "FINAL.pt"),
+             "vit_path": os.path.join(root, "clip"),
+             "llama_path": os.path.join(root, "llama")}
+    try:
+        # (a) write
+        t0 = time.time()
+        sizes = write_reference_checkpoint(root, cfg0, dev)
+        torch.cuda.empty_cache()
+        out["seconds"]["a_write"] = time.time() - t0
+        written = sum(sizes.values())
+        log(f"  (a) wrote {written / 1e9:.3f} GB in "
+            f"{out['seconds']['a_write']:.1f} s: " + ", ".join(
+                f"{k} {v / 1e9:.3f} GB" for k, v in sizes.items()))
+        out["bytes"] = sizes
+
+        # (b) stage-0 load, bit for bit against the expected tree
+        t0 = time.time()
+        lora_x = expected_lora(cfg0.llama, dev)
+        expected = {
+            "vit": expected_vit(cfg0.vit, dev, lambda k: "rgb:" + k),
+            "pooler": expected_pooler(cfg0.pooler, dev),
+            "llama": expected_llama(cfg0.llama, dev, lora=lora_x)}
+        torch.cuda.empty_cache()
+        t_expect = time.time() - t0
+        t0 = time.time()
+        loaded, report = load_pretrained(cfg0, **paths)
+        t_load = time.time() - t0
+        gb_s = written / t_load / 1e9
+        t1 = time.time()
+        bad = tree_mismatches(loaded, expected)
+        t_compare = time.time() - t1
+        log(f"  (b) load_pretrained at stage 0: {t_load:.1f} s, "
+            f"{gb_s:.2f} GB/s over {written / 1e9:.2f} GB; artifacts "
+            f"{sorted(report['artifacts'])}, left at the random init "
+            f"{report['random_init']}; expected tree built in "
+            f"{t_expect:.1f} s; {len(list(tree_paths(expected)))} leaves "
+            f"compared in {t_compare:.1f} s, mismatches {bad}")
+        if (sorted(report["artifacts"]) != ["clip", "final_pt", "llama",
+                                             "text_lora"]
+                or report["random_init"] or bad or "lora" in loaded):
+            raise AssertionError(f"stage-0 load: {report}, mismatches {bad}")
+        # FINAL.pt's rgb_ckpt replaces the CLIP directory's tower: the
+        # directory's own read (load_pretrained's first overlay) alone
+        t1 = time.time()
+        clip_only = load_hf_clip_vision(paths["vit_path"], cfg0.vit,
+                                        torch.float32)
+        bad = tree_mismatches(clip_only, expected_vit(cfg0.vit, dev))
+        log(f"  (b) the CLIP directory's tower: mismatches {bad} "
+            f"({time.time() - t1:.1f} s)")
+        if bad:
+            raise AssertionError(f"CLIP directory load: {bad}")
+        del clip_only
+        out["load"] = {"seconds": t_load, "gb_per_s": gb_s,
+                       "artifacts": report["artifacts"]}
+        out["seconds"]["b_load"] = time.time() - t0 + t_expect
+
+        # (c) serve the loaded tree
+        t0 = time.time()
+        wrappers = kernel_wrappers()
+        out["serve"] = {
+            "bf16": check_engines(
+                "bf16 engine", cfg0, loaded, expected, config0, {}, dev,
+                wrappers, ("flash_attention_fwd", "fused_decode_attention")),
+            "w4a8": check_engines(
+                "W4A8 + int8 lm_head + int8 KV engine", cfg0, loaded,
+                expected, config0, {"bits": 4, "quant_type": "int4h",
+                                    "kv_bits": 8, "lm_head_bits": 8},
+                dev, wrappers, ("flash_attention_fwd",
+                                "fused_decode_attention_q", "w4a8_matmul",
+                                "ln_quant"))}
+        out["seconds"]["c_serve"] = time.time() - t0
+        del loaded
+        gc.collect()
+
+        # (b) the planted faults: each load must differ from the expected
+        t0 = time.time()
+        shard = os.path.join(paths["llama_path"],
+                             "model-00001-of-00002.safetensors")
+        q = f"model.layers.{CKPT_SWAP_LAYER}.self_attn.q_proj.weight"
+        k = q.replace("q_proj", "k_proj")
+        lora_dir = os.path.join(root, "TextLoRA")
+        faults = {}
+
+        def alpha_r_swapped():
+            return load_pretrained(dataclasses.replace(cfg0, lora=LoraConfig(
+                r=CKPT_LORA_ALPHA, alpha=CKPT_LORA_R)), **paths)[0]
+
+        def qk_swapped():
+            swap_header_offsets(shard, q, k)
+            try:
+                return load_pretrained(cfg0, **paths)[0]
+            finally:
+                swap_header_offsets(shard, q, k)
+
+        def w_down_dropped():
+            write_text_lora(lora_dir, cfg0.llama, dev, skip=("down_proj",))
+            try:
+                return load_pretrained(cfg0, **paths)[0]
+            finally:
+                write_text_lora(lora_dir, cfg0.llama, dev)
+
+        for name, fn in (("alpha / r swapped", alpha_r_swapped),
+                         (f"layer {CKPT_SWAP_LAYER} q_proj / k_proj swapped "
+                          "in the shard", qk_swapped),
+                         ("w_down adapters dropped", w_down_dropped)):
+            faulty = fn()
+            faults[name] = tree_mismatches(faulty, expected)
+            del faulty
+            gc.collect()
+            log(f"  (b) planted fault ({name}): mismatching leaves "
+                f"{faults[name]}")
+            if not faults[name]:
+                raise AssertionError(f"the planted fault {name!r} passes "
+                                     "the stage-0 check")
+        out["faults"] = faults
+        out["seconds"]["b_faults"] = time.time() - t0
+        del expected
+        gc.collect()
+
+        # (d) stage 2: int8 base, live LoRA, six steps, save_final
+        t0 = time.time()
+        config2 = load_yaml_config("Config/multi_modal_stage2.yaml")
+        config2["rgb_vision"]["vit_name"] = paths["vit_path"]
+        config2["text"]["path"] = paths["llama_path"]
+        config2["model_path"] = paths["model_path"]
+        cfg2, params2, report2 = build_model(config2, dev)
+        t_build = time.time() - t0
+        if (sorted(report2["artifacts"]) != ["clip", "final_pt", "llama",
+                                              "text_lora"]
+                or tree_mismatches(params2["lora"], lora_x)):
+            raise AssertionError(f"stage-2 build_model: {report2}")
+        caption, _ = train_batches(cfg2, np.random.default_rng(11))
+        loader = [caption] * CKPT_STEPS_STAGE2
+        trainer = build_trainer(config2, params2, loader, dev, log_period=1,
+                                work_dir="build/ckpt_smoke")
+        del params2
+        gc.collect()
+        torch.cuda.synchronize()
+        wq = trainer.params["llama"]["layers"]["wq"]
+        n_lora = sum(t.numel() for t in _leaves(trainer.params["lora"]))
+        log(f"  (d) build_model at stage 2 in {t_build:.1f} s: base "
+            f"{type(wq).__name__} bits {wq.bits}, adapters "
+            f"{n_lora / 1e6:.1f} M float32 (r {cfg2.lora.r}, alpha "
+            f"{cfg2.lora.alpha}) from TextLoRA/, trainable "
+            f"{sum(t.numel() for t in trainer.optimizer.params) / 1e6:.1f} "
+            "M; optimizer "
+            f"{config2['optimizer']}, lr {config2['lr']}, schedule "
+            f"{config2['schedule']['name']}")
+        grad_check = check_train_grads(trainer.params, cfg2,
+                                       trainer._put(caption),
+                                       groups=("lora", "pooler"))
+        torch.cuda.empty_cache()
+        steps = train_steps(trainer, cfg2, caption, wrappers, profile,
+                            ProfilerActivity, DeviceType, HookBase,
+                            attention, profiled_step=CKPT_STEPS_STAGE2 - 2)
+        curve = [s["total_loss"] for s in steps]
+        if not curve[-1] < curve[0]:
+            raise AssertionError(f"the stage-2 loss did not fall: {curve}")
+        out2 = os.path.join(root, "stage2")
+        t1 = time.time()
+        save_final(out2, trainer.params, cfg2)
+        t_save = time.time() - t1
+        saved_lora = {n: {p: t.detach().cpu().clone() for p, t in ab.items()}
+                      for n, ab in trainer.params["lora"].items()}
+        saved_pooler = {k: v for k, v in tree_paths(trainer.params["pooler"])}
+        del trainer, lora_x
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"  (d) stage-2 loss curve {curve}; save_final in {t_save:.1f} s")
+        out["stage2"] = {"grad_check": grad_check, "steps": steps,
+                         "loss_curve": curve, "save_s": t_save}
+        out["seconds"]["d_stage2"] = time.time() - t0
+
+        # (e) stage 3 from stage 2's output
+        t0 = time.time()
+        config3 = load_yaml_config("Config/multi_modal_stage3.yaml")
+        config3["rgb_vision"]["vit_name"] = paths["vit_path"]
+        config3["text"]["path"] = paths["llama_path"]
+        config3["model_path"] = os.path.join(out2, "FINAL.pt")
+        cfg3, params3, report3 = build_model(config3, dev)
+        bad = tree_mismatches(params3["lora"], saved_lora)
+        bad_pool = [p for p, v in tree_paths(params3["pooler"])
+                    if not torch.equal(torch.as_tensor(v),
+                                       saved_pooler[p].detach().float()
+                                       .cpu())]
+        log(f"  (e) build_model at stage 3 from stage 2's FINAL.pt + "
+            f"TextLoRA/: artifacts {sorted(report3['artifacts'])}; adapter "
+            f"mismatches with the saved ones {bad}; pooler mismatches "
+            f"{bad_pool}")
+        if bad or bad_pool or "text_lora" not in report3["artifacts"]:
+            raise AssertionError("stage 3 did not load stage 2's output "
+                                 "bit for bit")
+        trainer = build_trainer(config3, params3, [caption], dev,
+                                log_period=1, work_dir="build/ckpt_smoke")
+        del params3
+        gc.collect()
+        trainer.max_iters = CKPT_STEPS_STAGE3  # of the recipe's 1200
+        pooler_before = [t.detach().clone()
+                         for t in _leaves(trainer.params["pooler"])]
+        steps3 = train_steps(trainer, cfg3, caption, wrappers, profile,
+                             ProfilerActivity, DeviceType, HookBase,
+                             attention)
+        if not all(torch.equal(a, b) for a, b in zip(
+                pooler_before, _leaves(trainer.params["pooler"]))):
+            raise AssertionError("stage 3 moved the frozen perceiver")
+        out3 = os.path.join(root, "stage3")
+        save_final(out3, trainer.params, cfg3)
+        final = {g: {p: torch.as_tensor(v).detach().float().cpu().clone()
+                     for p, v in tree_paths(trainer.params[g])}
+                 for g in ("vit", "pooler")}
+        lora3 = {n: {p: t.detach().cpu().clone() for p, t in ab.items()}
+                 for n, ab in trainer.params["lora"].items()}
+        del trainer, pooler_before
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["stage3"] = {"steps": steps3}
+        out["seconds"]["e_stage3"] = time.time() - t0
+
+        # (f) eval: stage 3's output merged at load, served bit for bit
+        t0 = time.time()
+        evalp, report_f = load_pretrained(
+            cfg0, model_path=os.path.join(out3, "FINAL.pt"),
+            vit_path=paths["vit_path"], llama_path=paths["llama_path"])
+        plain = {"vit": unflatten(final["vit"]),
+                 "pooler": unflatten(final["pooler"]),
+                 "llama": expected_llama(cfg0.llama, dev, overlay=False,
+                                         lora=lora3)}
+        bad = tree_mismatches(evalp, plain)
+        log(f"  (f) stage 3's output at stage 0: artifacts "
+            f"{sorted(report_f['artifacts'])}; mismatches with the plainly "
+            f"merged tree {bad}")
+        if bad or "text_lora" not in report_f["artifacts"]:
+            raise AssertionError(f"eval load: {bad}")
+        out["eval"] = check_engines(
+            "eval bf16 engine", cfg0, evalp, plain, config0, {}, dev,
+            wrappers, ("flash_attention_fwd", "fused_decode_attention"))
+        del evalp, plain
+        gc.collect()
+        out["seconds"]["f_eval"] = time.time() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"  seconds per part: {out['seconds']}")
+    return out
+
+
+def unflatten(flat):
+    """{"a/b": leaf} -> {"a": {"b": leaf}}."""
+    tree = {}
+    for path, v in flat.items():
+        node = tree
+        *head, last = path.split("/")
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = v
+    return tree
+
+
+def train_steps(trainer, cfg, batch, wrappers, profile, activities,
+                device_type, hook_base, attention, profiled_step=None):
+    """trainer.train() with a probe: per step its loss, grad_norm, lr,
+    ms (synchronised), spliced tokens/s, peak memory and kernel launches
+    (the plain backward must never run on the card); with
+    `profiled_step`, that step under torch.profiler for the card's busy
+    share."""
+    import torch
+
+    steps = []
+    total, valid = spliced_tokens(cfg, batch)
+
+    class Probe(hook_base):
+        def before_iter(self):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            self.counts = {k: wrappers[k].launches for k in wrappers}
+            self.prof = None
+            if self.trainer.cur_iter == profiled_step:
+                self.prof = profile(activities=[activities.CPU,
+                                                activities.CUDA])
+                self.prof.__enter__()
+            self.t0 = time.perf_counter()
+
+        def after_iter(self):
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - self.t0) * 1e3
+            step = {"ms": ms, "spliced_tokens": total,
+                    "valid_tokens": valid,
+                    "tokens_per_s": total / ms * 1e3,
+                    "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                    "launches": {k: wrappers[k].launches - self.counts[k]
+                                 for k in wrappers
+                                 if wrappers[k].launches - self.counts[k]}}
+            if self.prof is not None:
+                self.prof.__exit__(None, None, None)
+                busy = sum(e.self_device_time_total
+                           for e in self.prof.key_averages()
+                           if e.device_type == device_type.CUDA) / 1e3
+                step.update(profiled=True, busy_ms=busy,
+                            busy_share=busy / ms)
+            steps.append(step)
+
+    plain_calls = []
+    plain_bwd = attention.flash_attention_bwd_reference
+
+    def counted_plain(*args):
+        plain_calls.append(1)
+        return plain_bwd(*args)
+
+    trainer.register_hook(Probe())
+    with patched(attention, flash_attention_bwd_reference=counted_plain):
+        trainer.train()
+    ms_ = trainer.metric_storage
+    for key in ("total_loss", "grad_norm", "lr"):
+        for s, v in zip(steps, ms_[key].values):
+            s[key] = v
+    for i, s in enumerate(steps):
+        busy = (f", busy {s['busy_ms']:.1f} ms, busy share "
+                f"{s['busy_share']:.3f} (under the profiler)"
+                if s.get("profiled") else "")
+        log(f"  step {i}: loss {s['total_loss']:.5f}, grad_norm "
+            f"{s['grad_norm']:.4f}, lr {s['lr']:.4e}, {s['ms']:.1f} ms, "
+            f"{s['tokens_per_s']:.0f} spliced tokens/s ({total} spliced, "
+            f"{valid} valid), peak {s['peak_gib']:.2f} GiB{busy}, launches "
+            f"{ {k: v for k, v in s['launches'].items() if k in TRAIN_KERNELS} }")
+        if not all(np.isfinite([s["total_loss"], s["grad_norm"]])):
+            raise AssertionError(f"step {i}: non-finite loss or grad_norm")
+        if any(not s["launches"].get(k) for k in TRAIN_KERNELS):
+            raise AssertionError(f"step {i}: launches {s['launches']}")
+    if plain_calls:
+        raise AssertionError("the plain backward ran on the card")
+    return steps
+
+
 # where a failing phase leaves its traceback, and a crash of the
 # interpreter its stacks: the output directory a remote run copies back
 OUT_DIR = "chiprun_out"
@@ -3677,7 +4552,7 @@ def main():
     faulthandler.enable(faults)  # a segfault or abort leaves its stacks
     dev = torch.device("cuda", 0)
     smi = smi_line()
-    log(f"[1/6 device] torch {torch.__version__}, CUDA {torch.version.cuda}, "
+    log(f"[1/7 device] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}, capability "
         f"{torch.cuda.get_device_capability(0)}, count "
         f"{torch.cuda.device_count()}")
@@ -3692,7 +4567,7 @@ def main():
     build_log = (so.parent / "build.log").read_text().splitlines()
     usage = [ln.strip() for ln in build_log
              if "Used" in ln or "spill" in ln or "Compiling entry" in ln]
-    log(f"[2/6 build] {so.relative_to(cuda_lib.BUILD_ROOT.parents[1])} in "
+    log(f"[2/7 build] {so.relative_to(cuda_lib.BUILD_ROOT.parents[1])} in "
         f"{build_s:.1f} s")
     for ln in usage:
         log(f"  {ln}")
@@ -3705,7 +4580,7 @@ def main():
         raise SystemExit("chip_smoke: ptxas serialized wgmma (C7514):\n"
                          + "\n".join(serialized))
 
-    log("[3/6 kernels vs plain]")
+    log("[3/7 kernels vs plain]")
     k1, k2 = phase("kernels", phase_kernels, dev)
     train_k = phase("train_kernels", phase_train_kernels, dev)
     k3, k4 = phase("quant_kernels", phase_quant_kernels, dev)
@@ -3714,16 +4589,19 @@ def main():
     paged = phase("paged_kernels", phase_paged_kernels, dev)
     bench_k = phase("bench_kernels", phase_bench_kernels, dev)
 
-    log("[4/6 serving slices at full width]")
+    log("[4/7 serving slices at full width]")
     paths = phase("slice", phase_slice, dev)
     bf16, w4a8 = paths["bf16"]["launches"], paths["w4a8"]["launches"]
     int8 = paths["int8"]["launches"]
 
-    log("[5/6 stage-1 training at full width]")
+    log("[5/7 stage-1 training at full width]")
     train = phase("train", phase_train, dev)
 
-    log("[6/6 the bench path]")
+    log("[6/7 the bench path]")
     bench = phase("bench", phase_bench, dev)
+
+    log("[7/7 checkpoints at full width: load, serve, stage 2 -> 3 -> eval]")
+    ckpt = phase("checkpoint", phase_checkpoint, dev)
 
     def row(name, source, replaces, launches, k):
         return {"name": name, "route": "cuda",
@@ -3834,6 +4712,7 @@ def main():
     log(json.dumps({"train_kernels": train_k, "train": train}))
     log(json.dumps({"bench_kernels": bench_k,
                     "bench_launches": bench["launches"]}))
+    log(json.dumps({"checkpoint": ckpt}))
     log(json.dumps({"kernels": kernels}))
     log(smi_line())
     log(json.dumps({"ok": True, "device": {

@@ -1,13 +1,51 @@
-"""Engine and trainer assembly from the config surface (counterpart of
-lhrs_bot_tpu/core/bootstrap.py `build_engine`, and of what
-`main_pretrain_stage1.py` / `main_pretrain_stage3.py` compose around the
-trainer)."""
+"""Model, engine and trainer assembly from the config surface (counterpart
+of lhrs_bot_tpu/core/bootstrap.py `build_model_and_tokenizer` without the
+tokenizer, and `build_engine`, and of what `main_pretrain_stage1.py` /
+`main_pretrain_stage3.py` compose around the trainer)."""
 
 from __future__ import annotations
 
 import torch
 
+from ..device import resolve_device
 from ..serve.engine import GenerationEngine
+from .convert import params_from_numpy
+
+
+def build_model(config, device="cuda"):
+    """(cfg, params, report) for `config` (a nested dict with the schema of
+    `Config/*.yaml`): the VLMConfig, and `core.model_io.load_pretrained` of
+    `model_path`, `rgb_vision.vit_name` and `text.path` (a key that is
+    missing or None loads nothing; a path that does not exist raises, so a
+    hub name such as the YAML's `openai/clip-vit-large-patch14` has to be
+    replaced by a local directory). At a training stage (stage != 0) with
+    `bits` 8 or 4 the decoder's projections are quantized on `device` as
+    the JAX bootstrap quantizes them (`quantize_llama_layers` with the
+    config's `quant_type` and `double_quant`; the LoRA then trains as the
+    runtime side path, QLoRA); every other leaf stays a host numpy array.
+    `report` is load_pretrained's: the artifacts loaded and the leaves left
+    at their random init."""
+    from ..models.vlm import VLMConfig
+    from ..ops.quant import _QUANT_TARGETS, quantize_llama_layers
+    from .model_io import load_pretrained
+
+    cfg = VLMConfig.from_config_dict(config)
+    params, report = load_pretrained(
+        cfg, model_path=config.get("model_path"),
+        vit_path=config["rgb_vision"].get("vit_name"),
+        llama_path=config["text"].get("path"))
+    bits = int(config.get("bits", 16) or 16)
+    if bits in (4, 8) and cfg.stage != 0:
+        device = resolve_device(device)
+        quant_type = str(config.get("quant_type", "nf4") or "nf4")
+        double_quant = bool(config.get("double_quant", True))
+        layers = params["llama"]["layers"]
+        for name in _QUANT_TARGETS:
+            w = torch.from_numpy(layers[name]).to(device)
+            layers[name] = quantize_llama_layers(
+                {name: w}, bits=bits, quant_type=quant_type,
+                double_quant=double_quant)[name]
+    return cfg, params, report
 
 
 def vision_w8a8_setting(cfg, config, bits: int, device) -> bool:
@@ -22,7 +60,9 @@ def vision_w8a8_setting(cfg, config, bits: int, device) -> bool:
 
 def build_engine(cfg, params, config, device) -> GenerationEngine:
     """A GenerationEngine for `config` (a nested dict with the schema of
-    `Config/*.yaml`, e.g. `core.convert.eval_config()`) on `device`.
+    `Config/*.yaml`, e.g. `core.convert.eval_config()`) on `device`, over
+    `params` as numpy leaves (`build_model`, `load_pretrained`) or tensors,
+    with "lora" or without (the engine merges or attaches it).
 
     Maps the serving knobs as the JAX package does: `bits: 8` gives int8
     decoder weights, `bits: 4` NF4 (`quant_type: nf4`, the default, with
@@ -43,7 +83,7 @@ def build_engine(cfg, params, config, device) -> GenerationEngine:
     if config.get("prefill_chunk"):
         raise NotImplementedError("prefill_chunk is not ported yet")
     return GenerationEngine(
-        cfg, params, device=device,
+        cfg, params_from_numpy(params), device=device,
         max_seq_len=int(config["text"]["max_position_embeddings"]) + 256,
         compute_dtype=torch.bfloat16,
         cache_dtype=torch.int8 if kv_bits == 8 else torch.bfloat16,
@@ -63,8 +103,10 @@ def build_trainer(config, params, loader, device="cuda", *,
     (an iterable of collated batches) on `device`, composed as the JAX
     entry points compose it: the parameters for training
     (`training_params_from_numpy`), the schedule from the config, the
-    optimizer over `trainable_mask`, and an epoch-based trainer over
-    `epochs` x len(loader) iterations (stages 1 and 2) or an
+    optimizer over `trainable_mask` (stages 2 and 3: the "lora" leaves, and
+    the pooler where `tune_rgb_pooler` says; a quantized base from
+    `build_model` stays frozen in its codes), and an epoch-based trainer
+    over `epochs` x len(loader) iterations (stages 1 and 2) or an
     iteration-based one over `epochs` iterations (stage 3, whose recipe
     treats epochs as iterations). `use_checkpoint` turns on remat. The
     trainer's parameters are `trainer.params`. Checkpoints are not ported:

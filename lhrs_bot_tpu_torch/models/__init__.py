@@ -8,6 +8,9 @@ from .perceiver import (PerceiverConfig, perceiver_resample,  # noqa: F401
 from .splice import (SplicedBatch, splice_image_embeddings,  # noqa: F401
                      splice_image_embeddings_multi)
 from .vit import ViTConfig, vit_encode, vit_encode_fused  # noqa: F401
-from .vlm import (VLMConfig, encode_image, init_vlm_params,  # noqa: F401
+from .lora import (LoraConfig, attach_runtime_lora,  # noqa: F401
+                   init_lora_params, merge_lora)
+from .vlm import (VLMConfig, effective_llama_params,  # noqa: F401
+                  encode_image, init_vlm_params,
                   prepare_multimodal_inputs, trainable_mask,
                   vlm_forward_loss)

@@ -28,8 +28,15 @@ position, `kv_mask` or packing `segment_ids` attention, `remat` through
 `torch.utils.checkpoint`) and `causal_lm_loss` its loss; gradients of the
 attention go through the flash backward (`ops.attention.FlashAttention`).
 
-Not ported here: the QLoRA side path, context parallelism (`cp_axis_name`)
-and `llama_prefill_continue`.
+Every projection goes through `_proj`, which adds the runtime LoRA side
+path where a layer carries `<name>__lora_a` / `<name>__lora_b` (QLoRA over
+a quantized base, `models.lora.attach_runtime_lora`), in training, prefill
+and decode. Over an int8 / int4 / NF4 base the training backward takes the
+input gradient of `quantized_matmul` (`ops.quant`), never a weight
+gradient.
+
+Not ported here: context parallelism (`cp_axis_name`) and
+`llama_prefill_continue`.
 """
 
 from __future__ import annotations
@@ -93,10 +100,23 @@ def _lm_head_logits(x: torch.Tensor, lm_head) -> torch.Tensor:
     return torch.matmul(x.float(), lm_head.float())
 
 
+def _proj(lp, name: str, x: torch.Tensor) -> torch.Tensor:
+    """x @ lp[name], plus the runtime LoRA side path (x A) B where the
+    layer carries `<name>__lora_a` / `<name>__lora_b` (B with the scale
+    folded in, `models.lora.attach_runtime_lora`): A and B in x's dtype,
+    each product rounded to x's dtype, as the JAX `_proj` rounds them."""
+    y = _dense(x, lp[name])
+    a = lp.get(name + "__lora_a")
+    if a is not None:
+        b = lp[name + "__lora_b"]
+        y = y + torch.matmul(torch.matmul(x, a.to(x.dtype)), b.to(x.dtype))
+    return y
+
+
 def _silu_mlp(x: torch.Tensor, lp) -> torch.Tensor:
-    gate = _dense(x, lp["w_gate"])
-    up = _dense(x, lp["w_up"])
-    return _dense(F.silu(gate.float()).to(x.dtype) * up, lp["w_down"])
+    gate = _proj(lp, "w_gate", x)
+    up = _proj(lp, "w_up", x)
+    return _proj(lp, "w_down", F.silu(gate.float()).to(x.dtype) * up)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -190,7 +210,7 @@ def _qkv(x: torch.Tensor, lp, cfg: LlamaConfig, cos, sin):
     b, s, _ = x.shape
 
     def proj(name):
-        return _dense(x, lp[name]).reshape(
+        return _proj(lp, name, x).reshape(
             b, s, cfg.num_attention_heads, cfg.head_dim)
 
     def heads(t):
@@ -227,7 +247,7 @@ def llama_prefill(params, cfg: LlamaConfig, cache: KVCache, *,
         q, k, v = _qkv(h, lp, cfg, cos, sin)
         attn = flash_attention(q, k, v, causal=True)
         attn = attn.transpose(1, 2).reshape(b, s, cfg.hidden_size)
-        x = x + _dense(attn, lp["wo"])
+        x = x + _proj(lp, "wo", attn)
         h2 = rms_norm(x, lp["post_attn_norm"], cfg.rms_norm_eps)
         x = x + _silu_mlp(h2, lp)
         if cache.quantized:
@@ -265,7 +285,7 @@ def _block_full(x: torch.Tensor, lp, cfg: LlamaConfig, cos, sin,
     else:
         attn = flash_attention(q, k, v, kv_mask, causal=True)
     attn = attn.transpose(1, 2).reshape(b, s, cfg.hidden_size)
-    x = x + _dense(attn, lp["wo"])
+    x = x + _proj(lp, "wo", attn)
     h2 = rms_norm(x, lp["post_attn_norm"], cfg.rms_norm_eps)
     return x + _silu_mlp(h2, lp)
 
@@ -380,7 +400,7 @@ def llama_decode_step(params, cfg: LlamaConfig, cache: KVCache, *,
             attn = fused_decode_attention(q, k, v, cache.k, cache.v,
                                           cache.length, li)[0]
         attn = attn.transpose(1, 2).reshape(b, 1, cfg.hidden_size)
-        x = x + _dense(attn, lp["wo"])
+        x = x + _proj(lp, "wo", attn)
         h2 = rms_norm(x, lp["post_attn_norm"], cfg.rms_norm_eps)
         x = x + _silu_mlp(h2, lp)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)

@@ -38,7 +38,7 @@ from ..ops.paged_fused import (_append_rows,  # noqa: F401
 from ..ops.quant import quantize_activation
 from ..ops.rmsnorm import rms_norm
 from ..ops.rope import rope_cos_sin
-from .llama import (KVCache, LlamaConfig, _dense, _layer, _lm_head_logits,
+from .llama import (KVCache, LlamaConfig, _layer, _lm_head_logits, _proj,
                     _qkv, _silu_mlp)
 
 
@@ -221,7 +221,7 @@ def paged_prefill_with_context(
             None if vs is None else _gather_row(vs[li], table_rows[r]),
             causal[r]) for r in range(b)])
         attn = attn.transpose(1, 2).reshape(b, w, cfg.hidden_size)
-        x = x + _dense(attn, lp["wo"])
+        x = x + _proj(lp, "wo", attn)
         h2 = rms_norm(x, lp["post_attn_norm"], cfg.rms_norm_eps)
         x = x + _silu_mlp(h2, lp)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
@@ -266,7 +266,7 @@ def paged_decode_step(params, cfg: LlamaConfig, pcache: PagedKVCache, *,
                                       pcache.lengths, li)[0]
         attn = attn.to(compute_dtype).transpose(1, 2).reshape(
             b, 1, cfg.hidden_size)
-        x = x + _dense(attn, lp["wo"])
+        x = x + _proj(lp, "wo", attn)
         h2 = rms_norm(x, lp["post_attn_norm"], cfg.rms_norm_eps)
         x = x + _silu_mlp(h2, lp)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)

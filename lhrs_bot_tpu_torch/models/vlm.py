@@ -1,24 +1,30 @@
 """The composed vision-language model: tower -> perceiver -> splice -> LLaMA.
 
 Counterpart of `lhrs_bot_tpu/models/vlm.py`: `VLMConfig`,
-`init_vlm_params`, `encode_image`, `prepare_multimodal_inputs` (one image
-a row, or (B, K, H, W, 3) image slots with packing segment ids), and for
-training `vlm_forward_loss` ({"text_loss", "total_loss"}) and
-`trainable_mask` (the stage rules of which leaves train). Parameters are a
-nested dict of tensors with the JAX package's structure and layout:
-`{"vit": ..., "pooler": ..., "llama": ...}`, per-layer tensors stacked on a
-leading axis, projection weights (in, out).
+`init_vlm_params`, `effective_llama_params` (LoRA merged into a dense
+base, or attached as a runtime side path to a quantized one),
+`encode_image`, `prepare_multimodal_inputs` (one image a row, or (B, K, H,
+W, 3) image slots with packing segment ids), and for training
+`vlm_forward_loss` ({"text_loss", "total_loss"}) and `trainable_mask` (the
+stage rules of which leaves train). Parameters are a nested dict of
+tensors with the JAX package's structure and layout: `{"vit": ...,
+"pooler": ..., "llama": ..., ["lora": ...]}`, per-layer tensors stacked on
+a leading axis, projection weights (in, out).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import zlib
 from typing import Dict, Optional
 
 import torch
 
 from ..device import resolve_device
+from ..ops.quant import QuantizedTensor
 from .llama import LlamaConfig, causal_lm_loss, llama_apply
+from .lora import (LoraConfig, attach_runtime_lora, init_lora_params,
+                   merge_lora)
 from .perceiver import PerceiverConfig, perceiver_resample
 from .splice import (SplicedBatch, splice_image_embeddings,
                      splice_image_embeddings_multi)
@@ -32,18 +38,22 @@ class VLMConfig:
         default_factory=PerceiverConfig)
     llama: LlamaConfig = dataclasses.field(
         default_factory=LlamaConfig.llama2_7b)
+    lora: Optional[LoraConfig] = None
+    # 1 = caption alignment, 2 / 3 = instruction tuning with LoRA, 0 = eval
     stage: int = 1
     tune_rgb_bk: bool = False
     tune_rgb_pooler: bool = True
 
     @classmethod
-    def tiny_test(cls, stage: int = 1) -> "VLMConfig":
+    def tiny_test(cls, stage: int = 1, lora: bool = False
+                  ) -> "VLMConfig":
         vit = ViTConfig.tiny_test()
         pooler = dataclasses.replace(
             PerceiverConfig.tiny_test(), hidden_size=vit.width,
             encoder_hidden_size=vit.width, output_size=64,
             split_part=(vit.num_patches,) * 3)
         return cls(vit=vit, pooler=pooler, llama=LlamaConfig.tiny_test(),
+                   lora=LoraConfig(r=4, alpha=8) if lora else None,
                    stage=stage)
 
     @classmethod
@@ -69,38 +79,34 @@ class VLMConfig:
             output_size=int(cfg["text"]["hidden_size"]),
             stage_num=stage_num,
             split_part=(vit.num_patches,) * len(stage_num))
+        # stage 3 trains the stage-2 adapters it loads from TextLoRA/ even
+        # though its yaml sets lora.enable False
         lora = cfg.get("lora")
-        if lora and (lora.get("enable") or cfg.get("stage") == 3):
-            raise NotImplementedError("LoRA is not ported to "
-                                      "lhrs_bot_tpu_torch yet")
+        lora = (LoraConfig.from_config_dict(lora)
+                if lora and (lora.get("enable") or cfg.get("stage") == 3)
+                else None)
         return cls(vit=vit, pooler=pooler,
                    llama=LlamaConfig.from_config_dict(cfg["text"]),
-                   stage=cfg["stage"],
+                   lora=lora, stage=cfg["stage"],
                    tune_rgb_bk=cfg.get("tune_rgb_bk", False),
                    tune_rgb_pooler=cfg.get("tune_rgb_pooler", True))
 
 
-def init_vlm_params(cfg: VLMConfig, seed: int = 0,
-                    dtype: torch.dtype = torch.float32, device="cuda"):
-    """Random parameters with the JAX `init_*_params` structure: weights
-    N(0, 0.02), perceiver queries 0.02 * N(0, 1) truncated to [-2, 2], norm
-    scales 1, biases 0. Drawn on `device` from a `torch.Generator` seeded
-    with `seed`; the numbers differ from the JAX package's for the same
-    seed."""
-    device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+def param_specs(cfg: VLMConfig):
+    """The structure of the "vit", "pooler" and "llama" parameters: a
+    nested dict whose leaves are (kind, shape), kind "normal" (N(0, 0.02)),
+    "query" (0.02 * N(0, 1) truncated to [-2, 2]), "ones" or "zeros"."""
+    v, p, m = cfg.vit, cfg.pooler, cfg.llama
 
     def normal(*shape):
-        t = torch.randn(shape, generator=gen, dtype=dtype, device=device)
-        return t.mul_(0.02)
+        return ("normal", shape)
 
     def ones(*shape):
-        return torch.ones(shape, dtype=dtype, device=device)
+        return ("ones", shape)
 
     def zeros(*shape):
-        return torch.zeros(shape, dtype=dtype, device=device)
+        return ("zeros", shape)
 
-    v, p, m = cfg.vit, cfg.pooler, cfg.llama
     w, lv = v.width, v.layers
     vit = {
         "patch_proj": normal(v.patch_size * v.patch_size * 3, w),
@@ -121,10 +127,8 @@ def init_vlm_params(cfg: VLMConfig, seed: int = 0,
         },
     }
     h, lp, ffn = p.hidden_size, p.num_layers, p.hidden_size * p.mlp_ratio
-    query = torch.empty(p.num_query, h, dtype=torch.float32, device=device)
-    torch.nn.init.trunc_normal_(query, 0.0, 1.0, -2.0, 2.0, generator=gen)
     pooler = {
-        "query": query.mul_(0.02).to(dtype),
+        "query": ("query", (p.num_query, h)),
         "layers": {
             "ln1_scale": ones(lp, h), "ln1_bias": zeros(lp, h),
             "ln_kv_scale": ones(lp, h), "ln_kv_bias": zeros(lp, h),
@@ -155,6 +159,73 @@ def init_vlm_params(cfg: VLMConfig, seed: int = 0,
         "lm_head": normal(d, vocab),
     }
     return {"vit": vit, "pooler": pooler, "llama": llama}
+
+
+def leaf_generator(seed: int, path: str, device="cpu") -> torch.Generator:
+    """The generator of the leaf at `path` ("llama/layers/wq", or "lora"
+    for the adapters), seeded from `seed` and the path: a leaf's draw does
+    not depend on which other leaves are drawn."""
+    return torch.Generator(device=device).manual_seed(
+        (seed << 32) + zlib.crc32(path.encode()))
+
+
+def draw_param(spec, path: str, seed: int, dtype: torch.dtype,
+               device) -> torch.Tensor:
+    """The leaf of `param_specs` at `path`, drawn on `device` from its own
+    generator (`leaf_generator`)."""
+    kind, shape = spec
+    if kind in ("ones", "zeros"):
+        fill = torch.ones if kind == "ones" else torch.zeros
+        return fill(shape, dtype=dtype, device=device)
+    gen = leaf_generator(seed, path, device)
+    if kind == "normal":
+        return torch.randn(shape, generator=gen, dtype=dtype,
+                           device=device).mul_(0.02)
+    query = torch.empty(shape, dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(query, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return query.mul_(0.02).to(dtype)
+
+
+def init_vlm_params(cfg: VLMConfig, seed: int = 0,
+                    dtype: torch.dtype = torch.float32, device="cuda"):
+    """Random parameters with the JAX `init_*_params` structure: weights
+    N(0, 0.02), perceiver queries 0.02 * N(0, 1) truncated to [-2, 2], norm
+    scales 1, biases 0 (`param_specs`), each leaf drawn on `device` by
+    `draw_param`; the numbers differ from the JAX package's for the same
+    seed. With `cfg.lora`, "lora" holds the adapters of
+    `models.lora.init_lora_params` (B = 0) drawn from
+    `leaf_generator(seed, "lora")`."""
+    device = resolve_device(device)
+
+    def walk(spec, path):
+        if isinstance(spec, dict):
+            return {k: walk(v, f"{path}/{k}" if path else k)
+                    for k, v in spec.items()}
+        return draw_param(spec, path, seed, dtype, device)
+
+    params = walk(param_specs(cfg), "")
+    if cfg.lora is not None:
+        params["lora"] = init_lora_params(
+            cfg.llama, cfg.lora, leaf_generator(seed, "lora", device), dtype,
+            device)
+    return params
+
+
+def effective_llama_params(params, cfg: VLMConfig):
+    """The decoder's parameters with the LoRA adapters applied (where
+    `cfg.lora` is set and the tree holds "lora"): merged into a dense base
+    (`merge_lora`), attached as the runtime side path to a quantized one
+    (`attach_runtime_lora`)."""
+    llama = params["llama"]
+    if cfg.lora is None or "lora" not in params:
+        return llama
+    if any(isinstance(w, QuantizedTensor)
+           for w in llama["layers"].values()):
+        layers = attach_runtime_lora(llama["layers"], params["lora"],
+                                     cfg.lora)
+    else:
+        layers = merge_lora(llama["layers"], params["lora"], cfg.lora)
+    return {**llama, "layers": layers}
 
 
 def _requires_grad(tree) -> bool:
@@ -257,12 +328,13 @@ def vlm_forward_loss(params, cfg: VLMConfig, batch: Dict,
     arrays (moved to the parameters' device). Float parameters are cast to
     the compute dtype on the fly, as the JAX model functions cast them (the
     ViT's pre-LayerNorm stays as given); the frozen tower runs without a
-    graph; the decoder backward runs through the flash backward kernels.
+    graph; the decoder runs over `effective_llama_params` (LoRA merged or
+    attached) and its backward through the flash backward kernels.
     `cp_mesh` (context parallelism) is not ported and raises."""
     if cp_mesh is not None:
         raise NotImplementedError("context parallelism (cp_mesh) is not "
                                   "ported to lhrs_bot_tpu_torch yet")
-    llama = params["llama"]
+    llama = effective_llama_params(params, cfg)
     device = llama["embed_tokens"].device
     run = {"vit": cast_floats(params["vit"], compute_dtype, keep=("pre_ln",)),
            "pooler": cast_floats(params["pooler"], compute_dtype)}
@@ -285,19 +357,21 @@ def vlm_forward_loss(params, cfg: VLMConfig, batch: Dict,
 def trainable_mask(params, cfg: VLMConfig):
     """Nested dict of bools like `params` marking the trainable leaves, by
     the stage rules of the JAX `trainable_mask`: stage 1 trains the pooler
-    (and the tower with `tune_rgb_bk`), never the decoder; stage 0 (eval)
-    trains nothing. LoRA (stages 2 and 3) is not ported."""
-    if "lora" in params:
-        raise NotImplementedError("LoRA is not ported to lhrs_bot_tpu_torch "
-                                  "yet")
+    (and the tower with `tune_rgb_bk`), never the decoder (nor a
+    quantized base); stages 2 and 3 also train the "lora" leaves (the
+    pooler trains where `tune_rgb_pooler` says, which the stage-3 recipe
+    turns off); stage 0 (eval) trains nothing."""
 
     def full(tree, value):
         if isinstance(tree, dict):
             return {k: full(v, value) for k, v in tree.items()}
         return value
 
-    return {"vit": full(params["vit"], bool(cfg.tune_rgb_bk
+    mask = {"vit": full(params["vit"], bool(cfg.tune_rgb_bk
                                             and cfg.stage != 0)),
             "pooler": full(params["pooler"], bool(cfg.tune_rgb_pooler
                                                   and cfg.stage != 0)),
             "llama": full(params["llama"], False)}
+    if "lora" in params:
+        mask["lora"] = full(params["lora"], cfg.stage in (2, 3))
+    return mask

@@ -10,7 +10,10 @@ activation is rounded to bf16 whatever the compute dtype, the product of
 the bf16-valued operands is kept in float32, and the scale multiplies that
 float32 product before the cast to `out_dtype`. `torch.matmul` of bf16
 operands would round the product to bf16 first, so both operands are cast
-to float32 here (their bf16 values multiply exactly in float32).
+to float32 here (their bf16 values multiply exactly in float32). Under
+autograd it gives the input gradient of QLoRA training over a frozen
+quantized base (`_QuantizedMatmul`: it keeps the int8 codes, not a float
+copy of the weight, which for the 7B decoder would be 26 GB).
 
 NF4 is the QLoRA NormalFloat4 codebook with per-64-block absmax along the
 contraction axis and the JAX package's linear int8 double quantization of
@@ -120,20 +123,52 @@ def _codes(qt: QuantizedTensor) -> torch.Tensor:
     return qt.q
 
 
+def _float_weight(q: torch.Tensor, scale: torch.Tensor, bits):
+    """(float32 weight the product multiplies, float32 scale of the
+    epilogue or None): the codes for int8 / int4 / "4h", the bf16-rounded
+    dequantized weight for NF4 (its per-block scales along the contraction
+    axis cannot fold into the epilogue)."""
+    if bits == "nf4":
+        return _dequantize_nf4(q, scale).to(torch.bfloat16).float(), None
+    return _codes(QuantizedTensor(q, scale, bits)).float(), scale.float()
+
+
+class _QuantizedMatmul(torch.autograd.Function):
+    """quantized_matmul with the input gradient JAX takes through the same
+    operations: the cotangent g in float32, times the scale, times the
+    transposed codes (or NF4 weight) in float32, rounded to bf16 (the
+    transpose of the activation's bf16 cast), then to x's dtype. Saves the
+    codes and the scale (no float copy of the weight); no weight
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, x, q, scale, bits, out_dtype):
+        ctx.save_for_backward(q, scale)
+        ctx.bits, ctx.x_dtype = bits, x.dtype
+        w, s = _float_weight(q, scale, bits)
+        acc = torch.matmul(x.to(torch.bfloat16).float(), w)
+        return (acc if s is None else acc * s).to(out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, scale = ctx.saved_tensors
+        w, s = _float_weight(q, scale, ctx.bits)
+        g = g.float() if s is None else g.float() * s
+        dx = torch.matmul(g, w.transpose(-1, -2))
+        return dx.to(torch.bfloat16).to(ctx.x_dtype), None, None, None, None
+
+
 def quantized_matmul(x: torch.Tensor, qt: QuantizedTensor,
                      out_dtype=None) -> torch.Tensor:
     """x (..., in) @ quantized (in, out): bf16-rounded operands, float32
     product, scale folded into the float32 epilogue, then `out_dtype`
-    (default x.dtype)."""
+    (default x.dtype). Differentiable in x (`_QuantizedMatmul`)."""
     out_dtype = out_dtype or x.dtype
-    xb = x.to(torch.bfloat16).float()
-    if qt.bits == "nf4":
-        # per-block scales along the contraction axis cannot fold into the
-        # epilogue: dequantize to bf16, then the float32 product
-        w = _dequantize_nf4(qt.q, qt.scale).to(torch.bfloat16).float()
-        return torch.matmul(xb, w).to(out_dtype)
-    acc = torch.matmul(xb, _codes(qt).float())
-    return (acc * qt.scale.float()).to(out_dtype)
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _QuantizedMatmul.apply(x, qt.q, qt.scale, qt.bits, out_dtype)
+    w, s = _float_weight(qt.q, qt.scale, qt.bits)
+    acc = torch.matmul(x.to(torch.bfloat16).float(), w)
+    return (acc if s is None else acc * s).to(out_dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -34,8 +34,17 @@ before any cast, so the codes are the JAX engine's.
 
 The decode loop is a Python loop of `llama_decode_step` calls whose tokens
 stay on the device; the host reads the tokens once, at the end of
-`generate`. Chunked prefill, sessions, speculative decoding, LoRA trees and
-meshes are not ported: asking for one raises NotImplementedError.
+`generate`. Chunked prefill, sessions, speculative decoding and meshes
+are not ported: asking for one raises NotImplementedError.
+
+A tree with "lora" (and `cfg.lora` set) is served as the JAX engine serves
+it: over a dense base the adapters are merged once, at load, in float32
+(`models.lora.merge_lora`) before the cast, or, for bits 8 and "4h",
+before the quantization from the given values, summed over r in numpy's
+order (`lora_delta_stepwise`), so the codes equal the JAX engine's
+`_host_merge_quantize` codes byte for byte; over a base that is already
+quantized they ride along as the runtime side path
+(`attach_runtime_lora`, cast to the compute dtype).
 """
 
 from __future__ import annotations
@@ -49,6 +58,8 @@ import torch
 
 from ..device import resolve_device
 from ..models.llama import KVCache, llama_decode_step, llama_prefill
+from ..models.lora import (attach_runtime_lora, lora_delta_stepwise,
+                           merge_lora)
 from ..models.vlm import VLMConfig, prepare_multimodal_inputs
 from ..ops.quant import (_QUANT_TARGETS, QuantizedTensor, quantize_int4h,
                          quantize_int8, quantize_llama_layers,
@@ -73,15 +84,32 @@ def _cast_params(tree, dtype: Optional[torch.dtype], device: torch.device):
 
 def _quantize_llama(llama, *, compute_dtype: torch.dtype,
                     device: torch.device, quantize_bits, quant_type: str,
-                    double_quant: bool, lm_head_bits):
-    """The decoder's parameters on `device`, quantized as the JAX engine
-    quantizes a numpy tree (see the module docstring), one stacked weight
-    at a time."""
+                    double_quant: bool, lm_head_bits, lora=None,
+                    lora_cfg=None):
+    """The decoder's parameters on `device`, with the `lora` adapters
+    merged or attached and the weights quantized as the JAX engine does it
+    for a numpy tree (see the module docstring), one stacked weight at a
+    time."""
     from_given = quantize_bits in (8, "4h")
     if quantize_bits == "4h":
         bits, qtype = 4, "int4h"
     else:
         bits, qtype = quantize_bits, quant_type
+    base = llama["layers"]
+    if lora and any(isinstance(w, QuantizedTensor) for w in base.values()):
+        base, lora = attach_runtime_lora(base, lora, lora_cfg), None
+    lora = lora or {}
+
+    def merged(name, w):
+        ab = lora.get(name)
+        if ab is None:
+            return w
+        a, b = ab["a"].to(device), ab["b"].to(device)
+        if from_given:  # _host_merge_quantize's float32 merge
+            return w.to(device).float() + lora_delta_stepwise(a, b) \
+                * lora_cfg.scale
+        return merge_lora({name: w.to(device)}, {name: {"a": a, "b": b}},
+                          lora_cfg)[name]
 
     def quantize(name, w):
         if from_given:  # from the given float values (_host_merge_quantize)
@@ -93,12 +121,14 @@ def _quantize_llama(llama, *, compute_dtype: torch.dtype,
                                      double_quant=double_quant)[name]
 
     layers = {}
-    for name, w in llama["layers"].items():
-        if quantize_bits and name in _QUANT_TARGETS and not isinstance(
-                w, QuantizedTensor):
-            layers[name] = quantize(name, w)
+    for name, w in base.items():
+        if isinstance(w, QuantizedTensor):
+            layers[name] = w.to(device)
+        elif quantize_bits and name in _QUANT_TARGETS:
+            layers[name] = quantize(name, merged(name, w))
         else:
-            layers[name] = _cast_params(w, compute_dtype, device)
+            layers[name] = _cast_params(merged(name, w), compute_dtype,
+                                        device)
     out = {k: _cast_params(v, compute_dtype, device)
            for k, v in llama.items() if k not in ("layers", "lm_head")}
     head = llama["lm_head"]
@@ -190,8 +220,7 @@ class GenerationEngine:
         prefill_chunk: Optional[int] = None,
         mesh=None,
     ):
-        unported = {"prefill_chunk": prefill_chunk, "mesh": mesh,
-                    "lora": params.get("lora")}
+        unported = {"prefill_chunk": prefill_chunk, "mesh": mesh}
         asked = [k for k, v in unported.items() if v]
         if asked:
             raise NotImplementedError(f"not ported yet: {', '.join(asked)}")
@@ -231,7 +260,9 @@ class GenerationEngine:
         self.llama_params = _quantize_llama(
             params["llama"], compute_dtype=compute_dtype, device=self.device,
             quantize_bits=quantize_bits, quant_type=quant_type,
-            double_quant=double_quant, lm_head_bits=lm_head_bits)
+            double_quant=double_quant, lm_head_bits=lm_head_bits,
+            lora=params.get("lora") if cfg.lora is not None else None,
+            lora_cfg=cfg.lora)
 
     # -- pieces -------------------------------------------------------------
 

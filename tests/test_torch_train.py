@@ -549,8 +549,11 @@ def test_build_trainer_from_config(vlm_setup):
     assert t.optimizer.name == "adamw" and t.optimizer.max_grad_norm == 1.0
     t.train()
     assert np.isfinite(t.metric_storage["total_loss"].latest)
-    with pytest.raises(NotImplementedError):  # stage 3 trains LoRA
-        build_trainer({**tiny, "stage": 3}, nparams, loader, "cpu")
+    # stage 3 takes the config's LoRA (the stage-2 adapters it continues)
+    # even though lora.enable is False, as the JAX VLMConfig does
+    t3 = build_trainer({**tiny, "stage": 3}, nparams, loader, "cpu")
+    assert isinstance(t3, IterBasedTrainer) and t3.max_iters == 1
+    assert (t3.model_cfg.lora.r, t3.model_cfg.lora.alpha) == (4, 8)
     t3 = build_trainer({**tiny, "stage": 3, "epochs": 5, "lora": None},
                        nparams, loader, "cpu", compute_dtype=torch.float32)
     assert isinstance(t3, IterBasedTrainer) and t3.max_iters == 5
