@@ -84,7 +84,20 @@ Phases, one or more lines each:
      pool state and launch counts (the paged kernels 32 times a decode
      step, K2 / K4 never, and the reverse for the contiguous run); and the
      reference's page-table hazard wave (pages of 16), where no idle
-     slot's table row may name a live page after any tick; the W4A8
+     slot's table row may name a live page after any tick; the HTTP
+     serving frontend (serve/api.py with the byte-level tokenizer) over
+     the contiguous and paged bf16 schedulers and the paged int8 one:
+     its warmup, then over a live socket a text request, a PNG image, two
+     PNG images (written here with zlib, decoded by the port's image_io
+     to the arrays encoded), a chat completion with a system message, a
+     turn of history and an image_url, and a stream, each with the ids
+     the same Request gets from a scheduler built alike (bit for bit; the
+     stream's equal the blocking call's), the 2-image request's
+     first-token logits within the bf16 consistency bound of the engine's
+     (the images swapped must exceed it), 8 concurrent requests, a stream
+     abandoned after 2 tokens cancelled (/health reads active 0), a
+     corrupt image refused with 400, K1 and the path's decode kernel
+     launched, and times over HTTP beside the direct runs'; the W4A8
      engine again with LHRS_DECODE_INT8_DOTS=1: the int8-dots kernel 32
      times a decode step and K4 never, and its consistency check;
   5. training: stage 1 at full width (ViT-L/14 frozen, the perceiver
@@ -128,8 +141,10 @@ leaves its stacks in chiprun_out/chip_smoke_crash.txt). It needs no network
 and imports nothing of JAX.
 """
 
+import base64
 import contextlib
 import faulthandler
+import gc
 import json
 import os
 import statistics
@@ -3556,11 +3571,12 @@ def phase_int8dots_engine(engine, cfg, dev, requests, wrappers):
 
 def phase_serving(engine, cfg, dev, name):
     """The serving wave through the schedulers, built from the engine's
-    parameters as `lhrs_serve.py` builds them: with the bf16 engine the
-    contiguous scheduler, the paged one (a pool of 4 x 2304 tokens in pages
-    of 128), the paged one with prefill_chunk 512, and the hazard wave;
-    with the int8 engine (bits 8, kv_bits 8) the paged one over an int8
-    pool."""
+    parameters as `lhrs_serve_torch.py` builds them: with the bf16 engine
+    the contiguous scheduler, the paged one (a pool of 4 x 2304 tokens in
+    pages of 128), the paged one with prefill_chunk 512, and the hazard
+    wave; with the int8 engine (bits 8, kv_bits 8) the paged one over an
+    int8 pool. Then the HTTP frontend (`phase_frontend`) over the
+    contiguous and paged bf16 schedulers, or the paged int8 one."""
     import torch
 
     from lhrs_bot_tpu_torch.serve.paged import PagedScheduler
@@ -3599,6 +3615,19 @@ def phase_serving(engine, cfg, dev, name):
         out["serve_paged_int8"] = serve_wave(
             "paged int8 (bits 8, kv_bits 8)", paged(), wave,
             ("paged_fused_decode_q",), CONTIGUOUS_DECODE + PAGED_KERNELS[:1])
+    if name == "bf16":
+        out["frontend_contiguous_bf16"] = phase_frontend(
+            engine, cfg, dev, "contiguous bf16",
+            lambda: ContinuousBatchingScheduler(
+                cfg, engine.params, engine.llama_params, **common),
+            ("flash_attention_fwd", "fused_decode_attention"))
+        out["frontend_paged_bf16"] = phase_frontend(
+            engine, cfg, dev, "paged bf16", paged,
+            ("flash_attention_fwd", "paged_fused_decode"))
+    else:
+        out["frontend_paged_int8"] = phase_frontend(
+            engine, cfg, dev, "paged int8", paged,
+            ("flash_attention_fwd", "paged_fused_decode_q"))
     for key, res in out.items():
         if key.startswith("serve_paged"):
             st = res["pool_stats"]
@@ -3613,6 +3642,505 @@ def phase_serving(engine, cfg, dev, name):
                     f"recycle them ({allocated} allocated of "
                     f"{st['total_pages']}) and hit the prefix cache ({st})")
     torch.cuda.empty_cache()
+    return out
+
+
+# The frontend phase: sequential HTTP requests of FRONTEND_NEW greedy tokens,
+# then 8 concurrent ones, a stream the client leaves after 2 tokens (of a
+# budget of FRONTEND_LONG) and a corrupt image. The 2-image request's
+# first-token logits through the scheduler are held to the engine's within
+# CONSISTENCY_REL_L2 (the bf16 engine's schedulers), and the engine with
+# the two images swapped must exceed it. The times are FRONTEND_REPS
+# repetitions of the sequential requests, HTTP and direct in turn, after
+# both schedulers served them once.
+FRONTEND_NEW = 16
+FRONTEND_LONG = 1024
+FRONTEND_REPS = 3
+
+
+def png_bytes(arr, filters=(0, 1, 2, 3, 4)):
+    """A PNG of an (H, W, 3) uint8 array, written here with zlib: row y
+    filtered with filters[y % len(filters)] (by default all five PNG
+    filters, as an encoder such as PIL's mixes them)."""
+    import struct
+    import zlib
+
+    h, w, _ = arr.shape
+
+    def chunk(kind, data):
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data)))
+
+    # the predictors read the unfiltered bytes: left (3 back), above,
+    # above-left
+    x = arr.reshape(h, -1).astype(np.int16)
+    left, up, up_left = (np.zeros_like(x) for _ in range(3))
+    left[:, 3:], up[1:], up_left[1:, 3:] = x[:, :-3], x[:-1], x[:-1, :-3]
+    pa, pb = np.abs(up - up_left), np.abs(left - up_left)
+    pc = np.abs(left + up - 2 * up_left)
+    paeth = np.where((pa <= pb) & (pa <= pc), left,
+                     np.where(pb <= pc, up, up_left))
+    kind = np.asarray(filters)[np.arange(h) % len(filters)]
+    rows = np.empty((h, 1 + x.shape[1]), np.uint8)
+    rows[:, 0] = kind
+    rows[:, 1:] = (x - np.choose(kind[:, None], (
+        0, left, up, (left + up) >> 1, paeth))) & 0xFF
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes()))
+            + chunk(b"IEND", b""))
+
+
+def http_post(url, route, payload, timeout=600):
+    """(status, JSON body, seconds) of a POST."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url + route, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, json.loads(resp.read()), \
+                time.perf_counter() - t0
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read()), time.perf_counter() - t0
+
+
+def http_stream(url, payload, timeout=600):
+    """(token ids, the final record, seconds to the first token, seconds
+    in all) of a /generate_stream request."""
+    import urllib.request
+
+    req = urllib.request.Request(url + "/generate_stream",
+                                 data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    toks, first, final = [], None, None
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        for raw in resp:
+            rec = json.loads(raw)
+            if "token" in rec:
+                first = first or time.perf_counter() - t0
+                toks.append(rec["token"])
+            else:
+                final = rec
+    return toks, final, first, time.perf_counter() - t0
+
+
+def http_health(url):
+    import urllib.request
+
+    with urllib.request.urlopen(url + "/health", timeout=60) as resp:
+        return json.loads(resp.read())
+
+
+def stream_and_leave(port, payload, n_tokens=2):
+    """Start a /generate_stream on a raw socket, read until `n_tokens`
+    tokens arrived, and close the connection."""
+    import socket
+
+    body = json.dumps(payload).encode()
+    s = socket.create_connection(("127.0.0.1", port), timeout=300)
+    s.sendall(b"POST /generate_stream HTTP/1.1\r\nHost: x\r\n"
+              b"Content-Type: application/json\r\n"
+              + f"Content-Length: {len(body)}\r\n\r\n".encode() + body)
+    got = b""
+    while got.count(b'"token"') < n_tokens:
+        chunk = s.recv(4096)
+        if not chunk:
+            raise AssertionError("the stream ended before "
+                                 f"{n_tokens} tokens: {got[-300:]!r}")
+        got += chunk
+    s.close()
+
+
+def frontend_bodies(b64):
+    """The sequential requests: (name, route, JSON body). The stream
+    repeats the one-image request's body."""
+    gen = {"max_new_tokens": FRONTEND_NEW, "temperature": 0.0}
+    image = {"prompt": "What is in this remote sensing image?",
+             "image_b64": b64[0], **gen}
+    return [
+        ("text", "/generate", {"prompt": "Describe a typical airport seen "
+                               "from above and count its runways.", **gen}),
+        ("image", "/generate", image),
+        ("two_images", "/generate", {
+            "prompt": "Compare <image> with <image>.",
+            "images_b64": [b64[1], b64[2]], **gen}),
+        ("chat", "/v1/chat/completions", {
+            "max_tokens": FRONTEND_NEW, "temperature": 0.0, "messages": [
+                {"role": "system",
+                 "content": "You are a remote sensing assistant."},
+                {"role": "user", "content": "Hello."},
+                {"role": "assistant",
+                 "content": "Hello! Send me an image to look at."},
+                {"role": "user", "content": [
+                    {"type": "text", "text": "How many buildings are there?"},
+                    {"type": "image_url", "image_url": {
+                        "url": "data:image/png;base64," + b64[1]}}]}]}),
+        ("stream", "/generate_stream", image),
+    ]
+
+
+def frontend_request(frontend, body):
+    """The Request the handler builds for `body`."""
+    from lhrs_bot_tpu_torch.data.image_io import decode_b64
+
+    if "messages" in body:
+        return frontend.build_chat_request(body["messages"],
+                                           body["max_tokens"],
+                                           temperature=body["temperature"])
+    image = ([decode_b64(b) for b in body["images_b64"]]
+             if "images_b64" in body else
+             decode_b64(body["image_b64"]) if "image_b64" in body else None)
+    return frontend.build_request(body["prompt"], image,
+                                  body["max_new_tokens"],
+                                  temperature=body["temperature"])
+
+
+def http_pass(url, b64, kind):
+    """The sequential requests over HTTP, one at a time: {name: tokens,
+    ms (and the stream's ttft_ms, the chat's text and completion_tokens),
+    tok_s}."""
+    seq = {}
+    for name, route, body in frontend_bodies(b64):
+        if route == "/generate_stream":
+            toks, final, ttft, wall = http_stream(url, body)
+            status, reason = 200, final["finish_reason"]
+            seq[name] = {"tokens": toks, "ttft_ms": ttft * 1e3,
+                         "ms": wall * 1e3}
+        else:
+            status, data, wall = http_post(url, route, body)
+            seq[name] = {"ms": wall * 1e3}
+            if route == "/generate":
+                toks, reason = data.get("tokens"), data.get("finish_reason")
+            else:  # the chat reply carries its text and token count
+                toks = None
+                reason = data["choices"][0]["finish_reason"] \
+                    if status == 200 else data
+                if status == 200:
+                    seq[name]["text"] = data["choices"][0]["message"][
+                        "content"]
+                    seq[name]["completion_tokens"] = \
+                        data["usage"]["completion_tokens"]
+            seq[name]["tokens"] = toks
+        if status != 200 or reason not in ("stop", "length"):
+            raise AssertionError(f"frontend {kind} {name}: HTTP {status}, "
+                                 f"{reason}: {seq[name]}")
+        seq[name]["tok_s"] = (len(toks) / (seq[name]["ms"] / 1e3)
+                              if toks else None)
+    return seq
+
+
+def check_http_ids(kind, http, direct, what):
+    """Each sequential request's ids over HTTP equal the direct run's (the
+    chat by its reply's text and token count)."""
+    from lhrs_bot_tpu_torch.data.tokenizer import ByteTokenizer
+
+    for name, d in direct.items():
+        want = d["tokens"]
+        if name == "chat":
+            got = (http[name]["text"], http[name]["completion_tokens"])
+            want = (ByteTokenizer().decode(want, skip_special_tokens=True),
+                    len(want))
+        else:
+            got = http[name]["tokens"]
+        if got != want:
+            raise AssertionError(f"frontend {kind} {name} ({what}): over "
+                                 f"HTTP {got} != the direct run's {want}")
+
+
+def serve_http(kind, make_sched, cfg, b64, needed, direct):
+    """Serve the frontend phase's traffic over HTTP from a ServingFrontend
+    over `make_sched()`. After the warmup, `direct(requests)` runs the
+    Requests the handler builds for the sequential bodies on a scheduler
+    built alike, then they go over HTTP once (ids checked against the
+    direct run's, launches counted), then FRONTEND_REPS times more, each
+    time followed by `direct(requests)` (the timed readings, ids checked
+    pairwise), then the concurrent, abandoned and corrupt requests.
+    Returns the numbers, the Requests and the first direct run's
+    results."""
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    import torch
+
+    from lhrs_bot_tpu_torch.data.tokenizer import ByteTokenizer
+    from lhrs_bot_tpu_torch.serve.api import ServingFrontend, make_handler
+
+    vocab = cfg.llama.vocab_size
+    sched = make_sched()
+    frontend = ServingFrontend(sched, ByteTokenizer(),
+                               image_size=cfg.vit.image_size)
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(frontend))
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{httpd.server_port}"
+    cancels = []
+    cancel = frontend.cancel
+    frontend.cancel = lambda uid: cancels.append(cancel(uid)) or cancels[-1]
+    out = {}
+    try:
+        out["warmup_s"] = frontend.warmup()
+        log(f"  [frontend {kind}] warmup {out['warmup_s']:.1f} s")
+        requests = [frontend_request(frontend, body)
+                    for _, _, body in frontend_bodies(b64)]
+        first = direct(requests, capture=True)
+        wrappers = kernel_wrappers()
+        for w in wrappers.values():
+            w.launches = 0
+        seq = http_pass(url, b64, kind)
+        torch.cuda.synchronize()
+        launches = {k: w.launches for k, w in wrappers.items()}
+        for k in needed:
+            if launches[k] <= 0:
+                raise AssertionError(f"frontend {kind}: {k} was not launched "
+                                     "on the HTTP path")
+        out["launches"] = launches
+        check_http_ids(kind, seq, first, "first pass")
+        if not 0 <= seq["chat"]["completion_tokens"] <= FRONTEND_NEW:
+            raise AssertionError(f"frontend {kind}: chat reply {seq['chat']}")
+        if seq["stream"]["tokens"] != seq["image"]["tokens"]:
+            raise AssertionError(f"frontend {kind}: the stream's tokens "
+                                 f"{seq['stream']['tokens']} differ from the "
+                                 f"blocking call's {seq['image']['tokens']}")
+        for name, r in seq.items():
+            toks = r["tokens"]
+            if toks is not None and (len(toks) > FRONTEND_NEW or any(
+                    not 0 <= t < vocab for t in toks)):
+                raise AssertionError(f"frontend {kind} {name}: bad {toks}")
+
+        # the timed readings: both schedulers have served these requests
+        # once, so each meets them alike (shapes seen, prefixes cached)
+        reps = []
+        for rep in range(FRONTEND_REPS):
+            http = http_pass(url, b64, kind)
+            dirs = direct(requests)
+            check_http_ids(kind, http, dirs, f"repetition {rep}")
+            reps.append({"http": http, "direct": dirs})
+        out["reps"] = reps
+
+        # 8 concurrent users
+        results = [None] * 8
+
+        def call(i):
+            results[i] = http_post(url, "/generate", {
+                "prompt": f"Query {i}: " + "list the objects you see. " * i,
+                "max_new_tokens": FRONTEND_NEW, "temperature": 0.0})
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=call, args=(i,)) for i in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        out["concurrent_s"] = time.perf_counter() - t0
+        for i, res in enumerate(results):
+            if res is None or res[0] != 200 or \
+                    res[1]["finish_reason"] != "stop" or \
+                    not 1 <= len(res[1]["tokens"]) <= FRONTEND_NEW or \
+                    any(not 0 <= t < vocab for t in res[1]["tokens"]):
+                raise AssertionError(f"frontend {kind}: concurrent request "
+                                     f"{i}: {res}")
+        n_tok = sum(len(r[1]["tokens"]) for r in results)
+        out["concurrent_tok_s"] = n_tok / out["concurrent_s"]
+
+        # a client that leaves a long stream after 2 tokens frees its slot
+        cancels.clear()
+        t0 = time.perf_counter()
+        stream_and_leave(httpd.server_port, {
+            "prompt": "Write a long report.", "temperature": 0.0,
+            "max_new_tokens": FRONTEND_LONG})
+        while http_health(url)["active"] and \
+                time.perf_counter() - t0 < 120:
+            time.sleep(0.05)
+        health = http_health(url)
+        out["disconnect_freed_s"] = time.perf_counter() - t0
+        if health["active"] != 0 or True not in cancels:
+            raise AssertionError(f"frontend {kind}: the abandoned stream was "
+                                 f"not cancelled: {health}, cancels "
+                                 f"{cancels}")
+        # a corrupt image is refused with 400
+        raw = bytearray(png_bytes(np.zeros((16, 16, 3), np.uint8)))
+        raw[-20] ^= 0xFF
+        status, data, _ = http_post(url, "/generate", {
+            "prompt": "x", "max_new_tokens": 2,
+            "image_b64": base64.b64encode(bytes(raw)).decode()})
+        if status != 400:
+            raise AssertionError(f"frontend {kind}: a corrupt image gave "
+                                 f"{status}: {data}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        frontend.shutdown()
+    out["http"] = seq
+    del frontend, sched, httpd
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, requests, first
+
+
+def spread(values):
+    """(median, min, max) of a list of readings."""
+    return (float(np.median(values)), float(min(values)), float(max(values)))
+
+
+def host_image_times(images, size, reps=FRONTEND_REPS):
+    """Host decode and resize of each (name, PNG bytes, array): the
+    decoder must return the array; (median, min, max) ms of each over
+    `reps` runs."""
+    from lhrs_bot_tpu_torch.data.image_io import decode_png
+    from lhrs_bot_tpu_torch.data.transforms import clip_preprocess_uint8
+
+    out = []
+    for name, raw, im in images:
+        dec, res = [], []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            got = decode_png(raw)
+            t1 = time.perf_counter()
+            clip_preprocess_uint8(got, size)
+            dec.append((t1 - t0) * 1e3)
+            res.append((time.perf_counter() - t1) * 1e3)
+            if not np.array_equal(got, im):
+                raise AssertionError(f"image_io does not return the encoded "
+                                     f"array ({name})")
+        out.append({"image": name, "decode_ms": spread(dec),
+                    "resize_ms": spread(res)})
+    return out
+
+
+def phase_frontend(engine, cfg, dev, kind, make_sched, needed):
+    """The HTTP serving frontend (serve/api.py) over a scheduler from
+    `make_sched()` built from `engine`'s parameters, with the byte-level
+    tokenizer: warmup; text, one image, two images, a chat with a system
+    message, history and an image_url, and a stream, one at a time, each
+    with the ids a scheduler built alike gives the same Request directly
+    (in the same order, so the prefix cache holds the same pages); the
+    stream with the blocking call's ids; the kernels of `needed` launched;
+    FRONTEND_REPS timed repetitions, HTTP and direct in turn, ids equal;
+    8 concurrent requests, a stream left after 2 tokens cancelled, a
+    corrupt image refused; with the bf16 engine, the 2-image request's
+    first-token logits through the scheduler within CONSISTENCY_REL_L2 of
+    the engine's, the images swapped beyond it. Host PNG decode and resize
+    times of the requests' images and of 1024 x 1024 ones."""
+    import torch
+
+    from lhrs_bot_tpu_torch.serve import paged as paged_mod
+    from lhrs_bot_tpu_torch.serve import scheduler as sched_mod
+    from lhrs_bot_tpu_torch.serve.engine import GenerationConfig
+    from lhrs_bot_tpu_torch.serve.scheduler import Request
+
+    rng = np.random.default_rng(6)
+    images = [rng.integers(0, 256, shape).astype(np.uint8)
+              for shape in ((256, 256, 3), (400, 600, 3), (300, 224, 3))]
+    raws = [png_bytes(im) for im in images]
+    b64 = [base64.b64encode(raw).decode() for raw in raws]
+    big = rng.integers(0, 256, (1024, 1024, 3)).astype(np.uint8)
+    host = host_image_times(
+        [(f"{im.shape[1]}x{im.shape[0]}", raw, im)
+         for im, raw in zip(images, raws)]
+        + [("1024x1024", png_bytes(big), big),
+           ("1024x1024 None/Sub rows", png_bytes(big, (0, 1)), big)],
+        cfg.vit.image_size)
+    names = [name for name, _, _ in frontend_bodies(b64)]
+
+    # the direct runs share one scheduler: its first pass runs before the
+    # HTTP traffic (which then meets no shape for the first time), its
+    # later ones in turn with the HTTP repetitions
+    direct_sched = make_sched()
+    module = paged_mod if hasattr(direct_sched, "pool_stats") else sched_mod
+    sample = module._sample_token_per_slot
+    captured = []
+
+    def keep(logits, *a):
+        captured.append(logits.float())
+        return sample(logits, *a)
+
+    def direct_pass(requests, capture=False):
+        """The Requests (fresh copies) straight through the direct
+        scheduler, one at a time in order; `capture` collects the 2-image
+        request's first-token logits."""
+        res = {}
+        for name, req in zip(names, requests):
+            req = Request(uid=req.uid, input_ids=req.input_ids,
+                          image=req.image,
+                          max_new_tokens=req.max_new_tokens,
+                          temperature=req.temperature, top_p=req.top_p)
+            with patched(module, _sample_token_per_slot=keep if (
+                    capture and name == "two_images") else sample):
+                run = drive(direct_sched, [req])
+            res[name] = {"tokens": req.output_ids,
+                         "ttft_ms": run["ttft_ms"][0], "tok_s": run["tok_s"],
+                         "ms": run["wall_s"] * 1e3}
+        return res
+
+    out, requests, first = serve_http(kind, make_sched, cfg, b64, needed,
+                                      direct_pass)
+    if hasattr(direct_sched, "pool_stats"):
+        check_paged_pool(direct_sched, f"frontend {kind} direct")
+    del direct_sched
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["host_image_ms"] = host
+    out["direct"] = first
+
+    # the 2-image request's first-token logits: scheduler vs engine
+    req = requests[names.index("two_images")]
+    ids = req.input_ids[None]
+    lens = np.asarray([len(req.input_ids)], np.int32)
+    gen = GenerationConfig(max_new_tokens=FRONTEND_NEW)
+    eng = engine._start(ids, lens, req.image[None], gen)[0].float()
+    swapped = engine._start(ids, lens, req.image[None, ::-1].copy(),
+                            gen)[0].float()
+    multi = {"rel_l2": rel_l2(captured[0], eng)[0],
+             "swapped_rel_l2": rel_l2(swapped, eng)[0],
+             "bound": CONSISTENCY_REL_L2,
+             "top1_agree": bool(captured[0].argmax() == eng.argmax())}
+    out["multi_image"] = multi
+    log(f"  [frontend {kind}] 2-image first-token logits, scheduler vs "
+        f"engine.generate: rel L2 {multi['rel_l2']:.4f} (bound "
+        f"{CONSISTENCY_REL_L2}); images swapped {multi['swapped_rel_l2']:.4f}")
+    if engine.cache_dtype != torch.int8:
+        if multi["rel_l2"] > CONSISTENCY_REL_L2:
+            raise AssertionError(f"frontend {kind}: 2-image logits {multi}")
+        if multi["swapped_rel_l2"] <= CONSISTENCY_REL_L2:
+            raise AssertionError(f"frontend {kind}: swapped images pass "
+                                 f"{multi}")
+
+    def fmt(t):
+        return f"{t[0]:.1f} [{t[1]:.1f}-{t[2]:.1f}]"
+
+    summary = {}
+    for name in names:
+        cols = {"http_ms": [r["http"][name]["ms"] for r in out["reps"]],
+                "direct_ms": [r["direct"][name]["ms"] for r in out["reps"]],
+                "direct_ttft_ms": [r["direct"][name]["ttft_ms"]
+                                   for r in out["reps"]]}
+        cols["overhead_ms"] = [h - d for h, d in zip(cols["http_ms"],
+                                                     cols["direct_ms"])]
+        if name == "stream":
+            cols["http_ttft_ms"] = [r["http"][name]["ttft_ms"]
+                                    for r in out["reps"]]
+        summary[name] = {k: spread(v) for k, v in cols.items()}
+        s = summary[name]
+        log(f"  [frontend {kind}] {name}, median [min-max] of "
+            f"{FRONTEND_REPS}: HTTP {fmt(s['http_ms'])} ms"
+            + (f", TTFT {fmt(s['http_ttft_ms'])} ms" if name == "stream"
+               else "")
+            + f"; direct {fmt(s['direct_ms'])} ms, TTFT "
+            f"{fmt(s['direct_ttft_ms'])} ms; HTTP - direct "
+            f"{fmt(s['overhead_ms'])} ms; ids "
+            f"{out['reps'][0]['direct'][name]['tokens'][:6]}...")
+    out["summary"] = summary
+    log(f"  [frontend {kind}] host PNG decode + resize ms, median [min-max] "
+        f"of {FRONTEND_REPS}: " + ", ".join(
+            f"{h['image']} {fmt(h['decode_ms'])} + {fmt(h['resize_ms'])}"
+            for h in host))
+    log(f"  [frontend {kind}] 8 concurrent: {out['concurrent_s']:.2f} s, "
+        f"{out['concurrent_tok_s']:.1f} tokens/s; abandoned stream freed in "
+        f"{out['disconnect_freed_s']:.2f} s; launches {out['launches']}")
+    log(f"  [frontend {kind}] {smi_line()}")
     return out
 
 

@@ -10,8 +10,12 @@ This package imports torch and never jax.
   csrc/    CUDA C++ sources (sm_90a), built with nvcc at first use
   models/  ViT-L/14 tower, multi-level perceiver, splice, LLaMA-2, VLM
   serve/   generation engine, continuous-batching and paged schedulers,
-           prefix cache
-  train/   stage-1 trainer, optimizers, schedules; data/ its collators
+           prefix cache, the HTTP frontend (api.py; `lhrs_serve_torch.py`)
+  data/    the training collators; the serving host pipeline without PIL,
+           transformers or tokenizers: conversation templates, image-token
+           tokenization, a byte-level tokenizer, the CLIP resize, PNG decode
+  train/   stage-1 to stage-3 trainers, optimizers, schedules
+  utils/   logger setup, environment report
   bench.py the bench's cells on the card (`python -m lhrs_bot_tpu_torch.bench`)
   benchmarks/  the HBM and int8 probes and the int8-dots A/B
   device.py  where tensors live: the card unless the caller names the CPU

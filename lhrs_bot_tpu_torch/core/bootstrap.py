@@ -1,15 +1,77 @@
-"""Model, engine and trainer assembly from the config surface (counterpart
-of lhrs_bot_tpu/core/bootstrap.py `build_model_and_tokenizer` without the
-tokenizer, and `build_engine`, and of what `main_pretrain_stage1.py` /
-`main_pretrain_stage3.py` compose around the trainer)."""
+"""The entry points' common preamble, and model, engine and trainer
+assembly from the config surface (counterpart of
+lhrs_bot_tpu/core/bootstrap.py: `add_common_args`, `parse_config`,
+`set_random_seed`, `setup`, `build_model_and_tokenizer`, `build_engine`,
+and of what `main_pretrain_stage1.py` / `main_pretrain_stage3.py` compose
+around the trainer). `parse_config` initialises nothing distributed and
+keeps no compilation cache: rank 0 of a world of 1 unless
+`torch.distributed` is already initialised."""
 
 from __future__ import annotations
 
+import os
+import random
+
+import numpy as np
 import torch
 
 from ..device import resolve_device
 from ..serve.engine import GenerationEngine
+from ..utils.logger import setup_logger
+from .config import ConfigArgumentParser, ConfigDict
 from .convert import params_from_numpy
+
+
+def add_common_args(parser: ConfigArgumentParser) -> None:
+    """The common flags the port reads (the JAX trainer's others come with
+    the entry points that read them, so argparse refuses them until
+    then)."""
+    parser.add_argument("--model-path", type=str, default=None,
+                        help="path to FINAL.pt checkpoint")
+    parser.add_argument("--output", type=str, default="output")
+    parser.add_argument("--seed", type=int, default=322)
+    parser.add_argument("--tp", type=int, default=None,
+                        help="tensor-parallel size (above 1 not ported)")
+
+
+def parse_config(description: str, extra=None, args=None) -> ConfigDict:
+    """The YAML named by -c merged with the CLI flags (the common ones and
+    those `extra(parser)` adds), with rank, world_size and
+    is_distribute."""
+    parser = ConfigArgumentParser(description=description)
+    add_common_args(parser)
+    if extra is not None:
+        extra(parser)
+    config = parser.parse_args(args)
+    dist = torch.distributed
+    up = dist.is_available() and dist.is_initialized()
+    config["rank"] = dist.get_rank() if up else 0
+    config["world_size"] = dist.get_world_size() if up else 1
+    config["is_distribute"] = config["world_size"] > 1
+    return config
+
+
+def set_random_seed(seed: int, rank: int = 0) -> None:
+    """Per-process seeding of Python's and numpy's generators (seed +
+    rank); torch's generators are passed explicitly where they are
+    used."""
+    random.seed(seed + rank)
+    np.random.seed(seed + rank)
+
+
+def setup(config, name: str = "lhrs_tpu"):
+    """The logger, the seeds, the output directory with config.json, and
+    the environment logged; returns the logger."""
+    logger = setup_logger(name, output=config.output, rank=config.rank)
+    set_random_seed(int(config.seed), int(config.rank))
+    os.makedirs(config.output, exist_ok=True)
+    from ..utils.misc import collect_env
+
+    logger.info("environment:\n%s", collect_env())
+    if config.rank == 0:
+        with open(os.path.join(config.output, "config.json"), "w") as fh:
+            fh.write(config.to_json(indent=2, default=str))
+    return logger
 
 
 def build_model(config, device="cuda"):
@@ -46,6 +108,20 @@ def build_model(config, device="cuda"):
                 {name: w}, bits=bits, quant_type=quant_type,
                 double_quant=double_quant)[name]
     return cfg, params, report
+
+
+def build_model_and_tokenizer(config, device="cuda"):
+    """(cfg, params, tokenizer): `build_model(config, device)`'s VLMConfig
+    and parameters, and `data.tokenizer.load_tokenizer(text.path,
+    text.max_position_embeddings)`, loaded first so that a tokenizer the
+    port cannot read fails before the weights load."""
+    from ..data.tokenizer import load_tokenizer
+
+    tokenizer = load_tokenizer(
+        config["text"].get("path"),
+        model_max_length=int(config["text"]["max_position_embeddings"]))
+    cfg, params, _ = build_model(config, device)
+    return cfg, params, tokenizer
 
 
 def vision_w8a8_setting(cfg, config, bits: int, device) -> bool:

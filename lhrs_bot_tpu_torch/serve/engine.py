@@ -34,7 +34,9 @@ before any cast, so the codes are the JAX engine's.
 
 The decode loop is a Python loop of `llama_decode_step` calls whose tokens
 stay on the device; the host reads the tokens once, at the end of
-`generate`. Chunked prefill, sessions, speculative decoding and meshes
+`generate`. Images come one a row, (B, H, W, 3), or K a row, (B, K, H, W,
+3), marker k taking image k. `warmup` runs `generate` at the expected
+request shapes. Chunked prefill, sessions, speculative decoding and meshes
 are not ported: asking for one raises NotImplementedError.
 
 A tree with "lora" (and `cfg.lora` set) is served as the JAX engine serves
@@ -51,12 +53,13 @@ from __future__ import annotations
 
 import dataclasses
 import logging
-from typing import Iterator, List, Optional, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..models.constants import IMAGE_TOKEN_INDEX
 from ..models.llama import KVCache, llama_decode_step, llama_prefill
 from ..models.lora import (attach_runtime_lora, lora_delta_stepwise,
                            merge_lora)
@@ -330,9 +333,8 @@ class GenerationEngine:
         """Bucket, clamp and pad a request, then prefill it. Returns
         (first-token logits, cache, clamped gen_cfg)."""
         batch, t = input_ids.shape
-        if images is not None and np.ndim(images) != 4:
-            raise NotImplementedError("one (H, W, 3) image per row only")
-        k_img = 0 if images is None else 1
+        k_img = (0 if images is None
+                 else images.shape[1] if np.ndim(images) == 5 else 1)
         n_img = k_img * self.cfg.pooler.num_query
         width, cache_len = self._bucketed(t, n_img, gen_cfg.max_new_tokens)
         seq_lens = np.minimum(np.asarray(seq_lens), width)
@@ -352,11 +354,43 @@ class GenerationEngine:
 
     # -- public API ---------------------------------------------------------
 
+    def warmup(
+        self,
+        *,
+        batch_sizes: Sequence[int] = (1,),
+        prompt_lens: Sequence[int] = (64, 256),
+        max_new_tokens: Sequence[int] = (128,),
+        with_image: bool = True,
+        gen_cfg: Optional[GenerationConfig] = None,
+    ) -> int:
+        """Run `generate` once for each expected request shape at start-up,
+        with the caller's `gen_cfg`, so the kernels' build and the
+        allocations happen before the first user. Returns the number of
+        (batch, width) prefills run."""
+        gen_cfg = gen_cfg or GenerationConfig()
+        n = 0
+        img_hw = self.cfg.vit.image_size
+        for b in batch_sizes:
+            for t in prompt_lens:
+                for mnt in max_new_tokens:
+                    ids = np.full((b, min(t, 4)), 5, np.int32)
+                    imgs = (np.zeros((b, img_hw, img_hw, 3), np.uint8)
+                            if with_image else None)
+                    if imgs is not None:
+                        ids[:, 0] = IMAGE_TOKEN_INDEX
+                    self.generate(
+                        self._pad_ids(ids, t, 0),
+                        np.full((b,), ids.shape[1], np.int32), images=imgs,
+                        gen_cfg=dataclasses.replace(gen_cfg,
+                                                    max_new_tokens=mnt))
+                    n += 1
+        return n
+
     def generate(
         self,
         input_ids: np.ndarray,  # (B, T) right-padded
         seq_lens: np.ndarray,  # (B,)
-        images: Optional[np.ndarray] = None,  # (B, H, W, 3) uint8 or None
+        images: Optional[np.ndarray] = None,  # (B, [K,] H, W, 3) uint8
         gen_cfg: Optional[GenerationConfig] = None,
         generator: Optional[torch.Generator] = None,
     ) -> List[List[int]]:

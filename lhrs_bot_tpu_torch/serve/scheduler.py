@@ -22,9 +22,10 @@ Parameters arrive placed and cast: `params` (the vision side) and
 `llama_params` as a `GenerationEngine` holds them (`engine.params`,
 `engine.llama_params`). Sampled rows draw from a `torch.Generator`, so
 sampled tokens differ from the JAX scheduler's; greedy rows and the top-p
-mask are the same. Not ported: speculative ticks (`speculative > 0`,
-`set_speculative`), meshes, and multi-image requests ((K, H, W, 3) with K >
-1): each raises NotImplementedError.
+mask are the same. A request carries no image, one (H, W, 3) or K (K, H,
+W, 3) images, marker k taking image k; markers beyond a request's image
+count become token 0. Not ported: speculative ticks (`speculative > 0`,
+`set_speculative`) and meshes: each raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -48,7 +49,7 @@ logger = logging.getLogger(__name__)
 class Request:
     uid: int
     input_ids: np.ndarray  # (T,) prompt token ids (may contain -200)
-    image: Optional[np.ndarray] = None  # (H, W, 3) uint8
+    image: Optional[np.ndarray] = None  # (H, W, 3) or (K, H, W, 3) uint8
     max_new_tokens: int = 128
     # per-request sampling (None -> the scheduler's GenerationConfig
     # defaults); temperature 0 means greedy regardless of top_p
@@ -63,6 +64,19 @@ class Request:
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+def check_image_room(n_ids: int, k: int, num_query: int,
+                     max_seq_len: int) -> None:
+    """Raise ValueError when a prompt of `n_ids` tokens with `k` images
+    (each marker spliced into `num_query` rows) leaves no room below
+    `max_seq_len`: its admission width would be cut below the prompt, or
+    to nothing."""
+    if k and n_ids + k * (num_query - 1) >= max_seq_len:
+        raise ValueError(
+            f"{k} image(s) expand the {n_ids}-token prompt by "
+            f"{k * (num_query - 1)} tokens, leaving no room in a cache of "
+            f"{max_seq_len} tokens")
 
 
 class ContinuousBatchingScheduler:
@@ -279,15 +293,13 @@ class ContinuousBatchingScheduler:
         """Pack as many requests as fit into free slots; returns #admitted.
         FIFO decides who is admitted; within the admitted set, prompts are
         sorted by length so each power-of-two chunk packs similar widths."""
-        for req in requests:
-            if self._image_count(req) > 1:
-                raise NotImplementedError(
-                    f"request {req.uid}: multi-image requests are not ported "
-                    "to lhrs_bot_tpu_torch yet")
         free = self._free_slots()
         batch = requests[:self._admission_capacity(requests, free)]
         if not batch:
             return 0
+        for r in batch:  # before any state changes
+            check_image_room(len(r.input_ids), self._image_count(r),
+                             self.cfg.pooler.num_query, self.max_seq_len)
         batch = sorted(batch, key=lambda r: len(self._packed_ids(r)),
                        reverse=True)
         done = 0
@@ -298,7 +310,7 @@ class ContinuousBatchingScheduler:
 
     @staticmethod
     def _image_count(req) -> int:
-        """0, 1, or K (for a (K, H, W, 3) request)."""
+        """0, 1, or K (for a (K, H, W, 3) multi-image request)."""
         if req.image is None:
             return 0
         return req.image.shape[0] if req.image.ndim == 4 else 1
@@ -306,22 +318,27 @@ class ContinuousBatchingScheduler:
     def _admit_chunk(self, batch: List[Request], slots: List[int]) -> None:
         b = len(batch)
         t = max(len(self._packed_ids(r)) for r in batch)
-        has_img = any(r.image is not None for r in batch)
-        # an image marker expands the spliced prefill by num_query - 1
+        k_max = max(self._image_count(r) for r in batch)
+        # each image marker expands the spliced prefill by num_query - 1
         # tokens, so the prompt width must leave that room in the cache
         nq = self.cfg.pooler.num_query
-        width_cap = self.max_seq_len - has_img * (nq - 1)
+        width_cap = self.max_seq_len - k_max * (nq - 1)
         width = min(_round_up(t, self.prompt_bucket), width_cap)
         if t > width:
             logger.warning("prompt length %d exceeds admissible width %d "
-                           "(max_seq_len=%d) - truncating", t, width,
-                           self.max_seq_len)
+                           "(max_seq_len=%d%s) - truncating", t, width,
+                           self.max_seq_len,
+                           f", image expansion {k_max * (nq - 1)}"
+                           if k_max else "")
         ids = np.full((b, width), self.pad, np.int32)
         lens = np.zeros(b, np.int32)
         imgs = None
-        if has_img:
+        if k_max:
             h = self.cfg.vit.image_size
-            imgs = np.zeros((b, h, h, 3), np.uint8)
+            # (b, H, W, 3) when every request has at most one image;
+            # (b, K, H, W, 3) for a chunk with a multi-image request
+            imgs = np.zeros((b, h, h, 3) if k_max == 1
+                            else (b, k_max, h, h, 3), np.uint8)
         for row, req in enumerate(batch):
             pids = self._packed_ids(req)
             n = min(len(pids), width)
@@ -334,7 +351,12 @@ class ContinuousBatchingScheduler:
                 ids[row, j] = 0
             if req.image is not None:
                 im = req.image
-                imgs[row] = im[0] if im.ndim == 4 else im
+                if k_max == 1:
+                    imgs[row] = im[0] if im.ndim == 4 else im
+                elif im.ndim == 4:
+                    imgs[row, :im.shape[0]] = im
+                else:
+                    imgs[row, 0] = im
 
         temps = np.asarray(
             [self._default_temp if r.temperature is None else r.temperature
@@ -349,9 +371,9 @@ class ContinuousBatchingScheduler:
         # before the prefill: the paged subclass reserves pages from them
         spliced_lens, budgets = [], []
         for row, req in enumerate(batch):
+            # every marker left (surplus ones became token 0) has an image
             spliced = int(lens[row])
-            if req.image is not None and (ids[row, :spliced] < 0).any():
-                spliced += nq - 1
+            spliced += int((ids[row, :spliced] < 0).sum()) * (nq - 1)
             room = max(1, self._room(slots[row], spliced, req))
             if req.max_new_tokens > room:
                 logger.warning(

@@ -1,0 +1,131 @@
+"""HTTP serving entry point of the PyTorch port (continuous batching, one
+CUDA card), beside `lhrs_serve.py`, the JAX package's:
+
+  python lhrs_serve_torch.py -c serve.yaml \
+      --model-path <FINAL.pt> --port 8000 --slots 8 [--paged] [--device cpu]
+
+where serve.yaml is a copy of Config/multi_modal_eval.yaml with
+`text.path` null (the byte-level tokenizer; the decoder's weights come from
+FINAL.pt) and `rgb_vision.vit_name` null or a local CLIP directory: the
+port has no SentencePiece reader and fetches nothing from a hub.
+
+It builds the model and tokenizer (`core.build_model_and_tokenizer`), the
+engine (`core.build_engine`: `bits`, `kv_bits`, `lm_head_bits` and
+`vision_w8a8` from the config), the contiguous scheduler or, with
+`--paged`, the paged one over a pool of `--pool-tokens` tokens (default
+slots x S_max) in pages of `--page-size` with the prefix cache, and
+serves `serve/api.py`'s routes: POST /generate, /generate_stream,
+/v1/chat/completions; GET /health, /stats. `--warmup` runs dummy waves
+before the port binds, so the kernels are built before the first user.
+
+The model and the cache live on the card (`--device cuda`, the default,
+which raises with no card visible); `--device cpu` runs on the CPU.
+`--tp` above 1 and `--speculative` above 0 are not ported and raise.
+"""
+
+from __future__ import annotations
+
+
+def add_serve_args(p) -> None:
+    p.add_argument("--port", type=int, default=8000)
+    p.add_argument("--slots", type=int, default=8)
+    p.add_argument("--tokens-per-tick", type=int, default=16)
+    p.add_argument("--adaptive-tick", action="store_true",
+                   help="shrink ticks near scheduled completions and while "
+                        "requests queue")
+    p.add_argument("--temperature", type=float, default=0.0,
+                   help="0 -> greedy (the eval protocol default)")
+    p.add_argument("--paged", action="store_true",
+                   help="paged KV pool + prefix cache")
+    p.add_argument("--pool-tokens", type=int, default=0,
+                   help="paged pool capacity in tokens (default: slots x "
+                        "S_max, the contiguous cache's memory)")
+    p.add_argument("--page-size", type=int, default=128)
+    p.add_argument("--prefill-chunk", type=int, default=0,
+                   help="paged mode: run the prefill decoder over slices "
+                        "of this many tokens")
+    p.add_argument("--speculative", type=int, default=0,
+                   help="not ported (ROADMAP Queue 1 item 6)")
+    p.add_argument("--warmup", action="store_true",
+                   help="build the kernels and run every admission shape "
+                        "before binding the port")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="cuda (the default) or cpu")
+
+
+def build_frontend(args=None):
+    """(frontend, config) for the command line `args` (sys.argv when
+    None): the model, engine, scheduler and ServingFrontend, before the
+    port binds."""
+    from lhrs_bot_tpu_torch.core import (build_engine,
+                                         build_model_and_tokenizer,
+                                         parse_config, setup)
+    from lhrs_bot_tpu_torch.device import resolve_device
+    from lhrs_bot_tpu_torch.serve.api import ServingFrontend
+    from lhrs_bot_tpu_torch.serve.engine import GenerationConfig
+    from lhrs_bot_tpu_torch.serve.paged import PagedScheduler
+    from lhrs_bot_tpu_torch.serve.scheduler import ContinuousBatchingScheduler
+
+    config = parse_config("LHRS-Bot serving API (PyTorch port)",
+                          extra=add_serve_args, args=args)
+    if int(config.get("tp") or 1) > 1:
+        raise NotImplementedError("--tp > 1: tensor-parallel serving is not "
+                                  "ported (ROADMAP Queue 1 item 10)")
+    if int(config.get("speculative") or 0) > 0:
+        raise NotImplementedError("--speculative: speculative decoding is "
+                                  "not ported (ROADMAP Queue 1 item 6)")
+    device = resolve_device(config.device)
+    logger = setup(config)
+
+    cfg, params, tokenizer = build_model_and_tokenizer(config, device)
+    # the engine holds the weights; the schedulers serve. --prefill-chunk
+    # is the paged scheduler's, not the engine's (not ported there)
+    engine = build_engine(cfg, params, {**config, "prefill_chunk": 0},
+                          device)
+    del params
+
+    t = float(config.temperature)
+    gen_cfg = GenerationConfig(
+        do_sample=t > 0, temperature=max(t, 1e-6),
+        eos_token_id=int(tokenizer.eos_token_id),
+        pad_token_id=int(tokenizer.pad_token_id or 0))
+    common = dict(max_batch=int(config.slots),
+                  max_seq_len=engine.max_seq_len,
+                  compute_dtype=engine.compute_dtype,
+                  cache_dtype=engine.cache_dtype,
+                  tokens_per_tick=int(config.tokens_per_tick),
+                  adaptive_tick=bool(config.adaptive_tick),
+                  gen_cfg=gen_cfg, device=device)
+    if config.paged:
+        page = int(config.page_size)
+        pool_tokens = (int(config.pool_tokens)
+                       or int(config.slots) * engine.max_seq_len)
+        sched = PagedScheduler(
+            cfg, engine.params, engine.llama_params,
+            num_pages=pool_tokens // page + 1,  # +1: the null page
+            page_size=page, prefill_chunk=int(config.prefill_chunk) or None,
+            **common)
+    else:
+        sched = ContinuousBatchingScheduler(cfg, engine.params,
+                                            engine.llama_params, **common)
+    frontend = ServingFrontend(
+        sched, tokenizer, image_size=cfg.vit.image_size,
+        prompt_template=config.get("prompt_template") or "llava_llama_2")
+    logger.info("serving %s on %s (%d slots, S_max=%d, cache %s)",
+                "paged" if config.paged else "contiguous", device,
+                int(config.slots), engine.max_seq_len,
+                str(engine.cache_dtype).replace("torch.", ""))
+    return frontend, config
+
+
+def main(args=None):
+    from lhrs_bot_tpu_torch.serve.api import serve
+
+    frontend, config = build_frontend(args)
+    if config.warmup:
+        frontend.warmup()
+    serve(frontend, port=int(config.port))
+
+
+if __name__ == "__main__":
+    main()

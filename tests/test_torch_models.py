@@ -203,3 +203,86 @@ def test_kv_cache_rejects_int8():
     assert bool((cache.v_scale == 1).all())
     with pytest.raises(NotImplementedError):
         t_llama.KVCache.create(cfg, 1, 8, dtype=torch.float16, device="cpu")
+
+
+# -- bf16 against JAX --------------------------------------------------------
+
+
+def _rel_l2(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def _serve_logits(mod, cfg, llama, dtype, fault=None, s=20,
+                  lens=(20, 13), steps=3):
+    """The prefill logits, then each of `steps` decode steps' logits, of
+    `mod` (j_llama or t_llama) with parameters and cache in `dtype`, as
+    the engines serve. `fault` plants one: "prompt" drops the last prompt
+    row of each sequence, "early" / "late" decode one cache row early /
+    late."""
+    rng = np.random.default_rng(14)
+    emb = rng.standard_normal((2, s, cfg.hidden_size)).astype(np.float32)
+    steps_emb = rng.standard_normal(
+        (steps, 2, 1, cfg.hidden_size)).astype(np.float32)
+    plen = np.asarray(lens, np.int32) - (fault == "prompt")
+    if mod is j_llama:
+        lp = jax.tree_util.tree_map(lambda x: x.astype(dtype), llama)
+        cache = j_llama.KVCache.create(cfg, 2, 48, dtype=dtype)
+        arr = jnp.asarray
+        cast = lambda x: arr(x).astype(dtype)  # noqa: E731
+    else:
+        lp = t_vlm.cast_floats(llama, dtype)
+        cache = t_llama.KVCache.create(cfg, 2, 48, dtype=dtype, device="cpu")
+        arr = torch.as_tensor
+        cast = lambda x: arr(x).to(dtype)  # noqa: E731
+    logits, cache = mod.llama_prefill(lp, cfg, cache,
+                                      inputs_embeds=cast(emb),
+                                      prompt_len=arr(plen),
+                                      compute_dtype=dtype)
+    out = [logits]
+    if fault in ("early", "late"):
+        length = cache.length + (1 if fault == "late" else -1)
+        cache = dataclasses.replace(cache, length=length) \
+            if mod is t_llama else cache._replace(length=length)
+    for e in steps_emb:
+        logits, cache = mod.llama_decode_step(lp, cfg, cache,
+                                              inputs_embeds=cast(e),
+                                              compute_dtype=dtype)
+        out.append(logits)
+    return [np.asarray(x.float() if mod is t_llama
+                       else x.astype(jnp.float32)) for x in out]
+
+
+def test_llama_prefill_and_decode_bf16_match_jax(models):
+    """llama_prefill and three llama_decode_steps in bf16 (parameters,
+    activations and KV cache: the engines' default), port against JAX on
+    the same weights. Each call's logits lie within a bf16-scale bound of
+    JAX's bf16 logits: relative L2 at most JAX's own bf16-vs-float32
+    deviation on the same call, and below 2e-2. q and k are scaled by 10 on
+    both sides: at their init scale the tiny model attends almost
+    uniformly, and a decode that reads the cache wrong moves the logits by
+    less than that bound. Planted faults must exceed it: the last prompt
+    row dropped (the prefill), a decode one cache row early or late (each
+    decode step)."""
+    j_cfg, j_params, t_cfg, _ = models
+    llama = jax.tree_util.tree_map(np.asarray, j_params["llama"])
+    llama = {**llama, "layers": {**llama["layers"],
+                                 "wq": llama["layers"]["wq"] * 10,
+                                 "wk": llama["layers"]["wk"] * 10}}
+    j_llama_p = jax.tree_util.tree_map(jnp.asarray, llama)
+    t_llama_p = params_from_numpy(llama)
+    want = _serve_logits(j_llama, j_cfg.llama, j_llama_p, jnp.bfloat16)
+    ref32 = _serve_logits(j_llama, j_cfg.llama, j_llama_p, jnp.float32)
+    got = _serve_logits(t_llama, t_cfg.llama, t_llama_p, torch.bfloat16)
+    bounds = []
+    for i, (g, w, r) in enumerate(zip(got, want, ref32)):
+        dev, noise = _rel_l2(g, w), _rel_l2(w, r)
+        bound = min(max(noise, 1e-6), 2e-2)
+        assert dev <= bound, (i, dev, noise)
+        bounds.append(bound)
+    for fault, calls in (("prompt", range(1)), ("early", range(1, 4)),
+                         ("late", range(1, 4))):
+        faulty = _serve_logits(t_llama, t_cfg.llama, t_llama_p,
+                               torch.bfloat16, fault=fault)
+        for i in calls:
+            assert _rel_l2(faulty[i], want[i]) > bounds[i], (fault, i)

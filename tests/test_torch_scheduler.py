@@ -6,9 +6,10 @@ Both packages serve `VLMConfig.tiny_test(stage=0)` on the same weights (JAX
 with the request waves of tests/test_paged.py and tests/test_scheduler.py.
 Greedy token ids must be identical: the port's contiguous and paged
 schedulers against the JAX contiguous scheduler, at 1, 2 and 8 decode steps
-a tick, with chunked prefill, prefix-cache hits, an image request, cancel
-and fail_all, and on the wave where the JAX paged scheduler's idle slots
-overwrite a live sequence's page. The sampler's greedy rows and top-p mask
+a tick, with chunked prefill, prefix-cache hits, image requests (one image,
+and 2 or 3 images a request, with surplus markers), cancel and fail_all,
+and on the wave where the JAX paged scheduler's idle slots overwrite a
+live sequence's page. The sampler's greedy rows and top-p mask
 are held to the JAX sampler's.
 """
 
@@ -59,6 +60,9 @@ class Wave:
     num_pages: int
     pages_per_seq: int = 6
     image_rows: tuple = ()
+    # row -> (markers, images): multi-image rows (markers beyond the
+    # images become token 0)
+    multi: tuple = ()
 
 
 WAVES = {
@@ -71,6 +75,11 @@ WAVES = {
     "hazard": Wave(5, (20, 20, 40, 45), (3, 3, 30, 20), 3, 40),
     # two rows with an image marker and an image
     "image": Wave(13, (20, 9, 14), (5,) * 3, 2, 30, image_rows=(0, 2)),
+    # 2- and 3-image rows beside a one-image and a text row, and a row
+    # with three markers for two images; chunks mix image counts
+    "multi": Wave(17, (20, 26, 12, 9, 22), (5, 4, 6, 5, 4), 3, 60,
+                  image_rows=(2,),
+                  multi=((0, (2, 2)), (1, (3, 3)), (4, (3, 2)))),
 }
 
 
@@ -83,6 +92,11 @@ def _requests(mod, wave: Wave):
         if i in wave.image_rows:
             ids[1] = -200
             image = rng.integers(0, 256, size=(28, 28, 3)).astype(np.uint8)
+        if i in dict(wave.multi):
+            markers, k = dict(wave.multi)[i]
+            ids[1:1 + 4 * markers:4] = -200
+            image = rng.integers(0, 256, size=(k, 28, 28, 3)).astype(
+                np.uint8)
         reqs.append(mod.Request(uid=i, input_ids=ids, image=image,
                                 max_new_tokens=budget))
     return reqs
@@ -133,7 +147,7 @@ def _pool_idle(sched):
 
 RUNS = [("recycle", "f32", 1), ("recycle", "f32", 2), ("recycle", "f32", 8),
         ("int8", "int8", 1), ("int8", "int8", 2), ("int8", "int8", 8),
-        ("image", "f32", 2)]
+        ("image", "f32", 2), ("multi", "f32", 2), ("multi", "int8", 1)]
 
 
 @pytest.mark.parametrize("paged", [False, True], ids=["contiguous", "paged"])
@@ -304,12 +318,74 @@ def test_unported_scheduler_options_raise(setup, kwargs):
         _port_scheduler(setup, WAVES["recycle"], "f32", 2, False, **kwargs)
 
 
+def test_multi_image_request_matches_jax(setup):
+    """A multi-image request is admitted, not refused: (K, H, W, 3) images
+    with K markers, and a request with more markers than images whose
+    surplus marker becomes token 0, give the JAX contiguous scheduler's
+    ids through both port schedulers (tests/test_scheduler.py's surplus
+    case)."""
+    j_cfg, params, je, _ = setup
+    rng = np.random.default_rng(33)
+    img = rng.integers(0, 255, size=(28, 28, 3)).astype(np.uint8)
+    ids = rng.integers(3, 200, size=(10,)).astype(np.int32)
+    ids[[1, 5]] = -200  # 2 markers, 1 image
+    two = rng.integers(3, 200, size=(8,)).astype(np.int32)
+    two[[0, 4]] = -200
+    fixed = ids.copy()
+    fixed[5] = 0
+
+    def run(mod, sched):
+        reqs = [mod.Request(uid=0, input_ids=ids, image=img,
+                            max_new_tokens=4),
+                mod.Request(uid=1, input_ids=two, image=np.stack([img, img]),
+                            max_new_tokens=4),
+                mod.Request(uid=2, input_ids=fixed, image=img,
+                            max_new_tokens=4)]
+        sched.run(reqs)
+        assert all(r.done for r in reqs)
+        return [r.output_ids for r in reqs]
+
+    want = run(j_sched, j_sched.ContinuousBatchingScheduler(
+        j_cfg, params, je.llama_params, max_batch=2, max_seq_len=96,
+        compute_dtype=jnp.float32, cache_dtype=jnp.float32,
+        prompt_bucket=16, tokens_per_tick=2))
+    assert want[0] == want[2]  # the surplus marker is token 0
+    for paged in (False, True):
+        sched = _port_scheduler(setup, WAVES["multi"], "f32", 2, paged)
+        assert run(t_sched, sched) == want
+        if paged:
+            _pool_idle(sched)
+
+
 def test_multi_image_request_raises(setup):
+    """A request whose images leave its prompt no room in the cache
+    (prompt + K x (num_query - 1) >= max_seq_len: 96 here, 11 rows an
+    image) is refused by `admit` before any state changes, on both
+    schedulers; one with a row to spare is served."""
+    rng = np.random.default_rng(34)
+    img = rng.integers(0, 255, size=(28, 28, 3)).astype(np.uint8)
+
+    def req(uid, n, k):
+        ids = rng.integers(3, 200, size=(n,)).astype(np.int32)
+        ids[:k] = -200
+        return t_sched.Request(uid=uid, input_ids=ids,
+                               image=np.stack([img] * k), max_new_tokens=4)
+
+    for paged in (False, True):
+        sched = _port_scheduler(setup, WAVES["multi"], "f32", 2, paged)
+        for n, k in ((41, 5), (12, 9)):
+            with pytest.raises(ValueError, match="no room"):
+                sched.admit([req(0, 12, 1), req(1, n, k)])
+            assert not sched.active.any()
+        fits = req(2, 40, 5)
+        sched.run([fits])
+        assert fits.done and len(fits.output_ids) == 1
+        if paged:
+            _pool_idle(sched)
+
+
+def test_set_speculative_raises(setup):
     sched = _port_scheduler(setup, WAVES["image"], "f32", 2, True)
-    req = t_sched.Request(uid=0, input_ids=np.asarray([1, -200, 5, -200, 6]),
-                          image=np.zeros((2, 28, 28, 3), np.uint8))
-    with pytest.raises(NotImplementedError):
-        sched.admit([req])
     with pytest.raises(NotImplementedError):
         sched.set_speculative(2)
 
