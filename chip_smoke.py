@@ -99,7 +99,27 @@ Phases, one or more lines each:
      corrupt image refused with 400, K1 and the path's decode kernel
      launched, and times over HTTP beside the direct runs'; the W4A8
      engine again with LHRS_DECODE_INT8_DOTS=1: the int8-dots kernel 32
-     times a decode step and K4 never, and its consistency check;
+     times a decode step and K4 never, and its consistency check; the
+     sessions phase over the bf16 engine (and its part (b) over the W4A8
+     + int8-KV one), each logits check within the engine's consistency
+     bound with a planted fault (the continuation started one row early):
+     the continuation prefill in float32 on the first 4 layers against
+     the cacheless forward (chunks of 256, a 400-row prefill continued by
+     200, a greedy verify window; ids equal), (a) prefill_chunk 512
+     against the monolithic prefill of the 2,191-row prompt (logits, ms,
+     K1 in the vision tower only), (b) a three-turn chat with an image,
+     session against fresh runs (time to first token a turn, the cache
+     allocated once at S_max, K1 on turn 1 only, 32 decode-kernel launches
+     a decode step), (c) stream(speculative=4) against plain greedy on a
+     repetitive prompt, with prompt lookup, with an always-rejected draft
+     (greedy through the verify windows) and with an oracle draft of that
+     path's tokens (acceptance per window, tokens/s, K2 launches a token;
+     a teacher-forced window held to the decode steps; where the ids part,
+     the top-2 margin there within the measured deviation), (d) an
+     8-request wave through the contiguous scheduler with speculative 4,
+     prompt lookup and an oracle draft of that wave's tokens, against
+     plain ticks (tokens/s, time to first token, no K2 in the speculative
+     waves) and (e) cli_qa_torch's chat loop over three scripted turns;
   5. training: stage 1 at full width (ViT-L/14 frozen, the perceiver
      trained, LLaMA-2-7B frozen in bf16) from seeded weights through
      build_trainer with Config/multi_modal_stage1.yaml's optimizer and
@@ -134,7 +154,8 @@ Phases, one or more lines each:
      load of stage 3's output (adapters merged) served bit for bit against
      the plainly merged tree; each part's seconds.
 Then a JSON line with per-kernel numbers, the card's name and power limit,
-and, last, {"ok": true, "device": {...}}. Any failure raises: the script
+and, last, {"ok": true, "device": {...}}. Every line is also written to
+chiprun_out/chip_smoke.log. Any failure raises: the script
 exits non-zero and prints no result, and the failing phase's traceback is
 kept in chiprun_out/chip_smoke_<phase>.err (a crash of the interpreter
 leaves its stacks in chiprun_out/chip_smoke_crash.txt). It needs no network
@@ -208,8 +229,16 @@ def plain_attention():
         llama.flash_attention, llama.fused_decode_attention = saved
 
 
+# every line `log` prints, also kept in OUT_DIR/chip_smoke.log by `main`:
+# a whole run's output is longer than a caller may keep of its end
+LOG_FILE = []
+
+
 def log(msg):
     print(msg, flush=True)
+    for f in LOG_FILE:
+        f.write(f"{msg}\n")
+        f.flush()
 
 
 def smi_line():
@@ -3445,6 +3474,10 @@ def phase_slice(dev):
                 engine.llama_params, cfg.llama, dev)
         if name in ("bf16", "int8"):
             out.update(phase_serving(engine, cfg, dev, name))
+        if name in ("bf16", "w4a8"):
+            out[f"sessions_{name}"] = phase(
+                "sessions", phase_sessions, engine, cfg, dev, name,
+                images[0], long)
         del engine
         torch.cuda.empty_cache()
     return out
@@ -3642,6 +3675,762 @@ def phase_serving(engine, cfg, dev, name):
                     f"recycle them ({allocated} allocated of "
                     f"{st['total_pages']}) and hit the prefix cache ({st})")
     torch.cuda.empty_cache()
+    return out
+
+
+# The sessions phase (phase 4): the continuation prefill and what is built
+# on it (chunked prefill, multi-turn sessions, prompt-lookup speculation) at
+# full width, through the engines of the slice phase. First-token and
+# verify-window logits are held to the path each replaces within
+# CONSISTENCY_REL_L2: the continuation attends through the plain attention
+# over the cache row, the path it replaces through K1 (prefill) or K2
+# (decode), so the two differ by bf16 rounding only (0.03-0.05 on an H100
+# at 700 W). The W4A8 + int8-KV engine's session check is held to the same
+# bound: both of its sides are prefills (W4A16 products), so the W4A8
+# decode's noise that sets CONSISTENCY_REL_L2_W4A8 is not in it (0.043
+# there). Each check has a planted fault that must exceed the bound: the
+# continuation started one row early, so its first row overwrites the last
+# cached one and every RoPE position moves back one (0.35-0.55). In float32
+# on the first CONTINUE_DEPTH layers the continuation equals the cacheless
+# forward within PAGED_PREFILL_REL_L2, with equal greedy ids.
+SESSION_NEW = 16
+SPEC_NEW = 64
+SPEC_WIDTH = 4
+CHUNK = 512
+CONTINUE_DEPTH = 4
+
+
+@contextlib.contextmanager
+def continue_early(engine):
+    """The planted fault: every continuation prefill of `engine` starts one
+    row early (a start of 0 stays 0)."""
+    honest = engine._continue_embeds
+
+    def early(cache, embeds, suffix_len, start, return_all_logits=False):
+        return honest(cache, embeds, suffix_len, (start - 1).clamp(min=0),
+                      return_all_logits)
+
+    engine._continue_embeds = early
+    try:
+        yield
+    finally:
+        del engine._continue_embeds
+
+
+def hold(name, got, ref, faults, bound):
+    """Each row of got (R, V) within `bound` relative L2 of ref's row and
+    each planted fault's row beyond it; a row whose top-1 differs from
+    ref's must have ref's top-2 margin within the row's max abs deviation.
+    Logs and returns the readings."""
+    got, ref = got.float(), ref.float()
+    rel = rel_l2(got, ref)
+    faults = {k: rel_l2(v.float(), ref) for k, v in faults.items()}
+    max_dev = (got - ref).abs().amax(dim=-1).tolist()
+    top2 = ref.topk(2, dim=-1).values
+    margin = (top2[:, 0] - top2[:, 1]).tolist()
+    agree = (got.argmax(-1) == ref.argmax(-1)).tolist()
+    log(f"  {name} (bound {bound}): rel L2 {rel}; max abs dev {max_dev}; "
+        f"top-2 margin {margin}; top-1 agree {agree}; planted faults {faults}")
+    for r in range(len(rel)):
+        if not rel[r] <= bound:
+            raise AssertionError(f"{name} row {r}: rel L2 {rel[r]:.3e}")
+        for fault, readings in faults.items():
+            if not readings[r] > bound:
+                raise AssertionError(f"{name} row {r}: the planted fault "
+                                     f"{fault!r} passes ({readings[r]:.3e})")
+        if margin[r] > max_dev[r] and not agree[r]:
+            raise AssertionError(f"{name} row {r}: top-1 differs")
+    return {"rel_l2": rel, "faults": faults, "bound": bound,
+            "max_abs_dev": max_dev, "top1_agree": agree}
+
+
+def set_launches(wrappers, value=0):
+    for w in wrappers.values():
+        w.launches = value
+
+
+def read_launches(wrappers):
+    return {k: w.launches for k, w in wrappers.items() if w.launches}
+
+
+def decode_steps(emitted, budget):
+    """Decode steps a plain stream ran for `emitted` tokens: one a token
+    but the last when the budget ended it."""
+    return len(emitted) - (len(emitted) == budget)
+
+
+def phase_chunked(engine, cfg, dev, wrappers, request):
+    """(a) prefill_chunk 512 against the monolithic prefill of the
+    2,191-row image prompt: first-token logits within the bound, the
+    chunks started one row early beyond it, each prefill's ms (median of
+    3 after a warm-up), and K1 launched by the vision tower only."""
+    import torch
+
+    from lhrs_bot_tpu_torch.serve.engine import GenerationConfig
+
+    _, (ids, lens), imgs = request
+    gen = GenerationConfig(max_new_tokens=1)
+    out = {}
+
+    def first(chunk, reps=3):
+        engine.prefill_chunk = chunk
+        engine._start(ids, lens, imgs, gen)  # warm-up
+        times = []
+        for _ in range(reps):
+            set_launches(wrappers)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = engine._start(ids, lens, imgs, gen)[0]
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return logits, statistics.median(times), read_launches(wrappers)
+
+    try:
+        mono, out["monolithic_ms"], mono_l = first(None)
+        chunked, out["chunked_ms"], chunk_l = first(CHUNK)
+        with continue_early(engine):
+            faulty = first(CHUNK, reps=1)[0]
+    finally:
+        engine.prefill_chunk = None
+    nl = cfg.llama.num_hidden_layers
+    log(f"  [chunked prefill {CHUNK}] spliced {int(lens[0]) + 143} rows: "
+        f"monolithic {out['monolithic_ms']:.1f} ms, chunked "
+        f"{out['chunked_ms']:.1f} ms; launches {mono_l} / {chunk_l}")
+    if chunk_l.get("flash_attention_fwd", 0) != \
+            mono_l["flash_attention_fwd"] - nl:
+        raise AssertionError("chunked prefill: K1 must run in the vision "
+                             "tower only")
+    out["logits"] = hold(f"chunked prefill {CHUNK} vs monolithic", chunked,
+                         mono, {"start one row early": faulty},
+                         CONSISTENCY_REL_L2)
+    out["launches"] = {"monolithic": mono_l, "chunked": chunk_l}
+    return out
+
+
+def clone_cache(cache):
+    import dataclasses
+
+    return dataclasses.replace(cache, **{
+        f: getattr(cache, f).clone() for f in
+        ("k", "v", "length", "k_scale", "v_scale")
+        if getattr(cache, f) is not None})
+
+
+def phase_session_chat(engine, cfg, dev, wrappers, name, image, bound,
+                       decode_kernel):
+    """(b) a three-turn chat with an image, session=True against fresh
+    runs of the same prompts: each turn's time to first token and launch
+    counts (K1 on the session's first turn only, the decode kernel 32
+    times a decode step on every turn), the session cache allocated once
+    at max_seq_len, and the continuation's first-token logits held to the
+    fresh prefill's (turn 2 with the planted fault)."""
+    import torch
+
+    from lhrs_bot_tpu_torch.serve.engine import GenerationConfig
+
+    rng = np.random.default_rng(8)
+    vocab = cfg.llama.vocab_size
+    gen = GenerationConfig(max_new_tokens=SESSION_NEW,
+                           eos_token_id=cfg.llama.eos_token_id)
+    nl = cfg.llama.num_hidden_layers
+    img = image[None]
+    captured = {"keep": False}
+    cont, pre = engine._prefill_continue, engine._prefill
+
+    def spy_cont(cache, ids, n, start):
+        if captured["keep"]:  # the cache and arguments, for the fault
+            captured["replay"] = (clone_cache(cache), ids.clone(),
+                                  n.clone(), start.clone())
+        logits, cache = cont(cache, ids, n, start)
+        captured["logits"] = logits.float()
+        return logits, cache
+
+    def spy_pre(*a, **k):
+        logits, cache = pre(*a, **k)
+        captured["logits"] = logits.float()
+        return logits, cache
+
+    engine._prefill_continue, engine._prefill = spy_cont, spy_pre
+
+    def turn(prompt, session):
+        set_launches(wrappers)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        it = engine.stream(prompt[None], len(prompt), images=img,
+                           gen_cfg=gen, session=session)
+        toks = [next(it)]
+        ttft = (time.perf_counter() - t0) * 1e3
+        toks += list(it)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        launches = read_launches(wrappers)
+        steps = decode_steps(toks, SESSION_NEW)
+        if launches.get(decode_kernel, 0) != nl * steps:
+            raise AssertionError(f"[{name} session] {decode_kernel} "
+                                 f"launched {launches.get(decode_kernel)} "
+                                 f"times in {steps} decode steps")
+        if any(not 0 <= t < vocab for t in toks):
+            raise AssertionError(f"[{name} session] token out of the "
+                                 "vocabulary")
+        return {"tokens": toks, "ttft_ms": ttft, "wall_ms": wall,
+                "launches": launches, "logits": captured.pop("logits")}
+
+    try:
+        ids = rng.integers(3, vocab, 300).astype(np.int32)
+        ids[0], ids[1] = cfg.llama.bos_token_id, -200
+        prompts = [ids]
+        # the chat twice, the first time to warm every shape up (its
+        # answers make the later prompts); the second is measured
+        for rep in range(2):
+            engine.reset_session()
+            session = []
+            for k in range(3):
+                captured["keep"] = rep == 1 and k == 1
+                session.append(turn(prompts[k], True))
+                st = engine._session
+                if st["cache"].k.shape[3] != engine.max_seq_len:
+                    raise AssertionError(f"[{name} session] cache of "
+                                         f"{st['cache'].k.shape[3]} rows")
+                if k == 0:
+                    ptr = st["cache"].k.data_ptr()
+                elif st["cache"].k.data_ptr() != ptr:
+                    raise AssertionError(f"[{name} session] the cache was "
+                                         f"reallocated on turn {k + 1}")
+                if rep == 0:
+                    prompts.append(np.concatenate([
+                        prompts[k], np.asarray(session[k]["tokens"],
+                                               np.int32),
+                        rng.integers(3, vocab, 40).astype(np.int32)]))
+        fresh = [turn(prompts[k], False) and turn(prompts[k], False)
+                 for k in range(3)]
+        replay, ids_2, n_2, start_2 = captured.pop("replay")
+        captured["keep"] = False
+        faults = {"start one row early": engine._prefill_continue(
+            replay, ids_2, n_2, start_2 - 1)[0].float()}
+        del replay
+    finally:
+        del engine._prefill_continue, engine._prefill
+    k1 = [t["launches"].get("flash_attention_fwd", 0) for t in session]
+    if not (k1[0] > 0 and k1[1] == k1[2] == 0):
+        raise AssertionError(f"[{name} session] K1 launches by turn {k1}: "
+                             "want the first turn only")
+    checks = [hold(f"[{name} session] turn {k + 1} first-token logits vs a "
+                   "fresh prefill", session[k]["logits"], fresh[k]["logits"],
+                   faults if k == 1 else {}, bound)
+              for k in (1, 2)]
+    out = {"turns": [{
+        "session_ttft_ms": s["ttft_ms"], "fresh_ttft_ms": f["ttft_ms"],
+        "session_wall_ms": s["wall_ms"], "fresh_wall_ms": f["wall_ms"],
+        "prompt_tokens": len(p), "session_launches": s["launches"],
+        "fresh_launches": f["launches"],
+        "ids_equal": s["tokens"] == f["tokens"]}
+        for s, f, p in zip(session, fresh, prompts)],
+        "logits": checks, "cache_rows": engine.max_seq_len,
+        "resized_after_turn_1": False}
+    for k, t in enumerate(out["turns"]):
+        log(f"  [{name} session] turn {k + 1} ({t['prompt_tokens']} prompt "
+            f"tokens): time to first token {t['session_ttft_ms']:.1f} ms "
+            f"(fresh {t['fresh_ttft_ms']:.1f} ms), whole turn "
+            f"{t['session_wall_ms']:.1f} ms (fresh {t['fresh_wall_ms']:.1f}"
+            f"); ids equal to fresh: {t['ids_equal']}; launches "
+            f"{t['session_launches']}")
+    return out
+
+
+def first_difference(a, b):
+    """The first index where two id lists differ (or one ends), or None."""
+    part = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+    if part is None and len(a) != len(b):
+        part = min(len(a), len(b))
+    return part
+
+
+def phase_speculation(engine, cfg, dev, wrappers):
+    """(c) stream(speculative=4) on a repetitive prompt against plain
+    greedy, with the history's prompt lookup ("natural"), with a draft
+    that is always rejected ("window path": every step is a verify window,
+    so the ids are greedy through the continuation's attention) and with
+    an oracle draft that proposes the window path's next tokens (seeded
+    random weights, whose answers repeat no n-gram, never give prompt
+    lookup a match; plain greedy's own tokens part from the window path at
+    the first bf16 top-1 flip, so only the window path's are an oracle):
+    windows, acceptance per window, tokens/s and K2 launches per emitted
+    token of each. A teacher-forced window (plain greedy's next tokens) is
+    held to the decode steps' logits at each position, with the window
+    started one row early beyond the bound; where a speculative run's ids
+    part from plain greedy's, plain greedy's top-2 margin there must lie
+    within the deviation measured in that check."""
+    import dataclasses
+
+    import torch
+
+    import lhrs_bot_tpu_torch.serve.speculative as spec_mod
+    from lhrs_bot_tpu_torch.serve.engine import GenerationConfig
+
+    rng = np.random.default_rng(9)
+    phrase = rng.integers(3, cfg.llama.vocab_size, 12).astype(np.int32)
+    ids = np.concatenate([[cfg.llama.bos_token_id]] + [phrase] * 16).astype(
+        np.int32)
+    gen = GenerationConfig(max_new_tokens=SPEC_NEW,
+                           eos_token_id=cfg.llama.eos_token_id)
+    nl = cfg.llama.num_hidden_layers
+    margins, windows = [], []
+    decode, pre, speculate = (engine._decode_step, engine._prefill,
+                              engine._speculate)
+
+    def keep_margin(logits):
+        top2 = logits[0].float().topk(2).values
+        margins.append(float(top2[0] - top2[1]))
+
+    def spy_decode(cache, tok):
+        logits, cache = decode(cache, tok)
+        keep_margin(logits)
+        return logits, cache
+
+    def spy_pre(*a, **k):
+        logits, cache = pre(*a, **k)
+        keep_margin(logits)
+        return logits, cache
+
+    def spy_spec(cache, window, valid, start):
+        logits, cache = speculate(cache, window, valid, start)
+        w = int(valid[0])
+        preds = logits[0, :w].argmax(-1).tolist()
+        prop = window[0, 1:w].tolist()
+        p = 0
+        while p < len(prop) and prop[p] == preds[p]:
+            p += 1
+        windows.append((w - 1, p))
+        return logits, cache
+
+    def run(spec, n=SPEC_NEW):
+        g = GenerationConfig(max_new_tokens=n,
+                             eos_token_id=cfg.llama.eos_token_id)
+        del windows[:]
+        set_launches(wrappers)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        it = engine.stream(ids[None], len(ids), gen_cfg=g, speculative=spec)
+        toks = [next(it)]
+        t1 = time.perf_counter()
+        toks += list(it)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        k2 = read_launches(wrappers).get("fused_decode_attention", 0)
+        return {"tokens": toks, "ttft_ms": (t1 - t0) * 1e3,
+                "wall_ms": (t2 - t0) * 1e3,
+                "tok_s_after_first": (len(toks) - 1) / (t2 - t1),
+                "k2_launches_per_token": k2 / len(toks),
+                "windows": len(windows),
+                "proposed": sum(w for w, _ in windows),
+                "accepted": sum(p for _, p in windows),
+                "acceptance_per_window": [p for _, p in windows]}
+
+    run(0, 8)
+    run(SPEC_WIDTH, 8)  # warm-ups
+    engine._decode_step, engine._prefill = spy_decode, spy_pre
+    try:
+        plain = run(0)
+    finally:
+        del engine._decode_step, engine._prefill
+    if plain["k2_launches_per_token"] * len(plain["tokens"]) != \
+            nl * decode_steps(plain["tokens"], SPEC_NEW):
+        raise AssertionError("speculation: the plain run's K2 launches")
+    honest = spec_mod.propose_from_history
+
+    def draft(source):  # the next tokens of `source` after the prompt
+        def propose(hist, hist_len, *, ngram, width, min_token=3):
+            nxt = source[int(hist_len[0]) - len(ids):][:width]
+            prop = np.zeros((1, width), np.int32)
+            prop[0, :len(nxt)] = nxt
+            return torch.as_tensor(prop), torch.tensor([len(nxt)],
+                                                       dtype=torch.int32)
+        return propose
+
+    engine._speculate = spy_spec
+    try:
+        natural = run(SPEC_WIDTH)
+        spec_mod.propose_from_history = draft([0] * SPEC_NEW)
+        window_path = run(SPEC_WIDTH)
+        spec_mod.propose_from_history = draft(window_path["tokens"])
+        oracle = run(SPEC_WIDTH)
+    finally:
+        del engine._speculate
+        spec_mod.propose_from_history = honest
+    oracle["first_difference_from_window_path"] = first_difference(
+        window_path["tokens"], oracle["tokens"])
+
+    # teacher-forced: the window [g0 .. g4] of plain greedy's tokens
+    logits0, cache, _ = engine._start(ids[None], np.asarray([len(ids)]),
+                                      None, gen)
+    start = int(cache.length[0])
+    window, steps = [logits0.argmax(-1).to(torch.int32)], []
+    twins = [clone_cache(cache) for _ in range(2)]
+    for _ in range(SPEC_WIDTH + 1):
+        logits, cache = engine._decode_step(cache, window[-1])
+        steps.append(logits[0])
+        window.append(logits.argmax(-1).to(torch.int32))
+    win = torch.stack(window[:SPEC_WIDTH + 1], dim=1)
+    valid = torch.tensor([SPEC_WIDTH + 1], dtype=torch.int32, device=dev)
+    verify = engine._speculate(twins[0], win, valid, torch.tensor(
+        [start], dtype=torch.int32, device=dev))[0][0]
+    early = engine._speculate(twins[1], win, valid, torch.tensor(
+        [start - 1], dtype=torch.int32, device=dev))[0][0]
+    check = hold("[speculation] teacher-forced window vs decode steps",
+                 verify, torch.stack(steps), {"start one row early": early},
+                 CONSISTENCY_REL_L2)
+    noise = max(check["max_abs_dev"])
+
+    def call_ms(fn, reps=5):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    # one call's host-clock cost at the same row: a decode step against a
+    # verify window of SPEC_WIDTH + 1 rows (what a window must save)
+    at = torch.tensor([start], dtype=torch.int32, device=dev)
+    check["decode_step_ms"] = call_ms(lambda: engine._decode_step(
+        dataclasses.replace(twins[0], length=at), window[0]))
+    check["window_ms"] = call_ms(lambda: engine._speculate(
+        twins[1], win, valid, at))
+    del twins, cache
+    out = {"teacher_forced": check, "plain": plain, "natural": natural,
+           "window_path": window_path, "oracle": oracle}
+    for key, res in (("natural", natural), ("window_path", window_path),
+                     ("oracle", oracle)):
+        part = first_difference(plain["tokens"], res["tokens"])
+        res["first_difference"] = part
+        if part is not None and (part >= len(margins)
+                                 or margins[part] > noise):
+            raise AssertionError(
+                f"speculation ({key}): ids part from plain greedy's at "
+                f"{part}, where its top-2 margin exceeds the bf16 "
+                f"deviation {noise:.3e}")
+        res["margin_at_difference"] = (None if part is None
+                                       else margins[part])
+    for res in out.values():
+        res.pop("tokens", None)
+    log(f"  [speculation] a decode step {check['decode_step_ms']:.2f} ms, "
+        f"a verify window of {SPEC_WIDTH + 1} rows {check['window_ms']:.2f} "
+        "ms (host clock, synchronized, median of 5)")
+    for key in ("plain", "natural", "window_path", "oracle"):
+        res = out[key]
+        log(f"  [speculation {SPEC_WIDTH}, {key}] {len(ids)}-token "
+            f"repetitive prompt, {SPEC_NEW} new: {res['tok_s_after_first']:.1f}"
+            f" tok/s after the first ({res['wall_ms']:.1f} ms); K2 launches "
+            f"a token {res['k2_launches_per_token']:.2f}; {res['windows']} "
+            f"windows, {res['accepted']} of {res['proposed']} proposals "
+            f"accepted {res['acceptance_per_window']}; ids part from plain "
+            f"at {res.get('first_difference')} (margin "
+            f"{res.get('margin_at_difference')}, deviation {noise:.3e})"
+            + (f"; from the window path at "
+               f"{res['first_difference_from_window_path']}"
+               if key == "oracle" else ""))
+    return out
+
+
+def spec_wave(cfg, rng):
+    """Eight repetitive requests (a phrase repeated; two with an image),
+    40 to 1,200 prompt tokens, SPEC_NEW new tokens each."""
+    vocab = cfg.llama.vocab_size
+    size = cfg.vit.image_size
+    out = []
+    for i, n in enumerate((1200, 40, 600, 300, 900, 120, 200, 500)):
+        phrase = rng.integers(3, vocab, int(rng.integers(6, 20)))
+        ids = np.resize(phrase, n).astype(np.int32)
+        ids[0] = cfg.llama.bos_token_id
+        img = None
+        if i in (2, 5):
+            ids[1] = -200
+            img = rng.integers(0, 256, (size, size, 3)).astype(np.uint8)
+        out.append((ids, img))
+    return out
+
+
+def oracle_proposals(sched, source_outputs):
+    """A stand-in for `propose_from_history` in the scheduler's
+    speculative rounds: each active slot proposes the next tokens of its
+    request in `source_outputs` (the request's outputs so far are the
+    history's length past its prompt)."""
+    import torch
+
+    def propose(hist, hist_len, *, ngram, width, min_token=3):
+        lens = hist_len.tolist()
+        prop = np.zeros((len(lens), width), np.int32)
+        n = np.zeros(len(lens), np.int32)
+        for slot, req in enumerate(sched.slot_req):
+            if req is not None:
+                nxt = source_outputs[req.uid][lens[slot] - len(req.input_ids):]
+                nxt = nxt[:width]
+                prop[slot, :len(nxt)] = nxt
+                n[slot] = len(nxt)
+        return (torch.as_tensor(prop, device=hist.device),
+                torch.as_tensor(n, device=hist.device))
+
+    return propose
+
+
+def phase_spec_scheduler(engine, cfg, dev, wrappers):
+    """(d) the contiguous bf16 scheduler over an 8-request repetitive wave:
+    plain ticks, speculative 4 with the history's prompt lookup, and
+    speculative 4 with an oracle draft (the natural wave's next tokens: a
+    speculative round verifies through the continuation's attention even
+    where nothing is accepted, so the natural wave's ids are the window
+    path's greedy, which plain ticks' K2 parts from at bf16 top-1 flips):
+    tokens/s, time to first token, proposals made and accepted (counted on
+    the card through the tick), launches (a speculative wave decodes
+    through continuation prefills: K2 never), every request whole; the
+    ids' agreement with the plain wave, and the oracle's with the natural
+    wave, are readings."""
+    import torch
+
+    import lhrs_bot_tpu_torch.serve.scheduler as sched_mod
+    from lhrs_bot_tpu_torch.serve.scheduler import (
+        ContinuousBatchingScheduler, Request)
+
+    wave = spec_wave(cfg, np.random.default_rng(10))
+    nl = cfg.llama.num_hidden_layers
+    out = {}
+    for key, width in (("plain", 0), ("natural", SPEC_WIDTH),
+                       ("oracle", SPEC_WIDTH)):
+        sched = ContinuousBatchingScheduler(
+            cfg, engine.params, engine.llama_params, max_batch=8,
+            max_seq_len=engine.max_seq_len, cache_dtype=engine.cache_dtype,
+            tokens_per_tick=16, eos_token_id=cfg.llama.eos_token_id,
+            device=dev, speculative=width)
+        sched.run([Request(uid=99, input_ids=wave[1][0], max_new_tokens=4)])
+        reqs = [Request(uid=i, input_ids=ids, image=img,
+                        max_new_tokens=SPEC_NEW)
+                for i, (ids, img) in enumerate(wave)]
+        honest = sched_mod.propose_from_history, sched_mod.accept_window
+        totals = torch.zeros(2, dtype=torch.long, device=dev)
+
+        def counted(prop, n_prop, preds):  # proposals and acceptances
+            p, corr = honest[1](prop, n_prop, preds)
+            totals.add_(torch.stack([n_prop.sum(), p.sum()]))
+            return p, corr
+
+        sched_mod.accept_window = counted
+        if key == "oracle":
+            sched_mod.propose_from_history = oracle_proposals(
+                sched, out["natural"]["outputs"])
+        try:
+            set_launches(wrappers)
+            res = drive(sched, reqs)
+        finally:
+            sched_mod.propose_from_history, sched_mod.accept_window = honest
+        res["launches"] = read_launches(wrappers)
+        res["outputs"] = [r.output_ids for r in reqs]
+        res["proposed"], res["accepted"] = totals.tolist()
+        for r in reqs:
+            if not r.done or not 1 <= len(r.output_ids) <= SPEC_NEW or any(
+                    not 0 <= t < cfg.llama.vocab_size for t in r.output_ids):
+                raise AssertionError(f"[scheduler {key}] request {r.uid}")
+        k2 = res["launches"].get("fused_decode_attention", 0)
+        if width and (k2 or not res["launches"].get("flash_attention_fwd")):
+            raise AssertionError(f"[scheduler {key}] launches "
+                                 f"{res['launches']}")
+        if not width and k2 != nl * res["decode_steps"]:
+            raise AssertionError(f"[scheduler {key}] K2 launched {k2} times "
+                                 f"in {res['decode_steps']} steps")
+        if key != "plain":
+            res["agreement"] = agreement(res["outputs"],
+                                         out["plain"]["outputs"])
+        if key == "oracle":
+            res["agreement_with_natural"] = agreement(
+                res["outputs"], out["natural"]["outputs"])
+        out[key] = res
+        log(f"  [scheduler {key}] 8 requests, {res['tokens']} tokens in "
+            f"{res['wall_s']:.2f} s: {res['tok_s']:.1f} tokens/s; "
+            f"{res['decode_steps']} {'rounds' if width else 'steps'}, "
+            f"{res['accepted']} of {res['proposed']} proposals accepted; "
+            "time to first "
+            f"token (ms) {[round(t, 1) for t in res['ttft_ms']]}; launches "
+            f"{res['launches']}; ids vs plain (a reading) "
+            f"{res.get('agreement')}"
+            + (f", vs natural {res['agreement_with_natural']}"
+               if key == "oracle" else ""))
+        del sched
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_cli(engine, cfg, dev, image):
+    """(e) cli_qa_torch's chat loop over the bf16 engine: three scripted
+    turns with an image and speculation 4, the byte-level tokenizer; turns
+    2 and 3 continue the session."""
+    import io
+
+    import cli_qa_torch
+    from lhrs_bot_tpu_torch.data.tokenizer import ByteTokenizer
+    from lhrs_bot_tpu_torch.serve.engine import GenerationConfig
+
+    lines = ["What is in this image?", "Where is the river?",
+             "How many buildings are there?", "exit"]
+    calls, streamed = [], []
+    cont, stream = engine._prefill_continue, engine.stream
+
+    def counted(*a, **k):
+        streamed.append(0)
+        for tok in stream(*a, **k):
+            streamed[-1] += 1
+            yield tok
+
+    engine._prefill_continue = lambda *a: calls.append(1) or cont(*a)
+    engine.stream = counted
+    out = io.StringIO()
+    engine.reset_session()
+    t0 = time.perf_counter()
+    try:
+        answers = cli_qa_torch.chat(
+            engine, ByteTokenizer(), lines, out,
+            gen_cfg=GenerationConfig(max_new_tokens=SESSION_NEW,
+                                     eos_token_id=cfg.llama.eos_token_id),
+            image=image[None], image_size=cfg.vit.image_size,
+            speculative=SPEC_WIDTH)
+    finally:
+        del engine._prefill_continue, engine.stream
+    wall = time.perf_counter() - t0
+    engine.reset_session()
+    if len(answers) != 3 or out.getvalue().count("ASSISTANT: ") != 3 \
+            or len(calls) != 2 or min(streamed) < 1:
+        raise AssertionError(f"cli_qa_torch: {len(answers)} answers, "
+                             f"{len(calls)} continuations, {streamed} tokens")
+    # the byte-level tokenizer decodes ids 4-259 only: random weights'
+    # answers are mostly ids it has no text for
+    log(f"  [cli_qa_torch] three turns in {wall:.2f} s, {streamed} tokens "
+        f"streamed, {len(calls)} session continuations; answers "
+        f"{[a[:24] for a in answers]}")
+    return {"wall_s": wall, "continuations": len(calls),
+            "tokens": streamed, "answer_chars": [len(a) for a in answers]}
+
+
+def check_continue_f32(lp, lcfg, dev):
+    """The continuation in float32 on the first CONTINUE_DEPTH layers at
+    full width, against the cacheless forward (`llama_apply`, plain
+    attention) of a 600-token row: the row prefilled through continuations
+    of 256-row chunks, and 400 rows prefilled then 200 continued, every
+    position's logits within PAGED_PREFILL_REL_L2 with equal greedy ids;
+    a greedy verify window after the row equal to the decode steps' and
+    every proposal accepted; the continuation started one row early
+    beyond the bound."""
+    import dataclasses
+
+    import torch
+
+    from lhrs_bot_tpu_torch.models import (KVCache, llama_apply,
+                                           llama_decode_step, llama_prefill,
+                                           llama_prefill_continue)
+
+    f32 = torch.float32
+    depth = min(CONTINUE_DEPTH, lcfg.num_hidden_layers)
+    cfg = dataclasses.replace(lcfg, num_hidden_layers=depth)
+    params = {"layers": {k: v[:depth].float()
+                         for k, v in lp["layers"].items()},
+              **{k: lp[k].float() for k in ("embed_tokens", "final_norm",
+                                            "lm_head")}}
+    n, s_max = 600, 1024
+    ids = torch.as_tensor(np.random.default_rng(11).integers(
+        3, lcfg.vocab_size, (1, n)), device=dev)
+    ids[0, 0] = lcfg.bos_token_id
+    emb = params["embed_tokens"][ids]
+
+    def one(v):
+        return torch.tensor([v], dtype=torch.int32, device=dev)
+
+    with plain_attention():
+        ref = llama_apply(params, cfg, inputs_embeds=emb,
+                          compute_dtype=f32)[0]
+
+    def cont(cache, lo, hi, start=None):
+        return llama_prefill_continue(
+            params, cfg, cache, inputs_embeds=emb[:, lo:hi],
+            suffix_len=one(hi - lo), start=one(lo if start is None else
+                                                 start),
+            compute_dtype=f32, return_all_logits=True)
+
+    cache = KVCache.create(cfg, 1, s_max, f32, dev)
+    parts = []
+    for lo in range(0, n, 256):
+        logits, cache = cont(cache, lo, min(lo + 256, n))
+        parts.append(logits[0])
+    chunked = torch.cat(parts)
+    with plain_attention():
+        _, cache2 = llama_prefill(params, cfg, KVCache.create(
+            cfg, 1, s_max, f32, dev), inputs_embeds=emb[:, :400],
+            prompt_len=one(400), compute_dtype=f32)
+    early = cont(clone_cache(cache2), 400, n, 399)[0][0]
+    tail = cont(cache2, 400, n)[0][0]
+    out = {"bound": PAGED_PREFILL_REL_L2, "depth": depth}
+    for key, got in (("chunks_of_256", chunked), ("400_then_200", tail)):
+        want = ref[-len(got):]
+        rel = rel_l2(got, want)
+        dev_ = (got - want).abs().amax(-1)
+        top2 = want.topk(2, -1).values
+        clear = (top2[:, 0] - top2[:, 1]) > dev_
+        same = got.argmax(-1) == want.argmax(-1)
+        out[key] = {"max_rel_l2": max(rel), "ids_equal": int(same.sum()),
+                    "of": len(rel)}
+        if max(rel) > PAGED_PREFILL_REL_L2 or not bool(same[clear].all()):
+            raise AssertionError(f"continuation f32 ({key}): {out[key]}")
+    out["start one row early"] = min(rel_l2(early, ref[400:]))
+    if out["start one row early"] <= PAGED_PREFILL_REL_L2:
+        raise AssertionError("continuation f32: the planted fault passes")
+    # a verify window of greedy's next tokens after the whole row
+    tok = ref[-1].argmax().view(1)
+    window, steps = [tok], []
+    twin = clone_cache(cache)
+    with plain_attention():
+        for _ in range(SPEC_WIDTH + 1):
+            logits, cache = llama_decode_step(
+                params, cfg, cache, inputs_embeds=params["embed_tokens"][
+                    window[-1]][:, None], compute_dtype=f32)
+            steps.append(logits[0])
+            window.append(logits.argmax(-1))
+    win = torch.stack(window[:SPEC_WIDTH + 1], dim=1)
+    verify = llama_prefill_continue(
+        params, cfg, twin, inputs_embeds=params["embed_tokens"][win],
+        suffix_len=one(SPEC_WIDTH + 1), start=one(n), compute_dtype=f32,
+        return_all_logits=True)[0][0]
+    rel = rel_l2(verify, torch.stack(steps))
+    accepted = int((verify.argmax(-1)[:SPEC_WIDTH] == win[0, 1:]).cumprod(
+        0).sum())
+    out["verify_window"] = {"max_rel_l2": max(rel), "accepted": accepted,
+                            "of": SPEC_WIDTH}
+    if max(rel) > PAGED_PREFILL_REL_L2 or accepted != SPEC_WIDTH:
+        raise AssertionError(f"continuation f32 verify window: "
+                             f"{out['verify_window']}")
+    log(f"  continuation vs the cacheless forward, float32, first {depth} "
+        f"layers, a 600-token row: {out}")
+    return out
+
+
+def phase_sessions(engine, cfg, dev, name, image, request=None):
+    """The sessions phase over one engine of the slice phase: with the
+    bf16 engine (a) to (e) and the float32 check, with the int8-cache
+    engine (b)."""
+    wrappers = kernel_wrappers()
+    if name != "bf16":
+        out = {"chat": phase_session_chat(
+            engine, cfg, dev, wrappers, name, image, CONSISTENCY_REL_L2,
+            "fused_decode_attention_q")}
+        engine.reset_session()
+        return out
+    out = {"continue_f32": check_continue_f32(engine.llama_params,
+                                              cfg.llama, dev),
+           "chunked": phase_chunked(engine, cfg, dev, wrappers, request),
+           "chat": phase_session_chat(engine, cfg, dev, wrappers, name,
+                                      image, CONSISTENCY_REL_L2,
+                                      "fused_decode_attention")}
+    engine.reset_session()
+    out["speculation"] = phase_speculation(engine, cfg, dev, wrappers)
+    out["scheduler"] = phase_spec_scheduler(engine, cfg, dev, wrappers)
+    out["cli"] = phase_cli(engine, cfg, dev, image)
     return out
 
 
@@ -5076,6 +5865,7 @@ def main():
     from lhrs_bot_tpu_torch.ops import cuda_lib
 
     os.makedirs(OUT_DIR, exist_ok=True)
+    LOG_FILE.append(open(os.path.join(OUT_DIR, "chip_smoke.log"), "w"))
     faults = open(os.path.join(OUT_DIR, "chip_smoke_crash.txt"), "w")
     faulthandler.enable(faults)  # a segfault or abort leaves its stacks
     dev = torch.device("cuda", 0)

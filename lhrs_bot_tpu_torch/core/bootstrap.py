@@ -149,15 +149,14 @@ def build_engine(cfg, params, config, device) -> GenerationEngine:
     where the JAX rule puts it on, with a CUDA device in place of the TPU:
     `bits: 8` on a CUDA device, with a ViT head dim that the flash kernel
     takes (64 or 128). Off on the CPU, as the JAX default is off the TPU.
-    `prefill_chunk` raises NotImplementedError. Other `bits`/`kv_bits`
-    values raise ValueError."""
+    `prefill_chunk` (0 or missing: off) sets the engine's chunked prefill.
+    Other `bits`/`kv_bits` values raise ValueError."""
     bits = int(config.get("bits", 16) or 16)
     kv_bits = int(config.get("kv_bits", 16) or 16)
     if bits not in (4, 8, 16) or kv_bits not in (8, 16):
         raise ValueError(f"bits={bits} kv_bits={kv_bits}: bits must be 4, 8 "
                          "or 16 and kv_bits 8 or 16")
-    if config.get("prefill_chunk"):
-        raise NotImplementedError("prefill_chunk is not ported yet")
+    chunk = int(config.get("prefill_chunk", 0) or 0)
     return GenerationEngine(
         cfg, params_from_numpy(params), device=device,
         max_seq_len=int(config["text"]["max_position_embeddings"]) + 256,
@@ -167,7 +166,8 @@ def build_engine(cfg, params, config, device) -> GenerationEngine:
         quant_type=str(config.get("quant_type", "nf4") or "nf4"),
         double_quant=bool(config.get("double_quant", True)),
         lm_head_bits=int(config.get("lm_head_bits", 0) or 0) or None,
-        vision_w8a8=vision_w8a8_setting(cfg, config, bits, device))
+        vision_w8a8=vision_w8a8_setting(cfg, config, bits, device),
+        prefill_chunk=chunk or None)
 
 
 def build_trainer(config, params, loader, device="cuda", *,

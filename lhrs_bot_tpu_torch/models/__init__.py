@@ -1,6 +1,7 @@
 from .constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX  # noqa: F401
 from .llama import (KVCache, LlamaConfig, causal_lm_loss,  # noqa: F401
-                    llama_apply, llama_decode_step, llama_prefill)
+                    llama_apply, llama_decode_step, llama_prefill,
+                    llama_prefill_continue)
 from .llama_paged import (PagedKVCache, paged_decode_step,  # noqa: F401
                           paged_prefill_with_context, scatter_prefill)
 from .perceiver import (PerceiverConfig, perceiver_resample,  # noqa: F401

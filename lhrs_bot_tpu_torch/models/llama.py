@@ -19,9 +19,17 @@ for the W4 and fused paths do not carry over.
 Float parameters must already be in the compute dtype (the engine casts
 them once); the compute dtype only sets the activations' dtype.
 
-Unlike the JAX package, the KV cache is updated IN PLACE: `llama_prefill`
-and `llama_decode_step` write into the tensors of the cache they are given
-and return a KVCache over those same tensors with the new lengths.
+Unlike the JAX package, the KV cache is updated IN PLACE: `llama_prefill`,
+`llama_prefill_continue` and `llama_decode_step` write into the tensors of
+the cache they are given and return a KVCache over those same tensors with
+the new lengths. `KVCache.resized` is the exception: it allocates a longer
+cache and copies into it.
+
+`llama_prefill_continue` extends a filled cache by a suffix (the engine's
+sessions, chunked prefill and speculative verify windows): RoPE at global
+positions, each layer's suffix rows written first, then attention over the
+whole cache row, masked causally. That attention is plain PyTorch, as it is
+XLA (no Pallas kernel) in the JAX package.
 
 `llama_apply` is the cacheless training forward (float32 logits of every
 position, `kv_mask` or packing `segment_ids` attention, `remat` through
@@ -35,13 +43,13 @@ and decode. Over an int8 / int4 / NF4 base the training backward takes the
 input gradient of `quantized_matmul` (`ops.quant`), never a weight
 gradient.
 
-Not ported here: context parallelism (`cp_axis_name`) and
-`llama_prefill_continue`.
+Not ported here: context parallelism (`cp_axis_name`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -204,6 +212,27 @@ class KVCache:
                    length=torch.zeros(batch, dtype=torch.int32,
                                       device=device), **scales)
 
+    def resized(self, new_len: int) -> "KVCache":
+        """A cache whose position axis is `new_len` long: a new allocation
+        holding this cache's rows, zero-padded (the int8 scale planes
+        padded with 1.0). The same cache when the length is unchanged;
+        ValueError on a shrink."""
+        cur = self.k.shape[3]
+        if new_len == cur:
+            return self
+        if new_len < cur:
+            raise ValueError(f"cannot shrink cache {cur} -> {new_len}")
+
+        def grow(t, fill):
+            out = t.new_full(t.shape[:3] + (new_len,) + t.shape[4:], fill)
+            out[:, :, :, :cur] = t
+            return out
+
+        return KVCache(
+            k=grow(self.k, 0), v=grow(self.v, 0), length=self.length,
+            k_scale=None if self.k_scale is None else grow(self.k_scale, 1.0),
+            v_scale=None if self.v_scale is None else grow(self.v_scale, 1.0))
+
 
 def _qkv(x: torch.Tensor, lp, cfg: LlamaConfig, cos, sin):
     """Project + RoPE. x (B, S, D) -> contiguous q/k/v (B, H, S, hd)."""
@@ -268,6 +297,125 @@ def llama_prefill(params, cfg: LlamaConfig, cache: KVCache, *,
         length = cache.length.clone()
         length[rows] = prompt_len.to(torch.int32)
     return logits, dataclasses.replace(cache, length=length)
+
+
+# float32 elements of one group's (b, H, W, S) attention scores in
+# `llama_prefill_continue`: rows of the batch are attended in groups that
+# stay under it (a 512-wide chunk over 2304 rows at H32 is 38M a row)
+_CONTINUE_SCORES = 1 << 27
+
+
+def _continue_attention(q, kc, vc, ks, vs, causal, sm: float):
+    """Attention of q (b, H, W, hd) over whole cache rows kc / vc (b, H, S,
+    hd; int8 codes with ks / vs (b, H, S) float32 scales, or None), masked
+    by causal (b, W, S): float32 scores of compute-dtype operands, the
+    int8 scales folded into the scores and the probabilities as JAX's
+    `llama_prefill_continue` folds them, probabilities rounded to the
+    compute dtype before the product with V."""
+    b, h, w, _ = q.shape
+    per_row = h * w * kc.shape[2]
+    g = max(1, _CONTINUE_SCORES // per_row)
+    out = []
+    for r in range(0, b, g):
+        rows = slice(r, r + g)
+        scores = torch.matmul(q[rows].float(), kc[rows].to(q.dtype).float()
+                              .transpose(-1, -2)) * sm
+        if ks is not None:
+            scores = scores * ks[rows, :, None, :]
+        scores = scores.masked_fill(~causal[rows, None], -1e30)
+        probs = torch.softmax(scores, dim=-1)
+        if vs is not None:
+            probs = probs * vs[rows, :, None, :]
+        out.append(torch.matmul(probs.to(q.dtype), vc[rows].to(q.dtype)))
+    return torch.cat(out)
+
+
+def _suffix_writes(positions: torch.Tensor, suffix_len: torch.Tensor,
+                   s_max: int):
+    """Where each suffix column's K/V row goes, without a host sync: column
+    i of a row writes the row of column min(i, suffix_len - 1) at that
+    column's position. The valid columns land at their positions; a padded
+    column repeats the row's last valid write (equal values at one index,
+    so the duplicate writes agree) and a row with suffix 0 rewrites what
+    its cache holds at `start`. Returns (source column (b, W), cache
+    position (b, W), has-a-suffix (b,))."""
+    w = positions.shape[1]
+    last = (suffix_len - 1).clamp(min=0)
+    col = torch.minimum(torch.arange(w, device=positions.device)[None, :],
+                        last[:, None])
+    pos = positions.gather(1, col).clamp(max=s_max - 1)
+    return col, pos, suffix_len > 0
+
+
+def llama_prefill_continue(params, cfg: LlamaConfig, cache: KVCache, *,
+                           inputs_embeds: torch.Tensor,
+                           suffix_len: torch.Tensor, start: torch.Tensor,
+                           compute_dtype: torch.dtype = torch.bfloat16,
+                           return_all_logits: bool = False
+                           ) -> Tuple[torch.Tensor, KVCache]:
+    """Extend a filled cache by a suffix (JAX `llama_prefill_continue`):
+    inputs_embeds (B, W, D) right-padded suffix embeddings, suffix_len (B,)
+    valid suffix tokens, start (B,) tokens already in the cache. RoPE takes
+    the global positions start + i; each layer writes the valid suffix
+    rows at those positions in place (padded columns write nothing; a row
+    of suffix 0 writes nothing), quantized through `quantize_activation`
+    for an int8 cache with the scales written before the attention, then
+    attends over the whole cache row masked to columns <= start + i.
+    Returns (float32 logits: (B, V) at each row's last valid column, or
+    (B, W, V) with `return_all_logits`, the speculative verify window's;
+    the cache with length start + suffix_len)."""
+    x = inputs_embeds.to(compute_dtype)
+    b, w, _ = x.shape
+    dev = x.device
+    s_max = cache.k.shape[3]
+    start = start.to(dev).long()
+    suffix_len = suffix_len.to(dev).long()
+    positions = start[:, None] + torch.arange(w, device=dev)[None, :]
+    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    col, pos, has = _suffix_writes(positions, suffix_len, s_max)
+    rows_b = torch.arange(b, device=dev)[:, None]
+    causal = (torch.arange(s_max, device=dev)[None, None, :]
+              <= positions[:, :, None])  # (B, W, S)
+    sm = 1.0 / math.sqrt(cfg.head_dim)
+
+    def write(arr, li, rows):  # rows (B, W, H[, d]) at (col, pos)
+        keep = arr[li, rows_b, :, pos]
+        arr[li, rows_b, :, pos] = torch.where(
+            has.view((b,) + (1,) * (keep.dim() - 1)),
+            rows[rows_b, col].to(arr.dtype), keep)
+
+    for li in range(cfg.num_hidden_layers):
+        lp = _layer(params["layers"], li)
+        h = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps)
+        q, k, v = _qkv(h, lp, cfg, cos, sin)  # (B, H, W, hd)
+        k_rows, v_rows = k.transpose(1, 2), v.transpose(1, 2)  # (B, W, H, d)
+        if cache.quantized:
+            for arr, scale, t in ((cache.k, cache.k_scale, k_rows),
+                                  (cache.v, cache.v_scale, v_rows)):
+                codes, t_scale = quantize_activation(t)
+                write(arr, li, codes)
+                write(scale, li, t_scale[..., 0])
+            attn = _continue_attention(q, cache.k[li], cache.v[li],
+                                       cache.k_scale[li], cache.v_scale[li],
+                                       causal, sm)
+        else:
+            write(cache.k, li, k_rows)
+            write(cache.v, li, v_rows)
+            attn = _continue_attention(q, cache.k[li], cache.v[li], None,
+                                       None, causal, sm)
+        attn = attn.transpose(1, 2).reshape(b, w, cfg.hidden_size)
+        x = x + _proj(lp, "wo", attn)
+        h2 = rms_norm(x, lp["post_attn_norm"], cfg.rms_norm_eps)
+        x = x + _silu_mlp(h2, lp)
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    if return_all_logits:
+        logits = _lm_head_logits(x, params["lm_head"])
+    else:
+        last = (suffix_len - 1).clamp(min=0)
+        logits = _lm_head_logits(x[torch.arange(b, device=dev), last],
+                                 params["lm_head"])
+    return logits, dataclasses.replace(
+        cache, length=(start + suffix_len).to(torch.int32))
 
 
 def _block_full(x: torch.Tensor, lp, cfg: LlamaConfig, cos, sin,

@@ -1,7 +1,7 @@
 """Generation engine: batched prefill + decode over a static KV cache.
 
 Counterpart of `lhrs_bot_tpu/serve/engine.py` `GenerationEngine.generate`
-and `stream` (without sessions or speculation): greedy and temperature/top-p
+and `stream`: greedy and temperature/top-p
 sampling, max_new_tokens and EOS stopping. Prompt widths and cache lengths
 are bucketed and clamped exactly as in the JAX engine, so both engines build
 the same shapes for the same request.
@@ -36,8 +36,30 @@ The decode loop is a Python loop of `llama_decode_step` calls whose tokens
 stay on the device; the host reads the tokens once, at the end of
 `generate`. Images come one a row, (B, H, W, 3), or K a row, (B, K, H, W,
 3), marker k taking image k. `warmup` runs `generate` at the expected
-request shapes. Chunked prefill, sessions, speculative decoding and meshes
-are not ported: asking for one raises NotImplementedError.
+request shapes.
+
+Built on `llama_prefill_continue`, as in the JAX engine:
+  * `prefill_chunk`: the splice runs once, then the decoder prefills
+    `prefill_chunk`-wide slices of the spliced embeddings against the
+    growing cache; each row's logits come from the slice holding its last
+    valid row;
+  * `stream(session=True)`: the KV cache and the raw ids it holds (the
+    prompt and the emitted tokens appended so far) survive the call; the
+    next turn's rendered conversation prefills only the suffix past their
+    common prefix (at least 8 tokens, pure text, the same image's sha1).
+    The first turn's cache is sized to max_seq_len, so a later turn never
+    grows it;
+  * `stream(speculative=N)` (greedy only): prompt lookup
+    (`serve.speculative.propose_from_history`, the scheduler's, on one
+    row) proposes up to N tokens from the history, one continuation
+    prefill verifies them, the agreeing prefix is kept (`accept_window`)
+    and `cache.length` rewound past the rejected rows (which the next
+    append overwrites). The ids are plain greedy's where the window and
+    the decode step compute the same logits: in float32. In bf16 on the
+    card the window attends through plain PyTorch and the decode step
+    through K2 / K4, so the ids may part from plain greedy's where the
+    top-2 margin lies within bf16 rounding.
+A mesh is not ported: asking for one raises NotImplementedError.
 
 A tree with "lora" (and `cfg.lora` set) is served as the JAX engine serves
 it: over a dense base the adapters are merged once, at load, in float32
@@ -52,15 +74,17 @@ quantized they ride along as the runtime side path
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import logging
-from typing import Iterator, List, Optional, Sequence, Tuple
+from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
 from ..models.constants import IMAGE_TOKEN_INDEX
-from ..models.llama import KVCache, llama_decode_step, llama_prefill
+from ..models.llama import (KVCache, llama_decode_step, llama_prefill,
+                            llama_prefill_continue)
 from ..models.lora import (attach_runtime_lora, lora_delta_stepwise,
                            merge_lora)
 from ..models.vlm import VLMConfig, prepare_multimodal_inputs
@@ -223,10 +247,8 @@ class GenerationEngine:
         prefill_chunk: Optional[int] = None,
         mesh=None,
     ):
-        unported = {"prefill_chunk": prefill_chunk, "mesh": mesh}
-        asked = [k for k, v in unported.items() if v]
-        if asked:
-            raise NotImplementedError(f"not ported yet: {', '.join(asked)}")
+        if mesh is not None:
+            raise NotImplementedError("not ported yet: mesh")
         if cache_dtype not in (torch.bfloat16, torch.float32, torch.int8):
             raise NotImplementedError(f"{cache_dtype} KV cache is not ported")
         if quantize_bits not in (None, 8, 4, "4h"):
@@ -241,6 +263,9 @@ class GenerationEngine:
         self.max_seq_len = max_seq_len
         self.prompt_bucket = prompt_bucket
         self.cache_bucket = cache_bucket
+        self.prefill_chunk = prefill_chunk
+        # stream(session=True)'s state: {"raw_ids", "image_fp", "cache"}
+        self._session = None
 
         # the one place parameters are placed and cast: the models take
         # every float parameter in the compute dtype, but the ViT's
@@ -269,8 +294,9 @@ class GenerationEngine:
 
     # -- pieces -------------------------------------------------------------
 
-    def _prefill(self, input_ids: torch.Tensor, images, seq_lens, *,
-                 batch: int, cache_len: int) -> Tuple[torch.Tensor, KVCache]:
+    def _splice(self, input_ids: torch.Tensor, images, seq_lens
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(spliced embeddings (B, S, D), spliced lengths (B,))."""
         width = input_ids.shape[1]
         mask = torch.arange(width, device=self.device)[None, :] \
             < seq_lens[:, None]
@@ -279,12 +305,74 @@ class GenerationEngine:
             compute_dtype=self.compute_dtype,
             llama_params=self.llama_params,
             vision_packed=self._vision_packed)
-        cache = KVCache.create(self.cfg.llama, batch, cache_len,
-                               dtype=self.cache_dtype, device=self.device)
-        return llama_prefill(self.llama_params, self.cfg.llama, cache,
-                             inputs_embeds=spliced.inputs_embeds,
-                             prompt_len=spliced.seq_len,
+        return spliced.inputs_embeds, spliced.seq_len
+
+    def _new_cache(self, batch: int, cache_len: int) -> KVCache:
+        return KVCache.create(self.cfg.llama, batch, cache_len,
+                              dtype=self.cache_dtype, device=self.device)
+
+    def _prefill(self, input_ids: torch.Tensor, images, seq_lens, *,
+                 batch: int, cache_len: int) -> Tuple[torch.Tensor, KVCache]:
+        """Splice and prefill a bucketed batch into a new cache: the
+        monolithic prefill, or `_chunked_prefill` with `prefill_chunk`."""
+        if self.prefill_chunk:
+            return self._chunked_prefill(input_ids, images, seq_lens,
+                                         batch=batch, cache_len=cache_len)
+        emb, spl_len = self._splice(input_ids, images, seq_lens)
+        return llama_prefill(self.llama_params, self.cfg.llama,
+                             self._new_cache(batch, cache_len),
+                             inputs_embeds=emb, prompt_len=spl_len,
                              compute_dtype=self.compute_dtype)
+
+    def _continue_embeds(self, cache: KVCache, embeds, suffix_len, start,
+                         return_all_logits: bool = False):
+        return llama_prefill_continue(
+            self.llama_params, self.cfg.llama, cache, inputs_embeds=embeds,
+            suffix_len=suffix_len, start=start,
+            compute_dtype=self.compute_dtype,
+            return_all_logits=return_all_logits)
+
+    def _prefill_continue(self, cache: KVCache, suffix_ids: torch.Tensor,
+                          suffix_len, start):
+        """Prefill token ids (B, W) past `start` rows of `cache`."""
+        embeds = self.llama_params["embed_tokens"][suffix_ids.clamp(min=0)
+                                                   .long()]
+        return self._continue_embeds(cache, embeds, suffix_len, start)
+
+    def _chunked_prefill(self, input_ids, images, seq_lens, *, batch: int,
+                         cache_len: int) -> Tuple[torch.Tensor, KVCache]:
+        """Splice once, then run the decoder over `prefill_chunk`-wide
+        slices of the spliced embeddings through the continuation prefill.
+        Each row's logits come from the slice that holds its last valid
+        row; a row whose prompt ended in an earlier slice writes nothing
+        in the later ones."""
+        emb, spl_len = self._splice(input_ids, images, seq_lens)
+        w = self.prefill_chunk
+        s = emb.shape[1]
+        n_chunks = -(-s // w)
+        emb = torch.nn.functional.pad(emb, (0, 0, 0, n_chunks * w - s))
+        cache = self._new_cache(batch, cache_len)
+        last_chunk = (spl_len.cpu().numpy() - 1).clip(min=0) // w
+        per_chunk = {}
+        for c in range(n_chunks):
+            logits_c, cache = self._continue_embeds(
+                cache, emb[:, c * w:(c + 1) * w],
+                (spl_len - c * w).clamp(0, w), spl_len.clamp(max=c * w))
+            if (last_chunk == c).any():
+                per_chunk[c] = logits_c
+        logits = torch.stack([per_chunk[int(c)][r]
+                              for r, c in enumerate(last_chunk)])
+        return logits, cache
+
+    def _speculate(self, cache: KVCache, window_ids: torch.Tensor, valid,
+                   start):
+        """Verify a speculative window: its `valid` tokens (padded to the
+        window's width) through the continuation prefill; the logits at
+        every window position (B, W, V)."""
+        embeds = self.llama_params["embed_tokens"][window_ids.clamp(min=0)
+                                                   .long()]
+        return self._continue_embeds(cache, embeds, valid, start,
+                                     return_all_logits=True)
 
     def _decode_step(self, cache: KVCache, tokens: torch.Tensor):
         embeds = self.llama_params["embed_tokens"][tokens.long()][:, None]
@@ -329,14 +417,22 @@ class GenerationEngine:
         out[:, :t] = input_ids
         return out
 
-    def _start(self, input_ids, seq_lens, images, gen_cfg):
+    @staticmethod
+    def _image_count(images) -> int:
+        """Images a row: 0, 1 for (B, H, W, 3), K for (B, K, H, W, 3)."""
+        return (0 if images is None
+                else images.shape[1] if np.ndim(images) == 5 else 1)
+
+    def _start(self, input_ids, seq_lens, images, gen_cfg, cache_len=None):
         """Bucket, clamp and pad a request, then prefill it. Returns
-        (first-token logits, cache, clamped gen_cfg)."""
+        (first-token logits, cache, clamped gen_cfg). `cache_len` replaces
+        the bucketed cache length (a session's first turn takes
+        max_seq_len)."""
         batch, t = input_ids.shape
-        k_img = (0 if images is None
-                 else images.shape[1] if np.ndim(images) == 5 else 1)
+        k_img = self._image_count(images)
         n_img = k_img * self.cfg.pooler.num_query
-        width, cache_len = self._bucketed(t, n_img, gen_cfg.max_new_tokens)
+        width, bucketed = self._bucketed(t, n_img, gen_cfg.max_new_tokens)
+        cache_len = cache_len or bucketed
         seq_lens = np.minimum(np.asarray(seq_lens), width)
         gen_cfg = self._clamp_new_tokens(
             gen_cfg,
@@ -424,6 +520,35 @@ class GenerationEngine:
             out.append(ids)
         return out
 
+    @staticmethod
+    def _image_fp(images) -> Optional[bytes]:
+        if images is None:
+            return None
+        return hashlib.sha1(np.ascontiguousarray(images)).digest()
+
+    def reset_session(self) -> None:
+        """Drop the multi-turn state (a new chat, a new image)."""
+        self._session = None
+
+    def _session_match(self, raw: np.ndarray, fp) -> Optional[int]:
+        """The common prefix (in tokens) of the new prompt and the ids the
+        session cache holds, when a continuation applies: the same image,
+        at least 8 tokens in common, at least one suffix token, and a
+        suffix of text only (an image splice can only sit in the matched
+        prefix). None otherwise."""
+        st = self._session
+        if st is None or st["image_fp"] != fp:
+            return None
+        old = st["raw_ids"]
+        n = min(len(old), len(raw) - 1)
+        if n <= 0:
+            return None
+        neq = np.nonzero(raw[:n] != old[:n])[0]
+        common = int(neq[0]) if neq.size else n
+        if common < 8 or np.any(raw[common:] < 0):
+            return None
+        return common
+
     def stream(
         self,
         input_ids: np.ndarray,  # (1, T)
@@ -431,29 +556,166 @@ class GenerationEngine:
         images: Optional[np.ndarray] = None,
         gen_cfg: Optional[GenerationConfig] = None,
         generator: Optional[torch.Generator] = None,
-        stop_fn=None,
+        stop_fn: Optional[Callable[[List[int]], bool]] = None,
         session: bool = False,
-        speculative: int = 0,
+        speculative: int = 0,  # prompt-lookup window (greedy only)
     ) -> Iterator[int]:
-        """Single-sequence streaming: yields one token id per step."""
-        if session or speculative:
-            raise NotImplementedError("sessions and speculative decoding "
-                                      "are not ported yet")
+        """Single-sequence streaming: yields one token id per step.
+
+        session=True keeps the KV cache across calls: the next turn's
+        prompt is matched against the ids the cache holds (the last
+        prompt and the answer's appended tokens) and only the new suffix
+        is prefilled (`llama_prefill_continue`). speculative=N (greedy
+        only) verifies up to N prompt-lookup tokens a step in one
+        continuation prefill; the ids are plain greedy's in float32 (see
+        the module docstring for bf16)."""
         gen_cfg = gen_cfg or GenerationConfig()
         if generator is None and gen_cfg.do_sample:
             generator = torch.Generator(self.device).manual_seed(0)
-        logits, cache, gen_cfg = self._start(
-            input_ids, np.asarray([seq_len]), images, gen_cfg)
+        dev = self.device
+        nq = self.cfg.pooler.num_query
+        raw = np.asarray(input_ids)[0, :int(seq_len)].astype(np.int32)
+        fp = self._image_fp(images) if session else None
+        common = self._session_match(raw, fp) if session else None
+        if common is not None:
+            # every image marker in the matched prefix expands by nq - 1
+            start_spl = common + (nq - 1) * int((raw[:common] < 0).sum())
+            if start_spl + self.prompt_bucket > self.max_seq_len:
+                common = None  # the cache is about full: no room for a suffix
+
+        if common is not None:
+            st, self._session = self._session, None  # claim the cache
+            sfx = raw[common:]
+            width = min(-(-len(sfx) // self.prompt_bucket)
+                        * self.prompt_bucket, self.max_seq_len - start_spl)
+            need = -(-(start_spl + width + gen_cfg.max_new_tokens)
+                     // self.cache_bucket) * self.cache_bucket
+            cache_len = min(max(need, st["cache"].k.shape[3]),
+                            self.max_seq_len)
+            n_sfx = min(len(sfx), width)
+            gen_cfg = self._clamp_new_tokens(gen_cfg, start_spl + n_sfx,
+                                             cache_len)
+            ids = self._pad_ids(sfx[None, :], width, gen_cfg.pad_token_id)
+            logits, cache = self._prefill_continue(
+                st["cache"].resized(cache_len),
+                torch.as_tensor(ids, device=dev),
+                torch.tensor([n_sfx], dtype=torch.int32, device=dev),
+                torch.tensor([start_spl], dtype=torch.int32, device=dev))
+            raw = raw[:common + n_sfx]
+        else:
+            if session:
+                self._session = None  # a failed prefill leaves no session
+            # a session's first turn is sized to the full context: a later
+            # turn then never pays a whole-cache copy (resized)
+            logits, cache, gen_cfg = self._start(
+                input_ids, np.asarray([seq_len]), images, gen_cfg,
+                cache_len=self.max_seq_len if session else None)
+            width = self._bucketed(input_ids.shape[1],
+                                   self._image_count(images) * nq, 0)[0]
+            raw = raw[:width]
+
         emitted: List[int] = []
-        for i in range(gen_cfg.max_new_tokens):
-            tok_arr = _sample_token(logits, generator, gen_cfg)
-            tok = int(tok_arr[0])
+        # the cache and how many emitted tokens have their K/V rows in it
+        state = {"cache": cache, "appended": 0}
+        spec = int(speculative) if not gen_cfg.do_sample else 0
+        try:
+            if spec:
+                yield from self._stream_speculative(
+                    logits, raw, gen_cfg, stop_fn, spec, emitted, state)
+                return
+            for i in range(gen_cfg.max_new_tokens):
+                tok_arr = _sample_token(logits, generator, gen_cfg)
+                tok = int(tok_arr[0])
+                if tok == gen_cfg.eos_token_id:
+                    return
+                emitted.append(tok)
+                yield tok
+                if stop_fn is not None and stop_fn(emitted):
+                    return
+                if i + 1 == gen_cfg.max_new_tokens:
+                    return  # the final token's cache append would be wasted
+                logits, state["cache"] = self._decode_step(state["cache"],
+                                                           tok_arr)
+                state["appended"] += 1
+        finally:
+            if session:
+                self._session = {
+                    "raw_ids": np.concatenate(
+                        [raw, np.asarray(emitted[:state["appended"]],
+                                         np.int32)]),
+                    "image_fp": fp, "cache": state["cache"]}
+
+    def _stream_speculative(self, logits, raw, gen_cfg, stop_fn, spec: int,
+                            emitted: List[int], state) -> Iterator[int]:
+        """The greedy speculative loop of `stream`: after each emitted
+        token, propose up to `spec` tokens from the history; with a
+        proposal (and room in the cache) verify [token] + proposal in one
+        continuation prefill, keep the agreeing prefix and rewind
+        `cache.length` to the rows of the token and the accepted
+        proposals; otherwise take one decode step. The host keeps the
+        history and the cache's length, and proposes on the CPU (no device
+        sync). `state` holds the cache and the count of emitted tokens
+        whose rows it holds."""
+        # serve/speculative imports this module (the top-p warp)
+        from .speculative import NGRAM, accept_window, propose_from_history
+
+        dev = self.device
+        history = np.zeros((1, len(raw) + gen_cfg.max_new_tokens), np.int32)
+        history[0, :len(raw)] = raw
+        n_hist = len(raw)
+        length = int(state["cache"].length[0])
+        cache_room = state["cache"].k.shape[3]
+        tok = int(logits[0].argmax())
+        while True:
             if tok == gen_cfg.eos_token_id:
                 return
             emitted.append(tok)
+            history[0, n_hist] = tok
+            n_hist += 1
             yield tok
             if stop_fn is not None and stop_fn(emitted):
                 return
-            if i + 1 == gen_cfg.max_new_tokens:
-                return  # the final token's cache append would be wasted
-            logits, cache = self._decode_step(cache, tok_arr)
+            if len(emitted) >= gen_cfg.max_new_tokens:
+                return
+            prop, n_prop = propose_from_history(
+                torch.from_numpy(history), torch.tensor([n_hist]),
+                ngram=NGRAM, width=spec)
+            n = min(int(n_prop[0]), gen_cfg.max_new_tokens - len(emitted) - 1,
+                    cache_room - length - 1 - 1)
+            if n > 0 and length + 1 + spec <= cache_room:
+                ids_w = np.zeros((1, spec + 1), np.int32)
+                ids_w[0, 0] = tok
+                ids_w[0, 1:1 + n] = prop[0, :n].numpy()
+                window = torch.as_tensor(ids_w, device=dev)
+                n_dev = torch.tensor([n], dtype=torch.int32, device=dev)
+                logits_all, cache = self._speculate(
+                    state["cache"], window, n_dev + 1,
+                    torch.tensor([length], dtype=torch.int32, device=dev))
+                p, corr = accept_window(
+                    window[:, 1:], n_dev,
+                    logits_all.argmax(dim=-1).to(torch.int32))
+                p, tok = torch.cat([p, corr]).tolist()
+                length += 1 + p
+                # the rejected rows stay past the new length; the next
+                # append overwrites them
+                state["cache"] = dataclasses.replace(cache, length=torch.tensor(
+                    [length], dtype=torch.int32, device=dev))
+                state["appended"] += 1 + p
+                for t in ids_w[0, 1:1 + p].tolist():
+                    if t == gen_cfg.eos_token_id:
+                        return
+                    emitted.append(t)
+                    history[0, n_hist] = t
+                    n_hist += 1
+                    yield t
+                    if stop_fn is not None and stop_fn(emitted):
+                        return
+                    if len(emitted) >= gen_cfg.max_new_tokens:
+                        return
+            else:
+                logits, state["cache"] = self._decode_step(
+                    state["cache"],
+                    torch.tensor([tok], dtype=torch.int32, device=dev))
+                length += 1
+                state["appended"] += 1
+                tok = int(logits[0].argmax())

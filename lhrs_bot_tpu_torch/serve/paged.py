@@ -82,7 +82,10 @@ class PagedScheduler(ContinuousBatchingScheduler):
     caching. `max_seq_len` (the per-sequence cap) is pages_per_seq *
     page_size; `num_pages` sizes the shared pool, page 0 included.
     `prefill_chunk` (a multiple of page_size) runs the decoder's prefill
-    over slices of that width."""
+    over slices of that width. It takes no speculation: `speculative > 0`
+    and `set_speculative` raise ValueError, as in the JAX package."""
+
+    _supports_spec = False
 
     def __init__(self, cfg, params, llama_params, *,
                  num_pages: int, page_size: int = 128,

@@ -24,8 +24,21 @@ Parameters arrive placed and cast: `params` (the vision side) and
 sampled tokens differ from the JAX scheduler's; greedy rows and the top-p
 mask are the same. A request carries no image, one (H, W, 3) or K (K, H,
 W, 3) images, marker k taking image k; markers beyond a request's image
-count become token 0. Not ported: speculative ticks (`speculative > 0`,
-`set_speculative`) and meshes: each raises NotImplementedError.
+count become token 0.
+
+`speculative=N` (or `set_speculative(N)`) turns each tick into k
+speculative rounds over all slots (serve/speculative.py): a slot proposes
+up to N tokens from its own history (prompt + output), the windows are
+verified in one continuation prefill, and each slot advances by the
+accepted proposals plus one token, with EOS and budget freezing as in the
+plain tick; a slot that is not active writes no row. Greedy slots emit the
+plain tick's tokens in float32; in bf16 they may part from them where the
+top-2 margin lies within bf16 rounding, since a round attends through
+plain PyTorch and a plain tick through the decode kernel. Every round
+verifies a window for every active slot, a proposal or none, so a round
+costs more than a decode step. The rounds are a Python loop whose tokens stay on the
+device; the host reads them once, at the end of the tick. The history is
+the host's, uploaded each tick. Not ported: meshes (NotImplementedError).
 """
 
 from __future__ import annotations
@@ -38,9 +51,12 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..models.llama import KVCache, llama_decode_step, llama_prefill
+from ..models.llama import (KVCache, llama_decode_step, llama_prefill,
+                            llama_prefill_continue)
 from ..models.vlm import VLMConfig, prepare_multimodal_inputs
 from .engine import GenerationConfig, _sample_token_per_slot
+from .speculative import (NGRAM, accept_window, accept_window_sampled,
+                          propose_from_history)
 
 logger = logging.getLogger(__name__)
 
@@ -80,6 +96,8 @@ def check_image_room(n_ids: int, k: int, num_query: int,
 
 
 class ContinuousBatchingScheduler:
+    _supports_spec = True  # the paged subclass's rows live behind a table
+
     def __init__(
         self,
         cfg: VLMConfig,
@@ -98,12 +116,14 @@ class ContinuousBatchingScheduler:
         generator: Optional[torch.Generator] = None,
         device="cuda",
         mesh=None,
-        speculative: int = 0,
+        speculative: int = 0,  # prompt-lookup window per round (greedy)
         adaptive_tick: bool = False,  # shrink ticks near completions
     ):
-        if mesh is not None or speculative:
-            raise NotImplementedError("meshes and speculative ticks are not "
-                                      "ported to lhrs_bot_tpu_torch yet")
+        if mesh is not None:
+            raise NotImplementedError("meshes are not ported to "
+                                      "lhrs_bot_tpu_torch yet")
+        self._check_spec(speculative)
+        self.speculative = int(speculative)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.adaptive_tick = bool(adaptive_tick)
@@ -154,9 +174,16 @@ class ContinuousBatchingScheduler:
             n -= b
         return out
 
+    def _check_spec(self, width: int) -> None:
+        if width and not self._supports_spec:
+            raise ValueError(
+                "speculative decoding needs the contiguous KV cache (the "
+                "paged scheduler's rows live behind a page table)")
+
     def set_speculative(self, width: int) -> None:
-        raise NotImplementedError("speculative ticks are not ported to "
-                                  "lhrs_bot_tpu_torch yet")
+        """Speculative ticks of `width` proposals a round (0: plain)."""
+        self._check_spec(width)
+        self.speculative = int(width)
 
     def set_tokens_per_tick(self, k: int) -> None:
         """Change the number of decode steps per tick."""
@@ -283,6 +310,85 @@ class ContinuousBatchingScheduler:
         self.cache = cache
         return (torch.stack(emitted).cpu().numpy(),
                 torch.stack(live).cpu().numpy())
+
+    def _spec_tick(self, rounds: int, sample: bool):
+        """`rounds` speculative rounds over all slots (serve/
+        speculative.py). Each round a slot proposes up to `speculative`
+        tokens from its history, the windows [last token] + proposals are
+        verified by one continuation prefill at each slot's cache length
+        (an inactive slot's suffix is 0: it writes no row), and the slot
+        emits its accepted proposals and the correction token, clamped to
+        its budget; its cache length then counts only the rows of the
+        emitted tokens (the rejected ones are overwritten later). Returns
+        the (rounds, B, width + 1) tokens and live flags, on the host."""
+        dev = self.device
+        width = self.speculative
+        hist_np, hlen_np = self._history_arrays()
+        hist = torch.as_tensor(hist_np, device=dev)
+        hlen = torch.as_tensor(hlen_np, device=dev).long()
+        toks = torch.as_tensor(self.last_tokens, device=dev)
+        act = torch.as_tensor(self.active, device=dev)
+        budg = torch.as_tensor(self.slot_budget, device=dev)
+        temps = torch.as_tensor(self.slot_temp, device=dev)
+        top_ps = torch.as_tensor(self.slot_top_p, device=dev)
+        embed = self.llama_params["embed_tokens"]
+        cache = self.cache
+        s_max = cache.k.shape[3]
+        s_hist = hist.shape[1]
+        i2 = torch.arange(width + 1, device=dev)[None, :]
+        emitted, lives = [], []
+        for _ in range(rounds):
+            prop, n_prop = propose_from_history(hist, hlen, ngram=NGRAM,
+                                                width=width)
+            # the verify writes 1 + n rows at the cache length: proposals
+            # are clamped to the cache's room and to the budget (past
+            # budget - 1 none could be emitted)
+            room = s_max - cache.length - 1
+            n_prop = torch.minimum(
+                n_prop, torch.minimum(room, budg - 1).clamp(0, width))
+            window = torch.cat([toks[:, None], prop], dim=1)
+            suffix = torch.where(act, 1 + n_prop, 0).to(torch.int32)
+            logits_all, new_cache = llama_prefill_continue(
+                self.llama_params, self.cfg.llama, cache,
+                inputs_embeds=embed[window.clamp(min=0).long()],
+                suffix_len=suffix, start=cache.length,
+                compute_dtype=self.compute_dtype, return_all_logits=True)
+            if sample:
+                p, corr = accept_window_sampled(prop, n_prop, logits_all,
+                                                self.generator, temps,
+                                                top_ps)
+            else:
+                p, corr = accept_window(
+                    prop, n_prop, logits_all.argmax(dim=-1).to(torch.int32))
+            # emitted: the accepted proposals, then the correction token,
+            # up to the budget (the token that exhausts it is emitted)
+            e = torch.where(act, torch.minimum(p + 1, budg), 0)
+            tok_out = torch.where(i2 < p[:, None],
+                                  torch.nn.functional.pad(prop, (0, 1)),
+                                  corr[:, None])
+            live = (i2 < e[:, None]) & act[:, None]
+            emit = torch.where(live, tok_out, self.pad)
+            budg = budg - e
+            eos_corr = (e == p + 1) & (corr == self.eos)
+            new_act = act & (budg > 0) & ~eos_corr
+            cache = dataclasses.replace(
+                new_cache, length=torch.where(act, cache.length + e,
+                                              cache.length).to(torch.int32))
+            # the history gains the emitted tokens but a final EOS; writes
+            # past its end go to a spare column that is dropped
+            nk = e - eos_corr.to(e.dtype)
+            dest = torch.where((i2 < nk[:, None]) & act[:, None],
+                               hlen[:, None] + i2, s_hist).clamp(max=s_hist)
+            hist = torch.nn.functional.pad(hist, (0, 1)).scatter(
+                1, dest, emit)[:, :s_hist]
+            hlen = hlen + nk
+            emitted.append(emit)
+            lives.append(live)
+            toks = torch.where(new_act, corr, self.pad)
+            act = new_act
+        self.cache = cache
+        return (torch.stack(emitted).cpu().numpy(),
+                torch.stack(lives).cpu().numpy())
 
     # -- host-side scheduling ------------------------------------------------
 
@@ -440,14 +546,50 @@ class ContinuousBatchingScheduler:
                 self._release_slot(slot)
         self.active[:] = False
 
+    def _history_arrays(self):
+        """(B, S) token history (prompt + emitted) of each active slot and
+        its length, S = max_seq_len + speculative + 1: the proposal source
+        of the speculative tick, rebuilt from the host's record each tick.
+        A history longer than S keeps its most recent tokens."""
+        s_hist = self.max_seq_len + self.speculative + 1
+        hist = np.zeros((self.max_batch, s_hist), np.int32)
+        hlen = np.zeros(self.max_batch, np.int32)
+        for slot, req in enumerate(self.slot_req):
+            if req is None or not self.active[slot]:
+                continue
+            toks = np.concatenate([
+                np.asarray(req.input_ids, np.int64),
+                np.asarray(req.output_ids, np.int64)]).astype(np.int32)
+            toks = toks[-s_hist:]
+            hist[slot, :len(toks)] = toks
+            hlen[slot] = len(toks)
+        return hist, hlen
+
+    def _step_speculative(self, waiting: bool) -> int:
+        # each round advances an active slot by at least one token, so the
+        # adaptive tick's budget-based size never under-serves
+        rounds = self._tick_k(waiting)
+        self.last_tick_k = rounds
+        toks_host, live_host = self._spec_tick(
+            rounds, sample=bool(self.slot_temp[self.active].max(initial=0.0)
+                                > 0))
+        for r in range(toks_host.shape[0]):
+            for i in range(toks_host.shape[2]):
+                for slot in range(self.max_batch):
+                    if live_host[r, slot, i] and self.active[slot]:
+                        self._push_token(slot, int(toks_host[r, slot, i]))
+        return int(self.active.sum())
+
     def step(self, waiting: int = 0) -> int:
-        """One tick (up to `tokens_per_tick` tokens per active slot) over
-        all slots; returns #still-active. `waiting` is the number of
+        """One tick (up to `tokens_per_tick` tokens per active slot, or as
+        many speculative rounds) over all slots; returns #still-active. `waiting` is the number of
         requests queued for a slot: the adaptive tick then shrinks to the
         earliest scheduled completion (see _tick_k)."""
         if not self.active.any():
             self.last_tick_k = 0
             return 0
+        if self.speculative > 0:
+            return self._step_speculative(waiting > 0)
         k = self._tick_k(waiting > 0)
         self.last_tick_k = k
         toks_host, live_host = self._tick(

@@ -18,9 +18,19 @@ serves `serve/api.py`'s routes: POST /generate, /generate_stream,
 /v1/chat/completions; GET /health, /stats. `--warmup` runs dummy waves
 before the port binds, so the kernels are built before the first user.
 
+`--speculative N` runs the contiguous scheduler's speculative ticks
+(prompt lookup, up to N proposals a round; greedy slots emit the plain
+ticks' tokens in float32, and in bf16 may part from them where the top-2
+margin lies within bf16 rounding); with `--paged` it raises ValueError, as
+`lhrs_serve.py` does. Every round verifies a window for every slot through
+a continuation prefill with plain PyTorch attention, even where nothing
+was proposed, so on the card it is slower than plain ticks unless the
+traffic repeats its history (PERF.md §6). `--prefill-chunk` sets the engine's chunked prefill and the paged
+scheduler's.
+
 The model and the cache live on the card (`--device cuda`, the default,
 which raises with no card visible); `--device cpu` runs on the CPU.
-`--tp` above 1 and `--speculative` above 0 are not ported and raise.
+`--tp` above 1 is not ported and raises.
 """
 
 from __future__ import annotations
@@ -42,10 +52,13 @@ def add_serve_args(p) -> None:
                         "S_max, the contiguous cache's memory)")
     p.add_argument("--page-size", type=int, default=128)
     p.add_argument("--prefill-chunk", type=int, default=0,
-                   help="paged mode: run the prefill decoder over slices "
-                        "of this many tokens")
+                   help="run the prefill decoder over slices of this many "
+                        "tokens (the engine's and the paged scheduler's)")
     p.add_argument("--speculative", type=int, default=0,
-                   help="not ported (ROADMAP Queue 1 item 6)")
+                   help="contiguous scheduler: prompt-lookup window per "
+                        "speculative round (0: off; not with --paged); "
+                        "slower on the card unless the traffic repeats "
+                        "its history")
     p.add_argument("--warmup", action="store_true",
                    help="build the kernels and run every admission shape "
                         "before binding the port")
@@ -71,17 +84,16 @@ def build_frontend(args=None):
     if int(config.get("tp") or 1) > 1:
         raise NotImplementedError("--tp > 1: tensor-parallel serving is not "
                                   "ported (ROADMAP Queue 1 item 10)")
-    if int(config.get("speculative") or 0) > 0:
-        raise NotImplementedError("--speculative: speculative decoding is "
-                                  "not ported (ROADMAP Queue 1 item 6)")
     device = resolve_device(config.device)
     logger = setup(config)
 
+    speculative = int(config.get("speculative") or 0)
+    if speculative and config.paged:
+        raise ValueError("--speculative needs the contiguous KV cache (the "
+                         "paged scheduler's rows live behind a page table)")
     cfg, params, tokenizer = build_model_and_tokenizer(config, device)
-    # the engine holds the weights; the schedulers serve. --prefill-chunk
-    # is the paged scheduler's, not the engine's (not ported there)
-    engine = build_engine(cfg, params, {**config, "prefill_chunk": 0},
-                          device)
+    # the engine holds the weights; the schedulers serve
+    engine = build_engine(cfg, params, config, device)
     del params
 
     t = float(config.temperature)
@@ -107,7 +119,8 @@ def build_frontend(args=None):
             **common)
     else:
         sched = ContinuousBatchingScheduler(cfg, engine.params,
-                                            engine.llama_params, **common)
+                                            engine.llama_params,
+                                            speculative=speculative, **common)
     frontend = ServingFrontend(
         sched, tokenizer, image_size=cfg.vit.image_size,
         prompt_template=config.get("prompt_template") or "llava_llama_2")

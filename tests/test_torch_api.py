@@ -629,10 +629,30 @@ def test_lhrs_serve_torch_defaults_to_cuda(serve_main, tmp_path,
 @pytest.mark.parametrize("flag", [["--speculative", "2"], ["--tp", "2"]],
                          ids=["speculative", "tp"])
 def test_lhrs_serve_torch_unported_flags_raise(serve_main, tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve_main["build_frontend"](["-c", _tiny_yaml(tmp_path), "--device",
-                                      "cpu", "--output",
-                                      str(tmp_path / "out")] + flag)
+    """--tp above 1 is not ported and raises. --speculative is ported: it
+    builds a contiguous frontend whose scheduler runs speculative ticks
+    and serves a request; with --paged it raises ValueError, as
+    lhrs_serve.py does."""
+    args = ["-c", _tiny_yaml(tmp_path), "--device", "cpu", "--output",
+            str(tmp_path / "out")] + flag
+    if "--tp" in flag:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            serve_main["build_frontend"](args)
+        return
+    with pytest.raises(ValueError, match="paged"):
+        serve_main["build_frontend"](args + ["--paged"])
+    frontend, _ = serve_main["build_frontend"](args)
+    httpd, url = _start(frontend)
+    try:
+        assert isinstance(frontend.sched, ContinuousBatchingScheduler)
+        assert not isinstance(frontend.sched, t_paged.PagedScheduler)
+        assert frontend.sched.speculative == 2
+        status, data = _post(url, {"prompt": "hello hello hello",
+                                   "max_new_tokens": 4})
+        assert status == 200 and 1 <= len(data["tokens"]) <= 4
+    finally:
+        httpd.shutdown()
+        frontend.shutdown()
 
 
 @pytest.mark.parametrize("flag", [["--dp", "8"], ["--enable-amp", "false"],

@@ -9,8 +9,9 @@ schedulers against the JAX contiguous scheduler, at 1, 2 and 8 decode steps
 a tick, with chunked prefill, prefix-cache hits, image requests (one image,
 and 2 or 3 images a request, with surplus markers), cancel and fail_all,
 and on the wave where the JAX paged scheduler's idle slots overwrite a
-live sequence's page. The sampler's greedy rows and top-p mask
-are held to the JAX sampler's.
+live sequence's page. The contiguous scheduler's speculative ticks give
+the JAX speculative scheduler's ids (and the plain ticks'). The sampler's
+greedy rows and top-p mask are held to the JAX sampler's.
 """
 
 import dataclasses
@@ -314,8 +315,156 @@ def test_adaptive_scheduler_matches_jax(setup):
 @pytest.mark.parametrize("kwargs", [{"speculative": 4}, {"mesh": "m"}],
                          ids=str)
 def test_unported_scheduler_options_raise(setup, kwargs):
-    with pytest.raises(NotImplementedError):
-        _port_scheduler(setup, WAVES["recycle"], "f32", 2, False, **kwargs)
+    """A mesh is not ported and raises; speculative ticks are ported: the
+    scheduler is built with them on, and `set_speculative` turns them
+    off and on."""
+    if "mesh" in kwargs:
+        with pytest.raises(NotImplementedError):
+            _port_scheduler(setup, WAVES["recycle"], "f32", 2, False,
+                            **kwargs)
+        return
+    sched = _port_scheduler(setup, WAVES["recycle"], "f32", 2, False,
+                            **kwargs)
+    assert sched.speculative == 4
+    sched.set_speculative(0)
+    assert sched.speculative == 0
+    sched.set_speculative(3)
+    assert sched.speculative == 3
+
+
+def _jax_spec_outputs(setup, reqs, width=4, k=2, cache="f32", max_batch=3):
+    j_cfg, params, je, _ = setup
+    sched = j_sched.ContinuousBatchingScheduler(
+        j_cfg, params, je.llama_params, max_batch=max_batch, max_seq_len=96,
+        compute_dtype=jnp.float32, cache_dtype=J_DTYPE[cache],
+        prompt_bucket=16, tokens_per_tick=k, speculative=width)
+    sched.run(reqs)
+    assert all(r.done for r in reqs)
+    return [r.output_ids for r in reqs]
+
+
+SPEC_RUNS = [("recycle", "f32", 2), ("int8", "int8", 2), ("image", "f32", 4),
+             ("multi", "f32", 1)]
+
+
+@pytest.mark.parametrize("wave_name,cache,k", SPEC_RUNS,
+                         ids=[f"{w}-{c}-k{k}" for w, c, k in SPEC_RUNS])
+def test_speculative_scheduler_matches_jax(setup, wave_name, cache, k):
+    """speculative=4 on the waves (k rounds a tick): the port's greedy ids
+    equal the JAX speculative scheduler's, the JAX plain scheduler's and
+    the port's plain scheduler's."""
+    wave = WAVES[wave_name]
+    want = _jax_spec_outputs(setup, _requests(j_sched, wave), k=k,
+                             cache=cache, max_batch=wave.max_batch)
+    assert want == _jax_outputs(setup, wave_name, cache, k)
+    for width in (4, 0):
+        sched = _port_scheduler(setup, wave, cache, k, False,
+                                speculative=width)
+        reqs = _requests(t_sched, wave)
+        sched.run(reqs)
+        assert all(r.done for r in reqs)
+        assert [r.output_ids for r in reqs] == want
+
+
+def _repetitive(mod, budgets=(16, 16, 16)):
+    """tests/test_scheduler.py's repetitive prompts; the tiny model's
+    answers fall into loops after 5-8 tokens, so with 16 tokens proposals
+    fire and are accepted."""
+    base = np.asarray([7, 8, 9, 10], np.int32)
+    prompts = [np.tile(base, 6), np.tile(base[:3], 8),
+               np.concatenate([base, base, [11, 12], base])]
+    return [mod.Request(uid=i, input_ids=p.astype(np.int32),
+                        max_new_tokens=b)
+            for i, (p, b) in enumerate(zip(prompts, budgets))]
+
+
+@pytest.mark.parametrize("budgets", [(16, 16, 16), (2, 5, 14)], ids=str)
+def test_speculative_tick_repetitive_matches_jax(setup, budgets,
+                                                 monkeypatch):
+    """Repetitive prompts (proposals made every round) with full and
+    short budgets: the port's ids equal JAX's speculative and plain ids,
+    budgets hold, the rounds verify proposals, and a slot that is not
+    active is given suffix 0."""
+    want = _jax_spec_outputs(setup, _repetitive(j_sched, budgets))
+    plain = _port_scheduler(setup, WAVES["recycle"], "f32", 4, False)
+    reqs = _repetitive(t_sched, budgets)
+    plain.run(reqs)
+    assert [r.output_ids for r in reqs] == want
+    suffixes = []
+    cont = t_sched.llama_prefill_continue
+
+    def spy(*a, **kw):
+        suffixes.append(kw["suffix_len"].clone())
+        return cont(*a, **kw)
+
+    monkeypatch.setattr(t_sched, "llama_prefill_continue", spy)
+    sched = _port_scheduler(setup, WAVES["recycle"], "f32", 2, False,
+                            speculative=4)
+    reqs = _repetitive(t_sched, budgets)
+    sched.run(reqs)
+    assert [r.output_ids for r in reqs] == want
+    assert all(len(r.output_ids) <= b for r, b in zip(reqs, budgets))
+    assert suffixes and max(int(s.max()) for s in suffixes) > 1
+    assert any(bool((s == 0).any()) for s in suffixes)
+
+
+def test_speculative_tick_writes_no_idle_row(setup):
+    """An idle slot's cache rows and length are untouched by a
+    speculative tick."""
+    sched = _port_scheduler(setup, WAVES["recycle"], "f32", 2, False,
+                            speculative=4)
+    reqs = _repetitive(t_sched)[:2]
+    sched.admit(reqs)
+    idle = int(np.flatnonzero(~sched.active)[0])
+    k, v = sched.cache.k[:, idle].clone(), sched.cache.v[:, idle].clone()
+    length = int(sched.cache.length[idle])
+    sched.step()
+    assert torch.equal(sched.cache.k[:, idle], k)
+    assert torch.equal(sched.cache.v[:, idle], v)
+    assert int(sched.cache.length[idle]) == length
+
+
+def test_speculative_mixed_sampling_keeps_greedy_rows(setup):
+    """A sampling slot beside a greedy one: the greedy slot's ids equal an
+    all-greedy speculative run's (acceptance is per row), and the sampled
+    slot's output is in the vocabulary and within its budget."""
+    def run(with_sampler):
+        sched = _port_scheduler(setup, WAVES["image"], "f32", 4, False,
+                                speculative=4)
+        rng = np.random.default_rng(1)
+        reqs = [t_sched.Request(uid=1, input_ids=rng.integers(
+            3, 200, size=(8,)).astype(np.int32), max_new_tokens=6)]
+        if with_sampler:
+            reqs = [t_sched.Request(uid=0, input_ids=rng.integers(
+                3, 200, size=(6,)).astype(np.int32), max_new_tokens=6,
+                temperature=0.9, top_p=0.9)] + reqs
+        sched.run(reqs)
+        assert all(r.done and 1 <= len(r.output_ids) <= 6 for r in reqs)
+        assert all(0 <= t < 256 for r in reqs for t in r.output_ids)
+        return list(reqs[-1].output_ids)
+
+    assert run(False) == run(True)
+
+
+def test_speculative_history_arrays_match_jax(setup):
+    """The per-slot history the proposals read: prompt + output of each
+    active slot, the most recent tokens of a long one."""
+    j_cfg, params, je, _ = setup
+    scheds = [
+        j_sched.ContinuousBatchingScheduler(
+            j_cfg, params, je.llama_params, max_batch=3, max_seq_len=96,
+            compute_dtype=jnp.float32, cache_dtype=jnp.float32,
+            prompt_bucket=16, speculative=4),
+        _port_scheduler(setup, WAVES["recycle"], "f32", 2, False,
+                        speculative=4)]
+    out = []
+    for mod, sched in zip((j_sched, t_sched), scheds):
+        reqs = _repetitive(mod)
+        sched.admit(reqs)
+        sched.slot_req[1].output_ids.extend(range(3, 100))  # past S
+        out.append(sched._history_arrays())
+    for got, want in zip(out[1], out[0]):
+        np.testing.assert_array_equal(got, want)
 
 
 def test_multi_image_request_matches_jax(setup):
@@ -385,9 +534,15 @@ def test_multi_image_request_raises(setup):
 
 
 def test_set_speculative_raises(setup):
+    """The paged scheduler takes no speculation, as in the JAX package:
+    `set_speculative` and `speculative > 0` raise ValueError; 0 is
+    accepted."""
     sched = _port_scheduler(setup, WAVES["image"], "f32", 2, True)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="paged"):
         sched.set_speculative(2)
+    sched.set_speculative(0)
+    with pytest.raises(ValueError, match="paged"):
+        _port_scheduler(setup, WAVES["image"], "f32", 2, True, speculative=2)
 
 
 # -- the sampler -------------------------------------------------------------
