@@ -141,8 +141,9 @@ Phases, one or more lines each:
      128 on all 7 linears with B != 0; free disk and host memory checked
      first, the directory deleted at the end), loaded at stage 0 through
      `load_pretrained` bit for bit against trees built from the seeds
-     (three planted faults: alpha / r swapped, a layer's q_proj / k_proj
-     swapped in the shard's header, the w_down adapters dropped), the bf16
+     (three planted faults, over the artifacts written again at 4 decoder
+     layers: alpha / r swapped, a layer's q_proj / k_proj swapped in the
+     shard's header, the w_down adapters dropped), the bf16
      and W4A8 + int8 lm_head + int8 KV engines over the loaded tree bit for
      bit against engines over the expected tree; stage 2
      (`Config/multi_modal_stage2.yaml` through build_model: int8 base,
@@ -152,7 +153,16 @@ Phases, one or more lines each:
      fall) and save_final; stage 3 (`multi_modal_stage3.yaml`) from that
      output, the adapters bit for bit, two steps, save_final; and the eval
      load of stage 3's output (adapters merged) served bit for bit against
-     the plainly merged tree; each part's seconds.
+     the plainly merged tree; each part's seconds; then, over the same
+     artifacts, training from data on disk (`phase_train_from_disk`): a
+     32-image PNG corpus written under build/ (JPEGs too where the native
+     library builds), `main_pretrain_stage2_torch.main` at full width with
+     the decoder cut to 4 layers, checkpoints every 2 iterations: 4
+     workers; 1 worker killed before iteration 2; its --auto-resume; 1
+     worker uninterrupted; the resumed run's losses, adapters, perceiver
+     and optimizer state equal the uninterrupted one's bit for bit; data
+     against step time, each checkpoint write's and the resume's bytes
+     and seconds, peak memory, the launches of the 4-worker run.
 Then a JSON line with per-kernel numbers, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}. Every line is also written to
 chiprun_out/chip_smoke.log. Any failure raises: the script
@@ -4987,6 +4997,9 @@ CKPT_RESIZED_VOCAB = 32004  # the reference resizes embed_tokens for its
 # special tokens; FINAL.pt carries the resized rows
 CKPT_LORA_R, CKPT_LORA_ALPHA = 128, 256
 CKPT_SWAP_LAYER = 3  # the layer whose q_proj / k_proj a fault swaps
+# the decoder depth of the artifacts that the planted faults and the
+# training-from-disk phase load (a full-depth load takes ~30 s)
+CKPT_CUT_LAYERS = 4
 CKPT_STEPS_STAGE2, CKPT_STEPS_STAGE3 = 6, 2
 CKPT_NEW_TOKENS = 8
 
@@ -5453,7 +5466,7 @@ def host_gib_available():
     raise AssertionError("no MemAvailable in /proc/meminfo")
 
 
-def phase_checkpoint(dev):
+def phase_checkpoint(dev, then=None):
     """The checkpoint formats and stages 2 and 3 at full width (ViT-L/14,
     the 144-query perceiver, LLaMA-2-7B): (a) write the reference's
     artifacts from seeds, (b) load them at stage 0 bit for bit, with three
@@ -5462,7 +5475,12 @@ def phase_checkpoint(dev):
     stage 2 (int8 base, live LoRA): the gradient check, six steps,
     save_final, (e) stage 3 from stage 2's output: the adapters bit for
     bit, two steps, save_final, (f) eval: stage 3's output loaded at stage
-    0 and served bit for bit against the plainly merged tree."""
+    0 and served bit for bit against the plainly merged tree. The planted
+    faults of (b) load the artifacts written again at CKPT_CUT_LAYERS
+    decoder layers. `then(paths, root)`, where given, runs last, over
+    those cut artifacts (paths of the CLIP and LLaMA directories and
+    FINAL.pt, with TextLoRA/ beside it) before they are deleted; its result
+    is out["then"]."""
     import dataclasses
     import gc
     import shutil
@@ -5475,6 +5493,7 @@ def phase_checkpoint(dev):
                                          eval_config, load_pretrained,
                                          save_final)
     from lhrs_bot_tpu_torch.core.config import load_yaml_config
+    from lhrs_bot_tpu_torch.core.convert import as_loaded
     from lhrs_bot_tpu_torch.core.torch_import import load_hf_clip_vision
     from lhrs_bot_tpu_torch.models import LoraConfig, VLMConfig
     from lhrs_bot_tpu_torch.train import HookBase
@@ -5573,32 +5592,61 @@ def phase_checkpoint(dev):
         del loaded
         gc.collect()
 
-        # (b) the planted faults: each load must differ from the expected
+        # (b) the planted faults, each load differing from the expected,
+        # over the artifacts written again with CKPT_CUT_LAYERS decoder
+        # layers (each fault is one of structure, not of depth; a
+        # full-depth load takes ~30 s), loaded bit for bit first
+        del expected
+        gc.collect()
         t0 = time.time()
-        shard = os.path.join(paths["llama_path"],
-                             "model-00001-of-00002.safetensors")
+        cut_root = os.path.join(root, "cut")
+        os.makedirs(cut_root)
+        cfg_cut = dataclasses.replace(cfg0, llama=dataclasses.replace(
+            cfg0.llama, num_hidden_layers=CKPT_CUT_LAYERS))
+        write_reference_checkpoint(cut_root, cfg_cut, dev)
+        cut_paths = {"model_path": os.path.join(cut_root, "FINAL.pt"),
+                     "vit_path": os.path.join(cut_root, "clip"),
+                     "llama_path": os.path.join(cut_root, "llama")}
+        expected = {
+            "vit": expected_vit(cfg0.vit, dev, lambda k: "rgb:" + k),
+            "pooler": expected_pooler(cfg0.pooler, dev),
+            "llama": expected_llama(cfg_cut.llama, dev,
+                                    lora=expected_lora(cfg_cut.llama, dev))}
+        torch.cuda.empty_cache()
+        bad = tree_mismatches(load_pretrained(cfg_cut, **cut_paths)[0],
+                              expected)
+        log(f"  (b) the artifacts at {CKPT_CUT_LAYERS} decoder layers, at "
+            f"stage 0: mismatches {bad}")
+        if bad:
+            raise AssertionError(f"cut stage-0 load: {bad}")
         q = f"model.layers.{CKPT_SWAP_LAYER}.self_attn.q_proj.weight"
         k = q.replace("q_proj", "k_proj")
-        lora_dir = os.path.join(root, "TextLoRA")
+        with open(os.path.join(cut_paths["llama_path"],
+                               "model.safetensors.index.json")) as fh:
+            shard = os.path.join(cut_paths["llama_path"],
+                                 json.load(fh)["weight_map"][q])
+        lora_dir = os.path.join(cut_root, "TextLoRA")
         faults = {}
 
         def alpha_r_swapped():
-            return load_pretrained(dataclasses.replace(cfg0, lora=LoraConfig(
-                r=CKPT_LORA_ALPHA, alpha=CKPT_LORA_R)), **paths)[0]
+            return load_pretrained(dataclasses.replace(
+                cfg_cut, lora=LoraConfig(r=CKPT_LORA_ALPHA,
+                                         alpha=CKPT_LORA_R)), **cut_paths)[0]
 
         def qk_swapped():
             swap_header_offsets(shard, q, k)
             try:
-                return load_pretrained(cfg0, **paths)[0]
+                return load_pretrained(cfg_cut, **cut_paths)[0]
             finally:
                 swap_header_offsets(shard, q, k)
 
         def w_down_dropped():
-            write_text_lora(lora_dir, cfg0.llama, dev, skip=("down_proj",))
+            write_text_lora(lora_dir, cfg_cut.llama, dev,
+                            skip=("down_proj",))
             try:
-                return load_pretrained(cfg0, **paths)[0]
+                return load_pretrained(cfg_cut, **cut_paths)[0]
             finally:
-                write_text_lora(lora_dir, cfg0.llama, dev)
+                write_text_lora(lora_dir, cfg_cut.llama, dev)
 
         for name, fn in (("alpha / r swapped", alpha_r_swapped),
                          (f"layer {CKPT_SWAP_LAYER} q_proj / k_proj swapped "
@@ -5706,9 +5754,12 @@ def phase_checkpoint(dev):
             raise AssertionError("stage 3 moved the frozen perceiver")
         out3 = os.path.join(root, "stage3")
         save_final(out3, trainer.params, cfg3)
+        # what save_final wrote: the frozen leaves as they were loaded
+        written = as_loaded(trainer.params)
         final = {g: {p: torch.as_tensor(v).detach().float().cpu().clone()
-                     for p, v in tree_paths(trainer.params[g])}
+                     for p, v in tree_paths(written[g])}
                  for g in ("vit", "pooler")}
+        del written
         lora3 = {n: {p: t.detach().cpu().clone() for p, t in ab.items()}
                  for n, ab in trainer.params["lora"].items()}
         del trainer, pooler_before
@@ -5738,9 +5789,322 @@ def phase_checkpoint(dev):
         del evalp, plain
         gc.collect()
         out["seconds"]["f_eval"] = time.time() - t0
+        if then is not None:
+            torch.cuda.empty_cache()
+            out["then"] = then(cut_paths, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log(f"  seconds per part: {out['seconds']}")
+    return out
+
+
+# the training-from-disk phase: a synthetic stage-2 corpus and the stage-2
+# entry point at full width over phase 7's artifacts at CKPT_CUT_LAYERS
+# decoder layers, so that its four runs' checkpoints (every
+# DISK_CKPT_PERIOD iterations) stay small
+DISK_TASKS = ("osm_geo", "llava_rs", "scene_cls")
+DISK_IMAGES = 32  # 4 iterations of 8
+DISK_BATCH = 8
+DISK_CKPT_PERIOD = 2
+DISK_INTERRUPT = 2  # the interrupted run stops before this iteration
+
+
+def disk_image(rng, h, w):
+    """An (h, w, 3) uint8 scene: a few smooth gradients and bands with
+    noise, so that it compresses as a photograph does, not as noise."""
+    y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+    img = np.empty((h, w, 3), np.float32)
+    for c in range(3):
+        fy, fx = rng.uniform(0.002, 0.03, 2)
+        img[..., c] = (96 + 60 * np.sin(fy * y + rng.uniform(0, 6))
+                       + 60 * np.cos(fx * x + rng.uniform(0, 6)))
+    img += rng.normal(0, 6, img.shape)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def write_disk_corpus(root, rng, jpeg):
+    """DISK_TASKS JSONs with their <task>_Image/ folders: DISK_IMAGES
+    records of multi-turn llava_llama_2 conversations (1-4 rounds, the image
+    in the first) over scenes of 256-800 pixels a side, PNG (all five row
+    filters) and, with `jpeg`, every third image a JPEG (PIL's encoder).
+    Returns the bytes written and the count of each format."""
+    counts = {"png": 0, "jpeg": 0}
+    written = 0
+    for t, task in enumerate(DISK_TASKS):
+        os.makedirs(os.path.join(root, f"{task}_Image"), exist_ok=True)
+        recs = []
+        for i in range(t, DISK_IMAGES, len(DISK_TASKS)):
+            h, w = (int(v) for v in rng.integers(256, 801, 2))
+            arr = disk_image(rng, h, w)
+            if jpeg and i % 3 == 2:
+                import io
+
+                from PIL import Image
+
+                buf = io.BytesIO()
+                Image.fromarray(arr).save(buf, format="JPEG", quality=90)
+                name, data = f"scene{i}.jpg", buf.getvalue()
+                counts["jpeg"] += 1
+            else:
+                name, data = f"scene{i}.png", png_bytes(arr)
+                counts["png"] += 1
+            with open(os.path.join(root, f"{task}_Image", name), "wb") as fh:
+                fh.write(data)
+            written += len(data)
+            convs = []
+            for r in range(1 + i % 4):
+                q = (f"Question {r} about scene {i}: which land cover lies "
+                     f"near the {['river', 'road', 'field', 'port'][r]}?")
+                convs += [{"from": "human",
+                           "value": ("<image>\n" if r == 0 else "") + q},
+                          {"from": "gpt", "value": (
+                              f"The area around it is mostly {['farmland', 'forest', 'buildings', 'water'][(i + r) % 4]}"
+                              f", with {int(rng.integers(2, 9))} patches.")}]
+            recs.append({"image": name, "conversations": convs})
+        with open(os.path.join(root, f"{task}.json"), "w") as fh:
+            json.dump(recs, fh)
+    return written, counts
+
+
+class DiskProbe:
+    """Per iteration: the step's milliseconds (synchronised, from before
+    the batch is drawn to after the update) and the trainer's data time;
+    with `stop_at`, raises DiskInterrupt before that iteration (a run killed
+    after the checkpoint of the iterations before it)."""
+
+    def __init__(self, hook_base, stop_at=None):
+        import torch
+
+        probe = self
+
+        class Hook(hook_base):
+            def before_iter(self):
+                if self.trainer.cur_iter == stop_at:
+                    raise DiskInterrupt()
+                torch.cuda.synchronize()
+                probe.t0 = time.perf_counter()
+
+            def after_iter(self):
+                torch.cuda.synchronize()
+                probe.ms.append((time.perf_counter() - probe.t0) * 1e3)
+
+        self.ms = []
+        self.hook = Hook()
+
+
+class DiskInterrupt(Exception):
+    pass
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def phase_train_from_disk(dev, paths, root):
+    """Training from data on disk at full width (ViT-L/14, the 144-query
+    perceiver, LLaMA-2-7B's widths with the decoder cut to CKPT_CUT_LAYERS
+    layers; int8 base, live LoRA at r 128): a synthetic stage-2 corpus
+    under build/, then `main_pretrain_stage2_torch.main` four times over
+    `Config/multi_modal_stage2.yaml` with phase 7's seeded artifacts at
+    that depth (`paths`: model_path, vit_path, llama_path), batch
+    8, a checkpoint every 2 iterations: (A) 4 workers, 4 iterations (the
+    path whose launches are counted); (B) 1 worker, killed before iteration
+    2 after its checkpoint; (C) a fresh run of B's config with
+    --auto-resume to iteration 4; (D) 1 worker, uninterrupted. C's losses,
+    adapters, perceiver and optimizer state equal D's bit for bit. Prints
+    data time against step time, each checkpoint write's and the resume's
+    bytes and seconds, the JPEG decoder, peak device memory and the card.
+    The corpus and the runs' outputs are deleted at the end."""
+    import shutil
+
+    import torch
+
+    import main_pretrain_stage2_torch as stage2
+    from lhrs_bot_tpu_torch.core import checkpoint as ckpt_lib
+    from lhrs_bot_tpu_torch.core.config import load_yaml_config
+    from lhrs_bot_tpu_torch.data import native
+    from lhrs_bot_tpu_torch.train import HookBase
+
+    t_phase = time.time()
+    out = {"layers": CKPT_CUT_LAYERS}
+    base = os.path.join(root, "disk")
+    corpus = os.path.join(base, "corpus")
+    try:
+        decoder = native.jpeg_decoder()
+        use_jpeg = decoder == "native"
+        if not use_jpeg:
+            try:
+                lines = native.build_log_path().read_text().splitlines()
+            except OSError:
+                lines = []
+            reason = next((ln for ln in lines if "error" in ln),
+                          lines[-1] if lines else "no log")
+            log(f"  the native JPEG library did not build here ({reason}; "
+                f"{native.build_log_path()}): the corpus is PNG only (JPEG "
+                f"decoder here: {decoder})")
+        t0 = time.time()
+        nbytes, counts = write_disk_corpus(
+            corpus, np.random.default_rng(41), use_jpeg)
+        out["corpus"] = {"bytes": nbytes, "counts": counts,
+                         "jpeg_decoder": decoder if use_jpeg else None,
+                         "seconds": time.time() - t0}
+        log(f"  corpus: {sum(counts.values())} images ({counts}), "
+            f"{nbytes / 1e6:.1f} MB, 256-800 px a side, in "
+            f"{out['corpus']['seconds']:.1f} s; JPEGs read by "
+            f"{decoder if use_jpeg else 'none (PNG only)'}")
+
+        def config(name, workers, **kw):
+            c = load_yaml_config("Config/multi_modal_stage2.yaml")
+            c["rgb_vision"]["vit_name"] = paths["vit_path"]
+            c["text"]["path"] = paths["llama_path"]
+            c["text"]["num_hidden_layers"] = CKPT_CUT_LAYERS
+            c.update({"model_path": paths["model_path"],
+                      "data_path": corpus, "batch_size": DISK_BATCH,
+                      "workers": workers, "output": os.path.join(base, name),
+                      "seed": 322, "auto_resume": False,
+                      "use_checkpoint": False, "dp": None, "tp": None,
+                      "device": "cuda", "ckpt_period": DISK_CKPT_PERIOD,
+                      **kw})
+            return c
+
+        saves, loads = [], []
+        save_ckpt, load_ckpt = ckpt_lib.save_checkpoint, ckpt_lib.load_checkpoint
+
+        def timed_save(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            path = save_ckpt(*a, **kw)
+            saves.append({"step": a[1], "seconds": time.perf_counter() - t,
+                          "bytes": dir_bytes(path)})
+            return path
+
+        def timed_load(path):
+            t = time.perf_counter()
+            got = load_ckpt(path)
+            loads.append({"path": os.path.basename(path),
+                          "bytes": dir_bytes(path),
+                          "seconds": time.perf_counter() - t})
+            return got
+
+        wrappers = kernel_wrappers()
+
+        def run(name, cfg, stop_at=None):
+            probe = DiskProbe(HookBase, stop_at)
+            n_saves = len(saves)
+            t = time.time()
+            trainer = None
+            with patched(ckpt_lib, save_checkpoint=timed_save,
+                         load_checkpoint=timed_load):
+                try:
+                    trainer = stage2.main(cfg, hooks=[probe.hook])
+                except DiskInterrupt:
+                    pass
+            seconds = time.time() - t
+            rec = {"seconds": seconds, "step_ms": probe.ms,
+                   "saves": saves[n_saves:]}
+            if trainer is not None:
+                ms_ = trainer.metric_storage
+                rec["data_ms"] = [v * 1e3 for v in ms_["data_time"].values]
+                rec["loss"] = list(ms_["total_loss"].values)
+                rec["start_iter"] = trainer.start_iter
+            log(f"  ({name}) {seconds:.1f} s, iterations "
+                f"{rec.get('start_iter', 0)}..{len(probe.ms) + rec.get('start_iter', 0)}"
+                f"; step ms {[round(v, 1) for v in probe.ms]}; data ms "
+                f"{[round(v, 1) for v in rec.get('data_ms', [])]}; losses "
+                f"{rec.get('loss')}; checkpoint writes "
+                + ", ".join(f"step {s['step']}: {s['bytes'] / 1e9:.3f} GB in "
+                            f"{s['seconds']:.2f} s" for s in rec["saves"]))
+            return trainer, rec
+
+        torch.cuda.reset_peak_memory_stats()
+        set_launches(wrappers, 0)
+        trainer, out["A"] = run("A: 4 workers", config("A", 4))
+        launches = read_launches(wrappers)
+        out["launches"] = launches
+        log(f"  (A) launches {launches}")
+        if any(not launches.get(k) for k in TRAIN_KERNELS):
+            raise AssertionError(f"run A launched {launches}")
+        if not all(np.isfinite(out["A"]["loss"])) or len(out["A"]["loss"]) != 4:
+            raise AssertionError(f"run A losses {out['A']['loss']}")
+        kept = sorted(os.listdir(os.path.join(base, "A", "checkpoints")))
+        if kept != ["checkpoint_4", "latest.txt"]:
+            raise AssertionError(f"run A kept {kept}")
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        _, out["B"] = run("B: 1 worker, killed before iteration "
+                          f"{DISK_INTERRUPT}", config("B", 1),
+                          stop_at=DISK_INTERRUPT)
+        kept = sorted(os.listdir(os.path.join(base, "B", "checkpoints")))
+        if kept != [f"checkpoint_{DISK_INTERRUPT}", "latest.txt"]:
+            raise AssertionError(f"run B kept {kept}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        n_loads = len(loads)
+        resumed, out["C"] = run("C: B resumed", config("B", 1,
+                                                       auto_resume=True))
+        out["C"]["load"] = loads[n_loads:]
+        if resumed.start_iter != DISK_INTERRUPT or len(loads) != n_loads + 1:
+            raise AssertionError(f"run C started at {resumed.start_iter}")
+        got = {"lora": resumed.params["lora"],
+               "pooler": resumed.params["pooler"]}
+        got = {k: [t.detach().clone() for t in _leaves(v)]
+               for k, v in got.items()}
+        got_opt = resumed.optimizer.state_dict()
+        got_opt = {k: [t.detach().clone() for t in v]
+                   for k, v in got_opt["slots"].items()}
+        got_count = resumed.optimizer.count
+        del resumed
+        gc.collect()
+        torch.cuda.empty_cache()
+        full, out["D"] = run("D: 1 worker, uninterrupted", config("D", 1))
+        want = {k: list(_leaves(full.params[k])) for k in ("lora", "pooler")}
+        want_opt = full.optimizer.state_dict()["slots"]
+        mismatch = {}
+        for k in got:
+            bad = [i for i, (g, w) in enumerate(zip(got[k], want[k]))
+                   if not torch.equal(g, w)]
+            if bad:
+                mismatch[k] = {"leaves": len(bad), "max_abs": max(
+                    float((got[k][i] - want[k][i]).abs().max())
+                    for i in bad)}
+        for k in want_opt:
+            bad = [i for i, (g, w) in enumerate(zip(got_opt[k], want_opt[k]))
+                   if not torch.equal(g, w)]
+            if bad:
+                mismatch["opt/" + k] = {"leaves": len(bad)}
+        loss_c = out["C"]["loss"]
+        loss_d = out["D"]["loss"][DISK_INTERRUPT:]
+        if loss_c != loss_d:
+            mismatch["loss"] = {"resumed": loss_c, "uninterrupted": loss_d}
+        if got_count != full.optimizer.count:
+            mismatch["count"] = (got_count, full.optimizer.count)
+        del full
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["resume_mismatch"] = mismatch
+        log(f"  resumed (C) against uninterrupted (D) at iteration 4: "
+            f"losses {loss_c} vs {loss_d}; adapters, perceiver and "
+            f"optimizer state {'bit for bit' if not mismatch else mismatch}")
+        if mismatch:
+            raise AssertionError(f"the resumed run differs: {mismatch}")
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        data = out["A"]["data_ms"]
+        step = out["A"]["step_ms"]
+        log(f"  (A) data ms against step ms per iteration: "
+            + ", ".join(f"{d:.1f} / {s:.1f}" for d, s in zip(data, step))
+            + f"; checkpoint writes (all runs): "
+            + ", ".join(f"{s['bytes'] / 1e9:.3f} GB in {s['seconds']:.2f} s"
+                        for s in saves)
+            + f"; resume load: {loads[-1]['bytes'] / 1e9:.3f} GB in "
+            f"{loads[-1]['seconds']:.2f} s; peak device memory "
+            f"{out['peak_gib']:.2f} GiB; {smi_line()}")
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    out["seconds"] = time.time() - t_phase
+    log(f"  train_from_disk in {out['seconds']:.1f} s")
     return out
 
 
@@ -5918,8 +6282,12 @@ def main():
     log("[6/7 the bench path]")
     bench = phase("bench", phase_bench, dev)
 
-    log("[7/7 checkpoints at full width: load, serve, stage 2 -> 3 -> eval]")
-    ckpt = phase("checkpoint", phase_checkpoint, dev)
+    log("[7/7 checkpoints at full width: load, serve, stage 2 -> 3 -> eval, "
+        "then training from data on disk]")
+    ckpt = phase("checkpoint", phase_checkpoint, dev,
+                 lambda paths, root: phase(
+                     "train_from_disk", phase_train_from_disk, dev, paths,
+                     root))
 
     def row(name, source, replaces, launches, k):
         return {"name": name, "route": "cuda",

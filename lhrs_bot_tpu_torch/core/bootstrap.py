@@ -34,6 +34,22 @@ def add_common_args(parser: ConfigArgumentParser) -> None:
                         help="tensor-parallel size (above 1 not ported)")
 
 
+def add_train_args(parser: ConfigArgumentParser) -> None:
+    """The JAX trainer's common flags that the stage entry points read,
+    and `--device`. `--dp` and `--tp` above 1 need a mesh, which is not
+    ported: the entry points raise NotImplementedError for them."""
+    parser.add_argument("--data-path", type=str, default=None)
+    parser.add_argument("--batch-size", type=int, default=8)
+    parser.add_argument("--workers", type=int, default=4)
+    parser.add_argument("--auto-resume", action="store_true")
+    parser.add_argument("--use-checkpoint", action="store_true",
+                        help="gradient (re)materialization")
+    parser.add_argument("--dp", type=int, default=None,
+                        help="data-parallel mesh size (not ported)")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="cuda (the default) or cpu")
+
+
 def parse_config(description: str, extra=None, args=None) -> ConfigDict:
     """The YAML named by -c merged with the CLI flags (the common ones and
     those `extra(parser)` adds), with rank, world_size and
@@ -172,7 +188,8 @@ def build_engine(cfg, params, config, device) -> GenerationEngine:
 
 def build_trainer(config, params, loader, device="cuda", *,
                   compute_dtype: torch.dtype = torch.bfloat16,
-                  work_dir: str = "output", log_period: int = 50):
+                  work_dir: str = "output", log_period: int = 50,
+                  max_to_keep: int = 1, hooks=None):
     """The trainer of `config` (a nested dict with the schema of
     `Config/*.yaml`, e.g. from `core.config.load_yaml_config`) over
     `params` (the JAX parameter pytree as numpy, or tensors) and `loader`
@@ -184,9 +201,11 @@ def build_trainer(config, params, loader, device="cuda", *,
     `build_model` stays frozen in its codes), and an epoch-based trainer
     over `epochs` x len(loader) iterations (stages 1 and 2) or an
     iteration-based one over `epochs` iterations (stage 3, whose recipe
-    treats epochs as iterations). `use_checkpoint` turns on remat. The
-    trainer's parameters are `trainer.params`. Checkpoints are not ported:
-    a config that sets `ckpt_period` raises NotImplementedError."""
+    treats epochs as iterations). `use_checkpoint` turns on remat;
+    `ckpt_period` (where the config sets it) adds the CheckpointHook,
+    which keeps `max_to_keep` checkpoints under work_dir/checkpoints;
+    `hooks` run before the default ones. The trainer's parameters are
+    `trainer.params`."""
     from ..models.vlm import VLMConfig, trainable_mask
     from ..train import (EpochBasedTrainer, IterBasedTrainer,
                          build_optimizer, build_schedule)
@@ -197,7 +216,8 @@ def build_trainer(config, params, loader, device="cuda", *,
     common = dict(work_dir=work_dir, compute_dtype=compute_dtype,
                   remat=bool(config.get("use_checkpoint", False)),
                   log_period=log_period,
-                  ckpt_period=config.get("ckpt_period"))
+                  ckpt_period=config.get("ckpt_period"),
+                  max_to_keep=max_to_keep, hooks=list(hooks or []))
     if int(config["stage"]) == 3:
         max_iters = int(config["epochs"])
         schedule = build_schedule(config, max_iters)
@@ -212,3 +232,40 @@ def build_trainer(config, params, loader, device="cuda", *,
                                 schedule)
     return EpochBasedTrainer(cfg, params, optimizer, loader, epochs=epochs,
                              schedule=schedule, **common)
+
+
+def train_stage(config, default_ckpt_period: int, hooks=None):
+    """What `main_pretrain_stage{1,2,3}.py` run, on `config` (the YAML
+    merged with `add_common_args` / `add_train_args` flags): the model and
+    tokenizer on `config.device`, `data.build_loader.build_loader`,
+    `build_trainer` (checkpoints every `ckpt_period` iterations, the
+    config's or `default_ckpt_period`, one kept, under `config.output`),
+    `train(resume=auto_resume)` and `save_final` into `config.output`;
+    `hooks` go to the trainer before its default ones. Returns the
+    trainer. `--dp`, or `--tp` above 1, needs a mesh, which is
+    not ported: NotImplementedError."""
+    from ..data.build_loader import build_loader
+    from .model_io import save_final
+
+    if config.get("dp") or int(config.get("tp") or 1) > 1:
+        raise NotImplementedError("--dp / --tp > 1: data- and tensor-"
+                                  "parallel training need a mesh, not "
+                                  "ported to lhrs_bot_tpu_torch yet")
+    device = resolve_device(config.get("device") or "cuda")
+    config.setdefault("rank", 0)
+    config.setdefault("world_size", 1)
+    logger = setup(config)
+    if config.get("ckpt_period") is None:
+        config["ckpt_period"] = default_ckpt_period
+    cfg, params, tokenizer = build_model_and_tokenizer(config, device)
+    loader = build_loader(config, tokenizer, mode="pretrain",
+                          rank=config.rank, world_size=config.world_size)
+    trainer = build_trainer(config, params, loader, device,
+                            work_dir=config.output, log_period=50,
+                            max_to_keep=1, hooks=hooks)
+    del params
+    trainer.train(resume=bool(config.get("auto_resume")))
+    if config.rank == 0:
+        save_final(config.output, trainer.params, cfg)
+        logger.info("stage-%d training complete", int(config.stage))
+    return trainer

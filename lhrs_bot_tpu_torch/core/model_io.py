@@ -222,7 +222,12 @@ def _merge_into(layers: Dict, lora: Dict, lcfg: LoraConfig) -> None:
 def save_final(output_dir: str, params: Dict, cfg: VLMConfig) -> str:
     """FINAL.pt (+ TextLoRA/ when params holds "lora" and cfg.lora is
     set) in `output_dir`, from numpy leaves or tensors (on any device);
-    returns FINAL.pt's path."""
+    returns FINAL.pt's path. A trainer's frozen leaves are written as they
+    were loaded (`core.convert.as_loaded`), not as their compute-dtype
+    copies."""
+    from .convert import as_loaded
+
+    params = as_loaded(params)
     os.makedirs(output_dir, exist_ok=True)
     path = os.path.join(output_dir, "FINAL.pt")
     ti.export_final_pt(path, params, cfg.vit, cfg.pooler)

@@ -101,13 +101,22 @@ class ByteTokenizer:
         return [self.decode(ids, skip_special_tokens) for ids in batch]
 
 
+# the files a directory holding a tokenizer has (SentencePiece, HF fast)
+TOKENIZER_FILES = ("tokenizer.model", "tokenizer.json",
+                   "tokenizer_config.json", "spiece.model")
+
+
 def load_tokenizer(path, model_max_length: int = 2048,
                    padding_side: str = "right",
                    allow_fallback: bool = True) -> ByteTokenizer:
-    """The byte tokenizer for a `path` that is empty or does not exist
-    (FileNotFoundError when `allow_fallback` is False); NotImplementedError
-    for a path that exists (the SentencePiece reader is not ported)."""
-    if path and (os.path.isdir(path) or os.path.isfile(path)):
+    """The byte tokenizer for a `path` that is empty, does not exist, or is
+    a directory holding no tokenizer file (a weights-only export, which
+    the JAX loader also answers with this tokenizer) (FileNotFoundError
+    when `allow_fallback` is False); NotImplementedError for a tokenizer
+    file or a directory holding one (the SentencePiece reader is not
+    ported)."""
+    if path and (os.path.isfile(path) or (os.path.isdir(path) and any(
+            os.path.exists(os.path.join(path, f)) for f in TOKENIZER_FILES))):
         raise NotImplementedError(
             f"tokenizer at {path!r}: reading a SentencePiece tokenizer.model "
             "is not ported to lhrs_bot_tpu_torch yet (point text.path at a "
@@ -115,9 +124,10 @@ def load_tokenizer(path, model_max_length: int = 2048,
     if not allow_fallback:
         raise FileNotFoundError(path)
     logger.warning(
-        "tokenizer path %r not found locally — using the byte-level "
-        "fallback tokenizer (smoke runs only; point text.path at a real "
-        "LLaMA tokenizer for trained checkpoints)", path)
+        "no tokenizer at %r (missing, or a directory without tokenizer "
+        "files) — using the byte-level fallback tokenizer (smoke runs only; "
+        "point text.path at a real LLaMA tokenizer for trained "
+        "checkpoints)", path)
     tok = ByteTokenizer(model_max_length=model_max_length)
     tok.padding_side = padding_side
     return tok

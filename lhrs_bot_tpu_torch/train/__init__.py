@@ -1,7 +1,8 @@
 """Training: schedules, optimizers, metrics, hooks and the trainer
 (counterpart of `lhrs_bot_tpu/train`)."""
 
-from .hooks import HookBase, LoggerHook, LRSchedulerHook  # noqa: F401
+from .hooks import (CheckpointHook, EpochSeedHook, EvalHook,  # noqa: F401
+                    HookBase, LoggerHook, LRSchedulerHook)
 from .metric import HistoryBuffer, MetricStorage  # noqa: F401
 from .optimizer import (TrainOptimizer, build_optimizer,  # noqa: F401
                         global_norm, weight_decay_mask)

@@ -29,6 +29,11 @@ import torch
 
 LR = Union[float, Callable[[int], float]]
 
+# the names of each optimizer's state slots, in `TrainOptimizer.state` order
+SLOTS = {"adan": ("m", "v", "n", "prev_grad"),
+         "adanp": ("m", "v", "n", "prev_grad"),
+         "adamw": ("mu", "nu"), "sgd": ("trace",)}
+
 
 def weight_decay_mask(params):
     """Nested dict of bools like `params`: True (decay) for tensors with
@@ -95,10 +100,43 @@ class TrainOptimizer:
         self.count = 0  # inner steps taken
         self.mini_step = 0
         zeros = lambda: [torch.zeros_like(p) for p in params]  # noqa: E731
-        n_state = {"adan": 4, "adanp": 4, "adamw": 2, "sgd": 1}
-        # adan: m, v, n, previous grad; adamw: mu, nu; sgd: trace
-        self.state = [zeros() for _ in range(n_state[name])]
+        self.state = [zeros() for _ in SLOTS[name]]
         self.acc = zeros() if accumulation_steps > 1 else None
+
+    def state_dict(self) -> dict:
+        """The optimizer's state in the port's checkpoint layout (the
+        `opt_state` of `core.checkpoint`): {"name", "count" (inner steps
+        taken), "mini_step" (micro-steps into the accumulation), "paths"
+        (the trained leaves' "/"-joined paths, in order), "slots": {slot
+        name: [one tensor a path]}, "acc": [the running mean of the
+        micro-steps' gradients] or None}. Slots: adan / adanp "m", "v",
+        "n", "prev_grad"; adamw "mu", "nu"; sgd "trace". The tensors are
+        the optimizer's own; `core.checkpoint.to_host` copies them."""
+        return {"name": self.name, "count": self.count,
+                "mini_step": self.mini_step,
+                "paths": ["/".join(p) for p in self.paths or []],
+                "slots": dict(zip(SLOTS[self.name], self.state)),
+                "acc": self.acc}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore `state_dict()`'s output (tensors or numpy arrays); the
+        optimizer name and the trained paths must match."""
+        paths = ["/".join(p) for p in self.paths or []]
+        if state["name"] != self.name or list(state["paths"]) != paths:
+            raise ValueError(
+                f"optimizer state of {state['name']!r} over "
+                f"{len(state['paths'])} leaves does not fit {self.name!r} "
+                f"over {len(paths)}")
+
+        def own(values):
+            return [torch.as_tensor(v).to(p.device, p.dtype, copy=True)
+                    for v, p in zip(values, self.params)]
+
+        self.state = [own(state["slots"][k]) for k in SLOTS[self.name]]
+        self.acc = own(state["acc"]) if state.get("acc") is not None \
+            else self.acc
+        self.count = int(state["count"])
+        self.mini_step = int(state["mini_step"])
 
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor]) -> None:

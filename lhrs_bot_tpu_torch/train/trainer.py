@@ -2,18 +2,24 @@
 
 Counterpart of `lhrs_bot_tpu/train/trainer.py`: `make_train_step` (loss,
 backward, the gradient norm, the optimizer update) and `Trainer` with its
-epoch- and iteration-based forms, the eight hook phases and the metrics
+epoch- and iteration-based forms, the eight hook phases, the metrics
 fetched one step late (step N is queued on the card before step N-1's
 metrics are read, so the host's read of a few floats overlaps the card's
-work instead of waiting for it).
+work instead of waiting for it), checkpoints (`save`, `CheckpointHook`
+every `ckpt_period` iterations, `core/checkpoint.py`'s layout) and
+`resume`.
 
 Differences from the JAX trainer: the step runs eagerly on one device and
 updates the trainable tensors in place; gradients are taken with
 `torch.autograd.grad` with respect to the trainable tensors only, so the
 frozen weights never get a gradient (nor a `.grad`) and the decoder's
-backward computes only what flows to the perceiver. Checkpoints and resume
-(`ckpt_period`, `resume`) need `core/checkpoint.py` and meshes need the
-parallel layer: neither is ported yet, and both raise.
+backward computes only what flows to the perceiver. A checkpoint's
+`cur_iter` counts the iterations done, also when a hook saves inside an
+iteration (JAX records the index of the iteration being run there, so its
+resume repeats that iteration; the reference resumes after it). The resumed
+data iterator is made after the first `before_epoch` hooks have run, so an
+`EpochSeedHook` has set the sampler's epoch when the skipped batches are
+drawn. Meshes need the parallel layer, which is not ported, and raise.
 """
 
 from __future__ import annotations
@@ -26,8 +32,11 @@ from typing import Callable, Dict, Iterable, List, Optional
 import numpy as np
 import torch
 
+from ..core import checkpoint as ckpt_lib
+from ..core.convert import _remember_source, as_loaded
 from ..models.vlm import VLMConfig, vlm_forward_loss
-from .hooks import HookBase, LoggerHook, LRSchedulerHook
+from ..ops.quant import QuantizedTensor
+from .hooks import CheckpointHook, HookBase, LoggerHook, LRSchedulerHook
 from .metric import MetricStorage
 from .optimizer import TrainOptimizer, global_norm
 
@@ -78,6 +87,7 @@ class Trainer:
         remat: bool = False,
         log_period: int = 50,
         ckpt_period: Optional[int] = None,
+        max_to_keep: int = 1,
         schedule: Optional[Callable[[int], float]] = None,
         use_tensorboard: bool = False,
         hooks: Optional[List[HookBase]] = None,
@@ -86,10 +96,6 @@ class Trainer:
             raise NotImplementedError("meshes (data / tensor parallelism) "
                                       "are not ported to lhrs_bot_tpu_torch "
                                       "yet")
-        if ckpt_period:
-            raise NotImplementedError("checkpoints (ckpt_period) need "
-                                      "core/checkpoint.py, not ported to "
-                                      "lhrs_bot_tpu_torch yet")
         self.model_cfg = model_cfg
         self.params = params
         self.optimizer = optimizer
@@ -115,6 +121,8 @@ class Trainer:
         self.start_iter = 0
         self.metric_storage = MetricStorage()
         self._pending_metrics = None
+        self._in_iter = False  # between an iteration's step and cur_iter += 1
+        self._skip = None  # batches to skip at the first epoch after resume
         self._step_fn = make_train_step(model_cfg, optimizer, compute_dtype,
                                         remat)
 
@@ -125,6 +133,8 @@ class Trainer:
         default_hooks.append(LoggerHook(
             log_period, tb_log_dir=os.path.join(work_dir, "tb"),
             use_tensorboard=use_tensorboard))
+        if ckpt_period:
+            default_hooks.append(CheckpointHook(ckpt_period, max_to_keep))
         for h in (hooks or []) + default_hooks:
             self.register_hook(h)
 
@@ -192,25 +202,138 @@ class Trainer:
 
     def train(self, resume: bool = False) -> None:
         if resume:
-            raise NotImplementedError("resume needs core/checkpoint.py, not "
-                                      "ported to lhrs_bot_tpu_torch yet")
+            self.resume()
         logger.info("start training: iters %d->%d", self.cur_iter,
                     self.max_iters)
-        self._dispatch("before_train")
-        epoch = -1
-        while self.cur_iter < self.max_iters:
-            if self.cur_epoch != epoch:
-                if epoch >= 0:
-                    self._dispatch("after_epoch")
-                epoch = self.cur_epoch
-                self._dispatch("before_epoch")
-            self._dispatch("before_iter")
-            self.train_on_iter()
-            self._dispatch("after_iter")
-            self.cur_iter += 1
-        self._flush_metrics()
-        self._dispatch("after_epoch")
-        self._dispatch("after_train")
+        try:
+            self._dispatch("before_train")
+            epoch = -1
+            while self.cur_iter < self.max_iters:
+                if self.cur_epoch != epoch:
+                    if epoch >= 0:
+                        self._dispatch("after_epoch")
+                    epoch = self.cur_epoch
+                    self._dispatch("before_epoch")
+                    if self._skip is not None:
+                        self._fast_forward()
+                self._dispatch("before_iter")
+                self.train_on_iter()
+                self._in_iter = True
+                self._dispatch("after_iter")
+                self._in_iter = False
+                self.cur_iter += 1
+            self._flush_metrics()
+            self._dispatch("after_epoch")
+            self._dispatch("after_train")
+        except BaseException:
+            # stop the loader's workers before the error leaves
+            close = getattr(self._data_iter, "close", None)
+            if close is not None:
+                close()
+            raise
+        finally:
+            self._in_iter = False
+
+    # -- checkpoint ---------------------------------------------------------
+
+    def save(self, tag: Optional[str] = None,
+             max_to_keep: Optional[int] = None) -> str:
+        """checkpoint_<iterations done>/ under work_dir/checkpoints (or
+        checkpoints_<tag>): the parameters as loaded or trained
+        (`core.convert.as_loaded`), the optimizer state and the client
+        state (cur_iter, world_size, mesh_shape, metric_storage, the
+        checkpointable hooks' states). Returns its path."""
+        self._flush_metrics()  # the checkpointed metrics must be current
+        done = self.cur_iter + int(self._in_iter)
+        dist = torch.distributed
+        up = dist.is_available() and dist.is_initialized()
+        client_state = {
+            "cur_iter": done,
+            "world_size": dist.get_world_size() if up else 1,
+            "mesh_shape": None,
+            "metric_storage": self.metric_storage.state_dict(),
+            "hooks": {h.class_name: h.state_dict()
+                      for h in self._hooks if h.checkpointable},
+        }
+        sub = "checkpoints" if tag is None else f"checkpoints_{tag}"
+        return ckpt_lib.save_checkpoint(
+            os.path.join(self.work_dir, sub), done, as_loaded(self.params),
+            self.optimizer.state_dict(), client_state,
+            max_to_keep=max_to_keep)
+
+    def resume(self, path: Optional[str] = None) -> bool:
+        """Load `path` (default: the latest checkpoint under
+        work_dir/checkpoints): parameters, optimizer state, cur_iter, the
+        metric storage and the hooks' states; the first epoch then skips
+        cur_iter % len(loader) batches. False when there is none."""
+        path = path or ckpt_lib.latest_checkpoint(
+            os.path.join(self.work_dir, "checkpoints"))
+        if path is None:
+            logger.info("no checkpoint found; training from scratch")
+            return False
+        restored = ckpt_lib.load_checkpoint(path)
+        self.params = _restore(self.params, restored["params"], "")
+        if restored.get("opt_state") is not None:
+            self.optimizer.load_state_dict(restored["opt_state"])
+        cs = restored.get("client_state", {})
+        saved_ws = cs.get("world_size")
+        if saved_ws not in (None, 1):
+            logger.warning("resuming in one process from a checkpoint "
+                           "written by %d: data-order reproducibility is "
+                           "not preserved", saved_ws)
+        self.cur_iter = cs.get("cur_iter", restored["step"])
+        self.start_iter = self.cur_iter
+        self.metric_storage.load_state_dict(cs.get("metric_storage", {}))
+        for h in self._hooks:
+            if h.checkpointable and h.class_name in cs.get("hooks", {}):
+                h.load_state_dict(cs["hooks"][h.class_name])
+        self._skip = (self.cur_iter % max(len(self.data_loader), 1)
+                      if hasattr(self.data_loader, "__len__") else 0)
+        logger.info("resumed from %s at iter %d", path, self.cur_iter)
+        return True
+
+    def _fast_forward(self) -> None:
+        """A fresh data iterator (drawn after the epoch's hooks), advanced
+        past the batches the checkpointed run had taken this epoch."""
+        skip, self._skip = self._skip, None
+        close = getattr(self._data_iter, "close", None)
+        if close is not None:
+            close()
+        self._data_iter = iter(self.data_loader)
+        for _ in range(skip):
+            try:
+                next(self._data_iter)
+            except StopIteration:
+                self._data_iter = iter(self.data_loader)
+
+
+def _restore(have, saved, path):
+    """The trainer's parameter tree `have` with the checkpoint's values:
+    trainable masters (and quantized codes) overwritten in place, since the
+    optimizer holds them; each frozen float leaf replaced by the saved leaf
+    cast as before, which becomes its source (`core.convert.source_of`)."""
+    if isinstance(have, dict):
+        if not isinstance(saved, dict) or set(saved) != set(have):
+            raise ValueError(f"checkpoint params at {path or '/'}: keys "
+                             f"{sorted(saved)} differ from {sorted(have)}")
+        return {k: _restore(v, saved[k], f"{path}/{k}")
+                for k, v in have.items()}
+    with torch.no_grad():
+        if isinstance(have, QuantizedTensor):
+            have.q.copy_(torch.as_tensor(saved["q"]))
+            have.scale.copy_(torch.as_tensor(saved["scale"]))
+            return have
+        arr = torch.as_tensor(np.asarray(saved))
+        if tuple(arr.shape) != tuple(have.shape):
+            raise ValueError(f"checkpoint params at {path}: shape "
+                             f"{tuple(arr.shape)} differs from "
+                             f"{tuple(have.shape)}")
+        if have.requires_grad or not have.is_floating_point():
+            have.copy_(arr)
+            return have
+        out = arr.to(device=have.device, dtype=have.dtype, copy=True)
+        _remember_source(out, saved)
+        return out
 
 
 class EpochBasedTrainer(Trainer):

@@ -566,11 +566,7 @@ def test_unported_paths_raise(vlm_setup):
                           t_vlm.trainable_mask(params, tcfg))
     loader = [_supervised_batch(40)]
     with pytest.raises(NotImplementedError):
-        Trainer(tcfg, params, opt, loader, max_iters=1, ckpt_period=1)
-    with pytest.raises(NotImplementedError):
         Trainer(tcfg, params, opt, loader, max_iters=1, mesh=object())
-    with pytest.raises(NotImplementedError):
-        Trainer(tcfg, params, opt, loader, max_iters=1).train(resume=True)
     with pytest.raises(NotImplementedError):
         t_vlm.vlm_forward_loss(params, tcfg, loader[0], cp_mesh=object())
     with pytest.raises(NotImplementedError):
