@@ -153,8 +153,10 @@ Phases, one or more lines each:
      fall) and save_final; stage 3 (`multi_modal_stage3.yaml`) from that
      output, the adapters bit for bit, two steps, save_final; and the eval
      load of stage 3's output (adapters merged) served bit for bit against
-     the plainly merged tree; each part's seconds; then, over the same
-     artifacts, training from data on disk (`phase_train_from_disk`): a
+     the plainly merged tree, and `make_cls_eval_fn` over that tree (16
+     PNG images, B = 8: images/s, K1 and K2 launched); each part's
+     seconds; then, over the same artifacts, training from data on disk
+     (`phase_train_from_disk`): a
      32-image PNG corpus written under build/ (JPEGs too where the native
      library builds), `main_pretrain_stage2_torch.main` at full width with
      the decoder cut to 4 layers, checkpoints every 2 iterations: 4
@@ -162,7 +164,20 @@ Phases, one or more lines each:
      worker uninterrupted; the resumed run's losses, adapters, perceiver
      and optimizer state equal the uninterrupted one's bit for bit; data
      against step time, each checkpoint write's and the resume's bytes
-     and seconds, peak memory, the launches of the 4-worker run.
+     and seconds, peak memory, the launches of the 4-worker run; and the
+     eval entry points (`phase_eval`): five PNG corpora (cls, RSVQA-LR,
+     grounding, LHRS-Bench, captions) and each `main_*_torch.main` at
+     full width with the decoder cut to 4 layers, bf16, B = 8, batched,
+     with --scheduled-eval and with every kernel patched to its plain
+     version, each keeping its logits, and the cls entry again under
+     W4A8 + int8 KV + int8 lm_head: K1 and K2 (K3, K4 and A) launched on
+     the kernel runs and none on the plain ones, the batched and the
+     scheduled run's ids held to the plain run's (where they part, the
+     plain run's top-2 margin within the measured deviation, every
+     position up to there within 0.15 relative L2), a planted fault (K2's
+     K and V swapped) that must fail batched and scheduled, images/s of
+     each protocol over three timed runs a mode (median and range), and
+     whether PIL and cv2 import.
 Then a JSON line with per-kernel numbers, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}. Every line is also written to
 chiprun_out/chip_smoke.log. Any failure raises: the script
@@ -170,6 +185,10 @@ exits non-zero and prints no result, and the failing phase's traceback is
 kept in chiprun_out/chip_smoke_<phase>.err (a crash of the interpreter
 leaves its stacks in chiprun_out/chip_smoke_crash.txt). It needs no network
 and imports nothing of JAX.
+
+`python3 chip_smoke.py --eval-only` builds the kernels and runs phase 7's
+eval part alone (the artifacts at 4 decoder layers, `phase_eval`, the cls
+protocol over them): a short check of the eval path, not the full run.
 """
 
 import base64
@@ -217,21 +236,23 @@ CONSISTENCY_REL_L2 = 0.15
 CONSISTENCY_REL_L2_W4A8 = 0.6
 
 
+def plain_flash(q, k, v, kv_mask=None, *, causal=False, sm_scale=None):
+    """`flash_attention` through its plain version, on CUDA tensors too."""
+    from lhrs_bot_tpu_torch.ops.attention import mha_reference
+
+    return mha_reference(q, k, v, kv_mask, causal=causal, sm_scale=sm_scale)
+
+
 @contextlib.contextmanager
 def plain_attention():
     """Route the decoder's two attention entry points to their plain
     versions, on CUDA tensors too, for as long as the block runs."""
     import lhrs_bot_tpu_torch.models.llama as llama
-    from lhrs_bot_tpu_torch.ops.attention import mha_reference
     from lhrs_bot_tpu_torch.ops.fused_decode import \
         fused_decode_attention_plain
 
-    def flash(q, k, v, kv_mask=None, *, causal=False, sm_scale=None):
-        return mha_reference(q, k, v, kv_mask, causal=causal,
-                             sm_scale=sm_scale)
-
     saved = llama.flash_attention, llama.fused_decode_attention
-    llama.flash_attention = flash
+    llama.flash_attention = plain_flash
     llama.fused_decode_attention = fused_decode_attention_plain
     try:
         yield
@@ -5786,7 +5807,11 @@ def phase_checkpoint(dev, then=None):
         out["eval"] = check_engines(
             "eval bf16 engine", cfg0, evalp, plain, config0, {}, dev,
             wrappers, ("flash_attention_fwd", "fused_decode_attention"))
-        del evalp, plain
+        del plain
+        gc.collect()
+        out["eval"]["cls_protocol"] = cls_protocol(cfg0, evalp, config0, dev,
+                                                   root, wrappers)
+        del evalp
         gc.collect()
         out["seconds"]["f_eval"] = time.time() - t0
         if then is not None:
@@ -5795,6 +5820,65 @@ def phase_checkpoint(dev, then=None):
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log(f"  seconds per part: {out['seconds']}")
+    return out
+
+
+def cls_protocol(cfg, params, config, dev, root, wrappers, n=16):
+    """`eval.make_cls_eval_fn` (the zero-shot protocol of the training
+    hooks) over `params` (phase 7 (f)'s loaded tree, at full depth): a bf16
+    engine, an ImageFolder of n PNG scenes in 4 classes under `root`, the
+    byte tokenizer, batches of EVAL_BATCH (after one batch to warm up):
+    images/s, the accuracy, and K1 and K2 launched; the whole function's
+    seconds ("total_s": images written, engine built, warm-up, eval)."""
+    import torch
+
+    t_all = time.time()
+
+    from lhrs_bot_tpu_torch.core import build_engine
+    from lhrs_bot_tpu_torch.data.datasets import FolderClassificationDataset
+    from lhrs_bot_tpu_torch.data.tokenizer import load_tokenizer
+    from lhrs_bot_tpu_torch.eval import make_cls_eval_fn
+
+    folder = os.path.join(root, "cls_protocol")
+    rng = np.random.default_rng(44)
+    for i in range(n):
+        cls = os.path.join(folder, EVAL_CLASSES[i % len(EVAL_CLASSES)])
+        os.makedirs(cls, exist_ok=True)
+        h, w = (int(v) for v in rng.integers(224, 321, 2))
+        with open(os.path.join(cls, f"s{i}.png"), "wb") as fh:
+            fh.write(png_bytes(disk_image(rng, h, w)))
+    t0 = time.time()
+    engine = build_engine(cfg, params, config, dev)
+    build_s = time.time() - t0
+    ds = FolderClassificationDataset(folder, image_size=cfg.vit.image_size)
+    tok = load_tokenizer(None, model_max_length=2048)
+    make_cls_eval_fn(engine, tok, ds, ds.class_names, batch_size=EVAL_BATCH,
+                     max_samples=EVAL_BATCH)()  # warm-up, not kept
+    eval_fn = make_cls_eval_fn(engine, tok, ds, ds.class_names,
+                               batch_size=EVAL_BATCH)
+    set_launches(wrappers, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = eval_fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches(wrappers)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"images": len(ds), "seconds": seconds,
+           "images_s": len(ds) / seconds, "metrics": metrics,
+           "launches": launches, "engine_build_s": build_s,
+           "total_s": time.time() - t_all}
+    log(f"  (f) make_cls_eval_fn at {cfg.llama.num_hidden_layers} decoder "
+        f"layers, bf16, {len(ds)} PNG images "
+        f"in batches of {EVAL_BATCH}: {out['images_s']:.2f} images/s "
+        f"({seconds:.2f} s; the engine built in {build_s:.1f} s; "
+        f"{out['total_s']:.1f} s in all), {metrics}, launches {launches}")
+    if len(ds) != n or not 0.0 <= metrics["accuracy"] <= 1.0 or any(
+            not launches.get(k) for k in ("flash_attention_fwd",
+                                          "fused_decode_attention")):
+        raise AssertionError(f"cls protocol at full depth: {out}")
     return out
 
 
@@ -6108,6 +6192,505 @@ def phase_train_from_disk(dev, paths, root):
     return out
 
 
+# the eval phase: the five eval entry points at full width over phase 7's
+# artifacts at CKPT_CUT_LAYERS decoder layers, on PNG corpora written under
+# build/
+EVAL_BATCH = 8
+EVAL_CLASSES = ("farmland", "forest", "harbor", "residential")
+EVAL_ENTRIES = ("cls", "vqa", "vg", "bench_gen", "caption")
+# a bf16 (and W4A8) entry's logits against its plain-kernel run's, where
+# their inputs are the same: relative L2 a position (the prefill/decode
+# consistency bound; the noise of kernels against their plain versions
+# sits far below it)
+EVAL_REL_L2 = CONSISTENCY_REL_L2
+# timed runs of each entry in each mode (batched, scheduled), after its
+# held runs have warmed its shapes in both
+EVAL_REPEATS = 3
+
+
+def write_eval_corpora(root, rng):
+    """The five eval corpora, PNG scenes of 224-320 px a side (row filters
+    of all five kinds): an ImageFolder of 4 classes x 4 (cls), RSVQA-LR's
+    three JSONs over 4 images (3 questions kept an image; a count, an area
+    and an inactive one left out), an RSVG-layout grounding JSON over 8
+    images, an LHRS-Bench JSON over 4 images (10 questions), an RSICD
+    caption JSON over 8 images. Returns {entry: (data_path, data_target)}
+    and the images written."""
+    n = 0
+
+    def scene(path):
+        nonlocal n
+        h, w = (int(v) for v in rng.integers(224, 321, 2))
+        with open(path, "wb") as fh:
+            fh.write(png_bytes(disk_image(rng, h, w)))
+        n += 1
+
+    def dump(path, obj):
+        with open(path, "w") as fh:
+            json.dump(obj, fh)
+        return path
+
+    out = {}
+    cls = os.path.join(root, "cls")
+    for c in EVAL_CLASSES:
+        os.makedirs(os.path.join(cls, c))
+        for i in range(4):
+            scene(os.path.join(cls, c, f"{c}{i}.png"))
+    out["cls"] = (cls, None)
+    vqa = os.path.join(root, "vqa")
+    os.makedirs(os.path.join(vqa, "Images_LR"))
+    qs, ans = [], []
+    kinds = (("presence", "Is there a road?", "yes"),
+             ("comp", "Are there more buildings than fields?", "no"),
+             ("rural_urban", "Is it a rural or an urban area?", "rural"),
+             ("count", "How many buildings are there?", "4"),
+             ("area", "What is the area of the buildings?", "0m2"),
+             ("presence", "Is there a harbor?", "no"))
+    for img in range(4):
+        scene(os.path.join(vqa, "Images_LR", f"{img}.tif"))
+        for k, (qtype, text, answer) in enumerate(kinds):
+            qid = len(qs)
+            ans.append({"id": qid, "answer": answer})
+            qs.append({"id": qid, "img_id": img, "type": qtype,
+                       "question": text, "answers_ids": [qid],
+                       "active": k < 5})
+    for kind, data in (("questions", qs), ("answers", ans),
+                       ("images", [{"id": i} for i in range(4)])):
+        dump(os.path.join(vqa, f"LR_split_test_{kind}.json"), {kind: data})
+    out["vqa"] = (vqa, "LR")
+    vg = os.path.join(root, "vg")
+    os.makedirs(vg)
+    data = []
+    for i in range(8):
+        scene(os.path.join(vg, f"vg{i}.png"))
+        x, y = (int(v) for v in rng.integers(0, 400, 2))
+        data.append({"img": f"vg{i}.png", "question":
+                     f"the {['storage tank', 'ship', 'bridge', 'vehicle'][i % 4]}"
+                     " next to the road", "answer": [x, y, x + 80, y + 60]})
+    out["vg"] = (vg, dump(os.path.join(vg, "RSVG_test.json"), {"data": data}))
+    bench = os.path.join(root, "bench")
+    os.makedirs(bench)
+    data = []
+    for i in range(4):
+        scene(os.path.join(bench, f"b{i}.png"))
+        data.append({"filename": f"b{i}.png", "qa_pairs": [
+            {"question": f"What is the main land cover in part {k}?",
+             "choices": "A. water B. forest C. buildings D. farmland",
+             "answer": "ABCD"[(i + k) % 4] + ".", "type": [str(1 + k)]}
+            for k in range(2 + i % 2)]})
+    out["bench_gen"] = (bench, dump(os.path.join(bench, "bench.json"), {
+        "data": data, "qtype": {"1 land_cover": "", "2 color": "",
+                                "3 quantity": ""}}))
+    cap = os.path.join(root, "cap")
+    os.makedirs(cap)
+    recs = []
+    for i in range(8):
+        scene(os.path.join(cap, f"c{i}.png"))
+        recs.append({"filename": f"c{i}.png", "sentences": [
+            {"raw": f"many buildings and {['a river', 'green trees'][i % 2]}"
+                    " are near a road ."}]})
+    out["caption"] = (cap, dump(os.path.join(cap, "dataset_rsicd.json"),
+                                {"images": recs}))
+    return out, n
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Every kernel of the eval path routed to its plain version, on CUDA
+    tensors too, for as long as the block runs: the decoder's K1 and K2
+    (`plain_attention`), K1 in the ViT and the perceiver, K4 (its plain
+    decode attention), K3 (`w4a8_project` as the CPU path computes it: A's
+    plain row quantization, then `w4a8_matmul_plain`) and A
+    (`ln_quant_plain` in `quantize_activation`)."""
+    import lhrs_bot_tpu_torch.models.llama as llama
+    import lhrs_bot_tpu_torch.models.perceiver as perceiver
+    import lhrs_bot_tpu_torch.models.vit as vit
+    import lhrs_bot_tpu_torch.ops.quant as quant
+    from lhrs_bot_tpu_torch.ops.fused_decode import \
+        fused_decode_attention_q_plain
+    from lhrs_bot_tpu_torch.ops.ln_quant import ln_quant_plain
+    from lhrs_bot_tpu_torch.ops.w4_matmul import w4a8_matmul_plain
+
+    def decode_q(*args, int8_dots=None, **kw):
+        return fused_decode_attention_q_plain(*args, **kw)
+
+    def w4a8(x, qt, layer):
+        b, s, k = x.shape
+        xq, xs = ln_quant_plain(x.reshape(b * s, k))
+        return w4a8_matmul_plain(xq[:, :k // 2], xq[:, k // 2:], xs, qt.q,
+                                 qt.scale, layer, out_dtype=x.dtype
+                                 ).reshape(b, s, -1)
+
+    with plain_attention(), \
+            patched(llama, fused_decode_attention_q=decode_q,
+                    w4a8_project=w4a8), \
+            patched(vit, flash_attention=plain_flash), \
+            patched(perceiver, flash_attention=plain_flash), \
+            patched(quant, ln_quant=ln_quant_plain):
+        yield
+
+
+@contextlib.contextmanager
+def k2_kv_swapped():
+    """The planted fault of the eval phase: K2 called with the key and
+    value operands exchanged (rows and caches), in every layer: each
+    decode step scores against the values the prefill wrote and averages
+    its keys."""
+    import lhrs_bot_tpu_torch.models.llama as llama
+
+    k2 = llama.fused_decode_attention
+
+    def swapped(q, k, v, kc, vc, lengths, layer, **kw):
+        return k2(q, v, k, vc, kc, lengths, layer, **kw)
+    with patched(llama, fused_decode_attention=swapped):
+        yield
+
+
+def logit_spy(engine, calls):
+    """Keep every prefill's and decode step's logits (B, V) of `engine`
+    (float32 already: the lm_head is float32) in `calls`, one list a
+    `generate` call; `del engine._prefill, engine._decode_step` removes
+    it."""
+    prefill, step = engine._prefill, engine._decode_step
+
+    def spy_prefill(*a, **k):
+        logits, cache = prefill(*a, **k)
+        calls.append([logits])
+        return logits, cache
+
+    def spy_step(cache, tok):
+        logits, cache = step(cache, tok)
+        calls[-1].append(logits)
+        return logits, cache
+    engine._prefill, engine._decode_step = spy_prefill, spy_step
+
+
+@contextlib.contextmanager
+def scheduler_logit_spy(rows):
+    """Keep, for every request a `ContinuousBatchingScheduler` serves while
+    the block runs, the logits (V,) of each of its live positions in
+    `rows[uid]`: its slot prefill's, then those of each decode step of a
+    tick that emitted for it (the tick's live flags; a slot's steps after
+    its end are not kept)."""
+    import lhrs_bot_tpu_torch.serve.scheduler as sched_mod
+
+    cls = sched_mod.ContinuousBatchingScheduler
+    prefill, admit = sched_mod.llama_prefill, cls._admit_chunk
+    decode, tick = cls._decode, cls._tick
+    seen = {}
+
+    def spy_prefill(*a, **k):
+        logits, cache = prefill(*a, **k)
+        seen["prefill"] = logits
+        return logits, cache
+
+    def spy_admit(self, batch, slots):
+        admit(self, batch, slots)
+        for row, req in enumerate(batch):
+            rows[req.uid] = [seen["prefill"][row]]
+
+    def spy_decode(self, cache, embeds):
+        logits, cache = decode(self, cache, embeds)
+        seen["steps"].append(logits)
+        return logits, cache
+
+    def spy_tick(self, k, sample):
+        seen["steps"] = []
+        toks, live = tick(self, k, sample)
+        for i, logits in enumerate(seen["steps"]):
+            for slot in np.flatnonzero(live[i]):
+                rows[self.slot_req[slot].uid].append(logits[slot])
+        return toks, live
+
+    with patched(sched_mod, llama_prefill=spy_prefill), \
+            patched(cls, _admit_chunk=spy_admit, _decode=spy_decode,
+                    _tick=spy_tick):
+        yield
+
+
+def batched_rows(calls):
+    """`logit_spy`'s calls (one list of (B, V) a `generate` call: the
+    prefill's, then each decode step's) as one (T, V) tensor a row, in
+    item order."""
+    import torch
+
+    return [row for call in calls for row in torch.stack(call).unbind(1)]
+
+
+def hold_eval_ids(name, ids, ref_ids, ref_rows, rows, bound):
+    """An eval run's greedy ids against its plain-kernel run's (ref_ids,
+    whose logits are ref_rows), row by row, with this run's logits `rows`
+    (one (T, V) a row). Each position up to a row's first parting p (all
+    positions both runs kept logits for, without a parting; their inputs
+    are the same) within `bound` relative L2 of the reference's; at p the
+    reference's top-2 margin within that position's max abs deviation.
+    Returns the readings; raises AssertionError."""
+    if not len(ids) == len(rows) == len(ref_ids) == len(ref_rows):
+        raise AssertionError(f"{name}: {len(ids)} rows ({len(rows)} with "
+                             f"logits) against {len(ref_ids)} "
+                             f"({len(ref_rows)})")
+    out = {"rows": len(ids), "partings": [], "max_rel_l2": 0.0,
+           "max_abs_dev": 0.0, "bound": bound}
+    bad = []
+    for r, (got, want, mine, ref) in enumerate(zip(ids, ref_ids, rows,
+                                                   ref_rows)):
+        p = first_difference(got, want)
+        have = min(len(mine), len(ref))
+        upto = have if p is None else p + 1
+        if upto > have:
+            bad.append(f"row {r}: parts at {p}, logits kept for {have} "
+                       "positions")
+            continue
+        ref = ref[:upto].float()
+        d = mine[:upto].float() - ref
+        rel = d.norm(dim=-1) / ref.norm(dim=-1)
+        dev = d.abs().amax(dim=-1)
+        worst = float(rel.max())
+        out["max_rel_l2"] = max(out["max_rel_l2"], worst)
+        out["max_abs_dev"] = max(out["max_abs_dev"], float(dev.max()))
+        if not worst <= bound:
+            bad.append(f"row {r}: rel L2 {worst:.3e} up to {upto - 1}")
+        if p is None:
+            continue
+        top2 = ref[p].topk(2).values
+        margin, allowed = float(top2[0] - top2[1]), float(dev[p])
+        out["partings"].append({"row": r, "at": p, "margin": margin,
+                                "deviation": allowed})
+        if not margin <= allowed:
+            bad.append(f"row {r}: parts at {p} with top-2 margin "
+                       f"{margin:.3e} above the deviation {allowed:.3e}")
+    out["violations"] = bad
+    if bad:
+        raise AssertionError(f"{name}: {bad[:4]}")
+    return out
+
+
+def phase_eval(dev, paths, root):
+    """The eval surface at full width (ViT-L/14, the 144-query perceiver,
+    LLaMA-2-7B's widths with the decoder cut to CKPT_CUT_LAYERS layers,
+    bf16) over phase 7's seeded artifacts (`paths`): the five corpora
+    written as PNG under `root`, then each `main_<entry>_torch.main` over
+    `Config/multi_modal_eval.yaml` (stage 0, the byte tokenizer) batched
+    (B = 8), with --scheduled-eval, and batched with every kernel patched
+    to its plain version, each with its logits kept; `main_cls_torch`
+    again with `bits: 4, quant_type: int4h, kv_bits: 8, lm_head_bits: 8`.
+    Each run's launches: K1 and K2 (K3, K4 and A for W4A8) nonzero on the
+    kernel runs, none on the plain ones. The batched and the scheduled
+    run's ids and logits held to the plain run's by `hold_eval_ids`; a
+    planted fault (K2's key and value operands swapped, `k2_kv_swapped`)
+    must fail the rule, batched and scheduled. Then EVAL_REPEATS timed
+    runs of each mode, alternating, at shapes the held runs warmed:
+    images/s (median and range) of each protocol. The entries' load and
+    engine build are shared: the first `build_model_and_tokenizer` is
+    kept for every run, and one engine per precision. Also logs whether
+    PIL and cv2 import here."""
+    import shutil
+
+    import torch
+
+    from lhrs_bot_tpu_torch.core.config import load_yaml_config
+    from lhrs_bot_tpu_torch.eval import entry as entry_lib
+
+    t_phase = time.time()
+    out = {"layers": CKPT_CUT_LAYERS, "entries": {}}
+    for mod in ("PIL", "cv2"):
+        try:
+            m = __import__(mod)
+            out[mod] = getattr(m, "__version__", "imported")
+        except ImportError as exc:
+            out[mod] = f"not importable: {exc}"
+    log(f"  PIL: {out['PIL']}; cv2: {out['cv2']}")
+    base = os.path.join(root, "eval")
+    wrappers = kernel_wrappers()
+    loaded, engines, spied = [], {}, {}
+    build_model, build_engine = (entry_lib.build_model_and_tokenizer,
+                                 entry_lib.build_engine)
+
+    def shared_model(config, device):
+        if not loaded:
+            t = time.time()
+            loaded.append(build_model(config, device))
+            out["load_s"] = time.time() - t
+        return loaded[0]
+
+    def shared_engine(cfg, params, config, device):
+        key = tuple(config.get(k) for k in ("bits", "kv_bits", "quant_type",
+                                            "lm_head_bits"))
+        if key not in engines:
+            t = time.time()
+            engines[key] = build_engine(cfg, params, config, device)
+            out.setdefault("engine_s", {})[str(key)] = time.time() - t
+        engine = engines[key]
+        if "calls" in spied:
+            logit_spy(engine, spied["calls"])
+        spied["engine"] = engine
+        return engine
+
+    try:
+        t0 = time.time()
+        corpora, n_images = write_eval_corpora(base, np.random.default_rng(43))
+        log(f"  corpora: {n_images} PNG images, 224-320 px a side, in "
+            f"{time.time() - t0:.1f} s")
+
+        def config(name, data_path, data_target, scheduled, **kw):
+            c = load_yaml_config("Config/multi_modal_eval.yaml")
+            c["rgb_vision"]["vit_name"] = paths["vit_path"]
+            c["text"]["path"] = paths["llama_path"]
+            c["text"]["num_hidden_layers"] = CKPT_CUT_LAYERS
+            c.update({"model_path": paths["model_path"],
+                      "data_path": data_path, "data_target": data_target,
+                      "batch_size": EVAL_BATCH, "scheduled_eval": scheduled,
+                      "output": os.path.join(base, "out", name),
+                      "seed": 322, "device": "cuda", "dp": None, "tp": None,
+                      "rank": 0, "world_size": 1, **kw})
+            return c
+
+        def run(name, cfg, keep_logits=False):
+            """One entry run; with `keep_logits`, its logits (one (T, V)
+            a row, in item order) under "rows"."""
+            import importlib
+
+            mod = importlib.import_module(f"main_{name}_torch")
+            scheduled = cfg["scheduled_eval"]
+            rows = {}
+            if keep_logits and not scheduled:
+                spied["calls"] = []
+            set_launches(wrappers, 0)
+            try:
+                with (scheduler_logit_spy(rows) if keep_logits and scheduled
+                      else contextlib.nullcontext()):
+                    res = mod.main(cfg)
+            finally:
+                engine = spied.pop("engine", None)
+                if "calls" in spied and engine is not None:
+                    del engine._prefill, engine._decode_step
+            torch.cuda.synchronize()
+            res["launches"] = read_launches(wrappers)
+            calls = spied.pop("calls", None)
+            if keep_logits:
+                res["rows"] = ([torch.stack(rows[u]) for u in sorted(rows)]
+                               if scheduled else batched_rows(calls))
+            return res
+
+        def held(tag, name, knobs, needed, fault=False):
+            data_path, target = corpora[name]
+
+            def conf(suffix, scheduled):
+                return config(f"{name}{tag}{suffix}", data_path, target,
+                              scheduled, **knobs)
+
+            kernel = run(name, conf("", False), keep_logits=True)
+            sched = run(name, conf("_s", True), keep_logits=True)
+            with plain_kernels():
+                plain = run(name, conf("_p", False), keep_logits=True)
+            for what, res in (("batched", kernel), ("scheduled", sched)):
+                missing = [k for k in needed if not res["launches"].get(k)]
+                if missing:
+                    raise AssertionError(f"eval {name}{tag} ({what}): "
+                                         f"{missing} not launched: "
+                                         f"{res['launches']}")
+            if any(plain["launches"].get(k) for k in needed):
+                raise AssertionError(f"eval {name}{tag}: the plain run "
+                                     f"launched {plain['launches']}")
+            for res in (kernel, sched, plain):
+                flat = [t for ids in res["ids"] for t in ids]
+                if len(res["ids"]) != res["images"] or any(
+                        not 0 <= t < 32000 for t in flat):
+                    raise AssertionError(f"eval {name}{tag}: bad ids")
+            bound = EVAL_REL_L2
+            rec = {"images": kernel["images"], "metrics": kernel["metrics"],
+                   "launches": {"batched": kernel["launches"],
+                                "scheduled": sched["launches"]},
+                   "plain_s": plain["seconds"], "held": {}}
+            for what, res in (("batched", kernel), ("scheduled", sched)):
+                rec["held"][what] = hold_eval_ids(
+                    f"eval {name}{tag} {what}", res["ids"], plain["ids"],
+                    plain["rows"], res["rows"], bound)
+            rec["same_ids"] = sched["ids"] == kernel["ids"]
+            if fault:
+                rec["fault"] = {}
+                for what, scheduled in (("batched", False),
+                                        ("scheduled", True)):
+                    with k2_kv_swapped():
+                        bad = run(name, conf(f"_f{what[0]}", scheduled),
+                                  keep_logits=True)
+                    try:
+                        hold_eval_ids(f"eval {name}{tag} planted fault "
+                                      f"({what})", bad["ids"], plain["ids"],
+                                      plain["rows"], bad["rows"], bound)
+                    except AssertionError as exc:
+                        rec["fault"][what] = str(exc)[:300]
+                    else:
+                        raise AssertionError(
+                            f"eval {name}{tag}: the planted fault (K2's K "
+                            f"and V swapped) passes, {what}")
+                    del bad
+            del kernel, sched, plain
+            timed = {"batched": [], "scheduled": []}
+            for rep in range(EVAL_REPEATS):
+                for what in timed:
+                    res = run(name, conf(f"_t{rep}{what[0]}",
+                                         what == "scheduled"))
+                    timed[what].append({"images_s": res["images"]
+                                        / res["seconds"],
+                                        "seconds": res["seconds"],
+                                        "load_seconds": res["load_seconds"]})
+            for what, runs in timed.items():
+                ips = sorted(t["images_s"] for t in runs)
+                rec[what] = {"images_s": float(np.median(ips)),
+                             "images_s_range": [ips[0], ips[-1]],
+                             "runs": runs}
+            b, s = rec["batched"], rec["scheduled"]
+            hb, hs = rec["held"]["batched"], rec["held"]["scheduled"]
+
+            def spread(m):
+                secs = [(round(t["seconds"], 3), round(t["load_seconds"], 3))
+                        for t in m["runs"]]
+                return (f"{m['images_s']:.2f} images/s (median; "
+                        f"{m['images_s_range'][0]:.2f}-"
+                        f"{m['images_s_range'][1]:.2f}; seconds and the "
+                        f"items' loads {secs})")
+            log(f"  [{name}{tag}] {rec['images']} images, {EVAL_REPEATS} "
+                f"timed runs a mode: batched {spread(b)}, scheduled "
+                f"{spread(s)}, "
+                f"plain kernels {rec['plain_s']:.2f} s; launches "
+                f"{rec['launches']['batched']} / "
+                f"{rec['launches']['scheduled']}; held to plain (bound "
+                f"{bound}): batched rel L2 <= {hb['max_rel_l2']:.3e}, max "
+                f"abs dev {hb['max_abs_dev']:.3e}, partings "
+                f"{hb['partings']}; scheduled rel L2 <= "
+                f"{hs['max_rel_l2']:.3e}, max abs dev "
+                f"{hs['max_abs_dev']:.3e}, partings {hs['partings']} (same "
+                f"ids as batched: {rec['same_ids']}); metrics "
+                f"{rec['metrics']}"
+                + (f"; planted fault caught: {rec['fault']}" if fault
+                   else ""))
+            return rec
+
+        bf16 = ("flash_attention_fwd", "fused_decode_attention")
+        w4a8 = ("flash_attention_fwd", "fused_decode_attention_q",
+                "w4a8_matmul", "ln_quant")
+        with patched(entry_lib, build_model_and_tokenizer=shared_model,
+                     build_engine=shared_engine):
+            for name in EVAL_ENTRIES:
+                out["entries"][name] = held("", name, {}, bf16,
+                                            fault=name == "cls")
+                gc.collect()
+            out["entries"]["cls_w4a8"] = held(
+                "_w4a8", "cls", {"bits": 4, "quant_type": "int4h",
+                                 "kv_bits": 8, "lm_head_bits": 8}, w4a8)
+    finally:
+        engines.clear()
+        loaded.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        shutil.rmtree(base, ignore_errors=True)
+    out["seconds"] = time.time() - t_phase
+    log(f"  eval in {out['seconds']:.1f} s (load {out.get('load_s', 0):.1f} "
+        f"s, engines {out.get('engine_s')}); {smi_line()}")
+    return out
+
+
 def unflatten(flat):
     """{"a/b": leaf} -> {"a": {"b": leaf}}."""
     tree = {}
@@ -6220,9 +6803,45 @@ def _leaves(tree):
         yield tree
 
 
+def eval_only(dev):
+    """`chip_smoke.py --eval-only`: phase 7's eval part alone, a short
+    check of the eval path on the card (not the full run): the artifacts
+    written at CKPT_CUT_LAYERS decoder layers, `phase_eval` over them and
+    `cls_protocol` over their loaded tree."""
+    import shutil
+    import tempfile
+
+    from lhrs_bot_tpu_torch.core import eval_config, load_pretrained
+    from lhrs_bot_tpu_torch.models import VLMConfig
+
+    config = eval_config()
+    config["text"]["num_hidden_layers"] = CKPT_CUT_LAYERS
+    cfg = VLMConfig.from_config_dict(config)
+    os.makedirs("build", exist_ok=True)
+    root = tempfile.mkdtemp(prefix="eval_only_", dir="build")
+    try:
+        t0 = time.time()
+        sizes = write_reference_checkpoint(root, cfg, dev)
+        log(f"  artifacts {sizes} in {time.time() - t0:.1f} s")
+        paths = {"model_path": os.path.join(root, "FINAL.pt"),
+                 "vit_path": os.path.join(root, "clip"),
+                 "llama_path": os.path.join(root, "llama")}
+        out = phase("eval", phase_eval, dev, paths, root)
+        params, _ = load_pretrained(cfg, **paths)
+        out["cls_protocol"] = cls_protocol(cfg, params, config, dev, root,
+                                           kernel_wrappers())
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(json.dumps({"eval": out}, default=str))
+    log(smi_line())
+
+
 def main():
     import torch
 
+    eval_part = sys.argv[1:] == ["--eval-only"]
+    if sys.argv[1:] and not eval_part:
+        raise SystemExit("usage: chip_smoke.py [--eval-only]")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device visible; this check "
                          "runs on the card")
@@ -6261,6 +6880,8 @@ def main():
     if serialized:
         raise SystemExit("chip_smoke: ptxas serialized wgmma (C7514):\n"
                          + "\n".join(serialized))
+    if eval_part:
+        return eval_only(dev)
 
     log("[3/7 kernels vs plain]")
     k1, k2 = phase("kernels", phase_kernels, dev)
@@ -6283,11 +6904,13 @@ def main():
     bench = phase("bench", phase_bench, dev)
 
     log("[7/7 checkpoints at full width: load, serve, stage 2 -> 3 -> eval, "
-        "then training from data on disk]")
+        "then training from data on disk and the eval entry points]")
     ckpt = phase("checkpoint", phase_checkpoint, dev,
-                 lambda paths, root: phase(
-                     "train_from_disk", phase_train_from_disk, dev, paths,
-                     root))
+                 lambda paths, root: {
+                     "train_from_disk": phase(
+                         "train_from_disk", phase_train_from_disk, dev,
+                         paths, root),
+                     "eval": phase("eval", phase_eval, dev, paths, root)})
 
     def row(name, source, replaces, launches, k):
         return {"name": name, "route": "cuda",

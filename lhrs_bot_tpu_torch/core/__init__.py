@@ -1,5 +1,5 @@
-from .bootstrap import (add_train_args, build_engine,  # noqa: F401
-                        build_model, build_model_and_tokenizer,
+from .bootstrap import (add_eval_args, add_train_args,  # noqa: F401
+                        build_engine, build_model, build_model_and_tokenizer,
                         build_trainer, parse_config, setup, train_stage)
 from .convert import (eval_config, params_from_numpy,  # noqa: F401
                       training_params_from_numpy)

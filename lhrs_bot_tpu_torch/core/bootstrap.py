@@ -50,6 +50,25 @@ def add_train_args(parser: ConfigArgumentParser) -> None:
                         help="cuda (the default) or cpu")
 
 
+def add_eval_args(parser: ConfigArgumentParser) -> None:
+    """The JAX common flags that the eval entry points read, and
+    `--device`. `--dp` above 1 (as `--tp` above 1) needs a mesh, which is
+    not ported: the entry points raise NotImplementedError for it. JAX's
+    `--eval-path` has no reader in either package, so it is left out."""
+    parser.add_argument("--data-path", type=str, default=None)
+    parser.add_argument("--data-target", type=str, default=None)
+    parser.add_argument("--batch-size", type=int, default=8)
+    parser.add_argument("--scheduled-eval", action="store_true",
+                        help="route eval generation through the "
+                             "continuous-batching scheduler (slots free "
+                             "at EOS instead of stepping every row for "
+                             "max_new_tokens)")
+    parser.add_argument("--dp", type=int, default=None,
+                        help="data-parallel mesh size (above 1 not ported)")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="cuda (the default) or cpu")
+
+
 def parse_config(description: str, extra=None, args=None) -> ConfigDict:
     """The YAML named by -c merged with the CLI flags (the common ones and
     those `extra(parser)` adds), with rank, world_size and
@@ -150,7 +169,9 @@ def vision_w8a8_setting(cfg, config, bits: int, device) -> bool:
             and cfg.vit.head_dim in (64, 128))
 
 
-def build_engine(cfg, params, config, device) -> GenerationEngine:
+def build_engine(cfg, params, config, device, *,
+                 compute_dtype: torch.dtype = torch.bfloat16
+                 ) -> GenerationEngine:
     """A GenerationEngine for `config` (a nested dict with the schema of
     `Config/*.yaml`, e.g. `core.convert.eval_config()`) on `device`, over
     `params` as numpy leaves (`build_model`, `load_pretrained`) or tensors,
@@ -166,7 +187,8 @@ def build_engine(cfg, params, config, device) -> GenerationEngine:
     `bits: 8` on a CUDA device, with a ViT head dim that the flash kernel
     takes (64 or 128). Off on the CPU, as the JAX default is off the TPU.
     `prefill_chunk` (0 or missing: off) sets the engine's chunked prefill.
-    Other `bits`/`kv_bits` values raise ValueError."""
+    Other `bits`/`kv_bits` values raise ValueError. The engine computes in
+    `compute_dtype` (bf16, as JAX's; float32 for a comparison with JAX)."""
     bits = int(config.get("bits", 16) or 16)
     kv_bits = int(config.get("kv_bits", 16) or 16)
     if bits not in (4, 8, 16) or kv_bits not in (8, 16):
@@ -176,7 +198,7 @@ def build_engine(cfg, params, config, device) -> GenerationEngine:
     return GenerationEngine(
         cfg, params_from_numpy(params), device=device,
         max_seq_len=int(config["text"]["max_position_embeddings"]) + 256,
-        compute_dtype=torch.bfloat16,
+        compute_dtype=compute_dtype,
         cache_dtype=torch.int8 if kv_bits == 8 else torch.bfloat16,
         quantize_bits=bits if bits in (4, 8) else None,
         quant_type=str(config.get("quant_type", "nf4") or "nf4"),

@@ -1,11 +1,11 @@
-"""Training batch collators.
+"""Batch collators of training and generation.
 
-Counterpart of `lhrs_bot_tpu/data/collate.py` `SupervisedCollator` (:67) and
-`PackingCollator` (:104), copied so that the port needs nothing of the JAX
-package (whose `data` modules import jax). They return numpy arrays, the
-JAX package's batches; the trainer moves them to the card. The tokenizer is
-read for `pad_token_id` (and `model_max_length` by `SupervisedCollator`
-when no `max_length` is given).
+Counterpart of `lhrs_bot_tpu/data/collate.py` `SupervisedCollator` (:67),
+`PackingCollator` (:104) and `GenerationCollator` (:194), copied so that
+the port needs nothing of the JAX package (whose `data` modules import
+jax). They return numpy arrays, the JAX package's batches; the trainer and
+the engine move them to the card. The tokenizer is read for `pad_token_id`
+(and `model_max_length` when no `max_length` is given).
 """
 
 from __future__ import annotations
@@ -17,11 +17,13 @@ import numpy as np
 from ..models.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
 
 
-def _pad_to(arr: np.ndarray, length: int, value: int) -> np.ndarray:
+def _pad_to(arr: np.ndarray, length: int, value: int,
+            left: bool = False) -> np.ndarray:
     pad = length - len(arr)
     if pad <= 0:
         return arr[:length]
-    return np.concatenate([arr, np.full((pad,), value, dtype=arr.dtype)])
+    padding = np.full((pad,), value, dtype=arr.dtype)
+    return np.concatenate([padding, arr] if left else [arr, padding])
 
 
 def _round_up(x: int, m: int) -> int:
@@ -163,4 +165,49 @@ class PackingCollator:
         }
         if imgs is not None:
             batch["images"] = imgs
+        return batch
+
+
+class GenerationCollator:
+    """Generation batches: ids padded with pad_token_id (right-padded, the
+    engine's layout, or left-padded with `left_pad`) to the longest prompt
+    rounded up to `pad_multiple` and cut at `max_length`, each row's length
+    (`seq_lens`), attention_mask = ids != pad, images stacked, and the
+    `extra_keys` of the items passed through (an array where the values
+    are scalars, else the list)."""
+
+    def __init__(self, tokenizer, pad_multiple: int = 64,
+                 max_length: Optional[int] = None, left_pad: bool = False,
+                 extra_keys: Sequence[str] = ()):
+        self.tokenizer = tokenizer
+        self.pad_multiple = pad_multiple
+        self.max_length = max_length or tokenizer.model_max_length
+        self.left_pad = left_pad
+        self.extra_keys = tuple(extra_keys)
+
+    def __call__(self, instances: Sequence[Dict]) -> Dict[str, np.ndarray]:
+        ids = [np.asarray(inst["input_ids"], np.int64)[:self.max_length]
+               for inst in instances]
+        _check_single_image(ids)
+        width = min(_round_up(max(len(x) for x in ids), self.pad_multiple),
+                    self.max_length)
+        pad_id = self.tokenizer.pad_token_id
+        input_ids = np.stack(
+            [_pad_to(x, width, pad_id, self.left_pad) for x in ids])
+        batch = {
+            "input_ids": input_ids.astype(np.int32),
+            "attention_mask": input_ids != pad_id,
+            "seq_lens": np.asarray([min(len(x), width) for x in ids],
+                                   np.int32),
+        }
+        images = _stack_images(instances)
+        if images is not None:
+            batch["images"] = images
+        for key in self.extra_keys:
+            if key in instances[0]:
+                vals = [inst[key] for inst in instances]
+                batch[key] = (np.asarray(vals)
+                              if np.isscalar(vals[0]) or isinstance(
+                                  vals[0], (int, float, np.integer))
+                              else vals)
         return batch

@@ -5,8 +5,9 @@ needs nothing of the JAX package (whose `data` modules import jax): the
 separator styles, every entry of `conv_templates`, `get_prompt` with the
 LLaMA-2 [INST] / <<SYS>> wrapping and the <image>-to-front normalization of
 a tupled first message, `get_conversation` and `set_default_conversation`.
-The rendered strings define every serving prompt. Not ported here: the
-web UI's `get_images` and `to_gradio_chatbot` (PIL and gradio).
+The rendered strings define every serving prompt. The web UI's image turns
+(`get_images`, `to_gradio_chatbot` and their bounded resize) use PIL,
+imported inside them, so the module imports without it.
 """
 
 from __future__ import annotations
@@ -44,6 +45,92 @@ class Conversation:
 
     def append_message(self, role: str, message: Optional[str]) -> None:
         self.messages.append([role, message])
+
+    # -- conversation-held images (conversation.py:112-203 parity) ---------
+    # A user turn may be a tuple (text, PIL image, process_mode); the
+    # conversation itself carries the images, so multi-image chat history
+    # round-trips through get_prompt/get_images/to_gradio_chatbot.
+
+    @staticmethod
+    def _bounded_resize(image):
+        """Aspect-preserving bound: shortest edge =
+        min(800/aspect, 400, current shortest)."""
+        max_hw, min_hw = max(image.size), min(image.size)
+        aspect = max_hw / min_hw
+        shortest = int(min(800 / aspect, 400, min_hw))
+        longest = int(shortest * aspect)
+        w, h = image.size
+        if h > w:
+            return image.resize((shortest, longest))
+        return image.resize((longest, shortest))
+
+    def _image_turns(self):
+        for i, (role, msg) in enumerate(self.messages[self.offset:]):
+            if i % 2 == 0 and isinstance(msg, tuple):
+                yield msg
+
+    def get_images(self, return_pil: bool = False) -> List:
+        """Images carried in user turns, processed per their mode:
+        Pad → square on (122, 116, 104); Crop → untouched; Resize →
+        336x336; then the bounded resize. Returns PIL images or base64
+        PNG strings."""
+        import base64
+        from io import BytesIO
+
+        from PIL import Image
+
+        out: List = []
+        for msg in self._image_turns():
+            _, image, mode = msg
+            if mode == "Pad":
+                w, h = image.size
+                if w != h:
+                    side = max(w, h)
+                    sq = Image.new(image.mode, (side, side),
+                                   (122, 116, 104))
+                    sq.paste(image, ((side - w) // 2, (side - h) // 2))
+                    image = sq
+            elif mode == "Resize":
+                image = image.resize((336, 336))
+            elif mode != "Crop":
+                raise ValueError(f"Invalid image_process_mode: {mode}")
+            image = self._bounded_resize(image)
+            if return_pil:
+                out.append(image)
+            else:
+                buf = BytesIO()
+                image.save(buf, format="PNG")
+                out.append(base64.b64encode(buf.getvalue()).decode())
+        return out
+
+    def to_gradio_chatbot(self) -> List:
+        """Chat history as [user, assistant] pairs; image turns render as
+        an inline base64 <img> row followed by the stripped text row.
+        (Bytes are JPEG inside a data:image/png URI — the reference's own
+        byte-level behavior, conversation.py:194-197; browsers sniff.)"""
+        import base64
+        from io import BytesIO
+
+        ret: List = []
+        for i, (role, msg) in enumerate(self.messages[self.offset:]):
+            if i % 2 == 1:
+                if ret:
+                    ret[-1][-1] = msg
+                continue
+            if isinstance(msg, tuple):
+                text, image, _ = msg
+                image = self._bounded_resize(image)
+                buf = BytesIO()
+                image.save(buf, format="JPEG")
+                b64 = base64.b64encode(buf.getvalue()).decode()
+                ret.append([f'<img src="data:image/png;base64,{b64}" '
+                            'alt="user upload image" />', None])
+                text = text.replace("<image>", "").strip()
+                if text:
+                    ret.append([text, None])
+            else:
+                ret.append([msg, None])
+        return ret
 
     def _normalized_messages(self):
         """First message may be (text, image, ...) tuples in the web UI.

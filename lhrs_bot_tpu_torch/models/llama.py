@@ -285,9 +285,9 @@ def llama_prefill(params, cfg: LlamaConfig, cache: KVCache, *,
                 codes, t_scale = quantize_activation(t)
                 arr[li, rows, :, :s] = codes
                 scale[li, rows, :, :s] = t_scale[..., 0]
-        else:
-            cache.k[li, rows, :, :s] = k
-            cache.v[li, rows, :, :s] = v
+        else:  # index_put (slots) does not cast: a float32 run's bf16 cache
+            cache.k[li, rows, :, :s] = k.to(cache.k.dtype)
+            cache.v[li, rows, :, :s] = v.to(cache.v.dtype)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     last = (prompt_len.long() - 1).clamp(min=0)
     x_last = x[torch.arange(b, device=x.device), last]
