@@ -177,7 +177,32 @@ Phases, one or more lines each:
      position up to there within 0.15 relative L2), a planted fault (K2's
      K and V swapped) that must fail batched and scheduled, images/s of
      each protocol over three timed runs a mode (median and range), and
-     whether PIL and cv2 import.
+     whether PIL and cv2 import;
+  8. data and tensor parallelism (`phase_parallel`): two ranks of the port
+     started as torchrun starts them (`chip_smoke.py --parallel-worker`),
+     both on the one card over gloo (the gloo collectives the port runs
+     checked on the card's tensors first), at full widths with the decoder
+     cut to 2 layers, held to one rank here on the same seeded weights:
+     (a) tp = 2 serving through the bf16 engine and the W4A8 + int8 KV +
+     int8 lm_head recipe, two requests (B 1 and 2, 12 tokens): the first
+     token's logits within TP_REL_L2, the ids equal or parting where one
+     rank's top-2 margin lies within the measured deviation, both ranks'
+     ids and logits equal, each rank's K1, K2 / K4, K3 (in mode (a) too:
+     the row-parallel products) and A launched at the per-rank shapes
+     (H 16, K3 at 4096->2048 and ->5504, 2048->4096 and 5504->4096, a
+     16,000-row lm_head), the W4 rows sliced along the packed axis (planted)
+     past the bound; each rank's W4A8 products at those shapes
+     (`check_tp_w4a8`) bit for bit the single rank's, the row-parallel
+     codes kernel A's, a CTA's sums left out of mode (a) (planted)
+     differing, and their times; (b) one stage-2 step (int8 base, LoRA
+     with non-zero B, the recipe's AdamW) at dp = 2 with ZeRO-sharded
+     slots against dp = 1 on the same 4-row global batch (loss and
+     grad_norm within DP_METRIC_REL, every trainable leaf's first moment
+     within DP_MOMENT_REL_L2, the updates within DP_UPDATE_REL_L2, every
+     trainable leaf equal on both ranks, a rank that skips its gradient
+     reduction past both bounds); and what NCCL does with two ranks on one card (the
+     port's init_distributed refuses; torch's own group). A failing rank
+     fails the phase. The times are two ranks sharing one card.
 Then a JSON line with per-kernel numbers, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}. Every line is also written to
 chiprun_out/chip_smoke.log. Any failure raises: the script
@@ -189,6 +214,10 @@ and imports nothing of JAX.
 `python3 chip_smoke.py --eval-only` builds the kernels and runs phase 7's
 eval part alone (the artifacts at 4 decoder layers, `phase_eval`, the cls
 protocol over them): a short check of the eval path, not the full run.
+`python3 chip_smoke.py --parallel-only` builds the kernels and runs phase 8
+alone (~2 minutes with the build); `--parallel-only --dist-backend nccl
+--ranks N` runs it with N ranks over NCCL, a card a rank (a machine of N
+cards or more; the NCCL probes are left out).
 """
 
 import base64
@@ -5995,7 +6024,8 @@ def phase_train_from_disk(dev, paths, root):
     8, a checkpoint every 2 iterations: (A) 4 workers, 4 iterations (the
     path whose launches are counted); (B) 1 worker, killed before iteration
     2 after its checkpoint; (C) a fresh run of B's config with
-    --auto-resume to iteration 4; (D) 1 worker, uninterrupted. C's losses,
+    --auto-resume to iteration 4; (D) 1 worker, uninterrupted, writing
+    only its final checkpoint. C's losses,
     adapters, perceiver and optimizer state equal D's bit for bit. Prints
     data time against step time, each checkpoint write's and the resume's
     bytes and seconds, the JPEG decoder, peak device memory and the card.
@@ -6143,7 +6173,10 @@ def phase_train_from_disk(dev, paths, root):
         del resumed
         gc.collect()
         torch.cuda.empty_cache()
-        full, out["D"] = run("D: 1 worker, uninterrupted", config("D", 1))
+        # D, the reference, writes only its final checkpoint: the card's
+        # machine caps what a run writes to its disk (45 GiB)
+        full, out["D"] = run("D: 1 worker, uninterrupted",
+                             config("D", 1, ckpt_period=10**9))
         want = {k: list(_leaves(full.params[k])) for k in ("lora", "pooler")}
         want_opt = full.optimizer.state_dict()["slots"]
         mismatch = {}
@@ -6778,14 +6811,866 @@ def train_steps(trainer, cfg, batch, wrappers, profile, activities,
     return steps
 
 
+# -- phase 8: data and tensor parallelism -----------------------------------
+
+# the decoder's depth in the parallel phase (full widths otherwise)
+PARALLEL_LAYERS = 2
+PARALLEL_NEW = 12  # tokens a request
+PARALLEL_TIMEOUT = 420  # seconds the ranks may take
+PARALLEL_RECIPES = (
+    ("bf16", {}, ("flash_attention_fwd", "fused_decode_attention")),
+    ("w4a8", {"bits": 4, "quant_type": "int4h", "kv_bits": 8,
+              "lm_head_bits": 8},
+     ("flash_attention_fwd", "fused_decode_attention_q", "w4a8_matmul",
+      "ln_quant")),
+)
+# tp = 2 against tp = 1 on the same seeded weights: relative L2 of the
+# first token's logits (the decode steps' are read where the ids part).
+# On an H100 at 700 W the readings were 0.0090-0.0097 (bf16) and
+# 0.0042-0.0071 (W4A8; its row-parallel products are the single rank's
+# bits, the rest is bf16 rounding in another order) and the packed-axis
+# fault 1.31: the bound sits 5x above the noise, 26x below the fault
+TP_REL_L2 = {"bf16": 0.05, "w4a8": 0.05}
+# dp = 2 against dp = 1 on the same global batch, one stage-2 step: the
+# loss's and grad_norm's relative difference (read 1.1e-5 and 4.1e-4 on
+# that card), and the relative L2 of the trainable leaves' updates. AdamW's
+# first step is about lr * sign(g), so a gradient element near 0 whose sign
+# moves with bf16 rounding moves its update by 2 lr: the updates read
+# 0.117-0.118 against 1.01-1.04 with the skipped reduction
+DP_METRIC_REL = 5e-3
+DP_UPDATE_REL_L2 = 0.3
+# the same step's first moments ((1 - b1) times the clipped, reduced
+# gradient), leaf by leaf: linear in the gradient, so a leaf's bf16 noise
+# stays small while a gradient scaled or left unreduced moves its leaf
+DP_MOMENT_REL_L2 = 0.05
+# leaves whose gradient is zero in exact arithmetic, so their relative L2
+# is rounding against rounding (0.46 on the card): the perceiver's key
+# bias adds q . bk to every key's logit of a query, which the softmax does
+# not see. Each is held instead to a first moment whose RMS is at most
+# DP_ZERO_GRAD_RMS of its query-bias partner's (same shape, not zero)
+DP_ZERO_GRAD_LEAVES = {"pooler/layers/bk": "pooler/layers/bq"}
+DP_ZERO_GRAD_RMS = 1e-2
+
+
+def parallel_configs(tiny=False):
+    """(serving config, stage-2 training config) of the parallel phase: the
+    eval preset and Config/multi_modal_stage2.yaml at full widths with
+    the decoder cut to PARALLEL_LAYERS layers (`tiny`: the tests' tiny
+    sizes, for a rehearsal on the CPU)."""
+    from lhrs_bot_tpu_torch.core import eval_config
+    from lhrs_bot_tpu_torch.core.config import load_yaml_config
+
+    serving = eval_config()
+    train = load_yaml_config("Config/multi_modal_stage2.yaml")
+    train["rgb_vision"]["vit_name"] = None
+    train["text"]["path"] = None
+    for c in (serving, train):
+        c["text"]["num_hidden_layers"] = PARALLEL_LAYERS
+        if tiny:
+            c["rgb_vision"]["arch"] = "vit_tiny"
+            c["rgb_vision"]["attn_pooler"].update(
+                num_query=12, num_attn_heads=2, num_layers=2)
+            c["text"].update(vocab_size=256, hidden_size=128,
+                             intermediate_size=256, num_attention_heads=4,
+                             max_position_embeddings=256)
+    if tiny:
+        train["lora"].update(lora_r=8, lora_alpha=16)
+    return serving, train
+
+
+def parallel_requests(cfg, tiny=False):
+    """Two seeded image requests: B = 1 of 40 tokens, B = 2 of 300 and
+    120 (the tiny sizes: 10, and 20 and 12)."""
+    rng = np.random.default_rng(18)
+    size = cfg.vit.image_size
+
+    def batch(*lens):
+        ids = np.zeros((len(lens), max(lens)), np.int32)
+        for i, n in enumerate(lens):
+            ids[i, :n] = rng.integers(3, cfg.llama.vocab_size, n)
+            ids[i, 0] = cfg.llama.bos_token_id
+            ids[i, 1] = -200
+        imgs = rng.integers(0, 256, (len(lens), size, size, 3)).astype(
+            np.uint8)
+        return ids, np.asarray(lens, np.int32), imgs
+
+    return [("short", batch(10 if tiny else 40)),
+            ("batch2", batch(*((20, 12) if tiny else (300, 120))))]
+
+
+def _sync(dev):
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def tp_serve(dev, config, mesh, wrappers, tiny=False):
+    """The serving recipes over `mesh` (None: one rank) from the seeded
+    weights: per request the first token's logits, the greedy ids with
+    each decode step's logits (a spy on `_decode_step`), a timed run, and
+    each kernel's launches in those runs; over a mesh also the planted
+    fault's first logits (the W4 row-parallel weights sliced along the
+    packed K/2 axis). Returns host numbers."""
+    import torch
+
+    from lhrs_bot_tpu_torch.core import build_engine
+    from lhrs_bot_tpu_torch.models import VLMConfig, init_vlm_params
+    from lhrs_bot_tpu_torch.ops import w4_matmul
+    from lhrs_bot_tpu_torch.ops.quant import QuantizedTensor
+    from lhrs_bot_tpu_torch.parallel import partition
+    from lhrs_bot_tpu_torch.serve.engine import GenerationConfig
+
+    cfg = VLMConfig.from_config_dict(config)
+    params = init_vlm_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    requests = parallel_requests(cfg, tiny)
+    kernel = w4_matmul.w4a8_matmul_kernel  # its mode (a) counted apart
+    out = {}
+    for name, knobs, _ in PARALLEL_RECIPES:
+        engine = build_engine(cfg, params, {**config, **knobs}, dev,
+                              mesh=mesh)
+        steps = []
+        plain_step = engine._decode_step
+
+        def spy(cache, tokens):
+            logits, cache = plain_step(cache, tokens)
+            steps.append(logits.float().cpu().numpy())
+            return logits, cache
+
+        for w in wrappers.values():
+            w.launches = 0
+        kernel.mode_a_launches = 0
+        res = []
+        gcfg = GenerationConfig(max_new_tokens=PARALLEL_NEW)
+        for rname, (ids, lens, imgs) in requests:
+            first = engine._start(ids, lens, imgs, gcfg)[0]
+            steps.clear()
+            engine._decode_step = spy
+            got = engine.generate(ids, lens, images=imgs, gen_cfg=gcfg)
+            engine._decode_step = plain_step
+            _sync(dev)
+            t0 = time.perf_counter()
+            engine.generate(ids, lens, images=imgs, gen_cfg=gcfg)
+            _sync(dev)
+            res.append({"request": rname, "ids": got,
+                        "first": first.float().cpu().numpy(),
+                        "steps": np.stack(steps) if steps else None,
+                        "ms": (time.perf_counter() - t0) * 1e3})
+        launches = {k: w.launches for k, w in wrappers.items()}
+        launches["w4a8_matmul_mode_a"] = kernel.mode_a_launches
+        entry = {"requests": res, "launches": launches}
+        if mesh is not None and name == "w4a8":
+            layers = engine.llama_params["layers"]
+            keep = {k: layers[k] for k in ("wo", "w_down")}
+            for k, qt in keep.items():  # the planted fault
+                full = partition.gather_leaf(
+                    qt, partition._LLAMA_LAYER_SPECS[k], mesh.model)
+                k2 = full.q.shape[1] // mesh.tp
+                i = mesh.model_index
+                layers[k] = QuantizedTensor(
+                    full.q[:, i * k2:(i + 1) * k2].contiguous(),
+                    full.scale, full.bits)
+            ids, lens, imgs = requests[0][1]
+            entry["fault_first"] = engine._start(
+                ids, lens, imgs, gcfg)[0].float().cpu().numpy()
+            layers.update(keep)
+        out[name] = entry
+        del engine
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def parallel_batch(cfg):
+    """The seeded global batch of the training part: 4 caption rows of one
+    image, 40-160 text tokens (each data half holds another count of
+    valid tokens)."""
+    import types
+
+    from lhrs_bot_tpu_torch.data import SupervisedCollator
+
+    rng = np.random.default_rng(81)
+    tok = types.SimpleNamespace(pad_token_id=cfg.llama.pad_token_id,
+                                model_max_length=2048)
+    size = cfg.vit.image_size
+    samples = []
+    for n in (160, 40, 100, 72):
+        ids = rng.integers(3, cfg.llama.vocab_size, n)
+        ids[0], ids[1] = cfg.llama.bos_token_id, -200
+        labels = ids.copy()
+        labels[:2] = -100
+        samples.append({"input_ids": ids, "labels": labels,
+                        "image": rng.integers(0, 256, (size, size, 3))
+                        .astype(np.uint8)})
+    return SupervisedCollator(tok, pad_multiple=8)(samples)
+
+
+def dp_train(dev, config, mesh, fault=False):
+    """One stage-2 step (int8 base, LoRA with non-zero B, the pooler
+    trains; the recipe's AdamW and clipping) over `mesh` (None: one rank
+    on the whole batch; else this data index's half) from seeded weights.
+    Returns the metrics, the step's ms, the updates of the compared
+    leaves, every trainable leaf's first moment (on the first rank) and a
+    digest of every trainable leaf. `fault`: the last rank
+    (whose ZeRO shard holds the end of the flat vector: the LoRA factors)
+    keeps its unreduced gradients."""
+    import hashlib
+    import tempfile
+
+    import torch
+
+    from lhrs_bot_tpu_torch.core import build_trainer
+    from lhrs_bot_tpu_torch.models import VLMConfig, init_vlm_params
+    from lhrs_bot_tpu_torch.ops.quant import (_QUANT_TARGETS,
+                                              quantize_llama_layers)
+    from lhrs_bot_tpu_torch.parallel.partition import gather_params
+    from lhrs_bot_tpu_torch.train.optimizer import SLOTS
+
+    cfg = VLMConfig.from_config_dict(config)
+    params = init_vlm_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for ab in params["lora"].values():
+        ab["b"] = (torch.randn(ab["b"].shape, generator=gen, device=dev)
+                   * 0.01).to(torch.bfloat16)
+    layers = params["llama"]["layers"]
+    for name in _QUANT_TARGETS:  # build_model's int8 base
+        layers[name] = quantize_llama_layers({name: layers[name]},
+                                             bits=8)[name]
+    batch = parallel_batch(cfg)
+    if mesh is not None:
+        n = batch["input_ids"].shape[0] // mesh.dp
+        batch = {k: v[mesh.data_index * n:(mesh.data_index + 1) * n]
+                 for k, v in batch.items()}
+    with tempfile.TemporaryDirectory(dir="build") as work:
+        trainer = build_trainer(config, params, [batch], dev,
+                                work_dir=work, mesh=mesh)
+        del params
+        if fault and mesh.rank == mesh.dp - 1:
+            trainer.optimizer.reduce_grads = False
+
+        def compared(p):
+            return {"lora": {k: v for k, v in p["lora"].items()},
+                    "pooler": {k: p["pooler"][k] for k in (
+                        "query", "out_proj_w", "out_proj_b")}}
+
+        def host(tree):
+            if isinstance(tree, dict):
+                return {k: host(v) for k, v in tree.items()}
+            return tree.detach().float().cpu().numpy().copy()
+
+        full = trainer.params if mesh is None else gather_params(
+            mesh, trainer.params)
+        before = host(compared(full))
+        _sync(dev)
+        t0 = time.perf_counter()
+        metrics = trainer._step_fn(trainer.params, trainer._put(batch))
+        metrics = {k: float(v) for k, v in metrics.items()}
+        _sync(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        full = trainer.params if mesh is None else gather_params(
+            mesh, trainer.params)
+        after = host(compared(full))
+        digest = hashlib.sha1()
+        for t in trainer.optimizer.leaves:
+            digest.update(t.detach().float().cpu().numpy().tobytes())
+        # AdamW's first moments, (1 - b1) times the clipped gradient, leaf
+        # by leaf in the single-rank layout (gathered over the data group)
+        state = trainer.optimizer.state_dict()
+        moments = None
+        if mesh is None or mesh.rank == 0:
+            moments = {p: t.detach().float().cpu().numpy() for p, t in zip(
+                state["paths"], state["slots"][SLOTS[state["name"]][0]])}
+    updates = {g: {k: {n: after[g][k][n] - before[g][k][n]
+                       for n in after[g][k]}
+                   if isinstance(after[g][k], dict)
+                   else after[g][k] - before[g][k] for k in after[g]}
+               for g in after}
+    return {"metrics": metrics, "ms": ms, "updates": updates,
+            "moments": moments, "digest": digest.hexdigest(),
+            "valid_tokens": int((batch["labels"][:, 1:] != -100).sum())}
+
+
+def check_collectives(mesh, dev):
+    """The gloo collectives the port runs, on this device's tensors, over
+    each axis of `mesh`: all_reduce (sum, max), all_gather, broadcast,
+    broadcast_object_list."""
+    import torch
+
+    out = {}
+    for axis in (mesh.data, mesh.model):
+        if axis.size == 1:
+            continue
+        i = axis.index
+        t = torch.full((3,), float(i + 1), device=dev)
+        s = axis.all_reduce(t.clone())
+        m = axis.all_reduce(t.clone(), "max")
+        g = axis.all_gather(t[None], dim=0)
+        b = axis.broadcast(torch.full((2,), float(7 + i), device=dev))
+        o = axis.broadcast_object({"from": i})
+        n = axis.size
+        ok = (s.tolist() == [n * (n + 1) / 2] * 3 and m.tolist() == [n] * 3
+              and g[:, 0].tolist() == [float(j + 1) for j in range(n)]
+              and b.tolist() == [7.0, 7.0] and o == {"from": 0}
+              and s.device == dev and g.device == dev)
+        if not ok:
+            raise AssertionError(f"gloo collectives on {dev} over "
+                                 f"{axis.name}: {s}, {m}, {g}, {b}, {o}")
+        out[axis.name] = "ok"
+    return out
+
+
+# the decode batches of the phase's requests, at which each rank's W4A8
+# products are held to the single rank's (`check_tp_w4a8`)
+TP_W4A8_BATCHES = (1, 2)
+
+
+def check_tp_w4a8(dev, mesh, config):
+    """Each rank's W4A8 decode products at its per-rank shapes against the
+    single rank's, on the same seeded whole weights (int4 halves, 2
+    layers, layer 1 used) and bf16 rows, every rank taking its slice with
+    `partition.shard_quantized`: q / gate (column slices, K3 mode (b))
+    must equal their columns of the whole `w4a8_project` bit for bit; o /
+    down (row slices, K = hidden and intermediate): `row_parallel_codes`
+    must equal kernel A's codes and scale of the whole row (each row's
+    maximum is planted in one rank's slice, so the others take it from
+    the all-reduce), and `w4a8_project_row`
+    (K3 mode (a) with unit scales, the sums all-reduced, the epilogue) the
+    whole `w4a8_project` and the plain product of the whole operands, bit
+    for bit. The planted fault: the last rank's mode (a) launch, in a
+    cluster of 8, leaves out its last CTA's sums (at most 128 packed
+    rows), which must change the product. On the card each per-rank product is also timed on rank
+    0 while the others wait. Returns the readings: the phase raises on
+    them, so no rank is left waiting in a collective."""
+    import torch
+
+    from lhrs_bot_tpu_torch.ops import w4_matmul
+    from lhrs_bot_tpu_torch.ops.ln_quant import ln_quant_plain
+    from lhrs_bot_tpu_torch.ops.quant import (QuantizedTensor,
+                                              quantize_activation)
+    from lhrs_bot_tpu_torch.parallel import distribute
+    from lhrs_bot_tpu_torch.parallel.partition import shard_quantized
+
+    axis, tp = mesh.model, mesh.tp
+    h = int(config["text"]["hidden_size"])
+    f = int(config["text"]["intermediate_size"])
+    shapes = (("wq", h, h, -1), ("w_gate", h, f, -1),
+              ("wo", h, h, -2), ("w_down", f, h, -2))
+    gen = torch.Generator(device=dev).manual_seed(18)
+    cuda = dev.type == "cuda"
+    rows = []
+    for name, k, n, split in shapes:
+        whole = QuantizedTensor(
+            torch.randint(-128, 128, (2, k // 2, n), generator=gen,
+                          device=dev, dtype=torch.int8),
+            torch.rand(2, 1, n, generator=gen, device=dev) * 4e-3 + 1e-3,
+            "4h")
+        local = shard_quantized(whole, split, axis)
+        for b in TP_W4A8_BATCHES:
+            x = torch.randn(b, k, generator=gen, device=dev).to(
+                torch.bfloat16)
+            lo, hi = axis.index * k // tp, (axis.index + 1) * k // tp
+            for r in range(b):  # row r's maximum in rank (r + 1) % tp's
+                x[r, ((r + 1) % tp) * (k // tp) + 3] = 40.0 * (-1) ** r
+            ref = w4_matmul.w4a8_project(x[None], whole, 1)[0]
+            xq, xs = ln_quant_plain(x)
+            plain = w4_matmul.w4a8_matmul_plain(
+                xq[:, :k // 2], xq[:, k // 2:], xs, whole.q, whole.scale, 1)
+            row = {"name": name, "K": k, "N": n, "B": b,
+                   "split": "columns" if split == -1 else "rows",
+                   "K2_local": local.q.shape[1], "N_local": local.q.shape[2]}
+            if split == -1:
+                cols = slice(axis.index * n // tp, (axis.index + 1) * n // tp)
+                got = w4_matmul.w4a8_project(x[None], local, 1)[0]
+                ref, plain = ref[:, cols], plain[:, cols]
+            else:
+                codes, scale = w4_matmul.row_parallel_codes(x[:, lo:hi], axis)
+                aq, as_ = quantize_activation(x)  # kernel A on the card
+                row["codes_equal"] = bool(torch.equal(codes, aq[:, lo:hi])
+                                          and torch.equal(scale, as_))
+                got = w4_matmul.w4a8_project_row(x[:, lo:hi][None], local, 1,
+                                                 axis)[0]
+                if cuda:
+                    stacked = w4_matmul.w4a8_matmul_stacked
+                    last = axis.index == tp - 1
+
+                    def faulty(lo_, hi_, xs_, w, ws, layer, out_dtype):
+                        return w4_matmul.w4a8_matmul_kernel(
+                            lo_, hi_, xs_, w, ws, layer, out_dtype,
+                            cluster=8,
+                            fault=w4_matmul.FAULT_PEER_SUMS if last else 0)
+
+                    w4_matmul.w4a8_matmul_stacked = faulty
+                    try:
+                        bad = w4_matmul.w4a8_project_row(
+                            x[:, lo:hi][None], local, 1, axis)[0]
+                    finally:
+                        w4_matmul.w4a8_matmul_stacked = stacked
+                    row["fault_differs"] = not torch.equal(bad, ref)
+                    row["fault_rel_l2"] = _rel(bad.float().cpu(),
+                                               ref.float().cpu())
+            row["equal"] = bool(torch.equal(got, ref))
+            row["plain_equal"] = bool(torch.equal(got, plain))
+            row["max_abs_err"] = float((got.float() - ref.float()).abs()
+                                       .max())
+            if cuda:  # each rank's product alone on the card
+                distribute.barrier()
+                if mesh.rank == 0:
+                    row.update(time_tp_w4a8(x, whole, local, split,
+                                            codes if split == -2 else None))
+                distribute.barrier()
+            rows.append(row)
+    return rows
+
+
+def time_tp_w4a8(x, whole, local, split, codes):
+    """The card's time of one rank's W4A8 product (a column slice's fused
+    mode (b) launch; a row slice's mode (a) launch on its codes, unit
+    scales, float32 sums) beside the single rank's whole product, and the
+    per-rank launch's bound."""
+    import torch
+
+    from lhrs_bot_tpu_torch.ops import w4_matmul
+
+    b = x.shape[0]
+    k2, n = local.q.shape[1], local.q.shape[2]
+    if split == -1:
+        ms = cuda_ms(lambda: w4_matmul.w4a8_project_kernel(
+            x, local.q, local.scale, 1))
+        io = 2 * b * 2 * k2 + 2 * b * n  # bf16 rows in, bf16 out
+    else:
+        ones_x = torch.ones(b, 1, device=x.device)
+        ones_w = torch.ones_like(local.scale)
+        ms = cuda_ms(lambda: w4_matmul.w4a8_matmul_kernel(
+            codes[:, :k2], codes[:, k2:], ones_x, local.q, ones_w, 1,
+            torch.float32))
+        io = b * 2 * k2 + 4 * b + 4 * b * n  # int8 codes in, f32 sums out
+    bound_ms, by = bound(k2 * n + 4 * n + io, 2.0 * b * 2 * k2 * n, "int8")
+    return {"ms": ms, "bound_ms": bound_ms, "bound_by": by,
+            "tp1_ms": cuda_ms(lambda: w4_matmul.w4a8_project_kernel(
+                x, whole.q, whole.scale, 1))}
+
+
+def hold_tp_w4a8(ranks, cuda):
+    """`check_tp_w4a8`'s readings of every rank: raises unless each is
+    bit for bit, the codes equal and (on the card) the fault differs."""
+    for r, rank in enumerate(ranks):
+        for row in rank["w4a8_shapes"]:
+            what = f"rank {r} {row['name']} B{row['B']}"
+            if not (row["equal"] and row["plain_equal"]):
+                raise AssertionError(f"{what}: the per-rank W4A8 product "
+                                     "differs from the single rank's "
+                                     f"({row})")
+            if row["split"] == "rows":
+                if not row["codes_equal"]:
+                    raise AssertionError(f"{what}: the row-parallel codes "
+                                         "differ from kernel A's")
+                if cuda and not row["fault_differs"]:
+                    raise AssertionError(f"{what}: a CTA's sums left out "
+                                         "of the mode (a) launch passes")
+
+
+def parallel_worker(workdir):
+    """One of the phase's N ranks (`chip_smoke.py --parallel-worker DIR`,
+    started by `phase_parallel` with torchrun's environment): the spec's
+    backend (gloo: every rank on cuda:0; nccl: a card a rank), the
+    collectives checked, then `tp_serve` over a dp 1 x tp N mesh and
+    `dp_train` over a dp N x tp 1 mesh (and with the planted fault); the
+    results pickled to DIR/rank<r>.pkl."""
+    import pickle
+
+    import torch
+
+    from lhrs_bot_tpu_torch.parallel import distribute, make_mesh
+
+    with open(os.path.join(workdir, "spec.json")) as fh:
+        spec = json.load(fh)
+    distribute.init_distributed(spec["backend"])
+    n = distribute.get_world_size()
+    if spec["device"] == "cuda":
+        from lhrs_bot_tpu_torch.ops import cuda_lib
+
+        cuda_lib.load_library()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dev = torch.device("cuda", torch.cuda.current_device())
+    else:
+        dev = torch.device("cpu")
+    rank = distribute.get_rank()
+    serving, train = parallel_configs(spec["tiny"])
+    wrappers = kernel_wrappers()
+    t0 = time.perf_counter()
+    tp_mesh = make_mesh(dp=1, tp=n)
+    dp_mesh = make_mesh(dp=n, tp=1)
+    out = {"device": str(dev),
+           "collectives": {**check_collectives(tp_mesh, dev),
+                           **check_collectives(dp_mesh, dev)}}
+    out["serve"] = tp_serve(dev, serving, tp_mesh, wrappers, spec["tiny"])
+    out["serve_s"] = time.perf_counter() - t0
+    out["w4a8_shapes"] = check_tp_w4a8(dev, tp_mesh, serving)
+    t0 = time.perf_counter()
+    out["train"] = dp_train(dev, train, dp_mesh)
+    out["train_fault"] = dp_train(dev, train, dp_mesh, fault=True)
+    out["train_s"] = time.perf_counter() - t0
+    if dev.type == "cuda":
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    distribute.barrier()
+    with open(os.path.join(workdir, f"rank{rank}.pkl"), "wb") as fh:
+        pickle.dump(out, fh, protocol=pickle.HIGHEST_PROTOCOL)
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(args, n=2, timeout=PARALLEL_TIMEOUT, env_extra=None):
+    """`n` processes of `sys.executable args` with torchrun's environment
+    (one port on localhost); every one is killed at `timeout` seconds.
+    Returns (exit codes, the end of each one's output)."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "LOCAL_RANK", "WORLD_SIZE")}
+    here = os.path.dirname(os.path.abspath(__file__))
+    env.update(MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()),
+               WORLD_SIZE=str(n), LOCAL_WORLD_SIZE=str(n),
+               PYTHONPATH=here, **(env_extra or {}))
+    procs = [subprocess.Popen([sys.executable] + list(args), cwd=here,
+                              env={**env, "RANK": str(r),
+                                   "LOCAL_RANK": str(r)},
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(n)]
+    deadline = time.time() + timeout
+    outs = []
+    for p in procs:
+        try:
+            outs.append(p.communicate(timeout=max(1.0, deadline -
+                                                  time.time()))[0])
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            outs.append(p.communicate()[0] + "\n[killed at the timeout]")
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    return [p.returncode for p in procs], [o[-3000:] for o in outs]
+
+
+def nccl_probe(mode):
+    """`chip_smoke.py --nccl-probe port|torch`: two ranks of NCCL on the
+    one card. "port": the port's init_distributed("nccl"), which must
+    refuse (one card, two local ranks); "torch": torch's own NCCL group
+    with both ranks on cuda:0 and an all_reduce."""
+    import torch
+    import torch.distributed as dist
+
+    if mode == "port":
+        from lhrs_bot_tpu_torch.parallel import distribute
+
+        distribute.init_distributed("nccl")
+        print("init_distributed('nccl') joined", flush=True)
+        return
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method="env://")
+    t = torch.ones(4, device="cuda")
+    dist.all_reduce(t)
+    torch.cuda.synchronize()
+    print(f"torch nccl all_reduce on one card: {t.tolist()}", flush=True)
+    dist.destroy_process_group()
+
+
+def _first_divergence(ref_ids, got_ids):
+    """(row, step) of the first token where two id lists part, or None."""
+    for r, (a, b) in enumerate(zip(ref_ids, got_ids)):
+        for j in range(min(len(a), len(b))):
+            if a[j] != b[j]:
+                return r, j
+        if len(a) != len(b):
+            return r, min(len(a), len(b))
+    return None
+
+
+def hold_tp_ids(name, ref, got, bound):
+    """Greedy ids of a tp = 2 rank against tp = 1: equal, or parting at a
+    step where tp = 1's top-2 margin lies within the two runs' largest
+    logit deviation there (bf16 rounding may flip such a step). Returns
+    the reading at the first parting step, or None."""
+    part = _first_divergence(ref["ids"], got["ids"])
+    if part is None:
+        return None
+    r, j = part
+    logits = [ref["first"], got["first"]] if j == 0 else [
+        ref["steps"][j - 1], got["steps"][j - 1]]
+    a, b = (np.asarray(x[r], np.float64) for x in logits)
+    top2 = np.sort(a)[-2:]
+    margin = float(top2[1] - top2[0])
+    dev = float(np.abs(a - b).max())
+    if margin > dev:
+        raise AssertionError(f"{name}: tp 2 ids part from tp 1's at row "
+                             f"{r} step {j}, where tp 1's top-2 margin "
+                             f"{margin:.4f} exceeds the deviation {dev:.4f}")
+    return {"row": r, "step": j, "margin": margin, "max_abs_dev": dev}
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def _tree_rel(got, ref):
+    """Relative L2 of two trees of arrays, over all their elements."""
+    def flat(t):
+        if isinstance(t, dict):
+            return np.concatenate([flat(t[k]) for k in sorted(t)])
+        return np.asarray(t, np.float64).reshape(-1)
+
+    return _rel(flat(got), flat(ref))
+
+
+def _leaf_summary(rels, bound):
+    """A {leaf: relative L2} reading in brief: the leaves, the largest and
+    its leaf, the median, and how many lie above `bound`."""
+    worst = max(rels, key=rels.get)
+    return {"leaves": len(rels), "max": rels[worst], "max_leaf": worst,
+            "median": float(np.median(list(rels.values()))),
+            "above_bound": sum(v > bound for v in rels.values())}
+
+
+def phase_parallel(dev, tiny=False, backend="gloo", n=2):
+    """Phase 8: data and tensor parallelism, two ranks sharing the one
+    card over gloo (`parallel_worker`; `backend` "nccl" with `n` ranks
+    puts each rank on a card of its own, for `--parallel-only` on a
+    machine of n cards), held to one rank here on the same seeded
+    weights: (a) tp = 2 serving through the bf16 engine and the
+    W4A8 + int8 KV + int8 lm_head recipe (the first token's logits within
+    TP_REL_L2, the ids by `hold_tp_ids`, the ranks' ids and logits
+    equal, each rank's K1, K2 / K4, K3 (its mode (a) too) and A launches,
+    the packed-axis fault past the bound; each rank's W4A8 products by
+    `hold_tp_w4a8`); (b) a dp = 2 stage-2 step with ZeRO against dp = 1
+    on the same global batch (loss and grad_norm within DP_METRIC_REL,
+    the first moments leaf by leaf within DP_MOMENT_REL_L2, the updates
+    within DP_UPDATE_REL_L2, every trainable leaf equal on both ranks, the
+    skipped gradient reduction past both bounds); NCCL's handling of two ranks on one card. A rank that
+    fails fails the phase. Times are two ranks sharing one card."""
+    import pickle
+    import shutil
+    import tempfile
+
+    import torch
+
+    t_phase = time.time()
+    serving, train = parallel_configs(tiny)
+    wrappers = kernel_wrappers()
+    t0 = time.time()
+    ref_serve = tp_serve(dev, serving, None, wrappers, tiny)
+    ref_train = dp_train(dev, train, None)
+    ref_s = time.time() - t0
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    os.makedirs("build", exist_ok=True)
+    work = tempfile.mkdtemp(prefix="parallel_", dir="build")
+    try:
+        with open(os.path.join(work, "spec.json"), "w") as fh:
+            json.dump({"device": dev.type, "tiny": tiny,
+                       "backend": backend}, fh)
+        t0 = time.time()
+        codes, logs = run_ranks([os.path.abspath(__file__),
+                                 "--parallel-worker", work], n=n)
+        ranks_s = time.time() - t0
+        if codes != [0] * n:
+            raise AssertionError(f"parallel ranks exited {codes}:\n"
+                                 + "\n----\n".join(logs))
+        ranks = []
+        for r in range(n):
+            with open(os.path.join(work, f"rank{r}.pkl"), "rb") as fh:
+                ranks.append(pickle.load(fh))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out = {"ranks": n, "backend": backend, "ref_s": ref_s,
+           "ranks_s": ranks_s,
+           "collectives": ranks[0]["collectives"],
+           "serve_s": [r["serve_s"] for r in ranks],
+           "train_s": [r["train_s"] for r in ranks],
+           "peak_gib": [r.get("peak_gib") for r in ranks]}
+    # (a) tp = 2 serving
+    for name, _, needed in PARALLEL_RECIPES:
+        ref = ref_serve[name]
+        bound = TP_REL_L2[name]
+        reading = {"bound": bound, "rel_l2": [], "parted": [], "ms": [],
+                   "ref_ms": [q["ms"] for q in ref["requests"]],
+                   "launches": [r["serve"][name]["launches"]
+                                for r in ranks],
+                   "ref_launches": ref["launches"]}
+        for q_ref, q0, *qs in zip(ref["requests"],
+                                  *(r["serve"][name]["requests"]
+                                    for r in ranks)):
+            if any(q["ids"] != q0["ids"] or not np.array_equal(
+                    q["first"], q0["first"]) for q in qs):
+                raise AssertionError(f"tp {name} {q0['request']}: the "
+                                     "ranks' ids or logits differ")
+            rel = [_rel(a, b) for a, b in zip(q0["first"], q_ref["first"])]
+            reading["rel_l2"].append(rel)
+            reading["ms"].append([q["ms"] for q in [q0] + qs])
+            if max(rel) > bound:
+                raise AssertionError(f"tp {name} {q0['request']}: first "
+                                     f"logits rel L2 {rel} > {bound}")
+            reading["parted"].append(hold_tp_ids(
+                f"tp {name} {q0['request']}", q_ref, q0, bound))
+        for r, rank in enumerate(ranks):
+            launches = rank["serve"][name]["launches"]
+            for k in needed if dev.type == "cuda" else ():
+                if launches[k] <= 0:
+                    raise AssertionError(f"tp {name}: rank {r} launched no "
+                                         f"{k}")
+            if (name == "w4a8" and dev.type == "cuda"
+                    and launches["w4a8_matmul_mode_a"] <= 0):
+                raise AssertionError("tp w4a8: K3's mode (a) (the row-"
+                                     "parallel products) never launched")
+        if "fault_first" in ranks[0]["serve"][name]:
+            fault = [_rel(a, b) for a, b in zip(
+                ranks[0]["serve"][name]["fault_first"],
+                ref["requests"][0]["first"])]
+            reading["packed_axis_fault_rel_l2"] = fault
+            if min(fault) <= bound:
+                raise AssertionError(f"tp {name}: the packed-axis fault "
+                                     f"passes ({fault} <= {bound})")
+        out[f"tp_{name}"] = reading
+        log(f"  tp {n} {name}: first logits rel L2 {reading['rel_l2']} "
+            f"(bound {bound}), ids parted {reading['parted']}, packed-axis "
+            f"fault {reading.get('packed_axis_fault_rel_l2')}; generate "
+            f"ms (a rank each) {reading['ms']} vs one rank "
+            f"{reading['ref_ms']}; launches a rank {reading['launches']} "
+            f"vs one rank {ref['launches']}")
+    # each rank's W4A8 products at its shapes against the single rank's
+    hold_tp_w4a8(ranks, dev.type == "cuda")
+    out["tp_w4a8_products"] = ranks[0]["w4a8_shapes"]
+    out["tp_w4a8_faults"] = [row.get("fault_rel_l2") for rank in ranks
+                             for row in rank["w4a8_shapes"]
+                             if row["split"] == "rows"]
+    log(f"  tp {n} W4A8 products a rank (rank 0; bit for bit the single "
+        f"rank's, codes kernel A's): "
+        + "; ".join(f"{r['name']} B{r['B']} K/2 {r['K2_local']} N "
+                    f"{r['N_local']} {r.get('ms')} ms (tp 1 "
+                    f"{r.get('tp1_ms')}, bound {r.get('bound_ms')})"
+                    for r in ranks[0]["w4a8_shapes"])
+        + f"; mode (a) fault rel L2 {out['tp_w4a8_faults']}")
+    # (b) dp = 2 stage-2 step
+    tr = [r["train"] for r in ranks]
+    if any(t["digest"] != tr[0]["digest"] for t in tr):
+        raise AssertionError(f"dp {n}: the trainable leaves differ between "
+                             "the ranks")
+    if tr[0]["valid_tokens"] == tr[1]["valid_tokens"]:
+        raise AssertionError(f"dp {n}: ranks 0 and 1 should hold different "
+                             "token counts")
+    m_ref = ref_train["metrics"]
+    reading = {"metrics": [t["metrics"] for t in tr], "ref": m_ref,
+               "ms": [t["ms"] for t in tr], "ref_ms": ref_train["ms"],
+               "valid_tokens": [t["valid_tokens"] for t in tr],
+               "bounds": [DP_METRIC_REL, DP_UPDATE_REL_L2]}
+    for k in ("total_loss", "grad_norm"):
+        rel = abs(tr[0]["metrics"][k] - m_ref[k]) / abs(m_ref[k])
+        reading[f"{k}_rel"] = rel
+        if rel > DP_METRIC_REL or any(t["metrics"][k] != tr[0]["metrics"][k]
+                                      for t in tr):
+            raise AssertionError(f"dp {n} {k}: {[t['metrics'][k] for t in tr]}"
+                                 f" vs {m_ref[k]}")
+    reading["update_rel_l2"] = {
+        g: _tree_rel(tr[0]["updates"][g], ref_train["updates"][g])
+        for g in ("lora", "pooler")}
+    faulty = ranks[0]["train_fault"]
+    reading["fault_update_rel_l2"] = {
+        g: _tree_rel(faulty["updates"][g], ref_train["updates"][g])
+        for g in ("lora", "pooler")}
+    # leaf by leaf, the first moments (the reduced gradients): a leaf whose
+    # gradient is scaled or left unreduced shows here whatever its size
+    ref_m = ref_train["moments"]
+    if set(tr[0]["moments"]) != set(ref_m):
+        raise AssertionError(f"dp {n}: the optimizer's paths differ from one "
+                             "rank's")
+    rels = {p: _rel(tr[0]["moments"][p], ref_m[p]) for p in ref_m}
+    fault_rels = {p: _rel(faulty["moments"][p], ref_m[p]) for p in ref_m}
+    held = [p for p in ref_m if p not in DP_ZERO_GRAD_LEAVES]
+    reading["moment_rel_l2"] = _leaf_summary(
+        {p: rels[p] for p in held}, DP_MOMENT_REL_L2)
+    reading["fault_moment_rel_l2"] = _leaf_summary(
+        {p: fault_rels[p] for p in held}, DP_MOMENT_REL_L2)
+    reading["moment_rel_l2_by_leaf"] = rels
+    reading["fault_moment_rel_l2_by_leaf"] = fault_rels
+    # a leaf whose gradient is zero but for rounding, held to be so
+    reading["zero_grad_rms_ratio"] = {
+        p: float(np.sqrt(np.mean(np.square(ref_m[p], dtype=np.float64)))
+                 / np.sqrt(np.mean(np.square(ref_m[q], dtype=np.float64))))
+        for p, q in DP_ZERO_GRAD_LEAVES.items() if p in ref_m}
+    out["dp_stage2"] = reading
+    log(f"  dp {n} stage-2 step: metrics {reading['metrics'][0]} vs one rank "
+        f"{m_ref}; first moments leaf by leaf {reading['moment_rel_l2']} "
+        f"(bound {DP_MOMENT_REL_L2}; every leaf {json.dumps(rels)}), skipped "
+        f"reduction {reading['fault_moment_rel_l2']} (every leaf "
+        f"{json.dumps(fault_rels)}); zero-gradient leaves' RMS against "
+        f"their partner's {reading['zero_grad_rms_ratio']}; updates rel L2 "
+        f"{reading['update_rel_l2']} (bound {DP_UPDATE_REL_L2}), skipped "
+        f"reduction {reading['fault_update_rel_l2']}; step ms "
+        f"{reading['ms']} vs {ref_train['ms']}; valid tokens a rank "
+        f"{reading['valid_tokens']}")
+    if max(reading["update_rel_l2"].values()) > DP_UPDATE_REL_L2:
+        raise AssertionError(f"dp {n} updates: {reading['update_rel_l2']}")
+    # the last rank's ZeRO shard (the end of the flat vector: the LoRA
+    # factors) took its own gradients, so the fault shows there
+    if max(reading["fault_update_rel_l2"].values()) <= DP_UPDATE_REL_L2:
+        raise AssertionError(f"dp {n}: the skipped gradient reduction "
+                             f"passes: {reading['fault_update_rel_l2']}")
+    if reading["moment_rel_l2"]["max"] > DP_MOMENT_REL_L2:
+        raise AssertionError(f"dp {n} first moments: "
+                             f"{reading['moment_rel_l2']}")
+    if reading["fault_moment_rel_l2"]["max"] <= DP_MOMENT_REL_L2:
+        raise AssertionError(f"dp {n}: the skipped gradient reduction passes "
+                             f"the first moments: "
+                             f"{reading['fault_moment_rel_l2']}")
+    for p, ratio in reading["zero_grad_rms_ratio"].items():
+        if ratio > DP_ZERO_GRAD_RMS:
+            raise AssertionError(f"dp {n}: {p}'s gradient is not zero: its "
+                                 f"first moment's RMS is {ratio} of "
+                                 f"{DP_ZERO_GRAD_LEAVES[p]}'s")
+    if dev.type == "cuda" and backend == "gloo":
+        probes = {}
+        for mode in ("port", "torch"):
+            codes, logs = run_ranks([os.path.abspath(__file__),
+                                     "--nccl-probe", mode], timeout=90)
+            probes[mode] = {"exit": codes, "said": [
+                [ln for ln in lg.splitlines() if ln.strip()][-3:]
+                for lg in logs]}
+        out["nccl_two_ranks_one_card"] = probes
+        if 0 in probes["port"]["exit"]:
+            raise AssertionError("init_distributed('nccl') joined two local "
+                                 "ranks on one card")
+        log(f"  NCCL, two ranks on one card: {json.dumps(probes)}")
+    out["seconds"] = time.time() - t_phase
+    log(f"  parallel phase {out['seconds']:.1f} s (one-rank reference "
+        f"{ref_s:.1f} s, the {n} ranks {ranks_s:.1f} s over {backend}; "
+        + ("times of ranks sharing one card)" if backend == "gloo"
+           else "a card a rank)"))
+    return out
+
+
 # where a failing phase leaves its traceback, and a crash of the
 # interpreter its stacks: the output directory a remote run copies back
 OUT_DIR = "chiprun_out"
 
 
+# each phase's wall seconds, in the order run (a nested phase counts in
+# its caller's too)
+PHASE_SECONDS = {}
+
+
 def phase(name, fn, *args):
     """Run one phase; if it raises, keep the traceback in
-    OUT_DIR/chip_smoke_<name>.err before passing the exception on."""
+    OUT_DIR/chip_smoke_<name>.err before passing the exception on. Its
+    seconds go to PHASE_SECONDS."""
+    t0 = time.time()
     try:
         return fn(*args)
     except BaseException:
@@ -6793,6 +7678,8 @@ def phase(name, fn, *args):
         with open(os.path.join(OUT_DIR, f"chip_smoke_{name}.err"), "w") as f:
             traceback.print_exc(file=f)
         raise
+    finally:
+        PHASE_SECONDS[name] = round(time.time() - t0, 1)
 
 
 def _leaves(tree):
@@ -6839,9 +7726,23 @@ def eval_only(dev):
 def main():
     import torch
 
+    if sys.argv[1:2] == ["--parallel-worker"]:  # a rank of phase 8
+        return parallel_worker(sys.argv[2])
+    if sys.argv[1:2] == ["--nccl-probe"]:
+        return nccl_probe(sys.argv[2])
     eval_part = sys.argv[1:] == ["--eval-only"]
-    if sys.argv[1:] and not eval_part:
-        raise SystemExit("usage: chip_smoke.py [--eval-only]")
+    parallel_part = sys.argv[1:2] == ["--parallel-only"]
+    parallel_args = {}
+    if parallel_part and sys.argv[2:]:
+        # --parallel-only --dist-backend nccl --ranks N: a card a rank
+        if (len(sys.argv) != 6 or sys.argv[2] != "--dist-backend"
+                or sys.argv[4] != "--ranks"):
+            raise SystemExit("usage: chip_smoke.py --parallel-only "
+                             "[--dist-backend nccl|gloo --ranks N]")
+        parallel_args = {"backend": sys.argv[3], "n": int(sys.argv[5])}
+    if sys.argv[1:] and not (eval_part or parallel_part):
+        raise SystemExit("usage: chip_smoke.py [--eval-only | "
+                         "--parallel-only [--dist-backend B --ranks N]]")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device visible; this check "
                          "runs on the card")
@@ -6853,7 +7754,7 @@ def main():
     faulthandler.enable(faults)  # a segfault or abort leaves its stacks
     dev = torch.device("cuda", 0)
     smi = smi_line()
-    log(f"[1/7 device] torch {torch.__version__}, CUDA {torch.version.cuda}, "
+    log(f"[1/8 device] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}, capability "
         f"{torch.cuda.get_device_capability(0)}, count "
         f"{torch.cuda.device_count()}")
@@ -6868,7 +7769,7 @@ def main():
     build_log = (so.parent / "build.log").read_text().splitlines()
     usage = [ln.strip() for ln in build_log
              if "Used" in ln or "spill" in ln or "Compiling entry" in ln]
-    log(f"[2/7 build] {so.relative_to(cuda_lib.BUILD_ROOT.parents[1])} in "
+    log(f"[2/8 build] {so.relative_to(cuda_lib.BUILD_ROOT.parents[1])} in "
         f"{build_s:.1f} s")
     for ln in usage:
         log(f"  {ln}")
@@ -6882,8 +7783,13 @@ def main():
                          + "\n".join(serialized))
     if eval_part:
         return eval_only(dev)
+    if parallel_part:
+        out = phase("parallel", lambda: phase_parallel(dev, **parallel_args))
+        log(json.dumps({"parallel": out}, default=str))
+        log(smi_line())
+        return None
 
-    log("[3/7 kernels vs plain]")
+    log("[3/8 kernels vs plain]")
     k1, k2 = phase("kernels", phase_kernels, dev)
     train_k = phase("train_kernels", phase_train_kernels, dev)
     k3, k4 = phase("quant_kernels", phase_quant_kernels, dev)
@@ -6892,18 +7798,18 @@ def main():
     paged = phase("paged_kernels", phase_paged_kernels, dev)
     bench_k = phase("bench_kernels", phase_bench_kernels, dev)
 
-    log("[4/7 serving slices at full width]")
+    log("[4/8 serving slices at full width]")
     paths = phase("slice", phase_slice, dev)
     bf16, w4a8 = paths["bf16"]["launches"], paths["w4a8"]["launches"]
     int8 = paths["int8"]["launches"]
 
-    log("[5/7 stage-1 training at full width]")
+    log("[5/8 stage-1 training at full width]")
     train = phase("train", phase_train, dev)
 
-    log("[6/7 the bench path]")
+    log("[6/8 the bench path]")
     bench = phase("bench", phase_bench, dev)
 
-    log("[7/7 checkpoints at full width: load, serve, stage 2 -> 3 -> eval, "
+    log("[7/8 checkpoints at full width: load, serve, stage 2 -> 3 -> eval, "
         "then training from data on disk and the eval entry points]")
     ckpt = phase("checkpoint", phase_checkpoint, dev,
                  lambda paths, root: {
@@ -6911,6 +7817,9 @@ def main():
                          "train_from_disk", phase_train_from_disk, dev,
                          paths, root),
                      "eval": phase("eval", phase_eval, dev, paths, root)})
+
+    log("[8/8 data and tensor parallelism: two ranks on the card over gloo]")
+    parallel = phase("parallel", phase_parallel, dev)
 
     def row(name, source, replaces, launches, k):
         return {"name": name, "route": "cuda",
@@ -6995,12 +7904,16 @@ def main():
             "and every C under shapes")
         k["shapes"] = numbers["shapes"]
     step = paths["w4a8"]["launches_a_decode_step"]["int8 cache"]
+    tp_w4 = parallel["tp_w4a8"]["launches"][0]
     kernels[3]["note"] = (
         "one clustered launch a projection; times of the fused mode (b), "
         "which quantizes the bf16 activation itself, at B1 K4096 N11008 "
         f"(mode (a) {k3['mode_a_ms']:.4f} ms); a W4A8 decode "
         f"step launches it {step['w4a8_matmul']:.0f} times and kernel A "
-        f"{step['ln_quant']:.0f} times (int8 cache), no epilogue kernel")
+        f"{step['ln_quant']:.0f} times (int8 cache), no epilogue kernel; "
+        f"on phase 8's tp = 2 W4A8 path a rank launched it "
+        f"{tp_w4['w4a8_matmul']} times, {tp_w4['w4a8_matmul_mode_a']} of "
+        "them in mode (a) (the row-parallel o and down projections)")
     kernels[4]["note"] = ("row groups held in registers; times at LN1 of 64 "
                           "images (16448, 1024) bf16")
     packed = train_k["cases"]["decoder_segments"]
@@ -7022,6 +7935,9 @@ def main():
     log(json.dumps({"bench_kernels": bench_k,
                     "bench_launches": bench["launches"]}))
     log(json.dumps({"checkpoint": ckpt}))
+    log(json.dumps({"parallel": parallel}, default=str))
+    log(json.dumps({"phase_seconds": PHASE_SECONDS,
+                    "build_seconds": round(build_s, 1)}))
     log(json.dumps({"kernels": kernels}))
     log(smi_line())
     log(json.dumps({"ok": True, "device": {

@@ -15,6 +15,8 @@ This package imports torch and never jax.
            transformers or tokenizers: conversation templates, image-token
            tokenization, a byte-level tokenizer, the CLIP resize, PNG decode
   train/   stage-1 to stage-3 trainers, optimizers, schedules
+  parallel/ torch.distributed: rank helpers, the ("data", "model") mesh,
+           tensor-parallel partition, ZeRO-2 optimizer-state shards
   utils/   logger setup, environment report
   bench.py the bench's cells on the card (`python -m lhrs_bot_tpu_torch.bench`)
   benchmarks/  the HBM and int8 probes and the int8-dots A/B

@@ -31,13 +31,18 @@ def add_common_args(parser: ConfigArgumentParser) -> None:
     parser.add_argument("--output", type=str, default="output")
     parser.add_argument("--seed", type=int, default=322)
     parser.add_argument("--tp", type=int, default=None,
-                        help="tensor-parallel size (above 1 not ported)")
+                        help="tensor-parallel mesh size (the decoder's "
+                             "heads and MLP width split over tp ranks)")
+    parser.add_argument("--dist-backend", type=str, default="nccl",
+                        choices=("nccl", "gloo"),
+                        help="torch.distributed backend under torchrun: "
+                             "nccl (one card a local rank) or gloo (ranks "
+                             "may share a card, or run on the CPU)")
 
 
 def add_train_args(parser: ConfigArgumentParser) -> None:
     """The JAX trainer's common flags that the stage entry points read,
-    and `--device`. `--dp` and `--tp` above 1 need a mesh, which is not
-    ported: the entry points raise NotImplementedError for them."""
+    and `--device`. `--dp` / `--tp` set the mesh (`train_stage`)."""
     parser.add_argument("--data-path", type=str, default=None)
     parser.add_argument("--batch-size", type=int, default=8)
     parser.add_argument("--workers", type=int, default=4)
@@ -45,16 +50,18 @@ def add_train_args(parser: ConfigArgumentParser) -> None:
     parser.add_argument("--use-checkpoint", action="store_true",
                         help="gradient (re)materialization")
     parser.add_argument("--dp", type=int, default=None,
-                        help="data-parallel mesh size (not ported)")
+                        help="data-parallel mesh size (each data index "
+                             "draws --batch-size rows a step)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (the default) or cpu")
 
 
 def add_eval_args(parser: ConfigArgumentParser) -> None:
     """The JAX common flags that the eval entry points read, and
-    `--device`. `--dp` above 1 (as `--tp` above 1) needs a mesh, which is
-    not ported: the entry points raise NotImplementedError for it. JAX's
-    `--eval-path` has no reader in either package, so it is left out."""
+    `--device`. `--dp` above 1 (as `--tp` above 1) raises
+    NotImplementedError in the entry points, which run no mesh (as JAX's
+    eval mains). JAX's `--eval-path` has no reader in either package, so it
+    is left out."""
     parser.add_argument("--data-path", type=str, default=None)
     parser.add_argument("--data-target", type=str, default=None)
     parser.add_argument("--batch-size", type=int, default=8)
@@ -64,20 +71,24 @@ def add_eval_args(parser: ConfigArgumentParser) -> None:
                              "at EOS instead of stepping every row for "
                              "max_new_tokens)")
     parser.add_argument("--dp", type=int, default=None,
-                        help="data-parallel mesh size (above 1 not ported)")
+                        help="above 1 refused: the eval entries run no mesh")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (the default) or cpu")
 
 
 def parse_config(description: str, extra=None, args=None) -> ConfigDict:
     """The YAML named by -c merged with the CLI flags (the common ones and
-    those `extra(parser)` adds), with rank, world_size and
-    is_distribute."""
+    those `extra(parser)` adds), with rank, world_size and is_distribute.
+    Under torchrun (WORLD_SIZE above 1) it first joins the process group
+    with `--dist-backend` (`parallel.distribute.init_distributed`)."""
+    from ..parallel.distribute import init_distributed
+
     parser = ConfigArgumentParser(description=description)
     add_common_args(parser)
     if extra is not None:
         extra(parser)
     config = parser.parse_args(args)
+    init_distributed(config.get("dist_backend") or "nccl")
     dist = torch.distributed
     up = dist.is_available() and dist.is_initialized()
     config["rank"] = dist.get_rank() if up else 0
@@ -170,8 +181,8 @@ def vision_w8a8_setting(cfg, config, bits: int, device) -> bool:
 
 
 def build_engine(cfg, params, config, device, *,
-                 compute_dtype: torch.dtype = torch.bfloat16
-                 ) -> GenerationEngine:
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 mesh=None) -> GenerationEngine:
     """A GenerationEngine for `config` (a nested dict with the schema of
     `Config/*.yaml`, e.g. `core.convert.eval_config()`) on `device`, over
     `params` as numpy leaves (`build_model`, `load_pretrained`) or tensors,
@@ -188,7 +199,8 @@ def build_engine(cfg, params, config, device, *,
     takes (64 or 128). Off on the CPU, as the JAX default is off the TPU.
     `prefill_chunk` (0 or missing: off) sets the engine's chunked prefill.
     Other `bits`/`kv_bits` values raise ValueError. The engine computes in
-    `compute_dtype` (bf16, as JAX's; float32 for a comparison with JAX)."""
+    `compute_dtype` (bf16, as JAX's; float32 for a comparison with JAX).
+    `mesh` (dp 1) serves the decoder tensor parallel."""
     bits = int(config.get("bits", 16) or 16)
     kv_bits = int(config.get("kv_bits", 16) or 16)
     if bits not in (4, 8, 16) or kv_bits not in (8, 16):
@@ -205,13 +217,29 @@ def build_engine(cfg, params, config, device, *,
         double_quant=bool(config.get("double_quant", True)),
         lm_head_bits=int(config.get("lm_head_bits", 0) or 0) or None,
         vision_w8a8=vision_w8a8_setting(cfg, config, bits, device),
-        prefill_chunk=chunk or None)
+        prefill_chunk=chunk or None, mesh=mesh)
+
+
+def make_config_mesh(config):
+    """The mesh of `--dp` / `--tp` over the world's ranks, with JAX's
+    defaults (`parallel.mesh.make_mesh`: with neither flag every rank on
+    the model axis, with one the other takes the rest; ValueError where
+    dp * tp is not the world size); None for one process that asks for
+    no more."""
+    from ..parallel.distribute import get_world_size
+    from ..parallel.mesh import make_mesh
+
+    dp = int(config.get("dp") or 0) or None
+    tp = int(config.get("tp") or 0) or None
+    if (dp or 1) == 1 and (tp or 1) == 1 and get_world_size() == 1:
+        return None
+    return make_mesh(dp=dp, tp=tp)
 
 
 def build_trainer(config, params, loader, device="cuda", *,
                   compute_dtype: torch.dtype = torch.bfloat16,
                   work_dir: str = "output", log_period: int = 50,
-                  max_to_keep: int = 1, hooks=None):
+                  max_to_keep: int = 1, hooks=None, mesh=None):
     """The trainer of `config` (a nested dict with the schema of
     `Config/*.yaml`, e.g. from `core.config.load_yaml_config`) over
     `params` (the JAX parameter pytree as numpy, or tensors) and `loader`
@@ -227,7 +255,8 @@ def build_trainer(config, params, loader, device="cuda", *,
     `ckpt_period` (where the config sets it) adds the CheckpointHook,
     which keeps `max_to_keep` checkpoints under work_dir/checkpoints;
     `hooks` run before the default ones. The trainer's parameters are
-    `trainer.params`."""
+    `trainer.params`. With `mesh` the trainer trains this rank's slice
+    (`parallel.partition.shard_params`) with a ZeRO-sharded optimizer."""
     from ..models.vlm import VLMConfig, trainable_mask
     from ..train import (EpochBasedTrainer, IterBasedTrainer,
                          build_optimizer, build_schedule)
@@ -235,7 +264,12 @@ def build_trainer(config, params, loader, device="cuda", *,
 
     cfg = VLMConfig.from_config_dict(config)
     params = training_params_from_numpy(params, cfg, compute_dtype, device)
+    if mesh is not None:
+        from ..parallel.partition import shard_params
+
+        params = shard_params(mesh, params)
     common = dict(work_dir=work_dir, compute_dtype=compute_dtype,
+                  mesh=mesh,
                   remat=bool(config.get("use_checkpoint", False)),
                   log_period=log_period,
                   ckpt_period=config.get("ckpt_period"),
@@ -244,14 +278,15 @@ def build_trainer(config, params, loader, device="cuda", *,
         max_iters = int(config["epochs"])
         schedule = build_schedule(config, max_iters)
         optimizer = build_optimizer(config, params,
-                                    trainable_mask(params, cfg), schedule)
+                                    trainable_mask(params, cfg), schedule,
+                                    mesh=mesh)
         return IterBasedTrainer(cfg, params, optimizer, loader,
                                 max_iters=max_iters, schedule=schedule,
                                 **common)
     epochs = int(config["epochs"])
     schedule = build_schedule(config, epochs * len(loader))
     optimizer = build_optimizer(config, params, trainable_mask(params, cfg),
-                                schedule)
+                                schedule, mesh=mesh)
     return EpochBasedTrainer(cfg, params, optimizer, loader, epochs=epochs,
                              schedule=schedule, **common)
 
@@ -264,30 +299,42 @@ def train_stage(config, default_ckpt_period: int, hooks=None):
     config's or `default_ckpt_period`, one kept, under `config.output`),
     `train(resume=auto_resume)` and `save_final` into `config.output`;
     `hooks` go to the trainer before its default ones. Returns the
-    trainer. `--dp`, or `--tp` above 1, needs a mesh, which is
-    not ported: NotImplementedError."""
+    trainer. Under torchrun, `--dp` / `--tp` make the mesh
+    (`make_config_mesh`; dp * tp must be the world size): each data index
+    draws its own `--batch-size` rows (the loader's rank and world are
+    the data index and dp, and Python's and numpy's generators are seeded
+    with seed + data index, so a model group's ranks draw the same
+    samples), the decoder splits over tp, and only rank 0 writes
+    FINAL.pt."""
     from ..data.build_loader import build_loader
     from .model_io import save_final
 
-    if config.get("dp") or int(config.get("tp") or 1) > 1:
-        raise NotImplementedError("--dp / --tp > 1: data- and tensor-"
-                                  "parallel training need a mesh, not "
-                                  "ported to lhrs_bot_tpu_torch yet")
     device = resolve_device(config.get("device") or "cuda")
     config.setdefault("rank", 0)
     config.setdefault("world_size", 1)
+    mesh = make_config_mesh(config)
     logger = setup(config)
+    if mesh is not None:  # the model group's ranks draw the same samples
+        set_random_seed(int(config.seed), mesh.data_index)
     if config.get("ckpt_period") is None:
         config["ckpt_period"] = default_ckpt_period
     cfg, params, tokenizer = build_model_and_tokenizer(config, device)
-    loader = build_loader(config, tokenizer, mode="pretrain",
-                          rank=config.rank, world_size=config.world_size)
+    loader = build_loader(
+        config, tokenizer, mode="pretrain",
+        rank=config.rank if mesh is None else mesh.data_index,
+        world_size=config.world_size if mesh is None else mesh.dp)
     trainer = build_trainer(config, params, loader, device,
                             work_dir=config.output, log_period=50,
-                            max_to_keep=1, hooks=hooks)
+                            max_to_keep=1, hooks=hooks, mesh=mesh)
     del params
     trainer.train(resume=bool(config.get("auto_resume")))
+    final = trainer.params
+    if mesh is not None:
+        from ..core.convert import as_loaded
+        from ..parallel.partition import gather_params
+
+        final = as_loaded(gather_params(mesh, trainer.params))
     if config.rank == 0:
-        save_final(config.output, trainer.params, cfg)
+        save_final(config.output, final, cfg)
         logger.info("stage-%d training complete", int(config.stage))
     return trainer

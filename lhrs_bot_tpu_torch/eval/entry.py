@@ -19,7 +19,6 @@ from ..core.bootstrap import (add_eval_args, build_engine,
 from ..data import conversation as conv_lib
 from ..data.preprocess import tokenizer_image_token
 from ..device import resolve_device
-from ..parallel.distribute import init_distributed
 from ..serve.engine import GenerationConfig
 from .scheduled import scheduler_generate
 
@@ -28,10 +27,9 @@ _INPUTS = ("input_ids", "image")
 
 
 def parse_eval_config(description: str, args=None):
-    """Join torchrun's process group where the environment names one,
-    then parse the YAML and the common and eval flags (rank and world
-    size from the group)."""
-    init_distributed()
+    """Parse the YAML and the common and eval flags, joining torchrun's
+    process group (with `--dist-backend`) where the environment names one
+    (rank and world size from the group)."""
     return parse_config(description, extra=add_eval_args, args=args)
 
 
@@ -39,12 +37,13 @@ def eval_session(config):
     """(logger, cfg, engine, tokenizer) of `config` on `config.device`
     (cuda unless it says cpu; a CUDA device with no card visible raises),
     with the config's prompt template made the default conversation.
-    `--dp`, or `--tp` above 1, needs a mesh, which is not ported:
-    NotImplementedError."""
+    `--dp`, or `--tp` above 1, raises NotImplementedError: the eval
+    entries run no mesh, as the JAX eval mains build none (under torchrun
+    each rank takes its share of the items instead)."""
     if int(config.get("dp") or 1) > 1 or int(config.get("tp") or 1) > 1:
-        raise NotImplementedError("--dp / --tp > 1: data- and tensor-"
-                                  "parallel eval needs a mesh, not ported "
-                                  "to lhrs_bot_tpu_torch yet")
+        raise NotImplementedError("--dp / --tp > 1: the eval entries run "
+                                  "no mesh (as JAX's); under torchrun each "
+                                  "rank evaluates its share of the items")
     device = resolve_device(config.get("device") or "cuda")
     config.setdefault("rank", 0)
     config.setdefault("world_size", 1)

@@ -62,7 +62,10 @@ from ..ops.fused_decode import fused_decode_attention, fused_decode_attention_q
 from ..ops.quant import QuantizedTensor, quantize_activation, quantized_matmul
 from ..ops.rmsnorm import rms_norm
 from ..ops.rope import apply_rope, rope_cos_sin
-from ..ops.w4_matmul import w4a8_project
+from ..ops.w4_matmul import w4a8_project, w4a8_project_row
+from ..parallel.mesh import copy_to_model, gather_from_model, \
+    reduce_from_model
+from ..parallel.partition import ROW_PARALLEL
 from .constants import IGNORE_INDEX
 
 
@@ -89,42 +92,78 @@ def _layer(layers, li: int, *, w4a8: bool = False):
     return out
 
 
-def _dense(x: torch.Tensor, w) -> torch.Tensor:
+def _dense(x: torch.Tensor, w, out_dtype=None) -> torch.Tensor:
     """x @ w for a compute-dtype matrix, a QuantizedTensor (scale folded
-    into the float32 epilogue) or a `_W4Layer` (W4A8)."""
+    into the float32 epilogue) or a `_W4Layer` (W4A8), in x's dtype, or
+    with `out_dtype` float32 a QuantizedTensor's product before its cast
+    (a float matrix's product is x's dtype widened)."""
     if isinstance(w, _W4Layer):
         return w4a8_project(x, w.qt, w.li)
     if isinstance(w, QuantizedTensor):
-        return quantized_matmul(x, w, out_dtype=x.dtype)
-    return torch.matmul(x, w)
+        return quantized_matmul(x, w, out_dtype=out_dtype or x.dtype)
+    y = torch.matmul(x, w)
+    return y if out_dtype is None else y.to(out_dtype)
 
 
-def _lm_head_logits(x: torch.Tensor, lm_head) -> torch.Tensor:
+def _lm_head_logits(x: torch.Tensor, lm_head, tp=None) -> torch.Tensor:
     """float32 logits: a compute-dtype head multiplies in float32; an int8
     QuantizedTensor head takes bf16 activations (not W8A8) with its scale
-    in the float32 epilogue."""
+    in the float32 epilogue. Under tensor parallelism (`tp`, the model
+    axis) each rank holds V / tp vocabulary columns and the shards are
+    gathered, so every rank gets the whole (..., V) logits."""
+    x = copy_to_model(x, tp)
     if isinstance(lm_head, QuantizedTensor):
-        return quantized_matmul(x, lm_head, out_dtype=torch.float32)
-    return torch.matmul(x.float(), lm_head.float())
+        logits = quantized_matmul(x, lm_head, out_dtype=torch.float32)
+    else:
+        logits = torch.matmul(x.float(), lm_head.float())
+    return gather_from_model(logits, tp)
 
 
-def _proj(lp, name: str, x: torch.Tensor) -> torch.Tensor:
+def _proj(lp, name: str, x: torch.Tensor, tp=None) -> torch.Tensor:
     """x @ lp[name], plus the runtime LoRA side path (x A) B where the
     layer carries `<name>__lora_a` / `<name>__lora_b` (B with the scale
     folded in, `models.lora.attach_runtime_lora`): A and B in x's dtype,
-    each product rounded to x's dtype, as the JAX `_proj` rounds them."""
-    y = _dense(x, lp[name])
+    each product rounded to x's dtype, as the JAX `_proj` rounds them.
+
+    Under tensor parallelism (`tp`, the model axis; the layer holds this
+    rank's slice, `parallel.partition`) a column projection multiplies the
+    whole x by its columns (`copy_to_model`: the input gradient is summed
+    over the group) and a row projection ("wo", "w_down") its slice of x
+    by its rows, the partial products summed over the group in float32
+    (`reduce_from_model`) before the cast to x's dtype; a W4A8 row
+    projection goes through `w4a8_project_row`. The LoRA side path
+    follows: a column layer's (x A) is summed in the backward, a row
+    layer's (x_i A_i) in the forward, before B. With `tp` None the group
+    operations return their input: the single-rank product."""
+    w = lp[name]
     a = lp.get(name + "__lora_a")
+    if tp is not None and name in ROW_PARALLEL:
+        if isinstance(w, _W4Layer):
+            y = w4a8_project_row(x, w.qt, w.li, tp)
+        else:
+            y = reduce_from_model(_dense(x, w, torch.float32), tp) \
+                .to(x.dtype)
+        if a is not None:
+            u = reduce_from_model(torch.matmul(x, a.to(x.dtype)).float(),
+                                  tp).to(x.dtype)
+            y = y + torch.matmul(u, lp[name + "__lora_b"].to(x.dtype))
+        return y
+    y = _dense(copy_to_model(x, tp), w)
     if a is not None:
-        b = lp[name + "__lora_b"]
-        y = y + torch.matmul(torch.matmul(x, a.to(x.dtype)), b.to(x.dtype))
+        u = copy_to_model(torch.matmul(x, a.to(x.dtype)), tp)
+        y = y + torch.matmul(u, lp[name + "__lora_b"].to(x.dtype))
     return y
 
 
-def _silu_mlp(x: torch.Tensor, lp) -> torch.Tensor:
-    gate = _proj(lp, "w_gate", x)
-    up = _proj(lp, "w_up", x)
-    return _proj(lp, "w_down", F.silu(gate.float()).to(x.dtype) * up)
+def _silu_mlp(x: torch.Tensor, lp, tp=None) -> torch.Tensor:
+    gate = _proj(lp, "w_gate", x, tp)
+    up = _proj(lp, "w_up", x, tp)
+    return _proj(lp, "w_down", F.silu(gate.float()).to(x.dtype) * up, tp)
+
+
+def _heads(cfg: "LlamaConfig", tp) -> int:
+    """Attention heads a rank holds: H / tp under tensor parallelism."""
+    return cfg.num_attention_heads // (1 if tp is None else tp.size)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -195,13 +234,15 @@ class KVCache:
     @classmethod
     def create(cls, cfg: LlamaConfig, batch: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16,
-               device="cuda") -> "KVCache":
+               device="cuda", heads: Optional[int] = None) -> "KVCache":
+        """Zero K/V of `heads` heads (all of cfg's by default; a
+        tensor-parallel rank's cache holds H / tp)."""
         if dtype not in (torch.bfloat16, torch.float32, torch.int8):
             raise NotImplementedError(f"{dtype} KV cache is not ported "
                                       "(bf16/f32/int8 only)")
         device = resolve_device(device)
-        shape = (cfg.num_hidden_layers, batch, cfg.num_attention_heads,
-                 max_len, cfg.head_dim)
+        shape = (cfg.num_hidden_layers, batch,
+                 heads or cfg.num_attention_heads, max_len, cfg.head_dim)
         scales = {}
         if dtype == torch.int8:
             scales = {name: torch.ones(shape[:-1], dtype=torch.float32,
@@ -234,13 +275,14 @@ class KVCache:
             v_scale=None if self.v_scale is None else grow(self.v_scale, 1.0))
 
 
-def _qkv(x: torch.Tensor, lp, cfg: LlamaConfig, cos, sin):
-    """Project + RoPE. x (B, S, D) -> contiguous q/k/v (B, H, S, hd)."""
+def _qkv(x: torch.Tensor, lp, cfg: LlamaConfig, cos, sin, tp=None):
+    """Project + RoPE. x (B, S, D) -> contiguous q/k/v (B, H, S, hd), H
+    this rank's heads under tensor parallelism."""
     b, s, _ = x.shape
+    nh = _heads(cfg, tp)
 
     def proj(name):
-        return _proj(lp, name, x).reshape(
-            b, s, cfg.num_attention_heads, cfg.head_dim)
+        return _proj(lp, name, x, tp).reshape(b, s, nh, cfg.head_dim)
 
     def heads(t):
         return t.transpose(1, 2).contiguous()
@@ -253,7 +295,7 @@ def _qkv(x: torch.Tensor, lp, cfg: LlamaConfig, cos, sin):
 def llama_prefill(params, cfg: LlamaConfig, cache: KVCache, *,
                   inputs_embeds: torch.Tensor, prompt_len: torch.Tensor,
                   compute_dtype: torch.dtype = torch.bfloat16,
-                  slots: Optional[torch.Tensor] = None
+                  slots: Optional[torch.Tensor] = None, tp=None
                   ) -> Tuple[torch.Tensor, KVCache]:
     """Prefill the cache from right-padded (B, S, D) embeddings; returns
     (next-token logits (B, V) float32, cache). Writes the first S rows of
@@ -264,21 +306,25 @@ def llama_prefill(params, cfg: LlamaConfig, cache: KVCache, *,
     Causal masking alone is correct: pads sit after the valid tokens, and
     their cache rows are overwritten by decode before they are read.
     Attention runs on the fresh K/V; only the write into an int8 cache is
-    quantized (`quantize_activation` per (b, h, s) vector)."""
+    quantized (`quantize_activation` per (b, h, s) vector). `tp` (the
+    mesh's model axis) runs the decoder tensor parallel over this rank's
+    slice of the parameters and its H / tp heads of the cache (every
+    prefill and decode function takes it)."""
     x = inputs_embeds.to(compute_dtype)
     b, s, _ = x.shape
+    width = _heads(cfg, tp) * cfg.head_dim
     rows = slice(None) if slots is None else slots.long()
     positions = torch.arange(s, device=x.device).expand(b, s)
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     for li in range(cfg.num_hidden_layers):
         lp = _layer(params["layers"], li)
         h = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps)
-        q, k, v = _qkv(h, lp, cfg, cos, sin)
+        q, k, v = _qkv(h, lp, cfg, cos, sin, tp)
         attn = flash_attention(q, k, v, causal=True)
-        attn = attn.transpose(1, 2).reshape(b, s, cfg.hidden_size)
-        x = x + _proj(lp, "wo", attn)
+        attn = attn.transpose(1, 2).reshape(b, s, width)
+        x = x + _proj(lp, "wo", attn, tp)
         h2 = rms_norm(x, lp["post_attn_norm"], cfg.rms_norm_eps)
-        x = x + _silu_mlp(h2, lp)
+        x = x + _silu_mlp(h2, lp, tp)
         if cache.quantized:
             for arr, scale, t in ((cache.k, cache.k_scale, k),
                                   (cache.v, cache.v_scale, v)):
@@ -291,7 +337,7 @@ def llama_prefill(params, cfg: LlamaConfig, cache: KVCache, *,
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     last = (prompt_len.long() - 1).clamp(min=0)
     x_last = x[torch.arange(b, device=x.device), last]
-    logits = _lm_head_logits(x_last, params["lm_head"])
+    logits = _lm_head_logits(x_last, params["lm_head"], tp)
     length = prompt_len.to(torch.int32)
     if slots is not None:
         length = cache.length.clone()
@@ -351,7 +397,7 @@ def llama_prefill_continue(params, cfg: LlamaConfig, cache: KVCache, *,
                            inputs_embeds: torch.Tensor,
                            suffix_len: torch.Tensor, start: torch.Tensor,
                            compute_dtype: torch.dtype = torch.bfloat16,
-                           return_all_logits: bool = False
+                           return_all_logits: bool = False, tp=None
                            ) -> Tuple[torch.Tensor, KVCache]:
     """Extend a filled cache by a suffix (JAX `llama_prefill_continue`):
     inputs_embeds (B, W, D) right-padded suffix embeddings, suffix_len (B,)
@@ -368,6 +414,7 @@ def llama_prefill_continue(params, cfg: LlamaConfig, cache: KVCache, *,
     b, w, _ = x.shape
     dev = x.device
     s_max = cache.k.shape[3]
+    width = _heads(cfg, tp) * cfg.head_dim
     start = start.to(dev).long()
     suffix_len = suffix_len.to(dev).long()
     positions = start[:, None] + torch.arange(w, device=dev)[None, :]
@@ -387,7 +434,7 @@ def llama_prefill_continue(params, cfg: LlamaConfig, cache: KVCache, *,
     for li in range(cfg.num_hidden_layers):
         lp = _layer(params["layers"], li)
         h = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps)
-        q, k, v = _qkv(h, lp, cfg, cos, sin)  # (B, H, W, hd)
+        q, k, v = _qkv(h, lp, cfg, cos, sin, tp)  # (B, H, W, hd)
         k_rows, v_rows = k.transpose(1, 2), v.transpose(1, 2)  # (B, W, H, d)
         if cache.quantized:
             for arr, scale, t in ((cache.k, cache.k_scale, k_rows),
@@ -403,39 +450,39 @@ def llama_prefill_continue(params, cfg: LlamaConfig, cache: KVCache, *,
             write(cache.v, li, v_rows)
             attn = _continue_attention(q, cache.k[li], cache.v[li], None,
                                        None, causal, sm)
-        attn = attn.transpose(1, 2).reshape(b, w, cfg.hidden_size)
-        x = x + _proj(lp, "wo", attn)
+        attn = attn.transpose(1, 2).reshape(b, w, width)
+        x = x + _proj(lp, "wo", attn, tp)
         h2 = rms_norm(x, lp["post_attn_norm"], cfg.rms_norm_eps)
-        x = x + _silu_mlp(h2, lp)
+        x = x + _silu_mlp(h2, lp, tp)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     if return_all_logits:
-        logits = _lm_head_logits(x, params["lm_head"])
+        logits = _lm_head_logits(x, params["lm_head"], tp)
     else:
         last = (suffix_len - 1).clamp(min=0)
         logits = _lm_head_logits(x[torch.arange(b, device=dev), last],
-                                 params["lm_head"])
+                                 params["lm_head"], tp)
     return logits, dataclasses.replace(
         cache, length=(start + suffix_len).to(torch.int32))
 
 
 def _block_full(x: torch.Tensor, lp, cfg: LlamaConfig, cos, sin,
                 kv_mask: Optional[torch.Tensor],
-                segment_ids: Optional[torch.Tensor]) -> torch.Tensor:
+                segment_ids: Optional[torch.Tensor], tp=None) -> torch.Tensor:
     """Full-sequence causal block (training / cacheless forward). With
     `segment_ids` (B, S) the attention is block-diagonal: i attends j iff
     seg[i] == seg[j] != 0 and j <= i (`kv_mask` is then not used, as in the
     JAX block); otherwise `kv_mask` masks keys."""
     b, s, _ = x.shape
     h = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps)
-    q, k, v = _qkv(h, lp, cfg, cos, sin)
+    q, k, v = _qkv(h, lp, cfg, cos, sin, tp)
     if segment_ids is not None:
         attn = flash_attention(q, k, v, causal=True, segment_ids=segment_ids)
     else:
         attn = flash_attention(q, k, v, kv_mask, causal=True)
-    attn = attn.transpose(1, 2).reshape(b, s, cfg.hidden_size)
-    x = x + _proj(lp, "wo", attn)
+    attn = attn.transpose(1, 2).reshape(b, s, _heads(cfg, tp) * cfg.head_dim)
+    x = x + _proj(lp, "wo", attn, tp)
     h2 = rms_norm(x, lp["post_attn_norm"], cfg.rms_norm_eps)
-    return x + _silu_mlp(h2, lp)
+    return x + _silu_mlp(h2, lp, tp)
 
 
 def segment_positions(segment_ids: torch.Tensor) -> torch.Tensor:
@@ -456,14 +503,17 @@ def llama_apply(params, cfg: LlamaConfig, *,
                 positions: Optional[torch.Tensor] = None,
                 compute_dtype: torch.dtype = torch.bfloat16,
                 remat: bool = False, cp_axis_name: Optional[str] = None,
-                segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+                segment_ids: Optional[torch.Tensor] = None,
+                tp=None) -> torch.Tensor:
     """Cacheless forward -> logits (B, S, V) float32. Positions default to
     cumsum(attention_mask) - 1 clipped at 0 (or arange), and restart at
     every segment with `segment_ids` (sequence packing, block-diagonal
     attention). `remat` recomputes each block in the backward
     (`torch.utils.checkpoint`, non-reentrant). Float parameters are cast to
     the compute dtype on the fly, differentiably; frozen ones should already
-    be in it (`core.convert.training_params_from_numpy`)."""
+    be in it (`core.convert.training_params_from_numpy`). `tp` runs the
+    decoder tensor parallel (this rank's slice; the logits gathered
+    whole)."""
     if cp_axis_name is not None:
         raise NotImplementedError("context parallelism (cp_axis_name) is not "
                                   "ported to lhrs_bot_tpu_torch yet")
@@ -486,13 +536,13 @@ def llama_apply(params, cfg: LlamaConfig, *,
         if remat:
             x = torch.utils.checkpoint.checkpoint(
                 _block_full, x, lp, cfg, cos, sin, attention_mask,
-                segment_ids, use_reentrant=False)
+                segment_ids, tp, use_reentrant=False)
         else:
             x = _block_full(x, lp, cfg, cos, sin, attention_mask,
-                            segment_ids)
+                            segment_ids, tp)
     x = rms_norm(x, _cast(params["final_norm"], compute_dtype),
                  cfg.rms_norm_eps)
-    return _lm_head_logits(x, _cast(params["lm_head"], compute_dtype))
+    return _lm_head_logits(x, _cast(params["lm_head"], compute_dtype), tp)
 
 
 def _cast(t, dtype):
@@ -502,10 +552,14 @@ def _cast(t, dtype):
     return t.to(dtype)
 
 
-def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor
-                   ) -> torch.Tensor:
+def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor,
+                   data=None) -> torch.Tensor:
     """Shifted cross-entropy in float32, IGNORE_INDEX masked, mean over the
-    valid tokens (at least 1)."""
+    valid tokens (at least 1). With `data` (the mesh's data axis) the
+    count is the whole data group's, so the sum over the group of each
+    rank's loss (and of its gradients) is the mean over the global batch,
+    as JAX's one loss over the sharded batch is, whatever the ranks'
+    counts."""
     shift_logits = logits[:, :-1, :].float()
     shift_labels = labels[:, 1:].long()
     valid = shift_labels != IGNORE_INDEX
@@ -513,13 +567,16 @@ def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor
     logz = torch.logsumexp(shift_logits, dim=-1)
     gold = torch.gather(shift_logits, -1, safe[..., None])[..., 0]
     nll = (logz - gold) * valid
-    return nll.sum() / valid.sum().clamp(min=1)
+    count = valid.sum()
+    if data is not None:
+        count = data.all_reduce(count.float()).to(count.dtype)
+    return nll.sum() / count.clamp(min=1)
 
 
 def llama_decode_step(params, cfg: LlamaConfig, cache: KVCache, *,
                       inputs_embeds: torch.Tensor,
                       compute_dtype: torch.dtype = torch.bfloat16,
-                      int8_dots: Optional[bool] = None
+                      int8_dots: Optional[bool] = None, tp=None
                       ) -> Tuple[torch.Tensor, KVCache]:
     """One decode step from the (B, 1, D) embedding of the new token;
     returns (logits (B, V) float32, cache with length + 1). Every layer
@@ -531,12 +588,13 @@ def llama_decode_step(params, cfg: LlamaConfig, cache: KVCache, *,
     W4A8."""
     x = inputs_embeds.to(compute_dtype)
     b = x.shape[0]
+    width = _heads(cfg, tp) * cfg.head_dim
     cos, sin = rope_cos_sin(cache.length[:, None], cfg.head_dim,
                             cfg.rope_theta)
     for li in range(cfg.num_hidden_layers):
         lp = _layer(params["layers"], li, w4a8=True)
         h = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps)
-        q, k, v = _qkv(h, lp, cfg, cos, sin)  # (B, H, 1, hd)
+        q, k, v = _qkv(h, lp, cfg, cos, sin, tp)  # (B, H, 1, hd)
         if cache.quantized:
             k_q, k_s = quantize_activation(k)
             v_q, v_s = quantize_activation(v)
@@ -547,10 +605,10 @@ def llama_decode_step(params, cfg: LlamaConfig, cache: KVCache, *,
         else:
             attn = fused_decode_attention(q, k, v, cache.k, cache.v,
                                           cache.length, li)[0]
-        attn = attn.transpose(1, 2).reshape(b, 1, cfg.hidden_size)
-        x = x + _proj(lp, "wo", attn)
+        attn = attn.transpose(1, 2).reshape(b, 1, width)
+        x = x + _proj(lp, "wo", attn, tp)
         h2 = rms_norm(x, lp["post_attn_norm"], cfg.rms_norm_eps)
-        x = x + _silu_mlp(h2, lp)
+        x = x + _silu_mlp(h2, lp, tp)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    logits = _lm_head_logits(x[:, 0, :], params["lm_head"])
+    logits = _lm_head_logits(x[:, 0, :], params["lm_head"], tp)
     return logits, dataclasses.replace(cache, length=cache.length + 1)

@@ -38,8 +38,8 @@ from ..ops.paged_fused import (_append_rows,  # noqa: F401
 from ..ops.quant import quantize_activation
 from ..ops.rmsnorm import rms_norm
 from ..ops.rope import rope_cos_sin
-from .llama import (KVCache, LlamaConfig, _layer, _lm_head_logits, _proj,
-                    _qkv, _silu_mlp)
+from .llama import (KVCache, LlamaConfig, _heads, _layer, _lm_head_logits,
+                    _proj, _qkv, _silu_mlp)
 
 
 @dataclasses.dataclass
@@ -68,15 +68,18 @@ class PagedKVCache:
     def create(cls, cfg: LlamaConfig, batch: int, num_pages: int,
                pages_per_seq: int, page_size: int = 128,
                dtype: torch.dtype = torch.bfloat16,
-               device="cuda") -> "PagedKVCache":
+               device="cuda", heads: Optional[int] = None
+               ) -> "PagedKVCache":
         """Zero pools, an all-null table and zero lengths; int8 pools get
-        scale pages that start at 1."""
+        scale pages that start at 1. The pools hold `heads` heads (all of
+        cfg's by default; a tensor-parallel rank's hold H / tp, JAX's
+        head-sharded pool)."""
         if dtype not in (torch.bfloat16, torch.float32, torch.int8):
             raise NotImplementedError(f"{dtype} page pool is not ported "
                                       "(bf16/f32/int8 only)")
         device = resolve_device(device)
-        shape = (cfg.num_hidden_layers, num_pages, cfg.num_attention_heads,
-                 page_size, cfg.head_dim)
+        shape = (cfg.num_hidden_layers, num_pages,
+                 heads or cfg.num_attention_heads, page_size, cfg.head_dim)
         scales = {}
         if dtype == torch.int8:
             scales = {name: torch.ones(shape[:-1], dtype=torch.float32,
@@ -151,6 +154,7 @@ def paged_prefill_with_context(
     table_rows: torch.Tensor,     # (b, pages_per_seq) shared pages first,
                                   # then fresh ones, 0-padded
     compute_dtype: torch.dtype = torch.bfloat16,
+    tp=None,                      # the mesh's model axis (tensor parallel)
 ) -> Tuple[torch.Tensor, PagedKVCache]:
     """Prefill only a prompt suffix against shared-page context (JAX
     `paged_prefill_with_context`); with ctx_len 0 it is the dense paged
@@ -201,7 +205,7 @@ def paged_prefill_with_context(
     for li in range(cfg.num_hidden_layers):
         lp = _layer(params["layers"], li)
         h = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps)
-        q, k, v = _qkv(h, lp, cfg, cos, sin)  # (b, H, W, hd)
+        q, k, v = _qkv(h, lp, cfg, cos, sin, tp)  # (b, H, W, hd)
         k_rows = k.transpose(1, 2)  # (b, W, H, d)
         v_rows = v.transpose(1, 2)
         if quantized:
@@ -220,14 +224,15 @@ def paged_prefill_with_context(
             None if ks is None else _gather_row(ks[li], table_rows[r]),
             None if vs is None else _gather_row(vs[li], table_rows[r]),
             causal[r]) for r in range(b)])
-        attn = attn.transpose(1, 2).reshape(b, w, cfg.hidden_size)
-        x = x + _proj(lp, "wo", attn)
+        attn = attn.transpose(1, 2).reshape(
+            b, w, _heads(cfg, tp) * cfg.head_dim)
+        x = x + _proj(lp, "wo", attn, tp)
         h2 = rms_norm(x, lp["post_attn_norm"], cfg.rms_norm_eps)
-        x = x + _silu_mlp(h2, lp)
+        x = x + _silu_mlp(h2, lp, tp)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     last = (suffix_len - 1).clamp(min=0)
     logits = _lm_head_logits(x[torch.arange(b, device=dev), last],
-                             params["lm_head"])
+                             params["lm_head"], tp)
     return logits, dataclasses.replace(
         pcache, page_table=_with_rows(pcache.page_table, slot_idx,
                                       table_rows),
@@ -236,7 +241,7 @@ def paged_prefill_with_context(
 
 def paged_decode_step(params, cfg: LlamaConfig, pcache: PagedKVCache, *,
                       inputs_embeds: torch.Tensor,
-                      compute_dtype: torch.dtype = torch.bfloat16
+                      compute_dtype: torch.dtype = torch.bfloat16, tp=None
                       ) -> Tuple[torch.Tensor, PagedKVCache]:
     """One decode step over the paged cache from the (B, 1, D) embedding
     of the new token; returns (logits (B, V) float32, cache with lengths +
@@ -252,7 +257,7 @@ def paged_decode_step(params, cfg: LlamaConfig, pcache: PagedKVCache, *,
     for li in range(cfg.num_hidden_layers):
         lp = _layer(params["layers"], li, w4a8=True)
         h = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps)
-        q, k, v = _qkv(h, lp, cfg, cos, sin)  # (B, H, 1, hd)
+        q, k, v = _qkv(h, lp, cfg, cos, sin, tp)  # (B, H, 1, hd)
         if pcache.quantized:
             k_q, k_s = quantize_activation(k)
             v_q, v_s = quantize_activation(v)
@@ -265,10 +270,10 @@ def paged_decode_step(params, cfg: LlamaConfig, pcache: PagedKVCache, *,
                                       pcache.v_pages, pcache.page_table,
                                       pcache.lengths, li)[0]
         attn = attn.to(compute_dtype).transpose(1, 2).reshape(
-            b, 1, cfg.hidden_size)
-        x = x + _proj(lp, "wo", attn)
+            b, 1, _heads(cfg, tp) * cfg.head_dim)
+        x = x + _proj(lp, "wo", attn, tp)
         h2 = rms_norm(x, lp["post_attn_norm"], cfg.rms_norm_eps)
-        x = x + _silu_mlp(h2, lp)
+        x = x + _silu_mlp(h2, lp, tp)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    logits = _lm_head_logits(x[:, 0, :], params["lm_head"])
+    logits = _lm_head_logits(x[:, 0, :], params["lm_head"], tp)
     return logits, dataclasses.replace(pcache, lengths=pcache.lengths + 1)

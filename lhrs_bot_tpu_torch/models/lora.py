@@ -30,6 +30,8 @@ from typing import Dict, Tuple
 import torch
 
 from ..device import resolve_device
+from ..parallel.mesh import copy_to_model
+from ..parallel.partition import ROW_PARALLEL
 from .llama import LlamaConfig
 
 # stacked projection name -> (d_in attribute, d_out attribute)
@@ -96,14 +98,22 @@ def attach_runtime_lora(base_layers: Dict, lora_params,
 
 
 def merge_lora(base_layers: Dict, lora_params,
-               lora_cfg: LoraConfig) -> Dict:
+               lora_cfg: LoraConfig, tp=None) -> Dict:
     """The layers with W := (W_f32 + (A_f32 @ B_f32) * scale) in W's
-    dtype for each adapter, W detached (the base is frozen)."""
+    dtype for each adapter, W detached (the base is frozen). Under tensor
+    parallelism (`tp`, the model axis) the layers and adapters are this
+    rank's slices (`parallel.partition._LORA_SPECS`) and the factor every
+    rank holds whole (a column layer's A, a row layer's B) takes the sum
+    of the group's gradients (`copy_to_model`)."""
     merged = dict(base_layers)
     for name, ab in lora_params.items():
         w = base_layers[name].detach()
-        delta = torch.matmul(ab["a"].float(), ab["b"].float()) \
-            * lora_cfg.scale
+        a, b = ab["a"], ab["b"]
+        if name in ROW_PARALLEL:
+            b = copy_to_model(b, tp)
+        else:
+            a = copy_to_model(a, tp)
+        delta = torch.matmul(a.float(), b.float()) * lora_cfg.scale
         merged[name] = (w.float() + delta).to(w.dtype)
     return merged
 

@@ -211,10 +211,11 @@ def init_vlm_params(cfg: VLMConfig, seed: int = 0,
     return params
 
 
-def effective_llama_params(params, cfg: VLMConfig):
+def effective_llama_params(params, cfg: VLMConfig, tp=None):
     """The decoder's parameters with the LoRA adapters applied (where
     `cfg.lora` is set and the tree holds "lora"): merged into a dense base
-    (`merge_lora`), attached as the runtime side path to a quantized one
+    (`merge_lora`, with `tp` the model axis of a tensor-parallel slice),
+    attached as the runtime side path to a quantized one
     (`attach_runtime_lora`)."""
     llama = params["llama"]
     if cfg.lora is None or "lora" not in params:
@@ -224,7 +225,7 @@ def effective_llama_params(params, cfg: VLMConfig):
         layers = attach_runtime_lora(llama["layers"], params["lora"],
                                      cfg.lora)
     else:
-        layers = merge_lora(llama["layers"], params["lora"], cfg.lora)
+        layers = merge_lora(llama["layers"], params["lora"], cfg.lora, tp)
     return {**llama, "layers": layers}
 
 
@@ -320,7 +321,7 @@ def _batch_tensor(batch, key, device):
 
 def vlm_forward_loss(params, cfg: VLMConfig, batch: Dict,
                      compute_dtype: torch.dtype = torch.bfloat16,
-                     remat: bool = False, cp_mesh=None
+                     remat: bool = False, cp_mesh=None, mesh=None
                      ) -> Dict[str, torch.Tensor]:
     """Training forward -> {"text_loss", "total_loss"} (equal for the
     published recipes). `batch` holds `input_ids`, `labels` and optionally
@@ -330,11 +331,19 @@ def vlm_forward_loss(params, cfg: VLMConfig, batch: Dict,
     ViT's pre-LayerNorm stays as given); the frozen tower runs without a
     graph; the decoder runs over `effective_llama_params` (LoRA merged or
     attached) and its backward through the flash backward kernels.
-    `cp_mesh` (context parallelism) is not ported and raises."""
+    `cp_mesh` (context parallelism) is not ported and raises.
+
+    With `mesh` (`parallel.mesh.Mesh`) `params` is this rank's slice
+    (`parallel.partition.shard_params`) and `batch` its data index's
+    share: the decoder runs tensor parallel over the model axis, and the
+    loss divides by the data group's valid-token count, so the group's
+    sum of the returned losses (and of their gradients) is the loss of
+    the global batch (`causal_lm_loss`)."""
     if cp_mesh is not None:
         raise NotImplementedError("context parallelism (cp_mesh) is not "
                                   "ported to lhrs_bot_tpu_torch yet")
-    llama = effective_llama_params(params, cfg)
+    tp = mesh.tp_axis if mesh is not None else None
+    llama = effective_llama_params(params, cfg, tp)
     device = llama["embed_tokens"].device
     run = {"vit": cast_floats(params["vit"], compute_dtype, keep=("pre_ln",)),
            "pooler": cast_floats(params["pooler"], compute_dtype)}
@@ -349,8 +358,9 @@ def vlm_forward_loss(params, cfg: VLMConfig, batch: Dict,
                          inputs_embeds=spliced.inputs_embeds,
                          attention_mask=spliced.attention_mask,
                          compute_dtype=compute_dtype, remat=remat,
-                         segment_ids=spliced.segment_ids)
-    text_loss = causal_lm_loss(logits, spliced.labels)
+                         segment_ids=spliced.segment_ids, tp=tp)
+    text_loss = causal_lm_loss(logits, spliced.labels,
+                               mesh.dp_axis if mesh is not None else None)
     return {"text_loss": text_loss, "total_loss": text_loss}
 
 

@@ -41,6 +41,7 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from . import cuda_lib
+from .ln_quant import div_exact
 from .quant import QuantizedTensor, quantize_activation, unpack_int4_halves
 
 _NCOLS = 128        # output columns per CTA (8 lanes x 16 columns)
@@ -179,7 +180,8 @@ def w4a8_matmul_kernel(xq_lo, xq_hi, x_scale, w_packed, w_scale, layer: int,
     the cluster size `pick_cluster` chooses from the card's occupancy;
     `fault` plants an error for a check.
     Raises on anything else. Counts its launches in
-    `w4a8_matmul_kernel.launches`."""
+    `w4a8_matmul_kernel.launches` (mode (b)'s too) and, apart, in
+    `w4a8_matmul_kernel.mode_a_launches`."""
     tensors = (xq_lo, xq_hi, x_scale, w_packed, w_scale)
     if not all(t.is_cuda and t.device == xq_lo.device for t in tensors):
         raise ValueError("w4a8_matmul_kernel takes CUDA tensors on one "
@@ -222,6 +224,7 @@ def w4a8_matmul_kernel(xq_lo, xq_hi, x_scale, w_packed, w_scale, layer: int,
             int(fault), stream)
     cuda_lib.check(err, "w4a8_matmul_kernel")
     w4a8_matmul_kernel.launches += 1
+    w4a8_matmul_kernel.mode_a_launches += 1
     return out
 
 
@@ -265,6 +268,7 @@ def w4a8_project_kernel(x: torch.Tensor, w_packed: torch.Tensor,
 
 
 w4a8_matmul_kernel.launches = 0
+w4a8_matmul_kernel.mode_a_launches = 0
 
 
 def w4a8_matmul_stacked(xq_lo: torch.Tensor, xq_hi: torch.Tensor,
@@ -302,4 +306,69 @@ def w4a8_project(x: torch.Tensor, qt: QuantizedTensor,
     k2 = k // 2
     out = w4a8_matmul_stacked(xq[:, :k2], xq[:, k2:], xs, qt.q, qt.scale,
                               layer, out_dtype=x.dtype)
+    return out.reshape(b, s, -1)
+
+
+# unit scales of the integer-sum launches of `w4a8_project_row`, by shape
+_UNIT_SCALES = {}
+
+
+def _unit_scales(shape, device) -> torch.Tensor:
+    key = (tuple(shape), str(device))
+    if key not in _UNIT_SCALES:
+        _UNIT_SCALES[key] = torch.ones(shape, dtype=torch.float32,
+                                       device=device)
+    return _UNIT_SCALES[key]
+
+
+def row_parallel_codes(x: torch.Tensor, axis
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row int8 codes of this rank's K/tp columns of a row whose other
+    columns lie on the other ranks of `axis` (a `parallel.mesh.Axis`): the
+    row's absolute maximum is all-reduced (max) over the axis before the
+    scale amax / 127 is taken, so the codes are the rank's slice of
+    `quantize_activation`'s codes of the whole row, bit for bit (the same
+    IEEE quotient and half-to-even rounding). x (M, K/tp) -> (int8 (M,
+    K/tp), float32 (M, 1))."""
+    h = x.float()
+    amax = axis.all_reduce(h.abs().amax(dim=-1, keepdim=True), "max")
+    scale = torch.where(amax == 0, torch.ones_like(amax),
+                        div_exact(amax, 127.0))
+    codes = torch.clamp(torch.round(h / scale), -127, 127).to(torch.int8)
+    return codes, scale
+
+
+def w4a8_project_row(x: torch.Tensor, qt: QuantizedTensor, layer: int,
+                     axis) -> torch.Tensor:
+    """The row-parallel W4A8 projection of tensor parallelism: x (B, S,
+    K/tp) is this rank's slice of the activation rows, qt this rank's
+    (L, K/(2 tp), N) halves-packed rows (`parallel.partition` re-packs
+    them), `axis` the model axis. Returns the whole (B, S, N) product in
+    x.dtype, the same bits as the single-rank `w4a8_project`:
+
+      * the codes take the whole row's maximum (`row_parallel_codes`);
+      * K3 in mode (a) (`w4a8_matmul_stacked`, the codes' halves given)
+        runs with unit scales into float32, giving the rank's int32 sums
+        as float32 integers;
+      * those are all-reduced (sum) over the axis: every partial and total
+        lies below 2^24 in magnitude (127 * 8 * K <= 11.2 M at K = 11008),
+        so the float32 sum is exact in any order;
+      * then the single-rank epilogue, (acc * w_scale) * x_scale, in
+        float32, and the cast.
+
+    On the card the codes come from plain PyTorch operations around the
+    max all-reduce (kernel A has no mode that takes a given row maximum)."""
+    if qt.bits != "4h":
+        raise ValueError(f"w4a8_project_row takes halves-packed weights, got "
+                         f"bits={qt.bits!r}")
+    b, s, k = x.shape
+    codes, x_scale = row_parallel_codes(x.reshape(b * s, k), axis)
+    k2 = k // 2
+    acc = w4a8_matmul_stacked(
+        codes[:, :k2], codes[:, k2:],
+        _unit_scales((b * s, 1), x.device), qt.q,
+        _unit_scales(qt.scale.shape, x.device), layer,
+        out_dtype=torch.float32)
+    acc = axis.all_reduce(acc)
+    out = (acc * qt.scale[layer].float() * x_scale).to(x.dtype)
     return out.reshape(b, s, -1)

@@ -1,8 +1,30 @@
-"""Multi-process helpers of the port: the host-object half of
-`lhrs_bot_tpu/parallel/distribute.py` on `torch.distributed`. The mesh,
-partition, ZeRO and context-parallel modules are not ported."""
+"""Multi-process parallelism of the port on `torch.distributed`, one
+process a rank (torchrun): counterpart of `lhrs_bot_tpu/parallel`.
+
+  * `distribute`: rank helpers, host-object all-gather, metric reduction,
+    seed sync, barriers, and `init_distributed` (the backend is the
+    caller's: `--dist-backend nccl|gloo`);
+  * `mesh`: the ("data", "model") mesh of process groups (`make_mesh`)
+    and the tensor-parallel autograd functions;
+  * `partition`: the spec tables and each rank's slice of a parameter
+    tree, quantized leaves sliced by logical rows and columns;
+  * `zero`: the flat ZeRO-2 shard of the optimizer's slots over the data
+    axis (`train.optimizer.ShardedTrainOptimizer` runs the update).
+
+Context parallelism (`parallel/context.py`, ring attention) is not ported.
+"""
 
 from .distribute import (all_gather_object, barrier,  # noqa: F401
                          get_rank, get_world_size, init_distributed,
                          is_distributed, is_main_process, reduce_dict,
                          sync_random_seed)
+from .mesh import (DATA_AXIS, MODEL_AXIS, Axis, Mesh,  # noqa: F401
+                   copy_to_model, gather_from_model, local_batch_size,
+                   make_mesh, process_count, process_index,
+                   reduce_from_model)
+from .partition import (batch_specs, gather_params,  # noqa: F401
+                        kv_cache_spec, llama_param_specs,
+                        llama_serving_specs, shard_llama_for_serving,
+                        shard_params, shard_quantized, unshard_quantized,
+                        vlm_param_specs)
+from .zero import FlatShard  # noqa: F401

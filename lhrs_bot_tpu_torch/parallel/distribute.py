@@ -11,7 +11,7 @@ environment (MASTER_ADDR, MASTER_PORT, RANK, WORLD_SIZE).
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -22,19 +22,44 @@ def _up() -> bool:
     return dist.is_available() and dist.is_initialized()
 
 
-def init_distributed() -> None:
+BACKENDS = ("nccl", "gloo")
+
+
+def init_distributed(backend: Optional[str] = None) -> None:
     """Join the process group of torchrun's environment (init_method
     "env://"). A no-op when a group exists already or WORLD_SIZE is unset
-    or 1. The backend is NCCL where a card is visible (each process then
-    takes the card of its LOCAL_RANK), else gloo. A failure to join
-    raises."""
+    or 1.
+
+    `backend` is the caller's choice, "nccl" or "gloo" (the entry points'
+    `--dist-backend`, NCCL by default). NCCL takes one card a local rank
+    (LOCAL_RANK's), and raises where fewer cards are visible than
+    LOCAL_WORLD_SIZE (or WORLD_SIZE) local ranks: it is never switched to
+    gloo here. Under gloo, ranks on a machine with cards share them
+    (local rank r takes card r % count, so two ranks on one card both take
+    cuda:0), and ranks without a card run on the CPU. None, for library
+    callers that name none, is NCCL where a card is visible and gloo
+    where none is. A failure to join raises."""
     if _up() or int(os.environ.get("WORLD_SIZE", "1")) <= 1:
         return
-    if torch.cuda.is_available():
-        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
-        backend = "nccl"
-    else:
-        backend = "gloo"
+    if backend is None:
+        backend = "nccl" if torch.cuda.is_available() else "gloo"
+    if backend not in BACKENDS:
+        raise ValueError(f"--dist-backend {backend!r}: choose one of "
+                         f"{BACKENDS}")
+    local_rank = int(os.environ.get("LOCAL_RANK", "0"))
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if backend == "nccl":
+        local = int(os.environ.get("LOCAL_WORLD_SIZE",
+                                   os.environ.get("WORLD_SIZE", "1")))
+        if cards < local:
+            raise RuntimeError(
+                f"--dist-backend nccl takes one card a local rank: {local} "
+                f"local ranks, {cards} card(s) visible. Start fewer ranks, "
+                "or pass --dist-backend gloo to share the cards (or to run "
+                "on the CPU)")
+        torch.cuda.set_device(local_rank)
+    elif cards:
+        torch.cuda.set_device(local_rank % cards)
     dist.init_process_group(backend=backend, init_method="env://")
 
 

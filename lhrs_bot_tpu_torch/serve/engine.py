@@ -59,7 +59,15 @@ Built on `llama_prefill_continue`, as in the JAX engine:
     card the window attends through plain PyTorch and the decode step
     through K2 / K4, so the ids may part from plain greedy's where the
     top-2 margin lies within bf16 rounding.
-A mesh is not ported: asking for one raises NotImplementedError.
+`mesh` (a `parallel.mesh.Mesh` of dp 1, one process a rank) serves the
+decoder tensor parallel, as the JAX engine does over its mesh: the weights
+are merged, quantized and cast at full size as above, then each rank keeps
+its slice (`parallel.partition.shard_llama_for_serving`); its KV cache
+holds H / tp heads; the vision tower and the perceiver run replicated.
+Every rank must make the same calls in the same order. The logits are
+gathered whole on every rank, and each sampled token is broadcast from the
+model group's first rank, so the ranks never part. A data axis above 1
+raises ValueError: serve one process group a replica.
 
 A tree with "lora" (and `cfg.lora` set) is served as the JAX engine serves
 it: over a dense base the adapters are merged once, at load, in float32
@@ -88,6 +96,8 @@ from ..models.llama import (KVCache, llama_decode_step, llama_prefill,
 from ..models.lora import (attach_runtime_lora, lora_delta_stepwise,
                            merge_lora)
 from ..models.vlm import VLMConfig, prepare_multimodal_inputs
+from ..parallel.mesh import Mesh
+from ..parallel.partition import shard_llama_for_serving
 from ..ops.quant import (_QUANT_TARGETS, QuantizedTensor, quantize_int4h,
                          quantize_int8, quantize_llama_layers,
                          quantize_vision_layers)
@@ -227,6 +237,20 @@ def _sample_token_per_slot(logits: torch.Tensor,
     return torch.where(temp > 0, sampled.to(torch.int32), greedy)
 
 
+def check_serving_mesh(mesh) -> None:
+    """A serving mesh: None, or a `parallel.mesh.Mesh` whose data axis is
+    1 (TypeError for another object, ValueError for dp above 1)."""
+    if mesh is None:
+        return
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a lhrs_bot_tpu_torch.parallel.Mesh, "
+                        f"got {type(mesh).__name__}")
+    if mesh.dp > 1:
+        raise ValueError(f"serving splits the decoder over the model axis "
+                         f"only (dp={mesh.dp}): serve one process group a "
+                         "replica")
+
+
 class GenerationEngine:
     def __init__(
         self,
@@ -247,8 +271,7 @@ class GenerationEngine:
         prefill_chunk: Optional[int] = None,
         mesh=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError("not ported yet: mesh")
+        check_serving_mesh(mesh)
         if cache_dtype not in (torch.bfloat16, torch.float32, torch.int8):
             raise NotImplementedError(f"{cache_dtype} KV cache is not ported")
         if quantize_bits not in (None, 8, 4, "4h"):
@@ -264,6 +287,8 @@ class GenerationEngine:
         self.prompt_bucket = prompt_bucket
         self.cache_bucket = cache_bucket
         self.prefill_chunk = prefill_chunk
+        self.mesh = mesh
+        self.tp = mesh.tp_axis if mesh is not None else None
         # stream(session=True)'s state: {"raw_ids", "image_fp", "cache"}
         self._session = None
 
@@ -291,6 +316,19 @@ class GenerationEngine:
             double_quant=double_quant, lm_head_bits=lm_head_bits,
             lora=params.get("lora") if cfg.lora is not None else None,
             lora_cfg=cfg.lora)
+        if self.tp is not None:  # quantized at full size, then sliced
+            self.llama_params = shard_llama_for_serving(mesh,
+                                                        self.llama_params)
+
+    @property
+    def heads(self) -> int:
+        """The attention heads this rank's cache holds."""
+        return self.cfg.llama.num_attention_heads // (
+            1 if self.tp is None else self.tp.size)
+
+    def _agree(self, tok: torch.Tensor) -> torch.Tensor:
+        """The model group's first rank's tokens on every rank."""
+        return tok if self.tp is None else self.tp.broadcast(tok)
 
     # -- pieces -------------------------------------------------------------
 
@@ -309,7 +347,8 @@ class GenerationEngine:
 
     def _new_cache(self, batch: int, cache_len: int) -> KVCache:
         return KVCache.create(self.cfg.llama, batch, cache_len,
-                              dtype=self.cache_dtype, device=self.device)
+                              dtype=self.cache_dtype, device=self.device,
+                              heads=self.heads)
 
     def _prefill(self, input_ids: torch.Tensor, images, seq_lens, *,
                  batch: int, cache_len: int) -> Tuple[torch.Tensor, KVCache]:
@@ -322,7 +361,7 @@ class GenerationEngine:
         return llama_prefill(self.llama_params, self.cfg.llama,
                              self._new_cache(batch, cache_len),
                              inputs_embeds=emb, prompt_len=spl_len,
-                             compute_dtype=self.compute_dtype)
+                             compute_dtype=self.compute_dtype, tp=self.tp)
 
     def _continue_embeds(self, cache: KVCache, embeds, suffix_len, start,
                          return_all_logits: bool = False):
@@ -330,7 +369,7 @@ class GenerationEngine:
             self.llama_params, self.cfg.llama, cache, inputs_embeds=embeds,
             suffix_len=suffix_len, start=start,
             compute_dtype=self.compute_dtype,
-            return_all_logits=return_all_logits)
+            return_all_logits=return_all_logits, tp=self.tp)
 
     def _prefill_continue(self, cache: KVCache, suffix_ids: torch.Tensor,
                           suffix_len, start):
@@ -378,7 +417,7 @@ class GenerationEngine:
         embeds = self.llama_params["embed_tokens"][tokens.long()][:, None]
         return llama_decode_step(self.llama_params, self.cfg.llama, cache,
                                  inputs_embeds=embeds,
-                                 compute_dtype=self.compute_dtype)
+                                 compute_dtype=self.compute_dtype, tp=self.tp)
 
     def _bucketed(self, t: int, n_img: int, max_new: int) -> Tuple[int, int]:
         """(prompt width, cache length) rounded up to bucket multiples."""
@@ -498,12 +537,12 @@ class GenerationEngine:
             generator = torch.Generator(self.device).manual_seed(0)
         logits, cache, gen_cfg = self._start(input_ids, seq_lens, images,
                                              gen_cfg)
-        tok = _sample_token(logits, generator, gen_cfg)
+        tok = self._agree(_sample_token(logits, generator, gen_cfg))
         toks = [tok]
         done = tok == gen_cfg.eos_token_id
         for _ in range(gen_cfg.max_new_tokens - 1):
             logits, cache = self._decode_step(cache, tok)
-            nxt = _sample_token(logits, generator, gen_cfg)
+            nxt = self._agree(_sample_token(logits, generator, gen_cfg))
             tok = torch.where(done, torch.full_like(nxt, gen_cfg.pad_token_id),
                               nxt)
             done = done | (tok == gen_cfg.eos_token_id)
@@ -624,7 +663,8 @@ class GenerationEngine:
                     logits, raw, gen_cfg, stop_fn, spec, emitted, state)
                 return
             for i in range(gen_cfg.max_new_tokens):
-                tok_arr = _sample_token(logits, generator, gen_cfg)
+                tok_arr = self._agree(_sample_token(logits, generator,
+                                                    gen_cfg))
                 tok = int(tok_arr[0])
                 if tok == gen_cfg.eos_token_id:
                     return
@@ -665,7 +705,7 @@ class GenerationEngine:
         n_hist = len(raw)
         length = int(state["cache"].length[0])
         cache_room = state["cache"].k.shape[3]
-        tok = int(logits[0].argmax())
+        tok = int(self._agree(logits[0].argmax()))
         while True:
             if tok == gen_cfg.eos_token_id:
                 return
@@ -694,7 +734,7 @@ class GenerationEngine:
                 p, corr = accept_window(
                     window[:, 1:], n_dev,
                     logits_all.argmax(dim=-1).to(torch.int32))
-                p, tok = torch.cat([p, corr]).tolist()
+                p, tok = self._agree(torch.cat([p, corr])).tolist()
                 length += 1 + p
                 # the rejected rows stay past the new length; the next
                 # append overwrites them
@@ -718,4 +758,4 @@ class GenerationEngine:
                     torch.tensor([tok], dtype=torch.int32, device=dev))
                 length += 1
                 state["appended"] += 1
-                tok = int(logits[0].argmax())
+                tok = int(self._agree(logits[0].argmax()))

@@ -22,6 +22,11 @@ slot still appends a K/V row at its frozen length; in the JAX scheduler
 that row still names the freed pages, which the LIFO allocator hands out
 first, so an idle slot could overwrite a live sequence's KV. Here idle
 slots append into page 0, which nothing reads.
+
+Under a tensor-parallel `mesh` each rank's pools hold H / tp heads (JAX's
+head-sharded pool); the page allocator, the prefix pool and the table are
+the host's, the same on every rank (the scheduler's lockstep), so the
+repair holds on every rank.
 """
 
 from __future__ import annotations
@@ -129,14 +134,15 @@ class PagedScheduler(ContinuousBatchingScheduler):
         return PagedKVCache.create(
             self.cfg.llama, self.max_batch, self.num_pages,
             self.pages_per_seq, page_size=self.page_size,
-            dtype=self.cache_dtype, device=self.device)
+            dtype=self.cache_dtype, device=self.device, heads=self.heads)
 
     def _ctx_prefill(self, cache, embeds, suffix_len, ctx_len, slot_idx,
                      table_rows):
         return paged_prefill_with_context(
             self.llama_params, self.cfg.llama, cache, inputs_embeds=embeds,
             suffix_len=suffix_len, ctx_len=ctx_len, slot_idx=slot_idx,
-            table_rows=table_rows, compute_dtype=self.compute_dtype)
+            table_rows=table_rows, compute_dtype=self.compute_dtype,
+            tp=self.tp)
 
     def _prefill(self, input_ids, images, slot_idx, seq_lens, temps, top_ps,
                  extra, *, width: int):
@@ -175,7 +181,7 @@ class PagedScheduler(ContinuousBatchingScheduler):
     def _decode(self, cache, embeds):
         return paged_decode_step(self.llama_params, self.cfg.llama, cache,
                                  inputs_embeds=embeds,
-                                 compute_dtype=self.compute_dtype)
+                                 compute_dtype=self.compute_dtype, tp=self.tp)
 
     @staticmethod
     def _freeze_lengths(new_cache, old_cache, act):
@@ -308,8 +314,8 @@ class PagedScheduler(ContinuousBatchingScheduler):
         # the repair: the idle slot's appends go to the null page from now
         self.cache.page_table[slot] = 0
 
-    def fail_all(self) -> None:
-        super().fail_all()
+    def _fail_all(self) -> None:
+        super()._fail_all()
         # release matches acquired for an admission that never completed
         for st in self._match.values():
             if st.keys:

@@ -38,7 +38,21 @@ plain PyTorch and a plain tick through the decode kernel. Every round
 verifies a window for every active slot, a proposal or none, so a round
 costs more than a decode step. The rounds are a Python loop whose tokens stay on the
 device; the host reads them once, at the end of the tick. The history is
-the host's, uploaded each tick. Not ported: meshes (NotImplementedError).
+the host's, uploaded each tick.
+
+`mesh` (a `parallel.mesh.Mesh` of dp 1; the parameters an engine's over
+the same mesh, already sliced) runs the decoder tensor parallel, one
+process a rank, as the JAX scheduler runs over its mesh: each rank's cache
+(or page pool) holds H / tp heads, the vision tower runs replicated. Every
+device token that reaches the host (a prefill's first tokens, a tick's, a
+speculative round's accepted counts and corrections) is broadcast from the
+model group's first rank before the host reads it, so the host's
+decisions (admission, stops, slots, pages) are the same on every rank as
+long as every rank makes the same calls. `run(requests)` on every rank
+does that; for a server, the rank that serves calls `lead()`, after which
+each of its `admit`, `step`, `cancel` and `fail_all` is broadcast (the
+requests pickled) before it runs, and the other ranks call `follow()`,
+which runs what the leader broadcasts until its `release_followers()`.
 """
 
 from __future__ import annotations
@@ -54,7 +68,8 @@ from ..device import resolve_device
 from ..models.llama import (KVCache, llama_decode_step, llama_prefill,
                             llama_prefill_continue)
 from ..models.vlm import VLMConfig, prepare_multimodal_inputs
-from .engine import GenerationConfig, _sample_token_per_slot
+from .engine import (GenerationConfig, _sample_token_per_slot,
+                     check_serving_mesh)
 from .speculative import (NGRAM, accept_window, accept_window_sampled,
                           propose_from_history)
 
@@ -119,9 +134,13 @@ class ContinuousBatchingScheduler:
         speculative: int = 0,  # prompt-lookup window per round (greedy)
         adaptive_tick: bool = False,  # shrink ticks near completions
     ):
-        if mesh is not None:
-            raise NotImplementedError("meshes are not ported to "
-                                      "lhrs_bot_tpu_torch yet")
+        check_serving_mesh(mesh)
+        self.mesh = mesh
+        self.tp = mesh.tp_axis if mesh is not None else None
+        # the axis the leader's calls go out on (`lead` / `follow`); a
+        # server gives it a group that waits as long as it idles
+        self.channel = self.tp
+        self._leading = False
         self._check_spec(speculative)
         self.speculative = int(speculative)
         self.cfg = cfg
@@ -215,17 +234,55 @@ class ContinuousBatchingScheduler:
             return min(k, up)
         return up // 2
 
+    # -- tensor-parallel lockstep --------------------------------------------
+
+    @property
+    def heads(self) -> int:
+        """The attention heads this rank's cache holds."""
+        return self.cfg.llama.num_attention_heads // (
+            1 if self.tp is None else self.tp.size)
+
+    def _agree(self, t: torch.Tensor) -> torch.Tensor:
+        """The model group's first rank's device tokens on every rank."""
+        return t if self.tp is None else self.tp.broadcast(t.contiguous())
+
+    def lead(self) -> None:
+        """From now on broadcast each public call to the ranks that
+        `follow()` (the serving rank of a tensor-parallel server)."""
+        self._leading = self.tp is not None
+
+    def _publish(self, op: str, *args) -> None:
+        if self._leading:
+            self.channel.broadcast_object((op, args))
+
+    def release_followers(self) -> None:
+        """End the followers' `follow()` loops."""
+        self._publish("stop")
+
+    def follow(self) -> None:
+        """Run the leader's calls, as it broadcasts them, until it
+        releases the followers. An error in a call ends the loop and
+        propagates: the ranks may then stand at different collectives,
+        which no rank can mend, so the follower's process exits non-zero
+        (torchrun then ends the group) and a rank left waiting on it
+        raises at its group's timeout."""
+        while True:
+            op, args = self.channel.broadcast_object()
+            if op == "stop":
+                return
+            getattr(self, "_" + op)(*args)
+
     # -- cache-strategy hooks (overridden by the paged scheduler) ------------
 
     def _make_cache(self):
         return KVCache.create(self.cfg.llama, self.max_batch,
                               self.max_seq_len, dtype=self.cache_dtype,
-                              device=self.device)
+                              device=self.device, heads=self.heads)
 
     def _decode(self, cache, embeds):
         return llama_decode_step(self.llama_params, self.cfg.llama, cache,
                                  inputs_embeds=embeds,
-                                 compute_dtype=self.compute_dtype)
+                                 compute_dtype=self.compute_dtype, tp=self.tp)
 
     @staticmethod
     def _freeze_lengths(new_cache, old_cache, act):
@@ -275,7 +332,7 @@ class ContinuousBatchingScheduler:
         logits, cache = llama_prefill(
             self.llama_params, self.cfg.llama, self.cache,
             inputs_embeds=spliced.inputs_embeds, prompt_len=spliced.seq_len,
-            compute_dtype=self.compute_dtype, slots=slot_idx)
+            compute_dtype=self.compute_dtype, slots=slot_idx, tp=self.tp)
         return _sample_token_per_slot(logits, self.generator, temps,
                                       top_ps), cache
 
@@ -300,6 +357,7 @@ class ContinuousBatchingScheduler:
                                              top_ps)
             else:
                 nxt = logits.argmax(dim=-1).to(torch.int32)
+            nxt = self._agree(nxt)
             emit = torch.where(act, nxt, self.pad)
             budg = torch.where(act, budg - 1, budg)
             new_act = act & (nxt != self.eos) & (budg > 0)
@@ -352,7 +410,8 @@ class ContinuousBatchingScheduler:
                 self.llama_params, self.cfg.llama, cache,
                 inputs_embeds=embed[window.clamp(min=0).long()],
                 suffix_len=suffix, start=cache.length,
-                compute_dtype=self.compute_dtype, return_all_logits=True)
+                compute_dtype=self.compute_dtype, return_all_logits=True,
+                tp=self.tp)
             if sample:
                 p, corr = accept_window_sampled(prop, n_prop, logits_all,
                                                 self.generator, temps,
@@ -360,6 +419,8 @@ class ContinuousBatchingScheduler:
             else:
                 p, corr = accept_window(
                     prop, n_prop, logits_all.argmax(dim=-1).to(torch.int32))
+            if self.tp is not None:
+                p, corr = self._agree(torch.stack([p.to(corr.dtype), corr]))
             # emitted: the accepted proposals, then the correction token,
             # up to the budget (the token that exhausts it is emitted)
             e = torch.where(act, torch.minimum(p + 1, budg), 0)
@@ -399,6 +460,10 @@ class ContinuousBatchingScheduler:
         """Pack as many requests as fit into free slots; returns #admitted.
         FIFO decides who is admitted; within the admitted set, prompts are
         sorted by length so each power-of-two chunk packs similar widths."""
+        self._publish("admit", requests)
+        return self._admit(requests)
+
+    def _admit(self, requests: List[Request]) -> int:
         free = self._free_slots()
         batch = requests[:self._admission_capacity(requests, free)]
         if not batch:
@@ -498,7 +563,7 @@ class ContinuousBatchingScheduler:
             torch.as_tensor(lens, device=dev),
             torch.as_tensor(temps, device=dev),
             torch.as_tensor(top_ps, device=dev), extra, width=width)
-        first_host = first.cpu().numpy()
+        first_host = self._agree(first).cpu().numpy()
         for row, (slot, req) in enumerate(zip(slots, batch)):
             self.slot_req[slot] = req
             self.slot_budget[slot] = budgets[row]
@@ -525,6 +590,10 @@ class ContinuousBatchingScheduler:
         its slot at once (the next tick masks it, and it is admittable
         right away). Tokens already emitted stay on the request. Returns
         False if no active slot holds `uid`."""
+        self._publish("cancel", uid)
+        return self._cancel(uid)
+
+    def _cancel(self, uid: int) -> bool:
         for slot, req in enumerate(self.slot_req):
             if req is not None and req.uid == uid:
                 req.cancelled = True
@@ -540,6 +609,10 @@ class ContinuousBatchingScheduler:
     def fail_all(self) -> None:
         """Free every slot and its cache resources after a fatal batch
         error (the serving worker's recovery path)."""
+        self._publish("fail_all")
+        self._fail_all()
+
+    def _fail_all(self) -> None:
         for slot in range(self.max_batch):
             if self.slot_req[slot] is not None or self.active[slot]:
                 self.slot_req[slot] = None
@@ -585,6 +658,10 @@ class ContinuousBatchingScheduler:
         many speculative rounds) over all slots; returns #still-active. `waiting` is the number of
         requests queued for a slot: the adaptive tick then shrinks to the
         earliest scheduled completion (see _tick_k)."""
+        self._publish("step", waiting)
+        return self._step(waiting)
+
+    def _step(self, waiting: int = 0) -> int:
         if not self.active.any():
             self.last_tick_k = 0
             return 0

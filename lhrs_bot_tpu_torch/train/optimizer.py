@@ -19,6 +19,16 @@ stock optimizers:
     at the 0-based one, as `adan` and optax's `scale_by_learning_rate`;
   * AdamW is optax's: bias-corrected moments, eps outside the square root,
     decoupled decay added to the direction before the lr scaling.
+
+`ShardedTrainOptimizer` is the same update over a mesh
+(`parallel.mesh.Mesh`): ZeRO-2 over the data axis (`parallel.zero`: the
+gradients summed over the data group, each rank's slots and update over
+its shard of the flat vector of the trainable leaves, the updated shards
+gathered back into every rank's leaves), with the global norm and the
+clipping reduced over the shards and over the model group's slices of
+tensor-parallel leaves. Its `state_dict` gathers to the single-rank layout
+and its `load_state_dict` slices that layout for any mesh, so a checkpoint
+resumes at another dp or tp.
 """
 
 from __future__ import annotations
@@ -26,6 +36,8 @@ from __future__ import annotations
 from typing import Callable, List, Optional, Sequence, Union
 
 import torch
+
+from ..parallel.zero import FlatShard
 
 LR = Union[float, Callable[[int], float]]
 
@@ -82,6 +94,9 @@ class TrainOptimizer:
         if name not in ("adan", "adanp", "adamw", "sgd"):
             raise ValueError(f"unknown optimizer {name!r}")
         self.params = params
+        # the tensors whose gradients the step takes (a sharded subclass
+        # updates pieces of them)
+        self.leaves = params
         self.paths = paths
         self.decay = decay
         self.name = name
@@ -215,15 +230,142 @@ class TrainOptimizer:
         return [-lr * t for t in trace]
 
 
+class ShardedTrainOptimizer(TrainOptimizer):
+    """`TrainOptimizer` over a mesh: `params` are this rank's trainable
+    leaves (tensor-parallel slices where `split_dims[i]` names the
+    dimension the model group splits), updated in place on every rank;
+    the slots and the update cover this rank's ZeRO shard
+    (`parallel.zero.FlatShard`) of them only. `step` returns the global
+    norm of the summed micro-step gradients (before clipping).
+    `reduce_grads = False` plants a fault for a check: the rank takes
+    part in the gradient all-reduce but keeps its own unreduced
+    gradients."""
+
+    def __init__(self, params: List[torch.Tensor], decay: List[bool], *,
+                 mesh, split_dims: Sequence[Optional[int]], **kw):
+        self.mesh = mesh
+        self.split_dims = list(split_dims)
+        self.shard = FlatShard([p.numel() for p in params], mesh.dp,
+                               mesh.data_index)
+        self.reduce_grads = True
+        segs = self.shard.segments
+        super().__init__(self.shard.pieces(params),
+                         [decay[i] for i, _, _ in segs], **kw)
+        self.leaves = params
+        self.leaf_decay = decay
+        self._device = params[0].device if params else torch.device("cpu")
+
+    # -- flat pieces ----------------------------------------------------------
+
+    def _pieces_of(self, flat: torch.Tensor) -> List[torch.Tensor]:
+        st = self.shard.starts
+        return [flat[st[i] + a:st[i] + b] for i, a, b in self.shard.segments]
+
+    def _norm(self, pieces: Sequence[torch.Tensor]) -> torch.Tensor:
+        """sqrt of the sum of squares of the whole summed gradient: the
+        shards' sums over the data group, the split leaves' also over the
+        model group (replicated leaves count once)."""
+        sums = torch.zeros(2, dtype=torch.float32, device=self._device)
+        for (i, _, _), g in zip(self.shard.segments, pieces):
+            sums[int(self.split_dims[i] is not None)] += g.float().square() \
+                .sum()
+        if self.mesh.dp_axis is not None:
+            self.mesh.data.all_reduce(sums)
+        if self.mesh.tp_axis is not None:
+            split = sums[1:].clone()
+            self.mesh.model.all_reduce(split)
+            sums = torch.stack([sums[0], split[0]])
+        return (sums[0] + sums[1]).sqrt()
+
+    def _clip(self, grads):
+        g_norm = self._norm(grads)
+        keep = g_norm < self.max_grad_norm
+        return [torch.where(keep, g, (g / g_norm) * self.max_grad_norm)
+                for g in grads]
+
+    @torch.no_grad()
+    def step(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
+        flat = self.shard.flatten(grads)
+        if self.mesh.dp_axis is not None:
+            summed = self.mesh.data.all_reduce(
+                flat if self.reduce_grads else flat.clone())
+            flat = summed if self.reduce_grads else flat
+        pieces = self._pieces_of(flat)
+        norm = self._norm(pieces)
+        count = self.count
+        super().step(pieces)
+        if self.count != count:  # an update ran: gather the new shards
+            whole = self.shard.gather(self.params, self.mesh.dp_axis,
+                                      self._device)
+            for leaf, part in zip(self.leaves,
+                                  self.shard.unflatten(whole, self.leaves)):
+                leaf.detach().copy_(part.to(leaf.dtype))
+        return norm
+
+    # -- the single-rank layout -----------------------------------------------
+
+    def _whole(self, pieces) -> List[torch.Tensor]:
+        """Per leaf, the whole tensor (as at one rank) of a slot's shard
+        pieces: gathered over the data group, then over the model group
+        along each split dimension."""
+        flat = self.shard.gather(pieces, self.mesh.dp_axis, self._device)
+        out = []
+        for part, dim in zip(self.shard.unflatten(flat, self.leaves),
+                             self.split_dims):
+            if dim is not None and self.mesh.tp_axis is not None:
+                part = self.mesh.model.all_gather(part, dim)
+            out.append(part)
+        return out
+
+    def _local(self, values) -> List[torch.Tensor]:
+        """This rank's shard pieces of per-leaf whole tensors."""
+        from ..parallel.partition import shard_tensor
+
+        local = []
+        for v, dim in zip(values, self.split_dims):
+            t = torch.as_tensor(v).to(self._device, torch.float32)
+            if dim is not None and self.mesh.tp_axis is not None:
+                t = shard_tensor(t, dim, self.mesh.model)
+            local.append(t)
+        return [p.clone() for p in self._pieces_of(self.shard.flatten(local))]
+
+    def state_dict(self) -> dict:
+        """`TrainOptimizer.state_dict`'s layout, whole (every rank of the
+        mesh must call it: it gathers)."""
+        return {"name": self.name, "count": self.count,
+                "mini_step": self.mini_step,
+                "paths": ["/".join(p) for p in self.paths or []],
+                "slots": {k: self._whole(v)
+                          for k, v in zip(SLOTS[self.name], self.state)},
+                "acc": None if self.acc is None else self._whole(self.acc)}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore a whole `state_dict()` (written at any mesh, or by a
+        single-rank `TrainOptimizer`): each rank takes its pieces."""
+        paths = ["/".join(p) for p in self.paths or []]
+        if state["name"] != self.name or list(state["paths"]) != paths:
+            raise ValueError(
+                f"optimizer state of {state['name']!r} over "
+                f"{len(state['paths'])} leaves does not fit {self.name!r} "
+                f"over {len(paths)}")
+        self.state = [self._local(state["slots"][k]) for k in SLOTS[self.name]]
+        if state.get("acc") is not None:
+            self.acc = self._local(state["acc"])
+        self.count = int(state["count"])
+        self.mini_step = int(state["mini_step"])
+
+
 def build_optimizer(config, params, trainable=None,
-                    schedule: Optional[Callable[[int], float]] = None
-                    ) -> TrainOptimizer:
+                    schedule: Optional[Callable[[int], float]] = None,
+                    mesh=None) -> TrainOptimizer:
     """From a config dict (keys optimizer, lr, wd, betas, max_grad_norm,
     accumulation_steps, as in `Config/*.yaml`; "adam" is AdamW, as in the
     JAX package) over the leaves of `params`
     that `trainable` (a nested dict of bools, `models.vlm.trainable_mask`)
     marks, every leaf when it is None. `schedule` overrides the constant
-    lr."""
+    lr. With `mesh`, `params` is this rank's slice
+    (`parallel.partition.shard_params`) and the optimizer a
+    `ShardedTrainOptimizer` over it."""
     name = str(config.get("optimizer", "adamw")).lower()
     if name == "adam":
         name = "adamw"
@@ -235,8 +377,17 @@ def build_optimizer(config, params, trainable=None,
         for k in path:
             node = node[k]
         decay.append(node)
-    return TrainOptimizer(
-        [t for _, t in pairs], decay, name=name,
+    kw = {}
+    cls = TrainOptimizer
+    if mesh is not None:
+        from ..parallel.partition import spec_of, split_axis, vlm_param_specs
+
+        specs = vlm_param_specs(params)
+        cls = ShardedTrainOptimizer
+        kw = {"mesh": mesh, "split_dims": [
+            split_axis(spec_of(specs, p)) for p, _ in pairs]}
+    return cls(
+        [t for _, t in pairs], decay, name=name, **kw,
         lr=schedule if schedule is not None else float(config["lr"]),
         weight_decay=float(config.get("wd", 0.0) or 0.0),
         betas=config.get("betas"),

@@ -19,7 +19,20 @@ iteration (JAX records the index of the iteration being run there, so its
 resume repeats that iteration; the reference resumes after it). The resumed
 data iterator is made after the first `before_epoch` hooks have run, so an
 `EpochSeedHook` has set the sampler's epoch when the skipped batches are
-drawn. Meshes need the parallel layer, which is not ported, and raise.
+drawn.
+
+`mesh` (`parallel.mesh.Mesh`, one process a rank) trains data and tensor
+parallel, as the JAX trainer does over its mesh: `params` is this rank's
+slice (`parallel.partition.shard_params`) and `optimizer` a
+`ShardedTrainOptimizer` over it (`build_optimizer(..., mesh=)`;
+`core.build_trainer` composes both), and each data index draws its own
+batch: `batch_size` is per process, as in JAX's multi-process path and in
+the reference. The loss of a rank is its valid tokens' loss over the data
+group's count, so the summed losses and gradients are the global batch's
+(`models.llama.causal_lm_loss`); the reported total_loss, text_loss and
+grad_norm are the global batch's. A checkpoint holds the single-rank
+layout, gathered (rank 0 writes it), with `mesh_shape`; `resume` slices
+it for the current mesh, whatever mesh wrote it.
 """
 
 from __future__ import annotations
@@ -36,6 +49,9 @@ from ..core import checkpoint as ckpt_lib
 from ..core.convert import _remember_source, as_loaded
 from ..models.vlm import VLMConfig, vlm_forward_loss
 from ..ops.quant import QuantizedTensor
+from ..parallel.mesh import Mesh
+from ..parallel.partition import (gather_params, shard_leaf, spec_of,
+                                  vlm_param_specs)
 from .hooks import CheckpointHook, HookBase, LoggerHook, LRSchedulerHook
 from .metric import MetricStorage
 from .optimizer import TrainOptimizer, global_norm
@@ -45,21 +61,33 @@ logger = logging.getLogger("lhrs_torch")
 
 def make_train_step(cfg: VLMConfig, optimizer: TrainOptimizer,
                     compute_dtype: torch.dtype = torch.bfloat16,
-                    remat: bool = False) -> Callable:
+                    remat: bool = False, mesh: Optional[Mesh] = None
+                    ) -> Callable:
     """step(params, batch) -> metrics: the forward loss, its gradients with
     respect to the optimizer's (trainable) tensors, their global norm
     before clipping, and the optimizer update in place. Metrics are 0-d
-    tensors on the device: total_loss, text_loss, grad_norm."""
+    tensors on the device: total_loss, text_loss, grad_norm. Over a
+    `mesh` the losses are summed over the data group and the norm is the
+    sharded optimizer's (both the global batch's)."""
 
     def step(params, batch) -> Dict[str, torch.Tensor]:
         out = vlm_forward_loss(params, cfg, batch,
-                               compute_dtype=compute_dtype, remat=remat)
-        grads = torch.autograd.grad(out["total_loss"], optimizer.params)
-        metrics = {"total_loss": out["total_loss"].detach(),
-                   "text_loss": out["text_loss"].detach(),
-                   "grad_norm": global_norm(grads)}
-        optimizer.step(grads)
-        return metrics
+                               compute_dtype=compute_dtype, remat=remat,
+                               mesh=mesh)
+        grads = torch.autograd.grad(out["total_loss"], optimizer.leaves)
+        if mesh is None:
+            metrics = {"total_loss": out["total_loss"].detach(),
+                       "text_loss": out["text_loss"].detach(),
+                       "grad_norm": global_norm(grads)}
+            optimizer.step(grads)
+            return metrics
+        losses = torch.stack([out["total_loss"].detach(),
+                              out["text_loss"].detach()]).float()
+        if mesh.dp_axis is not None:
+            mesh.data.all_reduce(losses)
+        norm = optimizer.step(grads)
+        return {"total_loss": losses[0], "text_loss": losses[1],
+                "grad_norm": norm}
 
     return step
 
@@ -93,9 +121,14 @@ class Trainer:
         hooks: Optional[List[HookBase]] = None,
     ):
         if mesh is not None:
-            raise NotImplementedError("meshes (data / tensor parallelism) "
-                                      "are not ported to lhrs_bot_tpu_torch "
-                                      "yet")
+            if not isinstance(mesh, Mesh):
+                raise TypeError(f"mesh must be a lhrs_bot_tpu_torch.parallel"
+                                f".Mesh, got {type(mesh).__name__}")
+            if getattr(optimizer, "mesh", None) is not mesh:
+                raise ValueError("a mesh trainer takes the optimizer "
+                                 "build_optimizer(..., mesh=mesh) made over "
+                                 "shard_params(mesh, params)")
+        self.mesh = mesh
         self.model_cfg = model_cfg
         self.params = params
         self.optimizer = optimizer
@@ -124,7 +157,7 @@ class Trainer:
         self._in_iter = False  # between an iteration's step and cur_iter += 1
         self._skip = None  # batches to skip at the first epoch after resume
         self._step_fn = make_train_step(model_cfg, optimizer, compute_dtype,
-                                        remat)
+                                        remat, mesh)
 
         self._hooks: List[HookBase] = []
         default_hooks: List[HookBase] = []
@@ -250,16 +283,28 @@ class Trainer:
         client_state = {
             "cur_iter": done,
             "world_size": dist.get_world_size() if up else 1,
-            "mesh_shape": None,
+            "mesh_shape": None if self.mesh is None else self.mesh.shape,
             "metric_storage": self.metric_storage.state_dict(),
             "hooks": {h.class_name: h.state_dict()
                       for h in self._hooks if h.checkpointable},
         }
         sub = "checkpoints" if tag is None else f"checkpoints_{tag}"
-        return ckpt_lib.save_checkpoint(
-            os.path.join(self.work_dir, sub), done, as_loaded(self.params),
-            self.optimizer.state_dict(), client_state,
-            max_to_keep=max_to_keep)
+        directory = os.path.join(self.work_dir, sub)
+        if self.mesh is None:
+            return ckpt_lib.save_checkpoint(
+                directory, done, as_loaded(self.params),
+                self.optimizer.state_dict(), client_state,
+                max_to_keep=max_to_keep)
+        # every rank gathers; rank 0 writes the single-rank layout
+        params = as_loaded(gather_params(self.mesh, self.params))
+        opt_state = self.optimizer.state_dict()
+        path = os.path.join(directory, f"checkpoint_{done}")
+        if self.mesh.rank == 0:
+            path = ckpt_lib.save_checkpoint(directory, done, params,
+                                            opt_state, client_state,
+                                            max_to_keep=max_to_keep)
+        dist.barrier()
+        return path
 
     def resume(self, path: Optional[str] = None) -> bool:
         """Load `path` (default: the latest checkpoint under
@@ -272,7 +317,15 @@ class Trainer:
             logger.info("no checkpoint found; training from scratch")
             return False
         restored = ckpt_lib.load_checkpoint(path)
-        self.params = _restore(self.params, restored["params"], "")
+        slicer = None
+        if self.mesh is not None:  # reshard the single-rank layout
+            specs = vlm_param_specs(restored["params"])
+            axis = self.mesh.tp_axis
+
+            def slicer(keys, leaf):
+                return shard_leaf(leaf, spec_of(specs, keys), axis)
+        self.params = _restore(self.params, restored["params"], "", (),
+                               slicer)
         if restored.get("opt_state") is not None:
             self.optimizer.load_state_dict(restored["opt_state"])
         cs = restored.get("client_state", {})
@@ -307,23 +360,29 @@ class Trainer:
                 self._data_iter = iter(self.data_loader)
 
 
-def _restore(have, saved, path):
+def _restore(have, saved, path, keys=(), slicer=None):
     """The trainer's parameter tree `have` with the checkpoint's values:
     trainable masters (and quantized codes) overwritten in place, since the
     optimizer holds them; each frozen float leaf replaced by the saved leaf
-    cast as before, which becomes its source (`core.convert.source_of`)."""
-    if isinstance(have, dict):
+    cast as before, which becomes its source (`core.convert.source_of`).
+    `slicer(keys, saved leaf)` gives a mesh rank's slice of a saved leaf
+    (the whole saved leaf stays the source)."""
+    if isinstance(have, dict) and not isinstance(saved, QuantizedTensor):
         if not isinstance(saved, dict) or set(saved) != set(have):
             raise ValueError(f"checkpoint params at {path or '/'}: keys "
                              f"{sorted(saved)} differ from {sorted(have)}")
-        return {k: _restore(v, saved[k], f"{path}/{k}")
-                for k, v in have.items()}
+        return {k: _restore(v, saved[k], f"{path}/{k}", keys + (k,),
+                            slicer) for k, v in have.items()}
+    local = saved if slicer is None else slicer(keys, saved)
     with torch.no_grad():
         if isinstance(have, QuantizedTensor):
-            have.q.copy_(torch.as_tensor(saved["q"]))
-            have.scale.copy_(torch.as_tensor(saved["scale"]))
+            q, scale = ((local.q, local.scale)
+                        if isinstance(local, QuantizedTensor)
+                        else (local["q"], local["scale"]))
+            have.q.copy_(torch.as_tensor(np.asarray(q)))
+            have.scale.copy_(torch.as_tensor(np.asarray(scale)))
             return have
-        arr = torch.as_tensor(np.asarray(saved))
+        arr = torch.as_tensor(np.asarray(local))
         if tuple(arr.shape) != tuple(have.shape):
             raise ValueError(f"checkpoint params at {path}: shape "
                              f"{tuple(arr.shape)} differs from "

@@ -30,10 +30,19 @@ scheduler's.
 
 The model and the cache live on the card (`--device cuda`, the default,
 which raises with no card visible); `--device cpu` runs on the CPU.
-`--tp` above 1 is not ported and raises.
+
+`--tp N` serves the decoder tensor parallel over N ranks started by
+torchrun (`torchrun --nproc-per-node N lhrs_serve_torch.py ... --tp N`;
+`--dist-backend nccl`, the default, takes one card a rank, gloo lets the
+ranks share a card or run on the CPU): each rank builds the engine and
+slices the decoder (`parallel.partition`), rank 0 serves HTTP with its
+scheduler leading, and the other ranks follow its calls
+(`ContinuousBatchingScheduler.lead` / `follow`). N must be the world size.
 """
 
 from __future__ import annotations
+
+import datetime
 
 
 def add_serve_args(p) -> None:
@@ -69,7 +78,8 @@ def add_serve_args(p) -> None:
 def build_frontend(args=None):
     """(frontend, config) for the command line `args` (sys.argv when
     None): the model, engine, scheduler and ServingFrontend, before the
-    port binds."""
+    port binds. On a follower rank of `--tp` the first item is the
+    scheduler instead, which serves no HTTP."""
     from lhrs_bot_tpu_torch.core import (build_engine,
                                          build_model_and_tokenizer,
                                          parse_config, setup)
@@ -81,9 +91,11 @@ def build_frontend(args=None):
 
     config = parse_config("LHRS-Bot serving API (PyTorch port)",
                           extra=add_serve_args, args=args)
+    mesh = None
     if int(config.get("tp") or 1) > 1:
-        raise NotImplementedError("--tp > 1: tensor-parallel serving is not "
-                                  "ported (ROADMAP Queue 1 item 10)")
+        from lhrs_bot_tpu_torch.parallel import make_mesh
+
+        mesh = make_mesh(dp=1, tp=int(config.tp))
     device = resolve_device(config.device)
     logger = setup(config)
 
@@ -93,7 +105,7 @@ def build_frontend(args=None):
                          "paged scheduler's rows live behind a page table)")
     cfg, params, tokenizer = build_model_and_tokenizer(config, device)
     # the engine holds the weights; the schedulers serve
-    engine = build_engine(cfg, params, config, device)
+    engine = build_engine(cfg, params, config, device, mesh=mesh)
     del params
 
     t = float(config.temperature)
@@ -107,7 +119,7 @@ def build_frontend(args=None):
                   cache_dtype=engine.cache_dtype,
                   tokens_per_tick=int(config.tokens_per_tick),
                   adaptive_tick=bool(config.adaptive_tick),
-                  gen_cfg=gen_cfg, device=device)
+                  gen_cfg=gen_cfg, device=device, mesh=mesh)
     if config.paged:
         page = int(config.page_size)
         pool_tokens = (int(config.pool_tokens)
@@ -121,6 +133,15 @@ def build_frontend(args=None):
         sched = ContinuousBatchingScheduler(cfg, engine.params,
                                             engine.llama_params,
                                             speculative=speculative, **common)
+    if mesh is not None:
+        # a follower waits for the leader's next call as long as the
+        # server idles: that wait has a group of its own, and the model's
+        # collectives keep torch's timeout, so a rank whose peer failed
+        # raises
+        sched.channel = mesh.model.with_timeout(datetime.timedelta(days=30))
+        if mesh.model_index:
+            return sched, config  # a follower: main() runs sched.follow()
+        sched.lead()
     frontend = ServingFrontend(
         sched, tokenizer, image_size=cfg.vit.image_size,
         prompt_template=config.get("prompt_template") or "llava_llama_2")
@@ -132,12 +153,19 @@ def build_frontend(args=None):
 
 
 def main(args=None):
-    from lhrs_bot_tpu_torch.serve.api import serve
+    from lhrs_bot_tpu_torch.serve.api import ServingFrontend, serve
 
     frontend, config = build_frontend(args)
-    if config.warmup:
-        frontend.warmup()
-    serve(frontend, port=int(config.port))
+    if not isinstance(frontend, ServingFrontend):
+        frontend.follow()  # the leader's calls, until it stops
+        return
+    try:
+        if config.warmup:
+            frontend.warmup()
+        serve(frontend, port=int(config.port))
+    finally:
+        frontend.shutdown()  # no call of the worker's after the release
+        frontend.sched.release_followers()
 
 
 if __name__ == "__main__":

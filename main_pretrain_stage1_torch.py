@@ -5,8 +5,8 @@ The command line of `main_pretrain_stage1.py` (-c, --model-path,
 --data-path, --batch-size, --workers, --output, --seed, --auto-resume,
 --use-checkpoint) plus --device (cuda, the default, or cpu). A checkpoint
 every `ckpt_period` iterations (1000 unless the config sets it), one kept;
-FINAL.pt in --output at the end. --dp, or --tp above 1, raises
-NotImplementedError (no mesh in the port).
+FINAL.pt in --output at the end. Under torchrun, --dp / --tp make a
+data x model mesh of the ranks (--dist-backend nccl or gloo; README).
 
 Run: python main_pretrain_stage1_torch.py -c Config/multi_modal_stage1.yaml \\
        --data-path <dir> --batch-size 8 --output out_stage1

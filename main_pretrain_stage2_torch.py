@@ -4,7 +4,8 @@ with LoRA on every decoder projection (over an int8 base with `bits: 8`).
 The command line of `main_pretrain_stage2.py` plus --device (cuda, the
 default, or cpu); a checkpoint every `ckpt_period` iterations (100 unless
 the config sets it), one kept; FINAL.pt and TextLoRA/ in --output at the
-end. --dp, or --tp above 1, raises NotImplementedError.
+end. Under torchrun, --dp / --tp make a data x model mesh of the ranks
+(--dist-backend nccl or gloo; README).
 
 Run: python main_pretrain_stage2_torch.py -c Config/multi_modal_stage2.yaml \\
        --model-path out_stage1/FINAL.pt --data-path <dir>

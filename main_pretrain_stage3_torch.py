@@ -6,7 +6,8 @@ stage-2 adapters training on.
 The command line of `main_pretrain_stage3.py` plus --device (cuda, the
 default, or cpu); a checkpoint every `ckpt_period` iterations (100 unless
 the config sets it), one kept; FINAL.pt and TextLoRA/ in --output at the
-end. --dp, or --tp above 1, raises NotImplementedError.
+end. Under torchrun, --dp / --tp make a data x model mesh of the ranks
+(--dist-backend nccl or gloo; README).
 
 Run: python main_pretrain_stage3_torch.py -c Config/multi_modal_stage3.yaml \\
        --model-path out_stage2/FINAL.pt --data-path <dir>

@@ -629,14 +629,15 @@ def test_lhrs_serve_torch_defaults_to_cuda(serve_main, tmp_path,
 @pytest.mark.parametrize("flag", [["--speculative", "2"], ["--tp", "2"]],
                          ids=["speculative", "tp"])
 def test_lhrs_serve_torch_unported_flags_raise(serve_main, tmp_path, flag):
-    """--tp above 1 is not ported and raises. --speculative is ported: it
-    builds a contiguous frontend whose scheduler runs speculative ticks
-    and serves a request; with --paged it raises ValueError, as
-    lhrs_serve.py does."""
+    """--tp is ported for a world of tp ranks (torchrun): in one process
+    --tp 2 raises ValueError naming the world size. --speculative is
+    ported: it builds a contiguous frontend whose scheduler runs
+    speculative ticks and serves a request; with --paged it raises
+    ValueError, as lhrs_serve.py does."""
     args = ["-c", _tiny_yaml(tmp_path), "--device", "cpu", "--output",
             str(tmp_path / "out")] + flag
     if "--tp" in flag:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="world size"):
             serve_main["build_frontend"](args)
         return
     with pytest.raises(ValueError, match="paged"):

@@ -203,7 +203,10 @@ def test_sampling_top_p_and_seed(engines):
 
 # quantized weights, the int8 cache, the W8A8 vision tower and the chunked
 # prefill are ported: those cases build an engine whose parameters or cache
-# are quantized, or whose prefill runs in chunks; a mesh raises
+# are quantized, or whose prefill runs in chunks. A mesh is ported too
+# (tests/test_torch_parallel_serve.py runs it over gloo ranks): an object
+# that is not a `parallel.Mesh` raises TypeError, and the one-process mesh
+# builds the engine
 PORTED_OPTIONS = ({"quantize_bits": 8}, {"cache_dtype": torch.int8},
                   {"vision_w8a8": True}, {"prefill_chunk": 32})
 
@@ -214,6 +217,25 @@ PORTED_OPTIONS = ({"quantize_bits": 8}, {"cache_dtype": torch.int8},
                                     {"cache_dtype": torch.int8}], ids=str)
 def test_unported_engine_options_raise(engines, kwargs):
     _, te = engines
+    if "mesh" in kwargs:
+        with pytest.raises(TypeError, match="Mesh"):
+            t_engine.GenerationEngine(te.cfg, {"vit": {}, "pooler": {},
+                                               "llama": {}},
+                                      device="cpu", **kwargs)
+        from lhrs_bot_tpu_torch.parallel import make_mesh
+
+        params = {"vit": te.params["vit"], "pooler": te.params["pooler"],
+                  "llama": te.llama_params}
+        engine = t_engine.GenerationEngine(
+            te.cfg, params, max_seq_len=96, compute_dtype=torch.float32,
+            cache_dtype=torch.float32, device="cpu", mesh=make_mesh())
+        ids, lens, imgs = _request(5, lens=(7,))
+        gcfg = t_engine.GenerationConfig(max_new_tokens=3)
+        assert engine.tp is None and engine.heads == te.cfg.llama \
+            .num_attention_heads
+        assert engine.generate(ids, lens, images=imgs, gen_cfg=gcfg) == \
+            te.generate(ids, lens, images=imgs, gen_cfg=gcfg)
+        return
     if kwargs not in PORTED_OPTIONS:
         with pytest.raises(NotImplementedError):
             t_engine.GenerationEngine(te.cfg, {"vit": {}, "pooler": {},
@@ -432,7 +454,8 @@ def test_port_never_imports_jax_or_the_jax_package():
         "data/datasets.py", "data/loader.py", "data/native.py",
         "data/tario.py", "data/build_loader.py", "data/collate.py",
         "eval/metrics.py", "eval/caption.py", "eval/protocols.py",
-        "eval/entry.py", "parallel/__init__.py", "parallel/distribute.py")]
+        "eval/entry.py", "parallel/__init__.py", "parallel/distribute.py",
+        "parallel/mesh.py", "parallel/partition.py", "parallel/zero.py")]
     assert set(new_modules) <= set(files) and set(new_modules[:5]) <= \
         set(frontend)
     loaders = [port / "core" / f"{m}.py" for m in (

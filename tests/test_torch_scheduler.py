@@ -315,11 +315,12 @@ def test_adaptive_scheduler_matches_jax(setup):
 @pytest.mark.parametrize("kwargs", [{"speculative": 4}, {"mesh": "m"}],
                          ids=str)
 def test_unported_scheduler_options_raise(setup, kwargs):
-    """A mesh is not ported and raises; speculative ticks are ported: the
-    scheduler is built with them on, and `set_speculative` turns them
-    off and on."""
+    """A mesh is ported (tests/test_torch_parallel_serve.py runs it over
+    gloo ranks): an object that is not a `parallel.Mesh` raises
+    TypeError. Speculative ticks are ported: the scheduler is built with
+    them on, and `set_speculative` turns them off and on."""
     if "mesh" in kwargs:
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(TypeError, match="Mesh"):
             _port_scheduler(setup, WAVES["recycle"], "f32", 2, False,
                             **kwargs)
         return

@@ -176,7 +176,8 @@ def test_stage_entry_matches_jax(tmp_path, weights, stage, monkeypatch,
 
 
 def test_mesh_flags_raise(tmp_path, weights):
-    """--dp, or --tp above 1, needs a mesh: NotImplementedError."""
+    """--dp / --tp make a mesh of the world's ranks (torchrun): in one
+    process dp or tp 2 raises ValueError naming the world size."""
     mod = _module(REPO / "main_pretrain_stage1_torch.py")
     from lhrs_bot_tpu_torch.core import add_train_args, parse_config
 
@@ -184,5 +185,5 @@ def test_mesh_flags_raise(tmp_path, weights):
         config = parse_config("x", extra=add_train_args, args=[
             "-c", _config(tmp_path, weights, 1), "--device", "cpu",
             "--output", str(tmp_path / "o")] + flags)
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match="world size"):
             mod.main(config)

@@ -565,7 +565,7 @@ def test_unported_paths_raise(vlm_setup):
     opt = build_optimizer({"optimizer": "adamw", "lr": 0.001}, params,
                           t_vlm.trainable_mask(params, tcfg))
     loader = [_supervised_batch(40)]
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="Mesh"):  # meshes: a Mesh only
         Trainer(tcfg, params, opt, loader, max_iters=1, mesh=object())
     with pytest.raises(NotImplementedError):
         t_vlm.vlm_forward_loss(params, tcfg, loader[0], cp_mesh=object())

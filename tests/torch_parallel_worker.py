@@ -1,0 +1,297 @@
+"""One gloo rank of the port's multi-process tests (tests/torch_parallel.py
+starts them): `python tests/torch_parallel_worker.py <payload.pkl> <job>`.
+It joins the process group from torchrun's environment, runs the job on
+the payload and pickles what the job returns to `<payload.pkl>.rank<r>`.
+It imports the port only (the tests hold the results to the JAX package
+in the pytest process)."""
+
+import dataclasses
+import pickle
+import sys
+
+import numpy as np
+import torch
+
+from lhrs_bot_tpu_torch.core.convert import params_from_numpy
+from lhrs_bot_tpu_torch.models.vlm import VLMConfig
+from lhrs_bot_tpu_torch.ops.quant import QuantizedTensor
+from lhrs_bot_tpu_torch.parallel import distribute
+from lhrs_bot_tpu_torch.parallel.mesh import make_mesh
+
+CPU = torch.device("cpu")
+DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}
+
+
+def vlm_config(spec):
+    """The tiny VLM of tests/fixtures' sizes, with `spec`'s overrides of
+    its decoder ("llama") and its stage / LoRA."""
+    cfg = VLMConfig.tiny_test(stage=spec.get("stage", 0),
+                              lora=spec.get("lora", False))
+    llama = dict(spec.get("llama") or {})
+    if llama:
+        lc = dataclasses.replace(cfg.llama, **llama)
+        cfg = dataclasses.replace(
+            cfg, llama=lc, pooler=dataclasses.replace(
+                cfg.pooler, output_size=lc.hidden_size))
+    return cfg
+
+
+def host(tree):
+    """Tensors (and quantized weights) as numpy, for the pickle."""
+    if isinstance(tree, dict):
+        return {k: host(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(host(v) for v in tree)
+    if isinstance(tree, QuantizedTensor):
+        return {"q": host(tree.q), "scale": host(tree.scale),
+                "bits": tree.bits}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().float().numpy() \
+            if tree.is_floating_point() else tree.detach().cpu().numpy()
+    return tree
+
+
+def snapshot(tree):
+    """`core.checkpoint.to_host` of `tree`, copied (a CPU tensor's numpy
+    view would follow the tensor's later updates)."""
+    from lhrs_bot_tpu_torch.core.checkpoint import to_host
+
+    def copy(t):
+        if isinstance(t, dict):
+            return {k: copy(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(copy(v) for v in t)
+        return np.array(t) if isinstance(t, np.ndarray) else t
+
+    return copy(to_host(tree))
+
+
+def _engine(cfg, params, kw, mesh):
+    from lhrs_bot_tpu_torch.serve.engine import GenerationEngine
+
+    kw = dict(kw)
+    if "cache_dtype" in kw:
+        kw["cache_dtype"] = DTYPES[kw["cache_dtype"]]
+    return GenerationEngine(cfg, params, max_seq_len=96,
+                            compute_dtype=torch.float32, device=CPU,
+                            mesh=mesh, **kw)
+
+
+def serve_job(p):
+    """Engines (generate ids, prefill logits, this rank's decoder slice)
+    and both schedulers over a dp 1 x tp mesh."""
+    from lhrs_bot_tpu_torch.ops.quant import quantize_activation
+    from lhrs_bot_tpu_torch.ops.w4_matmul import row_parallel_codes
+    from lhrs_bot_tpu_torch.serve import engine as t_engine
+    from lhrs_bot_tpu_torch.serve.paged import PagedScheduler
+    from lhrs_bot_tpu_torch.serve.scheduler import (
+        ContinuousBatchingScheduler, Request)
+
+    mesh = make_mesh(dp=1, tp=p["tp"])
+    out = {"engines": {}, "scheds": {}, "errors": {}}
+    for name, spec in p["engines"].items():
+        cfg = vlm_config(spec)
+        params = params_from_numpy(p["params"][spec.get("params", "tiny")])
+        try:
+            eng = _engine(cfg, params, spec.get("kw", {}), mesh)
+        except ValueError as exc:
+            out["errors"][name] = str(exc)
+            continue
+        if spec.get("fault") == "packed_axis":
+            plant_packed_axis(eng, cfg, params, spec.get("kw", {}), mesh)
+        gcfg = t_engine.GenerationConfig(max_new_tokens=p["new_tokens"],
+                                         eos_token_id=2)
+        res = {"ids": [], "logits": []}
+        for ids, lens, imgs in p["requests"]:
+            res["ids"].append(eng.generate(ids, lens, images=imgs,
+                                           gen_cfg=gcfg))
+            res["logits"].append(host(eng._start(ids, lens, imgs, gcfg)[0]))
+        if spec.get("keep_params"):
+            res["llama"] = host(eng.llama_params)
+        out["engines"][name] = res
+    x = p.get("codes_input")
+    if x is not None:
+        t = torch.as_tensor(x)
+        k = t.shape[-1] // mesh.tp
+        local = t[:, mesh.model_index * k:(mesh.model_index + 1) * k]
+        codes, scale = row_parallel_codes(local, mesh.model)
+        ref_codes, ref_scale = quantize_activation(t)
+        out["codes"] = {"codes": codes.numpy(), "scale": scale.numpy(),
+                        "ref_codes": ref_codes[:, mesh.model_index * k:
+                                               (mesh.model_index + 1) * k]
+                        .numpy(), "ref_scale": ref_scale.numpy()}
+    for name, spec in p.get("scheds", {}).items():
+        cfg = vlm_config(spec)
+        params = params_from_numpy(p["params"][spec.get("params", "tiny")])
+        eng = _engine(cfg, params, spec.get("engine_kw", {}), mesh)
+        common = dict(max_batch=spec["max_batch"],
+                      compute_dtype=torch.float32,
+                      cache_dtype=DTYPES[spec.get("cache", "f32")],
+                      prompt_bucket=16, tokens_per_tick=spec["k"],
+                      device=CPU, mesh=mesh, eos_token_id=2)
+        if spec["paged"]:
+            sched = PagedScheduler(cfg, eng.params, eng.llama_params,
+                                   num_pages=spec["num_pages"], page_size=16,
+                                   pages_per_seq=6, **common)
+        else:
+            sched = ContinuousBatchingScheduler(
+                cfg, eng.params, eng.llama_params, max_seq_len=96,
+                speculative=spec.get("speculative", 0), **common)
+        reqs = [Request(uid=i, input_ids=ids, max_new_tokens=budget,
+                        image=img)
+                for i, (ids, budget, img) in enumerate(spec["requests"])]
+        if spec.get("lockstep"):  # rank 0 leads, the others follow
+            if mesh.model_index == 0:
+                sched.lead()
+                sched.run(reqs)
+                sched.release_followers()
+            else:
+                sched.follow()
+                reqs = []
+        else:
+            sched.run(reqs)
+        res = {"ids": [r.output_ids for r in reqs]}
+        if spec["paged"]:
+            res["free"] = sched.allocator.available() + \
+                sched.prefix.evictable()
+            res["table"] = sched.cache.page_table.numpy()
+        out["scheds"][name] = res
+    return out
+
+
+def plant_packed_axis(eng, cfg, params, kw, mesh):
+    """The planted fault: the row-parallel halves-packed weights sliced
+    along their packed K/2 axis (JAX's spec), not by logical rows."""
+    from lhrs_bot_tpu_torch.serve.engine import _quantize_llama
+
+    full = _quantize_llama(params["llama"], compute_dtype=torch.float32,
+                           device=CPU, quantize_bits=kw["quantize_bits"],
+                           quant_type="nf4", double_quant=True,
+                           lm_head_bits=kw.get("lm_head_bits"))
+    for name in ("wo", "w_down"):
+        qt = full["layers"][name]
+        k2 = qt.q.shape[1] // mesh.tp
+        i = mesh.model_index
+        eng.llama_params["layers"][name] = QuantizedTensor(
+            qt.q[:, i * k2:(i + 1) * k2].contiguous(), qt.scale, qt.bits)
+
+
+def local_batch(batch, mesh):
+    """This data index's rows of a global batch."""
+    out = {}
+    for k, v in batch.items():
+        v = np.asarray(v)
+        n = v.shape[0] // mesh.dp
+        out[k] = v[mesh.data_index * n:(mesh.data_index + 1) * n]
+    return out
+
+
+def train_job(p):
+    """Training steps over a dp x tp mesh from the same weights and
+    global batches: each step's metrics, then the whole parameters and
+    optimizer state (gathered), and this rank's replicated trainable
+    leaves (to hold them equal across ranks). With "ckpt", the trainer
+    instead: resume from p["ckpt"]["resume"] (a checkpoint directory) or
+    not, train to max_iters, checkpointing every ckpt_period."""
+    from lhrs_bot_tpu_torch.core.convert import (as_loaded,
+                                                 training_params_from_numpy)
+    from lhrs_bot_tpu_torch.models.vlm import trainable_mask
+    from lhrs_bot_tpu_torch.parallel.partition import (gather_params,
+                                                       shard_params)
+    from lhrs_bot_tpu_torch.train import IterBasedTrainer, build_optimizer
+    from lhrs_bot_tpu_torch.train.trainer import make_train_step
+
+    mesh = make_mesh(dp=p["dp"], tp=p["tp"])
+    cfg = vlm_config(p["cfg"])
+    params = shard_params(mesh, training_params_from_numpy(
+        p["params"], cfg, torch.float32, CPU))
+    opt = build_optimizer(p["opt"], params, trainable_mask(params, cfg),
+                          mesh=mesh)
+    if p.get("fault") == "skip_reduce" and mesh.rank == 1:
+        opt.reduce_grads = False
+    out = {"metrics": []}
+    batches = [local_batch(b, mesh) for b in p["batches"]]
+    ck = p.get("ckpt")
+    if ck is not None:
+        trainer = IterBasedTrainer(
+            cfg, params, opt, batches, max_iters=ck["max_iters"],
+            mesh=mesh, work_dir=ck["dir"], compute_dtype=torch.float32,
+            ckpt_period=ck["period"], log_period=100)
+        if ck.get("resume"):
+            assert trainer.resume()
+            out["resumed_opt"] = snapshot(opt.state_dict())
+            out["resumed_params"] = snapshot(as_loaded(
+                gather_params(mesh, trainer.params)))
+        trainer.train()
+        params = trainer.params
+    else:
+        step = make_train_step(cfg, opt, torch.float32, mesh=mesh)
+        for b in batches:
+            m = step(params, b)
+            out["metrics"].append({k: float(v) for k, v in m.items()})
+    out["params"] = snapshot(as_loaded(gather_params(mesh, params)))
+    out["opt"] = snapshot(opt.state_dict())
+    out["replicated"] = snapshot({
+        "pooler": params["pooler"],
+        "lora": {k: v["b" if k in ("wo", "w_down") else "a"]
+                 for k, v in params.get("lora", {}).items()}})
+    return out
+
+
+def entry_job(p):
+    """A stage entry point's `main()` on p["argv"] (its trainer in
+    float32, as tests/test_torch_stage_entries.py runs it)."""
+    import importlib.util
+
+    from lhrs_bot_tpu_torch.core import bootstrap
+
+    bootstrap.build_trainer.__kwdefaults__["compute_dtype"] = torch.float32
+    spec = importlib.util.spec_from_file_location("entry", p["script"])
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    sys.argv = [p["script"]] + list(p["argv"])
+    trainer = mod.main()
+    return {"cur_iter": trainer.cur_iter,
+            "mesh": trainer.mesh.shape if trainer.mesh else None}
+
+
+def serve_entry_job(p):
+    """`lhrs_serve_torch.build_frontend(p["argv"])` (the engine in
+    float32): the followers run the leader's calls until it releases
+    them; the leader answers p["prompts"] through its frontend (the HTTP
+    handlers' `generate_blocking`), shuts it down and releases them."""
+    import runpy
+
+    from lhrs_bot_tpu_torch.core import bootstrap
+    from lhrs_bot_tpu_torch.serve.api import ServingFrontend
+
+    bootstrap.build_engine.__kwdefaults__["compute_dtype"] = torch.float32
+    mod = runpy.run_path(p["script"], run_name="lhrs_serve_torch")
+    front, _ = mod["build_frontend"](p["argv"])
+    if not isinstance(front, ServingFrontend):
+        front.follow()
+        return {"follower": True}
+    outs = [front.generate_blocking(text, None, n) for text, n in p["prompts"]]
+    front.shutdown()
+    front.sched.release_followers()
+    return {"outs": outs}
+
+
+JOBS = {"serve": serve_job, "train": train_job, "entry": entry_job,
+        "serve_entry": serve_entry_job}
+
+
+def main():
+    src, job = sys.argv[1], sys.argv[2]
+    with open(src, "rb") as fh:
+        payload = pickle.load(fh)
+    torch.set_num_threads(1)
+    distribute.init_distributed("gloo")
+    out = JOBS[job](payload)
+    distribute.barrier()
+    with open(f"{src}.rank{distribute.get_rank()}", "wb") as fh:
+        pickle.dump(out, fh, protocol=pickle.HIGHEST_PROTOCOL)
+
+
+if __name__ == "__main__":
+    main()
