@@ -134,7 +134,8 @@ Phases, one or more lines each:
      towers at the bench's geometry (one timed run a cell) and its JSON
      line, the int8-dots A/B's line and the two probes' lines; every value
      positive, each kernel of the path launched;
-  7. checkpoints at full width: the reference's artifacts written from
+  7. checkpoints at full width, the decoder cut to CKPT_DEPTH (16) of
+     LLaMA-2-7B's 32 layers: the reference's artifacts written from
      named seeds under build/ (an HF LLaMA-2-7B directory of two fp16
      safetensors shards, an HF CLIP directory, FINAL.pt with the nested
      other_ckpt and embed_tokens resized to 32,004 rows, TextLoRA/ at r
@@ -200,9 +201,25 @@ Phases, one or more lines each:
      grad_norm within DP_METRIC_REL, every trainable leaf's first moment
      within DP_MOMENT_REL_L2, the updates within DP_UPDATE_REL_L2, every
      trainable leaf equal on both ranks, a rank that skips its gradient
-     reduction past both bounds); and what NCCL does with two ranks on one card (the
-     port's init_distributed refuses; torch's own group). A failing rank
-     fails the phase. The times are two ranks sharing one card.
+     reduction past both bounds); (c) context parallelism at cp = 2
+     (`cp_worker`): the ring (B 2, H 32, S 8,192, D 128, bf16, causal,
+     row 1 right-padded to 5,000) through K1 and the flash backward
+     against the plain ring on the same rank (output on valid rows, dQ /
+     dK / dV, ATOL + RTOL), each rank's launches rank + 1 a kernel, the
+     mask left behind and the owner index held (planted) past the bound;
+     one stage-1 step over one 4,096-row spliced sequence against cp = 1
+     (loss and grad_norm within DP_METRIC_REL, the updates within
+     DP_UPDATE_REL_L2, the seq-group gradient reduction skipped past it),
+     each rank's peak memory against cp = 1, and `utils.profiler`'s
+     ProfilerHook over two more steps (a trace written, the card's memory
+     stats); (d) ViT-B/16 at 224² (`vit_base_checks`): the bf16 tower on
+     K1 against plain, the fused W8A8 tower against it, float NCHW pixels
+     against uint8, and a perceiver with an in_proj (768 -> 1024) fused
+     against its plain version, each with a planted fault; and what NCCL
+     does with two ranks on one card (the port's init_distributed refuses;
+     torch's own group) and gloo with point-to-point calls on CUDA tensors.
+     A failing rank fails the phase. The times are two ranks sharing one
+     card over gloo, not a machine of two cards.
 Then a JSON line with per-kernel numbers, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}. Every line is also written to
 chiprun_out/chip_smoke.log. Any failure raises: the script
@@ -5050,6 +5067,10 @@ CKPT_SWAP_LAYER = 3  # the layer whose q_proj / k_proj a fault swaps
 # the decoder depth of the artifacts that the planted faults and the
 # training-from-disk phase load (a full-depth load takes ~30 s)
 CKPT_CUT_LAYERS = 4
+# the decoder's depth of the phase's main artifacts, stages 2 and 3 and the
+# eval load (LLaMA-2-7B has 32): cut to keep the whole script's time, with
+# phase 8's context parallelism, inside 1,080 s
+CKPT_DEPTH = 16
 CKPT_STEPS_STAGE2, CKPT_STEPS_STAGE3 = 6, 2
 CKPT_NEW_TOKENS = 8
 
@@ -5518,7 +5539,8 @@ def host_gib_available():
 
 def phase_checkpoint(dev, then=None):
     """The checkpoint formats and stages 2 and 3 at full width (ViT-L/14,
-    the 144-query perceiver, LLaMA-2-7B): (a) write the reference's
+    the 144-query perceiver, LLaMA-2-7B's widths with the decoder cut to
+    CKPT_DEPTH layers): (a) write the reference's
     artifacts from seeds, (b) load them at stage 0 bit for bit, with three
     planted faults, (c) serve the loaded tree (bf16 and W4A8 engines) bit
     for bit against the expected tree, (d) build_model + build_trainer at
@@ -5552,6 +5574,7 @@ def phase_checkpoint(dev, then=None):
 
     out = {"seconds": {}}
     config0 = eval_config()
+    config0["text"]["num_hidden_layers"] = CKPT_DEPTH
     cfg0 = VLMConfig.from_config_dict(config0)
     need = ckpt_bytes(cfg0)
     to_write = sum(v for k, v in need.items() if k != "outputs")
@@ -5719,6 +5742,7 @@ def phase_checkpoint(dev, then=None):
         # (d) stage 2: int8 base, live LoRA, six steps, save_final
         t0 = time.time()
         config2 = load_yaml_config("Config/multi_modal_stage2.yaml")
+        config2["text"]["num_hidden_layers"] = CKPT_DEPTH
         config2["rgb_vision"]["vit_name"] = paths["vit_path"]
         config2["text"]["path"] = paths["llama_path"]
         config2["model_path"] = paths["model_path"]
@@ -5773,6 +5797,7 @@ def phase_checkpoint(dev, then=None):
         # (e) stage 3 from stage 2's output
         t0 = time.time()
         config3 = load_yaml_config("Config/multi_modal_stage3.yaml")
+        config3["text"]["num_hidden_layers"] = CKPT_DEPTH
         config3["rgb_vision"]["vit_name"] = paths["vit_path"]
         config3["text"]["path"] = paths["llama_path"]
         config3["model_path"] = os.path.join(out2, "FINAL.pt")
@@ -5854,8 +5879,8 @@ def phase_checkpoint(dev, then=None):
 
 def cls_protocol(cfg, params, config, dev, root, wrappers, n=16):
     """`eval.make_cls_eval_fn` (the zero-shot protocol of the training
-    hooks) over `params` (phase 7 (f)'s loaded tree, at full depth): a bf16
-    engine, an ImageFolder of n PNG scenes in 4 classes under `root`, the
+    hooks) over `params` (phase 7 (f)'s loaded tree, CKPT_DEPTH layers): a
+    bf16 engine, an ImageFolder of n PNG scenes in 4 classes under `root`, the
     byte tokenizer, batches of EVAL_BATCH (after one batch to warm up):
     images/s, the accuracy, and K1 and K2 launched; the whole function's
     seconds ("total_s": images written, engine built, warm-up, eval)."""
@@ -5907,7 +5932,7 @@ def cls_protocol(cfg, params, config, dev, root, wrappers, n=16):
     if len(ds) != n or not 0.0 <= metrics["accuracy"] <= 1.0 or any(
             not launches.get(k) for k in ("flash_attention_fwd",
                                           "fused_decode_attention")):
-        raise AssertionError(f"cls protocol at full depth: {out}")
+        raise AssertionError(f"cls protocol: {out}")
     return out
 
 
@@ -7119,6 +7144,488 @@ def check_collectives(mesh, dev):
     return out
 
 
+# -- phase 8 (c): context parallelism ----------------------------------------
+
+# the ring's shapes: the decoder's width (H 32, D 128), B 2 of 8,192 rows
+# (4,096 a rank at cp 2), causal, row 1 right-padded to CP_PAD_ROW; the
+# tiny sizes are a rehearsal on the CPU
+CP_RING = {"full": (2, 32, 8192, 128, 5000), "tiny": (2, 4, 64, 16, 40)}
+CP_FAULTS = ("mask_stays", "owner_fixed")
+# the context-parallel train step: one spliced sequence of this many rows
+# (twice the reference's 2,048-token cap), the decoder cut to
+# PARALLEL_LAYERS; held to cp = 1 by DP_METRIC_REL and DP_UPDATE_REL_L2
+CP_TRAIN_ROWS = {"full": 4096, "tiny": 64}
+
+
+def cp_config(tiny=False):
+    """Config/multi_modal_stage1.yaml (the perceiver trains; its gradient
+    crosses the whole decoder) at full widths with the decoder cut to
+    PARALLEL_LAYERS layers and room for CP_TRAIN_ROWS positions."""
+    from lhrs_bot_tpu_torch.core.config import load_yaml_config
+
+    config = load_yaml_config("Config/multi_modal_stage1.yaml")
+    config["rgb_vision"]["vit_name"] = None
+    config["text"]["path"] = None
+    rows = CP_TRAIN_ROWS["tiny" if tiny else "full"]
+    config["text"].update(num_hidden_layers=PARALLEL_LAYERS,
+                          max_position_embeddings=rows)
+    if tiny:
+        config["rgb_vision"]["arch"] = "vit_tiny"
+        config["rgb_vision"]["attn_pooler"].update(
+            num_query=12, num_attn_heads=2, num_layers=2)
+        config["text"].update(vocab_size=256, hidden_size=128,
+                              intermediate_size=256, num_attention_heads=4)
+    return config
+
+
+def _valid_rows(lens, seq_index, s_loc, dev):
+    """(B, S_loc) bool: this chunk's rows that lie within each row's
+    valid length."""
+    import torch
+
+    ids = seq_index * s_loc + torch.arange(s_loc, device=dev)
+    return ids[None, :] < torch.as_tensor(lens, device=dev)[:, None]
+
+
+def _off(got, ref, rows):
+    """(elements past ATOL + RTOL * |ref|, max abs error) over the rows
+    `rows` (B, S) of (B, H, S, D) tensors."""
+    got, ref = got.float().transpose(1, 2)[rows], ref.float().transpose(
+        1, 2)[rows]
+    if not bool(got.isfinite().all()):
+        raise AssertionError("non-finite ring output")
+    err = (got - ref).abs()
+    return int((err > ATOL + RTOL * ref.abs()).sum()), float(err.max())
+
+
+def cp_ring(dev, mesh, tiny=False):
+    """(a) The ring itself on this rank's chunks of seeded (B, H, S, D)
+    bf16 q, k, v and dO (causal, row 1 right-padded): the K1 ring's output
+    and its dQ / dK / dV against the plain ring's on the same rank (output
+    on valid rows, gradients on every row, within ATOL + RTOL), each
+    kernel's launches (rank + 1 each under the causal mask), the planted
+    faults' elements past the bound, times of two ranks sharing the card
+    (wall, synchronised) and the backward's run tables."""
+    import torch
+
+    from lhrs_bot_tpu_torch.ops import attention
+    from lhrs_bot_tpu_torch.ops.ring_attention import ring_attention
+    from lhrs_bot_tpu_torch.parallel.context import seq_chunk
+
+    b, h, s, d, pad = CP_RING["tiny" if tiny else "full"]
+    gen = torch.Generator(device=dev).manual_seed(19)
+    whole = [torch.randn((b, h, s, d), generator=gen, device=dev,
+                         dtype=torch.bfloat16) for _ in range(4)]
+    q, k, v, do = (seq_chunk(t, mesh, 2).contiguous() for t in whole)
+    del whole
+    lens = [s, pad]
+    mask = seq_chunk(_valid_rows(lens, 0, s, dev), mesh, 1).contiguous()
+    rows = _valid_rows(lens, mesh.seq_index, s // mesh.cp, dev)
+    counted = (attention.flash_attention_fwd,
+               attention.flash_attention_bwd_dq,
+               attention.flash_attention_bwd_dkv)
+
+    def run(plain=False, fault=None, grad=True):
+        args = [t.clone().requires_grad_(grad) for t in (q, k, v)]
+        out = ring_attention(*args, mask, axis=mesh.seq, causal=True,
+                             plain=plain, fault=fault)
+        grads = (torch.autograd.grad(out, args, do) if grad else None)
+        _sync(dev)
+        return out.detach(), grads
+
+    res = {"shape": [b, h, s, d], "cp": mesh.cp, "seq": mesh.seq_index,
+           "valid_lengths": lens}
+    run()  # warm: the first launches and the gloo pairs
+    for w in counted:
+        w.launches = 0
+    t0 = time.perf_counter()
+    out_k, g_k = run()
+    res["fwd_bwd_ms"] = (time.perf_counter() - t0) * 1e3
+    res["launches"] = {w.__name__: w.launches for w in counted}
+    t0 = time.perf_counter()
+    out_p, g_p = run(plain=True)
+    res["plain_fwd_bwd_ms"] = (time.perf_counter() - t0) * 1e3
+    res["out_off"], res["out_max_abs_err"] = _off(out_k, out_p, rows)
+    every = torch.ones_like(rows)
+    res["grads"] = {}
+    for name, a, r in zip(("dq", "dk", "dv"), g_k, g_p):
+        res["grads"][name] = dict(zip(("off", "max_abs_err"),
+                                      _off(a, r, every)))
+    res["faults"] = {f: dict(zip(("off", "max_abs_err"), _off(
+        run(fault=f, grad=False)[0], out_p, rows))) for f in CP_FAULTS}
+    t0 = time.perf_counter()
+    run(grad=False)
+    res["fwd_ms"] = (time.perf_counter() - t0) * 1e3
+    if dev.type == "cuda":
+        res["table_ms"] = cuda_ms(lambda: attention.bwd_tile_table(
+            mask, None, b, s // mesh.cp, s // mesh.cp, True, dev))
+        res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return res
+
+
+def cp_batch(cfg, tiny=False):
+    """One seeded caption row whose spliced sequence is CP_TRAIN_ROWS
+    long: the image marker at 1, every label after it valid."""
+    rows = CP_TRAIN_ROWS["tiny" if tiny else "full"]
+    rng = np.random.default_rng(91)
+    n = rows - cfg.pooler.num_query + 1
+    ids = rng.integers(3, cfg.llama.vocab_size, (1, n)).astype(np.int32)
+    ids[0, 0], ids[0, 1] = cfg.llama.bos_token_id, -200
+    labels = ids.copy()
+    labels[0, :2] = -100
+    size = cfg.vit.image_size
+    return {"input_ids": ids, "labels": labels,
+            "attention_mask": np.ones(ids.shape, bool),
+            "images": rng.integers(0, 256, (1, size, size, 3)).astype(
+                np.uint8)}
+
+
+def cp_train(dev, config, mesh, fault=False, profile_dir=None, tiny=False):
+    """(b) One stage-1 step (the recipe's optimizer and clipping at its lr)
+    over `mesh` (a CpMesh; None: one rank, cp = 1) on `cp_batch` from
+    seeded weights: the metrics, the step's ms and peak memory, the
+    pooler's updates and first moments. `fault`: the seq-group gradient
+    reduction skipped. `profile_dir`: then two more steps under
+    `utils.profiler.ProfilerHook` (the trace's files and the card's
+    memory stats)."""
+    import types
+
+    import torch
+
+    from lhrs_bot_tpu_torch.core.convert import training_params_from_numpy
+    from lhrs_bot_tpu_torch.models import VLMConfig, init_vlm_params
+    from lhrs_bot_tpu_torch.models.vlm import trainable_mask
+    from lhrs_bot_tpu_torch.train import build_optimizer, make_train_step
+    from lhrs_bot_tpu_torch.train.optimizer import SLOTS
+    from lhrs_bot_tpu_torch.utils import profiler
+
+    cfg = VLMConfig.from_config_dict(config)
+    params = training_params_from_numpy(
+        init_vlm_params(cfg, seed=0, dtype=torch.bfloat16, device=dev), cfg,
+        torch.bfloat16, dev)
+    opt = build_optimizer(config, params, trainable_mask(params, cfg))
+    step = make_train_step(cfg, opt, torch.bfloat16, cp_mesh=mesh)
+    if mesh is not None:
+        mesh.reduce_seq = not fault
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in cp_batch(cfg, tiny).items()}
+
+    def pooler():
+        return {k: v.detach().float().cpu().numpy().copy()
+                for k, v in tree_paths(params["pooler"])}
+
+    before = pooler()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    _sync(dev)
+    t0 = time.perf_counter()
+    metrics = {k: float(v) for k, v in step(params, batch).items()}
+    _sync(dev)
+    out = {"metrics": metrics, "ms": (time.perf_counter() - t0) * 1e3,
+           "rows": int(batch["input_ids"].shape[1])
+           + cfg.pooler.num_query - 1}
+    if dev.type == "cuda":
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    after = pooler()
+    out["updates"] = {k: after[k] - before[k] for k in after}
+    state = opt.state_dict()
+    out["moments"] = {p: t.detach().float().cpu().numpy() for p, t in zip(
+        state["paths"], state["slots"][SLOTS[state["name"]][0]])}
+    if mesh is not None:
+        mesh.reduce_seq = True
+    if profile_dir is not None:
+        hook = profiler.ProfilerHook(profile_dir, start_step=1, num_steps=2)
+        hook.trainer = types.SimpleNamespace(cur_iter=0)
+        for it in (1, 2):
+            hook.trainer.cur_iter = it
+            if mesh is None or mesh.rank == 0:
+                hook.before_iter()
+            step(params, batch)
+            if mesh is None or mesh.rank == 0:
+                hook.after_iter()
+        stats = profiler.device_memory_stats()
+        out["profile"] = {
+            "traces": [os.path.getsize(p) for p in hook.paths],
+            "memory_stats": {k: v.get("allocated_bytes.all.peak")
+                             for k, v in stats.items()}}
+    return out
+
+
+def cp_worker(dev, tiny):
+    """The cp job of a rank: the ring (a) and the train step (b), its
+    planted fault, and on rank 0 the profiler (d) over two more steps."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from lhrs_bot_tpu_torch.parallel.context import make_cp_mesh
+
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    mesh = make_cp_mesh()
+    t0 = time.perf_counter()
+    out = {"ring": cp_ring(dev, mesh, tiny)}
+    out["ring_s"] = time.perf_counter() - t0
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    config = cp_config(tiny)
+    trace_dir = tempfile.mkdtemp(prefix="cp_trace_", dir="build")
+    t0 = time.perf_counter()
+    try:
+        out["train"] = cp_train(dev, config, mesh, profile_dir=trace_dir,
+                                tiny=tiny)
+        gc.collect()
+        out["train_fault"] = cp_train(dev, config, mesh, fault=True,
+                                      tiny=tiny)
+    finally:
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    out["train_s"] = time.perf_counter() - t0
+    return out
+
+
+def hold_cp(ranks, ref, dev):
+    """Phase 8 (c) held: the ring's readings on every rank and the train
+    step's against cp = 1 (`ref`). Returns the readings."""
+    n = len(ranks)
+    rings = [r["cp"]["ring"] for r in ranks]
+    for r, ring in enumerate(rings):
+        want = r + 1 if dev.type == "cuda" else 0  # rank r: r + 1 blocks
+        if dev.type == "cuda" and any(v != want
+                                      for v in ring["launches"].values()):
+            raise AssertionError(f"cp ring rank {r}: launches "
+                                 f"{ring['launches']}, want {want} each")
+        if ring["out_off"]:
+            raise AssertionError(f"cp ring rank {r}: {ring['out_off']} "
+                                 "output elements past the bound")
+        for g, reading in ring["grads"].items():
+            if reading["off"]:
+                raise AssertionError(f"cp ring rank {r}: {g} "
+                                     f"{reading['off']} elements past the "
+                                     "bound")
+    for f in CP_FAULTS:
+        if not any(ring["faults"][f]["off"] for ring in rings):
+            raise AssertionError(f"cp ring: the planted fault {f} passes")
+    tr = [r["cp"]["train"] for r in ranks]
+    m_ref = ref["metrics"]
+    reading = {"ring": rings, "ref_ms": ref["ms"],
+               "ref_peak_gib": ref.get("peak_gib"),
+               "ms": [t["ms"] for t in tr],
+               "peak_gib": [t.get("peak_gib") for t in tr],
+               "metrics": [t["metrics"] for t in tr], "ref": m_ref,
+               "rows": ref["rows"], "profile": tr[0].get("profile"),
+               "bounds": [DP_METRIC_REL, DP_UPDATE_REL_L2]}
+    for k in ("total_loss", "grad_norm"):
+        rel = abs(tr[0]["metrics"][k] - m_ref[k]) / abs(m_ref[k])
+        reading[f"{k}_rel"] = rel
+        if rel > DP_METRIC_REL or any(t["metrics"][k] != tr[0]["metrics"][k]
+                                      for t in tr):
+            raise AssertionError(f"cp {n} {k}: {[t['metrics'][k] for t in tr]}"
+                                 f" vs {m_ref[k]}")
+    reading["update_rel_l2"] = [_tree_rel(t["updates"], ref["updates"])
+                                for t in tr]
+    reading["fault_update_rel_l2"] = [
+        _tree_rel(r["cp"]["train_fault"]["updates"], ref["updates"])
+        for r in ranks]
+    reading["moment_rel_l2"] = _leaf_summary(
+        {p: _rel(tr[0]["moments"][p], ref["moments"][p])
+         for p in ref["moments"] if p not in DP_ZERO_GRAD_LEAVES},
+        DP_MOMENT_REL_L2)
+    if max(reading["update_rel_l2"]) > DP_UPDATE_REL_L2:
+        raise AssertionError(f"cp {n} updates: {reading['update_rel_l2']}")
+    if max(reading["fault_update_rel_l2"]) <= DP_UPDATE_REL_L2:
+        raise AssertionError(f"cp {n}: the skipped seq reduction passes: "
+                             f"{reading['fault_update_rel_l2']}")
+    prof = reading["profile"]
+    if not prof or len(prof["traces"]) != 1 or not prof["traces"][0]:
+        raise AssertionError(f"cp {n}: the profiler wrote no trace: {prof}")
+    if dev.type == "cuda" and not any(prof["memory_stats"].values()):
+        raise AssertionError("device_memory_stats reports no card")
+    return reading
+
+
+# -- phase 8 (d): ViT-B/16, float pixels, the in_proj perceiver --------------
+
+# float pixel values against uint8 through the same normalisation, the
+# ViT-B/16 embedding (patches, CLS, positions) in bf16: the two paths
+# differ only in the patch product's summation order (cuBLAS bf16 against
+# float32 sums of the same bf16 operands), at most a bf16 step an element;
+# the H and W axes swapped (planted) moves them O(1). Through the 10-layer
+# tower that step grows to bf16's noise (6.5e-3 on an H100 at 700 W, as
+# the K1 tower against the plain attention), so the tower is not held
+VIT_PIXEL_REL_L2 = 1e-2
+
+
+def vit_base_params(dev, cfg, seed):
+    """Seeded float32 ViT parameters of `cfg` (weights N(0, 0.02),
+    LayerNorm scales 1 + N(0, 0.1), biases N(0, 0.02))."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    w, f, n = cfg.width, cfg.width * cfg.mlp_ratio, cfg.layers
+
+    def rand(*shape, scale=0.02, mean=0.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale + mean
+
+    layers = {"ln1_scale": rand(n, w, scale=0.1, mean=1.0),
+              "ln1_bias": rand(n, w), "wq": rand(n, w, w), "bq": rand(n, w),
+              "wk": rand(n, w, w), "bk": rand(n, w), "wv": rand(n, w, w),
+              "bv": rand(n, w), "wo": rand(n, w, w), "bo": rand(n, w),
+              "ln2_scale": rand(n, w, scale=0.1, mean=1.0),
+              "ln2_bias": rand(n, w), "w_fc": rand(n, w, f),
+              "b_fc": rand(n, f), "w_proj": rand(n, f, w),
+              "b_proj": rand(n, w)}
+    return {"patch_proj": rand(cfg.patch_size ** 2 * 3, w),
+            "class_emb": rand(w), "pos_emb": rand(cfg.seq_len, w),
+            "pre_ln": {"scale": torch.ones(w, device=dev),
+                       "bias": torch.zeros(w, device=dev)},
+            "layers": layers}
+
+
+def vit_base_checks(dev, tiny=False, n_img=8):
+    """ViT-B/16 at full width on 224² images: the bf16 tower on K1 against
+    its plain attention, the fused W8A8 tower against the bf16 one (a
+    block skipped must fail), float NCHW pixel values against uint8
+    through the same normalisation (the embeddings held; H and W swapped
+    must fail; the tower's features read), and a
+    perceiver with an in_proj (768 -> 1024, 144 queries, 6 layers) over
+    the tower's features, fused against its plain version (the in_proj's
+    input rows rolled must fail), and the recipe's own bf16 perceiver (768
+    wide, 16 heads: D 48, which K1 runs zero-padded to 64) against the
+    plain attention; each part's launches."""
+    import dataclasses
+
+    import torch
+
+    import lhrs_bot_tpu_torch.models.perceiver as perceiver
+    import lhrs_bot_tpu_torch.models.vit as vit
+    from lhrs_bot_tpu_torch.models.perceiver import (
+        PerceiverConfig, perceiver_resample, perceiver_resample_fused)
+    from lhrs_bot_tpu_torch.models.vlm import VLMConfig, param_specs
+    from lhrs_bot_tpu_torch.models.vlm import draw_param
+    from lhrs_bot_tpu_torch.ops.patch_embed import CLIP_MEAN, CLIP_STD
+    from lhrs_bot_tpu_torch.ops.perceiver_block import \
+        pack_perceiver_layers_fused
+    from lhrs_bot_tpu_torch.ops.vit_block import pack_vit_layers_fused
+
+    cfg = vit.ViTConfig.vit_base()
+    if tiny:
+        cfg = dataclasses.replace(cfg, layers=2, extract_stages=(1, 2, 2))
+        n_img = 2
+    wrappers = kernel_wrappers()
+    p32 = vit_base_params(dev, cfg, seed=23)
+    bf16 = {**{k: v.to(torch.bfloat16) for k, v in p32.items()
+               if k not in ("pre_ln", "layers")}, "pre_ln": p32["pre_ln"],
+            "layers": {k: v.to(torch.bfloat16)
+                       for k, v in p32["layers"].items()}}
+    packed = pack_vit_layers_fused(p32["layers"])
+    gen = torch.Generator(device=dev).manual_seed(29)
+    images = torch.randint(0, 256, (n_img, 224, 224, 3), generator=gen,
+                           device=dev, dtype=torch.uint8)
+
+    def rel(a, ref):
+        return float((a.float() - ref.float()).norm() / ref.float().norm())
+
+    def counted(fn):
+        set_launches(wrappers)
+        out = fn()
+        _sync(dev)
+        return out, {k: v for k, v in read_launches(wrappers).items() if v}
+
+    out = {"images": n_img, "layers": cfg.extract_stages[-1]}
+    with torch.no_grad():
+        tower, out["tower_launches"] = counted(
+            lambda: vit.vit_encode(bf16, images, cfg))
+        with patched(vit, flash_attention=plain_flash):
+            plain = vit.vit_encode(bf16, images, cfg)
+        out["tower_vs_plain_rel_l2"] = rel(tower, plain)
+        fused, out["fused_launches"] = counted(
+            lambda: vit.vit_encode_fused(bf16, packed, images, cfg))
+        out["fused_vs_bf16_rel_l2"] = rel(fused, tower)
+        faulty = dict(packed)
+        for k in ("wo", "bo", "w_proj", "b_proj"):
+            faulty[k] = packed[k].clone()
+            faulty[k][0] = 0
+        out["fused_fault_rel_l2"] = rel(
+            vit.vit_encode_fused(bf16, faulty, images, cfg), tower)
+        del faulty
+        mean = torch.tensor(CLIP_MEAN, device=dev)
+        std = torch.tensor(CLIP_STD, device=dev)
+        pv = (images.float() / 255.0 - mean) / std
+        embed = vit.vit_embed(bf16, images, cfg, torch.bfloat16)
+        out["pixels_rel_l2"] = rel(vit.vit_embed(
+            bf16, pv.permute(0, 3, 1, 2).contiguous(), cfg, torch.bfloat16),
+            embed)
+        out["pixels_fault_rel_l2"] = rel(vit.vit_embed(
+            bf16, pv.permute(0, 3, 2, 1).contiguous(), cfg, torch.bfloat16),
+            embed)
+        out["pixels_tower_rel_l2"] = rel(vit.vit_encode(
+            bf16, pv.permute(0, 3, 1, 2).contiguous(), cfg), tower)
+        pcfg = PerceiverConfig(
+            num_query=144, num_layers=6, heads=16, hidden_size=1024,
+            encoder_hidden_size=cfg.width, output_size=4096,
+            stage_num=(64, 48, 32), split_part=(cfg.num_patches,) * 3)
+        if tiny:
+            pcfg = dataclasses.replace(pcfg, num_layers=2, hidden_size=128,
+                                       heads=2, output_size=64)
+        specs = param_specs(VLMConfig(vit=cfg, pooler=pcfg))["pooler"]
+        pp = {k: draw_param(v, f"pooler/{k}", 31, torch.float32, dev)
+              for k, v in specs.items() if k != "layers"}
+        pp["layers"] = {k: draw_param(v, f"pooler/layers/{k}", 31,
+                                      torch.float32, dev)
+                        for k, v in specs["layers"].items()}
+        pl = pack_perceiver_layers_fused(pp["layers"])
+        got, out["perceiver_launches"] = counted(
+            lambda: perceiver_resample_fused(pp, pl, tower, pcfg))
+        ref = perceiver_resample_fused(pp, pl, tower, pcfg, plain=True)
+        out["in_proj_fused_vs_plain_rel_l2"] = rel(got, ref)
+        rolled = {**pp, "in_proj_w": pp["in_proj_w"].roll(1, dims=0)}
+        out["in_proj_fault_rel_l2"] = rel(
+            perceiver_resample_fused(rolled, pl, tower, pcfg), ref)
+        # the vit_base recipe's own perceiver: 768 wide with the YAML's 16
+        # heads, D 48, which K1 runs zero-padded to 64
+        bcfg = dataclasses.replace(pcfg, hidden_size=cfg.width)
+        if tiny:
+            bcfg = dataclasses.replace(bcfg, heads=16, num_layers=2)
+        specs = param_specs(VLMConfig(vit=cfg, pooler=bcfg))["pooler"]
+        bp = {k: draw_param(v, f"pooler/{k}", 37, torch.bfloat16, dev)
+              for k, v in specs.items() if k != "layers"}
+        bp["layers"] = {k: draw_param(v, f"pooler/layers/{k}", 37,
+                                      torch.bfloat16, dev)
+                        for k, v in specs["layers"].items()}
+        got, out["d48_launches"] = counted(
+            lambda: perceiver_resample(bp, tower, bcfg))
+        with patched(perceiver, flash_attention=plain_flash):
+            ref = perceiver_resample(bp, tower, bcfg)
+        out["d48_perceiver_vs_plain_rel_l2"] = rel(got, ref)
+    checks = (("tower_vs_plain_rel_l2", TOWER_REL_L2, None),
+              ("fused_vs_bf16_rel_l2", TOWER_REL_L2, "fused_fault_rel_l2"),
+              ("pixels_rel_l2", VIT_PIXEL_REL_L2, "pixels_fault_rel_l2"),
+              ("in_proj_fused_vs_plain_rel_l2", TOWER_REL_L2,
+               "in_proj_fault_rel_l2"),
+              ("d48_perceiver_vs_plain_rel_l2", TOWER_REL_L2, None))
+    for key, bound, fault in checks:
+        if not out[key] <= bound:
+            raise AssertionError(f"vit_base {key} {out[key]} > {bound}")
+        if fault and out[fault] <= bound:
+            raise AssertionError(f"vit_base {fault} passes: {out[fault]}")
+    if dev.type == "cuda":
+        for key, need in (("tower_launches", ("flash_attention_fwd",)),
+                          ("fused_launches", ("ln_quant", "int8_gemm",
+                                              "flash_attention_fwd")),
+                          ("perceiver_launches", ("ln_quant", "int8_gemm",
+                                                  "flash_attention_fwd")),
+                          ("d48_launches", ("flash_attention_fwd",))):
+            if any(not out[key].get(k) for k in need):
+                raise AssertionError(f"vit_base {key}: {out[key]}")
+    del packed, bf16, p32
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
 # the decode batches of the phase's requests, at which each rank's W4A8
 # products are held to the single rank's (`check_tp_w4a8`)
 TP_W4A8_BATCHES = (1, 2)
@@ -7311,6 +7818,7 @@ def parallel_worker(workdir):
     out["train"] = dp_train(dev, train, dp_mesh)
     out["train_fault"] = dp_train(dev, train, dp_mesh, fault=True)
     out["train_s"] = time.perf_counter() - t0
+    out["cp"] = cp_worker(dev, spec["tiny"])
     if dev.type == "cuda":
         out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     distribute.barrier()
@@ -7380,6 +7888,31 @@ def nccl_probe(mode):
     torch.cuda.synchronize()
     print(f"torch nccl all_reduce on one card: {t.tolist()}", flush=True)
     dist.destroy_process_group()
+
+
+def gloo_p2p_probe():
+    """`chip_smoke.py --gloo-p2p-probe`: two gloo ranks on cuda:0 pass a
+    CUDA tensor to each other with batch_isend_irecv, as `Axis.shift`
+    would without its host staging; prints what gloo does with it."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method="env://")
+    r = dist.get_rank()
+    t = torch.full((4,), float(r + 1), device="cuda")
+    got = torch.empty_like(t)
+    try:
+        for req in dist.batch_isend_irecv(
+                [dist.P2POp(dist.isend, t, 1 - r),
+                 dist.P2POp(dist.irecv, got, 1 - r)]):
+            req.wait()
+        torch.cuda.synchronize()
+        print(f"gloo p2p on CUDA tensors: rank {r} got {got.tolist()}",
+              flush=True)
+    except RuntimeError as exc:
+        print(f"gloo p2p on CUDA tensors refused: {str(exc)[:160]}",
+              flush=True)
 
 
 def _first_divergence(ref_ids, got_ids):
@@ -7468,6 +8001,12 @@ def phase_parallel(dev, tiny=False, backend="gloo", n=2):
     ref_serve = tp_serve(dev, serving, None, wrappers, tiny)
     ref_train = dp_train(dev, train, None)
     ref_s = time.time() - t0
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.time()
+    ref_cp = cp_train(dev, cp_config(tiny), None, tiny=tiny)
+    ref_cp_s = time.time() - t0
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -7635,6 +8174,53 @@ def phase_parallel(dev, tiny=False, backend="gloo", n=2):
             raise AssertionError(f"dp {n}: {p}'s gradient is not zero: its "
                                  f"first moment's RMS is {ratio} of "
                                  f"{DP_ZERO_GRAD_LEAVES[p]}'s")
+    # (c) context parallelism: the ring and the train step at cp = n
+    cp = out["cp"] = hold_cp(ranks, ref_cp, dev)
+    PHASE_SECONDS["parallel_cp"] = round(ref_cp_s + max(
+        r["cp"]["ring_s"] + r["cp"]["train_s"] for r in ranks), 1)
+    rings = cp["ring"]
+    grads = [{g: v["max_abs_err"] for g, v in r["grads"].items()}
+             for r in rings]
+    faults = [{f: v["off"] for f, v in r["faults"].items()} for r in rings]
+    where = (f"{n} ranks sharing one card over gloo" if backend == "gloo"
+             else f"a card a rank over {backend}")
+    log(f"  cp {n} ring (B H S D {rings[0]['shape']}, causal, valid "
+        f"lengths {rings[0]['valid_lengths']}): K1 ring vs plain ring max "
+        f"abs err a rank {[r['out_max_abs_err'] for r in rings]} (valid "
+        f"rows), dQ / dK / dV {grads} (bound {ATOL} + {RTOL} |ref|); "
+        f"launches a rank {[r['launches'] for r in rings]}; planted faults' "
+        f"elements past the bound {faults}; ms a rank ({where}) forward "
+        f"{[round(r['fwd_ms'], 1) for r in rings]}, forward + backward "
+        f"{[round(r['fwd_bwd_ms'], 1) for r in rings]}, plain ring "
+        f"{[round(r['plain_fwd_bwd_ms'], 1) for r in rings]}; run table "
+        f"{[r.get('table_ms') for r in rings]} ms a call; peak "
+        f"{[r.get('peak_gib') for r in rings]} GiB")
+    log(f"  cp {n} stage-1 step ({cp['rows']} spliced rows, "
+        f"{PARALLEL_LAYERS} layers): metrics {cp['metrics'][0]} vs cp 1 "
+        f"{cp['ref']}; loss / grad_norm rel {cp['total_loss_rel']:.3e} / "
+        f"{cp['grad_norm_rel']:.3e} (bound {DP_METRIC_REL}); updates rel L2 "
+        f"a rank {cp['update_rel_l2']} (bound {DP_UPDATE_REL_L2}), the seq "
+        f"reduction skipped {cp['fault_update_rel_l2']}; first moments "
+        f"{cp['moment_rel_l2']}; step ms {cp['ms']} vs cp 1 "
+        f"{cp['ref_ms']:.1f}; peak GiB a rank {cp['peak_gib']} vs cp 1 "
+        f"{cp['ref_peak_gib']}; profiler trace bytes / memory stats "
+        f"{cp['profile']}")
+    vb = out["vit_base"] = phase("vit_base", vit_base_checks, dev, tiny)
+    log(f"  ViT-B/16 ({vb['images']} images of 224², {vb['layers']} "
+        f"layers, bf16): K1 tower vs plain rel L2 "
+        f"{vb['tower_vs_plain_rel_l2']:.4f}, fused W8A8 vs bf16 "
+        f"{vb['fused_vs_bf16_rel_l2']:.4f} (a block skipped "
+        f"{vb['fused_fault_rel_l2']:.4f}; bound {TOWER_REL_L2}); float NCHW "
+        f"pixels vs uint8, embeddings {vb['pixels_rel_l2']:.2e} (H and W "
+        f"swapped {vb['pixels_fault_rel_l2']:.4f}; bound {VIT_PIXEL_REL_L2}),"
+        f" tower {vb['pixels_tower_rel_l2']:.2e}; "
+        f"in_proj perceiver fused vs plain "
+        f"{vb['in_proj_fused_vs_plain_rel_l2']:.4f} (rows rolled "
+        f"{vb['in_proj_fault_rel_l2']:.4f}); the recipe's perceiver (D 48 "
+        f"padded to 64) vs plain {vb['d48_perceiver_vs_plain_rel_l2']:.4f}; "
+        f"launches tower {vb['tower_launches']}, fused "
+        f"{vb['fused_launches']}, perceiver {vb['perceiver_launches']}, "
+        f"D 48 perceiver {vb['d48_launches']}")
     if dev.type == "cuda" and backend == "gloo":
         probes = {}
         for mode in ("port", "torch"):
@@ -7644,6 +8230,13 @@ def phase_parallel(dev, tiny=False, backend="gloo", n=2):
                 [ln for ln in lg.splitlines() if ln.strip()][-3:]
                 for lg in logs]}
         out["nccl_two_ranks_one_card"] = probes
+        codes, logs = run_ranks([os.path.abspath(__file__),
+                                 "--gloo-p2p-probe"], timeout=90)
+        out["gloo_p2p_cuda"] = {"exit": codes, "said": [
+            [ln for ln in lg.splitlines() if "gloo p2p" in ln]
+            for lg in logs]}
+        log(f"  gloo point-to-point on CUDA tensors (what Axis.shift's host "
+            f"staging avoids): {json.dumps(out['gloo_p2p_cuda'])}")
         if 0 in probes["port"]["exit"]:
             raise AssertionError("init_distributed('nccl') joined two local "
                                  "ranks on one card")
@@ -7730,6 +8323,8 @@ def main():
         return parallel_worker(sys.argv[2])
     if sys.argv[1:2] == ["--nccl-probe"]:
         return nccl_probe(sys.argv[2])
+    if sys.argv[1:2] == ["--gloo-p2p-probe"]:
+        return gloo_p2p_probe()
     eval_part = sys.argv[1:] == ["--eval-only"]
     parallel_part = sys.argv[1:2] == ["--parallel-only"]
     parallel_args = {}
@@ -7837,10 +8432,15 @@ def main():
 
     fwd_row = row("flash_attention_fwd", "flash_fwd.cu", "attention.py:84",
                   bf16, k1)
+    cp_launches = [r["launches"] for r in parallel["cp"]["ring"]]
     fwd_row["note"] = ("also carries the LSE output and segment ids: "
                        f"{train['launches']['flash_attention_fwd']} launches "
                        "on the training path; times at the packed decoder "
-                       "shape in train_kernels")
+                       "shape in train_kernels; context parallelism "
+                       "(phase 8, cp = 2): one launch a ring block with its "
+                       "LSE, a rank's launches a causal ring call "
+                       f"{[c['flash_attention_fwd'] for c in cp_launches]} "
+                       "(rank r: r + 1)")
     kernels = [
         fwd_row,
         row("fused_decode_attention", "fused_decode.cu",
@@ -7925,7 +8525,10 @@ def main():
                 f"({packed['table_ms']:.4f} ms); the whole backward "
                 f"{packed['bwd_ms']:.4f} ms; the kernels ran the "
                 f"{packed['tile_pairs_run']} 64 x 64 tile pairs the table "
-                f"sets and skipped {packed['tile_pairs_skipped']}")
+                f"sets and skipped {packed['tile_pairs_skipped']}; context "
+                "parallelism (phase 8, cp = 2): one launch a ring block in "
+                "the backward, a rank's launches a causal ring call "
+                f"{[c[k['name']] for c in cp_launches]} (rank r: r + 1)")
     log(json.dumps({"w4a8_shapes": k3["shapes"],
                     "ln_quant_shapes": vision["A"]["shapes"]}))
     log(json.dumps({"int8_gemm_shapes": vision["B"]["shapes"],

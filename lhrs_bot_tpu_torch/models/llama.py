@@ -35,6 +35,9 @@ XLA (no Pallas kernel) in the JAX package.
 position, `kv_mask` or packing `segment_ids` attention, `remat` through
 `torch.utils.checkpoint`) and `causal_lm_loss` its loss; gradients of the
 attention go through the flash backward (`ops.attention.FlashAttention`).
+With `cp_axis` (context parallelism, `parallel.context`) the rank holds a
+chunk of the sequence, its attention goes through the K/V ring
+(`ops.ring_attention`) and the caller gives the chunk's global positions.
 
 Every projection goes through `_proj`, which adds the runtime LoRA side
 path where a layer carries `<name>__lora_a` / `<name>__lora_b` (QLoRA over
@@ -42,8 +45,6 @@ a quantized base, `models.lora.attach_runtime_lora`), in training, prefill
 and decode. Over an int8 / int4 / NF4 base the training backward takes the
 input gradient of `quantized_matmul` (`ops.quant`), never a weight
 gradient.
-
-Not ported here: context parallelism (`cp_axis_name`).
 """
 
 from __future__ import annotations
@@ -60,6 +61,7 @@ from ..device import resolve_device
 from ..ops.attention import flash_attention
 from ..ops.fused_decode import fused_decode_attention, fused_decode_attention_q
 from ..ops.quant import QuantizedTensor, quantize_activation, quantized_matmul
+from ..ops.ring_attention import ring_attention
 from ..ops.rmsnorm import rms_norm
 from ..ops.rope import apply_rope, rope_cos_sin
 from ..ops.w4_matmul import w4a8_project, w4a8_project_row
@@ -467,16 +469,21 @@ def llama_prefill_continue(params, cfg: LlamaConfig, cache: KVCache, *,
 
 def _block_full(x: torch.Tensor, lp, cfg: LlamaConfig, cos, sin,
                 kv_mask: Optional[torch.Tensor],
-                segment_ids: Optional[torch.Tensor], tp=None) -> torch.Tensor:
+                segment_ids: Optional[torch.Tensor], tp=None,
+                cp_axis=None) -> torch.Tensor:
     """Full-sequence causal block (training / cacheless forward). With
     `segment_ids` (B, S) the attention is block-diagonal: i attends j iff
     seg[i] == seg[j] != 0 and j <= i (`kv_mask` is then not used, as in the
-    JAX block); otherwise `kv_mask` masks keys."""
+    JAX block); otherwise `kv_mask` masks keys. With `cp_axis` x is this
+    rank's chunk of the sequence and `cos` / `sin` / `kv_mask` its global
+    positions' and mask's: attention goes through the K/V ring."""
     b, s, _ = x.shape
     h = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps)
     q, k, v = _qkv(h, lp, cfg, cos, sin, tp)
     if segment_ids is not None:
         attn = flash_attention(q, k, v, causal=True, segment_ids=segment_ids)
+    elif cp_axis is not None:
+        attn = ring_attention(q, k, v, kv_mask, axis=cp_axis, causal=True)
     else:
         attn = flash_attention(q, k, v, kv_mask, causal=True)
     attn = attn.transpose(1, 2).reshape(b, s, _heads(cfg, tp) * cfg.head_dim)
@@ -502,7 +509,7 @@ def llama_apply(params, cfg: LlamaConfig, *,
                 attention_mask: Optional[torch.Tensor] = None,
                 positions: Optional[torch.Tensor] = None,
                 compute_dtype: torch.dtype = torch.bfloat16,
-                remat: bool = False, cp_axis_name: Optional[str] = None,
+                remat: bool = False, cp_axis=None,
                 segment_ids: Optional[torch.Tensor] = None,
                 tp=None) -> torch.Tensor:
     """Cacheless forward -> logits (B, S, V) float32. Positions default to
@@ -513,10 +520,19 @@ def llama_apply(params, cfg: LlamaConfig, *,
     the compute dtype on the fly, differentiably; frozen ones should already
     be in it (`core.convert.training_params_from_numpy`). `tp` runs the
     decoder tensor parallel (this rank's slice; the logits gathered
-    whole)."""
-    if cp_axis_name is not None:
-        raise NotImplementedError("context parallelism (cp_axis_name) is not "
-                                  "ported to lhrs_bot_tpu_torch yet")
+    whole). `cp_axis` (a `parallel.mesh.Axis`, the seq axis of
+    `parallel.context.make_cp_mesh`) runs it context parallel: the input
+    is this rank's chunk of the sequence, the caller MUST give the chunk's
+    global `positions` (the local default would restart RoPE at every
+    chunk; `parallel.context.context_parallel_apply` gives them), and the
+    logits are the chunk's. Not with `segment_ids` or `tp`."""
+    if cp_axis is not None:
+        if positions is None:
+            raise ValueError("context parallelism needs the chunk's global "
+                             "positions")
+        if segment_ids is not None or tp is not None:
+            raise ValueError("context parallelism does not compose with "
+                             "sequence packing or tensor parallelism")
     if inputs_embeds is None:
         inputs_embeds = params["embed_tokens"][input_ids.long()]
     x = inputs_embeds.to(compute_dtype)
@@ -536,10 +552,10 @@ def llama_apply(params, cfg: LlamaConfig, *,
         if remat:
             x = torch.utils.checkpoint.checkpoint(
                 _block_full, x, lp, cfg, cos, sin, attention_mask,
-                segment_ids, tp, use_reentrant=False)
+                segment_ids, tp, cp_axis, use_reentrant=False)
         else:
             x = _block_full(x, lp, cfg, cos, sin, attention_mask,
-                            segment_ids, tp)
+                            segment_ids, tp, cp_axis)
     x = rms_norm(x, _cast(params["final_norm"], compute_dtype),
                  cfg.rms_norm_eps)
     return _lm_head_logits(x, _cast(params["lm_head"], compute_dtype), tp)
@@ -560,16 +576,26 @@ def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor,
     rank's loss (and of its gradients) is the mean over the global batch,
     as JAX's one loss over the sharded batch is, whatever the ranks'
     counts."""
-    shift_logits = logits[:, :-1, :].float()
-    shift_labels = labels[:, 1:].long()
-    valid = shift_labels != IGNORE_INDEX
-    safe = torch.where(valid, shift_labels, 0)
-    logz = torch.logsumexp(shift_logits, dim=-1)
-    gold = torch.gather(shift_logits, -1, safe[..., None])[..., 0]
+    return token_lm_loss(logits[:, :-1, :], labels[:, 1:],
+                         axes=() if data is None else (data,))
+
+
+def token_lm_loss(logits: torch.Tensor, targets: torch.Tensor,
+                  axes=()) -> torch.Tensor:
+    """Cross-entropy of `logits` (B, S, V) against `targets` (B, S) at the
+    same positions (already shifted), in float32, IGNORE_INDEX masked:
+    the sum over the valid targets divided by their count (at least 1),
+    counted over the ranks of every `parallel.mesh.Axis` in `axes`."""
+    logits = logits.float()
+    targets = targets.long()
+    valid = targets != IGNORE_INDEX
+    safe = torch.where(valid, targets, 0)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
     nll = (logz - gold) * valid
     count = valid.sum()
-    if data is not None:
-        count = data.all_reduce(count.float()).to(count.dtype)
+    for axis in axes:
+        count = axis.all_reduce(count.float()).to(count.dtype)
     return nll.sum() / count.clamp(min=1)
 
 

@@ -1,4 +1,4 @@
-"""CLIP ViT-L/14 vision tower with multi-level taps.
+"""CLIP ViT vision towers (ViT-L/14, ViT-B/16) with multi-level taps.
 
 Counterpart of `lhrs_bot_tpu/models/vit.py` (`vit_embed`, `vit_encode`,
 `vit_encode_fused`): hidden states are tapped after `extract_stages` layers
@@ -21,7 +21,7 @@ import torch
 
 from ..ops.attention import flash_attention
 from ..ops.mlp import dense_any, gelu_mlp
-from ..ops.patch_embed import patch_embed
+from ..ops.patch_embed import patch_embed, patchify
 from ..ops.rmsnorm import layer_norm
 from ..ops.vit_block import vit_layer_fused
 from .llama import _layer
@@ -56,6 +56,11 @@ class ViTConfig:
         return cls()
 
     @classmethod
+    def vit_base(cls) -> "ViTConfig":
+        return cls(width=768, layers=12, heads=12, patch_size=16,
+                   extract_stages=(3, 7, 10))
+
+    @classmethod
     def tiny_test(cls) -> "ViTConfig":
         return cls(image_size=28, patch_size=14, width=32, layers=4, heads=2,
                    extract_stages=(1, 2, 3))
@@ -83,12 +88,22 @@ def _encoder_layer(x: torch.Tensor, lp, cfg: ViTConfig) -> torch.Tensor:
 
 def vit_embed(params, images: torch.Tensor, cfg: ViTConfig,
               compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """uint8 (B, H, W, 3) images -> (B, S, W) tokens: CLS + patches +
-    positions."""
-    if images.dtype != torch.uint8:
-        raise NotImplementedError("only raw uint8 NHWC images are ported")
-    patches = patch_embed(images, params["patch_proj"], patch=cfg.patch_size,
-                          compute_dtype=compute_dtype)
+    """Images -> (B, S, W) tokens: CLS + patches + positions. Raw uint8
+    (B, H, W, 3) pixels are normalised in the patch embedding; float
+    `pixel_values` (already normalised, as the reference's
+    CLIPImageProcessor gives them; (B, 3, H, W) or (B, H, W, 3)) are
+    patchified in the compute dtype and projected with float32
+    accumulation, rounded once."""
+    w_patch = params["patch_proj"]
+    if images.dtype == torch.uint8:
+        patches = patch_embed(images, w_patch, patch=cfg.patch_size,
+                              compute_dtype=compute_dtype)
+    else:
+        if images.shape[1] == 3:  # NCHW -> NHWC
+            images = images.permute(0, 2, 3, 1)
+        flat = patchify(images.to(compute_dtype), cfg.patch_size)
+        patches = torch.matmul(flat.float(), w_patch.to(compute_dtype)
+                               .float()).to(compute_dtype)
     b = patches.shape[0]
     cls = params["class_emb"].to(compute_dtype).expand(b, 1, cfg.width)
     x = torch.cat([cls, patches], dim=1)

@@ -22,6 +22,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops.quant import QuantizedTensor
+from .constants import IGNORE_INDEX
 from .llama import LlamaConfig, causal_lm_loss, llama_apply
 from .lora import (LoraConfig, attach_runtime_lora, init_lora_params,
                    merge_lora)
@@ -62,11 +63,12 @@ class VLMConfig:
         arch = cfg["rgb_vision"]["arch"]
         if arch == "vit_large":
             vit = ViTConfig.vit_large()
+        elif arch == "vit_base":
+            vit = ViTConfig.vit_base()
         elif arch in ("vit_tiny", "vit_tiny_test"):
             vit = ViTConfig.tiny_test()
         else:
-            raise NotImplementedError(f"rgb_vision.arch {arch!r} is not "
-                                      "ported")
+            raise ValueError(f"unknown rgb_vision.arch {arch!r}")
         ap = cfg["rgb_vision"]["attn_pooler"]
         nq = int(ap["num_query"])
         stage_num = tuple(ap.get("stage_num")
@@ -143,6 +145,9 @@ def param_specs(cfg: VLMConfig):
         "out_proj_w": normal(h, p.output_size),
         "out_proj_b": zeros(p.output_size),
     }
+    if p.encoder_hidden_size != h:  # the vision width differs
+        pooler["in_proj_w"] = normal(p.encoder_hidden_size, h)
+        pooler["in_proj_b"] = zeros(h)
     d, f, nl, vocab = (m.hidden_size, m.intermediate_size,
                        m.num_hidden_layers, m.vocab_size)
     llama = {
@@ -331,7 +336,16 @@ def vlm_forward_loss(params, cfg: VLMConfig, batch: Dict,
     ViT's pre-LayerNorm stays as given); the frozen tower runs without a
     graph; the decoder runs over `effective_llama_params` (LoRA merged or
     attached) and its backward through the flash backward kernels.
-    `cp_mesh` (context parallelism) is not ported and raises.
+
+    With `cp_mesh` (`parallel.context.CpMesh`) the decoder runs context
+    parallel: `params` are whole and `batch` is this data index's rows, the
+    same on every rank of the seq group; the tower and the splice run whole
+    on each, then the spliced sequence is padded to a multiple of the ring
+    (IGNORE_INDEX labels, a false mask), and each rank runs its chunk
+    (`context_parallel_apply`) and returns its share of the global loss
+    (`context_parallel_loss`): the ranks' losses (and gradients) sum to the
+    global batch's. Not with `segment_ids` (ValueError, as in JAX) or with
+    `mesh` (ValueError: JAX has no such path).
 
     With `mesh` (`parallel.mesh.Mesh`) `params` is this rank's slice
     (`parallel.partition.shard_params`) and `batch` its data index's
@@ -340,8 +354,14 @@ def vlm_forward_loss(params, cfg: VLMConfig, batch: Dict,
     sum of the returned losses (and of their gradients) is the loss of
     the global batch (`causal_lm_loss`)."""
     if cp_mesh is not None:
-        raise NotImplementedError("context parallelism (cp_mesh) is not "
-                                  "ported to lhrs_bot_tpu_torch yet")
+        from ..parallel.context import CpMesh
+
+        if not isinstance(cp_mesh, CpMesh):
+            raise TypeError("cp_mesh must be a lhrs_bot_tpu_torch.parallel."
+                            f"context.CpMesh, got {type(cp_mesh).__name__}")
+        if mesh is not None:
+            raise ValueError("cp_mesh and mesh do not compose: context "
+                             "parallelism takes whole weights")
     tp = mesh.tp_axis if mesh is not None else None
     llama = effective_llama_params(params, cfg, tp)
     device = llama["embed_tokens"].device
@@ -354,6 +374,9 @@ def vlm_forward_loss(params, cfg: VLMConfig, batch: Dict,
         labels=_batch_tensor(batch, "labels", device),
         compute_dtype=compute_dtype, llama_params=llama,
         segment_ids=_batch_tensor(batch, "segment_ids", device))
+    if cp_mesh is not None:
+        return _context_parallel_loss(llama, cfg, spliced, cp_mesh,
+                                      compute_dtype, remat)
     logits = llama_apply(llama, cfg.llama,
                          inputs_embeds=spliced.inputs_embeds,
                          attention_mask=spliced.attention_mask,
@@ -361,6 +384,31 @@ def vlm_forward_loss(params, cfg: VLMConfig, batch: Dict,
                          segment_ids=spliced.segment_ids, tp=tp)
     text_loss = causal_lm_loss(logits, spliced.labels,
                                mesh.dp_axis if mesh is not None else None)
+    return {"text_loss": text_loss, "total_loss": text_loss}
+
+
+def _context_parallel_loss(llama, cfg: VLMConfig, spliced: SplicedBatch,
+                           cp_mesh, compute_dtype, remat):
+    """The decoder's loss over a ring (`vlm_forward_loss` with cp_mesh)."""
+    from ..parallel.context import (context_parallel_apply,
+                                    context_parallel_loss)
+
+    if spliced.segment_ids is not None:
+        raise ValueError("sequence packing + context parallelism are not "
+                         "composable (ring attention has no segment "
+                         "masking)")
+    embeds, mask, labels = (spliced.inputs_embeds, spliced.attention_mask,
+                            spliced.labels)
+    pad = (-embeds.shape[1]) % cp_mesh.cp
+    if pad:
+        embeds = torch.nn.functional.pad(embeds, (0, 0, 0, pad))
+        mask = torch.nn.functional.pad(mask, (0, pad), value=False)
+        labels = torch.nn.functional.pad(labels, (0, pad),
+                                         value=IGNORE_INDEX)
+    logits = context_parallel_apply(
+        llama, cfg.llama, cp_mesh, inputs_embeds=embeds, attention_mask=mask,
+        compute_dtype=compute_dtype, remat=remat)
+    text_loss = context_parallel_loss(logits, labels, cp_mesh)
     return {"text_loss": text_loss, "total_loss": text_loss}
 
 

@@ -436,6 +436,17 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None
 
 
+def padded_head_dim(d: int) -> int:
+    """The head dim the kernels run a head dim `d` below 128 at: 64 or
+    128."""
+    return 64 if d <= 64 else 128
+
+
+def pad_head_dim(t: torch.Tensor, width: int) -> torch.Tensor:
+    """`t` (..., D) with zero columns up to `width` (differentiable)."""
+    return torch.nn.functional.pad(t, (0, width - t.shape[-1]))
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     kv_mask: Optional[torch.Tensor] = None, *,
                     causal: bool = False,
@@ -446,11 +457,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tensors run the plain versions. A call that needs no gradient (grad
     mode off, as for the frozen vision tower, or no input that requires
     one) runs the forward alone, without the log-sum-exp; otherwise it goes
-    through `FlashAttention`."""
+    through `FlashAttention`. On CUDA tensors a head dim below 128 that the
+    kernels do not take is zero-padded to 64 or 128 (the scale stays the
+    true head dim's) and the output cut back."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"no attention path for device {q.device}")
+    d = q.shape[-1]
+    if q.is_cuda and d < 128 and d not in (64, 128):
+        # the kernels take D 64 or 128: zero columns change no score and
+        # give output columns that are dropped (ViT-B's perceiver, D 48)
+        width = padded_head_dim(d)
+        out = flash_attention(*(pad_head_dim(t, width) for t in (q, k, v)),
+                              kv_mask, causal=causal, sm_scale=sm_scale,
+                              segment_ids=segment_ids)
+        return out[..., :d]
     if segment_ids is not None:
         segment_ids = segment_ids.to(torch.int32).contiguous()
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad

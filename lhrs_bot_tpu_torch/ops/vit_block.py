@@ -45,7 +45,8 @@ from typing import Dict, Optional
 
 import torch
 
-from .attention import flash_attention_fwd, mha_reference
+from .attention import (flash_attention_fwd, mha_reference, pad_head_dim,
+                        padded_head_dim)
 from .int8_gemm import int8_gemm, int8_gemm_plain
 from .ln_quant import ln_quant, ln_quant_plain
 from .quant import quantize_int8, transposed_storage
@@ -68,10 +69,19 @@ def attend_token_major(q, k, v, kv_mask: Optional[torch.Tensor],
                        plain: bool = False) -> torch.Tensor:
     """Attention of (B, H, S, D) views (strided, as sliced from a
     projection) -> token-major (B, Sq, H * D) in `out_dtype`. CUDA tensors
-    launch K1 writing token-major in place; CPU tensors, and `plain`, run
-    `mha_reference`."""
+    launch K1 writing token-major in place (a head dim below 128 that K1
+    does not take zero-padded to 64 or 128, the output cut back); CPU
+    tensors, and `plain`, run `mha_reference`."""
     b, h, sq, d = q.shape
     if q.is_cuda and not plain:
+        if d < 128 and d not in (64, 128):  # zero columns, cut back after
+            width = padded_head_dim(d)
+            out = torch.empty((b, sq, h, width), dtype=out_dtype,
+                              device=q.device)
+            flash_attention_fwd(*(pad_head_dim(t, width) for t in (q, k, v)),
+                                kv_mask, False, sm_scale, out_dtype,
+                                out.transpose(1, 2))
+            return out[..., :d].reshape(b, sq, h * d)
         out = torch.empty((b, sq, h, d), dtype=out_dtype, device=q.device)
         flash_attention_fwd(q, k, v, kv_mask, False, sm_scale, out_dtype,
                             out.transpose(1, 2))

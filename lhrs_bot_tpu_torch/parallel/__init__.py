@@ -9,9 +9,10 @@ process a rank (torchrun): counterpart of `lhrs_bot_tpu/parallel`.
   * `partition`: the spec tables and each rank's slice of a parameter
     tree, quantized leaves sliced by logical rows and columns;
   * `zero`: the flat ZeRO-2 shard of the optimizer's slots over the data
-    axis (`train.optimizer.ShardedTrainOptimizer` runs the update).
-
-Context parallelism (`parallel/context.py`, ring attention) is not ported.
+    axis (`train.optimizer.ShardedTrainOptimizer` runs the update);
+  * `context`: the ("data", "seq") mesh of context parallelism
+    (`make_cp_mesh`), the sequence-split decoder and its loss, and the
+    gradients' sum over the ring (`ops.ring_attention` is its attention).
 """
 
 from .distribute import (all_gather_object, barrier,  # noqa: F401
@@ -28,3 +29,6 @@ from .partition import (batch_specs, gather_params,  # noqa: F401
                         shard_params, shard_quantized, unshard_quantized,
                         vlm_param_specs)
 from .zero import FlatShard  # noqa: F401
+from .context import (SEQ_AXIS, CpMesh,  # noqa: F401
+                      context_parallel_apply, context_parallel_loss,
+                      make_cp_mesh, reduce_gradients)

@@ -85,6 +85,32 @@ class Axis:
         dist.broadcast_object_list(box, src=self.src, group=self.group)
         return box[0]
 
+    def shift(self, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+        """JAX's `ppermute` with perm [(i, (i + 1) % n)]: this rank sends
+        each of `tensors` to the next index of the axis and returns the
+        previous index's, in the same order, shapes and dtypes. Every rank
+        posts its sends and receives together (one `batch_isend_irecv`), so
+        the ring cannot deadlock. Over gloo the tensors are staged through
+        host memory (gloo's point-to-point calls take host buffers) and the
+        received ones moved back to each tensor's device; over NCCL they
+        stay on the card."""
+        if self.size == 1:
+            return list(tensors)
+        dst = self.ranks[(self.index + 1) % self.size]
+        src = self.ranks[(self.index - 1) % self.size]
+        staged = dist.get_backend(self.group) == "gloo"
+        sends = [t.detach().contiguous() for t in tensors]
+        if staged:
+            sends = [t.cpu() for t in sends]
+        recvs = [torch.empty_like(t) for t in sends]
+        ops = []
+        for tag, (s, r) in enumerate(zip(sends, recvs)):
+            ops.append(dist.P2POp(dist.isend, s, dst, self.group, tag))
+            ops.append(dist.P2POp(dist.irecv, r, src, self.group, tag))
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return [r.to(t.device) for r, t in zip(recvs, tensors)]
+
     def with_timeout(self, timeout) -> "Axis":
         """The same ranks over a gloo group of their own whose collectives
         wait up to `timeout` (a datetime.timedelta): for a rank that idles

@@ -61,20 +61,41 @@ logger = logging.getLogger("lhrs_torch")
 
 def make_train_step(cfg: VLMConfig, optimizer: TrainOptimizer,
                     compute_dtype: torch.dtype = torch.bfloat16,
-                    remat: bool = False, mesh: Optional[Mesh] = None
-                    ) -> Callable:
+                    remat: bool = False, mesh: Optional[Mesh] = None,
+                    cp_mesh=None) -> Callable:
     """step(params, batch) -> metrics: the forward loss, its gradients with
     respect to the optimizer's (trainable) tensors, their global norm
     before clipping, and the optimizer update in place. Metrics are 0-d
     tensors on the device: total_loss, text_loss, grad_norm. Over a
     `mesh` the losses are summed over the data group and the norm is the
-    sharded optimizer's (both the global batch's)."""
+    sharded optimizer's (both the global batch's). Over a `cp_mesh`
+    (`parallel.context.CpMesh`: context parallelism, whole weights and a
+    plain `TrainOptimizer` on every rank, `batch` this data index's rows)
+    each rank's gradients are summed over the seq and data groups
+    (`parallel.context.reduce_gradients`) before the update, the losses
+    likewise, and the norm is the global batch's; every rank applies the
+    same update. `mesh` and `cp_mesh` do not compose (ValueError)."""
+    if mesh is not None and cp_mesh is not None:
+        raise ValueError("cp_mesh and mesh do not compose: context "
+                         "parallelism takes whole weights")
 
     def step(params, batch) -> Dict[str, torch.Tensor]:
         out = vlm_forward_loss(params, cfg, batch,
                                compute_dtype=compute_dtype, remat=remat,
-                               mesh=mesh)
+                               cp_mesh=cp_mesh, mesh=mesh)
         grads = torch.autograd.grad(out["total_loss"], optimizer.leaves)
+        if cp_mesh is not None:
+            from ..parallel.context import reduce_gradients
+
+            grads = reduce_gradients(grads, cp_mesh)
+            losses = torch.stack([out["total_loss"].detach(),
+                                  out["text_loss"].detach()]).float()
+            cp_mesh.seq.all_reduce(losses)
+            cp_mesh.data.all_reduce(losses)
+            metrics = {"total_loss": losses[0], "text_loss": losses[1],
+                       "grad_norm": global_norm(grads)}
+            optimizer.step(grads)
+            return metrics
         if mesh is None:
             metrics = {"total_loss": out["total_loss"].detach(),
                        "text_loss": out["text_loss"].detach(),

@@ -5,20 +5,18 @@ Counterpart of `lhrs_bot_tpu/utils/eval_utils.py`: `KeywordsStopper` stops
 once a keyword appears in the decoded tail of the emitted ids,
 `make_token_stopper` once the last emitted id is a stop id. `type_dict`
 maps a config's dtype name to the torch dtype the port computes in
-(float16 configs run in bf16, as in the JAX package).
+(`core.dtypes.resolve_dtype`: float16 configs run in bf16, as in the JAX
+package).
 """
 
 from __future__ import annotations
 
 from typing import Callable, List, Sequence
 
-import torch
+from ..core.dtypes import resolve_dtype
 
-type_dict = {
-    "float16": torch.bfloat16,
-    "bfloat16": torch.bfloat16,
-    "float32": torch.float32,
-}
+type_dict = {name: resolve_dtype(name)
+             for name in ("float16", "bfloat16", "float32")}
 
 
 class KeywordsStopper:

@@ -567,12 +567,13 @@ def test_unported_paths_raise(vlm_setup):
     loader = [_supervised_batch(40)]
     with pytest.raises(TypeError, match="Mesh"):  # meshes: a Mesh only
         Trainer(tcfg, params, opt, loader, max_iters=1, mesh=object())
-    with pytest.raises(NotImplementedError):
+    # context parallelism takes a CpMesh, and the chunk's global positions
+    with pytest.raises(TypeError, match="CpMesh"):
         t_vlm.vlm_forward_loss(params, tcfg, loader[0], cp_mesh=object())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="positions"):
         t_llama.llama_apply(params["llama"], tcfg.llama,
                             input_ids=torch.ones(1, 4, dtype=torch.long),
-                            cp_axis_name="seq")
+                            cp_axis=object())
     with pytest.raises(ValueError):
         t_vlm.prepare_multimodal_inputs(
             params, tcfg, torch.ones(1, 4, dtype=torch.long),

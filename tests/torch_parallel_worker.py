@@ -277,8 +277,183 @@ def serve_entry_job(p):
     return {"outs": outs}
 
 
+def _stand_in_kernels(calls):
+    """The flash launchers' contracts in plain float32 on the CPU (the
+    forward with its LSE; dQ and dK/dV from a given LSE and delta), so the
+    ring's kernel route (one launch a block, the LSE merge, the dK/dV
+    buffers' way home) runs here; `calls` counts each launcher's calls."""
+    from lhrs_bot_tpu_torch.ops import attention as att
+
+    def fwd(q, k, v, kv_mask, causal, sm_scale, out_dtype=torch.bfloat16,
+            out=None, *, segment_ids=None, lse=None):
+        calls["fwd"] += 1
+        o, l_ = att.mha_reference(q, k, v, kv_mask, causal=causal,
+                                  sm_scale=sm_scale, return_lse=True)
+        lse.copy_(l_)
+        return o
+
+    def grads(q, k, v, kv_mask, lse, delta, d_out, causal, sm_scale):
+        s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
+        allowed = att._allowed(q.shape[2], k.shape[2], kv_mask, None, causal,
+                               q.device)
+        if allowed is not None:
+            s = s.masked_fill(~allowed, -1e30)
+        p = torch.exp(s - lse[..., None])
+        dp = torch.matmul(d_out.float(), v.float().transpose(-1, -2))
+        ds = p * (dp - delta[..., None]) * sm_scale
+        return (torch.matmul(ds, k.float()),
+                torch.matmul(ds.transpose(-1, -2), q.float()),
+                torch.matmul(p.transpose(-1, -2), d_out.float()))
+
+    def dq(q, k, v, kv_mask, seg, lse, delta, d_out, causal, sm_scale,
+           runs=None):
+        calls["dq"] += 1
+        return grads(q, k, v, kv_mask, lse, delta, d_out, causal,
+                     sm_scale)[0]
+
+    def dkv(q, k, v, kv_mask, seg, lse, delta, d_out, causal, sm_scale,
+            runs=None):
+        calls["dkv"] += 1
+        return grads(q, k, v, kv_mask, lse, delta, d_out, causal,
+                     sm_scale)[1:]
+
+    att.flash_attention_fwd = fwd
+    att.flash_attention_bwd_dq = dq
+    att.flash_attention_bwd_dkv = dkv
+
+
+def _ring_case(mesh, case, route):
+    """One ring case on this rank's chunks: (output chunk, dq, dk, dv
+    chunks or None). `route` "plain", or "kernels" (the kernel route over
+    the stand-ins)."""
+    from lhrs_bot_tpu_torch.ops.ring_attention import RingAttention
+    from lhrs_bot_tpu_torch.parallel.context import seq_chunk
+
+    dtype = DTYPES[case.get("dtype", "f32")]
+    q, k, v = (seq_chunk(torch.as_tensor(case[n]), mesh, 2).to(dtype)
+               .requires_grad_(case.get("grad", False))
+               for n in ("q", "k", "v"))
+    mask = case.get("mask")
+    if mask is not None:
+        mask = seq_chunk(torch.as_tensor(mask), mesh, 1).contiguous()
+    out = RingAttention.apply(q, k, v, mask, mesh.seq, case["causal"],
+                              q.shape[-1] ** -0.5, case.get("fault"),
+                              route == "plain")
+    res = {"out": host(out), "dtype": str(out.dtype)}
+    if case.get("grad"):
+        gq, gk, gv = torch.autograd.grad((out.float() ** 2).sum(), (q, k, v))
+        res.update(dq=host(gq), dk=host(gk), dv=host(gv))
+    return res
+
+
+def ring_job(p):
+    """Context parallelism over the world's ranks: the ring cases at cp =
+    world and at dp 2 x cp (world / 2) (plain, and the kernel route over
+    stand-ins with its launches), `context_parallel_apply`'s logits and
+    gradients, and the context-parallel train step (also with the seq
+    reduction skipped, the planted fault)."""
+    from lhrs_bot_tpu_torch.core.convert import training_params_from_numpy
+    from lhrs_bot_tpu_torch.models.llama import LlamaConfig
+    from lhrs_bot_tpu_torch.models.vlm import trainable_mask
+    from lhrs_bot_tpu_torch.parallel.context import (
+        context_parallel_apply, context_parallel_loss, make_cp_mesh,
+        reduce_gradients)
+    from lhrs_bot_tpu_torch.train import build_optimizer
+    from lhrs_bot_tpu_torch.train.trainer import make_train_step
+
+    world = distribute.get_world_size()
+    out = {"rank": distribute.get_rank()}
+    full = make_cp_mesh(cp=world)
+    half = make_cp_mesh(cp=world // 2, dp=2)
+    out["full"] = {"seq": full.seq_index,
+                   "cases": [_ring_case(full, c, "plain")
+                             for c in p["full_cases"]]}
+    calls = {"fwd": 0, "dq": 0, "dkv": 0}
+    _stand_in_kernels(calls)
+    res = {"seq": half.seq_index, "data": half.data_index, "cases": [],
+           "kernels": [], "launches": []}
+    for case in p["half_cases"]:
+        res["cases"].append(_ring_case(half, case, "plain"))
+        if case.get("kernels"):
+            for key in calls:
+                calls[key] = 0
+            res["kernels"].append(_ring_case(half, case, "kernels"))
+            res["launches"].append(dict(calls))
+    out["half"] = res
+    # the JAX wrapper's form: whole tensors in, this rank's rows out
+    from lhrs_bot_tpu_torch.ops.ring_attention import ring_self_attention
+
+    case = p["half_cases"][p["self_attention_case"]]
+    out["self_attention"] = host(ring_self_attention(
+        half, *(torch.as_tensor(case[n]) for n in ("q", "k", "v")),
+        torch.as_tensor(case["mask"]), causal=case["causal"]))
+
+    lcfg = LlamaConfig.tiny_test()
+    lp = params_from_numpy(p["llama"])
+    ap = p["apply"]
+    rows = slice(half.data_index * 2, half.data_index * 2 + 2)
+    with torch.no_grad():
+        logits = context_parallel_apply(
+            lp, lcfg, half, input_ids=torch.as_tensor(ap["ids"][rows]),
+            attention_mask=torch.as_tensor(ap["mask"][rows]),
+            compute_dtype=torch.float32)
+    out["apply"] = host(logits)
+
+    gp = p["grads"]
+    names, leaves = [], []
+    for path, t in _named_leaves(lp):
+        names.append(path)
+        leaves.append(t.requires_grad_())
+    ids = torch.as_tensor(gp["ids"][half.data_index:half.data_index + 1])
+    loss = context_parallel_loss(context_parallel_apply(
+        lp, lcfg, half, input_ids=ids, compute_dtype=torch.float32),
+        ids, half)
+    local = torch.autograd.grad(loss, leaves)
+    out["grads"] = dict(zip(names, host(reduce_gradients(local, half))))
+    half.reduce_seq = False
+    out["grads_fault"] = dict(zip(names, host(reduce_gradients(local,
+                                                               half))))
+    half.reduce_seq = True
+
+    tp_ = p["train"]
+    cfg = VLMConfig.tiny_test(stage=1)
+    batch = {k: v[half.data_index:half.data_index + 1]
+             for k, v in tp_["batch"].items()}
+    out["train"] = {}
+    for name, fault in (("step", False), ("fault", True)):
+        params = training_params_from_numpy(tp_["params"], cfg,
+                                            torch.float32, CPU)
+        opt = build_optimizer(tp_["opt"], params,
+                              trainable_mask(params, cfg))
+        half.reduce_seq = not fault
+        step = make_train_step(cfg, opt, torch.float32, cp_mesh=half)
+        m = step(params, batch)
+        out["train"][name] = {"metrics": {k: float(v) for k, v in m.items()},
+                              "params": snapshot(params)}
+    half.reduce_seq = True
+    return out
+
+
+def _named_leaves(tree, pre=""):
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from _named_leaves(v, f"{pre}/{k}")
+        else:
+            yield f"{pre}/{k}", v
+
+
+def graft_job(p):
+    """`graft_entry.dryrun_multichip` on the world's ranks, on the CPU."""
+    from lhrs_bot_tpu_torch import graft_entry
+
+    return graft_entry.dryrun_multichip(distribute.get_world_size(),
+                                        backend="gloo", device=CPU)
+
+
 JOBS = {"serve": serve_job, "train": train_job, "entry": entry_job,
-        "serve_entry": serve_entry_job}
+        "serve_entry": serve_entry_job, "ring": ring_job,
+        "graft": graft_job}
 
 
 def main():
