@@ -219,7 +219,23 @@ Phases, one or more lines each:
      does with two ranks on one card (the port's init_distributed refuses;
      torch's own group) and gloo with point-to-point calls on CUDA tensors.
      A failing rank fails the phase. The times are two ranks sharing one
-     card over gloo, not a machine of two cards.
+     card over gloo, not a machine of two cards;
+  9. start-up (`phase_startup`): (a) the port's SentencePiece reader on the
+     committed fixture (tests/torch_spm_fixture: a 32,000-piece BPE
+     tokenizer.model in LLaMA-2's layout): every corpus string's ids and
+     decode under legacy true and false equal to expected.json, the host
+     encode time of the LLaMA-2 template with one question and of a
+     2,000-token prompt; (b) an HF LLaMA directory at full width with the
+     decoder cut to 2 layers and the fixture's tokenizer files beside the
+     weights, built through build_model_and_tokenizer -> build_engine from
+     a config whose text.path is that directory, three image requests
+     through serve.api's frontend (one slot), each reply's ids bit for bit
+     the direct generate call's and its text the reader's decode; (c) that
+     stage-0 tree converted (save_converted_params), reloaded
+     (load_converted_params) byte-equal, an engine over it giving the same
+     greedy ids, both load paths' seconds and GB/s; (d) planted: a
+     converted leaf with one element changed, two pieces' scores swapped;
+     each must be caught.
 Then a JSON line with per-kernel numbers, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}. Every line is also written to
 chiprun_out/chip_smoke.log. Any failure raises: the script
@@ -231,6 +247,8 @@ and imports nothing of JAX.
 `python3 chip_smoke.py --eval-only` builds the kernels and runs phase 7's
 eval part alone (the artifacts at 4 decoder layers, `phase_eval`, the cls
 protocol over them): a short check of the eval path, not the full run.
+`python3 chip_smoke.py --startup-only` builds the kernels and runs phase 9
+alone (about a minute after the build).
 `python3 chip_smoke.py --parallel-only` builds the kernels and runs phase 8
 alone (~2 minutes with the build); `--parallel-only --dist-backend nccl
 --ranks N` runs it with N ranks over NCCL, a card a rank (a machine of N
@@ -5178,19 +5196,13 @@ def lora_specs(lc, r):
     return specs
 
 
-def write_reference_checkpoint(root, cfg, dev):
-    """The reference's artifacts at full width under `root`, seeded by
-    name: llama/ (config.json, two fp16 safetensors shards with their
-    index), clip/ (fp16), FINAL.pt (rgb_ckpt under "encoder.", nested
-    other_ckpt, embed_tokens resized to 32,004 rows, float32 of fp16
-    values) and TextLoRA/ (r 128, alpha 256, all 7 targets, float32 of
-    fp16 values). Returns {artifact: bytes written}."""
+def write_llama_dir(llama_dir, lc, dev):
+    """An HF LLaMA directory at `lc`'s shapes under `llama_dir`, seeded by
+    name: config.json and two fp16 safetensors shards with their index."""
     import torch
 
     from lhrs_bot_tpu_torch.core.safetensors_io import save_file
 
-    lc, vc = cfg.llama, cfg.vit
-    llama_dir = os.path.join(root, "llama")
     os.makedirs(llama_dir)
     with open(os.path.join(llama_dir, "config.json"), "w") as fh:
         json.dump({"architectures": ["LlamaForCausalLM"],
@@ -5221,6 +5233,21 @@ def write_reference_checkpoint(root, cfg, dev):
               "w") as fh:
         json.dump({"metadata": {"total_size": 0}, "weight_map": weight_map},
                   fh)
+
+
+def write_reference_checkpoint(root, cfg, dev):
+    """The reference's artifacts at full width under `root`, seeded by
+    name: llama/ (config.json, two fp16 safetensors shards with their
+    index), clip/ (fp16), FINAL.pt (rgb_ckpt under "encoder.", nested
+    other_ckpt, embed_tokens resized to 32,004 rows, float32 of fp16
+    values) and TextLoRA/ (r 128, alpha 256, all 7 targets, float32 of
+    fp16 values). Returns {artifact: bytes written}."""
+    import torch
+
+    from lhrs_bot_tpu_torch.core.safetensors_io import save_file
+
+    lc, vc = cfg.llama, cfg.vit
+    write_llama_dir(os.path.join(root, "llama"), lc, dev)
 
     clip_dir = os.path.join(root, "clip")
     os.makedirs(clip_dir)
@@ -8251,6 +8278,323 @@ def phase_parallel(dev, tiny=False, backend="gloo", n=2):
 
 # where a failing phase leaves its traceback, and a crash of the
 # interpreter its stacks: the output directory a remote run copies back
+# ---------------------------------------------------------------------------
+# 9. start-up: the SentencePiece tokenizer, a real decoder directory, the
+# converted checkpoint
+# ---------------------------------------------------------------------------
+
+SPM_FIXTURE = os.path.join("tests", "torch_spm_fixture")
+STARTUP_LAYERS = 2  # the decoder's depth (LLaMA-2-7B's widths)
+STARTUP_NEW = 12  # greedy tokens a request
+STARTUP_PROMPT_TOKENS = 2000
+STARTUP_REPS = 5
+STARTUP_QUESTIONS = ("What is in this remote sensing image?",
+                     "How many airplanes are parked on the apron?",
+                     "Describe the land use around the river.")
+
+
+def spm_fixture_mismatches(tok, rows, corpus):
+    """The corpus strings whose ids or decode (special tokens skipped)
+    differ from the fixture's expected.json rows (the slow class's values
+    where it parts from the fast conversion)."""
+    bad = []
+    for text, row in zip(corpus, rows):
+        ids = tok(text).input_ids
+        want_ids = row.get("slow_ids", row["ids"])
+        want_text = row.get("slow_decoded", row["decoded"])
+        if ids != want_ids or tok.decode(
+                want_ids, skip_special_tokens=True) != want_text:
+            bad.append(text)
+    return bad
+
+
+def median_ms(fn, reps=STARTUP_REPS):
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def startup_reader(out):
+    """(a) The committed fixture through the port's reader: every corpus
+    string's ids and decode under legacy true and false against
+    expected.json; the host encode times of the fixture's own tokenizer
+    (its config: legacy false); (d)'s swapped scores."""
+    import dataclasses
+
+    from lhrs_bot_tpu_torch.data import conversation as conv_lib
+    from lhrs_bot_tpu_torch.data.preprocess import tokenizer_image_token
+    from lhrs_bot_tpu_torch.data.sentencepiece import SentencePieceModel
+    from lhrs_bot_tpu_torch.data.tokenizer import (LlamaTokenizer,
+                                                   load_tokenizer)
+
+    with open(os.path.join(SPM_FIXTURE, "expected.json")) as fh:
+        expected = json.load(fh)
+    corpus = expected["corpus"]
+    t0 = time.perf_counter()
+    model = SentencePieceModel.from_file(
+        os.path.join(SPM_FIXTURE, "tokenizer.model"))
+    out["parse_ms"] = (time.perf_counter() - t0) * 1e3
+    for legacy in (True, False):
+        tok = LlamaTokenizer(model, legacy=legacy)
+        bad = spm_fixture_mismatches(
+            tok, expected["legacy" if legacy else "non_legacy"], corpus)
+        if bad:
+            raise AssertionError(f"tokenizer (legacy {legacy}): ids or text "
+                                 f"differ from expected.json on {bad}")
+    tok = load_tokenizer(SPM_FIXTURE)
+    conv = conv_lib.conv_templates["llava_llama_2"].copy()
+    conv.append_message(conv.roles[0], "<image>\n" + STARTUP_QUESTIONS[0])
+    conv.append_message(conv.roles[1], None)
+    prompt = conv.get_prompt()
+    out["template_tokens"] = len(tokenizer_image_token(prompt, tok))
+    out["template_encode_ms"] = median_ms(
+        lambda: tokenizer_image_token(prompt, tok))
+    long = ""
+    for text in (corpus * 100):
+        long += text + " "
+        if len(tok(long).input_ids) >= STARTUP_PROMPT_TOKENS:
+            break
+    out["long_tokens"] = len(tok(long).input_ids)
+    out["long_encode_ms"] = median_ms(lambda: tok(long))
+    # (d) planted: two merged pieces' scores swapped must change the ids:
+    # the last merged piece's with the first of the top-scoring ones whose
+    # move to the end of the merge order changes a segmentation
+    low = max(i for i, p in enumerate(model.pieces) if len(p) > 1
+              and model.types[i] == 1)
+    for top in range(259, 259 + 200):
+        scores = list(model.scores)
+        scores[top], scores[low] = scores[low], scores[top]
+        swapped = LlamaTokenizer(dataclasses.replace(model, scores=scores),
+                                 legacy=False)
+        caught = spm_fixture_mismatches(swapped, expected["non_legacy"],
+                                        corpus)
+        if caught:
+            break
+    out["fault_scores_swapped"] = {
+        "pieces": [model.pieces[top], model.pieces[low]],
+        "strings_changed": len(caught)}
+    if not caught:
+        raise AssertionError("planted fault: two pieces' scores swapped "
+                             "and no corpus string's ids changed")
+    log(f"  (a) fixture {len(model)} pieces parsed in "
+        f"{out['parse_ms']:.1f} ms; {len(corpus)} strings x legacy "
+        f"true/false: ids and text as expected.json; host encode (median of "
+        f"{STARTUP_REPS}): LLaMA-2 template with one question "
+        f"{out['template_tokens']} tokens {out['template_encode_ms']:.2f} "
+        f"ms, a {out['long_tokens']}-token prompt "
+        f"{out['long_encode_ms']:.2f} ms; planted: scores of "
+        f"{out['fault_scores_swapped']['pieces']} swapped changed "
+        f"{len(caught)} strings (caught)")
+
+
+def phase_startup(dev):
+    """(a) The SentencePiece reader on the host (`startup_reader`); (b) a
+    reference-format HF LLaMA directory at full width (STARTUP_LAYERS
+    decoder layers) with the fixture's tokenizer files beside the weights,
+    built through build_model_and_tokenizer -> build_engine from a config
+    whose text.path is that directory, then three requests with images
+    through serve.api's frontend over a one-slot contiguous scheduler (as
+    lhrs_serve_torch.py builds it): each reply's ids bit for bit the direct
+    `generate` call's on the same prompt and image, its text the reader's
+    decode of them; (c) that stage-0 tree converted
+    (save_converted_params), reloaded (load_converted_params), every leaf
+    byte-equal to build_model's (load_pretrained's), and an engine over the
+    reloaded tree
+    giving the same greedy ids bit for bit; both load paths' seconds and
+    GB/s (the page cache warm: the files were just written); (d) planted:
+    one converted leaf with one element changed must show as that leaf,
+    and the fixture with two pieces' scores swapped must change ids (in
+    (a)). Writes the directory and the converted tree under build/ and
+    deletes them."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from lhrs_bot_tpu_torch.core import (build_engine,
+                                         build_model_and_tokenizer,
+                                         eval_config, load_converted_params,
+                                         save_converted_params)
+    from lhrs_bot_tpu_torch.core.safetensors_io import read_header
+    from lhrs_bot_tpu_torch.data.tokenizer import LlamaTokenizer
+    from lhrs_bot_tpu_torch.serve.api import ServingFrontend
+    from lhrs_bot_tpu_torch.serve.engine import GenerationConfig
+    from lhrs_bot_tpu_torch.serve.scheduler import ContinuousBatchingScheduler
+
+    out = {"seconds": {}}
+    t_phase = time.time()
+    t0 = time.time()
+    startup_reader(out)
+    out["seconds"]["a_reader"] = time.time() - t0
+
+    config = eval_config()
+    config["text"]["num_hidden_layers"] = STARTUP_LAYERS
+    os.makedirs("build", exist_ok=True)
+    root = tempfile.mkdtemp(prefix="startup_", dir="build")
+    llama_dir = os.path.join(root, "llama")
+    wrappers = kernel_wrappers()
+    try:
+        # (b) a real decoder directory through the entry point's calls
+        t0 = time.time()
+        from lhrs_bot_tpu_torch.models import VLMConfig
+
+        write_llama_dir(llama_dir, VLMConfig.from_config_dict(config).llama,
+                        dev)
+        for f in ("tokenizer.model", "tokenizer_config.json",
+                  "special_tokens_map.json"):
+            shutil.copy(os.path.join(SPM_FIXTURE, f), llama_dir)
+        written = dir_bytes(llama_dir)
+        out["seconds"]["b_write"] = time.time() - t0
+        config["text"]["path"] = llama_dir
+        t0 = time.time()
+        cfg, params, tok = build_model_and_tokenizer(config, dev)
+        t_build_model = time.time() - t0
+        if not isinstance(tok, LlamaTokenizer):
+            raise AssertionError(f"text.path {llama_dir}: tokenizer "
+                                 f"{type(tok).__name__}, not the reader")
+        t0 = time.time()
+        engine = build_engine(cfg, params, config, dev)
+        t_engine = time.time() - t0
+        gen_cfg = GenerationConfig(max_new_tokens=STARTUP_NEW,
+                                   eos_token_id=tok.eos_token_id,
+                                   pad_token_id=tok.pad_token_id)
+        sched = ContinuousBatchingScheduler(
+            cfg, engine.params, engine.llama_params, max_batch=1,
+            max_seq_len=engine.max_seq_len,
+            compute_dtype=engine.compute_dtype,
+            cache_dtype=engine.cache_dtype, gen_cfg=gen_cfg, device=dev)
+        frontend = ServingFrontend(sched, tok, image_size=cfg.vit.image_size,
+                                   prompt_template="llava_llama_2")
+        rng = np.random.default_rng(9)
+        requests, replies = [], []
+        set_launches(wrappers)
+        t0 = time.time()
+        try:
+            for q in STARTUP_QUESTIONS:
+                image = rng.integers(0, 256, (300, 400, 3), dtype=np.uint8)
+                req = frontend.build_request(q, image, STARTUP_NEW,
+                                             temperature=0.0)
+                requests.append((req.input_ids.copy(), req.image.copy()))
+                replies.append(frontend.await_request(req, timeout=300))
+        finally:
+            frontend.shutdown()
+        torch.cuda.synchronize()
+        t_frontend = time.time() - t0
+        launches = read_launches(wrappers)
+
+        def direct(eng):
+            return [eng.generate(ids[None], np.asarray([len(ids)], np.int32),
+                                 images=img[None], gen_cfg=gen_cfg)[0]
+                    for ids, img in requests]
+
+        direct_ids = direct(engine)
+        for k, (reply, want, (ids, _)) in enumerate(
+                zip(replies, direct_ids, requests)):
+            conv_text = tok.decode(reply["tokens"], skip_special_tokens=True)
+            if reply["finish_reason"] != "stop" or reply["tokens"] != want \
+                    or reply["text"] != conv_text:
+                raise AssertionError(
+                    f"(b) request {k}: frontend {reply} vs direct generate "
+                    f"{want}, the reader's decode {conv_text!r}")
+            if int((ids < 0).sum()) != 1:
+                raise AssertionError(f"(b) request {k}: not one image "
+                                     "marker in its prompt")
+        for k in ("flash_attention_fwd", "fused_decode_attention"):
+            if not launches.get(k):
+                raise AssertionError(f"(b) the frontend's requests launched "
+                                     f"no {k}: {launches}")
+        out["b"] = {"llama_dir_bytes": written,
+                    "build_model_and_tokenizer_s": t_build_model,
+                    "build_engine_s": t_engine,
+                    "frontend_s": t_frontend, "launches": launches,
+                    "prompt_tokens": [len(i) for i, _ in requests],
+                    "ids": direct_ids,
+                    "texts": [r["text"] for r in replies]}
+        log(f"  (b) {written / 1e9:.3f} GB LLaMA directory at "
+            f"{STARTUP_LAYERS} layers written in "
+            f"{out['seconds']['b_write']:.1f} s; build_model_and_tokenizer "
+            f"{t_build_model:.1f} s (LlamaTokenizer), build_engine "
+            f"{t_engine:.1f} s; 3 image requests through the frontend in "
+            f"{t_frontend:.2f} s, prompts {out['b']['prompt_tokens']} "
+            f"tokens, ids bit for bit the direct generate's, texts the "
+            f"reader's decode {out['b']['texts']}; launches {launches}")
+
+        # (c) the converted checkpoint of build_model's tree (its
+        # load_pretrained, the tokenizer read first)
+        t_pretrained = t_build_model
+        nbytes = sum(np.asarray(v).nbytes for _, v in tree_paths(params))
+        conv_dir = os.path.join(root, "converted")
+        t0 = time.time()
+        save_converted_params(conv_dir, params)
+        t_save = time.time() - t0
+        conv_bytes = dir_bytes(conv_dir)
+        t0 = time.time()
+        loaded = load_converted_params(conv_dir, cfg)
+        t_load = time.time() - t0
+        bad = tree_mismatches(loaded, params)  # reads every mapped byte
+        t_read = time.time() - t0
+        if bad:
+            raise AssertionError(f"(c) converted tree mismatches {bad}")
+        engine2 = build_engine(cfg, loaded, config, dev)
+        conv_ids = direct(engine2)
+        if conv_ids != direct_ids:
+            raise AssertionError(f"(c) the engine over the reloaded tree: "
+                                 f"{conv_ids} != {direct_ids}")
+        del engine2
+        out["c"] = {"tree_bytes": nbytes, "converted_bytes": conv_bytes,
+                    "load_pretrained_s": t_pretrained,
+                    "load_pretrained_gb_s": nbytes / t_pretrained / 1e9,
+                    "convert_save_s": t_save,
+                    "convert_save_gb_s": conv_bytes / t_save / 1e9,
+                    "convert_load_s": t_load,
+                    "convert_load_read_s": t_read,
+                    "convert_load_read_gb_s": nbytes / t_read / 1e9,
+                    "leaves": len(list(tree_paths(params)))}
+        log(f"  (c) stage-0 tree {nbytes / 1e9:.3f} GB, "
+            f"{out['c']['leaves']} leaves: build_model_and_tokenizer "
+            f"(load_pretrained) {t_pretrained:.2f} s ({out['c']['load_pretrained_gb_s']:.2f} "
+            f"GB/s of tree); save_converted_params {t_save:.2f} s "
+            f"({out['c']['convert_save_gb_s']:.2f} GB/s); "
+            f"load_converted_params {t_load:.3f} s, with every byte read "
+            f"and compared {t_read:.2f} s "
+            f"({out['c']['convert_load_read_gb_s']:.2f} GB/s; page cache "
+            f"warm): byte-equal; the engine over it: greedy ids bit for bit")
+
+        # (d) planted: one element of one converted leaf changed
+        t0 = time.time()
+        key = "llama/layers/wq"
+        with open(os.path.join(conv_dir, "params.index.json")) as fh:
+            shard = os.path.join(conv_dir, json.load(fh)["weight_map"][key])
+        header, _, start = read_header(shard)
+        begin = header[key]["data_offsets"][0]
+        mm = np.memmap(shard, dtype=np.uint8, mode="r+")
+        elem = mm[start + begin + 4096:start + begin + 4100].view(np.float32)
+        elem[0] = elem[0] + 1.0
+        mm.flush()
+        del mm, elem
+        faulty = tree_mismatches(load_converted_params(conv_dir), params)
+        out["fault_leaf_changed"] = faulty
+        if faulty != [key]:
+            raise AssertionError(f"planted fault: one element of {key} "
+                                 f"changed, mismatches {faulty}")
+        out["seconds"]["d_fault"] = time.time() - t0
+        log(f"  (d) planted: one element of {key} changed in its shard: "
+            f"mismatches {faulty} (caught); the swapped scores: see (a)")
+        out["bytes_written"] = written + conv_bytes
+        del engine, params, loaded
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"]["phase"] = time.time() - t_phase
+    log(f"  phase_startup {out['seconds']['phase']:.1f} s, "
+        f"{out['bytes_written'] / 1e9:.2f} GB written")
+    return out
+
+
 OUT_DIR = "chiprun_out"
 
 
@@ -8326,6 +8670,7 @@ def main():
     if sys.argv[1:2] == ["--gloo-p2p-probe"]:
         return gloo_p2p_probe()
     eval_part = sys.argv[1:] == ["--eval-only"]
+    startup_part = sys.argv[1:] == ["--startup-only"]
     parallel_part = sys.argv[1:2] == ["--parallel-only"]
     parallel_args = {}
     if parallel_part and sys.argv[2:]:
@@ -8335,9 +8680,9 @@ def main():
             raise SystemExit("usage: chip_smoke.py --parallel-only "
                              "[--dist-backend nccl|gloo --ranks N]")
         parallel_args = {"backend": sys.argv[3], "n": int(sys.argv[5])}
-    if sys.argv[1:] and not (eval_part or parallel_part):
-        raise SystemExit("usage: chip_smoke.py [--eval-only | "
-                         "--parallel-only [--dist-backend B --ranks N]]")
+    if sys.argv[1:] and not (eval_part or startup_part or parallel_part):
+        raise SystemExit("usage: chip_smoke.py [--eval-only | --startup-only "
+                         "| --parallel-only [--dist-backend B --ranks N]]")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device visible; this check "
                          "runs on the card")
@@ -8349,7 +8694,7 @@ def main():
     faulthandler.enable(faults)  # a segfault or abort leaves its stacks
     dev = torch.device("cuda", 0)
     smi = smi_line()
-    log(f"[1/8 device] torch {torch.__version__}, CUDA {torch.version.cuda}, "
+    log(f"[1/9 device] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}, capability "
         f"{torch.cuda.get_device_capability(0)}, count "
         f"{torch.cuda.device_count()}")
@@ -8364,7 +8709,7 @@ def main():
     build_log = (so.parent / "build.log").read_text().splitlines()
     usage = [ln.strip() for ln in build_log
              if "Used" in ln or "spill" in ln or "Compiling entry" in ln]
-    log(f"[2/8 build] {so.relative_to(cuda_lib.BUILD_ROOT.parents[1])} in "
+    log(f"[2/9 build] {so.relative_to(cuda_lib.BUILD_ROOT.parents[1])} in "
         f"{build_s:.1f} s")
     for ln in usage:
         log(f"  {ln}")
@@ -8378,13 +8723,18 @@ def main():
                          + "\n".join(serialized))
     if eval_part:
         return eval_only(dev)
+    if startup_part:
+        out = phase("startup", phase_startup, dev)
+        log(json.dumps({"startup": out}, default=str))
+        log(smi_line())
+        return None
     if parallel_part:
         out = phase("parallel", lambda: phase_parallel(dev, **parallel_args))
         log(json.dumps({"parallel": out}, default=str))
         log(smi_line())
         return None
 
-    log("[3/8 kernels vs plain]")
+    log("[3/9 kernels vs plain]")
     k1, k2 = phase("kernels", phase_kernels, dev)
     train_k = phase("train_kernels", phase_train_kernels, dev)
     k3, k4 = phase("quant_kernels", phase_quant_kernels, dev)
@@ -8393,18 +8743,18 @@ def main():
     paged = phase("paged_kernels", phase_paged_kernels, dev)
     bench_k = phase("bench_kernels", phase_bench_kernels, dev)
 
-    log("[4/8 serving slices at full width]")
+    log("[4/9 serving slices at full width]")
     paths = phase("slice", phase_slice, dev)
     bf16, w4a8 = paths["bf16"]["launches"], paths["w4a8"]["launches"]
     int8 = paths["int8"]["launches"]
 
-    log("[5/8 stage-1 training at full width]")
+    log("[5/9 stage-1 training at full width]")
     train = phase("train", phase_train, dev)
 
-    log("[6/8 the bench path]")
+    log("[6/9 the bench path]")
     bench = phase("bench", phase_bench, dev)
 
-    log("[7/8 checkpoints at full width: load, serve, stage 2 -> 3 -> eval, "
+    log("[7/9 checkpoints at full width: load, serve, stage 2 -> 3 -> eval, "
         "then training from data on disk and the eval entry points]")
     ckpt = phase("checkpoint", phase_checkpoint, dev,
                  lambda paths, root: {
@@ -8413,8 +8763,12 @@ def main():
                          paths, root),
                      "eval": phase("eval", phase_eval, dev, paths, root)})
 
-    log("[8/8 data and tensor parallelism: two ranks on the card over gloo]")
+    log("[8/9 data and tensor parallelism: two ranks on the card over gloo]")
     parallel = phase("parallel", phase_parallel, dev)
+
+    log("[9/9 start-up: the SentencePiece tokenizer, a LLaMA directory, the "
+        "converted checkpoint]")
+    startup = phase("startup", phase_startup, dev)
 
     def row(name, source, replaces, launches, k):
         return {"name": name, "route": "cuda",
@@ -8539,6 +8893,7 @@ def main():
                     "bench_launches": bench["launches"]}))
     log(json.dumps({"checkpoint": ckpt}))
     log(json.dumps({"parallel": parallel}, default=str))
+    log(json.dumps({"startup": startup}, default=str))
     log(json.dumps({"phase_seconds": PHASE_SECONDS,
                     "build_seconds": round(build_s, 1)}))
     log(json.dumps({"kernels": kernels}))

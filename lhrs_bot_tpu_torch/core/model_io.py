@@ -17,13 +17,26 @@ raises FileNotFoundError instead of leaving the random init in place, and
 the random init is drawn only for the leaves no artifact covers (seed 0,
 each leaf from its own generator, `models.vlm.draw_param`, as
 `init_vlm_params` draws it on the CPU), so a 7B tree that the artifacts
-cover is never drawn. The orbax functions stay JAX-only.
+cover is never drawn.
+
+`save_converted_params` / `load_converted_params` are the counterparts of
+the JAX package's `save_orbax_params` / `load_orbax_params`: the loaded
+tree converted once (FINAL.pt + HF shards + TextLoRA through
+`load_pretrained`) and written so that a later start is a mapped read.
+Orbax is JAX's own format; the port writes the tree as `core.
+safetensors_io` shards (a few GB each, every leaf in its own dtype, keys
+the tree's paths) beside `params.index.json`, which records the tree's
+structure, the shard of each key and the format tag. Loading maps the
+shards copy-on-write and returns the same nested dict of numpy leaves,
+with nothing placed on a device.
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import os
+import shutil
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -237,3 +250,149 @@ def save_final(output_dir: str, params: Dict, cfg: VLMConfig) -> str:
                             cfg.lora.alpha)
     logger.info("saved the final checkpoint to %s", path)
     return path
+
+
+# -- the converted checkpoint (orbax's place in the JAX package) -------------
+
+CONVERTED_FORMAT = "lhrs_bot_tpu_torch.converted_params/1"
+CONVERTED_INDEX = "params.index.json"
+CONVERTED_SHARD_BYTES = 2 << 30
+
+
+def _tree_leaves(tree, prefix=""):
+    """(key, leaf) of a nested dict of arrays, keys the paths joined by
+    "/", in the tree's order."""
+    for name, value in tree.items():
+        name = str(name)
+        if "/" in name or not name:
+            raise ValueError(f"tree key {prefix + name!r}: a key is a "
+                             "non-empty name without '/'")
+        key = prefix + name
+        if isinstance(value, dict):
+            yield from _tree_leaves(value, key + "/")
+        elif isinstance(value, (np.ndarray, torch.Tensor)):
+            yield key, value
+        else:
+            raise TypeError(f"tree leaf {key!r} is a "
+                            f"{type(value).__name__}, not an array")
+
+
+def _structure(tree, prefix=""):
+    return {str(k): (_structure(v, f"{prefix}{k}/") if isinstance(v, dict)
+                     else prefix + str(k)) for k, v in tree.items()}
+
+
+def looks_like_converted(path: str) -> bool:
+    """Whether `path` is a directory `save_converted_params` wrote (its
+    index carries the format tag)."""
+    index = os.path.join(path, CONVERTED_INDEX)
+    if not os.path.isfile(index):
+        return False
+    try:
+        with open(index) as fh:
+            return json.load(fh).get("format") == CONVERTED_FORMAT
+    except (OSError, ValueError, AttributeError):
+        return False
+
+
+def save_converted_params(path: str, params: Dict) -> str:
+    """Write `params` (a nested dict of numpy arrays or CPU tensors, e.g.
+    `load_pretrained`'s float32 tree) as a converted checkpoint at `path`
+    (see the module docstring); returns its absolute path. Counterpart of
+    `lhrs_bot_tpu/core/model_io.py` `save_orbax_params`: an existing `path`
+    is replaced only if it is such a checkpoint (ValueError otherwise, so
+    a mistyped output never deletes another directory). Leaves are packed
+    in tree order into shards of at most CONVERTED_SHARD_BYTES (a larger
+    leaf gets one to itself); the files go to a sibling `.tmp` directory
+    that is renamed into place when complete."""
+    from .safetensors_io import save_file
+
+    path = os.path.abspath(path)
+    if os.path.exists(path):
+        if not (os.path.isdir(path) and looks_like_converted(path)):
+            raise ValueError(
+                f"refusing to overwrite {path!r}: it exists but is not a "
+                f"converted checkpoint (no {CONVERTED_INDEX} with format "
+                f"{CONVERTED_FORMAT!r}); remove it or pick another path")
+    leaves = list(_tree_leaves(params))
+    shards, size = [[]], 0
+    for key, leaf in leaves:
+        nbytes = leaf.nbytes if isinstance(leaf, np.ndarray) else \
+            leaf.numel() * leaf.element_size()
+        if shards[-1] and size + nbytes > CONVERTED_SHARD_BYTES:
+            shards.append([])
+            size = 0
+        shards[-1].append((key, leaf))
+        size += nbytes
+    tmp = path + ".tmp"
+    if os.path.exists(tmp):
+        shutil.rmtree(tmp)
+    os.makedirs(tmp)
+    weight_map, total = {}, 0
+    for i, shard in enumerate(shards):
+        name = f"params-{i + 1:05d}-of-{len(shards):05d}.safetensors"
+        tensors = {}
+        for key, leaf in shard:
+            t = (torch.from_numpy(np.ascontiguousarray(leaf))
+                 if isinstance(leaf, np.ndarray) else leaf.detach())
+            if t.device.type != "cpu":
+                raise ValueError(f"tree leaf {key!r} is on {t.device}: "
+                                 "the converted checkpoint is written from "
+                                 "the host tree")
+            tensors[key] = t
+            weight_map[key] = name
+            total += t.numel() * t.element_size()
+        save_file(tensors, os.path.join(tmp, name),
+                  metadata={"format": CONVERTED_FORMAT})
+    with open(os.path.join(tmp, CONVERTED_INDEX), "w") as fh:
+        json.dump({"format": CONVERTED_FORMAT, "total_bytes": total,
+                   "tree": _structure(params), "weight_map": weight_map},
+                  fh)
+    if os.path.exists(path):
+        shutil.rmtree(path)
+    os.replace(tmp, path)
+    logger.info("wrote the converted checkpoint to %s (%d shards, %d "
+                "bytes)", path, len(shards), total)
+    return path
+
+
+def load_converted_params(path: str, cfg: Optional[VLMConfig] = None
+                          ) -> Dict:
+    """The tree `save_converted_params` wrote at `path`: a nested dict of
+    numpy leaves (bfloat16 leaves as CPU tensors, numpy having no such
+    dtype), each a copy-on-write mapping of its shard, nothing read until
+    it is touched and nothing placed on a device. Counterpart of
+    `lhrs_bot_tpu/core/model_io.py` `load_orbax_params`; `cfg` is accepted
+    and unused there too (the structure and dtypes come from the
+    checkpoint). ValueError for a directory that is not one, or whose
+    index and shards disagree."""
+    from .safetensors_io import load_file
+
+    del cfg
+    path = os.path.abspath(path)
+    if not looks_like_converted(path):
+        raise ValueError(f"{path!r} is not a converted checkpoint (no "
+                         f"{CONVERTED_INDEX} with format "
+                         f"{CONVERTED_FORMAT!r})")
+    with open(os.path.join(path, CONVERTED_INDEX)) as fh:
+        index = json.load(fh)
+    weight_map = index["weight_map"]
+    tensors = {}
+    for name in sorted(set(weight_map.values())):
+        shard = load_file(os.path.join(path, name))
+        extra = set(shard) - {k for k, v in weight_map.items() if v == name}
+        if extra:
+            raise ValueError(f"{path}/{name} holds tensors the index does "
+                             f"not name: {sorted(extra)[:4]}")
+        tensors.update(shard)
+
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(v) for k, v in node.items()}
+        if node not in tensors:
+            raise ValueError(f"{path}: leaf {node!r} is missing from its "
+                             f"shard {weight_map.get(node)}")
+        t = tensors[node]
+        return t if t.dtype == torch.bfloat16 else t.numpy()
+
+    return build(index["tree"])

@@ -218,11 +218,12 @@ def test_load_tokenizer(tmp_path, caplog):
     assert isinstance(t_tok.load_tokenizer(None), t_tok.ByteTokenizer)
     with pytest.raises(FileNotFoundError):
         t_tok.load_tokenizer(str(tmp_path / "absent"), allow_fallback=False)
-    # a path that exists is a real tokenizer: refused, never a fallback
+    # a path that exists is a real tokenizer: read (a corrupt one raises),
+    # never a fallback
     (tmp_path / "tokenizer.model").write_bytes(b"\x00")
     for path in (tmp_path, tmp_path / "tokenizer.model"):
         for fallback in (True, False):
-            with pytest.raises(NotImplementedError, match="SentencePiece"):
+            with pytest.raises(ValueError, match="field number 0"):
                 t_tok.load_tokenizer(str(path), allow_fallback=fallback)
 
 
