@@ -29,10 +29,16 @@ Phases, one or more lines each:
      tower's shapes and at the edges of its 128 x 128 tile and 128-byte K
      stage (M of 40 to 16448, N 1032 and 8, K 1088 and 64, a strided A),
      one epilogue each; K1 at kv lengths one past its 64-row tiles (129)
-     and strided at a ragged 257 rows; the fused ViT block (B = 1 and 8),
-     its split form and the fused perceiver block against their plain
-     versions, and the fused
-     W8A8 tower at full depth against the bf16 tower, with a planted fault;
+     and strided at a ragged 257 rows; K1's normalize-first variant (the
+     vision blocks' softmax rounding) at ViT B64 S257 and the perceiver's
+     64x320 in each LHRS_VIT_SOFTMAX mode against its plain version, the
+     normalisation skipped (planted) past the bound, its time beside
+     plain K1's, SDPA's and the bound; the fused ViT block (B = 1 and 8;
+     B 8 in each softmax mode and as before the variant), its split form
+     and the fused perceiver block against their plain versions, and the
+     fused W8A8 tower at full depth against the bf16 tower, with a planted
+     fault, and in each softmax mode against its plain version, with the
+     bench's prefill cells in each mode;
      the paged decode pair (bf16 and int8 pools) at L32 H32 D128, pages of
      128 and 16 (int8, split across a cluster: also 48, at the plan's C and
      at 1, 2, 4, 8, bit for bit K4 at the same C on the gathered rows, a
@@ -177,7 +183,7 @@ Phases, one or more lines each:
      plain run's top-2 margin within the measured deviation, every
      position up to there within 0.15 relative L2), a planted fault (K2's
      K and V swapped) that must fail batched and scheduled, images/s of
-     each protocol over three timed runs a mode (median and range), and
+     each protocol over two timed runs a mode (median and range), and
      whether PIL and cv2 import;
   8. data and tensor parallelism (`phase_parallel`): two ranks of the port
      started as torchrun starts them (`chip_smoke.py --parallel-worker`),
@@ -195,7 +201,18 @@ Phases, one or more lines each:
      past the bound; each rank's W4A8 products at those shapes
      (`check_tp_w4a8`) bit for bit the single rank's, the row-parallel
      codes kernel A's, a CTA's sums left out of mode (a) (planted)
-     differing, and their times; (b) one stage-2 step (int8 base, LoRA
+     differing, and their times; dp = 2 serving (x tp = N / 2 with more
+     ranks; `dp_serve`): the engine's batch of 2 (a row a data group) and
+     a 6-request contiguous wave over 4 slots (2 a group) through both
+     recipes, every position's logits up to a parting within DP_REL_L2 of
+     one rank's, the ids equal or parting where one rank's top-2 margin
+     lies within the deviation, both ranks' ids equal, each group's cache
+     holding its share of the rows and slots, each rank's launches, one
+     rank's decode step batch-invariant (`batch_invariance`, which also
+     reads the tower's and the prefill's batch dependence and the noise
+     floor), and the wave's tokens gathered in reverse group order
+     (planted) caught in both recipes;
+     (b) one stage-2 step (int8 base, LoRA
      with non-zero B, the recipe's AdamW) at dp = 2 with ZeRO-sharded
      slots against dp = 1 on the same 4-row global batch (loss and
      grad_norm within DP_METRIC_REL, every trainable leaf's first moment
@@ -1825,15 +1842,16 @@ def gemm_edge_epilogue(name, m, n, gen, dev):
 BLOCK_TOL = 5e-3
 # The fused blocks (A, B and K1 composed) against their plain versions:
 # relative L2 within FUSED_REL_L2 and each element within FUSED_TOL of
-# max|plain| plus one bf16 step. Here K1 rounds the unnormalised
+# max|plain| plus one bf16 step. Plain K1 rounds the unnormalised
 # probabilities to bf16 where the plain attention rounds the normalised
 # ones, and the block's int8 activation quantization turns that 1.4e-3
 # relative L2 at the attention output into about 4.4e-3 at the block's
-# output: on an H100 at 700 W the plain attention and K1 sat equally far
-# from an attention with float32 probabilities, 4.2e-3 each at the block's
-# output, and the blocks read 4.7-6.0e-3 relative L2 and elements within
-# 7.5e-3 of max|plain| against their plain versions. The bounds sit about
-# 2x above (PERF.md has the readings).
+# output: on an H100 at 700 W blocks on plain K1 read 4.7-6.0e-3 relative
+# L2 and elements within 7.5e-3 of max|plain| against their plain
+# versions, and the bounds sit about 2x above (PERF.md has the readings).
+# The blocks now launch K1's normalize-first variant, which rounds where
+# the plain attention does (2.6-2.8e-5 relative L2 at the attention output
+# on that card), except in the exp2_post softmax mode (1.2e-3).
 FUSED_REL_L2 = 1e-2
 FUSED_TOL = 1.5e-2
 # The fused W8A8 tower against the bf16 tower at full depth (22 blocks),
@@ -2020,6 +2038,152 @@ def phase_a(dev, gen):
     return ka
 
 
+# K1's normalize-first variant (the vision blocks' rounding) against its
+# plain version at the vision shapes, in each LHRS_VIT_SOFTMAX mode ("jnn"
+# and "exp2_pre" launch it, "exp2_post" plain K1): relative L2 of the
+# float32 output. Both round the same probabilities to bf16; what is left is
+# float32 summation order and ex2.approx: 2.5e-5 to 2.8e-5 on an H100 at
+# 700 W. Two planted faults must fail: plain K1 in the variant's place
+# (the unnormalised probabilities rounded, 1.18e-3 to 1.23e-3 there) and
+# the normalisation skipped (each row scaled by its sum). "exp2_post"
+# launches plain K1, whose online softmax rounds each probability against
+# its running max where the plain version rounds against the row's: 1.18e-3
+# to 1.23e-3 there, held to the 1e-2 of K1's vision checks
+NORM_K1_REL_L2 = 2e-4
+PLAIN_K1_VISION_REL_L2 = 1e-2
+# (name, B, H, Sq, Skv) at D 64: the ViT's 257 tokens, the perceiver's first
+# group (64 queries over 64 + 256 keys), 64 images
+NORM_K1_SHAPES = (("vit", 64, 16, 257, 257),
+                  ("perceiver_g0", 64, 16, 64, 320))
+SOFTMAX_MODES = ("jnn", "exp2_pre", "exp2_post")
+
+
+def unflagged_k1(q, k, v, kv_mask, sm_scale, out_dtype=None, out=None):
+    """Plain K1 in the place of its normalize-first variant: the vision
+    blocks' attention as it was before the variant (the probabilities
+    rounded unnormalised), for timing against it and as a planted
+    fault."""
+    import torch
+
+    from lhrs_bot_tpu_torch.ops.attention import flash_attention_fwd
+
+    return flash_attention_fwd(q, k, v, kv_mask, False, sm_scale,
+                               out_dtype or torch.float32, out)
+
+
+def check_normalized_k1(dev, gen):
+    """K1's normalize-first variant at NORM_K1_SHAPES: in each softmax mode
+    `attend_token_major` (Q, K and V strided views of their projections,
+    float32 token-major out, as the blocks launch it) against its plain
+    version within NORM_K1_REL_L2, launching the variant for "jnn" and
+    "exp2_pre" only; the planted faults (plain K1 in the variant's place,
+    in those two modes; the normalisation skipped) past the bound; the
+    variant's time beside plain K1's, the plain version's, SDPA's and the
+    bound."""
+    import torch
+    import torch.nn.functional as F
+
+    import lhrs_bot_tpu_torch.ops.vit_block as vit_block_mod
+    from lhrs_bot_tpu_torch.ops.attention import (
+        _flash_fwd, flash_attention_fwd, flash_attention_fwd_normalized)
+    from lhrs_bot_tpu_torch.ops.vit_block import (_LOG2E, _heads,
+                                                  attend_token_major,
+                                                  attention_plain)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+
+    def rel(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm())
+
+    d, sm = 64, 0.125
+    out = {"max_abs_err": 0.0, "shapes": {}}
+    for name, b, h, sq, skv in NORM_K1_SHAPES:
+        w = h * d
+        if sq == skv:  # one (B, S, 3W) projection, as the ViT block's
+            q, k, v = _heads(randn(b, sq, 3 * w), 3, h)
+        else:  # the perceiver's q and K|V projections
+            (q,) = _heads(randn(b, sq, w), 1, h)
+            k, v = _heads(randn(b, skv, 2 * w), 2, h)
+        reading = {}
+        for mode in SOFTMAX_MODES:
+            scale = sm if mode == "jnn" else sm * _LOG2E
+            before = flash_attention_fwd_normalized.launches
+            got = attend_token_major(q, k, v, None, scale, torch.float32,
+                                     mode=mode)
+            launched = flash_attention_fwd_normalized.launches - before
+            ref = attend_token_major(q, k, v, None, scale, torch.float32,
+                                     plain=True, mode=mode)
+            torch.cuda.synchronize()
+            r = rel(got, ref)
+            err = float((got - ref).abs().max())
+            reading[mode] = {"rel_l2": r, "max_abs_err": err,
+                             "normalized_launches": launched}
+            if launched != (mode != "exp2_post"):
+                raise AssertionError(f"normalized K1 {name} {mode}: "
+                                     f"launched {launched} times")
+            limit = (PLAIN_K1_VISION_REL_L2 if mode == "exp2_post"
+                     else NORM_K1_REL_L2)
+            if not r <= limit:
+                raise AssertionError(f"normalized K1 {name} {mode}: rel L2 "
+                                     f"{r:.3e} > {limit}")
+            if mode != "exp2_post":
+                out["max_abs_err"] = max(out["max_abs_err"], err)
+                with patched(vit_block_mod,
+                             flash_attention_fwd_normalized=unflagged_k1):
+                    swapped = attend_token_major(q, k, v, None, scale,
+                                                 torch.float32, mode=mode)
+                r = reading[mode]["unflagged_rel_l2"] = rel(swapped, ref)
+                if r <= NORM_K1_REL_L2:
+                    raise AssertionError(f"normalized K1 {name} {mode}: "
+                                         "plain K1 in its place passes "
+                                         f"({r:.3e})")
+        o = torch.empty(b, sq, h, d, device=dev)
+        ref = attention_plain(q, k, v, None, sm, torch.float32)
+        _flash_fwd(q, k, v, None, False, sm, torch.float32, o.transpose(1, 2),
+                   normalize=True, fault=1)
+        torch.cuda.synchronize()
+        fault = rel(o.transpose(1, 2), ref)
+        if fault <= NORM_K1_REL_L2:
+            raise AssertionError(f"normalized K1 {name}: the skipped "
+                                 f"normalisation passes ({fault:.3e})")
+        ms = cuda_ms(lambda: flash_attention_fwd_normalized(
+            q, k, v, None, sm, torch.float32, o.transpose(1, 2)))
+        k1_ms = cuda_ms(lambda: flash_attention_fwd(
+            q, k, v, None, False, sm, torch.float32, o.transpose(1, 2)))
+        plain = cuda_ms(lambda: attention_plain(q, k, v, None, sm,
+                                                torch.float32), reps=5)
+        qc, kc, vc = (t.contiguous() for t in (q, k, v))
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(qc, kc, vc,
+                                                             scale=sm))
+        # q, k, v read once (bf16), the float32 output written once; QK^T
+        # and PV over every (query, key) pair
+        bms, by = bound(b * h * d * (2 * sq + 4 * skv + 4 * sq),
+                        4.0 * b * h * sq * skv * d)
+        reading.update({"fault_rel_l2": fault, "ms": ms, "k1_ms": k1_ms,
+                        "plain_ms": plain, "library_ms": lib,
+                        "bound_ms": bms, "bound_by": by})
+        out["shapes"][name] = reading
+        log(f"  K1 normalize-first {name} (B{b} H{h} {sq}x{skv} D{d}, "
+            f"strided, float32 token-major out): rel L2 vs plain "
+            + ", ".join(f"{m} {reading[m]['rel_l2']:.2e}"
+                        for m in SOFTMAX_MODES)
+            + f" (bound {NORM_K1_REL_L2}; exp2_post on plain K1, bound "
+            f"{PLAIN_K1_VISION_REL_L2}); plain K1 "
+            "in its place " + ", ".join(
+                f"{m} {reading[m]['unflagged_rel_l2']:.2e}"
+                for m in SOFTMAX_MODES[:2])
+            + f"; normalisation skipped {fault:.3f}; kernel {ms:.4f} ms, "
+            f"plain K1 {k1_ms:.4f} ms, plain {plain:.4f} ms, library (SDPA, "
+            f"bf16 out) {lib:.4f} ms, bound {bms:.4f} ms ({by})")
+        del q, k, v, qc, kc, vc, o, got, ref, swapped
+    vit = out["shapes"]["vit"]
+    out.update({k: vit[k] for k in ("ms", "plain_ms", "library_ms",
+                                    "bound_ms", "bound_by")})
+    return out
+
+
 def phase_vision_kernels(dev):
     """Kernel A (LayerNorm + row quantization) and kernel B (int8 GEMM)
     against their plain versions at the W8A8 vision tower's shapes, then
@@ -2177,6 +2341,7 @@ def phase_vision_kernels(dev):
     log(f"  K1 strided QKV views, 4 x {VIT_S} tokens, no pad, float32 "
         f"token-major out: max abs err {err:.3e}")
     del qkv, q, k, v
+    out["normalized"] = check_normalized_k1(dev, gen)
 
     # -- the fused blocks against their plain versions --------------------------
     lp = {k: v[0] for k, v in pack_vit_layers_fused(
@@ -2206,6 +2371,27 @@ def phase_vision_kernels(dev):
         log(f"  fused_vit_block B{nb} (S_pad {VIT_S_PAD}): max abs err "
             f"{err:.3e}; kernels {ms:.4f} ms, plain {plain:.4f} ms, bound "
             f"{bms:.4f} ms ({by})")
+    # row 9 in each softmax mode, and as before the normalize-first K1
+    import lhrs_bot_tpu_torch.ops.vit_block as vit_block_mod
+
+    by_mode = {}
+    for mode in SOFTMAX_MODES:
+        with environ("LHRS_VIT_SOFTMAX", mode):
+            err = check_fused(f"fused_vit_block B8 {mode}",
+                              fused_vit_block(x, lp, **kw),
+                              fused_vit_block_plain(x, lp, **kw))
+            by_mode[mode] = {"max_abs_err": err, "ms": cuda_ms(
+                lambda: fused_vit_block(x, lp, **kw), reps=5)}
+    with patched(vit_block_mod, flash_attention_fwd_normalized=unflagged_k1):
+        by_mode["before"] = {"ms": cuda_ms(
+            lambda: fused_vit_block(x, lp, **kw), reps=5)}
+    blocks["fused_vit_block_b8"]["softmax_modes"] = by_mode
+    log(f"  fused_vit_block B8 by LHRS_VIT_SOFTMAX: " + ", ".join(
+        f"{m} {v['ms']:.4f} ms" + (f" (max abs err vs plain "
+                                    f"{v['max_abs_err']:.3e})"
+                                    if "max_abs_err" in v else "")
+        for m, v in by_mode.items()) + " (before: jnn's fold with plain "
+        "K1, the probabilities rounded unnormalised)")
     xg = x.reshape(1, 8 * VIT_S_PAD, VIT_W)
     got = fused_vit_qkv(xg, lp)
     err_q = check_fused("fused_vit_qkv", got,
@@ -2248,12 +2434,16 @@ def phase_vision_kernels(dev):
         12 * VIT_W ** 2 + 8 * 9 * VIT_W + 2 * 3 * (2 * q_pad + kv_pad) * VIT_W
         * 2, 2.0 * (m_q * 10 + m_kv * 2) * VIT_W ** 2,
         4.0 * 2 * sum(n * (n + 256) for n in nq) * VIT_W)
+    with patched(vit_block_mod, flash_attention_fwd_normalized=unflagged_k1):
+        before = cuda_ms(lambda: fused_perceiver_block(q, kv, plp, **kw),
+                         reps=5)
     blocks["fused_perceiver_block"] = {"max_abs_err": err, "ms": ms,
                                        "plain_ms": plain, "bound_ms": bms,
-                                       "bound_by": by}
+                                       "bound_by": by, "before_ms": before}
     log(f"  fused_perceiver_block (2 images, 3 groups): max abs err "
-        f"{err:.3e}; kernels {ms:.4f} ms, plain {plain:.4f} ms, bound "
-        f"{bms:.4f} ms ({by})")
+        f"{err:.3e}; kernels {ms:.4f} ms (before the normalize-first K1 "
+        f"{before:.4f} ms), plain {plain:.4f} ms, bound {bms:.4f} ms "
+        f"({by})")
     out["blocks"] = blocks
     torch.cuda.empty_cache()
     return out
@@ -2264,12 +2454,23 @@ def phase_tower(dev, n_img=8):
     seeded ViT-L weights: relative L2 of the (B, 768, 1024) features, which
     must stay within TOWER_REL_L2, and of the fused tower with one block
     skipped (its O and proj weights and biases zeroed: the block adds
-    nothing to the residual stream), which must exceed it."""
+    nothing to the residual stream), which must exceed it. Then in each
+    LHRS_VIT_SOFTMAX mode the fused tower against its plain version (every
+    block through the plain kernels) and against the bf16 tower, each
+    within TOWER_REL_L2, and the bench's prefill cells (`bench_prefill`,
+    B 64) in each mode and as before the normalize-first K1."""
+    import functools
+
     import torch
 
+    import lhrs_bot_tpu_torch.models.vit as vit_mod
+    import lhrs_bot_tpu_torch.ops.vit_block as vit_block_mod
+    from lhrs_bot_tpu_torch import bench
+    from lhrs_bot_tpu_torch.models import VLMConfig
     from lhrs_bot_tpu_torch.models.vit import (ViTConfig, vit_encode,
                                                vit_encode_fused)
-    from lhrs_bot_tpu_torch.ops.vit_block import pack_vit_layers_fused
+    from lhrs_bot_tpu_torch.ops.vit_block import (pack_vit_layers_fused,
+                                                  vit_layer_fused)
 
     cfg = ViTConfig.vit_large()
     n_layers = cfg.extract_stages[-1]
@@ -2318,10 +2519,36 @@ def phase_tower(dev, n_img=8):
                              f"{TOWER_REL_L2}")
     if fault_rel <= TOWER_REL_L2:
         raise AssertionError(f"the planted fault passes: {fault_rel:.4f}")
-    del packed, faulty, bf16
+    del faulty
+    modes = {}
+    plain_layer = functools.partial(vit_layer_fused, plain=True)
+    for mode in SOFTMAX_MODES:
+        with environ("LHRS_VIT_SOFTMAX", mode):
+            got = vit_encode_fused(bf16, packed, images, cfg).float()
+            with patched(vit_mod, vit_layer_fused=plain_layer):
+                plain = vit_encode_fused(bf16, packed, images, cfg).float()
+            torch.cuda.synchronize()
+            modes[mode] = {
+                "vs_plain_rel_l2": float((got - plain).norm() / plain.norm()),
+                "vs_bf16_rel_l2": rel(got)}
+            cells = bench.bench_prefill(VLMConfig(), device=dev)
+        modes[mode].update(cells)
+        if max(modes[mode]["vs_plain_rel_l2"],
+               modes[mode]["vs_bf16_rel_l2"]) > TOWER_REL_L2:
+            raise AssertionError(f"fused tower, {mode}: {modes[mode]}")
+    with environ("LHRS_VIT_SOFTMAX", "jnn"), patched(
+            vit_block_mod, flash_attention_fwd_normalized=unflagged_k1):
+        modes["before"] = bench.bench_prefill(VLMConfig(), device=dev)
+    log("  fused W8A8 tower by LHRS_VIT_SOFTMAX (vs its plain version / vs "
+        "the bf16 tower, rel L2; bench prefill cells at B 64, images/s): "
+        + "; ".join(f"{m} " + ", ".join(
+            f"{k} {v:.4f}" if "rel" in k else f"{k} {v:.2f}"
+            for k, v in r.items()) for m, r in modes.items())
+        + f" (bound {TOWER_REL_L2}; before: plain K1 in the blocks)")
+    del packed, bf16
     torch.cuda.empty_cache()
     return {"rel_l2": dev_rel, "taps": per_tap, "fault_rel_l2": fault_rel,
-            "bound": TOWER_REL_L2}
+            "bound": TOWER_REL_L2, "softmax_modes": modes}
 
 
 # Paged decode against contiguous decode on the same cache contents: the
@@ -3360,9 +3587,9 @@ def phase_train(dev):
 
 def kernel_wrappers():
     """Each kernel's wrapper, whose `launches` counts its launches."""
-    from lhrs_bot_tpu_torch.ops.attention import (flash_attention_bwd_dkv,
-                                                  flash_attention_bwd_dq,
-                                                  flash_attention_fwd)
+    from lhrs_bot_tpu_torch.ops.attention import (
+        flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_attention_fwd,
+        flash_attention_fwd_normalized)
     from lhrs_bot_tpu_torch.benchmarks.hbm_peak_probe import hbm_read_kernel
     from lhrs_bot_tpu_torch.benchmarks.int8_probe import int8_chain_kernel
     from lhrs_bot_tpu_torch.ops.cache_update import cache_row_update_kernel
@@ -3376,6 +3603,7 @@ def kernel_wrappers():
     from lhrs_bot_tpu_torch.ops.w4_matmul import w4a8_matmul_kernel
 
     return {"flash_attention_fwd": flash_attention_fwd,
+            "flash_attention_fwd_normalized": flash_attention_fwd_normalized,
             "fused_decode_attention": fused_decode_attention_kernel,
             "fused_decode_attention_q": fused_decode_attention_q_kernel,
             "fused_decode_attention_q_int8dots":
@@ -3528,8 +3756,8 @@ def phase_slice(dev):
          (torch.int8, CONSISTENCY_REL_L2_W4A8)),
         # bits 8 on the card turns the fused W8A8 vision tower on
         ("int8", {"bits": 8, "kv_bits": 8}, [short, batch8],
-         ("flash_attention_fwd", "fused_decode_attention_q", "ln_quant",
-          "int8_gemm"), None),
+         ("flash_attention_fwd", "flash_attention_fwd_normalized",
+          "fused_decode_attention_q", "ln_quant", "int8_gemm"), None),
         ("nf4", {"bits": 4, "quant_type": "nf4", "kv_bits": 8}, [short],
          ("flash_attention_fwd", "fused_decode_attention_q"), None),
     ]
@@ -4539,7 +4767,7 @@ def phase_sessions(engine, cfg, dev, name, image, request=None):
 # both schedulers served them once.
 FRONTEND_NEW = 16
 FRONTEND_LONG = 1024
-FRONTEND_REPS = 3
+FRONTEND_REPS = 2
 
 
 def png_bytes(arr, filters=(0, 1, 2, 3, 4)):
@@ -6290,7 +6518,7 @@ EVAL_ENTRIES = ("cls", "vqa", "vg", "bench_gen", "caption")
 EVAL_REL_L2 = CONSISTENCY_REL_L2
 # timed runs of each entry in each mode (batched, scheduled), after its
 # held runs have warmed its shapes in both
-EVAL_REPEATS = 3
+EVAL_REPEATS = 2
 
 
 def write_eval_corpora(root, rng):
@@ -6456,7 +6684,8 @@ def scheduler_logit_spy(rows):
     the block runs, the logits (V,) of each of its live positions in
     `rows[uid]`: its slot prefill's, then those of each decode step of a
     tick that emitted for it (the tick's live flags; a slot's steps after
-    its end are not kept)."""
+    its end are not kept). Under a data axis a rank keeps the requests of
+    its own group's slots."""
     import lhrs_bot_tpu_torch.serve.scheduler as sched_mod
 
     cls = sched_mod.ContinuousBatchingScheduler
@@ -6469,10 +6698,14 @@ def scheduler_logit_spy(rows):
         seen["prefill"] = logits
         return logits, cache
 
+    def own(self, slot):
+        return 0 <= slot - self.slot0 < self.n_local
+
     def spy_admit(self, batch, slots):
         admit(self, batch, slots)
-        for row, req in enumerate(batch):
-            rows[req.uid] = [seen["prefill"][row]]
+        mine = [req for req, slot in zip(batch, slots) if own(self, slot)]
+        for i, req in enumerate(mine):  # the prefill ran over these rows
+            rows[req.uid] = [seen["prefill"][i]]
 
     def spy_decode(self, cache, embeds):
         logits, cache = decode(self, cache, embeds)
@@ -6484,7 +6717,9 @@ def scheduler_logit_spy(rows):
         toks, live = tick(self, k, sample)
         for i, logits in enumerate(seen["steps"]):
             for slot in np.flatnonzero(live[i]):
-                rows[self.slot_req[slot].uid].append(logits[slot])
+                if own(self, slot):
+                    rows[self.slot_req[slot].uid].append(
+                        logits[slot - self.slot0])
         return toks, live
 
     with patched(sched_mod, llama_prefill=spy_prefill), \
@@ -6533,6 +6768,8 @@ def hold_eval_ids(name, ids, ref_ids, ref_rows, rows, bound):
         worst = float(rel.max())
         out["max_rel_l2"] = max(out["max_rel_l2"], worst)
         out["max_abs_dev"] = max(out["max_abs_dev"], float(dev.max()))
+        out["max_first_rel_l2"] = max(out.get("max_first_rel_l2", 0.0),
+                                      float(rel[0]))
         if not worst <= bound:
             bad.append(f"row {r}: rel L2 {worst:.3e} up to {upto - 1}")
         if p is None:
@@ -7030,6 +7267,335 @@ def tp_serve(dev, config, mesh, wrappers, tiny=False):
         del engine
         if dev.type == "cuda":
             torch.cuda.empty_cache()
+    return out
+
+
+# dp = 2 serving (phase 8 (d)): the engine's batch of 2 split over the data
+# groups, and a contiguous wave of DP_WAVE requests (prompt tokens, image or
+# not) over DP_SLOTS slots, max_batch / dp a group, DP_NEW tokens each
+DP_SLOTS = 4
+DP_NEW = 8
+# dp 2 against one rank, every position up to a row's first parting. A
+# data group computes B / dp rows where one rank computes B, and on one
+# rank (`batch_invariance`) a row decoded alone or beside another on the
+# same cache reads about 1e-7 (held to DP_INVARIANT_REL), as does the bf16
+# decoder's prefill on the same spliced embeddings; the row counts move
+# the vision tower's bf16 products and the W4A8 recipe's float32 prefill
+# products (cuBLAS, whose summation order follows the row count), whose
+# roundings part by about 1e-2 (tower) and 7e-3 (W4A8 prefill). On random
+# weights any such nudge reads at the recipe's noise floor: a 1e-3 nudge
+# of the spliced embeddings on one rank moved the next step's logits by
+# 0.9% (bf16) and 4.3-5.4% (W4A8 + int8 KV) on an H100 at 700 W, where dp
+# 2 read 1.1% and 5.2%. The bound sits 3x above the W4A8 floor, and the
+# slots gathered out of order (relative L2 about 1.2) fail it
+DP_REL_L2 = {"bf16": 0.05, "w4a8": 0.15}
+DP_INVARIANT_REL = 1e-4
+DP_NUDGE = 1e-3
+DP_WAVE = ((40, True), (300, False), (120, True), (64, False), (200, True),
+           (90, False))
+
+
+def dp_wave(cfg, tiny=False):
+    """The wave's seeded requests (the tiny sizes: a tenth of the
+    tokens, at least 6)."""
+    from lhrs_bot_tpu_torch.serve.scheduler import Request
+
+    rng = np.random.default_rng(20)
+    size = cfg.vit.image_size
+    out = []
+    for uid, (n, image) in enumerate(DP_WAVE):
+        n = max(6, n // 10) if tiny else n
+        ids = rng.integers(3, cfg.llama.vocab_size, n).astype(np.int32)
+        ids[0] = cfg.llama.bos_token_id
+        img = None
+        if image:
+            ids[1] = -200
+            img = rng.integers(0, 256, (size, size, 3)).astype(np.uint8)
+        out.append(Request(uid=uid, input_ids=ids, image=img,
+                           max_new_tokens=DP_NEW))
+    return out
+
+
+def swapped_slot_gather(sched):
+    """The planted fault of the dp wave: the tokens a tick gathers over
+    the data axis come back in reverse group order (the live flags in
+    order, so the host's bookkeeping holds and only the ids go wrong)."""
+    import torch
+
+    gather = sched._gather_slots
+
+    def swapped(t, dim):
+        t = gather(t, dim)  # (tokens, live flags) stacked on dim 0
+        parts = t[0].chunk(sched.dp.size, dim=dim - 1)
+        return torch.stack([torch.cat(parts[::-1], dim=dim - 1), t[1]])
+
+    sched._gather_slots = swapped
+
+
+def dp_serve(dev, config, mesh, wrappers, tiny=False):
+    """The serving recipes over `mesh` (None: one rank) from the seeded
+    weights, with the slots and rows split over its data axis: the
+    engine's `generate` of the batch of 2 (ids, the logits of every
+    position gathered over the data axis, the rows this group's prefill
+    computed, a timed run) and a contiguous scheduler wave (ids, the logits of
+    every live position of this group's requests by `scheduler_logit_spy`,
+    the slots this group's cache held, a timed run), each with every
+    kernel's launches; over a data axis also the wave with the planted
+    fault (`swapped_slot_gather`) in the bf16 recipe. Returns host
+    numbers."""
+    import torch
+
+    from lhrs_bot_tpu_torch.core import build_engine
+    from lhrs_bot_tpu_torch.models import VLMConfig, init_vlm_params
+    from lhrs_bot_tpu_torch.serve.engine import GenerationConfig
+    from lhrs_bot_tpu_torch.serve.scheduler import \
+        ContinuousBatchingScheduler
+
+    cfg = VLMConfig.from_config_dict(config)
+    params = init_vlm_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    ids, lens, imgs = parallel_requests(cfg, tiny)[1][1]
+    gcfg = GenerationConfig(max_new_tokens=PARALLEL_NEW)
+    out = {}
+
+    def host_rows(rows):
+        return {u: [t.float().cpu().numpy() for t in r]
+                for u, r in rows.items()}
+
+    for name, knobs, _ in PARALLEL_RECIPES:
+        engine = build_engine(cfg, params, {**config, **knobs}, dev,
+                              mesh=mesh)
+        calls = []
+        logit_spy(engine, calls)
+        set_launches(wrappers)
+        got = engine.generate(ids, lens, images=imgs, gen_cfg=gcfg)
+        _sync(dev)
+        launches = read_launches(wrappers)
+        del engine._prefill, engine._decode_step
+        # (B, T, V): every position's logits, the groups' rows gathered
+        steps = engine._gather_rows(torch.stack(calls[0], dim=1),
+                                    ids.shape[0])
+        t0 = time.perf_counter()
+        engine.generate(ids, lens, images=imgs, gen_cfg=gcfg)
+        _sync(dev)
+        entry = {"engine": {
+            "ids": got, "logits": steps.float().cpu().numpy(),
+            "rows": calls[0][0].shape[0],  # the group's prefill rows
+            "launches": launches,
+            "ms": (time.perf_counter() - t0) * 1e3}}
+
+        def wave(fault=False):
+            sched = ContinuousBatchingScheduler(
+                cfg, engine.params, engine.llama_params,
+                max_batch=DP_SLOTS, max_seq_len=1024,
+                compute_dtype=engine.compute_dtype,
+                cache_dtype=engine.cache_dtype, tokens_per_tick=4,
+                device=dev, mesh=mesh)
+            if fault:
+                swapped_slot_gather(sched)
+            reqs, rows = dp_wave(cfg, tiny), {}
+            set_launches(wrappers)
+            _sync(dev)
+            t0 = time.perf_counter()
+            with scheduler_logit_spy(rows):
+                sched.run(reqs)
+            _sync(dev)
+            ms = (time.perf_counter() - t0) * 1e3
+            tokens = sum(len(r.output_ids) for r in reqs)
+            return {"ids": [r.output_ids for r in reqs],
+                    "rows": host_rows(rows), "slots": sched.cache.k.shape[1],
+                    "launches": read_launches(wrappers), "ms": ms,
+                    "tokens": tokens, "tokens_s": tokens / ms * 1e3}
+
+        entry["wave"] = wave()
+        if mesh is not None and mesh.dp > 1:
+            entry["wave_fault"] = wave(fault=True)
+        if mesh is None:
+            entry["invariance"] = batch_invariance(engine, ids, lens, imgs,
+                                                   gcfg)
+        out[name] = entry
+        del engine
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def batch_invariance(engine, ids, lens, imgs, gcfg):
+    """Which of a row's numbers depend on the rows beside it, on one rank
+    (`engine` without a mesh), for the batch of 2: each row through the
+    vision tower alone and in the batch (relative L2 of its spliced
+    embeddings), through the decoder's prefill alone and in the batch on
+    the batch's spliced embeddings (first-token logits), and through one
+    decode step alone and in the batch on the batch's cache (logits); and
+    the recipe's noise floor, the batch's first-token and next-step
+    logits with its spliced embeddings nudged by DP_NUDGE relative
+    (seeded). Returns the largest reading of each over the rows."""
+    import dataclasses
+
+    import torch
+
+    from lhrs_bot_tpu_torch.models.llama import llama_prefill
+
+    seen = {}
+    prefill = engine._prefill
+
+    def spy(input_ids, images, seq_lens, *, batch, cache_len):
+        seen.update(ids=input_ids, images=images, lens=seq_lens,
+                    cache_len=cache_len)
+        return prefill(input_ids, images, seq_lens, batch=batch,
+                       cache_len=cache_len)
+
+    engine._prefill = spy
+    try:
+        engine._start(ids, lens, imgs, gcfg)
+    finally:
+        del engine._prefill
+    it, im, sl = seen["ids"], seen["images"], seen["lens"]
+
+    def run_prefill(emb, spliced_len):
+        return llama_prefill(
+            engine.llama_params, engine.cfg.llama,
+            engine._new_cache(emb.shape[0], seen["cache_len"]),
+            inputs_embeds=emb, prompt_len=spliced_len,
+            compute_dtype=engine.compute_dtype)
+
+    def row_cache(cache, r):  # a copy of row r's cache
+        def cut(t):
+            return None if t is None else t[:, r:r + 1].contiguous()
+        return dataclasses.replace(
+            cache, k=cut(cache.k), v=cut(cache.v),
+            length=cache.length[r:r + 1].clone(),
+            k_scale=cut(cache.k_scale), v_scale=cut(cache.v_scale))
+
+    def rel(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm())
+
+    with torch.no_grad():
+        emb, spl = engine._splice(it, im, sl)
+        first, cache = run_prefill(emb, spl)
+        tok = first.argmax(dim=-1).to(torch.int32)
+        alone = [row_cache(cache, r) for r in range(emb.shape[0])]
+        step, _ = engine._decode_step(cache, tok)
+        out = {"tower": 0.0, "prefill": 0.0, "decode": 0.0}
+        for r in range(emb.shape[0]):
+            rows = slice(r, r + 1)
+            out["tower"] = max(out["tower"], rel(
+                engine._splice(it[rows], im[rows], sl[rows])[0][0], emb[r]))
+            out["prefill"] = max(out["prefill"], rel(
+                run_prefill(emb[rows], spl[rows])[0][0], first[r]))
+            out["decode"] = max(out["decode"], rel(
+                engine._decode_step(alone[r], tok[rows])[0][0], step[r]))
+        gen = torch.Generator(emb.device).manual_seed(5)
+        noise = torch.randn(emb.shape, generator=gen, device=emb.device)
+        noise *= emb.float().norm(dim=-1, keepdim=True) / noise.norm(
+            dim=-1, keepdim=True)
+        nudged_first, nudged = run_prefill(
+            (emb.float() + DP_NUDGE * noise).to(emb.dtype), spl)
+        nudged_step, _ = engine._decode_step(nudged, tok)
+        out["floor_first"] = max(rel(nudged_first[r], first[r])
+                                 for r in range(emb.shape[0]))
+        out["floor_step"] = max(rel(nudged_step[r], step[r])
+                                for r in range(emb.shape[0]))
+    return out
+
+
+def hold_dp(ranks, ref, dp):
+    """Phase 8 (d): each recipe's dp-split engine and wave against one
+    rank's: the ranks' ids equal; the engine's rows and the wave's slots a
+    group's share; ids and logits by `hold_eval_ids` at DP_REL_L2 (every
+    position up to a row's first parting within the bound, ids equal or
+    parting only where one rank's top-2 margin lies within the
+    deviation), the first token's logits within TP_REL_L2 as tp 2's; the
+    one rank's decode step batch-invariant within
+    DP_INVARIANT_REL (`batch_invariance`); the planted fault must fail.
+    Returns the readings."""
+    import torch
+
+    def tensors(rows):  # a request's (T, V) logits
+        return torch.as_tensor(np.stack(rows))
+
+    def merged(key, name):
+        """The wave's logits a request, from the rank whose group held
+        its slot."""
+        rows = {}
+        for rank in ranks:
+            rows.update(rank["dp_serve"][name][key]["rows"])
+        return [tensors(rows[u]) for u in sorted(rows)]
+
+    out = {}
+    for name, _, needed in PARALLEL_RECIPES:
+        bound = DP_REL_L2[name]
+        got = [r["dp_serve"][name] for r in ranks]
+        want = ref[name]
+        inv = want["invariance"]
+        if not inv["decode"] <= DP_INVARIANT_REL:
+            raise AssertionError(f"dp {name}: a row decoded alone reads "
+                                 f"{inv['decode']:.3e} from the same row "
+                                 f"in the batch (bound {DP_INVARIANT_REL})")
+        for key in ("engine", "wave"):
+            if any(g[key]["ids"] != got[0][key]["ids"] for g in got):
+                raise AssertionError(f"dp {name} {key}: the ranks' ids "
+                                     "differ")
+        b = len(want["engine"]["ids"])
+        if any(g["engine"]["rows"] != b // dp for g in got):
+            raise AssertionError(f"dp {name} engine: a group's prefill ran "
+                                 f"{[g['engine']['rows'] for g in got]} "
+                                 f"rows of {b}")
+        if any(g["wave"]["slots"] != DP_SLOTS // dp for g in got):
+            raise AssertionError(f"dp {name} wave: a group's cache held "
+                                 f"{[g['wave']['slots'] for g in got]} "
+                                 f"slots of {DP_SLOTS}")
+        reading = {
+            "bound": bound,
+            "engine": hold_eval_ids(
+                f"dp {name} engine", got[0]["engine"]["ids"],
+                want["engine"]["ids"],
+                list(torch.as_tensor(want["engine"]["logits"])),
+                list(torch.as_tensor(got[0]["engine"]["logits"])), bound),
+            "wave": hold_eval_ids(
+                f"dp {name} wave", got[0]["wave"]["ids"],
+                want["wave"]["ids"],
+                [tensors(want["wave"]["rows"][u])
+                 for u in sorted(want["wave"]["rows"])],
+                merged("wave", name), bound),
+            "invariance": inv,
+            "engine_ms": [g["engine"]["ms"] for g in got],
+            "ref_engine_ms": want["engine"]["ms"],
+            "wave_ms": [g["wave"]["ms"] for g in got],
+            "wave_tokens_s": [g["wave"]["tokens_s"] for g in got],
+            "ref_wave_ms": want["wave"]["ms"],
+            "ref_wave_tokens_s": want["wave"]["tokens_s"],
+            "engine_launches": [g["engine"]["launches"] for g in got],
+            "ref_engine_launches": want["engine"]["launches"],
+            "wave_launches": [g["wave"]["launches"] for g in got],
+            "ref_wave_launches": want["wave"]["launches"]}
+        for key in ("engine", "wave"):  # the first token as tp 2's
+            first = reading[key]["max_first_rel_l2"]
+            if not first <= TP_REL_L2[name]:
+                raise AssertionError(f"dp {name} {key}: first-token logits "
+                                     f"rel L2 {first:.3e} > "
+                                     f"{TP_REL_L2[name]}")
+        for r, g in enumerate(got):
+            for key in ("engine", "wave"):
+                missing = [k for k in needed
+                           if not g[key]["launches"].get(k)]
+                if ranks[r]["device"].startswith("cuda") and missing:
+                    raise AssertionError(f"dp {name} {key}: rank {r} "
+                                         f"launched no {missing}")
+        if "wave_fault" in got[0]:
+            try:
+                hold_eval_ids(f"dp {name} wave, planted fault",
+                              got[0]["wave_fault"]["ids"],
+                              want["wave"]["ids"],
+                              [tensors(want["wave"]["rows"][u])
+                               for u in sorted(want["wave"]["rows"])],
+                              merged("wave_fault", name), bound)
+            except AssertionError as exc:
+                reading["fault"] = str(exc)[:300]
+            else:
+                raise AssertionError(f"dp {name}: the slots gathered out "
+                                     "of order pass")
+        out[name] = reading
     return out
 
 
@@ -7640,10 +8206,12 @@ def vit_base_checks(dev, tiny=False, n_img=8):
             raise AssertionError(f"vit_base {fault} passes: {out[fault]}")
     if dev.type == "cuda":
         for key, need in (("tower_launches", ("flash_attention_fwd",)),
-                          ("fused_launches", ("ln_quant", "int8_gemm",
-                                              "flash_attention_fwd")),
-                          ("perceiver_launches", ("ln_quant", "int8_gemm",
-                                                  "flash_attention_fwd")),
+                          ("fused_launches",
+                           ("ln_quant", "int8_gemm",
+                            "flash_attention_fwd_normalized")),
+                          ("perceiver_launches",
+                           ("ln_quant", "int8_gemm",
+                            "flash_attention_fwd_normalized")),
                           ("d48_launches", ("flash_attention_fwd",))):
             if any(not out[key].get(k) for k in need):
                 raise AssertionError(f"vit_base {key}: {out[key]}")
@@ -7840,6 +8408,11 @@ def parallel_worker(workdir):
                            **check_collectives(dp_mesh, dev)}}
     out["serve"] = tp_serve(dev, serving, tp_mesh, wrappers, spec["tiny"])
     out["serve_s"] = time.perf_counter() - t0
+    # serving over a data axis: dp 2 (x tp n / 2 on more ranks)
+    t0 = time.perf_counter()
+    out["dp_serve"] = dp_serve(dev, serving, make_mesh(dp=2, tp=n // 2),
+                               wrappers, spec["tiny"])
+    out["dp_serve_s"] = time.perf_counter() - t0
     out["w4a8_shapes"] = check_tp_w4a8(dev, tp_mesh, serving)
     t0 = time.perf_counter()
     out["train"] = dp_train(dev, train, dp_mesh)
@@ -8026,6 +8599,7 @@ def phase_parallel(dev, tiny=False, backend="gloo", n=2):
     wrappers = kernel_wrappers()
     t0 = time.time()
     ref_serve = tp_serve(dev, serving, None, wrappers, tiny)
+    ref_dp = dp_serve(dev, serving, None, wrappers, tiny)
     ref_train = dp_train(dev, train, None)
     ref_s = time.time() - t0
     gc.collect()
@@ -8124,6 +8698,37 @@ def phase_parallel(dev, tiny=False, backend="gloo", n=2):
                     f"{r.get('tp1_ms')}, bound {r.get('bound_ms')})"
                     for r in ranks[0]["w4a8_shapes"])
         + f"; mode (a) fault rel L2 {out['tp_w4a8_faults']}")
+    # (d) serving over a data axis: dp 2 (x tp n / 2)
+    dps = out["dp_serve"] = hold_dp(ranks, ref_dp, 2)
+    out["dp_serve_s"] = [r["dp_serve_s"] for r in ranks]
+    for name, rd in dps.items():
+        log(f"  dp 2 x tp {n // 2} {name}: engine (batch of 2, a row a "
+            f"group) and a {len(DP_WAVE)}-request wave over {DP_SLOTS} "
+            f"slots ({DP_SLOTS // 2} a group) vs one rank: first-token "
+            f"logits rel L2 {rd['engine']['max_first_rel_l2']:.4f} / "
+            f"{rd['wave']['max_first_rel_l2']:.4f} (bound {rd['bound']}; "
+            f"every position up to a parting "
+            f"{rd['engine']['max_rel_l2']:.4f} / "
+            f"{rd['wave']['max_rel_l2']:.4f}), ids "
+            f"parted {rd['engine']['partings']} / {rd['wave']['partings']}"
+            f"; one rank, a row alone vs in the batch of 2: tower "
+            f"{rd['invariance']['tower']:.2e}, prefill on the same "
+            f"embeddings {rd['invariance']['prefill']:.2e}, decode step on "
+            f"the same cache {rd['invariance']['decode']:.2e} (bound "
+            f"{DP_INVARIANT_REL}); noise floor (embeddings nudged "
+            f"{DP_NUDGE}): first token "
+            f"{rd['invariance']['floor_first']:.4f}, next step "
+            f"{rd['invariance']['floor_step']:.4f}"
+            f"; generate ms a rank {[round(v, 1) for v in rd['engine_ms']]}"
+            f" vs one rank {rd['ref_engine_ms']:.1f}; wave ms a rank "
+            f"{[round(v, 1) for v in rd['wave_ms']]} vs "
+            f"{rd['ref_wave_ms']:.1f}, tokens/s "
+            f"{[round(v, 1) for v in rd['wave_tokens_s']]} vs "
+            f"{rd['ref_wave_tokens_s']:.1f}; launches a rank, engine "
+            f"{rd['engine_launches']} vs one rank "
+            f"{rd['ref_engine_launches']}, wave {rd['wave_launches']} vs "
+            f"{rd['ref_wave_launches']}; planted fault (tokens gathered in "
+            f"reverse group order): {rd.get('fault', 'not run')}")
     # (b) dp = 2 stage-2 step
     tr = [r["train"] for r in ranks]
     if any(t["digest"] != tr[0]["digest"] for t in tr):
@@ -8795,6 +9400,17 @@ def main():
                        "LSE, a rank's launches a causal ring call "
                        f"{[c['flash_attention_fwd'] for c in cp_launches]} "
                        "(rank r: r + 1)")
+    norm_row = row("flash_attention_fwd_normalized", "flash_fwd.cu",
+                   "vit_block.py:111, vit_block.py:132, "
+                   "perceiver_block.py:53", int8, vision["normalized"])
+    norm_row["note"] = (
+        "K1's normalize-first template flag (kNorm): a first pass over the "
+        "key tiles for each row's max and sum, then P = exp(s - m) / l "
+        "rounded to bf16 before P V, the TPU vision kernels' rounding "
+        "(LHRS_VIT_SOFTMAX jnn and exp2_pre); times at ViT B64 H16 S257 "
+        "D64; plain K1 there " + ", ".join(
+            f"{n} {v['k1_ms']:.4f} ms (this {v['ms']:.4f})"
+            for n, v in vision["normalized"]["shapes"].items()))
     kernels = [
         fwd_row,
         row("fused_decode_attention", "fused_decode.cu",
@@ -8883,6 +9499,7 @@ def main():
                 "parallelism (phase 8, cp = 2): one launch a ring block in "
                 "the backward, a rank's launches a causal ring call "
                 f"{[c[k['name']] for c in cp_launches]} (rank r: r + 1)")
+    kernels.insert(1, norm_row)  # after the notes set by position
     log(json.dumps({"w4a8_shapes": k3["shapes"],
                     "ln_quant_shapes": vision["A"]["shapes"]}))
     log(json.dumps({"int8_gemm_shapes": vision["B"]["shapes"],

@@ -200,7 +200,8 @@ def build_engine(cfg, params, config, device, *,
     `prefill_chunk` (0 or missing: off) sets the engine's chunked prefill.
     Other `bits`/`kv_bits` values raise ValueError. The engine computes in
     `compute_dtype` (bf16, as JAX's; float32 for a comparison with JAX).
-    `mesh` (dp 1) serves the decoder tensor parallel."""
+    `mesh` serves over a ("data", "model") mesh: the decoder tensor
+    parallel, a batch's rows split over the data axis."""
     bits = int(config.get("bits", 16) or 16)
     kv_bits = int(config.get("kv_bits", 16) or 16)
     if bits not in (4, 8, 16) or kv_bits not in (8, 16):

@@ -17,6 +17,18 @@
 // head, row) element strides, so the vision blocks read Q, K and V in place
 // from their (tokens, 3 * width) projection and write the output
 // token-major, (B, S, H, D), as the next projection reads it.
+// The TPU vision kernels round the NORMALISED probabilities to bf16 before
+// P V (their `jnn` and `exp2_pre` softmax modes, vit_block.py:75-86; the
+// perceiver block and the split form's XLA attention always), where the
+// online softmax below rounds the unnormalised ones and divides at the end
+// (their `exp2_post` mode). A second template flag, kNorm, serves them: a
+// first pass over the K tiles takes each row's max m and sum l, then the
+// main loop computes P = exp2(s - m) / l, rounds it to bf16 and accumulates
+// P V with no rescaling and no division at the end. The first pass repeats
+// the Q K^T products (half the flops) but reads no V, and the vision key
+// rows are at most 320 long (5 tiles); PERF.md has its time beside plain
+// K1's. Only the vision blocks launch it; the decoder's and training's
+// instantiations are unchanged.
 //
 // What bounds it on the H100: at the decoder-prefill shape (H32, D128, S up
 // to 2191, causal) the two matrix products are compute-bound (about 4*S*S*D
@@ -90,6 +102,7 @@ struct Params {
   void* o;
   float* lse;              // (B, H, Sq) or null
   int H, Sq, Skv, causal;
+  int fault;               // kNorm: 1 skips the normalisation (checks only)
   float scale_log2;        // sm_scale * log2(e)
   Strides os;
 };
@@ -226,6 +239,33 @@ __device__ __forceinline__ void online_softmax(
   }
 }
 
+// kNorm: the normalised probabilities of one tile, in place, from each
+// row's final max (`base`, in units of log2; 0 for a row with no valid key)
+// and the reciprocal of its sum (`inv`, 0 for such a row): masked scores
+// give 0.
+template <int N, bool kSeg>
+__device__ __forceinline__ void normalized_probs(
+    float (&sc)[N], const int* key, int kv0, bool need_mask, int causal,
+    const int (&qrow)[2], const int (&segq)[2], float scale_log2, int t,
+    const float (&base)[2], const float (&inv)[2]) {
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1;
+      float x = sc[4 * j + e] * scale_log2;
+      if (need_mask) {  // as online_softmax masks
+        const int col = 8 * j + 2 * t + (e & 1);
+        const int kc = key[col];
+        const bool ok = (kSeg ? segq[r] > 0 && kc == segq[r] : kc >= 0) &&
+                        (!causal || kv0 + col <= qrow[r]);
+        x = ok ? x : kNegInf;
+      }
+      sc[4 * j + e] = ex2(x - base[r]) * inv[r];
+    }
+  }
+}
+
 // The probabilities as bf16 A fragments: k step j2 covers kv columns
 // [16 j2, 16 j2 + 16), fragment q of it the elements 8 j2 + 2q, + 1.
 template <int N>
@@ -246,7 +286,9 @@ __device__ __forceinline__ void warp_arrive(uint64_t* bar, int lane) {
 // The consumer warpgroup: q rows [q0, q0 + 64). The loop keeps the tensor
 // cores busy across the softmax: tile i's S = Q K^T and tile i-1's O += P V
 // are issued together, and the softmax of tile i runs while P V retires.
-template <int D, bool kF32Out, bool kSeg, bool kLse>
+// With kNorm a first pass over the K ring (the producer loads every K tile
+// twice) fixes each row's max and sum before that loop.
+template <int D, bool kF32Out, bool kSeg, bool kLse, bool kNorm>
 __device__ __forceinline__ void consume(const Params& p, const Smem<D>& sm,
                                         int b, int hd, int bh, int q0,
                                         int n_tiles, int warp, int lane) {
@@ -275,35 +317,75 @@ __device__ __forceinline__ void consume(const Params& p, const Smem<D>& sm,
   };
   sm90::mbar_wait(sm.q_full, 0);
 
-  sm90::mbar_wait(&sm.full_k[0], 0);
-  issue_qk<D>(sc, sm.q, sm.k(0));
+  // kNorm: the row's final max (base) and the reciprocal of its sum (inv);
+  // it0 K tiles pass through the ring before the main loop
+  float base[2], inv[2];
+  const int it0 = kNorm ? n_tiles : 0;
+  if constexpr (kNorm) {
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = i % kStages, kv0 = i * kBN;
+      sm90::mbar_wait(&sm.full_k[s], (i / kStages) & 1);
+      issue_qk<D>(sc, sm.q, sm.k(s));
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(sc);
+      online_softmax<kBN / 2, kSeg>(sc, sm.keys + s * kBN, kv0,
+                                    need_mask(kv0), p.causal, qrow, segq,
+                                    p.scale_log2, t, m, l, alpha);
+      warp_arrive(&sm.empty_k[s], lane);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      inv[r] = p.fault ? 1.f : l[r] > 0.f ? 1.f / l[r] : 0.f;
+      base[r] = m[r] == kNegInf ? 0.f : m[r];
+    }
+  }
+
+  const int s0 = it0 % kStages;
+  sm90::mbar_wait(&sm.full_k[s0], (it0 / kStages) & 1);
+  issue_qk<D>(sc, sm.q, sm.k(s0));
   sm90::wgmma_wait<0>();
   sm90::fence_regs(sc);
-  online_softmax<kBN / 2, kSeg>(sc, sm.keys, 0, need_mask(0), p.causal, qrow,
-                                segq, p.scale_log2, t, m, l, alpha);
-  warp_arrive(&sm.empty_k[0], lane);
+  if constexpr (kNorm)
+    normalized_probs<kBN / 2, kSeg>(sc, sm.keys + s0 * kBN, 0, need_mask(0),
+                                    p.causal, qrow, segq, p.scale_log2, t,
+                                    base, inv);
+  else
+    online_softmax<kBN / 2, kSeg>(sc, sm.keys + s0 * kBN, 0, need_mask(0),
+                                  p.causal, qrow, segq, p.scale_log2, t, m, l,
+                                  alpha);
+  warp_arrive(&sm.empty_k[s0], lane);
   pack_p(pf, sc);
   for (int i = 1; i < n_tiles; ++i) {
-    const int s = i % kStages, sp = (i - 1) % kStages, kv0 = i * kBN;
-    sm90::mbar_wait(&sm.full_k[s], (i / kStages) & 1);
+    const int it = it0 + i, s = it % kStages, sp = (i - 1) % kStages,
+              kv0 = i * kBN;
+    sm90::mbar_wait(&sm.full_k[s], (it / kStages) & 1);
     issue_qk<D>(sc, sm.q, sm.k(s));
     sm90::mbar_wait(&sm.full_v[sp], ((i - 1) / kStages) & 1);
     issue_pv<D>(acc, pf, sm.v(sp));
     sm90::wgmma_wait<1>();  // S of tile i is done; P V of tile i-1 runs on
     sm90::fence_regs(sc);
-    online_softmax<kBN / 2, kSeg>(sc, sm.keys + s * kBN, kv0, need_mask(kv0),
-                                  p.causal, qrow, segq, p.scale_log2, t, m, l,
-                                  alpha);
+    if constexpr (kNorm)
+      normalized_probs<kBN / 2, kSeg>(sc, sm.keys + s * kBN, kv0,
+                                      need_mask(kv0), p.causal, qrow, segq,
+                                      p.scale_log2, t, base, inv);
+    else
+      online_softmax<kBN / 2, kSeg>(sc, sm.keys + s * kBN, kv0,
+                                    need_mask(kv0), p.causal, qrow, segq,
+                                    p.scale_log2, t, m, l, alpha);
     warp_arrive(&sm.empty_k[s], lane);
     sm90::wgmma_wait<0>();
     sm90::fence_regs(acc);
     warp_arrive(&sm.empty_v[sp], lane);
+    if constexpr (!kNorm) {
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      acc[4 * j + 0] *= alpha[0];
-      acc[4 * j + 1] *= alpha[0];
-      acc[4 * j + 2] *= alpha[1];
-      acc[4 * j + 3] *= alpha[1];
+      for (int j = 0; j < D / 8; ++j) {
+        acc[4 * j + 0] *= alpha[0];
+        acc[4 * j + 1] *= alpha[0];
+        acc[4 * j + 2] *= alpha[1];
+        acc[4 * j + 3] *= alpha[1];
+      }
     }
     pack_p(pf, sc);
   }
@@ -313,15 +395,19 @@ __device__ __forceinline__ void consume(const Params& p, const Smem<D>& sm,
   sm90::wgmma_wait<0>();
   sm90::fence_regs(acc);
 
-  float inv[2];
+  // kNorm: P was normalised already, the output takes no 1 / l
+  if constexpr (kNorm) {
+    inv[0] = inv[1] = 1.f;
+  } else {
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    inv[r] = l[r] > 0.f ? 1.f / l[r] : 0.f;
-    if (kLse && t == 0 && qrow[r] < p.Sq)
-      p.lse[(size_t)bh * p.Sq + qrow[r]] =
-          l[r] > 0.f ? (m[r] + log2f(l[r])) * kLn2 : 1e30f;
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      inv[r] = l[r] > 0.f ? 1.f / l[r] : 0.f;
+      if (kLse && t == 0 && qrow[r] < p.Sq)
+        p.lse[(size_t)bh * p.Sq + qrow[r]] =
+            l[r] > 0.f ? (m[r] + log2f(l[r])) * kLn2 : 1e30f;
+    }
   }
   const size_t ob = b * p.os.b + hd * p.os.h;
 #pragma unroll
@@ -345,8 +431,9 @@ __device__ __forceinline__ void consume(const Params& p, const Smem<D>& sm,
 
 // The producer warp: Q once, then each kv tile's keys and K into a K stage
 // and its V into a V stage, each stage as soon as the consumers have
-// released it.
-template <int D, bool kSeg>
+// released it. With kNorm every K tile (and its keys) goes through the K
+// ring twice, V only in the second pass.
+template <int D, bool kSeg, bool kNorm>
 __device__ __forceinline__ void produce(const Params& p, const Smem<D>& sm,
                                         const CUtensorMap* tm_q,
                                         const CUtensorMap* tm_k,
@@ -359,9 +446,11 @@ __device__ __forceinline__ void produce(const Params& p, const Smem<D>& sm,
       sm90::tma_load_4d(sm.q + cb * C::kBQ * 128, tm_q, sm.q_full, cb * 64,
                         q0, hd, b);
   }
-  for (int i = 0; i < n_tiles; ++i) {
-    const int s = i % kStages, kv0 = i * C::kBN;
-    const uint32_t parity = ((i / kStages) & 1) ^ 1;
+  const int first_v = kNorm ? n_tiles : 0;  // the K load that V joins
+  for (int it = 0; it < first_v + n_tiles; ++it) {
+    const int s = it % kStages,
+              kv0 = (it < first_v ? it : it - first_v) * C::kBN;
+    const uint32_t parity = ((it / kStages) & 1) ^ 1;
     sm90::mbar_wait(&sm.empty_k[s], parity);
     for (int c = lane; c < C::kBN; c += 32) {
       const int kv = kv0 + c;
@@ -379,17 +468,18 @@ __device__ __forceinline__ void produce(const Params& p, const Smem<D>& sm,
     } else {
       sm90::mbar_arrive(&sm.full_k[s]);  // releases this lane's keys
     }
-    if (lane == 0) {
-      sm90::mbar_wait(&sm.empty_v[s], parity);
-      sm90::mbar_arrive_tx(&sm.full_v[s], C::kTileBytes);
+    if (lane == 0 && it >= first_v) {
+      const int iv = it - first_v, sv = iv % kStages;
+      sm90::mbar_wait(&sm.empty_v[sv], ((iv / kStages) & 1) ^ 1);
+      sm90::mbar_arrive_tx(&sm.full_v[sv], C::kTileBytes);
       for (int cb = 0; cb < D / 64; ++cb)
-        sm90::tma_load_4d(sm.v(s) + cb * C::kBN * 128, tm_v, &sm.full_v[s],
+        sm90::tma_load_4d(sm.v(sv) + cb * C::kBN * 128, tm_v, &sm.full_v[sv],
                           cb * 64, kv0, hd, b);
     }
   }
 }
 
-template <int D, bool kF32Out, bool kSeg, bool kLse>
+template <int D, bool kF32Out, bool kSeg, bool kLse, bool kNorm>
 __global__ void __launch_bounds__(Cfg<D>::kThreads, Cfg<D>::kMinBlocks)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
@@ -419,17 +509,18 @@ __global__ void __launch_bounds__(Cfg<D>::kThreads, Cfg<D>::kMinBlocks)
   __syncthreads();
 
   if (warp == kConsumerWarps)
-    produce<D, kSeg>(p, sm, &tm_q, &tm_k, &tm_v, b, hd, q0, n_tiles, lane);
+    produce<D, kSeg, kNorm>(p, sm, &tm_q, &tm_k, &tm_v, b, hd, q0, n_tiles,
+                            lane);
   else
-    consume<D, kF32Out, kSeg, kLse>(p, sm, b, hd, bh, q0, n_tiles, warp,
-                                    lane);
+    consume<D, kF32Out, kSeg, kLse, kNorm>(p, sm, b, hd, bh, q0, n_tiles,
+                                           warp, lane);
 }
 
-template <int D, bool kF32Out, bool kSeg, bool kLse>
+template <int D, bool kF32Out, bool kSeg, bool kLse, bool kNorm = false>
 int launch(const CUtensorMap* maps, const Params& p, dim3 grid,
            cudaStream_t stream) {
   using C = Cfg<D>;
-  auto kernel = flash_fwd_kernel<D, kF32Out, kSeg, kLse>;
+  auto kernel = flash_fwd_kernel<D, kF32Out, kSeg, kLse, kNorm>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
   if (err != cudaSuccess) return (int)err;
@@ -438,12 +529,18 @@ int launch(const CUtensorMap* maps, const Params& p, dim3 grid,
   return (int)cudaGetLastError();
 }
 
-// Segments and the LSE take a bf16 output only.
+// Segments and the LSE take a bf16 output only, and no normalize.
 template <int D>
 int dispatch(const CUtensorMap* maps, const Params& p, int B, int out_f32,
-             cudaStream_t stream) {
+             int normalize, cudaStream_t stream) {
   const dim3 grid(B * p.H, (p.Sq + Cfg<D>::kBQ - 1) / Cfg<D>::kBQ);
   const bool seg = p.seg != nullptr, lse = p.lse != nullptr;
+  if (normalize) {
+    if (seg || lse) return (int)cudaErrorInvalidValue;
+    if (out_f32) return launch<D, true, false, false, true>(maps, p, grid,
+                                                            stream);
+    return launch<D, false, false, false, true>(maps, p, grid, stream);
+  }
   if (out_f32) {
     if (seg || lse) return (int)cudaErrorInvalidValue;
     return launch<D, true, false, false>(maps, p, grid, stream);
@@ -476,12 +573,15 @@ bool operand_map(CUtensorMap* map, const void* base, int B, int H, int S,
 // strides: batch, head, row of q, k, v, o; multiples of 8, 16-byte aligned
 // bases). kv_mask: (B,Skv) bytes (0 = masked) or null. seg: (B,S) int32
 // segment ids with S = Sq = Skv, or null. lse: (B,H,Sq) float32 output, or
-// null. Segments and the LSE take a bf16 output only. Returns cudaError_t.
+// null. Segments and the LSE take a bf16 output only. normalize: round the
+// normalised probabilities (kNorm; no segments, no LSE); fault 1 then skips
+// the normalisation (a planted fault for checks). Returns cudaError_t.
 extern "C" int lhrs_flash_fwd(const void* q, const void* k, const void* v,
                               const void* kv_mask, const void* seg, void* o,
                               void* lse, int B, int H, int Sq, int Skv, int D,
                               int causal, float sm_scale, const void* strides,
-                              int out_f32, void* stream) {
+                              int out_f32, int normalize, int fault,
+                              void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0 || Skv <= 0 || (D != 64 && D != 128) ||
       (seg != nullptr && Sq != Skv))
     return (int)cudaErrorInvalidValue;
@@ -502,9 +602,10 @@ extern "C" int lhrs_flash_fwd(const void* q, const void* k, const void* v,
   p.Sq = Sq;
   p.Skv = Skv;
   p.causal = causal;
+  p.fault = fault;
   p.scale_log2 = sm_scale * kLog2e;
   p.os = Strides{st[9], st[10], st[11]};
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  if (D == 128) return dispatch<128>(maps, p, B, out_f32, cs);
-  return dispatch<64>(maps, p, B, out_f32, cs);
+  if (D == 128) return dispatch<128>(maps, p, B, out_f32, normalize, cs);
+  return dispatch<64>(maps, p, B, out_f32, normalize, cs);
 }

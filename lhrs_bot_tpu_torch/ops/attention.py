@@ -243,6 +243,45 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     log-sum-exp of each row. Segments and the LSE take a bf16 output only.
     Raises on anything else. Counts its launches in
     `flash_attention_fwd.launches`."""
+    out = _flash_fwd(q, k, v, kv_mask, causal, sm_scale, out_dtype, out,
+                     segment_ids, lse)
+    flash_attention_fwd.launches += 1
+    return out
+
+
+flash_attention_fwd.launches = 0
+
+
+def flash_attention_fwd_normalized(q: torch.Tensor, k: torch.Tensor,
+                                   v: torch.Tensor,
+                                   kv_mask: Optional[torch.Tensor],
+                                   sm_scale: float, out_dtype=torch.float32,
+                                   out: Optional[torch.Tensor] = None
+                                   ) -> torch.Tensor:
+    """K1's normalize-first variant (template flag kNorm of
+    csrc/flash_fwd.cu), non-causal: a first pass over the key tiles takes
+    each row's max m and sum l, then P = exp(s - m) / l is rounded to bf16
+    before the P V product, with no division at the end. That is where the
+    TPU vision kernels round (`jax.nn.softmax(...).astype(bf16)`, their
+    default softmax mode, and `exp2_pre`), where plain K1 rounds the
+    unnormalised probabilities (their `exp2_post` mode). Takes what
+    `flash_attention_fwd` takes but segments and the LSE; counts its
+    launches in `flash_attention_fwd_normalized.launches`. Its plain
+    version is `mha_reference`."""
+    out = _flash_fwd(q, k, v, kv_mask, False, sm_scale, out_dtype, out,
+                     normalize=True)
+    flash_attention_fwd_normalized.launches += 1
+    return out
+
+
+flash_attention_fwd_normalized.launches = 0
+
+
+def _flash_fwd(q, k, v, kv_mask, causal, sm_scale, out_dtype, out,
+               segment_ids=None, lse=None, *, normalize=False, fault=0):
+    """The checks and the launch of K1 (`normalize`: its kNorm variant),
+    counted by the public wrappers above. `fault=1` with `normalize`
+    skips the normalisation: a planted fault, for the card's checks."""
     _check_qkv(q, k, v, "flash_attention_fwd")
     b, h, sq, d = q.shape
     skv = k.shape[2]
@@ -281,13 +320,10 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             _ptr(segment_ids), out.data_ptr(), _ptr(lse),
             b, h, sq, skv, d, int(causal), float(sm_scale),
             (ctypes.c_longlong * 12)(*strides),
-            int(out_dtype == torch.float32), stream)
+            int(out_dtype == torch.float32), int(normalize), int(fault),
+            stream)
     cuda_lib.check(err, "flash_attention_fwd")
-    flash_attention_fwd.launches += 1
     return out
-
-
-flash_attention_fwd.launches = 0
 
 
 def _bwd_args(q, k, v, kv_mask, segment_ids, lse, delta, d_out, causal,

@@ -36,8 +36,10 @@ _L = ctypes.c_longlong
 # C entry points: name -> argtypes (each returns its cudaError_t as int)
 _ENTRIES = {
     # q, k, v, kv_mask, seg, o, lse, B, H, Sq, Skv, D, causal, sm_scale,
-    # strides (12 int64: batch/head/row of q, k, v, o), out_f32, stream
-    "lhrs_flash_fwd": [_P] * 7 + [_I] * 6 + [ctypes.c_float, _P, _I, _P],
+    # strides (12 int64: batch/head/row of q, k, v, o), out_f32, normalize,
+    # fault, stream
+    "lhrs_flash_fwd": [_P] * 7 + [_I] * 6 + [ctypes.c_float, _P, _I, _I, _I,
+                                             _P],
     # q, k, v, dout, lse, delta, kv_mask, seg, runs, dq, B, H, Sq, Skv, D,
     # causal, sm_scale, stream
     "lhrs_flash_bwd_dq": [_P] * 10 + [_I] * 6 + [ctypes.c_float, _P],

@@ -6,7 +6,7 @@ float32 and rounds its output to bf16, as the JAX
 `jnp.dot(..., preferred_element_type=float32).astype(x.dtype)` does.
 
 `dense_any` and `gelu_mlp` also take int8 `QuantizedTensor` weights (from
-`quant.quantize_vision_layers`) and then go W8A8, as the JAX package's do:
+`quant.quantize_vision_layers`; its int4 codes raise ValueError) and then go W8A8, as the JAX package's do:
 the activation is quantized per row and multiplied by the int8 codes in one
 launch of the int8 GEMM (ops/int8_gemm.py, kernel B on the card), whose
 epilogue keeps the JAX rounding points: the product is rounded to x.dtype
@@ -22,13 +22,15 @@ import torch
 import torch.nn.functional as F
 
 from .int8_gemm import int8_gemm
-from .quant import QuantizedTensor, quantize_activation
+from .quant import QuantizedTensor, check_w8a8_weight, quantize_activation
 
 
 def _w8a8(x: torch.Tensor, qt: QuantizedTensor, bias=None,
           act: Optional[str] = None) -> torch.Tensor:
     """x.dtype(act(x.dtype(w8a8 product) + bias)): the JAX `dense_any` /
-    `gelu_mlp` steps around `w8a8_matmul`, in one GEMM epilogue."""
+    `gelu_mlp` steps around `w8a8_matmul`, in one GEMM epilogue. Packed
+    int4 weights raise ValueError."""
+    check_w8a8_weight(qt)
     xq, xs = quantize_activation(x)
     return int8_gemm(xq, xs, qt.q, qt.scale,
                      bias=None if bias is None else bias.float().contiguous(),

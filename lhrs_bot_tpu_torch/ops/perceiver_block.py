@@ -7,8 +7,11 @@ vision tokens) are LayerNormed separately and quantized per row; q and the
 fused K|V projection are int8 GEMMs with the TPU kernel's epilogue order
 (q: ((acc * s) * x_scale + b) * sm_scale, rounded to bf16 once; k, v
 rounded to bf16); per-head attention over the group's valid kv rows in
-float32; then the back half of the ViT block with the tanh-approximated
-GELU the TPU kernel uses (ops/vit_block.py `post_attention`).
+float32, the normalised probabilities rounded to bf16 before P V (the TPU
+kernel's `jax.nn.softmax`, whatever `LHRS_VIT_SOFTMAX` says; K1's
+normalize-first variant on the card); then the back half of the ViT block
+with the tanh-approximated GELU the TPU kernel uses (ops/vit_block.py
+`post_attention`).
 
 The three groups share the layer's weights and every step but attention is
 per row, so each step runs once over all B * G padded group rows (the TPU

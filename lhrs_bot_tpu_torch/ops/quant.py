@@ -27,7 +27,8 @@ the same bits; the int8 cache's new K/V rows and the W8A8 products still
 do. `w8a8_matmul` (per-row int8 activations x int8 weights, int32
 accumulation, scales in the float32 epilogue) runs the int8 GEMM of
 ops/int8_gemm.py, kernel B on CUDA tensors. `quantize_vision_layers`
-int8-quantizes the ViT/perceiver projections; their codes are stored as the
+int8-quantizes the ViT/perceiver projections (or, as in JAX, packs int4
+codes that no forward takes); the int8 codes are stored as the
 transposed view of a contiguous (..., out, in) tensor (`transposed_storage`),
 the layout kernel B reads, while the values and the (in, out) shape stay
 the JAX package's.
@@ -99,11 +100,24 @@ def transposed_storage(q: torch.Tensor) -> torch.Tensor:
     return q.transpose(-1, -2).contiguous().transpose(-1, -2)
 
 
+def check_w8a8_weight(qt: QuantizedTensor) -> None:
+    """Raise ValueError unless `qt` holds int8 codes, the only weights a
+    W8A8 product takes (`quantize_vision_layers(bits=4)` gives packed int4
+    ones)."""
+    if qt.bits != 8:
+        raise ValueError(
+            f"the W8A8 product takes int8 weights (quantize_vision_layers("
+            f"bits=8)), got bits={qt.bits!r} codes of shape "
+            f"{tuple(qt.q.shape)}: packed int4 vision weights have no "
+            "forward")
+
+
 def w8a8_matmul(x: torch.Tensor, qt: QuantizedTensor,
                 out_dtype=None) -> torch.Tensor:
     """Full-int8 matmul: x (..., in) quantized per row, times int8 (in,
     out) weights, int32 accumulation, (acc * x_scale) * w_scale in float32,
-    then `out_dtype` (default x.dtype)."""
+    then `out_dtype` (default x.dtype). Other codes raise ValueError."""
+    check_w8a8_weight(qt)
     xq, xs = quantize_activation(x)
     return int8_gemm(xq, xs, qt.q, qt.scale, out_dtype=out_dtype or x.dtype)
 
@@ -356,13 +370,18 @@ _VISION_QUANT_TARGETS = ("wq", "wk", "wv", "wo", "w_fc", "w_proj")
 
 def quantize_vision_layers(layers: Dict[str, torch.Tensor],
                            bits: int = 8) -> Dict[str, Any]:
-    """int8-quantize the stacked (L, in, out) ViT/perceiver projection
-    weights (LayerNorms and biases stay float), so that `dense_any` and
-    `gelu_mlp` take the W8A8 path. Codes in kernel B's layout. The JAX
-    package's bits=4 variant (int4 codes that its W8A8 matmul cannot use)
-    is not ported."""
+    """Quantize the stacked (L, in, out) ViT/perceiver projection weights
+    (LayerNorms and biases stay float), as the JAX package does: bits 8
+    gives int8 codes in kernel B's layout, so that `dense_any` and
+    `gelu_mlp` take the W8A8 path; any other `bits` gives packed int4
+    codes (`quantize_int4` along the contraction axis), byte for byte the
+    JAX package's. No W8A8 product takes int4 codes: a forward over them
+    raises ValueError (`check_w8a8_weight`), where the JAX package fails
+    on the packed shape at the same product."""
     if bits != 8:
-        raise ValueError(f"quantize_vision_layers takes bits=8, got {bits!r}")
+        return {name: quantize_int4(w, axis=1)
+                if name in _VISION_QUANT_TARGETS else w
+                for name, w in layers.items()}
 
     def fn(w):
         qt = quantize_int8(w, axis=1)

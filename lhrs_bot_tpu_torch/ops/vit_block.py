@@ -27,12 +27,19 @@ probability 0, every other step is per row). `vit_layer_fused`, which the
 port's tower runs, computes at S = 257 per image. The public functions take
 the JAX layout: a padded (B, S_pad, W) input, whose pad keys are masked and
 whose pad rows are computed as the TPU kernel computes them; `group`,
-`attn_pair` and `img_tile` are accepted and change nothing. The attention
-differs from the TPU kernel in one rounding, recorded where the tests state
-their tolerances: K1 rounds the unnormalised probabilities to bf16 and
-divides by their float32 sum at the end, where the TPU kernel rounds the
-normalised probabilities. Only the TPU kernel's default softmax mode
-(`jax.nn.softmax`) is ported; its `LHRS_VIT_SOFTMAX` tuning knob is not.
+`attn_pair` and `img_tile` are accepted and change nothing.
+
+The block form's softmax follows `LHRS_VIT_SOFTMAX`, read at each call
+(`softmax_mode`), as the TPU kernel's `_SOFTMAX_MODE`: "jnn" (the default)
+folds sm_scale into the Q columns and rounds the normalised probabilities
+to bf16; "exp2_pre" folds sm_scale * log2 e, takes exp2 and rounds the
+probabilities multiplied by the reciprocal of their sum; any other value
+acts as "exp2_post", which folds the same, rounds the unnormalised exp2
+probabilities and scales the P V output by 1 / sum. On the card the first
+two launch K1's normalize-first variant (`flash_attention_fwd_normalized`),
+the third plain K1, whose online softmax rounds at that point. The split
+form's attention (XLA's `jax.nn.softmax` in JAX) and the perceiver block's
+(`jax.nn.softmax` in its kernel) always normalise first.
 
 Each public function has a plain version (`*_plain`) that runs the same
 composition through the plain versions of the three kernels, on any device:
@@ -41,15 +48,57 @@ the CPU path and the card's reference.
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional
 
 import torch
 
-from .attention import (flash_attention_fwd, mha_reference, pad_head_dim,
-                        padded_head_dim)
+from .attention import (flash_attention_fwd, flash_attention_fwd_normalized,
+                        mha_reference, pad_head_dim, padded_head_dim)
 from .int8_gemm import int8_gemm, int8_gemm_plain
 from .ln_quant import ln_quant, ln_quant_plain
 from .quant import quantize_int8, transposed_storage
+
+
+_LOG2E = 1.4426950408889634
+_NEG_INF = -1e30
+
+
+def softmax_mode() -> str:
+    """`LHRS_VIT_SOFTMAX` now: "jnn" (unset) or "exp2_pre"; any other value
+    is "exp2_post", as the JAX kernel's fall-through reads it."""
+    mode = os.environ.get("LHRS_VIT_SOFTMAX", "jnn")
+    return mode if mode in ("jnn", "exp2_pre") else "exp2_post"
+
+
+def q_fold(sm_scale: float, mode: str) -> float:
+    """The softmax scale folded into the Q columns of the QKV epilogue:
+    with log2 e for the exp2 modes (JAX `_q_fold`)."""
+    return sm_scale * (1.0 if mode == "jnn" else _LOG2E)
+
+
+def attention_plain(q, k, v, kv_mask: Optional[torch.Tensor],
+                    sm_scale: float, out_dtype, mode: str = "jnn"
+                    ) -> torch.Tensor:
+    """The TPU vision kernels' attention (`_attn_probs_and_norm`) with
+    `mode`'s rounding points, (B, H, S, D) in and out: float32 scores
+    times `sm_scale`, pad keys -1e30; "jnn" is `mha_reference` (softmax,
+    normalised probabilities rounded to v's dtype); "exp2_pre" rounds
+    exp2(s - max) * (1 / sum); "exp2_post" rounds exp2(s - max) and
+    multiplies the float32 P V by 1 / sum."""
+    if mode == "jnn":
+        return mha_reference(q, k, v, kv_mask, sm_scale=sm_scale,
+                             out_dtype=out_dtype)
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
+    if kv_mask is not None:
+        s = s.masked_fill(~kv_mask[:, None, None, :], _NEG_INF)
+    p = torch.exp2(s - s.amax(dim=-1, keepdim=True))
+    recip = 1.0 / p.sum(dim=-1, keepdim=True)
+    if mode == "exp2_pre":
+        return torch.matmul((p * recip).to(v.dtype).float(),
+                            v.float()).to(out_dtype)
+    return (torch.matmul(p.to(v.dtype).float(), v.float()) * recip).to(
+        out_dtype)
 
 
 def _kernels(plain: bool):
@@ -65,29 +114,39 @@ def _vec(t: torch.Tensor) -> torch.Tensor:
 
 
 def attend_token_major(q, k, v, kv_mask: Optional[torch.Tensor],
-                       sm_scale: float, out_dtype,
-                       plain: bool = False) -> torch.Tensor:
+                       sm_scale: float, out_dtype, plain: bool = False,
+                       mode: str = "jnn") -> torch.Tensor:
     """Attention of (B, H, S, D) views (strided, as sliced from a
-    projection) -> token-major (B, Sq, H * D) in `out_dtype`. CUDA tensors
-    launch K1 writing token-major in place (a head dim below 128 that K1
-    does not take zero-padded to 64 or 128, the output cut back); CPU
-    tensors, and `plain`, run `mha_reference`."""
+    projection) -> token-major (B, Sq, H * D) in `out_dtype`, with the
+    softmax `mode` (`attention_plain`; the exp2 modes' scores, sm_scale
+    included, are in units of log2). CUDA tensors launch K1 writing
+    token-major in place (a head dim below 128 that K1 does not take
+    zero-padded to 64 or 128, the output cut back): its normalize-first
+    variant for "jnn" and "exp2_pre", plain K1 for "exp2_post"; CPU
+    tensors, and `plain`, run `attention_plain`."""
     b, h, sq, d = q.shape
     if q.is_cuda and not plain:
+        # K1 takes exp(s * scale): the exp2 modes' scale divided by log2 e
+        k1_scale = sm_scale if mode == "jnn" else sm_scale / _LOG2E
+
+        def k1(qq, kk, vv, out):
+            if mode == "exp2_post":
+                return flash_attention_fwd(qq, kk, vv, kv_mask, False,
+                                           k1_scale, out_dtype, out)
+            return flash_attention_fwd_normalized(qq, kk, vv, kv_mask,
+                                                  k1_scale, out_dtype, out)
+
         if d < 128 and d not in (64, 128):  # zero columns, cut back after
             width = padded_head_dim(d)
             out = torch.empty((b, sq, h, width), dtype=out_dtype,
                               device=q.device)
-            flash_attention_fwd(*(pad_head_dim(t, width) for t in (q, k, v)),
-                                kv_mask, False, sm_scale, out_dtype,
-                                out.transpose(1, 2))
+            k1(*(pad_head_dim(t, width) for t in (q, k, v)),
+               out.transpose(1, 2))
             return out[..., :d].reshape(b, sq, h * d)
         out = torch.empty((b, sq, h, d), dtype=out_dtype, device=q.device)
-        flash_attention_fwd(q, k, v, kv_mask, False, sm_scale, out_dtype,
-                            out.transpose(1, 2))
+        k1(q, k, v, out.transpose(1, 2))
         return out.reshape(b, sq, h * d)
-    o = mha_reference(q, k, v, kv_mask, sm_scale=sm_scale,
-                      out_dtype=out_dtype)
+    o = attention_plain(q, k, v, kv_mask, sm_scale, out_dtype, mode)
     return o.transpose(1, 2).reshape(b, sq, h * d)
 
 
@@ -129,10 +188,11 @@ def vit_layer_fused(x: torch.Tensor, lp, *, heads: int, ln_eps: float = 1e-5,
                     kv_mask: Optional[torch.Tensor] = None,
                     plain: bool = False) -> torch.Tensor:
     """One W8A8 block over x (B, S, W) bf16, contiguous. The block form
-    folds the softmax scale into the Q columns of the QKV epilogue and keeps
+    folds the softmax scale (with log2 e in the exp2 modes) into the Q
+    columns of the QKV epilogue, takes `softmax_mode()`'s softmax and keeps
     the attention output in float32; the split form (the JAX
-    `split_attention=True`) scales in the attention and rounds its output to
-    bf16 before quantizing it."""
+    `split_attention=True`) scales in the attention, normalises first and
+    rounds its output to bf16 before quantizing it."""
     b, s, w = x.shape
     sm_scale = (w // heads) ** -0.5
     act = "quick_gelu" if quick_gelu else "gelu"
@@ -141,9 +201,11 @@ def vit_layer_fused(x: torch.Tensor, lp, *, heads: int, ln_eps: float = 1e-5,
         attn = attend_token_major(q, k, v, kv_mask, sm_scale,
                                   torch.bfloat16, plain)
     else:
-        q, k, v = _heads(_qkv(x, lp, ln_eps, sm_scale, w, plain), 3, heads)
+        mode = softmax_mode()
+        q, k, v = _heads(_qkv(x, lp, ln_eps, q_fold(sm_scale, mode), w,
+                              plain), 3, heads)
         attn = attend_token_major(q, k, v, kv_mask, 1.0, torch.float32,
-                                  plain)
+                                  plain, mode)
     return post_attention(x, attn, lp, ln_eps, act, plain)
 
 

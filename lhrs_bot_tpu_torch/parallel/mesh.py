@@ -147,6 +147,13 @@ class Mesh:
         return self.data if self.dp > 1 else None
 
     @property
+    def world(self) -> Axis:
+        """Every rank of the mesh as one axis over the default process
+        group, in rank order (a server's lockstep channel across both
+        axes)."""
+        return Axis("world", list(range(self.dp * self.tp)), self.rank)
+
+    @property
     def data_index(self) -> int:
         return self.data.index
 

@@ -59,15 +59,21 @@ Built on `llama_prefill_continue`, as in the JAX engine:
     card the window attends through plain PyTorch and the decode step
     through K2 / K4, so the ids may part from plain greedy's where the
     top-2 margin lies within bf16 rounding.
-`mesh` (a `parallel.mesh.Mesh` of dp 1, one process a rank) serves the
-decoder tensor parallel, as the JAX engine does over its mesh: the weights
-are merged, quantized and cast at full size as above, then each rank keeps
-its slice (`parallel.partition.shard_llama_for_serving`); its KV cache
-holds H / tp heads; the vision tower and the perceiver run replicated.
-Every rank must make the same calls in the same order. The logits are
-gathered whole on every rank, and each sampled token is broadcast from the
-model group's first rank, so the ranks never part. A data axis above 1
-raises ValueError: serve one process group a replica.
+`mesh` (a `parallel.mesh.Mesh`, one process a rank) serves over JAX's
+("data", "model") mesh. On the model axis the decoder runs tensor
+parallel, as the JAX engine does: the weights are merged, quantized and
+cast at full size as above, then each rank keeps its slice
+(`parallel.partition.shard_llama_for_serving`); its KV cache holds H / tp
+heads; the vision tower and the perceiver run replicated. The logits are
+gathered whole on every rank of the model group, and each sampled token is
+broadcast from its first rank. On the data axis each group computes its
+own contiguous block of a batch's rows (the order `P("data")` puts them
+in: group d takes rows [d B / dp, (d + 1) B / dp)), vision tower,
+prefill and decode, and `generate` gathers the sampled tokens over the
+data axis, so every rank returns the whole batch. A batch that dp does not
+divide (a stream's single row, a session's turn) is computed whole by
+every group, as JAX's replicated engine does. Every rank must make the
+same calls in the same order, so the ranks never part.
 
 A tree with "lora" (and `cfg.lora` set) is served as the JAX engine serves
 it: over a dense base the adapters are merged once, at load, in float32
@@ -189,10 +195,40 @@ class GenerationConfig:
     pad_token_id: int = 0
 
 
+def _multinomial(probs: torch.Tensor, generator: Optional[torch.Generator],
+                 draw=None) -> torch.Tensor:
+    """One token a row of probs (B, V) from `generator`, (B,) int64. With
+    `draw` = (rows, batch), probs holds the rows `rows` (a slice or an
+    index tensor) of a `batch`-row batch whose other rows other data
+    groups hold: the draw is made over the whole batch, those rows
+    uniform, and keeps `rows`. A row's draw depends on its probabilities
+    and its place in the batch only, so each row draws what the whole
+    batch's call gives it, and the generator ends where that call leaves
+    it."""
+    if draw is None:
+        return torch.multinomial(probs, 1, generator=generator)[:, 0]
+    rows, batch = draw
+    full = probs.new_ones((batch, probs.shape[-1]))
+    full[rows] = probs
+    return torch.multinomial(full, 1, generator=generator)[rows, 0]
+
+
+def _uniform(shape, generator: Optional[torch.Generator], device,
+             draw=None) -> torch.Tensor:
+    """torch.rand of `shape` (B, ...) from `generator`; under `draw`, the
+    rows `rows` of the whole batch's draw, as in `_multinomial`."""
+    if draw is None:
+        return torch.rand(shape, generator=generator, device=device)
+    rows, batch = draw
+    return torch.rand((batch, *shape[1:]), generator=generator,
+                      device=device)[rows]
+
+
 def _sample_token(logits: torch.Tensor, generator: Optional[torch.Generator],
-                  gen_cfg: GenerationConfig) -> torch.Tensor:
+                  gen_cfg: GenerationConfig, draw=None) -> torch.Tensor:
     """logits (B, V) -> token ids (B,) int32. Greedy or temperature/top-p
-    (the smallest set of tokens whose probability reaches top_p)."""
+    (the smallest set of tokens whose probability reaches top_p); `draw`
+    as in `_multinomial`."""
     if not gen_cfg.do_sample:
         return logits.argmax(dim=-1).to(torch.int32)
     logits = logits.float() / max(gen_cfg.temperature, 1e-6)
@@ -204,8 +240,7 @@ def _sample_token(logits: torch.Tensor, generator: Optional[torch.Generator],
         cutoff = sorted_logits.gather(-1, cutoff_idx)
         logits = logits.masked_fill(logits < cutoff, -1e30)
     probs = torch.softmax(logits, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0].to(
-        torch.int32)
+    return _multinomial(probs, generator, draw).to(torch.int32)
 
 
 def _top_p_logits(logits: torch.Tensor, temp: torch.Tensor,
@@ -225,30 +260,33 @@ def _top_p_logits(logits: torch.Tensor, temp: torch.Tensor,
 def _sample_token_per_slot(logits: torch.Tensor,
                            generator: Optional[torch.Generator],
                            temp: torch.Tensor,
-                           top_p: torch.Tensor) -> torch.Tensor:
+                           top_p: torch.Tensor, draw=None) -> torch.Tensor:
     """Per-row sampling for continuous batches (JAX `serve/engine.py`
     `_sample_token_per_slot`): logits (B, V), per-slot temperature (B,) and
     top-p (B,). Rows with temp <= 0 decode greedily; the others draw from
     `generator` after temperature and top-p, so one batch can mix greedy
-    and sampled requests. Returns (B,) int32."""
+    and sampled requests; `draw` as in `_multinomial`. Returns (B,)
+    int32."""
     greedy = logits.argmax(dim=-1).to(torch.int32)
     probs = torch.softmax(_top_p_logits(logits, temp, top_p), dim=-1)
-    sampled = torch.multinomial(probs, 1, generator=generator)[:, 0]
+    sampled = _multinomial(probs, generator, draw)
     return torch.where(temp > 0, sampled.to(torch.int32), greedy)
 
 
-def check_serving_mesh(mesh) -> None:
-    """A serving mesh: None, or a `parallel.mesh.Mesh` whose data axis is
-    1 (TypeError for another object, ValueError for dp above 1)."""
+def check_serving_mesh(mesh, max_batch: Optional[int] = None) -> None:
+    """A serving mesh: None, or a `parallel.mesh.Mesh` (TypeError for
+    another object). With `max_batch`, the slots of a scheduler that splits
+    them over the data axis: ValueError unless dp divides it, as JAX's
+    data-sharded cache requires."""
     if mesh is None:
         return
     if not isinstance(mesh, Mesh):
         raise TypeError(f"mesh must be a lhrs_bot_tpu_torch.parallel.Mesh, "
                         f"got {type(mesh).__name__}")
-    if mesh.dp > 1:
-        raise ValueError(f"serving splits the decoder over the model axis "
-                         f"only (dp={mesh.dp}): serve one process group a "
-                         "replica")
+    if max_batch is not None and max_batch % mesh.dp:
+        raise ValueError(f"max_batch {max_batch} is not a multiple of the "
+                         f"data axis (dp={mesh.dp}): each data group holds "
+                         "max_batch / dp slots")
 
 
 class GenerationEngine:
@@ -289,6 +327,7 @@ class GenerationEngine:
         self.prefill_chunk = prefill_chunk
         self.mesh = mesh
         self.tp = mesh.tp_axis if mesh is not None else None
+        self.dp = mesh.dp_axis if mesh is not None else None
         # stream(session=True)'s state: {"raw_ids", "image_fp", "cache"}
         self._session = None
 
@@ -329,6 +368,29 @@ class GenerationEngine:
     def _agree(self, tok: torch.Tensor) -> torch.Tensor:
         """The model group's first rank's tokens on every rank."""
         return tok if self.tp is None else self.tp.broadcast(tok)
+
+    def _rows(self, batch: int) -> Optional[slice]:
+        """This data group's contiguous block of a `batch`-row batch, or
+        None where every group computes the whole batch (no data axis, or
+        dp does not divide it)."""
+        if self.dp is None or batch % self.dp.size:
+            return None
+        n = batch // self.dp.size
+        return slice(self.dp.index * n, (self.dp.index + 1) * n)
+
+    def _draw(self, batch: int):
+        """The random draws' share of this data group (`_multinomial`):
+        None where it computes the whole `batch`."""
+        rows = self._rows(batch)
+        return None if rows is None else (rows, batch)
+
+    def _gather_rows(self, t: torch.Tensor, batch: int) -> torch.Tensor:
+        """`t`, this group's rows of a `batch`-row result along dim 0, as
+        the whole batch on every rank: the data groups' blocks in group
+        order."""
+        if self._rows(batch) is None:
+            return t
+        return self.dp.all_gather(t, dim=0)
 
     # -- pieces -------------------------------------------------------------
 
@@ -464,8 +526,9 @@ class GenerationEngine:
 
     def _start(self, input_ids, seq_lens, images, gen_cfg, cache_len=None):
         """Bucket, clamp and pad a request, then prefill it. Returns
-        (first-token logits, cache, clamped gen_cfg). `cache_len` replaces
-        the bucketed cache length (a session's first turn takes
+        (first-token logits, cache, clamped gen_cfg): the logits and the
+        cache of this data group's rows (`_rows`). `cache_len` replaces the
+        bucketed cache length (a session's first turn takes
         max_seq_len)."""
         batch, t = input_ids.shape
         k_img = self._image_count(images)
@@ -479,6 +542,11 @@ class GenerationEngine:
             cache_len)
         ids = self._pad_ids(np.asarray(input_ids), width,
                             gen_cfg.pad_token_id)
+        rows = self._rows(batch)
+        if rows is not None:  # this data group's block of the batch
+            ids, seq_lens = ids[rows], seq_lens[rows]
+            images = None if images is None else images[rows]
+            batch = rows.stop - rows.start
         dev = self.device
         logits, cache = self._prefill(
             torch.as_tensor(ids, device=dev),
@@ -537,17 +605,21 @@ class GenerationEngine:
             generator = torch.Generator(self.device).manual_seed(0)
         logits, cache, gen_cfg = self._start(input_ids, seq_lens, images,
                                              gen_cfg)
-        tok = self._agree(_sample_token(logits, generator, gen_cfg))
+        # a data group's rows draw what they draw in the whole batch
+        draw = self._draw(input_ids.shape[0])
+        tok = self._agree(_sample_token(logits, generator, gen_cfg, draw))
         toks = [tok]
         done = tok == gen_cfg.eos_token_id
         for _ in range(gen_cfg.max_new_tokens - 1):
             logits, cache = self._decode_step(cache, tok)
-            nxt = self._agree(_sample_token(logits, generator, gen_cfg))
+            nxt = self._agree(_sample_token(logits, generator, gen_cfg,
+                                            draw))
             tok = torch.where(done, torch.full_like(nxt, gen_cfg.pad_token_id),
                               nxt)
             done = done | (tok == gen_cfg.eos_token_id)
             toks.append(tok)
-        all_toks = torch.stack(toks, dim=1).cpu().numpy()
+        all_toks = self._gather_rows(torch.stack(toks, dim=1),
+                                     input_ids.shape[0]).cpu().numpy()
 
         out: List[List[int]] = []
         for row in all_toks:

@@ -23,10 +23,12 @@ that row still names the freed pages, which the LIFO allocator hands out
 first, so an idle slot could overwrite a live sequence's KV. Here idle
 slots append into page 0, which nothing reads.
 
-Under a tensor-parallel `mesh` each rank's pools hold H / tp heads (JAX's
-head-sharded pool); the page allocator, the prefix pool and the table are
-the host's, the same on every rank (the scheduler's lockstep), so the
-repair holds on every rank.
+Under a `mesh` each rank's pools hold H / tp heads (JAX's head-sharded
+pool); JAX does not shard the pool, the page table or the lengths over
+"data", so every data group holds the whole pool and runs every slot, and
+the groups' ids are equal. The page allocator, the prefix pool and the
+table are the host's, the same on every rank (the scheduler's lockstep),
+so the repair holds on every rank.
 """
 
 from __future__ import annotations
@@ -91,6 +93,7 @@ class PagedScheduler(ContinuousBatchingScheduler):
     and `set_speculative` raise ValueError, as in the JAX package."""
 
     _supports_spec = False
+    _splits_slots = False
 
     def __init__(self, cfg, params, llama_params, *,
                  num_pages: int, page_size: int = 128,
@@ -145,7 +148,7 @@ class PagedScheduler(ContinuousBatchingScheduler):
             tp=self.tp)
 
     def _prefill(self, input_ids, images, slot_idx, seq_lens, temps, top_ps,
-                 extra, *, width: int):
+                 extra, *, width: int, draw=None):
         """Suffix prefill against shared-page context (ctx 0 rows are a
         dense paged prefill). With `prefill_chunk`, the decoder runs over
         slices of the spliced embeddings, each at most that wide (a
@@ -159,7 +162,7 @@ class PagedScheduler(ContinuousBatchingScheduler):
             logits, cache = self._ctx_prefill(self.cache, emb, spl_len, ctx,
                                               slot_idx, table_rows)
             return _sample_token_per_slot(logits, self.generator, temps,
-                                          top_ps), cache
+                                          top_ps, draw), cache
         w = min(self.prefill_chunk, emb.shape[1])
         n_chunks = -(-emb.shape[1] // w)
         emb = torch.nn.functional.pad(
@@ -176,7 +179,7 @@ class PagedScheduler(ContinuousBatchingScheduler):
         logits = torch.stack([per_chunk[int(c)][r]
                               for r, c in enumerate(last_chunk)])
         return _sample_token_per_slot(logits, self.generator, temps,
-                                      top_ps), cache
+                                      top_ps, draw), cache
 
     def _decode(self, cache, embeds):
         return paged_decode_step(self.llama_params, self.cfg.llama, cache,

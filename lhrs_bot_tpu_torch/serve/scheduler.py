@@ -40,19 +40,28 @@ costs more than a decode step. The rounds are a Python loop whose tokens stay on
 device; the host reads them once, at the end of the tick. The history is
 the host's, uploaded each tick.
 
-`mesh` (a `parallel.mesh.Mesh` of dp 1; the parameters an engine's over
-the same mesh, already sliced) runs the decoder tensor parallel, one
-process a rank, as the JAX scheduler runs over its mesh: each rank's cache
-(or page pool) holds H / tp heads, the vision tower runs replicated. Every
-device token that reaches the host (a prefill's first tokens, a tick's, a
-speculative round's accepted counts and corrections) is broadcast from the
-model group's first rank before the host reads it, so the host's
+`mesh` (a `parallel.mesh.Mesh`; the parameters an engine's over the same
+mesh, already sliced) serves over JAX's ("data", "model") mesh, one
+process a rank, as the JAX scheduler runs over its mesh. On the model axis
+the decoder runs tensor parallel: each rank's cache (or page pool) holds
+H / tp heads, the vision tower runs replicated, and every device token is
+broadcast from the model group's first rank. On the data axis slot s
+lives on data group s // (max_batch / dp), as JAX's `kv_cache_spec` places
+it (`max_batch` must be a multiple of dp): each group's cache holds its
+max_batch / dp slots, an admitted row is prefilled (vision tower
+included) by the group that owns its slot only, a tick and a speculative
+round run over the group's own slots, and the tokens, live flags and
+accepted proposals are gathered over the data axis in slot order
+(`_gather_slots`) before the host reads them. The paged scheduler keeps
+the whole pool on every data group (JAX shards it over "model" only), so
+there every group runs every slot. Either way the host's state and its
 decisions (admission, stops, slots, pages) are the same on every rank as
 long as every rank makes the same calls. `run(requests)` on every rank
 does that; for a server, the rank that serves calls `lead()`, after which
 each of its `admit`, `step`, `cancel` and `fail_all` is broadcast (the
-requests pickled) before it runs, and the other ranks call `follow()`,
-which runs what the leader broadcasts until its `release_followers()`.
+requests pickled) to every rank of the mesh before it runs, and the other
+ranks call `follow()`, which runs what the leader broadcasts until its
+`release_followers()`.
 """
 
 from __future__ import annotations
@@ -68,7 +77,7 @@ from ..device import resolve_device
 from ..models.llama import (KVCache, llama_decode_step, llama_prefill,
                             llama_prefill_continue)
 from ..models.vlm import VLMConfig, prepare_multimodal_inputs
-from .engine import (GenerationConfig, _sample_token_per_slot,
+from .engine import (GenerationConfig, _multinomial, _sample_token_per_slot,
                      check_serving_mesh)
 from .speculative import (NGRAM, accept_window, accept_window_sampled,
                           propose_from_history)
@@ -112,6 +121,7 @@ def check_image_room(n_ids: int, k: int, num_query: int,
 
 class ContinuousBatchingScheduler:
     _supports_spec = True  # the paged subclass's rows live behind a table
+    _splits_slots = True  # over the data axis (the paged pool is whole)
 
     def __init__(
         self,
@@ -134,12 +144,20 @@ class ContinuousBatchingScheduler:
         speculative: int = 0,  # prompt-lookup window per round (greedy)
         adaptive_tick: bool = False,  # shrink ticks near completions
     ):
-        check_serving_mesh(mesh)
+        check_serving_mesh(mesh, max_batch if self._splits_slots else None)
         self.mesh = mesh
         self.tp = mesh.tp_axis if mesh is not None else None
-        # the axis the leader's calls go out on (`lead` / `follow`); a
-        # server gives it a group that waits as long as it idles
-        self.channel = self.tp
+        # the data axis the slots are split over: this group's slots are
+        # [slot0, slot0 + n_local)
+        self.dp = (mesh.dp_axis if mesh is not None and self._splits_slots
+                   else None)
+        self.n_local = max_batch // (1 if self.dp is None else self.dp.size)
+        self.slot0 = 0 if self.dp is None else self.dp.index * self.n_local
+        # the axis the leader's calls go out on (`lead` / `follow`): the
+        # whole mesh under a data axis; a server gives it a group that
+        # waits as long as it idles
+        self.channel = (mesh.world if mesh is not None and mesh.dp > 1
+                        else self.tp)
         self._leading = False
         self._check_spec(speculative)
         self.speculative = int(speculative)
@@ -246,10 +264,27 @@ class ContinuousBatchingScheduler:
         """The model group's first rank's device tokens on every rank."""
         return t if self.tp is None else self.tp.broadcast(t.contiguous())
 
+    def _local(self, a: np.ndarray) -> np.ndarray:
+        """This data group's slots of a per-slot host array."""
+        return a[self.slot0:self.slot0 + self.n_local]
+
+    def _slot_draw(self):
+        """The random draws' share of this data group's slots
+        (`engine._multinomial`): None without a data axis."""
+        if self.dp is None:
+            return None
+        return slice(self.slot0, self.slot0 + self.n_local), self.max_batch
+
+    def _gather_slots(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """`t`, whose `dim` runs over this group's slots, with every slot
+        on every rank: the data groups' slots concatenated in group order,
+        which is slot order."""
+        return t if self.dp is None else self.dp.all_gather(t, dim=dim)
+
     def lead(self) -> None:
         """From now on broadcast each public call to the ranks that
-        `follow()` (the serving rank of a tensor-parallel server)."""
-        self._leading = self.tp is not None
+        `follow()` (the serving rank of a server over a mesh)."""
+        self._leading = self.channel is not None
 
     def _publish(self, op: str, *args) -> None:
         if self._leading:
@@ -275,7 +310,7 @@ class ContinuousBatchingScheduler:
     # -- cache-strategy hooks (overridden by the paged scheduler) ------------
 
     def _make_cache(self):
-        return KVCache.create(self.cfg.llama, self.max_batch,
+        return KVCache.create(self.cfg.llama, self.n_local,
                               self.max_seq_len, dtype=self.cache_dtype,
                               device=self.device, heads=self.heads)
 
@@ -324,28 +359,30 @@ class ContinuousBatchingScheduler:
             compute_dtype=self.compute_dtype, llama_params=self.llama_params)
 
     def _prefill(self, input_ids, images, slot_idx, seq_lens, temps, top_ps,
-                 extra, *, width: int):
+                 extra, *, width: int, draw=None):
         """Prefill a bucketed (b, width) batch into the slots named by
         slot_idx, in place (the other slots keep their rows); returns the
-        first tokens (b,) and the cache."""
+        first tokens (b,) and the cache. `draw`: the rows' share of the
+        admitted batch's random draws (`engine._multinomial`)."""
         spliced = self._splice(input_ids, images, seq_lens)
         logits, cache = llama_prefill(
             self.llama_params, self.cfg.llama, self.cache,
             inputs_embeds=spliced.inputs_embeds, prompt_len=spliced.seq_len,
             compute_dtype=self.compute_dtype, slots=slot_idx, tp=self.tp)
         return _sample_token_per_slot(logits, self.generator, temps,
-                                      top_ps), cache
+                                      top_ps, draw), cache
 
     def _tick(self, k: int, sample: bool):
-        """`k` decode steps over all slots; returns the (k, B) tokens and
-        the (k, B) flags of which emissions were live, on the host. Slots
-        that sample draw from the generator in step order."""
+        """`k` decode steps over this group's slots; returns the (k, B)
+        tokens and the (k, B) flags of which emissions were live, of every
+        slot, on the host. Slots that sample draw from the generator in
+        step order."""
         dev = self.device
-        toks = torch.as_tensor(self.last_tokens, device=dev)
-        act = torch.as_tensor(self.active, device=dev)
-        budg = torch.as_tensor(self.slot_budget, device=dev)
-        temps = torch.as_tensor(self.slot_temp, device=dev)
-        top_ps = torch.as_tensor(self.slot_top_p, device=dev)
+        toks = torch.as_tensor(self._local(self.last_tokens), device=dev)
+        act = torch.as_tensor(self._local(self.active), device=dev)
+        budg = torch.as_tensor(self._local(self.slot_budget), device=dev)
+        temps = torch.as_tensor(self._local(self.slot_temp), device=dev)
+        top_ps = torch.as_tensor(self._local(self.slot_top_p), device=dev)
         embed = self.llama_params["embed_tokens"]
         cache = self.cache
         emitted, live = [], []
@@ -354,7 +391,7 @@ class ContinuousBatchingScheduler:
                                              embed[toks.long()][:, None])
             if sample:
                 nxt = _sample_token_per_slot(logits, self.generator, temps,
-                                             top_ps)
+                                             top_ps, self._slot_draw())
             else:
                 nxt = logits.argmax(dim=-1).to(torch.int32)
             nxt = self._agree(nxt)
@@ -366,8 +403,10 @@ class ContinuousBatchingScheduler:
             live.append(act)
             toks, act = emit, new_act
         self.cache = cache
-        return (torch.stack(emitted).cpu().numpy(),
-                torch.stack(live).cpu().numpy())
+        both = self._gather_slots(torch.stack(
+            [torch.stack(emitted), torch.stack(live).to(torch.int32)]), 2)
+        both = both.cpu().numpy()
+        return both[0], both[1].astype(bool)
 
     def _spec_tick(self, rounds: int, sample: bool):
         """`rounds` speculative rounds over all slots (serve/
@@ -378,17 +417,18 @@ class ContinuousBatchingScheduler:
         emits its accepted proposals and the correction token, clamped to
         its budget; its cache length then counts only the rows of the
         emitted tokens (the rejected ones are overwritten later). Returns
-        the (rounds, B, width + 1) tokens and live flags, on the host."""
+        the (rounds, B, width + 1) tokens and live flags of every slot, on
+        the host; a group runs its own slots."""
         dev = self.device
         width = self.speculative
         hist_np, hlen_np = self._history_arrays()
-        hist = torch.as_tensor(hist_np, device=dev)
-        hlen = torch.as_tensor(hlen_np, device=dev).long()
-        toks = torch.as_tensor(self.last_tokens, device=dev)
-        act = torch.as_tensor(self.active, device=dev)
-        budg = torch.as_tensor(self.slot_budget, device=dev)
-        temps = torch.as_tensor(self.slot_temp, device=dev)
-        top_ps = torch.as_tensor(self.slot_top_p, device=dev)
+        hist = torch.as_tensor(self._local(hist_np), device=dev)
+        hlen = torch.as_tensor(self._local(hlen_np), device=dev).long()
+        toks = torch.as_tensor(self._local(self.last_tokens), device=dev)
+        act = torch.as_tensor(self._local(self.active), device=dev)
+        budg = torch.as_tensor(self._local(self.slot_budget), device=dev)
+        temps = torch.as_tensor(self._local(self.slot_temp), device=dev)
+        top_ps = torch.as_tensor(self._local(self.slot_top_p), device=dev)
         embed = self.llama_params["embed_tokens"]
         cache = self.cache
         s_max = cache.k.shape[3]
@@ -415,7 +455,7 @@ class ContinuousBatchingScheduler:
             if sample:
                 p, corr = accept_window_sampled(prop, n_prop, logits_all,
                                                 self.generator, temps,
-                                                top_ps)
+                                                top_ps, self._slot_draw())
             else:
                 p, corr = accept_window(
                     prop, n_prop, logits_all.argmax(dim=-1).to(torch.int32))
@@ -448,8 +488,10 @@ class ContinuousBatchingScheduler:
             toks = torch.where(new_act, corr, self.pad)
             act = new_act
         self.cache = cache
-        return (torch.stack(emitted).cpu().numpy(),
-                torch.stack(lives).cpu().numpy())
+        both = self._gather_slots(torch.stack(
+            [torch.stack(emitted), torch.stack(lives).to(torch.int32)]), 2)
+        both = both.cpu().numpy()
+        return both[0], both[1].astype(bool)
 
     # -- host-side scheduling ------------------------------------------------
 
@@ -556,14 +598,32 @@ class ContinuousBatchingScheduler:
         extra = self._reserve_rows(slots, batch, spliced_lens, budgets, width)
 
         dev = self.device
-        first, self.cache = self._prefill(
-            torch.as_tensor(ids, device=dev),
-            None if imgs is None else torch.as_tensor(imgs, device=dev),
-            torch.as_tensor(np.asarray(slots, np.int32), device=dev),
-            torch.as_tensor(lens, device=dev),
-            torch.as_tensor(temps, device=dev),
-            torch.as_tensor(top_ps, device=dev), extra, width=width)
-        first_host = self._agree(first).cpu().numpy()
+        # the rows whose slots this data group holds (every row without a
+        # data axis): each row is prefilled by its slot's group alone
+        own = np.asarray([row for row, slot in enumerate(slots)
+                          if 0 <= slot - self.slot0 < self.n_local], np.int64)
+        first = torch.zeros(b, dtype=torch.int32, device=dev)
+        # a group's rows draw what they draw in the whole admitted batch
+        draw = (None if self.dp is None
+                else (torch.as_tensor(own, dtype=torch.long, device=dev), b))
+        if own.size:
+            first_own, self.cache = self._prefill(
+                torch.as_tensor(ids[own], device=dev),
+                None if imgs is None else torch.as_tensor(imgs[own],
+                                                          device=dev),
+                torch.as_tensor(np.asarray(slots, np.int32)[own]
+                                - self.slot0, device=dev),
+                torch.as_tensor(lens[own], device=dev),
+                torch.as_tensor(temps[own], device=dev),
+                torch.as_tensor(top_ps[own], device=dev), extra, width=width,
+                draw=draw)
+            first[torch.as_tensor(own, device=dev)] = self._agree(first_own)
+        elif self.dp is not None:  # the batch's draw all the same
+            _multinomial(torch.ones((0, self.cfg.llama.vocab_size),
+                                    device=dev), self.generator, draw)
+        if self.dp is not None:  # each row comes from one group: the sum
+            self.dp.all_reduce(first)
+        first_host = first.cpu().numpy()
         for row, (slot, req) in enumerate(zip(slots, batch)):
             self.slot_req[slot] = req
             self.slot_budget[slot] = budgets[row]

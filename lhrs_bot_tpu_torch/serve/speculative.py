@@ -22,7 +22,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .engine import _top_p_logits
+from .engine import _multinomial, _top_p_logits, _uniform
 
 _NO_TOKEN = -(1 << 31)  # a pattern token past the history: matches nothing
 NGRAM = 2  # the engine's and the scheduler's lookup pattern length
@@ -93,8 +93,8 @@ def accept_window(prop: torch.Tensor, n_prop: torch.Tensor,
 def accept_window_sampled(prop: torch.Tensor, n_prop: torch.Tensor,
                           logits_all: torch.Tensor,
                           generator: Optional[torch.Generator],
-                          temps: torch.Tensor, top_ps: torch.Tensor
-                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+                          temps: torch.Tensor, top_ps: torch.Tensor,
+                          draw=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Speculative sampling for a deterministic draft (JAX
     `accept_window_sampled`): a sampling row (temp > 0) accepts proposal i
     with probability p_i(x_i) under the warped verify distribution, and at
@@ -102,7 +102,8 @@ def accept_window_sampled(prop: torch.Tensor, n_prop: torch.Tensor,
     (from p at the next position when every proposal was accepted), so its
     tokens are distributed as plain sampling's. Greedy rows (temp <= 0)
     give `accept_window`'s result exactly. prop (B, W), n_prop (B,),
-    logits_all (B, W + 1, V) float32; draws from `generator`."""
+    logits_all (B, W + 1, V) float32; draws from `generator` (`draw`: a
+    data group's rows of the whole batch's draws, `engine._multinomial`)."""
     b, width = prop.shape
     dev = prop.device
     iota = torch.arange(width, device=dev)[None, :]
@@ -113,7 +114,7 @@ def accept_window_sampled(prop: torch.Tensor, n_prop: torch.Tensor,
     probs = torch.softmax(_warp_logits(logits_all, temps, top_ps), dim=-1)
     p_tok = probs[:, :width].gather(
         -1, prop.clamp(min=0).long()[..., None])[..., 0]
-    u = torch.rand((b, width), generator=generator, device=dev)
+    u = _uniform((b, width), generator, dev, draw)
     ok_sample = (u < p_tok) & in_window
 
     sampling = temps > 0
@@ -127,8 +128,7 @@ def accept_window_sampled(prop: torch.Tensor, n_prop: torch.Tensor,
     drop = (torch.arange(probs.shape[-1], device=dev)[None, :]
             == rej_tok[:, None]) & rejected[:, None]
     dist = torch.where(drop, 0.0, probs_p)
-    corr_sampled = torch.multinomial(dist + 1e-30, 1,
-                                     generator=generator)[:, 0]
+    corr_sampled = _multinomial(dist + 1e-30, generator, draw)
     corr_greedy = greedy_preds.gather(1, p.long()[:, None])[:, 0]
     corr = torch.where(sampling, corr_sampled.to(torch.int32), corr_greedy)
     return p.to(torch.int32), corr.to(torch.int32)

@@ -26,9 +26,16 @@ import numpy as np
 import pytest
 import torch
 
+from .cpu_budget import module_budget
 from .torch_corpora import (write_caption_corpus, write_caption_eval_corpus,
                             write_cls_corpus, write_rsvqa_corpus,
                             write_vg_corpus)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _cpu_budget():
+    yield from module_budget()
+
 
 REPO = Path(__file__).resolve().parents[1]
 VOCAB = 320

@@ -18,8 +18,15 @@ import pytest
 from .test_torch_eval_entries import (  # noqa: F401 (fixtures)
     REPO, common_argv, float32_compute, load_module, run_jax, run_port, spy,
     weights, write_config)
+from .cpu_budget import module_budget
 from .torch_corpora import (write_bench_corpus, write_caption_eval_corpus,
                             write_rsvqa_corpus)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _cpu_budget():
+    yield from module_budget()
+
 
 ENTRIES = ("main_cls", "main_vqa", "main_vg", "main_bench_gen",
            "main_caption")

@@ -28,8 +28,14 @@ from lhrs_bot_tpu_torch.ops import quant as t_quant
 from lhrs_bot_tpu_torch.train import (HookBase, IterBasedTrainer,
                                       build_optimizer, build_schedule)
 
+from .cpu_budget import module_budget
 from .test_torch_lora import ALPHA, R, STATE_TOL, tiny  # noqa: F401
 from .test_torch_train import _leaves, _np_tree, _rel_l2, _supervised_batch
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _cpu_budget():
+    yield from module_budget()
 
 
 # -- training --------------------------------------------------------------

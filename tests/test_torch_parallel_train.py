@@ -52,10 +52,17 @@ from lhrs_bot_tpu_torch.models import vlm as t_vlm
 from lhrs_bot_tpu_torch.train import IterBasedTrainer, build_optimizer
 from lhrs_bot_tpu_torch.train.trainer import make_train_step
 
+from .cpu_budget import module_budget
 from .fake_tokenizer import FakeTokenizer
 from .test_torch_stage_entries import _config, _final, weights  # noqa: F401
 from .torch_corpora import write_instruct_corpus
 from .torch_parallel import REPO, run_ranks
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _cpu_budget():
+    yield from module_budget()
+
 
 METRIC_RTOL = 1e-5
 PARAM_TOL = dict(rtol=1e-5, atol=2e-5)

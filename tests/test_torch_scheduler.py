@@ -31,6 +31,14 @@ from lhrs_bot_tpu_torch.serve import engine as t_engine
 from lhrs_bot_tpu_torch.serve import paged as t_paged
 from lhrs_bot_tpu_torch.serve import scheduler as t_sched
 
+from .cpu_budget import module_budget
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _cpu_budget():
+    yield from module_budget()
+
+
 CPU = torch.device("cpu")
 J_DTYPE = {"f32": jnp.float32, "int8": jnp.int8}
 T_DTYPE = {"f32": torch.float32, "int8": torch.int8}

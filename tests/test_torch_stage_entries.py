@@ -30,8 +30,15 @@ import numpy as np
 import pytest
 import torch
 
+from .cpu_budget import module_budget
 from .test_torch_train import STATE_TOL
 from .torch_corpora import write_caption_corpus, write_instruct_corpus
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _cpu_budget():
+    yield from module_budget()
+
 
 REPO = Path(__file__).resolve().parents[1]
 VOCAB = 320

@@ -40,7 +40,14 @@ from lhrs_bot_tpu_torch.train import (HookBase, IterBasedTrainer,
                                       MetricStorage, Trainer,
                                       build_optimizer, build_schedule)
 
+from .cpu_budget import module_budget
 from .fake_tokenizer import FakeTokenizer
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _cpu_budget():
+    yield from module_budget()
+
 
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
 STATE_TOL = dict(rtol=1e-5, atol=1e-5)

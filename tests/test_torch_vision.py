@@ -187,8 +187,15 @@ def test_quantize_vision_layers_byte_identical(which):
             assert got[k].q.transpose(-1, -2).is_contiguous()
         else:
             np.testing.assert_array_equal(got[k].numpy(), np.asarray(w))
-    with pytest.raises(ValueError):
-        t_quant.quantize_vision_layers(params_from_numpy(layers), bits=4)
+    # bits=4 packs int4 codes, as JAX's does (no forward takes them)
+    got = t_quant.quantize_vision_layers(params_from_numpy(layers), bits=4)
+    want = j_quant.quantize_vision_layers(_jtree(layers), bits=4)
+    for k, w in want.items():
+        if isinstance(w, j_quant.QuantizedTensor):
+            assert got[k].bits == 4
+            np.testing.assert_array_equal(got[k].q.numpy(), np.asarray(w.q))
+            np.testing.assert_array_equal(got[k].scale.numpy(),
+                                          np.asarray(w.scale))
 
 
 def _activations(dtype):

@@ -159,6 +159,103 @@ def serve_job(p):
     return out
 
 
+def dp_serve_job(p):
+    """The engine's `generate` (ids, the gathered first-token logits, the
+    rows its prefill held) and schedulers' waves over a dp x tp mesh, in
+    float32. A scheduler spec with "fault" gathers the data groups' tokens
+    in reverse group order (the planted fault; the live flags stay in
+    order, so the host's bookkeeping holds and only the ids go wrong).
+    With "sampled", the engine's sampled `generate` and the named waves
+    (with their requests' "sampling") at the mesh and at dp 1 from the
+    same generator seeds."""
+    from lhrs_bot_tpu_torch.serve.engine import GenerationConfig
+    from lhrs_bot_tpu_torch.serve.paged import PagedScheduler
+    from lhrs_bot_tpu_torch.serve.scheduler import (
+        ContinuousBatchingScheduler, Request)
+
+    mesh = make_mesh(dp=p["dp"], tp=p["tp"])
+    cfg = vlm_config({})
+    eng = _engine(cfg, params_from_numpy(p["params"]), {}, mesh)
+    gcfg = GenerationConfig(max_new_tokens=p["new_tokens"], eos_token_id=2)
+    out = {"engine": [], "scheds": {}}
+    for ids, lens, imgs in p["batches"]:
+        logits, cache, _ = eng._start(ids, lens, imgs, gcfg)
+        out["engine"].append({
+            "ids": eng.generate(ids, lens, images=imgs, gen_cfg=gcfg),
+            "logits": host(eng._gather_rows(logits, ids.shape[0])),
+            "rows": cache.k.shape[1]})
+
+    def make(spec, mesh):
+        common = dict(max_batch=spec["max_batch"],
+                      compute_dtype=torch.float32,
+                      cache_dtype=torch.float32, prompt_bucket=16,
+                      tokens_per_tick=spec["k"], device=CPU, mesh=mesh,
+                      eos_token_id=2,
+                      generator=torch.Generator().manual_seed(5))
+        if spec.get("paged"):
+            return PagedScheduler(cfg, eng.params, eng.llama_params,
+                                  num_pages=spec["num_pages"], page_size=16,
+                                  pages_per_seq=6, **common)
+        return ContinuousBatchingScheduler(
+            cfg, eng.params, eng.llama_params, max_seq_len=96,
+            speculative=spec.get("speculative", 0), **common)
+
+    def requests(spec):
+        return [Request(uid=i, input_ids=ids, max_new_tokens=budget,
+                        image=img, **spec.get("sampling", {}).get(i, {}))
+                for i, (ids, budget, img) in enumerate(spec["requests"])]
+
+    if p.get("sampled"):  # the same draws at dp 1 (one rank, no mesh)
+        ids, lens, imgs = p["batches"][0]
+        scfg = GenerationConfig(max_new_tokens=p["new_tokens"],
+                                do_sample=True, temperature=1.5, top_p=0.95,
+                                eos_token_id=2)
+        eng1 = _engine(cfg, params_from_numpy(p["params"]), {}, None)
+        out["sampled"] = {"engine": [
+            e.generate(ids, lens, images=imgs, gen_cfg=scfg,
+                       generator=torch.Generator().manual_seed(7))
+            for e in (eng, eng1)]}
+        for name, spec in p["sampled"].items():
+            got = []
+            for m in (mesh, None):
+                reqs = requests(spec)
+                make(spec, m).run(reqs)
+                got.append([r.output_ids for r in reqs])
+            out["sampled"][name] = got
+    for name, spec in p["scheds"].items():
+        sched = make(spec, mesh)
+        if spec.get("fault") and sched.dp is not None:
+            gather = sched._gather_slots
+
+            def swapped(t, dim, gather=gather):
+                t = gather(t, dim)  # (tokens, live flags) stacked on dim 0
+                parts = t[0].chunk(sched.dp.size, dim=dim - 1)
+                return torch.stack([torch.cat(parts[::-1], dim=dim - 1),
+                                    t[1]])
+
+            sched._gather_slots = swapped
+        reqs = requests(spec)
+        if spec.get("lockstep"):  # rank 0 leads, the others follow
+            if mesh.rank == 0:
+                sched.lead()
+                sched.run(reqs)
+                sched.release_followers()
+            else:
+                sched.follow()
+                reqs = []
+        else:
+            sched.run(reqs)
+        res = {"ids": [r.output_ids for r in reqs]}
+        if spec.get("paged"):
+            res["free"] = sched.allocator.available() + \
+                sched.prefix.evictable()
+            res["table"] = sched.cache.page_table.numpy()
+        else:
+            res["slots"] = sched.cache.k.shape[1]
+        out["scheds"][name] = res
+    return out
+
+
 def plant_packed_axis(eng, cfg, params, kw, mesh):
     """The planted fault: the row-parallel halves-packed weights sliced
     along their packed K/2 axis (JAX's spec), not by logical rows."""
@@ -451,8 +548,8 @@ def graft_job(p):
                                         backend="gloo", device=CPU)
 
 
-JOBS = {"serve": serve_job, "train": train_job, "entry": entry_job,
-        "serve_entry": serve_entry_job, "ring": ring_job,
+JOBS = {"serve": serve_job, "dp_serve": dp_serve_job, "train": train_job,
+        "entry": entry_job, "serve_entry": serve_entry_job, "ring": ring_job,
         "graft": graft_job}
 
 
