@@ -2038,31 +2038,46 @@ def phase_a(dev, gen):
     return ka
 
 
-# K1's normalize-first variant (the vision blocks' rounding) against its
-# plain version at the vision shapes, in each LHRS_VIT_SOFTMAX mode ("jnn"
-# and "exp2_pre" launch it, "exp2_post" plain K1): relative L2 of the
-# float32 output. Both round the same probabilities to bf16; what is left is
-# float32 summation order and ex2.approx: 2.5e-5 to 2.8e-5 on an H100 at
-# 700 W. Two planted faults must fail: plain K1 in the variant's place
-# (the unnormalised probabilities rounded, 1.18e-3 to 1.23e-3 there) and
-# the normalisation skipped (each row scaled by its sum). "exp2_post"
-# launches plain K1, whose online softmax rounds each probability against
-# its running max where the plain version rounds against the row's: 1.18e-3
-# to 1.23e-3 there, held to the 1e-2 of K1's vision checks
+# The normalize-first attention (csrc/flash_fwd_norm.cu, the vision blocks'
+# rounding) against its plain version at the vision shapes, in each
+# LHRS_VIT_SOFTMAX mode ("jnn" and "exp2_pre" launch it, "exp2_post" plain
+# K1): relative L2 of the output. Both round the same probabilities to
+# bf16; what is left is float32 summation order and ex2.approx: 2.5e-5 to
+# 2.8e-5 on an H100 at 700 W (float32 out). A bf16 output adds one bf16 ulp
+# (2^-8 relative) on the elements whose two float32 values straddle a
+# rounding boundary, so it is held to NORM_K1_BF16_REL_L2 against the plain
+# version rounded alike. Two planted faults must fail: plain K1 in its
+# place (the unnormalised probabilities rounded, 2.16e-3 there) and the
+# normalisation skipped (each row scaled by its sum). "exp2_post" launches
+# plain K1, whose online softmax rounds each probability against its
+# running max where the plain version rounds against the row's: 1.18e-3 to
+# 1.23e-3 there, held to the 1e-2 of K1's vision checks
 NORM_K1_REL_L2 = 2e-4
+NORM_K1_BF16_REL_L2 = 5e-4
 PLAIN_K1_VISION_REL_L2 = 1e-2
-# (name, B, H, Sq, Skv) at D 64: the ViT's 257 tokens, the perceiver's first
-# group (64 queries over 64 + 256 keys), 64 images
-NORM_K1_SHAPES = (("vit", 64, 16, 257, 257),
-                  ("perceiver_g0", 64, 16, 64, 320))
+# (name, B, H, Sq, Skv, D, kv_mask, output dtype): ViT-L/14's 257 tokens
+# (224 px), the perceiver's first group (64 queries over 64 + 256 keys),
+# all three groups under the block's own mask (`perceiver_block._kv_mask`:
+# the group's queries and image tokens valid, its pad slots masked; every
+# group's 64 query rows, past its count too), the split form's bf16 output,
+# ViT-B/16's 197 tokens, ViT-L/14 at 336 px (577 tokens: the two-pass
+# path) and a head dim of 128 (197 tokens), 64 images each
+NORM_K1_SHAPES = (
+    ("vit", 64, 16, 257, 257, 64, None, "float32"),
+    ("perceiver_g0", 64, 16, 64, 320, 64, None, "float32"),
+    ("perceiver", 64 * 3, 16, 64, 320, 64, "perceiver", "float32"),
+    ("split_bf16", 64, 16, 257, 257, 64, None, "bfloat16"),
+    ("vit_b16", 64, 12, 197, 197, 64, None, "float32"),
+    ("vit_336", 64, 16, 577, 577, 64, None, "float32"),
+    ("d128", 64, 8, 197, 197, 128, None, "float32"),
+)
 SOFTMAX_MODES = ("jnn", "exp2_pre", "exp2_post")
 
 
 def unflagged_k1(q, k, v, kv_mask, sm_scale, out_dtype=None, out=None):
-    """Plain K1 in the place of its normalize-first variant: the vision
-    blocks' attention as it was before the variant (the probabilities
-    rounded unnormalised), for timing against it and as a planted
-    fault."""
+    """Plain K1 in the place of the normalize-first kernel: the vision
+    blocks' attention with the probabilities rounded unnormalised, for
+    timing against it and as a planted fault."""
     import torch
 
     from lhrs_bot_tpu_torch.ops.attention import flash_attention_fwd
@@ -2072,20 +2087,24 @@ def unflagged_k1(q, k, v, kv_mask, sm_scale, out_dtype=None, out=None):
 
 
 def check_normalized_k1(dev, gen):
-    """K1's normalize-first variant at NORM_K1_SHAPES: in each softmax mode
+    """The normalize-first attention at NORM_K1_SHAPES: in each softmax mode
     `attend_token_major` (Q, K and V strided views of their projections,
-    float32 token-major out, as the blocks launch it) against its plain
-    version within NORM_K1_REL_L2, launching the variant for "jnn" and
-    "exp2_pre" only; the planted faults (plain K1 in the variant's place,
-    in those two modes; the normalisation skipped) past the bound; the
-    variant's time beside plain K1's, the plain version's, SDPA's and the
-    bound."""
+    token-major out, as the blocks launch it) against its plain version
+    within NORM_K1_REL_L2 (NORM_K1_BF16_REL_L2 for a bf16 output),
+    launching the kernel (its resident path up to NORM_RESIDENT_KEYS[D]
+    keys, else the two-pass path) for "jnn" and "exp2_pre" only; the planted
+    faults (plain K1 in its place, in those two modes; the normalisation
+    skipped) past the bound; its time beside plain K1's, the plain
+    version's, SDPA's and the bound, and at the resident shapes the
+    two-pass path's time at the same shape."""
     import torch
     import torch.nn.functional as F
 
     import lhrs_bot_tpu_torch.ops.vit_block as vit_block_mod
     from lhrs_bot_tpu_torch.ops.attention import (
-        _flash_fwd, flash_attention_fwd, flash_attention_fwd_normalized)
+        _flash_fwd_norm, flash_attention_fwd, flash_attention_fwd_normalized,
+        flash_attention_fwd_normalized_two_pass, norm_two_pass)
+    from lhrs_bot_tpu_torch.ops.perceiver_block import _kv_mask
     from lhrs_bot_tpu_torch.ops.vit_block import (_LOG2E, _heads,
                                                   attend_token_major,
                                                   attention_plain)
@@ -2097,90 +2116,123 @@ def check_normalized_k1(dev, gen):
     def rel(a, b):
         return float((a.float() - b.float()).norm() / b.float().norm())
 
-    d, sm = 64, 0.125
+    def launches():
+        return (flash_attention_fwd_normalized.launches,
+                flash_attention_fwd_normalized_two_pass.launches)
+
     out = {"max_abs_err": 0.0, "shapes": {}}
-    for name, b, h, sq, skv in NORM_K1_SHAPES:
-        w = h * d
+    for name, b, h, sq, skv, d, mask_kind, dtype in NORM_K1_SHAPES:
+        w, sm = h * d, d ** -0.5
+        out_dtype = getattr(torch, dtype)
+        two_pass = norm_two_pass(skv, d)
         if sq == skv:  # one (B, S, 3W) projection, as the ViT block's
             q, k, v = _heads(randn(b, sq, 3 * w), 3, h)
         else:  # the perceiver's q and K|V projections
             (q,) = _heads(randn(b, sq, w), 1, h)
             k, v = _heads(randn(b, skv, 2 * w), 2, h)
-        reading = {}
+        mask = None
+        if mask_kind == "perceiver":  # B * 3 (image, group) rows
+            mask = _kv_mask(b // 3, sq, skv, (64, 48, 32),
+                            tuple(n + 256 for n in (64, 48, 32)), dev)
+        limit_norm = (NORM_K1_BF16_REL_L2 if dtype == "bfloat16"
+                      else NORM_K1_REL_L2)
+        reading = {"path": "two_pass" if two_pass else "resident"}
         for mode in SOFTMAX_MODES:
             scale = sm if mode == "jnn" else sm * _LOG2E
-            before = flash_attention_fwd_normalized.launches
-            got = attend_token_major(q, k, v, None, scale, torch.float32,
+            before = launches()
+            got = attend_token_major(q, k, v, mask, scale, out_dtype,
                                      mode=mode)
-            launched = flash_attention_fwd_normalized.launches - before
-            ref = attend_token_major(q, k, v, None, scale, torch.float32,
+            after = launches()
+            ref = attend_token_major(q, k, v, mask, scale, out_dtype,
                                      plain=True, mode=mode)
             torch.cuda.synchronize()
             r = rel(got, ref)
-            err = float((got - ref).abs().max())
+            err = float((got.float() - ref.float()).abs().max())
+            launched = [a - z for a, z in zip(after, before)]
             reading[mode] = {"rel_l2": r, "max_abs_err": err,
-                             "normalized_launches": launched}
-            if launched != (mode != "exp2_post"):
-                raise AssertionError(f"normalized K1 {name} {mode}: "
-                                     f"launched {launched} times")
+                             "launches": launched}
+            want = [0, 0]
+            if mode != "exp2_post":
+                want[int(two_pass)] = 1
+            if launched != want:
+                raise AssertionError(f"normalize-first {name} {mode}: "
+                                     f"launched {launched}, not {want}")
             limit = (PLAIN_K1_VISION_REL_L2 if mode == "exp2_post"
-                     else NORM_K1_REL_L2)
+                     else limit_norm)
             if not r <= limit:
-                raise AssertionError(f"normalized K1 {name} {mode}: rel L2 "
+                raise AssertionError(f"normalize-first {name} {mode}: rel L2 "
                                      f"{r:.3e} > {limit}")
             if mode != "exp2_post":
                 out["max_abs_err"] = max(out["max_abs_err"], err)
                 with patched(vit_block_mod,
                              flash_attention_fwd_normalized=unflagged_k1):
-                    swapped = attend_token_major(q, k, v, None, scale,
-                                                 torch.float32, mode=mode)
+                    swapped = attend_token_major(q, k, v, mask, scale,
+                                                 out_dtype, mode=mode)
                 r = reading[mode]["unflagged_rel_l2"] = rel(swapped, ref)
-                if r <= NORM_K1_REL_L2:
-                    raise AssertionError(f"normalized K1 {name} {mode}: "
+                if r <= limit_norm:
+                    raise AssertionError(f"normalize-first {name} {mode}: "
                                          "plain K1 in its place passes "
                                          f"({r:.3e})")
-        o = torch.empty(b, sq, h, d, device=dev)
-        ref = attention_plain(q, k, v, None, sm, torch.float32)
-        _flash_fwd(q, k, v, None, False, sm, torch.float32, o.transpose(1, 2),
-                   normalize=True, fault=1)
+        o = torch.empty(b, sq, h, d, device=dev, dtype=out_dtype)
+        ot = o.transpose(1, 2)
+        ref = attention_plain(q, k, v, mask, sm, out_dtype)
+        _flash_fwd_norm(q, k, v, mask, sm, out_dtype, ot, two_pass=two_pass,
+                        fault=1)
         torch.cuda.synchronize()
-        fault = rel(o.transpose(1, 2), ref)
-        if fault <= NORM_K1_REL_L2:
-            raise AssertionError(f"normalized K1 {name}: the skipped "
+        fault = rel(ot, ref)
+        if fault <= limit_norm:
+            raise AssertionError(f"normalize-first {name}: the skipped "
                                  f"normalisation passes ({fault:.3e})")
         ms = cuda_ms(lambda: flash_attention_fwd_normalized(
-            q, k, v, None, sm, torch.float32, o.transpose(1, 2)))
+            q, k, v, mask, sm, out_dtype, ot))
         k1_ms = cuda_ms(lambda: flash_attention_fwd(
-            q, k, v, None, False, sm, torch.float32, o.transpose(1, 2)))
-        plain = cuda_ms(lambda: attention_plain(q, k, v, None, sm,
-                                                torch.float32), reps=5)
+            q, k, v, mask, False, sm, out_dtype, ot))
+        plain = cuda_ms(lambda: attention_plain(q, k, v, mask, sm,
+                                                out_dtype), reps=5)
         qc, kc, vc = (t.contiguous() for t in (q, k, v))
-        lib = cuda_ms(lambda: F.scaled_dot_product_attention(qc, kc, vc,
-                                                             scale=sm))
-        # q, k, v read once (bf16), the float32 output written once; QK^T
-        # and PV over every (query, key) pair
-        bms, by = bound(b * h * d * (2 * sq + 4 * skv + 4 * sq),
-                        4.0 * b * h * sq * skv * d)
+        am = None if mask is None else mask[:, None, None, :]
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qc, kc, vc, attn_mask=am, scale=sm))
+        # q read once, the keys' K and V rows that are attended (and the
+        # mask) read once, the output written once; Q K^T and P V over
+        # every (query, attended key) pair
+        keys = b * skv if mask is None else int(mask.sum())
+        bms, by = bound(h * d * (2 * b * sq + 4 * keys
+                                 + o.element_size() * b * sq)
+                        + (0 if mask is None else b * skv),
+                        4.0 * h * sq * keys * d)
         reading.update({"fault_rel_l2": fault, "ms": ms, "k1_ms": k1_ms,
                         "plain_ms": plain, "library_ms": lib,
                         "bound_ms": bms, "bound_by": by})
+        if not two_pass:  # the two-pass path at the same shape
+            reading["two_pass_ms"] = cuda_ms(lambda: _flash_fwd_norm(
+                q, k, v, mask, sm, out_dtype, ot, two_pass=True))
         out["shapes"][name] = reading
-        log(f"  K1 normalize-first {name} (B{b} H{h} {sq}x{skv} D{d}, "
-            f"strided, float32 token-major out): rel L2 vs plain "
-            + ", ".join(f"{m} {reading[m]['rel_l2']:.2e}"
-                        for m in SOFTMAX_MODES)
-            + f" (bound {NORM_K1_REL_L2}; exp2_post on plain K1, bound "
+        log(f"  normalize-first {name} (B{b} H{h} {sq}x{skv} D{d}, "
+            f"{'perceiver mask, ' if mask is not None else ''}strided, "
+            f"{dtype} token-major out; {reading['path']} path): rel L2 vs "
+            "plain " + ", ".join(f"{m} {reading[m]['rel_l2']:.2e}"
+                                 for m in SOFTMAX_MODES)
+            + f" (bound {limit_norm}; exp2_post on plain K1, bound "
             f"{PLAIN_K1_VISION_REL_L2}); plain K1 "
             "in its place " + ", ".join(
                 f"{m} {reading[m]['unflagged_rel_l2']:.2e}"
                 for m in SOFTMAX_MODES[:2])
-            + f"; normalisation skipped {fault:.3f}; kernel {ms:.4f} ms, "
-            f"plain K1 {k1_ms:.4f} ms, plain {plain:.4f} ms, library (SDPA, "
-            f"bf16 out) {lib:.4f} ms, bound {bms:.4f} ms ({by})")
-        del q, k, v, qc, kc, vc, o, got, ref, swapped
+            + f"; normalisation skipped {fault:.3f}; kernel {ms:.4f} ms"
+            + (f" (two-pass path {reading['two_pass_ms']:.4f})"
+               if not two_pass else "")
+            + f", plain K1 {k1_ms:.4f} ms, plain {plain:.4f} ms, library "
+            f"(SDPA, bf16 out) {lib:.4f} ms, bound {bms:.4f} ms ({by})")
+        del q, k, v, qc, kc, vc, o, ot, got, ref, swapped
     vit = out["shapes"]["vit"]
     out.update({k: vit[k] for k in ("ms", "plain_ms", "library_ms",
                                     "bound_ms", "bound_by")})
+    # the two-pass kernel's own row: ViT-L/14 at 336 px
+    long = out["shapes"]["vit_336"]
+    out["two_pass"] = {k: long[k] for k in ("ms", "plain_ms", "library_ms",
+                                            "bound_ms", "bound_by")}
+    out["two_pass"]["max_abs_err"] = max(long[m]["max_abs_err"]
+                                         for m in SOFTMAX_MODES[:2])
     return out
 
 
@@ -2371,7 +2423,7 @@ def phase_vision_kernels(dev):
         log(f"  fused_vit_block B{nb} (S_pad {VIT_S_PAD}): max abs err "
             f"{err:.3e}; kernels {ms:.4f} ms, plain {plain:.4f} ms, bound "
             f"{bms:.4f} ms ({by})")
-    # row 9 in each softmax mode, and as before the normalize-first K1
+    # row 9 in each softmax mode, and as before the normalize-first attention
     import lhrs_bot_tpu_torch.ops.vit_block as vit_block_mod
 
     by_mode = {}
@@ -2441,7 +2493,8 @@ def phase_vision_kernels(dev):
                                        "plain_ms": plain, "bound_ms": bms,
                                        "bound_by": by, "before_ms": before}
     log(f"  fused_perceiver_block (2 images, 3 groups): max abs err "
-        f"{err:.3e}; kernels {ms:.4f} ms (before the normalize-first K1 "
+        f"{err:.3e}; kernels {ms:.4f} ms (plain K1 in the normalize-first "
+        f"attention's place "
         f"{before:.4f} ms), plain {plain:.4f} ms, bound {bms:.4f} ms "
         f"({by})")
     out["blocks"] = blocks
@@ -2458,7 +2511,8 @@ def phase_tower(dev, n_img=8):
     LHRS_VIT_SOFTMAX mode the fused tower against its plain version (every
     block through the plain kernels) and against the bf16 tower, each
     within TOWER_REL_L2, and the bench's prefill cells (`bench_prefill`,
-    B 64) in each mode and as before the normalize-first K1."""
+    B 64) in each mode and with plain K1 in the normalize-first attention's
+    place."""
     import functools
 
     import torch
@@ -3589,7 +3643,8 @@ def kernel_wrappers():
     """Each kernel's wrapper, whose `launches` counts its launches."""
     from lhrs_bot_tpu_torch.ops.attention import (
         flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_attention_fwd,
-        flash_attention_fwd_normalized)
+        flash_attention_fwd_normalized,
+        flash_attention_fwd_normalized_two_pass)
     from lhrs_bot_tpu_torch.benchmarks.hbm_peak_probe import hbm_read_kernel
     from lhrs_bot_tpu_torch.benchmarks.int8_probe import int8_chain_kernel
     from lhrs_bot_tpu_torch.ops.cache_update import cache_row_update_kernel
@@ -3604,6 +3659,8 @@ def kernel_wrappers():
 
     return {"flash_attention_fwd": flash_attention_fwd,
             "flash_attention_fwd_normalized": flash_attention_fwd_normalized,
+            "flash_attention_fwd_normalized_two_pass":
+                flash_attention_fwd_normalized_two_pass,
             "fused_decode_attention": fused_decode_attention_kernel,
             "fused_decode_attention_q": fused_decode_attention_q_kernel,
             "fused_decode_attention_q_int8dots":
@@ -9400,17 +9457,30 @@ def main():
                        "LSE, a rank's launches a causal ring call "
                        f"{[c['flash_attention_fwd'] for c in cp_launches]} "
                        "(rank r: r + 1)")
-    norm_row = row("flash_attention_fwd_normalized", "flash_fwd.cu",
-                   "vit_block.py:111, vit_block.py:132, "
-                   "perceiver_block.py:53", int8, vision["normalized"])
+    norm = vision["normalized"]
+    norm_replaces = ("vit_block.py:111, vit_block.py:132, "
+                     "perceiver_block.py:53")
+    norm_row = row("flash_attention_fwd_normalized", "flash_fwd_norm.cu",
+                   norm_replaces, int8, norm)
     norm_row["note"] = (
-        "K1's normalize-first template flag (kNorm): a first pass over the "
-        "key tiles for each row's max and sum, then P = exp(s - m) / l "
+        "the normalize-first attention's resident path (rows of at most 320 "
+        "keys): a CTA per (batch, head) holding its K and V in shared "
+        "memory, Q K^T once a Q tile into registers, P = exp(s - m) / l "
         "rounded to bf16 before P V, the TPU vision kernels' rounding "
         "(LHRS_VIT_SOFTMAX jnn and exp2_pre); times at ViT B64 H16 S257 "
-        "D64; plain K1 there " + ", ".join(
-            f"{n} {v['k1_ms']:.4f} ms (this {v['ms']:.4f})"
-            for n, v in vision["normalized"]["shapes"].items()))
+        "D64; by shape (this, the two-pass path, plain K1, SDPA, bound) "
+        + ", ".join(
+            f"{n} {v['ms']:.4f} / {v.get('two_pass_ms', v['ms']):.4f} / "
+            f"{v['k1_ms']:.4f} / {v['library_ms']:.4f} / "
+            f"{v['bound_ms']:.4f} ms" for n, v in norm["shapes"].items()))
+    two_pass_row = row("flash_attention_fwd_normalized_two_pass",
+                       "flash_fwd_norm.cu", norm_replaces, int8,
+                       norm["two_pass"])
+    two_pass_row["note"] = (
+        "the normalize-first attention's two-pass path, for rows past 320 "
+        "keys (K1's tiles: a first pass of Q K^T for each row's max and "
+        "sum, then P V); times at ViT-L/14 336 px, B64 H16 S577 D64; no "
+        "model of the main path has such rows")
     kernels = [
         fwd_row,
         row("fused_decode_attention", "fused_decode.cu",
@@ -9499,7 +9569,8 @@ def main():
                 "parallelism (phase 8, cp = 2): one launch a ring block in "
                 "the backward, a rank's launches a causal ring call "
                 f"{[c[k['name']] for c in cp_launches]} (rank r: r + 1)")
-    kernels.insert(1, norm_row)  # after the notes set by position
+    # after the notes set by position
+    kernels[1:1] = [norm_row, two_pass_row]
     log(json.dumps({"w4a8_shapes": k3["shapes"],
                     "ln_quant_shapes": vision["A"]["shapes"]}))
     log(json.dumps({"int8_gemm_shapes": vision["B"]["shapes"],

@@ -21,8 +21,11 @@ change, parent). Parts:
       shape (B1 H32 S2048 D128, 4 segments, with the LSE), the ViT (B64 H16
       S257 D64, Q/K/V strided views of one projection, float32 token-major
       output) and the perceiver's group 0 (B64 H16 64 x 320 D64, float32
-      output); each beside one PyTorch call of the same function
-      (`torch._int_mm` for the product alone, SDPA) and its bound. The
+      output), and at those two shapes the normalize-first forward
+      (`flash_attention_fwd_normalized`) where the checkout has it; each
+      beside one PyTorch call of the same function (`torch._int_mm` for
+      the product alone, SDPA) and its bound; K1's registers and spills
+      (and the normalize-first kernels') from the checkout's build log. The
       backward's dQ and dK/dV kernels at the training path's shapes
       (`bwd_shapes`: the packed decoder batch, the kv-mask decoder shape,
       the caption batch and the perceiver's group 0), each launcher as a
@@ -68,7 +71,10 @@ change, parent). Parts:
       chip_profile.py times it) and a stage-1 training step on the packed
       batch and on the caption batch (host clock), each with the card's
       busy time and the flash forward's and backward's shares of it under
-      torch.profiler.
+      torch.profiler. With --towers-only N: only the three tower cells,
+      N times, and the fused ViT-L block (B8) and the fused perceiver
+      block, N times each: run the two checkouts in turns (parent, change,
+      change, parent, ...) for five or more readings a side.
   probes: the five int8 / bf16 product chains at the probe's shape (g16
       M2048 K = N 1024, 16 products; where the checkout has `chain_form`,
       each with its form), each beside its bound, its share of it and the
@@ -94,10 +100,13 @@ def _kernels(dev):
     import torch.nn.functional as F
 
     import chip_smoke as c
+    from lhrs_bot_tpu_torch.ops import attention, cuda_lib
     from lhrs_bot_tpu_torch.ops.attention import flash_attention_fwd
     from lhrs_bot_tpu_torch.ops.int8_gemm import int8_gemm_kernel
     from lhrs_bot_tpu_torch.ops.quant import transposed_storage
 
+    # the normalize-first forward, where the checkout has one
+    norm = getattr(attention, "flash_attention_fwd_normalized", None)
     gen = torch.Generator(device=dev).manual_seed(0)
     out = {}
     m = 64 * 257
@@ -171,12 +180,26 @@ def _kernels(dev):
                                          torch.float32, o.transpose(1, 2)),
              lambda: F.scaled_dot_product_attention(q, k, v),
              b * s * s, 4 * b * s * 1024)
+    if norm is not None:  # the normalize-first forward, as K1 above
+        attn_row("norm_vit_b64", q, k, v,
+                 lambda: norm(q, k, v, None, 0.125, torch.float32,
+                              o.transpose(1, 2)),
+                 lambda: F.scaled_dot_product_attention(q, k, v),
+                 b * s * s, 4 * b * s * 1024)
     q, k, v = randn(b, 16, 64, 64), randn(b, 16, 320, 64), randn(b, 16, 320, 64)
     attn_row("K1_perceiver_g0_b64", q, k, v,
              lambda: flash_attention_fwd(q, k, v, None, False, 0.125,
                                          torch.float32),
              lambda: F.scaled_dot_product_attention(q, k, v),
              b * 64 * 320, 4 * b * 16 * 64 * 64)
+    if norm is not None:
+        attn_row("norm_perceiver_g0_b64", q, k, v,
+                 lambda: norm(q, k, v, None, 0.125, torch.float32),
+                 lambda: F.scaled_dot_product_attention(q, k, v),
+                 b * 64 * 320, 4 * b * 16 * 64 * 64)
+    # K1's registers and spills (and the normalize-first kernels')
+    out["registers"] = _build_usage(cuda_lib.build(), ("flash_fwd_kernel",
+                                                       "flash_norm"))
     out.update(_backward(dev, gen))
     return out
 
@@ -875,6 +898,59 @@ def _e2e(dev, train=True):
     return out
 
 
+def _towers(dev, repeats):
+    """The bench's three tower cells (`bench.bench_prefill`, B = 64)
+    `repeats` times, and the fused ViT-L block at B8 and the fused
+    perceiver block (2 images, 3 groups) as chip_smoke.py's vision phase
+    times them, `repeats` times each: so that two checkouts run in turns
+    resolve a few percent on the fused tower cell."""
+    import torch
+
+    import chip_smoke as c
+    from lhrs_bot_tpu_torch import bench
+    from lhrs_bot_tpu_torch.models import VLMConfig
+    from lhrs_bot_tpu_torch.ops.perceiver_block import (
+        fused_perceiver_block, pack_perceiver_layers_fused)
+    from lhrs_bot_tpu_torch.ops.vit_block import (fused_vit_block,
+                                                  pack_vit_layers_fused)
+
+    out = {}
+    for _ in range(repeats):
+        for key, value in bench.bench_prefill(VLMConfig(), device=dev).items():
+            out.setdefault(key, []).append(value)
+        torch.cuda.empty_cache()
+    # the blocks' inputs as phase_vision_kernels builds them (an older
+    # checkout's chip_smoke.py has no helper to share)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    w, s, s_pad = c.VIT_W, c.VIT_S, c.VIT_S_PAD
+    lp = {k: v[0] for k, v in pack_vit_layers_fused(
+        c.vit_layers(dev, 1, seed=4)).items()}
+    x = torch.zeros(8, s_pad, w, device=dev, dtype=torch.bfloat16)
+    x[:, :s] = torch.randn(8, s, w, generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+    players = c.vit_layers(dev, 1, seed=5)
+    players["ln_kv_scale"] = players["ln1_scale"] * 0.9 + 0.1
+    players["ln_kv_bias"] = players["ln1_bias"] * -1
+    plp = {k: v[0] for k, v in pack_perceiver_layers_fused(players).items()}
+    nq, q_pad, kv_pad = (64, 48, 32), 64, 64 + 256
+    q = torch.zeros(2, 3, q_pad, w, device=dev, dtype=torch.bfloat16)
+    kv = torch.zeros(2, 3, kv_pad, w, device=dev, dtype=torch.bfloat16)
+    for gi, n in enumerate(nq):
+        q[:, gi, :n] = torch.randn(2, n, w, generator=gen, device=dev,
+                                   dtype=torch.bfloat16)
+        kv[:, gi, :n] = q[:, gi, :n]
+        kv[:, gi, q_pad:] = torch.randn(2, 256, w, generator=gen, device=dev,
+                                        dtype=torch.bfloat16)
+    kw = dict(heads=16, group_nq=nq, kv_valid=tuple(n + 256 for n in nq))
+    for _ in range(repeats):
+        out.setdefault("fused_vit_block_b8_ms", []).append(c.cuda_ms(
+            lambda: fused_vit_block(x, lp, heads=16, s_valid=s, group=8),
+            reps=5))
+        out.setdefault("fused_perceiver_block_ms", []).append(c.cuda_ms(
+            lambda: fused_perceiver_block(q, kv, plp, **kw), reps=5))
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", required=True,
@@ -884,6 +960,9 @@ def main(argv=None):
                     required=True)
     ap.add_argument("--no-train", action="store_true",
                     help="e2e: leave out the prefill and the training steps")
+    ap.add_argument("--towers-only", type=int, default=0, metavar="N",
+                    help="e2e: only the three tower cells and the fused "
+                    "ViT / perceiver blocks, N times each")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -907,6 +986,8 @@ def main(argv=None):
         res = _decode(dev)
     elif args.part == "probes":
         res = _probes(dev)
+    elif args.towers_only:
+        res = _towers(dev, args.towers_only)
     else:
         res = _e2e(dev, train=not args.no_train)
     line = {"root": args.root, "part": args.part, "result": res,

@@ -1,0 +1,632 @@
+// Normalize-first attention forward for Hopper (sm_90a): bf16 Q, K, V, f32
+// scores, P = exp(s - m) / l over each row's final max m and sum l, P
+// rounded to bf16 before P V, no division afterwards; float32 or bf16 out.
+//
+// Replaces the per-head attention of the Pallas TPU vision kernels where
+// they round the NORMALISED probabilities: `_attn_probs_and_norm`
+// (lhrs_bot_tpu/ops/vit_block.py:75-86) in its `jnn` and `exp2_pre` softmax
+// modes inside `_vit_block_kernel` / `_vit_block_grouped_kernel` (:111,
+// :132), and the perceiver block's `jax.nn.softmax` (perceiver_block.py:53);
+// the split form's XLA attention rounds there too. K1 (flash_fwd.cu) rounds
+// the unnormalised probabilities of an online softmax, as their `exp2_post`
+// mode does. Non-causal; optional kv_mask (B, Skv) bytes; a row with no
+// valid key gives 0. q, k, v and o are addressed through (batch, head, row)
+// element strides, so the blocks read Q, K and V in place from their
+// projections and write the output token-major, (B, S, H, D).
+//
+// What bounds it on the H100: bytes. At ViT-L/14's B64 H16 S257 D64 the two
+// products are 17.3 GFLOP (17.5 us at 989 TFLOP/s) against 168 MB read and
+// written (50 us at 3.35 TB/s); at the perceiver's 64 x 320, 5.4 GFLOP
+// against 109 MB (33 us). So each head's Q, K and V should leave device
+// memory once, and loads should stay in flight while the products and the
+// softmax run.
+//
+// Resident design (rows of at most 320 keys at D64, 256 at D128: ViT-B/16's
+// 197, ViT-L/14's 257, the perceiver's 320): one CTA per (batch, head), one
+// warpgroup and no producer warp. Its thread 0 loads the head's whole K and
+// V into shared memory by TMA, each once, and the head's 64-row Q tiles
+// through two slots, each next tile as soon as a slot's Q K^T is done. A
+// last key tile of at most 8 keys (257 and 197 tokens) arrives as a box of
+// 8 rows (K) and 16 (V), else it is taken whole; rows past Skv arrive as
+// zeros. For a Q tile the warpgroup computes every score of its 64 rows at
+// once: wgmma m64n64k16 for each 64-key tile and m64n8k16 for such a last
+// tile, into 32 float32 registers a thread a key tile (160 at 320 keys). It
+// then takes each row's exact max and sum from those registers,
+// normalises, rounds to bf16 and packs P straight into the A fragments of
+// P V, which reads the resident V (m64nDk16, one k16 step for an 8-key
+// tile) and is written token-major from the accumulators. Q K^T runs once
+// a Q tile, and K and V cross L2 once a head. Two CTAs share an SM (three
+// at D64 to 192 keys; one at D128 past 128 keys): 98 KB of shared memory
+// at D64 and 320 keys, and with 8 warps an SM a thread may hold 255
+// registers, so that one CTA's softmax and loads overlap the other's
+// products. The products of a tile are one straight sequence: a branch
+// between them made ptxas wait for each one (C7517 / C7519). Measured
+// slower on an H100 (PERF.md): a producer warp beside the warpgroup (an
+// SM's scheduler then holds three warps of two CTAs, 168 registers a
+// thread, and 160 scores spill); a persistent CTA an SM walking heads with
+// the next head's K and V in flight (no other CTA's products to overlap);
+// two consumer warpgroups and a producer warp in it (168 registers again).
+//
+// Two-pass design (longer rows: ViT-L/14 at 336 px has 577 keys, past what
+// registers hold): K1's CTA (flash_tiles.cuh: one per (batch * head, 64-row
+// Q tile), two-stage K and V rings), whose consumer makes a first pass over
+// the K tiles for each row's max and sum (online, exact at the end) and a
+// second that computes P = exp2(s - m) / l, rounds it and accumulates P V;
+// the producer loads every K tile twice and V once.
+//
+// fault = 1 skips the normalisation (P = exp2(s - m) rounded): a planted
+// fault for the card's checks.
+
+#include "flash_tiles.cuh"
+
+namespace {
+
+// the resident path's longest rows: 5 score tiles at D64, 4 at D128
+constexpr int res_keys(int D) { return D == 64 ? 320 : 256; }
+
+struct NormParams {
+  const uint8_t* kv_mask;  // (B, Skv) or null
+  void* o;
+  int H, Sq, Skv, out_f32, fault;
+  float scale_log2;  // sm_scale * log2(e)
+  Strides os;
+};
+
+// One output row pair of a thread (rows qrow[0], qrow[1] of the head,
+// columns 8 j + 2 t, + 1), from accumulators that need no rescaling.
+template <int D>
+__device__ __forceinline__ void store_rows(const NormParams& p,
+                                           const float (&acc)[D / 2], int b,
+                                           int hd, const int (&qrow)[2],
+                                           int t) {
+  const size_t ob = b * p.os.b + hd * p.os.h;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int c = 8 * j + 2 * t;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (qrow[r] >= p.Sq) continue;
+      const size_t i = ob + (size_t)qrow[r] * p.os.s + c;
+      const float v0 = acc[4 * j + 2 * r], v1 = acc[4 * j + 2 * r + 1];
+      if (p.out_f32)
+        *reinterpret_cast<float2*>(static_cast<float*>(p.o) + i) =
+            make_float2(v0, v1);
+      else
+        *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(p.o) + i) =
+            pack_bf16(v0, v1);
+    }
+  }
+}
+
+// ---- resident path ----------------------------------------------------------
+
+// P: 1 when the last key tile holds at most 8 keys (one n8 product, one
+// k16 step of P V), 0 when it is taken whole (64 keys, or a longer tail:
+// its K and V arrive as 64 rows, those past Skv zeros).
+template <int D, int NT, int P>
+struct Res {
+  static constexpr int kBQ = 64;  // q rows a tile
+  static constexpr int kBN = 64;  // keys a score tile
+  static constexpr int kThreads = 128;
+  static constexpr int kQBytes = kBQ * D * 2;     // one Q tile
+  static constexpr int kTileBytes = kBN * D * 2;  // one K or V tile
+  static constexpr int kSmem = 1024 + 2 * kQBytes + 2 * NT * kTileBytes +
+                               NT * kBN * 4 + (NT + 3) * 8;
+  // CTAs an SM: as many as their shared memory lets, at most two, or
+  // three at D64 to 192 keys (an SM's scheduler then holds three warps:
+  // 168 registers a thread, room for 96 scores)
+  static constexpr int kFit = 233472 / (kSmem + 1024);
+  static constexpr int kMinBlocks =
+      kFit < 2 ? 1 : (D == 64 && NT <= 3 && kFit >= 3 ? 3 : 2);
+};
+
+// Shared memory of a resident CTA: two Q tiles, the head's K tiles, its V
+// tiles, each key's flag and the barriers (one a K tile, so that Q K^T
+// starts on the tiles that have landed). A tile is D / 64 column blocks of
+// 64 rows x 128 bytes, as K1's.
+template <int D, int NT, int P>
+struct ResSmem {
+  using C = Res<D, NT, P>;
+  uint8_t* q;
+  uint8_t* k;
+  uint8_t* v;
+  int* flags;  // (NT * kBN)
+  uint64_t* k_full;  // (NT)
+  uint64_t* v_full;
+  uint64_t* q_full;  // (2)
+
+  __device__ explicit ResSmem(uint8_t* raw) {
+    q = reinterpret_cast<uint8_t*>(
+        (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
+    k = q + 2 * C::kQBytes;
+    v = k + NT * C::kTileBytes;
+    flags = reinterpret_cast<int*>(v + NT * C::kTileBytes);
+    k_full = reinterpret_cast<uint64_t*>(flags + NT * C::kBN);
+    v_full = k_full + NT;
+    q_full = v_full + 1;
+  }
+};
+
+// Loads key tile i of the head's K, completing on `bar`: 64 rows, or (P,
+// the last tile) its first 8 through `tm_tail`.
+template <int D, int NT, int P>
+__device__ __forceinline__ void load_k_tile(uint8_t* k, const CUtensorMap* tm,
+                                            const CUtensorMap* tm_tail,
+                                            uint64_t* bar, int i, int hd,
+                                            int b) {
+  const bool tail = P && i == NT - 1;
+  sm90::mbar_arrive_tx(bar, (tail ? 8 : 64) * D * 2);
+  for (int cb = 0; cb < D / 64; ++cb)
+    sm90::tma_load_4d(k + i * 64 * D * 2 + cb * 64 * 128, tail ? tm_tail : tm,
+                      bar, cb * 64, i * 64, hd, b);
+}
+
+// S = Q K^T of one Q tile against the head's resident K: a wgmma m64n64k16
+// chain per whole 64-key tile, then (P) an m64n8k16 chain over the last
+// tile's 8 keys, each tile's as soon as its K has landed. No branch
+// between a tile's products: one makes ptxas wait for each (C7517 /
+// C7519).
+template <int D, int NT, int P>
+__device__ __forceinline__ void res_qk(float (&sc)[NT][32], const uint8_t* sq,
+                                       const uint8_t* sk0, uint64_t* k_full) {
+#pragma unroll
+  for (int c = 0; c < NT; ++c) {
+    sm90::mbar_wait(&k_full[c], 0);
+    sm90::fence_regs(sc[c]);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int cb = kk / 4, kc = (kk % 4) * 32;
+      const uint64_t da = sm90::desc_sw128(sq + cb * 64 * 128 + kc, 16, 1024);
+      const uint64_t db = sm90::desc_sw128(
+          sk0 + c * 64 * D * 2 + cb * 64 * 128 + kc, 16, 1024);
+      if (P && c == NT - 1)
+        sm90::wgmma_bf16_ss_m64n8k16(sc[c], da, db, kk > 0);
+      else
+        sm90::wgmma_bf16_ss_m64n64k16(sc[c], da, db, kk > 0);
+    }
+    sm90::wgmma_commit();
+  }
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(sc);
+}
+
+// O = P V against the head's resident V: the four k16 steps of each whole
+// 64-key tile, then (P) the last tile's first.
+template <int D, int NT, int P>
+__device__ __forceinline__ void res_pv(float (&acc)[D / 2],
+                                       uint32_t (&pf)[NT][4][4],
+                                       const uint8_t* sv0) {
+#pragma unroll
+  for (int c = 0; c < NT; ++c) sm90::fence_regs(pf[c]);
+  sm90::fence_regs(acc);
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int c = 0; c < NT; ++c)
+#pragma unroll
+    for (int j2 = 0; j2 < (P && c == NT - 1 ? 1 : 4); ++j2) {
+      const uint64_t dv = sm90::desc_sw128(
+          sv0 + c * 64 * D * 2 + j2 * 16 * 128, 64 * 128, 1024);
+      if constexpr (D == 64)
+        sm90::wgmma_bf16_rs_m64n64k16(acc, pf[c][j2], dv);
+      else
+        sm90::wgmma_bf16_rs_m64n128k16(acc, pf[c][j2], dv);
+    }
+  sm90::wgmma_commit();
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(acc);
+}
+
+// One CTA a head: a consumer warpgroup whose thread 0 issues the loads (K,
+// Q tile 0, V, Q tile 1, then each next Q tile into the slot whose Q K^T
+// is done) and which runs every Q tile of the head against the resident K
+// and V. Element i of a score tile sits at row g + 8 * ((i >> 1) & 1) of
+// the warp's 16 and column 8 * (i >> 2) + 2t + (i & 1) (K1's layout).
+template <int D, int NT, int P>
+__global__ void __launch_bounds__(128, (Res<D, NT, P>::kMinBlocks))
+    flash_norm_resident_kernel(const __grid_constant__ CUtensorMap tm_q,
+                               const __grid_constant__ CUtensorMap tm_k,
+                               const __grid_constant__ CUtensorMap tm_v,
+                               const __grid_constant__ CUtensorMap tm_kt,
+                               const __grid_constant__ CUtensorMap tm_vt,
+                               const NormParams p) {
+  using C = Res<D, NT, P>;
+  constexpr int kBN = C::kBN;
+  constexpr int kVBytes = ((NT - P) * kBN + 16 * P) * D * 2;
+  extern __shared__ uint8_t smem_raw[];
+  const ResSmem<D, NT, P> sm(smem_raw);
+  const int b = blockIdx.x / p.H, hd = blockIdx.x % p.H;
+  const int nq = (p.Sq + C::kBQ - 1) / C::kBQ;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const bool issuer = threadIdx.x == 0;
+  const auto load_q = [&](int i) {
+    uint64_t* bar = &sm.q_full[i & 1];
+    sm90::mbar_arrive_tx(bar, C::kQBytes);
+    for (int cb = 0; cb < D / 64; ++cb)
+      sm90::tma_load_4d(sm.q + (i & 1) * C::kQBytes + cb * C::kBQ * 128,
+                        &tm_q, bar, cb * 64, i * C::kBQ, hd, b);
+  };
+  if (issuer) {  // the loads go out first; the flags are written meanwhile
+    for (int c = 0; c < NT; ++c) sm90::mbar_init(&sm.k_full[c], 1);
+    sm90::mbar_init(sm.v_full, 1);
+    sm90::mbar_init(&sm.q_full[0], 1);
+    sm90::mbar_init(&sm.q_full[1], 1);
+    sm90::mbar_fence_init();
+    for (int c = 0; c < NT; ++c)
+      load_k_tile<D, NT, P>(sm.k, &tm_k, &tm_kt, &sm.k_full[c], c, hd, b);
+    load_q(0);
+    // V on one barrier: its last tile (P) as 16 rows through tm_vt
+    sm90::mbar_arrive_tx(sm.v_full, kVBytes);
+    for (int c = 0; c < NT; ++c)
+      for (int cb = 0; cb < D / 64; ++cb)
+        sm90::tma_load_4d(sm.v + c * C::kTileBytes + cb * 64 * 128,
+                          P && c == NT - 1 ? &tm_vt : &tm_v, sm.v_full,
+                          cb * 64, c * 64, hd, b);
+    if (nq > 1) load_q(1);
+  }
+  for (int c = threadIdx.x; c < NT * kBN; c += C::kThreads)
+    sm.flags[c] = c < p.Skv && (p.kv_mask == nullptr ||
+                                p.kv_mask[(size_t)b * p.Skv + c])
+                      ? 0
+                      : -1;
+  __syncthreads();  // the barriers' initialisation and the flags
+  // bit 16 c + 2 j + h: the key 64 c + 8 j + 2 t + h is attended
+  uint32_t ok[(NT * 16 + 31) / 32];
+#pragma unroll
+  for (int w = 0; w < (NT * 16 + 31) / 32; ++w) ok[w] = 0;
+#pragma unroll
+  for (int c = 0; c < NT; ++c)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int bit = 16 * c + 2 * j + h;
+        if (sm.flags[kBN * c + 8 * j + 2 * t + h] >= 0)
+          ok[bit >> 5] |= 1u << (bit & 31);
+      }
+  // the tiles whose keys all attend need no mask
+  const bool masked = p.kv_mask != nullptr;
+  const bool last_masked = masked || p.Skv < NT * kBN;
+
+  float sc[NT][kBN / 2];
+  uint32_t pf[NT][kBN / 16][4];
+  float acc[D / 2];
+  for (int i = 0; i < nq; ++i) {
+    sm90::mbar_wait(&sm.q_full[i & 1], (i >> 1) & 1);
+    // S = Q K^T over every key of the head, once. The scores are written
+    // first: the n8 product leaves the rest of the tail tile unwritten, and
+    // the last tile's values would otherwise stay live through P V (wgmma
+    // reads its accumulators)
+#pragma unroll
+    for (int c = 0; c < NT; ++c)
+#pragma unroll
+      for (int e = 0; e < kBN / 2; ++e) sc[c][e] = 0.f;
+    res_qk<D, NT, P>(sc, sm.q + (i & 1) * C::kQBytes, sm.k, sm.k_full);
+    // this slot's Q is read: it takes tile i + 2
+    if (issuer && i + 2 < nq) load_q(i + 2);
+
+    // mask, the row's exact max and sum (the scale folded into the
+    // exponent's FFMA: scale_log2 > 0), then P normalised
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int c = 0; c < NT; ++c) {
+      const bool need = c == NT - 1 ? last_masked : masked;
+#pragma unroll
+      for (int e = 0; e < kBN / 2; ++e) {
+        const int bit = 16 * c + 2 * (e >> 2) + (e & 1);
+        if (need && !((ok[bit >> 5] >> (bit & 31)) & 1u)) sc[c][e] = kNegInf;
+        mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], sc[c][e]);
+      }
+    }
+    float base[2], l[2] = {0.f, 0.f}, inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      // a row with no valid key: its masked scores must give exp 0
+      base[r] = mx[r] == kNegInf ? 0.f : mx[r] * p.scale_log2;
+    }
+#pragma unroll
+    for (int c = 0; c < NT; ++c)
+#pragma unroll
+      for (int e = 0; e < kBN / 2; ++e) {
+        sc[c][e] = ex2(fmaf(sc[c][e], p.scale_log2, -base[(e >> 1) & 1]));
+        l[(e >> 1) & 1] += sc[c][e];
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      inv[r] = p.fault ? 1.f : l[r] > 0.f ? 1.f / l[r] : 0.f;
+    }
+#pragma unroll
+    for (int c = 0; c < NT; ++c) {
+#pragma unroll
+      for (int e = 0; e < kBN / 2; ++e) sc[c][e] *= inv[(e >> 1) & 1];
+      pack_p<kBN / 2>(pf[c], sc[c]);
+    }
+
+    // O = P V from the resident V, over the k16 steps that hold keys
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
+    sm90::mbar_wait(sm.v_full, 0);
+    res_pv<D, NT, P>(acc, pf, sm.v);
+    const int row0 = i * C::kBQ + 16 * warp + g;
+    const int qrow[2] = {row0, row0 + 8};
+    store_rows<D>(p, acc, b, hd, qrow, t);
+  }
+}
+
+template <int D, int NT, int P>
+int launch_resident(const CUtensorMap* maps, const NormParams& p, int B,
+                    cudaStream_t stream) {
+  using C = Res<D, NT, P>;
+  auto kernel = flash_norm_resident_kernel<D, NT, P>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<B * p.H, C::kThreads, C::kSmem, stream>>>(maps[0], maps[1],
+                                                     maps[2], maps[3],
+                                                     maps[4], p);
+  return (int)cudaGetLastError();
+}
+
+template <int D, int NT>
+int launch_resident(const CUtensorMap* maps, const NormParams& p, int B,
+                    cudaStream_t stream) {
+  const int tail = p.Skv % 64;
+  return tail > 0 && tail <= 8
+             ? launch_resident<D, NT, 1>(maps, p, B, stream)
+             : launch_resident<D, NT, 0>(maps, p, B, stream);
+}
+
+template <int D>
+int dispatch_resident(const CUtensorMap* maps, const NormParams& p, int B,
+                      cudaStream_t stream) {
+  switch ((p.Skv + 63) / 64) {
+    case 1: return launch_resident<D, 1>(maps, p, B, stream);
+    case 2: return launch_resident<D, 2>(maps, p, B, stream);
+    case 3: return launch_resident<D, 3>(maps, p, B, stream);
+    case 4: return launch_resident<D, 4>(maps, p, B, stream);
+    case 5:
+      if constexpr (D == 64) return launch_resident<D, 5>(maps, p, B, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// ---- two-pass path ------------------------------------------------------------
+
+// The normalised probabilities of one tile, in place, from each row's final
+// max (`base`, in units of log2; 0 for a row with no valid key) and the
+// reciprocal of its sum (`inv`, 0 for such a row): masked scores give 0.
+template <int N>
+__device__ __forceinline__ void normalized_probs(
+    float (&sc)[N], const int* key, bool need_mask, float scale_log2, int t,
+    const float (&base)[2], const float (&inv)[2]) {
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1;
+      float x = sc[4 * j + e] * scale_log2;
+      if (need_mask && key[8 * j + 2 * t + (e & 1)] < 0) x = kNegInf;
+      sc[4 * j + e] = ex2(x - base[r]) * inv[r];
+    }
+  }
+}
+
+// The consumer warpgroup: q rows [q0, q0 + 64). A first pass over the K
+// ring takes each row's max and sum; the second issues tile i's S = Q K^T
+// with tile i-1's P V, and normalises tile i while P V retires.
+template <int D>
+__device__ __forceinline__ void two_pass_consume(const NormParams& p,
+                                                 const Smem<D>& sm, int b,
+                                                 int hd, int q0, int n_tiles,
+                                                 int warp, int lane) {
+  constexpr int kBN = Cfg<D>::kBN;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = q0 + 16 * warp + g;
+  const int qrow[2] = {row0, row0 + 8};
+  const int segq[2] = {0, 0};
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf};  // running max, in units of log2
+  float l[2] = {0.f, 0.f};          // per-thread partial row sums
+  float sc[kBN / 2], alpha[2];
+  uint32_t pf[kBN / 16][4];
+  const auto need_mask = [&](int kv0) {
+    return p.kv_mask != nullptr || kv0 + kBN > p.Skv;
+  };
+  sm90::mbar_wait(sm.q_full, 0);
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % kStages, kv0 = i * kBN;
+    sm90::mbar_wait(&sm.full_k[s], (i / kStages) & 1);
+    issue_qk<D>(sc, sm.q, sm.k(s));
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(sc);
+    online_softmax<kBN / 2, false>(sc, sm.keys + s * kBN, kv0, need_mask(kv0),
+                                   0, qrow, segq, p.scale_log2, t, m, l,
+                                   alpha);
+    warp_arrive(&sm.empty_k[s], lane);
+  }
+  float base[2], inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    inv[r] = p.fault ? 1.f : l[r] > 0.f ? 1.f / l[r] : 0.f;
+    base[r] = m[r] == kNegInf ? 0.f : m[r];
+  }
+
+  const int s0 = n_tiles % kStages;
+  sm90::mbar_wait(&sm.full_k[s0], (n_tiles / kStages) & 1);
+  issue_qk<D>(sc, sm.q, sm.k(s0));
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(sc);
+  normalized_probs<kBN / 2>(sc, sm.keys + s0 * kBN, need_mask(0),
+                            p.scale_log2, t, base, inv);
+  warp_arrive(&sm.empty_k[s0], lane);
+  pack_p(pf, sc);
+  for (int i = 1; i < n_tiles; ++i) {
+    const int it = n_tiles + i, s = it % kStages, sp = (i - 1) % kStages;
+    sm90::mbar_wait(&sm.full_k[s], (it / kStages) & 1);
+    issue_qk<D>(sc, sm.q, sm.k(s));
+    sm90::mbar_wait(&sm.full_v[sp], ((i - 1) / kStages) & 1);
+    issue_pv<D>(acc, pf, sm.v(sp));
+    sm90::wgmma_wait<1>();  // S of tile i is done; P V of tile i-1 runs on
+    sm90::fence_regs(sc);
+    normalized_probs<kBN / 2>(sc, sm.keys + s * kBN, need_mask(i * kBN),
+                              p.scale_log2, t, base, inv);
+    warp_arrive(&sm.empty_k[s], lane);
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(acc);
+    warp_arrive(&sm.empty_v[sp], lane);
+    pack_p(pf, sc);
+  }
+  const int last = (n_tiles - 1) % kStages;
+  sm90::mbar_wait(&sm.full_v[last], ((n_tiles - 1) / kStages) & 1);
+  issue_pv<D>(acc, pf, sm.v(last));
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(acc);
+  store_rows<D>(p, acc, b, hd, qrow, t);
+}
+
+// The producer warp: Q once, then every K tile (and its keys) through the K
+// ring twice, V through the V ring in the second pass, each stage as soon
+// as the consumers have released it.
+template <int D>
+__device__ __forceinline__ void two_pass_produce(
+    const NormParams& p, const Smem<D>& sm, const CUtensorMap* tm_q,
+    const CUtensorMap* tm_k, const CUtensorMap* tm_v, int b, int hd, int q0,
+    int n_tiles, int lane) {
+  using C = Cfg<D>;
+  if (lane == 0) {
+    sm90::mbar_arrive_tx(sm.q_full, C::kQBytes);
+    for (int cb = 0; cb < D / 64; ++cb)
+      sm90::tma_load_4d(sm.q + cb * C::kBQ * 128, tm_q, sm.q_full, cb * 64,
+                        q0, hd, b);
+  }
+  for (int it = 0; it < 2 * n_tiles; ++it) {
+    const int s = it % kStages, kv0 = (it % n_tiles) * C::kBN;
+    sm90::mbar_wait(&sm.empty_k[s], ((it / kStages) & 1) ^ 1);
+    for (int c = lane; c < C::kBN; c += 32) {
+      const int kv = kv0 + c;
+      sm.keys[s * C::kBN + c] =
+          kv < p.Skv && (p.kv_mask == nullptr ||
+                         p.kv_mask[(size_t)b * p.Skv + kv])
+              ? 0
+              : -1;
+    }
+    if (lane == 0) {  // its arrival also counts the tile's bytes
+      sm90::mbar_arrive_tx(&sm.full_k[s], C::kTileBytes);
+      for (int cb = 0; cb < D / 64; ++cb)
+        sm90::tma_load_4d(sm.k(s) + cb * C::kBN * 128, tm_k, &sm.full_k[s],
+                          cb * 64, kv0, hd, b);
+    } else {
+      sm90::mbar_arrive(&sm.full_k[s]);  // releases this lane's keys
+    }
+    if (lane == 0 && it >= n_tiles) {
+      const int iv = it - n_tiles, sv = iv % kStages;
+      sm90::mbar_wait(&sm.empty_v[sv], ((iv / kStages) & 1) ^ 1);
+      sm90::mbar_arrive_tx(&sm.full_v[sv], C::kTileBytes);
+      for (int cb = 0; cb < D / 64; ++cb)
+        sm90::tma_load_4d(sm.v(sv) + cb * C::kBN * 128, tm_v, &sm.full_v[sv],
+                          cb * 64, kv0, hd, b);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(Cfg<D>::kThreads, Cfg<D>::kMinBlocks)
+    flash_norm_two_pass_kernel(const __grid_constant__ CUtensorMap tm_q,
+                               const __grid_constant__ CUtensorMap tm_k,
+                               const __grid_constant__ CUtensorMap tm_v,
+                               const NormParams p) {
+  using C = Cfg<D>;
+  constexpr int kConsumerWarps = 4;
+  extern __shared__ uint8_t smem_raw[];
+  const Smem<D> sm(smem_raw);
+  const int b = blockIdx.x / p.H, hd = blockIdx.x % p.H;
+  const int q0 = blockIdx.y * C::kBQ;
+  const int n_tiles = (p.Skv + C::kBN - 1) / C::kBN;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(&sm.full_k[s], 32);
+      sm90::mbar_init(&sm.full_v[s], 1);
+      sm90::mbar_init(&sm.empty_k[s], kConsumerWarps);
+      sm90::mbar_init(&sm.empty_v[s], kConsumerWarps);
+    }
+    sm90::mbar_init(sm.q_full, 1);
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+  if (warp == kConsumerWarps)
+    two_pass_produce<D>(p, sm, &tm_q, &tm_k, &tm_v, b, hd, q0, n_tiles, lane);
+  else
+    two_pass_consume<D>(p, sm, b, hd, q0, n_tiles, warp, lane);
+}
+
+template <int D>
+int launch_two_pass(const CUtensorMap* maps, const NormParams& p, int B,
+                    cudaStream_t stream) {
+  using C = Cfg<D>;
+  auto kernel = flash_norm_two_pass_kernel<D>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(B * p.H, (p.Sq + C::kBQ - 1) / C::kBQ);
+  kernel<<<grid, C::kThreads, C::kSmem, stream>>>(maps[0], maps[1], maps[2],
+                                                  p);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// q (B,H,Sq,D), k/v (B,H,Skv,D), o (B,H,Sq,D): bf16 (o float32 when
+// out_f32), D 64 or 128, unit stride along D, the other strides in
+// `strides` (12 element strides: batch, head, row of q, k, v, o; multiples
+// of 8, 16-byte aligned bases). kv_mask: (B,Skv) bytes (0 = masked) or
+// null. two_pass 0 takes the resident path (Skv <= 320 at D64, 256 at
+// D128), 1 the two-pass path (any Skv). fault 1 skips the normalisation (a planted fault for
+// checks). Returns cudaError_t.
+extern "C" int lhrs_flash_fwd_norm(const void* q, const void* k,
+                                   const void* v, const void* kv_mask,
+                                   void* o, int B, int H, int Sq, int Skv,
+                                   int D, float sm_scale, const void* strides,
+                                   int out_f32, int two_pass, int fault,
+                                   void* stream) {
+  if (B <= 0 || H <= 0 || Sq <= 0 || Skv <= 0 || (D != 64 && D != 128) ||
+      (!two_pass && Skv > res_keys(D)))
+    return (int)cudaErrorInvalidValue;
+  if (two_pass && (Sq + 63) / 64 > 65535) return (int)cudaErrorInvalidValue;
+  const auto* st = static_cast<const long long*>(strides);
+  CUtensorMap maps[5];
+  // Q, K and V in 64-row boxes; the resident path's last key tile, when it
+  // holds at most 8 keys, in boxes of 8 rows (K) and 16 (V)
+  if (!operand_map(&maps[0], q, B, H, Sq, D, st, 64) ||
+      !operand_map(&maps[1], k, B, H, Skv, D, st + 3, 64) ||
+      !operand_map(&maps[2], v, B, H, Skv, D, st + 6, 64) ||
+      !operand_map(&maps[3], k, B, H, Skv, D, st + 3, 8) ||
+      !operand_map(&maps[4], v, B, H, Skv, D, st + 6, 16))
+    return (int)cudaErrorInvalidValue;
+  NormParams p;
+  p.kv_mask = static_cast<const uint8_t*>(kv_mask);
+  p.o = o;
+  p.H = H;
+  p.Sq = Sq;
+  p.Skv = Skv;
+  p.out_f32 = out_f32;
+  p.fault = fault;
+  p.scale_log2 = sm_scale * kLog2e;
+  p.os = Strides{st[9], st[10], st[11]};
+  cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  if (two_pass)
+    return D == 128 ? launch_two_pass<128>(maps, p, B, cs)
+                    : launch_two_pass<64>(maps, p, B, cs);
+  return D == 128 ? dispatch_resident<128>(maps, p, B, cs)
+                  : dispatch_resident<64>(maps, p, B, cs);
+}

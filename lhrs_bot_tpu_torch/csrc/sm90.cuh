@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the wgmma kernels
-// (int8_gemm.cu, flash_fwd.cu, flash_bwd.cu, int8_probe.cu) and the split
-// decode kernels (decode_split.cuh): mbarriers, TMA tile loads, 1-D bulk
+// (int8_gemm.cu, flash_fwd.cu, flash_fwd_norm.cu, flash_bwd.cu,
+// int8_probe.cu) and the split decode kernels (decode_split.cuh):
+// mbarriers, TMA tile loads, 1-D bulk
 // copies (global or a CTA's shared memory to a peer's), the wgmma shared
 // memory descriptor for 128-byte swizzled tiles, the wgmma instructions the
 // kernels issue (inline PTX, generated from a list of operands), and the
@@ -429,6 +430,21 @@ __device__ __forceinline__ void wgmma_bf16_ss_m64n64k16(
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d[4] += A (64 x 16 bf16, smem, K-major) B (8 x 16 bf16, smem,
+// K-major)^T; scale_d 0 overwrites d
+__device__ __forceinline__ void wgmma_bf16_ss_m64n8k16(
+    float* d, uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 

@@ -13,8 +13,9 @@ TPU kernels do.
 
 `flash_attention` is the entry point. CPU tensors take the plain versions;
 CUDA tensors always take the hand-written kernels (csrc/flash_fwd.cu,
-csrc/flash_bwd.cu), at every length: the TPU's flash-vs-XLA length cutoff
-does not carry over to the port. There is no fallback: what the kernels do
+csrc/flash_bwd.cu; the vision blocks' normalize-first forward
+csrc/flash_fwd_norm.cu), at every length: the TPU's flash-vs-XLA length
+cutoff does not carry over to the port. There is no fallback: what the kernels do
 not take raises. When a gradient is wanted, the call goes through
 `FlashAttention`, a `torch.autograd.Function` that saves q, k, v, the output
 and its log-sum-exp and runs the two-pass backward (the dQ kernel, then the
@@ -252,24 +253,40 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention_fwd.launches = 0
 
 
+# Rows of at most this many keys (by head dim) take the normalize-first
+# kernel's resident path (csrc/flash_fwd_norm.cu: a head's K and V in shared
+# memory, a Q tile's scores in registers); longer rows its two-pass path
+NORM_RESIDENT_KEYS = {64: 320, 128: 256}
+
+
+def norm_two_pass(skv: int, d: int) -> bool:
+    """Whether the normalize-first forward takes its two-pass path for
+    rows of `skv` keys at head dim `d`."""
+    return skv > NORM_RESIDENT_KEYS.get(d, 0)
+
+
 def flash_attention_fwd_normalized(q: torch.Tensor, k: torch.Tensor,
                                    v: torch.Tensor,
                                    kv_mask: Optional[torch.Tensor],
                                    sm_scale: float, out_dtype=torch.float32,
                                    out: Optional[torch.Tensor] = None
                                    ) -> torch.Tensor:
-    """K1's normalize-first variant (template flag kNorm of
-    csrc/flash_fwd.cu), non-causal: a first pass over the key tiles takes
-    each row's max m and sum l, then P = exp(s - m) / l is rounded to bf16
-    before the P V product, with no division at the end. That is where the
-    TPU vision kernels round (`jax.nn.softmax(...).astype(bf16)`, their
-    default softmax mode, and `exp2_pre`), where plain K1 rounds the
+    """The normalize-first attention forward (csrc/flash_fwd_norm.cu),
+    non-causal: P = exp(s - m) / l over each row's final max m and sum l is
+    rounded to bf16 before the P V product, with no division at the end.
+    That is where the TPU vision kernels round (`jax.nn.softmax(...).astype(
+    bf16)`, their default softmax mode, and `exp2_pre`), where K1 rounds the
     unnormalised probabilities (their `exp2_post` mode). Takes what
-    `flash_attention_fwd` takes but segments and the LSE; counts its
-    launches in `flash_attention_fwd_normalized.launches`. Its plain
-    version is `mha_reference`."""
-    out = _flash_fwd(q, k, v, kv_mask, False, sm_scale, out_dtype, out,
-                     normalize=True)
+    `flash_attention_fwd` takes but segments and the LSE. Rows of at most
+    `NORM_RESIDENT_KEYS[D]` keys launch the resident kernel, counted in
+    `flash_attention_fwd_normalized.launches`; longer rows go to
+    `flash_attention_fwd_normalized_two_pass`, which counts its own. Its
+    plain version is `mha_reference`."""
+    if norm_two_pass(k.shape[2], q.shape[3]):
+        return flash_attention_fwd_normalized_two_pass(q, k, v, kv_mask,
+                                                       sm_scale, out_dtype,
+                                                       out)
+    out = _flash_fwd_norm(q, k, v, kv_mask, sm_scale, out_dtype, out)
     flash_attention_fwd_normalized.launches += 1
     return out
 
@@ -277,19 +294,31 @@ def flash_attention_fwd_normalized(q: torch.Tensor, k: torch.Tensor,
 flash_attention_fwd_normalized.launches = 0
 
 
-def _flash_fwd(q, k, v, kv_mask, causal, sm_scale, out_dtype, out,
-               segment_ids=None, lse=None, *, normalize=False, fault=0):
-    """The checks and the launch of K1 (`normalize`: its kNorm variant),
-    counted by the public wrappers above. `fault=1` with `normalize`
-    skips the normalisation: a planted fault, for the card's checks."""
-    _check_qkv(q, k, v, "flash_attention_fwd")
-    b, h, sq, d = q.shape
-    skv = k.shape[2]
+def flash_attention_fwd_normalized_two_pass(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+        kv_mask: Optional[torch.Tensor], sm_scale: float,
+        out_dtype=torch.float32, out: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """The normalize-first forward's two-pass kernel at any row length
+    (K1's tiles: a first pass of Q K^T for each row's max and sum, then P V),
+    which `flash_attention_fwd_normalized` takes for rows past
+    `NORM_RESIDENT_KEYS[D]` keys. Counts its launches in
+    `flash_attention_fwd_normalized_two_pass.launches`."""
+    out = _flash_fwd_norm(q, k, v, kv_mask, sm_scale, out_dtype, out,
+                          two_pass=True)
+    flash_attention_fwd_normalized_two_pass.launches += 1
+    return out
+
+
+flash_attention_fwd_normalized_two_pass.launches = 0
+
+
+def _fwd_out_and_strides(q, k, v, out, out_dtype):
+    """The forward's output (allocated when not given) and the 12 element
+    strides (batch, head, row of q, k, v, out) its kernels take; raises on
+    what they do not take."""
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"out_dtype must be bf16 or float32, got {out_dtype}")
-    if out_dtype == torch.float32 and (segment_ids is not None
-                                       or lse is not None):
-        raise ValueError("segment_ids and lse take a bf16 output")
     if out is None:
         out = torch.empty(q.shape, dtype=out_dtype, device=q.device)
     elif (out.shape != q.shape or out.dtype != out_dtype
@@ -304,6 +333,46 @@ def _flash_fwd(q, k, v, kv_mask, causal, sm_scale, out_dtype, out,
                              "that are multiples of 8 and a 16-byte aligned "
                              "base")
         strides += t.stride()[:3]
+    return out, (ctypes.c_longlong * 12)(*strides)
+
+
+def _flash_fwd_norm(q, k, v, kv_mask, sm_scale, out_dtype, out, *,
+                    two_pass=False, fault=0):
+    """The checks and the launch of the normalize-first kernel (its resident
+    path, or with `two_pass` its two-pass path), counted by the public
+    wrappers above. `fault=1` skips the normalisation: a planted fault, for
+    the card's checks."""
+    _check_qkv(q, k, v, "flash_attention_fwd_normalized")
+    b, h, sq, d = q.shape
+    skv = k.shape[2]
+    if not two_pass and norm_two_pass(skv, d):
+        raise ValueError(f"the resident path takes at most "
+                         f"{NORM_RESIDENT_KEYS[d]} keys at D {d}, got {skv}")
+    out, strides = _fwd_out_and_strides(q, k, v, out, out_dtype)
+    _check_masks(kv_mask, None, b, sq, skv, q.device,
+                 "flash_attention_fwd_normalized")
+    lib = cuda_lib.load_library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.lhrs_flash_fwd_norm(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_mask),
+            out.data_ptr(), b, h, sq, skv, d, float(sm_scale), strides,
+            int(out_dtype == torch.float32), int(two_pass), int(fault),
+            stream)
+    cuda_lib.check(err, "flash_attention_fwd_normalized")
+    return out
+
+
+def _flash_fwd(q, k, v, kv_mask, causal, sm_scale, out_dtype, out,
+               segment_ids=None, lse=None):
+    """The checks and the launch of K1, counted by `flash_attention_fwd`."""
+    _check_qkv(q, k, v, "flash_attention_fwd")
+    b, h, sq, d = q.shape
+    skv = k.shape[2]
+    if out_dtype == torch.float32 and (segment_ids is not None
+                                       or lse is not None):
+        raise ValueError("segment_ids and lse take a bf16 output")
+    out, strides = _fwd_out_and_strides(q, k, v, out, out_dtype)
     _check_masks(kv_mask, segment_ids, b, sq, skv, q.device,
                  "flash_attention_fwd")
     if lse is not None and (lse.dtype != torch.float32
@@ -318,10 +387,8 @@ def _flash_fwd(q, k, v, kv_mask, causal, sm_scale, out_dtype, out,
         err = lib.lhrs_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_mask),
             _ptr(segment_ids), out.data_ptr(), _ptr(lse),
-            b, h, sq, skv, d, int(causal), float(sm_scale),
-            (ctypes.c_longlong * 12)(*strides),
-            int(out_dtype == torch.float32), int(normalize), int(fault),
-            stream)
+            b, h, sq, skv, d, int(causal), float(sm_scale), strides,
+            int(out_dtype == torch.float32), stream)
     cuda_lib.check(err, "flash_attention_fwd")
     return out
 

@@ -7,7 +7,8 @@ one shared library with a plain C interface, which is loaded with `ctypes`
 kernels and the split decode kernels share `csrc/sm90.cuh`, which fetches
 the TMA tensor-map encoder (cuTensorMapEncodeTiled) through the runtime,
 so nothing links against libcuda; the split decode kernels (contiguous and
-paged) share `csrc/decode_split.cuh`. The library goes to
+paged) share `csrc/decode_split.cuh`, K1 and the normalize-first attention
+`csrc/flash_tiles.cuh`. The library goes to
 `build/kernels/<hash of the sources, headers and flags>/` beside the
 package, so an edited source or header is
 rebuilt and an unchanged one is reused. Nothing here runs at import time:
@@ -36,10 +37,12 @@ _L = ctypes.c_longlong
 # C entry points: name -> argtypes (each returns its cudaError_t as int)
 _ENTRIES = {
     # q, k, v, kv_mask, seg, o, lse, B, H, Sq, Skv, D, causal, sm_scale,
-    # strides (12 int64: batch/head/row of q, k, v, o), out_f32, normalize,
-    # fault, stream
-    "lhrs_flash_fwd": [_P] * 7 + [_I] * 6 + [ctypes.c_float, _P, _I, _I, _I,
-                                             _P],
+    # strides (12 int64: batch/head/row of q, k, v, o), out_f32, stream
+    "lhrs_flash_fwd": [_P] * 7 + [_I] * 6 + [ctypes.c_float, _P, _I, _P],
+    # q, k, v, kv_mask, o, B, H, Sq, Skv, D, sm_scale, strides (as above),
+    # out_f32, two_pass, fault, stream (csrc/flash_fwd_norm.cu)
+    "lhrs_flash_fwd_norm": [_P] * 5 + [_I] * 5 + [ctypes.c_float, _P, _I, _I,
+                                                  _I, _P],
     # q, k, v, dout, lse, delta, kv_mask, seg, runs, dq, B, H, Sq, Skv, D,
     # causal, sm_scale, stream
     "lhrs_flash_bwd_dq": [_P] * 10 + [_I] * 6 + [ctypes.c_float, _P],

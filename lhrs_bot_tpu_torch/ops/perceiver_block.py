@@ -8,16 +8,17 @@ fused K|V projection are int8 GEMMs with the TPU kernel's epilogue order
 (q: ((acc * s) * x_scale + b) * sm_scale, rounded to bf16 once; k, v
 rounded to bf16); per-head attention over the group's valid kv rows in
 float32, the normalised probabilities rounded to bf16 before P V (the TPU
-kernel's `jax.nn.softmax`, whatever `LHRS_VIT_SOFTMAX` says; K1's
-normalize-first variant on the card); then the back half of the ViT block
+kernel's `jax.nn.softmax`, whatever `LHRS_VIT_SOFTMAX` says; the
+normalize-first attention on the card); then the back half of the ViT block
 with the tanh-approximated GELU the TPU kernel uses (ops/vit_block.py
 `post_attention`).
 
 The three groups share the layer's weights and every step but attention is
 per row, so each step runs once over all B * G padded group rows (the TPU
 kernel's (B, G, q_pad, W) / (B, G, kv_pad, W) layout, taken as it is), and
-K1 runs over B * G (image, group) pairs with each group's kv mask (initial
-query slots past the group's count, and tail padding, masked). Pad query
+the attention runs over B * G (image, group) pairs with each group's kv
+mask (initial query slots past the group's count, and tail padding,
+masked). Pad query
 rows are computed as the TPU kernel computes them. Only tests call this
 block (`perceiver_resample_fused`): the serving path's perceiver goes
 through `dense_any` (the JAX package's choice, recorded in its docstring).

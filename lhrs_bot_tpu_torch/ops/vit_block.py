@@ -15,9 +15,10 @@ VMEM; a ViT-L layer's 12.6 MB of int8 weights do not fit in an SM's shared
 memory, so here a block is a composition of three hand-written kernels over
 all the batch's tokens at once (M = B * S rows): kernel A (LayerNorm + row
 quantization, ops/ln_quant.py), kernel B (int8 GEMM with the epilogue,
-ops/int8_gemm.py) and K1 (flash attention, float32 output, reading Q, K and
-V in place from the QKV projection and writing token-major). The contract
-is the block's output, not one launch.
+ops/int8_gemm.py) and the attention (float32 output, reading Q, K and V in
+place from the QKV projection and writing token-major: the normalize-first
+kernel, or K1 in the `exp2_post` mode). The contract is the block's output,
+not one launch.
 
 The TPU's layout choices are not part of the meaning: the transposed QKV
 (heads as sublane slices), the token padding S_pad (272 for ViT-L), images
@@ -36,8 +37,9 @@ to bf16; "exp2_pre" folds sm_scale * log2 e, takes exp2 and rounds the
 probabilities multiplied by the reciprocal of their sum; any other value
 acts as "exp2_post", which folds the same, rounds the unnormalised exp2
 probabilities and scales the P V output by 1 / sum. On the card the first
-two launch K1's normalize-first variant (`flash_attention_fwd_normalized`),
-the third plain K1, whose online softmax rounds at that point. The split
+two launch the normalize-first attention (`flash_attention_fwd_normalized`,
+csrc/flash_fwd_norm.cu), the third K1, whose online softmax rounds at that
+point. The split
 form's attention (XLA's `jax.nn.softmax` in JAX) and the perceiver block's
 (`jax.nn.softmax` in its kernel) always normalise first.
 
@@ -119,14 +121,14 @@ def attend_token_major(q, k, v, kv_mask: Optional[torch.Tensor],
     """Attention of (B, H, S, D) views (strided, as sliced from a
     projection) -> token-major (B, Sq, H * D) in `out_dtype`, with the
     softmax `mode` (`attention_plain`; the exp2 modes' scores, sm_scale
-    included, are in units of log2). CUDA tensors launch K1 writing
-    token-major in place (a head dim below 128 that K1 does not take
-    zero-padded to 64 or 128, the output cut back): its normalize-first
-    variant for "jnn" and "exp2_pre", plain K1 for "exp2_post"; CPU
+    included, are in units of log2). CUDA tensors launch a kernel writing
+    token-major in place (a head dim below 128 that the kernels do not take
+    zero-padded to 64 or 128, the output cut back): the normalize-first
+    attention for "jnn" and "exp2_pre", K1 for "exp2_post"; CPU
     tensors, and `plain`, run `attention_plain`."""
     b, h, sq, d = q.shape
     if q.is_cuda and not plain:
-        # K1 takes exp(s * scale): the exp2 modes' scale divided by log2 e
+        # the kernels take exp(s * scale): the exp2 modes' scale over log2 e
         k1_scale = sm_scale if mode == "jnn" else sm_scale / _LOG2E
 
         def k1(qq, kk, vv, out):

@@ -17,9 +17,15 @@ Tolerances, and why:
     order, so an activation code may flip by one where a quotient lies
     within rounding of a half;
   * the attention alone, each mode's plain version against JAX's
-    `_attn_probs_and_norm` on the same scores: 1e-5 relative (the same
-    bf16 roundings; exp and exp2 of another library). Measured: 0 to
-    1.5e-7; a port mode against another JAX mode reads 1.6e-3 to 0.15;
+    `_attn_probs_and_norm` on the same scores, at 16 tokens, ViT-L/14's
+    257 and the perceiver's 64 x 320 under each group's mask: 1e-5
+    relative (the same bf16 roundings; exp and exp2 of another library).
+    Measured: 0 to 1.5e-7; a port mode against another JAX mode reads
+    1.6e-3 to 0.15. At 257 and 320 keys a few probabilities sit within an
+    ulp or two of a bf16 rounding boundary, where the two libraries'
+    float32 exp and sums round them one bf16 step apart: those are held to
+    one step and a 1e-3 share, and their rows' outputs are left out of
+    the 1e-5 check;
   * the perceiver block: its kernel takes `jax.nn.softmax` in every mode,
     and so does the port's; the same 5e-3;
   * int4 codes and scales: exact (tests/test_torch_vision.py's
@@ -40,6 +46,7 @@ from lhrs_bot_tpu.ops import quant as j_quant
 from lhrs_bot_tpu.ops import vit_block as j_vb
 from lhrs_bot_tpu_torch.core import params_from_numpy
 from lhrs_bot_tpu_torch.models import vit as t_vit
+from lhrs_bot_tpu_torch.ops import attention as t_att
 from lhrs_bot_tpu_torch.ops import perceiver_block as t_pb
 from lhrs_bot_tpu_torch.ops import quant as t_quant
 from lhrs_bot_tpu_torch.ops import vit_block as t_vb
@@ -81,29 +88,116 @@ def test_softmax_mode_is_read_at_each_call(mode):
     assert t_vb.q_fold(0.125, mode) == j_vb._q_fold(0.125)
 
 
-def test_attention_plain_matches_jax_probs_and_norm(mode):
+def _group_mask(nq):
+    """(1, 320) bool: the perceiver's kv mask of a group of `nq` queries (64
+    query slots, the first `nq` valid, then its 256 image tokens), as the
+    block builds it."""
+    return t_pb._kv_mask(1, 64, 320, (nq,), (nq + 256,), "cpu")
+
+
+# (Sq, Skv, kv mask or None, scale of q): the 16-token case (11 valid
+# keys); ViT-L/14's 257 tokens, one past four 64-key tiles; the perceiver's
+# 64 query rows (past each group's count too) over its 320 keys under each
+# group's mask. The larger cases scale q by the block's 1 / sqrt(64).
+ATTN_CASES = {
+    "s16_valid11": (16, 16, (torch.arange(16) < 11)[None], 1.0),
+    "vit_s257": (257, 257, None, 0.125),
+    "perceiver_g0": (64, 320, _group_mask(64), 0.125),
+    "perceiver_g1": (64, 320, _group_mask(48), 0.125),
+    "perceiver_g2": (64, 320, _group_mask(32), 0.125),
+}
+
+
+@pytest.mark.parametrize("case", list(ATTN_CASES))
+def test_attention_plain_matches_jax_probs_and_norm(mode, case):
     """`attention_plain` against the JAX kernels' `_attn_probs_and_norm`
-    and P V on the same bf16 q, k, v (scores already scaled, pad keys
-    masked)."""
+    and P V on the same bf16 q, k, v and the same float32 scores (already
+    scaled, masked keys -1e30), at the shapes the normalize-first kernel
+    serves. Both take the scores of one float32 product (the libraries'
+    products sum in other orders, up to 1e-6 apart at 257 keys). Each
+    probability (times 1 / sum in exp2_post), read through an identity V,
+    equals JAX's or sits one bf16 step from it: a float32 value within an
+    ulp or two of a rounding boundary, where the libraries' exp and sums
+    decide the rounding; at most 1e-3 of them do. The outputs of the rows
+    where none does hold within 1e-5. A row with no valid key would take
+    uniform weights in JAX and 0 in the port (the TPU kernels' convention
+    is not the port's), so such rows are left out; these cases' masks are
+    per key and leave every row a valid key."""
+    sq, skv, mask, q_scale = ATTN_CASES[case]
     rng = np.random.default_rng(21)
-    s, d = 16, 64
-    q, k, v = (np.asarray(jnp.asarray(rng.standard_normal((s, d)),
+    d = 64
+    q, k, v = (np.asarray(jnp.asarray(rng.standard_normal((n, d)) * sc,
                                       jnp.bfloat16).astype(jnp.float32))
-               for _ in range(3))
-    valid = 11
-    scores = jnp.asarray(q) @ jnp.asarray(k).T
-    scores = jnp.where(jnp.arange(s)[None, :] < valid, scores, -1e30)
+               for n, sc in ((sq, q_scale), (skv, 1.0), (skv, 1.0)))
+    tq, tk, tv = (_t(a).to(torch.bfloat16)[None, None] for a in (q, k, v))
+    scores = jnp.asarray(torch.matmul(tq.float(), tk.float().transpose(
+        -1, -2))[0, 0].numpy())
+    if mask is not None:
+        scores = jnp.where(jnp.asarray(mask.numpy()), scores, -1e30)
     probs, post = j_vb._attn_probs_and_norm(scores)
-    want = probs.astype(jnp.float32) @ jnp.asarray(v, jnp.bfloat16).astype(
-        jnp.float32)
+    p_jax = probs.astype(jnp.float32)
+    want = p_jax @ jnp.asarray(v, jnp.bfloat16).astype(jnp.float32)
     if post is not None:
         want = want * jnp.transpose(post)
-    tq, tk, tv = (_t(a).to(torch.bfloat16)[None, None] for a in (q, k, v))
-    mask = (torch.arange(s) < valid)[None]
-    got = t_vb.attention_plain(tq, tk, tv, mask, 1.0, torch.float32, mode)
-    np.testing.assert_allclose(got[0, 0].numpy(), np.asarray(want),
-                               rtol=1e-5, atol=1e-5 * float(
-                                   np.abs(np.asarray(want)).max()))
+        p_jax = p_jax * jnp.transpose(post)
+
+    def port(values):
+        return t_vb.attention_plain(tq, tk, values, mask, 1.0, torch.float32,
+                                    mode)[0, 0].numpy()
+
+    rows = (np.ones(sq, bool) if mask is None
+            else np.broadcast_to(mask.numpy().any(-1), (sq,)))
+    p_port = port(torch.eye(skv, dtype=torch.bfloat16)[None, None])[rows]
+    p_jax = np.asarray(p_jax)[rows]
+    step = np.abs(p_port - p_jax)
+    apart = step > 1e-6 * np.abs(p_jax)
+    assert np.all(step[apart] <= 2.0 ** -7 * np.abs(p_jax[apart]) * 1.001)
+    assert apart.mean() <= 1e-3, f"{apart.sum()} probabilities apart"
+    same = ~apart.any(-1)
+    want = np.asarray(want)[rows][same]
+    np.testing.assert_allclose(port(tv)[rows][same], want, rtol=1e-5,
+                               atol=1e-5 * float(np.abs(want).max()))
+
+
+@pytest.mark.parametrize("d, skv, two_pass",
+                         [(64, 197, False), (64, 257, False),
+                          (64, 320, False), (64, 321, True), (64, 577, True),
+                          (128, 256, False), (128, 257, True)])
+def test_normalized_forward_path_by_row_length(monkeypatch, d, skv,
+                                               two_pass):
+    """`flash_attention_fwd_normalized` launches the resident kernel for
+    rows of at most NORM_RESIDENT_KEYS[D] keys (320 at D64, 256 at D128)
+    and hands longer rows to the two-pass wrapper; each counts its own
+    launches. The launch itself is recorded (no kernel runs on the CPU)."""
+    assert t_att.NORM_RESIDENT_KEYS == {64: 320, 128: 256}
+    taken = []
+    monkeypatch.setattr(t_att, "_flash_fwd_norm",
+                        lambda *a, two_pass=False, **kw: taken.append(
+                            two_pass))
+    for fn in (t_att.flash_attention_fwd_normalized,
+               t_att.flash_attention_fwd_normalized_two_pass):
+        monkeypatch.setattr(fn, "launches", 0)
+    q = torch.zeros(1, 2, 16, d, dtype=torch.bfloat16)
+    kv = torch.zeros(1, 2, skv, d, dtype=torch.bfloat16)
+    t_att.flash_attention_fwd_normalized(q, kv, kv, None, 0.125)
+    assert taken == [two_pass]
+    assert t_att.flash_attention_fwd_normalized.launches == int(not two_pass)
+    assert t_att.flash_attention_fwd_normalized_two_pass.launches == int(
+        two_pass)
+
+
+def test_normalized_forward_rejects_cpu_tensors():
+    """Both normalize-first wrappers take CUDA tensors only (on the CPU the
+    vision blocks run `attention_plain`), and count nothing they refuse."""
+    x = torch.zeros(1, 2, 8, 64, dtype=torch.bfloat16)
+    before = (t_att.flash_attention_fwd_normalized.launches,
+              t_att.flash_attention_fwd_normalized_two_pass.launches)
+    for fn in (t_att.flash_attention_fwd_normalized,
+               t_att.flash_attention_fwd_normalized_two_pass):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(x, x, x, None, 0.125)
+    assert (t_att.flash_attention_fwd_normalized.launches,
+            t_att.flash_attention_fwd_normalized_two_pass.launches) == before
 
 
 @functools.lru_cache(maxsize=None)
