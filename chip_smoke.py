@@ -140,7 +140,7 @@ Phases, one or more lines each:
      towers at the bench's geometry (one timed run a cell) and its JSON
      line, the int8-dots A/B's line and the two probes' lines; every value
      positive, each kernel of the path launched;
-  7. checkpoints at full width, the decoder cut to CKPT_DEPTH (16) of
+  7. checkpoints at full width, the decoder cut to CKPT_DEPTH (12) of
      LLaMA-2-7B's 32 layers: the reference's artifacts written from
      named seeds under build/ (an HF LLaMA-2-7B directory of two fp16
      safetensors shards, an HF CLIP directory, FINAL.pt with the nested
@@ -2060,8 +2060,10 @@ PLAIN_K1_VISION_REL_L2 = 1e-2
 # all three groups under the block's own mask (`perceiver_block._kv_mask`:
 # the group's queries and image tokens valid, its pad slots masked; every
 # group's 64 query rows, past its count too), the split form's bf16 output,
-# ViT-B/16's 197 tokens, ViT-L/14 at 336 px (577 tokens: the two-pass
-# path) and a head dim of 128 (197 tokens), 64 images each
+# ViT-B/16's 197 tokens, ViT-L/14 at 336 px (577 tokens; the block's 592
+# padded keys under its pad mask; a bf16 output; its perceiver's three
+# groups over 64 + 576 keys: the split path) and a head dim of 128 (197
+# tokens), 64 images each
 NORM_K1_SHAPES = (
     ("vit", 64, 16, 257, 257, 64, None, "float32"),
     ("perceiver_g0", 64, 16, 64, 320, 64, None, "float32"),
@@ -2069,8 +2071,13 @@ NORM_K1_SHAPES = (
     ("split_bf16", 64, 16, 257, 257, 64, None, "bfloat16"),
     ("vit_b16", 64, 12, 197, 197, 64, None, "float32"),
     ("vit_336", 64, 16, 577, 577, 64, None, "float32"),
+    ("vit_336_block", 64, 16, 592, 592, 64, "pad", "float32"),
+    ("vit_336_bf16", 64, 16, 577, 577, 64, None, "bfloat16"),
+    ("perceiver_336", 64 * 3, 16, 64, 640, 64, "perceiver", "float32"),
     ("d128", 64, 8, 197, 197, 128, None, "float32"),
 )
+# the valid tokens of the 336-px block's padded rows
+VIT_336_S = 577
 SOFTMAX_MODES = ("jnn", "exp2_pre", "exp2_post")
 
 
@@ -2091,23 +2098,30 @@ def check_normalized_k1(dev, gen):
     `attend_token_major` (Q, K and V strided views of their projections,
     token-major out, as the blocks launch it) against its plain version
     within NORM_K1_REL_L2 (NORM_K1_BF16_REL_L2 for a bf16 output),
-    launching the kernel (its resident path up to NORM_RESIDENT_KEYS[D]
-    keys, else the two-pass path) for "jnn" and "exp2_pre" only; the planted
+    launching the kernel's path for the rows (`norm_path`: resident up to
+    NORM_RESIDENT_KEYS[D] keys, split up to NORM_SPLIT_KEYS[D], else
+    two-pass) for "jnn" and "exp2_pre" only, and no other; the planted
     faults (plain K1 in its place, in those two modes; the normalisation
     skipped) past the bound; its time beside plain K1's, the plain
-    version's, SDPA's and the bound, and at the resident shapes the
-    two-pass path's time at the same shape."""
+    version's, SDPA's and the bound, and at the resident and split shapes
+    the two-pass path at the same shape, held to the same bound."""
     import torch
     import torch.nn.functional as F
 
     import lhrs_bot_tpu_torch.ops.vit_block as vit_block_mod
     from lhrs_bot_tpu_torch.ops.attention import (
         _flash_fwd_norm, flash_attention_fwd, flash_attention_fwd_normalized,
-        flash_attention_fwd_normalized_two_pass, norm_two_pass)
+        flash_attention_fwd_normalized_split,
+        flash_attention_fwd_normalized_two_pass, norm_path)
     from lhrs_bot_tpu_torch.ops.perceiver_block import _kv_mask
     from lhrs_bot_tpu_torch.ops.vit_block import (_LOG2E, _heads,
                                                   attend_token_major,
                                                   attention_plain)
+
+    paths = ("resident", "split", "two_pass")
+    wrappers = (flash_attention_fwd_normalized,
+                flash_attention_fwd_normalized_split,
+                flash_attention_fwd_normalized_two_pass)
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev,
@@ -2117,14 +2131,13 @@ def check_normalized_k1(dev, gen):
         return float((a.float() - b.float()).norm() / b.float().norm())
 
     def launches():
-        return (flash_attention_fwd_normalized.launches,
-                flash_attention_fwd_normalized_two_pass.launches)
+        return [fn.launches for fn in wrappers]
 
     out = {"max_abs_err": 0.0, "shapes": {}}
     for name, b, h, sq, skv, d, mask_kind, dtype in NORM_K1_SHAPES:
         w, sm = h * d, d ** -0.5
         out_dtype = getattr(torch, dtype)
-        two_pass = norm_two_pass(skv, d)
+        path = norm_path(skv, d)
         if sq == skv:  # one (B, S, 3W) projection, as the ViT block's
             q, k, v = _heads(randn(b, sq, 3 * w), 3, h)
         else:  # the perceiver's q and K|V projections
@@ -2133,10 +2146,13 @@ def check_normalized_k1(dev, gen):
         mask = None
         if mask_kind == "perceiver":  # B * 3 (image, group) rows
             mask = _kv_mask(b // 3, sq, skv, (64, 48, 32),
-                            tuple(n + 256 for n in (64, 48, 32)), dev)
+                            tuple(n + skv - 64 for n in (64, 48, 32)), dev)
+        elif mask_kind == "pad":  # the block's padded tokens
+            mask = (torch.arange(skv, device=dev) < VIT_336_S).expand(
+                b, skv).contiguous()
         limit_norm = (NORM_K1_BF16_REL_L2 if dtype == "bfloat16"
                       else NORM_K1_REL_L2)
-        reading = {"path": "two_pass" if two_pass else "resident"}
+        reading = {"path": path}
         for mode in SOFTMAX_MODES:
             scale = sm if mode == "jnn" else sm * _LOG2E
             before = launches()
@@ -2151,19 +2167,21 @@ def check_normalized_k1(dev, gen):
             launched = [a - z for a, z in zip(after, before)]
             reading[mode] = {"rel_l2": r, "max_abs_err": err,
                              "launches": launched}
-            want = [0, 0]
+            want = [0, 0, 0]
             if mode != "exp2_post":
-                want[int(two_pass)] = 1
+                want[paths.index(path)] = 1
             if launched != want:
                 raise AssertionError(f"normalize-first {name} {mode}: "
-                                     f"launched {launched}, not {want}")
+                                     f"launched {launched} (resident, "
+                                     f"split, two-pass), not {want}")
             limit = (PLAIN_K1_VISION_REL_L2 if mode == "exp2_post"
                      else limit_norm)
             if not r <= limit:
                 raise AssertionError(f"normalize-first {name} {mode}: rel L2 "
                                      f"{r:.3e} > {limit}")
             if mode != "exp2_post":
-                out["max_abs_err"] = max(out["max_abs_err"], err)
+                if path == "resident":  # the resident kernel's row
+                    out["max_abs_err"] = max(out["max_abs_err"], err)
                 with patched(vit_block_mod,
                              flash_attention_fwd_normalized=unflagged_k1):
                     swapped = attend_token_major(q, k, v, mask, scale,
@@ -2176,13 +2194,25 @@ def check_normalized_k1(dev, gen):
         o = torch.empty(b, sq, h, d, device=dev, dtype=out_dtype)
         ot = o.transpose(1, 2)
         ref = attention_plain(q, k, v, mask, sm, out_dtype)
-        _flash_fwd_norm(q, k, v, mask, sm, out_dtype, ot, two_pass=two_pass,
+        _flash_fwd_norm(q, k, v, mask, sm, out_dtype, ot, path=path,
                         fault=1)
         torch.cuda.synchronize()
         fault = rel(ot, ref)
         if fault <= limit_norm:
             raise AssertionError(f"normalize-first {name}: the skipped "
                                  f"normalisation passes ({fault:.3e})")
+        if path != "two_pass":  # the two-pass path at the same shape
+            _flash_fwd_norm(q, k, v, mask, sm, out_dtype, ot,
+                            path="two_pass")
+            torch.cuda.synchronize()
+            r = reading["two_pass_rel_l2"] = rel(ot, ref)
+            reading["two_pass_max_abs_err"] = float(
+                (ot.float() - ref.float()).abs().max())
+            if not r <= limit_norm:
+                raise AssertionError(f"normalize-first {name}: the two-pass "
+                                     f"path's rel L2 {r:.3e} > {limit_norm}")
+            reading["two_pass_ms"] = cuda_ms(lambda: _flash_fwd_norm(
+                q, k, v, mask, sm, out_dtype, ot, path="two_pass"))
         ms = cuda_ms(lambda: flash_attention_fwd_normalized(
             q, k, v, mask, sm, out_dtype, ot))
         k1_ms = cuda_ms(lambda: flash_attention_fwd(
@@ -2204,13 +2234,10 @@ def check_normalized_k1(dev, gen):
         reading.update({"fault_rel_l2": fault, "ms": ms, "k1_ms": k1_ms,
                         "plain_ms": plain, "library_ms": lib,
                         "bound_ms": bms, "bound_by": by})
-        if not two_pass:  # the two-pass path at the same shape
-            reading["two_pass_ms"] = cuda_ms(lambda: _flash_fwd_norm(
-                q, k, v, mask, sm, out_dtype, ot, two_pass=True))
         out["shapes"][name] = reading
         log(f"  normalize-first {name} (B{b} H{h} {sq}x{skv} D{d}, "
-            f"{'perceiver mask, ' if mask is not None else ''}strided, "
-            f"{dtype} token-major out; {reading['path']} path): rel L2 vs "
+            f"{f'{mask_kind} mask, ' if mask is not None else ''}strided, "
+            f"{dtype} token-major out; {path} path): rel L2 vs "
             "plain " + ", ".join(f"{m} {reading[m]['rel_l2']:.2e}"
                                  for m in SOFTMAX_MODES)
             + f" (bound {limit_norm}; exp2_post on plain K1, bound "
@@ -2219,20 +2246,24 @@ def check_normalized_k1(dev, gen):
                 f"{m} {reading[m]['unflagged_rel_l2']:.2e}"
                 for m in SOFTMAX_MODES[:2])
             + f"; normalisation skipped {fault:.3f}; kernel {ms:.4f} ms"
-            + (f" (two-pass path {reading['two_pass_ms']:.4f})"
-               if not two_pass else "")
+            + (f" (two-pass path {reading['two_pass_ms']:.4f} ms, rel L2 "
+               f"{reading['two_pass_rel_l2']:.2e})"
+               if path != "two_pass" else "")
             + f", plain K1 {k1_ms:.4f} ms, plain {plain:.4f} ms, library "
             f"(SDPA, bf16 out) {lib:.4f} ms, bound {bms:.4f} ms ({by})")
         del q, k, v, qc, kc, vc, o, ot, got, ref, swapped
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
     vit = out["shapes"]["vit"]
-    out.update({k: vit[k] for k in ("ms", "plain_ms", "library_ms",
-                                    "bound_ms", "bound_by")})
-    # the two-pass kernel's own row: ViT-L/14 at 336 px
+    out.update({k: vit[k] for k in keys})
+    # the split kernel's own row, and the two-pass kernel's: ViT-L/14 at
+    # 336 px, 577 tokens
     long = out["shapes"]["vit_336"]
-    out["two_pass"] = {k: long[k] for k in ("ms", "plain_ms", "library_ms",
-                                            "bound_ms", "bound_by")}
-    out["two_pass"]["max_abs_err"] = max(long[m]["max_abs_err"]
-                                         for m in SOFTMAX_MODES[:2])
+    out["split"] = {k: long[k] for k in keys}
+    out["split"]["max_abs_err"] = max(long[m]["max_abs_err"]
+                                      for m in SOFTMAX_MODES[:2])
+    out["two_pass"] = {**{k: long[k] for k in keys[1:]},
+                       "ms": long["two_pass_ms"],
+                       "max_abs_err": long["two_pass_max_abs_err"]}
     return out
 
 
@@ -2602,7 +2633,82 @@ def phase_tower(dev, n_img=8):
     del packed, bf16
     torch.cuda.empty_cache()
     return {"rel_l2": dev_rel, "taps": per_tap, "fault_rel_l2": fault_rel,
-            "bound": TOWER_REL_L2, "softmax_modes": modes}
+            "bound": TOWER_REL_L2, "softmax_modes": modes,
+            "tower_336": tower_336(dev)}
+
+
+def tower_336(dev, n_img=4):
+    """ViT-L/14 at 336 px (577 tokens: the normalize-first attention's
+    split path) and the perceiver over its 576 image tokens a group, from
+    seeded weights: the fused W8A8 tower against its plain version (every
+    block through the plain kernels) within TOWER_REL_L2, finite features
+    of the expected shape, the launches of each normalize-first path in one
+    fused call (22 split, no other), and the bench's three tower cells at
+    B 64 (images/s, ViT + perceiver)."""
+    import dataclasses
+    import functools
+
+    import torch
+
+    import lhrs_bot_tpu_torch.models.vit as vit_mod
+    from lhrs_bot_tpu_torch import bench
+    from lhrs_bot_tpu_torch.models import VLMConfig
+    from lhrs_bot_tpu_torch.models.vit import vit_encode_fused
+    from lhrs_bot_tpu_torch.ops.vit_block import (pack_vit_layers_fused,
+                                                  vit_layer_fused)
+
+    base = VLMConfig()
+    cfg = dataclasses.replace(
+        base, vit=dataclasses.replace(base.vit, image_size=336),
+        pooler=dataclasses.replace(base.pooler, split_part=(576,) * 3))
+    n_layers = cfg.vit.extract_stages[-1]
+    gen = torch.Generator(device=dev).manual_seed(8)
+    layers = vit_layers(dev, n_layers, seed=6)
+    bf16 = {
+        "patch_proj": torch.randn(14 * 14 * 3, VIT_W, generator=gen,
+                                  device=dev) * 0.02,
+        "class_emb": torch.randn(VIT_W, generator=gen, device=dev) * 0.02,
+        "pos_emb": torch.randn(cfg.vit.seq_len, VIT_W, generator=gen,
+                               device=dev) * 0.02}
+    bf16 = {**{k: v.to(torch.bfloat16) for k, v in bf16.items()},
+            "pre_ln": {"scale": torch.ones(VIT_W, device=dev),
+                       "bias": torch.zeros(VIT_W, device=dev)}}
+    packed = pack_vit_layers_fused(layers)
+    del layers
+    images = torch.randint(0, 256, (n_img, 336, 336, 3), generator=gen,
+                           device=dev, dtype=torch.uint8)
+    names = ("flash_attention_fwd_normalized",
+             "flash_attention_fwd_normalized_split",
+             "flash_attention_fwd_normalized_two_pass")
+    wrappers = kernel_wrappers()
+    before = [wrappers[n].launches for n in names]
+    got = vit_encode_fused(bf16, packed, images, cfg.vit).float()
+    torch.cuda.synchronize()
+    launches = {n: wrappers[n].launches - z for n, z in zip(names, before)}
+    with patched(vit_mod, vit_layer_fused=functools.partial(
+            vit_layer_fused, plain=True)):
+        plain = vit_encode_fused(bf16, packed, images, cfg.vit).float()
+    torch.cuda.synchronize()
+    if got.shape != (n_img, 3 * 576, VIT_W) or not bool(
+            got.isfinite().all()):
+        raise AssertionError(f"336-px tower: bad features {tuple(got.shape)}")
+    rel = float((got - plain).norm() / plain.norm())
+    want = {names[0]: 0, names[1]: n_layers, names[2]: 0}
+    if launches != want:
+        raise AssertionError(f"336-px tower: launches {launches}, not {want}")
+    if rel > TOWER_REL_L2:
+        raise AssertionError(f"336-px tower vs its plain version: rel L2 "
+                             f"{rel:.4f} > {TOWER_REL_L2}")
+    del got, plain, packed, bf16
+    torch.cuda.empty_cache()
+    cells = bench.bench_prefill(cfg, device=dev, iters=5)
+    log(f"  fused W8A8 tower at 336 px ({n_img} images, {n_layers} blocks, "
+        f"577 tokens): vs its plain version rel L2 {rel:.4f} (bound "
+        f"{TOWER_REL_L2}); launches {launches}; bench prefill cells at B 64 "
+        "(ViT + perceiver, images/s) " + ", ".join(
+            f"{k} {v:.2f}" for k, v in cells.items()))
+    torch.cuda.empty_cache()
+    return {"rel_l2_vs_plain": rel, "launches": launches, **cells}
 
 
 # Paged decode against contiguous decode on the same cache contents: the
@@ -3643,7 +3749,7 @@ def kernel_wrappers():
     """Each kernel's wrapper, whose `launches` counts its launches."""
     from lhrs_bot_tpu_torch.ops.attention import (
         flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_attention_fwd,
-        flash_attention_fwd_normalized,
+        flash_attention_fwd_normalized, flash_attention_fwd_normalized_split,
         flash_attention_fwd_normalized_two_pass)
     from lhrs_bot_tpu_torch.benchmarks.hbm_peak_probe import hbm_read_kernel
     from lhrs_bot_tpu_torch.benchmarks.int8_probe import int8_chain_kernel
@@ -3659,6 +3765,8 @@ def kernel_wrappers():
 
     return {"flash_attention_fwd": flash_attention_fwd,
             "flash_attention_fwd_normalized": flash_attention_fwd_normalized,
+            "flash_attention_fwd_normalized_split":
+                flash_attention_fwd_normalized_split,
             "flash_attention_fwd_normalized_two_pass":
                 flash_attention_fwd_normalized_two_pass,
             "fused_decode_attention": fused_decode_attention_kernel,
@@ -5372,8 +5480,8 @@ CKPT_SWAP_LAYER = 3  # the layer whose q_proj / k_proj a fault swaps
 CKPT_CUT_LAYERS = 4
 # the decoder's depth of the phase's main artifacts, stages 2 and 3 and the
 # eval load (LLaMA-2-7B has 32): cut to keep the whole script's time, with
-# phase 8's context parallelism, inside 1,080 s
-CKPT_DEPTH = 16
+# phase 8's context parallelism and the 336-px vision checks, inside 1,080 s
+CKPT_DEPTH = 12
 CKPT_STEPS_STAGE2, CKPT_STEPS_STAGE3 = 6, 2
 CKPT_NEW_TOKENS = 8
 
@@ -9468,19 +9576,31 @@ def main():
         "memory, Q K^T once a Q tile into registers, P = exp(s - m) / l "
         "rounded to bf16 before P V, the TPU vision kernels' rounding "
         "(LHRS_VIT_SOFTMAX jnn and exp2_pre); times at ViT B64 H16 S257 "
-        "D64; by shape (this, the two-pass path, plain K1, SDPA, bound) "
-        + ", ".join(
-            f"{n} {v['ms']:.4f} / {v.get('two_pass_ms', v['ms']):.4f} / "
+        "D64; by shape (this path, the two-pass path, plain K1, SDPA, "
+        "bound) " + ", ".join(
+            f"{n} ({v['path']}) {v['ms']:.4f} / "
+            f"{v.get('two_pass_ms', v['ms']):.4f} / "
             f"{v['k1_ms']:.4f} / {v['library_ms']:.4f} / "
             f"{v['bound_ms']:.4f} ms" for n, v in norm["shapes"].items()))
+    split_row = row("flash_attention_fwd_normalized_split",
+                    "flash_fwd_norm.cu", norm_replaces, int8, norm["split"])
+    split_row["note"] = (
+        "the normalize-first attention's split path, for rows of 321-640 "
+        "keys at D64 (ViT-L/14 at 336 px: 577 tokens, the block's 592, its "
+        "perceiver's 640): a CTA per (batch, head) holding its K and V, two "
+        "warpgroups splitting each Q tile's keys, their scores in "
+        "registers, one exchange of row max and sum; times at ViT-L/14 336 "
+        "px, B64 H16 S577 D64; no model of the main path (224 px) has such "
+        "rows; the 336-px fused tower's launches "
+        f"{tower['tower_336']['launches']}")
     two_pass_row = row("flash_attention_fwd_normalized_two_pass",
                        "flash_fwd_norm.cu", norm_replaces, int8,
                        norm["two_pass"])
     two_pass_row["note"] = (
-        "the normalize-first attention's two-pass path, for rows past 320 "
-        "keys (K1's tiles: a first pass of Q K^T for each row's max and "
-        "sum, then P V); times at ViT-L/14 336 px, B64 H16 S577 D64; no "
-        "model of the main path has such rows")
+        "the normalize-first attention's two-pass path, for rows past 640 "
+        "keys at D64 and 256 at D128 (K1's tiles: a first pass of Q K^T for "
+        "each row's max and sum, then P V); times at ViT-L/14 336 px, B64 "
+        "H16 S577 D64, called on that path; no model has such rows")
     kernels = [
         fwd_row,
         row("fused_decode_attention", "fused_decode.cu",
@@ -9570,7 +9690,7 @@ def main():
                 "the backward, a rank's launches a causal ring call "
                 f"{[c[k['name']] for c in cp_launches]} (rank r: r + 1)")
     # after the notes set by position
-    kernels[1:1] = [norm_row, two_pass_row]
+    kernels[1:1] = [norm_row, split_row, two_pass_row]
     log(json.dumps({"w4a8_shapes": k3["shapes"],
                     "ln_quant_shapes": vision["A"]["shapes"]}))
     log(json.dumps({"int8_gemm_shapes": vision["B"]["shapes"],

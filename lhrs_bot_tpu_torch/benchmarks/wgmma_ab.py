@@ -22,7 +22,11 @@ change, parent). Parts:
       S257 D64, Q/K/V strided views of one projection, float32 token-major
       output) and the perceiver's group 0 (B64 H16 64 x 320 D64, float32
       output), and at those two shapes the normalize-first forward
-      (`flash_attention_fwd_normalized`) where the checkout has it; each
+      (`flash_attention_fwd_normalized`) where the checkout has it, and
+      also at ViT-L/14 336 px (B64 H16 S577, strided, float32 output) and
+      the 336-px perceiver's three groups under their masks (B192 H16
+      64 x 640): its split path, or its two-pass path where the checkout
+      has no split path; each
       beside one PyTorch call of the same function (`torch._int_mm` for
       the product alone, SDPA) and its bound; K1's registers and spills
       (and the normalize-first kernels') from the checkout's build log. The
@@ -58,7 +62,9 @@ change, parent). Parts:
       takes `splits`; the bf16 paged kernel at the B8 case; the registers
       of the decode kernels (contiguous, paged, int8 dots) from the
       checkout's build log.
-  e2e: the bench's three tower cells (`bench.bench_prefill`, B=64), its
+  e2e: the bench's three tower cells (`bench.bench_prefill`, B=64; and
+      again with ViT-L/14 at 336 px and the perceiver over 576 image
+      tokens a group, keys ending in `_336`), its
       decode cells (`DECODE_CELLS`: W4A8, int8 cache, bf16 cache), a W4A8
       + int8 lm_head + int8-cache decode step and an int8-weight +
       bf16-cache decode step at B = 1 from 2,192 filled rows (host-clock
@@ -71,8 +77,9 @@ change, parent). Parts:
       chip_profile.py times it) and a stage-1 training step on the packed
       batch and on the caption batch (host clock), each with the card's
       busy time and the flash forward's and backward's shares of it under
-      torch.profiler. With --towers-only N: only the three tower cells,
-      N times, and the fused ViT-L block (B8) and the fused perceiver
+      torch.profiler. With --towers-only N: only the three tower cells
+      (224 and 336 px), N times, and the fused ViT-L block (B8) and the
+      fused perceiver
       block, N times each: run the two checkouts in turns (parent, change,
       change, parent, ...) for five or more readings a side.
   probes: the five int8 / bf16 product chains at the probe's shape (g16
@@ -197,7 +204,36 @@ def _kernels(dev):
                  lambda: norm(q, k, v, None, 0.125, torch.float32),
                  lambda: F.scaled_dot_product_attention(q, k, v),
                  b * 64 * 320, 4 * b * 16 * 64 * 64)
-    # K1's registers and spills (and the normalize-first kernels')
+    # ViT-L/14 at 336 px (577 tokens) and its perceiver's three groups
+    # over 64 + 576 keys under their masks: the normalize-first forward
+    # takes its split path there (the two-pass path in a checkout without
+    # one)
+    if norm is not None:
+        from lhrs_bot_tpu_torch.ops.perceiver_block import _kv_mask
+
+        s = 577
+        qkv = randn(b, s, 3 * 1024)
+        q, k, v = qkv.view(b, s, 3, 16, 64).permute(2, 0, 3, 1, 4).unbind(0)
+        o = torch.empty(b, s, 16, 64, device=dev)
+        attn_row("norm_vit336_b64", q, k, v,
+                 lambda: norm(q, k, v, None, 0.125, torch.float32,
+                              o.transpose(1, 2)),
+                 lambda: F.scaled_dot_product_attention(q, k, v),
+                 b * s * s, 4 * b * s * 1024)
+        del qkv, o
+        q = randn(3 * b, 16, 64, 64)
+        k, v = randn(3 * b, 16, 640, 64), randn(3 * b, 16, 640, 64)
+        mask = _kv_mask(b, 64, 640, (64, 48, 32),
+                        tuple(n + 576 for n in (64, 48, 32)), dev)
+        am = mask[:, None, None, :]
+        attn_row("norm_perceiver336_b192", q, k, v,
+                 lambda: norm(q, k, v, mask, 0.125, torch.float32),
+                 lambda: F.scaled_dot_product_attention(q, k, v,
+                                                        attn_mask=am),
+                 64 * int(mask.sum()), 4 * 3 * b * 16 * 64 * 64)
+        del q, k, v
+    # K1's registers and spills (and the normalize-first kernels', whose
+    # shared memory is dynamic: csrc/flash_fwd_norm.cu's kSmem)
     out["registers"] = _build_usage(cuda_lib.build(), ("flash_fwd_kernel",
                                                        "flash_norm"))
     out.update(_backward(dev, gen))
@@ -853,6 +889,9 @@ def _e2e(dev, train=True):
 
     out = dict(bench.bench_prefill(VLMConfig(), device=dev))
     torch.cuda.empty_cache()
+    out.update({f"{k}_336": v for k, v in bench.bench_prefill(
+        vlm_336(), device=dev).items()})
+    torch.cuda.empty_cache()
     out.update(bench.bench_decode(
         LlamaConfig.llama2_7b(), device=dev,
         cells=[cell for cell in bench.decode_cells()
@@ -898,6 +937,19 @@ def _e2e(dev, train=True):
     return out
 
 
+def vlm_336():
+    """The VLM configuration with ViT-L/14 at 336 px (577 tokens) and the
+    perceiver over its 576 image tokens a group."""
+    import dataclasses
+
+    from lhrs_bot_tpu_torch.models import VLMConfig
+
+    base = VLMConfig()
+    return dataclasses.replace(
+        base, vit=dataclasses.replace(base.vit, image_size=336),
+        pooler=dataclasses.replace(base.pooler, split_part=(576,) * 3))
+
+
 def _towers(dev, repeats):
     """The bench's three tower cells (`bench.bench_prefill`, B = 64)
     `repeats` times, and the fused ViT-L block at B8 and the fused
@@ -918,6 +970,9 @@ def _towers(dev, repeats):
     for _ in range(repeats):
         for key, value in bench.bench_prefill(VLMConfig(), device=dev).items():
             out.setdefault(key, []).append(value)
+        torch.cuda.empty_cache()
+        for key, value in bench.bench_prefill(vlm_336(), device=dev).items():
+            out.setdefault(f"{key}_336", []).append(value)
         torch.cuda.empty_cache()
     # the blocks' inputs as phase_vision_kernels builds them (an older
     # checkout's chip_smoke.py has no helper to share)

@@ -47,9 +47,29 @@
 // the next head's K and V in flight (no other CTA's products to overlap);
 // two consumer warpgroups and a producer warp in it (168 registers again).
 //
-// Two-pass design (longer rows: ViT-L/14 at 336 px has 577 keys, past what
-// registers hold): K1's CTA (flash_tiles.cuh: one per (batch * head, 64-row
-// Q tile), two-stage K and V rings), whose consumer makes a first pass over
+// Split design (rows of 321 to 640 keys at D64: ViT-L/14 at 336 px has 577
+// tokens, its block pads them to 592, its perceiver's rows hold 64 + 576
+// keys; a Q tile's scores no longer fit one warpgroup's registers): one
+// CTA per (batch, head) of two consumer warpgroups and no producer warp,
+// one CTA an SM (its K and V take 160 KB; eight warps, 255 registers a
+// thread). Thread 0 loads the head's K and V once, as the resident path
+// does. The ten key tiles are split five and five: each warpgroup runs Q
+// K^T once on its half of a Q tile's keys into at most 160 scores a
+// thread, taking each tile's exponentials while the next tile's product
+// runs (against its own running max: a tile keeps its base until the
+// row's is known), then the two exchange each row's max and sum once
+// through shared memory, normalise, round and pack P into the A fragments
+// of P V over their halves of V, and sum their float32 partial outputs
+// through shared memory, each writing 32 of the 64 columns. Rows of 577
+// to 584 keys end in an n8 tile; rows of at most 576 keys (no model's)
+// run as masked rows of 640. Both warpgroups work on the same Q tile, so
+// on an H100 its P V does not overlap any exponentials, and with one CTA
+// an SM no other CTA's work fills that time; the designs measured beside
+// it are in PERF.md.
+//
+// Two-pass design (longer rows, and D128 past 256 keys: no vision model
+// has them): K1's CTA (flash_tiles.cuh: one per (batch * head, 64-row Q
+// tile), two-stage K and V rings), whose consumer makes a first pass over
 // the K tiles for each row's max and sum (online, exact at the end) and a
 // second that computes P = exp2(s - m) / l, rounds it and accumulates P V;
 // the producer loads every K tile twice and V once.
@@ -57,12 +77,16 @@
 // fault = 1 skips the normalisation (P = exp2(s - m) rounded): a planted
 // fault for the card's checks.
 
+#include <type_traits>
+
 #include "flash_tiles.cuh"
 
 namespace {
 
 // the resident path's longest rows: 5 score tiles at D64, 4 at D128
 constexpr int res_keys(int D) { return D == 64 ? 320 : 256; }
+// the split path's (D64): 5 score tiles in each of two warpgroups
+constexpr int split_keys = 640;
 
 struct NormParams {
   const uint8_t* kv_mask;  // (B, Skv) or null
@@ -73,15 +97,16 @@ struct NormParams {
 };
 
 // One output row pair of a thread (rows qrow[0], qrow[1] of the head,
-// columns 8 j + 2 t, + 1), from accumulators that need no rescaling.
-template <int D>
+// columns 8 j + 2 t, + 1 for j in [J0, J0 + NJ)), from accumulators that
+// need no rescaling.
+template <int D, int J0 = 0, int NJ = D / 8>
 __device__ __forceinline__ void store_rows(const NormParams& p,
                                            const float (&acc)[D / 2], int b,
                                            int hd, const int (&qrow)[2],
                                            int t) {
   const size_t ob = b * p.os.b + hd * p.os.h;
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
+  for (int j = J0; j < J0 + NJ; ++j) {
     const int c = 8 * j + 2 * t;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -395,6 +420,377 @@ int dispatch_resident(const CUtensorMap* maps, const NormParams& p, int B,
   return (int)cudaErrorInvalidValue;
 }
 
+// ---- split path ---------------------------------------------------------------
+
+// Rows of 321 to 640 keys at D64: ten key tiles, the first five for
+// warpgroup 0 and the other five for warpgroup 1 (the resident path's 160
+// scores a thread in each). P: the last tile holds at most 8 keys (577 to
+// 584 keys). kMask: some tile other than the last may hold keys that do
+// not attend (a kv_mask, or rows of at most 576 keys: the tiles past them
+// are zeros, masked); without it only the last tile is masked, and only
+// when it holds keys past Skv.
+constexpr int kSplitTiles = 10;
+
+struct Split {
+  static constexpr int kBQ = 64;
+  static constexpr int kBN = 64;
+  static constexpr int kThreads = 256;
+  static constexpr int kTileBytes = 64 * 64 * 2;  // a Q, K or V tile
+  static constexpr int kXFloats = 16 * 128;  // the partial outputs handed over
+  static constexpr int kSmem = 1024 + 2 * kTileBytes +
+                               2 * kSplitTiles * kTileBytes +
+                               2 * kXFloats * 4 + 2 * 2 * kBQ * 4 +
+                               4 * kSplitTiles * 2 + (kSplitTiles + 4) * 8;
+};
+
+// Shared memory of a split CTA: two Q tiles, the head's K and V tiles, the
+// half of its partial output each warpgroup hands the other, each
+// warpgroup's row maxima and sums, the key bits and the barriers (one a K
+// tile, one for each warpgroup's V tiles, one a Q slot).
+struct SplitSmem {
+  uint8_t* q;
+  uint8_t* k;
+  uint8_t* v;
+  float* xo;     // (2, 16, 128): [receiving warpgroup][element][thread]
+  float* stats;  // (2, 2, 64): [warpgroup][max, sum][row]
+  // (4, kSplitTiles): [t][tile] bit 2 j + h: key 64 tile + 8 j + 2 t + h
+  // attends (kMask)
+  uint16_t* okw;
+  uint64_t* k_full;  // (kSplitTiles)
+  uint64_t* v_full;  // (2)
+  uint64_t* q_full;  // (2)
+
+  __device__ explicit SplitSmem(uint8_t* raw) {
+    constexpr int kTile = Split::kTileBytes;
+    q = reinterpret_cast<uint8_t*>(
+        (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
+    k = q + 2 * kTile;
+    v = k + kSplitTiles * kTile;
+    xo = reinterpret_cast<float*>(v + kSplitTiles * kTile);
+    stats = xo + 2 * Split::kXFloats;
+    okw = reinterpret_cast<uint16_t*>(stats + 2 * 2 * 64);
+    k_full = reinterpret_cast<uint64_t*>(okw + 4 * kSplitTiles);
+    v_full = k_full + kSplitTiles;
+    q_full = v_full + 2;
+  }
+};
+
+// f(std::integral_constant<int, C>()) for C = 0 .. N - 1, each with its
+// index as a constant (a wgmma wait takes its count as one)
+template <int C, int N>
+struct Unrolled {
+  template <class F>
+  static __device__ __forceinline__ void run(F& f) {
+    f(std::integral_constant<int, C>());
+    Unrolled<C + 1, N>::run(f);
+  }
+};
+template <int N>
+struct Unrolled<N, N> {
+  template <class F>
+  static __device__ __forceinline__ void run(F&) {}
+};
+
+// Q tile i of the head into slot i & 1.
+__device__ __forceinline__ void split_load_q(const SplitSmem& sm,
+                                             const CUtensorMap* tm_q, int i,
+                                             int hd, int b) {
+  uint64_t* bar = &sm.q_full[i & 1];
+  sm90::mbar_arrive_tx(bar, Split::kTileBytes);
+  sm90::tma_load_4d(sm.q + (i & 1) * Split::kTileBytes, tm_q, bar, 0, i * 64,
+                    hd, b);
+}
+
+// S = Q K^T of key tile c (n8: its first 8 keys) as one commit group, not
+// waited for, from the descriptors of the Q tile and of the first key
+// tile (each k16 step 32 bytes on, each key tile 8 KB: the address field
+// counts 16 bytes)
+template <bool kN8>
+__device__ __forceinline__ void split_qk(float (&sc)[32], uint64_t dq,
+                                         uint64_t dk, int c,
+                                         uint64_t* k_full) {
+  sm90::mbar_wait(&k_full[c], 0);
+  sm90::fence_regs(sc);
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t db = dk + c * (Split::kTileBytes >> 4) + 2 * kk;
+    if (kN8)
+      sm90::wgmma_bf16_ss_m64n8k16(sc, dq + 2 * kk, db, kk > 0);
+    else
+      sm90::wgmma_bf16_ss_m64n64k16(sc, dq + 2 * kk, db, kk > 0);
+  }
+  sm90::wgmma_commit();
+}
+
+// Warpgroup W's walk over the head's Q tiles, on its five key tiles from
+// tile c0 = 5 W (the last with at most 8 keys if P: only its first 4
+// scores a thread exist). For a Q tile it issues the Q K^T of each key
+// tile before taking the exponentials of the one before, against this
+// thread's running row max (each tile keeps its base: its exponentials
+// are rescaled once the row's max is known), so that a tile's
+// exponentials overlap the next tile's products. The warpgroup's row max
+// and sum go to the other warpgroup through shared memory, and the row's
+// come back from both. Each tile's probabilities are multiplied by
+// 2^(tile base - row base) / sum, rounded to bf16 and packed into P V's A
+// fragments, and the tile's P V issued at once over its resident V tile,
+// so that the next tile's packing overlaps it. Each warpgroup then hands
+// the other the 32 columns of its float32 partial output that the other
+// writes, adds what it receives and writes its 32 columns.
+template <int P, int W, bool kMask>
+__device__ __forceinline__ void split_walk(const NormParams& p,
+                                           const SplitSmem& sm,
+                                           const CUtensorMap* tm_q, int b,
+                                           int hd, int nq) {
+  constexpr int N = kSplitTiles / 2, kBN = 64, c0 = W * N;
+  const int tid = threadIdx.x & 127;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const float sl = p.scale_log2;
+  const int row0 = 16 * warp + g;
+  // bit 16 c + 2 j + h: the key 64 (c0 + c) + 8 j + 2 t + h attends; only
+  // the last tile is masked without kMask, by Skv
+  uint32_t ok[(N * 16 + 31) / 32];
+#pragma unroll
+  for (int w = 0; w < (N * 16 + 31) / 32; ++w) ok[w] = 0;
+  if (kMask) {
+#pragma unroll
+    for (int c = 0; c < N; ++c)
+      ok[c / 2] |= uint32_t(sm.okw[t * kSplitTiles + c0 + c]) << (16 * (c % 2));
+  } else if (W == 1) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int bit = 16 * (N - 1) + 2 * j + h;
+        if (kBN * (kSplitTiles - 1) + 8 * j + 2 * t + h < p.Skv)
+          ok[bit >> 5] |= 1u << (bit & 31);
+      }
+  }
+  const bool last_masked = kMask || (W == 1 && p.Skv < kSplitTiles * kBN);
+  const uint64_t dk = sm90::desc_sw128(sm.k + c0 * Split::kTileBytes, 16, 1024);
+  const uint64_t dv = sm90::desc_sw128(sm.v + c0 * Split::kTileBytes,
+                                       64 * 128, 1024);
+
+  float sc[N][kBN / 2];
+  uint32_t pf[N][kBN / 16][4];
+  float acc[32];
+#pragma unroll
+  for (int c = 0; c < N; ++c)
+#pragma unroll
+    for (int e = 0; e < kBN / 2; ++e) sc[c][e] = 0.f;
+  for (int i = 0; i < nq; ++i) {
+    sm90::mbar_wait(&sm.q_full[i & 1], (i >> 1) & 1);
+    const uint64_t dq =
+        sm90::desc_sw128(sm.q + (i & 1) * Split::kTileBytes, 16, 1024);
+
+    // running max (raw scores, kNegInf while every key so far is masked),
+    // the base of the exponentials in units of log2 (0 while so), the sum
+    // against it, and each tile's base
+    float mr[2] = {kNegInf, kNegInf}, bb[2] = {0.f, 0.f}, l[2] = {0.f, 0.f};
+    float bt[N][2];
+    split_qk<false>(sc[0], dq, dk, 0, sm.k_full + c0);
+    auto tile = [&](auto ci) {
+      constexpr int c = decltype(ci)::value;
+      // the elements a thread holds: 4 of an n8 tile
+      constexpr int kE = P && c == N - 1 ? 4 : kBN / 2;
+      if constexpr (c + 1 < N) {
+        split_qk<P && c + 1 == N - 1>(sc[c + 1], dq, dk, c + 1,
+                                      sm.k_full + c0);
+        sm90::wgmma_wait<1>();
+      } else {
+        sm90::wgmma_wait<0>();
+      }
+      sm90::fence_regs(sc[c]);
+      const bool need = kMask || (c == N - 1 && last_masked);
+      float mx[2] = {mr[0], mr[1]};
+#pragma unroll
+      for (int e = 0; e < kE; ++e) {
+        const int bit = 16 * c + 2 * (e >> 2) + (e & 1);
+        if (need && !((ok[bit >> 5] >> (bit & 31)) & 1u)) sc[c][e] = kNegInf;
+        mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], sc[c][e]);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float nb = mx[r] == kNegInf ? 0.f : mx[r] * sl;
+        // a base only rises once a key is valid (from 0 it may fall: l
+        // is 0 then)
+        l[r] *= ex2(fminf(bb[r] - nb, 0.f));
+        bb[r] = bt[c][r] = nb;
+        mr[r] = mx[r];
+      }
+#pragma unroll
+      for (int e = 0; e < kE; ++e) {
+        sc[c][e] = ex2(fmaf(sc[c][e], sl, -bb[(e >> 1) & 1]));
+        l[(e >> 1) & 1] += sc[c][e];
+      }
+    };
+    Unrolled<0, N>::run(tile);
+
+    // the warpgroup's row max and sum, then the row's, from both
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float m = fmaxf(mr[r], __shfl_xor_sync(0xffffffffu, mr[r], 1));
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+      const float bq = m == kNegInf ? 0.f : m * sl;
+      l[r] *= ex2(fminf(bb[r] - bq, 0.f));
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      mr[r] = m;
+      bb[r] = bq;
+      if (t == 0) {
+        sm.stats[(2 * W) * 64 + row0 + 8 * r] = m;
+        sm.stats[(2 * W + 1) * 64 + row0 + 8 * r] = l[r];
+      }
+    }
+    sm90::bar_sync(1, 256);
+    // both warpgroups' Q K^T of this slot are done: it takes tile i + 2
+    if (W == 0 && tid == 0 && i + 2 < nq) split_load_q(sm, tm_q, i + 2, hd, b);
+    float base[2], inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float mo = sm.stats[(2 * (1 - W)) * 64 + row0 + 8 * r];
+      const float lo = sm.stats[(2 * (1 - W) + 1) * 64 + row0 + 8 * r];
+      const float m = fmaxf(mr[r], mo);
+      // a row with no valid key: its masked scores gave exp 0
+      base[r] = m == kNegInf ? 0.f : m * sl;
+      const float bo = mo == kNegInf ? 0.f : mo * sl;
+      // the same sum in both warpgroups (addition commutes)
+      const float sum = l[r] * ex2(fminf(bb[r] - base[r], 0.f)) +
+                        lo * ex2(fminf(bo - base[r], 0.f));
+      inv[r] = p.fault ? 1.f : sum > 0.f ? 1.f / sum : 0.f;
+    }
+
+    // O = P V over the warpgroup's V tiles, a tile's as soon as it is
+    // packed, then the two halves summed
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[e] = 0.f;
+    sm90::mbar_wait(&sm.v_full[W], 0);
+#pragma unroll
+    for (int c = 0; c < N; ++c) {
+      float f[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        f[r] = ex2(fminf(bt[c][r] - base[r], 0.f)) * inv[r];
+      if (P && c == N - 1) {  // keys 0-7 of the first k16 step
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+          pf[c][0][q] = pack_bf16(sc[c][2 * q] * f[q],
+                                  sc[c][2 * q + 1] * f[q]);
+        pf[c][0][2] = pf[c][0][3] = 0u;
+      } else {
+#pragma unroll
+        for (int e = 0; e < kBN / 2; ++e) sc[c][e] *= f[(e >> 1) & 1];
+        pack_p<kBN / 2>(pf[c], sc[c]);
+      }
+      sm90::fence_regs(pf[c]);
+      if (c == 0) sm90::fence_regs(acc);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int j2 = 0; j2 < (P && c == N - 1 ? 1 : 4); ++j2)
+        sm90::wgmma_bf16_rs_m64n64k16(
+            acc, pf[c][j2],
+            dv + ((c * Split::kTileBytes + j2 * 16 * 128) >> 4));
+      sm90::wgmma_commit();
+    }
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(acc);
+    float* give = sm.xo + (1 - W) * Split::kXFloats;
+    const float* take = sm.xo + W * Split::kXFloats;
+#pragma unroll
+    for (int e = 0; e < 16; ++e) give[e * 128 + tid] = acc[16 * (1 - W) + e];
+    sm90::bar_sync(1, 256);
+#pragma unroll
+    for (int e = 0; e < 16; ++e) acc[16 * W + e] += take[e * 128 + tid];
+    const int qrow[2] = {i * 64 + row0, i * 64 + row0 + 8};
+    store_rows<64, 4 * W, 4>(p, acc, b, hd, qrow, t);
+  }
+}
+
+// One CTA a head, two consumer warpgroups and no producer warp (one CTA an
+// SM: its K and V take 160 KB); thread 0 issues the loads (Q tile 0, the K
+// tiles of both warpgroups in turn, each warpgroup's V, Q tile 1, then
+// each next Q tile once both warpgroups' Q K^T of its slot are done).
+template <int P, bool kMask>
+__global__ void __launch_bounds__(256, 1)
+    flash_norm_split_kernel(const __grid_constant__ CUtensorMap tm_q,
+                            const __grid_constant__ CUtensorMap tm_k,
+                            const __grid_constant__ CUtensorMap tm_v,
+                            const __grid_constant__ CUtensorMap tm_kt,
+                            const __grid_constant__ CUtensorMap tm_vt,
+                            const NormParams p) {
+  constexpr int NT = kSplitTiles, N = NT / 2, kBN = Split::kBN;
+  extern __shared__ uint8_t smem_raw[];
+  const SplitSmem sm(smem_raw);
+  const int b = blockIdx.x / p.H, hd = blockIdx.x % p.H;
+  const int nq = (p.Sq + Split::kBQ - 1) / Split::kBQ;
+  if (threadIdx.x == 0) {  // the loads go out first
+    for (int c = 0; c < NT; ++c) sm90::mbar_init(&sm.k_full[c], 1);
+    for (int w = 0; w < 2; ++w) {
+      sm90::mbar_init(&sm.v_full[w], 1);
+      sm90::mbar_init(&sm.q_full[w], 1);
+    }
+    sm90::mbar_fence_init();
+    split_load_q(sm, &tm_q, 0, hd, b);
+    for (int c = 0; c < N; ++c)
+      for (int w = 0; w < 2; ++w)
+        load_k_tile<64, NT, P>(sm.k, &tm_k, &tm_kt, &sm.k_full[w * N + c],
+                               w * N + c, hd, b);
+    // each warpgroup's V on its barrier: the last tile (P) as 16 rows
+    for (int w = 0; w < 2; ++w) {
+      sm90::mbar_arrive_tx(&sm.v_full[w],
+                           ((N - P * w) * kBN + 16 * P * w) * 128);
+      for (int c = w * N; c < w * N + N; ++c)
+        sm90::tma_load_4d(sm.v + c * Split::kTileBytes,
+                          P && c == NT - 1 ? &tm_vt : &tm_v, &sm.v_full[w],
+                          0, c * kBN, hd, b);
+    }
+    if (nq > 1) split_load_q(sm, &tm_q, 1, hd, b);
+  }
+  if (kMask && threadIdx.x < 4 * NT) {  // the key bits (okw)
+    const int tt = threadIdx.x / NT, cc = threadIdx.x % NT;
+    uint32_t bits = 0;
+    for (int j = 0; j < 8; ++j)
+      for (int h = 0; h < 2; ++h) {
+        const int key = kBN * cc + 8 * j + 2 * tt + h;
+        if (key < p.Skv &&
+            (p.kv_mask == nullptr || p.kv_mask[(size_t)b * p.Skv + key]))
+          bits |= 1u << (2 * j + h);
+      }
+    sm.okw[threadIdx.x] = (uint16_t)bits;
+  }
+  __syncthreads();  // the barriers' initialisation and the key bits
+  if (threadIdx.x < 128)
+    split_walk<0, 0, kMask>(p, sm, &tm_q, b, hd, nq);
+  else
+    split_walk<P, 1, kMask>(p, sm, &tm_q, b, hd, nq);
+}
+
+template <int P, bool kMask>
+int launch_split(const CUtensorMap* maps, const NormParams& p, int B,
+                 cudaStream_t stream) {
+  auto kernel = flash_norm_split_kernel<P, kMask>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Split::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<B * p.H, Split::kThreads, Split::kSmem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], p);
+  return (int)cudaGetLastError();
+}
+
+// Rows of 577 to 584 keys end in a tile of at most 8; rows of at most 576
+// keys (no model's) run as masked rows of 640, the tiles past them zeros.
+int dispatch_split(const CUtensorMap* maps, const NormParams& p, int B,
+                   cudaStream_t stream) {
+  const int tail = p.Skv - (kSplitTiles - 1) * 64;
+  const bool mask = p.kv_mask != nullptr || tail <= 0;
+  if (tail > 0 && tail <= 8)
+    return mask ? launch_split<1, true>(maps, p, B, stream)
+                : launch_split<1, false>(maps, p, B, stream);
+  return mask ? launch_split<0, true>(maps, p, B, stream)
+              : launch_split<0, false>(maps, p, B, stream);
+}
+
 // ---- two-pass path ------------------------------------------------------------
 
 // The normalised probabilities of one tile, in place, from each row's final
@@ -590,23 +986,25 @@ int launch_two_pass(const CUtensorMap* maps, const NormParams& p, int B,
 // out_f32), D 64 or 128, unit stride along D, the other strides in
 // `strides` (12 element strides: batch, head, row of q, k, v, o; multiples
 // of 8, 16-byte aligned bases). kv_mask: (B,Skv) bytes (0 = masked) or
-// null. two_pass 0 takes the resident path (Skv <= 320 at D64, 256 at
-// D128), 1 the two-pass path (any Skv). fault 1 skips the normalisation (a planted fault for
-// checks). Returns cudaError_t.
+// null. path 0 takes the resident path (Skv <= 320 at D64, 256 at D128), 1
+// the two-pass path (any Skv), 2 the split path (D64, 320 < Skv <= 640).
+// fault 1 skips the normalisation (a planted fault for checks). Returns
+// cudaError_t.
 extern "C" int lhrs_flash_fwd_norm(const void* q, const void* k,
                                    const void* v, const void* kv_mask,
                                    void* o, int B, int H, int Sq, int Skv,
                                    int D, float sm_scale, const void* strides,
-                                   int out_f32, int two_pass, int fault,
+                                   int out_f32, int path, int fault,
                                    void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0 || Skv <= 0 || (D != 64 && D != 128) ||
-      (!two_pass && Skv > res_keys(D)))
+      path < 0 || path > 2 || (path == 0 && Skv > res_keys(D)) ||
+      (path == 2 && (D != 64 || Skv <= res_keys(D) || Skv > split_keys)))
     return (int)cudaErrorInvalidValue;
-  if (two_pass && (Sq + 63) / 64 > 65535) return (int)cudaErrorInvalidValue;
+  if (path == 1 && (Sq + 63) / 64 > 65535) return (int)cudaErrorInvalidValue;
   const auto* st = static_cast<const long long*>(strides);
   CUtensorMap maps[5];
-  // Q, K and V in 64-row boxes; the resident path's last key tile, when it
-  // holds at most 8 keys, in boxes of 8 rows (K) and 16 (V)
+  // Q, K and V in 64-row boxes; the resident and split paths' last key
+  // tile, when it holds at most 8 keys, in boxes of 8 rows (K) and 16 (V)
   if (!operand_map(&maps[0], q, B, H, Sq, D, st, 64) ||
       !operand_map(&maps[1], k, B, H, Skv, D, st + 3, 64) ||
       !operand_map(&maps[2], v, B, H, Skv, D, st + 6, 64) ||
@@ -624,9 +1022,10 @@ extern "C" int lhrs_flash_fwd_norm(const void* q, const void* k,
   p.scale_log2 = sm_scale * kLog2e;
   p.os = Strides{st[9], st[10], st[11]};
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  if (two_pass)
+  if (path == 1)
     return D == 128 ? launch_two_pass<128>(maps, p, B, cs)
                     : launch_two_pass<64>(maps, p, B, cs);
+  if (path == 2) return dispatch_split(maps, p, B, cs);
   return D == 128 ? dispatch_resident<128>(maps, p, B, cs)
                   : dispatch_resident<64>(maps, p, B, cs);
 }

@@ -255,14 +255,23 @@ flash_attention_fwd.launches = 0
 
 # Rows of at most this many keys (by head dim) take the normalize-first
 # kernel's resident path (csrc/flash_fwd_norm.cu: a head's K and V in shared
-# memory, a Q tile's scores in registers); longer rows its two-pass path
+# memory, a Q tile's scores in registers); longer rows of at most
+# NORM_SPLIT_KEYS[D] keys its split path (the same, a Q tile's keys split
+# between two warpgroups); longer rows still its two-pass path
 NORM_RESIDENT_KEYS = {64: 320, 128: 256}
+NORM_SPLIT_KEYS = {64: 640}
+# the C entry's path argument
+_NORM_PATHS = {"resident": 0, "two_pass": 1, "split": 2}
 
 
-def norm_two_pass(skv: int, d: int) -> bool:
-    """Whether the normalize-first forward takes its two-pass path for
-    rows of `skv` keys at head dim `d`."""
-    return skv > NORM_RESIDENT_KEYS.get(d, 0)
+def norm_path(skv: int, d: int) -> str:
+    """The normalize-first forward's path for rows of `skv` keys at head
+    dim `d`: "resident", "split" or "two_pass"."""
+    if skv <= NORM_RESIDENT_KEYS.get(d, 0):
+        return "resident"
+    if skv <= NORM_SPLIT_KEYS.get(d, 0):
+        return "split"
+    return "two_pass"
 
 
 def flash_attention_fwd_normalized(q: torch.Tensor, k: torch.Tensor,
@@ -280,9 +289,14 @@ def flash_attention_fwd_normalized(q: torch.Tensor, k: torch.Tensor,
     `flash_attention_fwd` takes but segments and the LSE. Rows of at most
     `NORM_RESIDENT_KEYS[D]` keys launch the resident kernel, counted in
     `flash_attention_fwd_normalized.launches`; longer rows go to
-    `flash_attention_fwd_normalized_two_pass`, which counts its own. Its
-    plain version is `mha_reference`."""
-    if norm_two_pass(k.shape[2], q.shape[3]):
+    `flash_attention_fwd_normalized_split` (to `NORM_SPLIT_KEYS[D]` keys)
+    or `flash_attention_fwd_normalized_two_pass`, which count their own.
+    Its plain version is `mha_reference`."""
+    path = norm_path(k.shape[2], q.shape[3])
+    if path == "split":
+        return flash_attention_fwd_normalized_split(q, k, v, kv_mask,
+                                                    sm_scale, out_dtype, out)
+    if path == "two_pass":
         return flash_attention_fwd_normalized_two_pass(q, k, v, kv_mask,
                                                        sm_scale, out_dtype,
                                                        out)
@@ -294,6 +308,26 @@ def flash_attention_fwd_normalized(q: torch.Tensor, k: torch.Tensor,
 flash_attention_fwd_normalized.launches = 0
 
 
+def flash_attention_fwd_normalized_split(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+        kv_mask: Optional[torch.Tensor], sm_scale: float,
+        out_dtype=torch.float32, out: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """The normalize-first forward's split kernel, for rows past
+    `NORM_RESIDENT_KEYS[64]` keys up to `NORM_SPLIT_KEYS[64]` at D64 (ViT-L/14
+    at 336 px: 577 tokens, its perceiver's 640 keys): a CTA a head holds its
+    K and V, and two warpgroups split each Q tile's keys, their scores in
+    registers. `flash_attention_fwd_normalized` takes it for such rows.
+    Counts its launches in `flash_attention_fwd_normalized_split.launches`."""
+    out = _flash_fwd_norm(q, k, v, kv_mask, sm_scale, out_dtype, out,
+                          path="split")
+    flash_attention_fwd_normalized_split.launches += 1
+    return out
+
+
+flash_attention_fwd_normalized_split.launches = 0
+
+
 def flash_attention_fwd_normalized_two_pass(
         q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         kv_mask: Optional[torch.Tensor], sm_scale: float,
@@ -302,10 +336,11 @@ def flash_attention_fwd_normalized_two_pass(
     """The normalize-first forward's two-pass kernel at any row length
     (K1's tiles: a first pass of Q K^T for each row's max and sum, then P V),
     which `flash_attention_fwd_normalized` takes for rows past
-    `NORM_RESIDENT_KEYS[D]` keys. Counts its launches in
+    `NORM_SPLIT_KEYS[D]` keys (past `NORM_RESIDENT_KEYS[D]` where D has no
+    split path). Counts its launches in
     `flash_attention_fwd_normalized_two_pass.launches`."""
     out = _flash_fwd_norm(q, k, v, kv_mask, sm_scale, out_dtype, out,
-                          two_pass=True)
+                          path="two_pass")
     flash_attention_fwd_normalized_two_pass.launches += 1
     return out
 
@@ -337,17 +372,17 @@ def _fwd_out_and_strides(q, k, v, out, out_dtype):
 
 
 def _flash_fwd_norm(q, k, v, kv_mask, sm_scale, out_dtype, out, *,
-                    two_pass=False, fault=0):
-    """The checks and the launch of the normalize-first kernel (its resident
-    path, or with `two_pass` its two-pass path), counted by the public
-    wrappers above. `fault=1` skips the normalisation: a planted fault, for
-    the card's checks."""
+                    path="resident", fault=0):
+    """The checks and the launch of the normalize-first kernel on `path`
+    ("resident", "split" or "two_pass"), counted by the public wrappers
+    above. `fault=1` skips the normalisation: a planted fault, for the
+    card's checks."""
     _check_qkv(q, k, v, "flash_attention_fwd_normalized")
     b, h, sq, d = q.shape
     skv = k.shape[2]
-    if not two_pass and norm_two_pass(skv, d):
-        raise ValueError(f"the resident path takes at most "
-                         f"{NORM_RESIDENT_KEYS[d]} keys at D {d}, got {skv}")
+    if path != "two_pass" and norm_path(skv, d) != path:
+        raise ValueError(f"rows of {skv} keys at D {d} take the "
+                         f"{norm_path(skv, d)} path, not the {path} path")
     out, strides = _fwd_out_and_strides(q, k, v, out, out_dtype)
     _check_masks(kv_mask, None, b, sq, skv, q.device,
                  "flash_attention_fwd_normalized")
@@ -357,7 +392,7 @@ def _flash_fwd_norm(q, k, v, kv_mask, sm_scale, out_dtype, out, *,
         err = lib.lhrs_flash_fwd_norm(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_mask),
             out.data_ptr(), b, h, sq, skv, d, float(sm_scale), strides,
-            int(out_dtype == torch.float32), int(two_pass), int(fault),
+            int(out_dtype == torch.float32), _NORM_PATHS[path], int(fault),
             stream)
     cuda_lib.check(err, "flash_attention_fwd_normalized")
     return out

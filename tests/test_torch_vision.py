@@ -70,6 +70,11 @@ POOL = j_perc.PerceiverConfig(
     encoder_hidden_size=128, output_size=64, stage_num=(6, 4, 2),
     split_part=(8, 8, 8))
 S_PAD = -(-VIT.seq_len // 16) * 16
+# ViT-L/14's 336-px geometry at the same narrow width (577 tokens, head dim
+# 64: the rows of the split normalize-first path on the card) and its
+# perceiver over 576 image tokens a group
+VIT336 = dataclasses.replace(VIT, image_size=336)
+POOL336 = dataclasses.replace(POOL, split_part=(576, 576, 576))
 BLOCK_TOL = 5e-3   # max-abs / max|ref|: JAX's grouped-vs-ungrouped bound
 TOWER_TOL = 1e-2   # relative L2 through whole towers
 F32_TOL = 1e-4     # relative L2, float32 compute
@@ -103,10 +108,10 @@ def _randomized(layers, seed):
 
 
 @functools.lru_cache(maxsize=None)
-def _vit_params():
+def _vit_params(cfg=VIT):
     p = jax.tree_util.tree_map(np.asarray,
                                j_vit.init_vit_params(jax.random.PRNGKey(0),
-                                                     VIT))
+                                                     cfg))
     p["layers"] = _randomized(p["layers"], 1)
     return p
 
@@ -313,8 +318,8 @@ def _block_input(n_img, seed):
 
 
 @functools.lru_cache(maxsize=None)
-def _packed_vit():
-    layers = _vit_params()["layers"]
+def _packed_vit(cfg=VIT):
+    layers = _vit_params(cfg)["layers"]
     return (j_vb.pack_vit_layers_fused(_jtree(layers)),
             t_vb.pack_vit_layers_fused(params_from_numpy(layers)))
 
@@ -404,23 +409,27 @@ def _images(n, seed, size=28):
         0, 256, (n, size, size, 3)).astype(np.uint8)
 
 
-def _t_vit_cfg():
-    return t_vit.ViTConfig(**dataclasses.asdict(VIT))
+def _t_vit_cfg(cfg=VIT):
+    return t_vit.ViTConfig(**dataclasses.asdict(cfg))
 
 
-@pytest.mark.parametrize("split", [False, True], ids=["block", "split"])
-def test_vit_encode_fused_matches_jax(split):
-    params = _vit_params()
-    jp, tp = _packed_vit()
-    imgs = _images(4, 13)
-    want = j_vit.vit_encode_fused(_jtree(params), jp, jnp.asarray(imgs), VIT,
+@pytest.mark.parametrize("split, cfg, n", [(False, VIT, 4), (True, VIT, 4),
+                                           (False, VIT336, 1),
+                                           (True, VIT336, 1)],
+                         ids=["block", "split", "block_336", "split_336"])
+def test_vit_encode_fused_matches_jax(split, cfg, n):
+    params = _vit_params(cfg)
+    jp, tp = _packed_vit(cfg)
+    imgs = _images(n, 13, cfg.image_size)
+    want = j_vit.vit_encode_fused(_jtree(params), jp, jnp.asarray(imgs), cfg,
                                   interpret=True, group=2,
                                   split_attention=split)
     tparams = params_from_numpy(params)
-    got = t_vit.vit_encode_fused(tparams, tp, _t(imgs), _t_vit_cfg(),
+    got = t_vit.vit_encode_fused(tparams, tp, _t(imgs), _t_vit_cfg(cfg),
                                  group=2, split_attention=split)
     assert got.dtype == torch.bfloat16
-    _rel_l2(got, want, TOWER_TOL, f"vit_encode_fused split={split}")
+    _rel_l2(got, want, TOWER_TOL,
+            f"vit_encode_fused split={split} {cfg.image_size} px")
 
 
 def test_xla_w8a8_towers_match_jax():
@@ -456,19 +465,22 @@ def test_xla_w8a8_towers_match_jax():
     _rel_l2(got, want, F32_TOL, "W8A8 perceiver")
 
 
-def test_perceiver_resample_fused_matches_jax():
+@pytest.mark.parametrize("cfg, n", [(POOL, 2), (POOL336, 1)],
+                         ids=["split_part_8", "split_part_576"])
+def test_perceiver_resample_fused_matches_jax(cfg, n):
     pp = _pool_params()
     feats = np.asarray(np.random.default_rng(16).standard_normal(
-        (2, 24, 128)) * 0.5, np.float32)
+        (n, sum(cfg.split_part), 128)) * 0.5, np.float32)
     want = j_perc.perceiver_resample_fused(
         _jtree(pp), j_pb.pack_perceiver_layers_fused(_jtree(pp["layers"])),
-        jnp.asarray(feats), POOL, interpret=True)
+        jnp.asarray(feats), cfg, interpret=True)
     tpp = params_from_numpy(pp)
     got = t_perc.perceiver_resample_fused(
         tpp, t_pb.pack_perceiver_layers_fused(tpp["layers"]), _t(feats),
-        t_perc.PerceiverConfig(**dataclasses.asdict(POOL)))
+        t_perc.PerceiverConfig(**dataclasses.asdict(cfg)))
     assert got.dtype == torch.bfloat16
-    _rel_l2(got, want, TOWER_TOL, "perceiver_resample_fused")
+    _rel_l2(got, want, TOWER_TOL,
+            f"perceiver_resample_fused split_part {cfg.split_part}")
 
 
 @functools.lru_cache(maxsize=None)

@@ -88,23 +88,32 @@ def test_softmax_mode_is_read_at_each_call(mode):
     assert t_vb.q_fold(0.125, mode) == j_vb._q_fold(0.125)
 
 
-def _group_mask(nq):
-    """(1, 320) bool: the perceiver's kv mask of a group of `nq` queries (64
-    query slots, the first `nq` valid, then its 256 image tokens), as the
-    block builds it."""
-    return t_pb._kv_mask(1, 64, 320, (nq,), (nq + 256,), "cpu")
+def _group_mask(nq, image_tokens=256):
+    """(1, 64 + image_tokens) bool: the perceiver's kv mask of a group of
+    `nq` queries (64 query slots, the first `nq` valid, then its image
+    tokens), as the block builds it."""
+    return t_pb._kv_mask(1, 64, 64 + image_tokens, (nq,),
+                         (nq + image_tokens,), "cpu")
 
 
 # (Sq, Skv, kv mask or None, scale of q): the 16-token case (11 valid
 # keys); ViT-L/14's 257 tokens, one past four 64-key tiles; the perceiver's
 # 64 query rows (past each group's count too) over its 320 keys under each
-# group's mask. The larger cases scale q by the block's 1 / sqrt(64).
+# group's mask; ViT-L/14 at 336 px (577 tokens, one past nine 64-key tiles;
+# the block's 592 padded keys, 577 valid) and its perceiver's 64 + 576 = 640
+# keys under each group's mask, the rows of the split path. The larger
+# cases scale q by the block's 1 / sqrt(64).
 ATTN_CASES = {
     "s16_valid11": (16, 16, (torch.arange(16) < 11)[None], 1.0),
     "vit_s257": (257, 257, None, 0.125),
     "perceiver_g0": (64, 320, _group_mask(64), 0.125),
     "perceiver_g1": (64, 320, _group_mask(48), 0.125),
     "perceiver_g2": (64, 320, _group_mask(32), 0.125),
+    "vit336_s577": (577, 577, None, 0.125),
+    "vit336_block_s592": (592, 592, (torch.arange(592) < 577)[None], 0.125),
+    "perceiver336_g0": (64, 640, _group_mask(64, 576), 0.125),
+    "perceiver336_g1": (64, 640, _group_mask(48, 576), 0.125),
+    "perceiver336_g2": (64, 640, _group_mask(32, 576), 0.125),
 }
 
 
@@ -159,45 +168,49 @@ def test_attention_plain_matches_jax_probs_and_norm(mode, case):
                                atol=1e-5 * float(np.abs(want).max()))
 
 
-@pytest.mark.parametrize("d, skv, two_pass",
-                         [(64, 197, False), (64, 257, False),
-                          (64, 320, False), (64, 321, True), (64, 577, True),
-                          (128, 256, False), (128, 257, True)])
-def test_normalized_forward_path_by_row_length(monkeypatch, d, skv,
-                                               two_pass):
+@pytest.mark.parametrize("d, skv, path",
+                         [(64, 197, "resident"), (64, 257, "resident"),
+                          (64, 320, "resident"), (64, 321, "split"),
+                          (64, 577, "split"), (64, 592, "split"),
+                          (64, 640, "split"), (64, 641, "two_pass"),
+                          (128, 256, "resident"), (128, 257, "two_pass")])
+def test_normalized_forward_path_by_row_length(monkeypatch, d, skv, path):
     """`flash_attention_fwd_normalized` launches the resident kernel for
-    rows of at most NORM_RESIDENT_KEYS[D] keys (320 at D64, 256 at D128)
-    and hands longer rows to the two-pass wrapper; each counts its own
+    rows of at most NORM_RESIDENT_KEYS[D] keys (320 at D64, 256 at D128),
+    hands rows of up to NORM_SPLIT_KEYS[D] keys (640, D64 only) to the split
+    wrapper and longer rows to the two-pass wrapper; each counts its own
     launches. The launch itself is recorded (no kernel runs on the CPU)."""
     assert t_att.NORM_RESIDENT_KEYS == {64: 320, 128: 256}
+    assert t_att.NORM_SPLIT_KEYS == {64: 640}
+    assert t_att.norm_path(skv, d) == path
     taken = []
     monkeypatch.setattr(t_att, "_flash_fwd_norm",
-                        lambda *a, two_pass=False, **kw: taken.append(
-                            two_pass))
-    for fn in (t_att.flash_attention_fwd_normalized,
-               t_att.flash_attention_fwd_normalized_two_pass):
+                        lambda *a, path="resident", **kw: taken.append(path))
+    wrappers = {"resident": t_att.flash_attention_fwd_normalized,
+                "split": t_att.flash_attention_fwd_normalized_split,
+                "two_pass": t_att.flash_attention_fwd_normalized_two_pass}
+    for fn in wrappers.values():
         monkeypatch.setattr(fn, "launches", 0)
     q = torch.zeros(1, 2, 16, d, dtype=torch.bfloat16)
     kv = torch.zeros(1, 2, skv, d, dtype=torch.bfloat16)
     t_att.flash_attention_fwd_normalized(q, kv, kv, None, 0.125)
-    assert taken == [two_pass]
-    assert t_att.flash_attention_fwd_normalized.launches == int(not two_pass)
-    assert t_att.flash_attention_fwd_normalized_two_pass.launches == int(
-        two_pass)
+    assert taken == [path]
+    assert {name: fn.launches for name, fn in wrappers.items()} == {
+        name: int(name == path) for name in wrappers}
 
 
 def test_normalized_forward_rejects_cpu_tensors():
-    """Both normalize-first wrappers take CUDA tensors only (on the CPU the
+    """The normalize-first wrappers take CUDA tensors only (on the CPU the
     vision blocks run `attention_plain`), and count nothing they refuse."""
     x = torch.zeros(1, 2, 8, 64, dtype=torch.bfloat16)
-    before = (t_att.flash_attention_fwd_normalized.launches,
-              t_att.flash_attention_fwd_normalized_two_pass.launches)
-    for fn in (t_att.flash_attention_fwd_normalized,
-               t_att.flash_attention_fwd_normalized_two_pass):
+    wrappers = (t_att.flash_attention_fwd_normalized,
+                t_att.flash_attention_fwd_normalized_split,
+                t_att.flash_attention_fwd_normalized_two_pass)
+    before = [fn.launches for fn in wrappers]
+    for fn in wrappers:
         with pytest.raises(ValueError, match="CUDA"):
             fn(x, x, x, None, 0.125)
-    assert (t_att.flash_attention_fwd_normalized.launches,
-            t_att.flash_attention_fwd_normalized_two_pass.launches) == before
+    assert [fn.launches for fn in wrappers] == before
 
 
 @functools.lru_cache(maxsize=None)
