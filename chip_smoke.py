@@ -38,7 +38,10 @@ Phases, one or more lines each:
      and the fused perceiver block against their plain versions, and the
      fused W8A8 tower at full depth against the bf16 tower, with a planted
      fault, and in each softmax mode against its plain version, with the
-     bench's prefill cells in each mode;
+     bench's prefill cells in each mode; the normalize-first attention's
+     paths by row length (resident, split, cluster, two-pass) at the
+     224-, 336- and 504-px shapes (NORM_K1_SHAPES) and the fused tower at
+     336 px (split path) and 504 px (cluster path) with their launches;
      the paged decode pair (bf16 and int8 pools) at L32 H32 D128, pages of
      128 and 16 (int8, split across a cluster: also 48, at the plan's C and
      at 1, 2, 4, 8, bit for bit K4 at the same C on the gathered rows, a
@@ -126,6 +129,10 @@ Phases, one or more lines each:
      prompt lookup and an oracle draft of that wave's tokens, against
      plain ticks (tokens/s, time to first token, no K2 in the speculative
      waves) and (e) cli_qa_torch's chat loop over three scripted turns;
+     one greedy request at 504 px (the W4A8 recipe with the fused W8A8
+     tower, the decoder cut to REQUEST_504_LAYERS layers) against the same
+     request with plain kernels, its time to the first token beside the
+     224-px one;
   5. training: stage 1 at full width (ViT-L/14 frozen, the perceiver
      trained, LLaMA-2-7B frozen in bf16) from seeded weights through
      build_trainer with Config/multi_modal_stage1.yaml's optimizer and
@@ -140,7 +147,7 @@ Phases, one or more lines each:
      towers at the bench's geometry (one timed run a cell) and its JSON
      line, the int8-dots A/B's line and the two probes' lines; every value
      positive, each kernel of the path launched;
-  7. checkpoints at full width, the decoder cut to CKPT_DEPTH (12) of
+  7. checkpoints at full width, the decoder cut to CKPT_DEPTH (8) of
      LLaMA-2-7B's 32 layers: the reference's artifacts written from
      named seeds under build/ (an HF LLaMA-2-7B directory of two fp16
      safetensors shards, an HF CLIP directory, FINAL.pt with the nested
@@ -2062,8 +2069,11 @@ PLAIN_K1_VISION_REL_L2 = 1e-2
 # group's 64 query rows, past its count too), the split form's bf16 output,
 # ViT-B/16's 197 tokens, ViT-L/14 at 336 px (577 tokens; the block's 592
 # padded keys under its pad mask; a bf16 output; its perceiver's three
-# groups over 64 + 576 keys: the split path) and a head dim of 128 (197
-# tokens), 64 images each
+# groups over 64 + 576 keys: the split path), ViT-L/14 at 504 px (1,297
+# tokens; the block's 1,312 padded keys under its pad mask; a bf16 output:
+# the cluster path; its perceiver's three groups over 64 + 1,296 keys, one
+# Q tile a head: the two-pass path, the cluster path held beside it) and a
+# head dim of 128 (197 tokens), 64 images each
 NORM_K1_SHAPES = (
     ("vit", 64, 16, 257, 257, 64, None, "float32"),
     ("perceiver_g0", 64, 16, 64, 320, 64, None, "float32"),
@@ -2074,10 +2084,14 @@ NORM_K1_SHAPES = (
     ("vit_336_block", 64, 16, 592, 592, 64, "pad", "float32"),
     ("vit_336_bf16", 64, 16, 577, 577, 64, None, "bfloat16"),
     ("perceiver_336", 64 * 3, 16, 64, 640, 64, "perceiver", "float32"),
+    ("vit_504", 64, 16, 1297, 1297, 64, None, "float32"),
+    ("vit_504_block", 64, 16, 1312, 1312, 64, "pad", "float32"),
+    ("vit_504_bf16", 64, 16, 1297, 1297, 64, None, "bfloat16"),
+    ("perceiver_504", 64 * 3, 16, 64, 1360, 64, "perceiver", "float32"),
     ("d128", 64, 8, 197, 197, 128, None, "float32"),
 )
-# the valid tokens of the 336-px block's padded rows
-VIT_336_S = 577
+# the valid tokens of a block's padded rows (336 and 504 px)
+VIT_PAD_VALID = {592: 577, 1312: 1297}
 SOFTMAX_MODES = ("jnn", "exp2_pre", "exp2_post")
 
 
@@ -2099,28 +2113,34 @@ def check_normalized_k1(dev, gen):
     token-major out, as the blocks launch it) against its plain version
     within NORM_K1_REL_L2 (NORM_K1_BF16_REL_L2 for a bf16 output),
     launching the kernel's path for the rows (`norm_path`: resident up to
-    NORM_RESIDENT_KEYS[D] keys, split up to NORM_SPLIT_KEYS[D], else
-    two-pass) for "jnn" and "exp2_pre" only, and no other; the planted
-    faults (plain K1 in its place, in those two modes; the normalisation
-    skipped) past the bound; its time beside plain K1's, the plain
-    version's, SDPA's and the bound, and at the resident and split shapes
-    the two-pass path at the same shape, held to the same bound."""
+    NORM_RESIDENT_KEYS[D] keys, split up to NORM_SPLIT_KEYS[D], cluster up
+    to NORM_CLUSTER_KEYS[D] with more than one Q tile, else two-pass) for
+    "jnn" and "exp2_pre" only, and no other; the planted faults (plain K1
+    in its place, in those two modes; the normalisation skipped) past the
+    bound; its time beside plain K1's, the plain version's, SDPA's and the
+    bound; and the other kernel that takes the rows, held to the same bound
+    with the same skipped-normalisation fault and timed: the two-pass path
+    at the resident, split and cluster shapes, the cluster path at the
+    504-px perceiver's (one Q tile a head: `norm_path` gives the two-pass
+    path)."""
     import torch
     import torch.nn.functional as F
 
     import lhrs_bot_tpu_torch.ops.vit_block as vit_block_mod
     from lhrs_bot_tpu_torch.ops.attention import (
         _flash_fwd_norm, flash_attention_fwd, flash_attention_fwd_normalized,
+        flash_attention_fwd_normalized_cluster,
         flash_attention_fwd_normalized_split,
-        flash_attention_fwd_normalized_two_pass, norm_path)
+        flash_attention_fwd_normalized_two_pass, norm_keys_path, norm_path)
     from lhrs_bot_tpu_torch.ops.perceiver_block import _kv_mask
     from lhrs_bot_tpu_torch.ops.vit_block import (_LOG2E, _heads,
                                                   attend_token_major,
                                                   attention_plain)
 
-    paths = ("resident", "split", "two_pass")
+    paths = ("resident", "split", "cluster", "two_pass")
     wrappers = (flash_attention_fwd_normalized,
                 flash_attention_fwd_normalized_split,
+                flash_attention_fwd_normalized_cluster,
                 flash_attention_fwd_normalized_two_pass)
 
     def randn(*shape):
@@ -2137,7 +2157,10 @@ def check_normalized_k1(dev, gen):
     for name, b, h, sq, skv, d, mask_kind, dtype in NORM_K1_SHAPES:
         w, sm = h * d, d ** -0.5
         out_dtype = getattr(torch, dtype)
-        path = norm_path(skv, d)
+        path = norm_path(skv, d, sq)
+        # the other kernel that takes these rows
+        alt = "two_pass" if path != "two_pass" else norm_keys_path(skv, d)
+        alt = None if alt == path else alt
         if sq == skv:  # one (B, S, 3W) projection, as the ViT block's
             q, k, v = _heads(randn(b, sq, 3 * w), 3, h)
         else:  # the perceiver's q and K|V projections
@@ -2148,8 +2171,8 @@ def check_normalized_k1(dev, gen):
             mask = _kv_mask(b // 3, sq, skv, (64, 48, 32),
                             tuple(n + skv - 64 for n in (64, 48, 32)), dev)
         elif mask_kind == "pad":  # the block's padded tokens
-            mask = (torch.arange(skv, device=dev) < VIT_336_S).expand(
-                b, skv).contiguous()
+            mask = (torch.arange(skv, device=dev) < VIT_PAD_VALID[skv]
+                    ).expand(b, skv).contiguous()
         limit_norm = (NORM_K1_BF16_REL_L2 if dtype == "bfloat16"
                       else NORM_K1_REL_L2)
         reading = {"path": path}
@@ -2167,13 +2190,13 @@ def check_normalized_k1(dev, gen):
             launched = [a - z for a, z in zip(after, before)]
             reading[mode] = {"rel_l2": r, "max_abs_err": err,
                              "launches": launched}
-            want = [0, 0, 0]
+            want = [0] * len(paths)
             if mode != "exp2_post":
                 want[paths.index(path)] = 1
             if launched != want:
                 raise AssertionError(f"normalize-first {name} {mode}: "
-                                     f"launched {launched} (resident, "
-                                     f"split, two-pass), not {want}")
+                                     f"launched {launched} ({paths}), not "
+                                     f"{want}")
             limit = (PLAIN_K1_VISION_REL_L2 if mode == "exp2_post"
                      else limit_norm)
             if not r <= limit:
@@ -2201,18 +2224,25 @@ def check_normalized_k1(dev, gen):
         if fault <= limit_norm:
             raise AssertionError(f"normalize-first {name}: the skipped "
                                  f"normalisation passes ({fault:.3e})")
-        if path != "two_pass":  # the two-pass path at the same shape
-            _flash_fwd_norm(q, k, v, mask, sm, out_dtype, ot,
-                            path="two_pass")
+        if alt is not None:  # the other kernel at the same shape
+            _flash_fwd_norm(q, k, v, mask, sm, out_dtype, ot, path=alt)
             torch.cuda.synchronize()
-            r = reading["two_pass_rel_l2"] = rel(ot, ref)
-            reading["two_pass_max_abs_err"] = float(
+            r = reading[f"{alt}_rel_l2"] = rel(ot, ref)
+            reading[f"{alt}_max_abs_err"] = float(
                 (ot.float() - ref.float()).abs().max())
             if not r <= limit_norm:
-                raise AssertionError(f"normalize-first {name}: the two-pass "
+                raise AssertionError(f"normalize-first {name}: the {alt} "
                                      f"path's rel L2 {r:.3e} > {limit_norm}")
-            reading["two_pass_ms"] = cuda_ms(lambda: _flash_fwd_norm(
-                q, k, v, mask, sm, out_dtype, ot, path="two_pass"))
+            _flash_fwd_norm(q, k, v, mask, sm, out_dtype, ot, path=alt,
+                            fault=1)
+            torch.cuda.synchronize()
+            r = reading[f"{alt}_fault_rel_l2"] = rel(ot, ref)
+            if r <= limit_norm:
+                raise AssertionError(f"normalize-first {name}: the {alt} "
+                                     "path's skipped normalisation passes "
+                                     f"({r:.3e})")
+            reading[f"{alt}_ms"] = cuda_ms(lambda: _flash_fwd_norm(
+                q, k, v, mask, sm, out_dtype, ot, path=alt))
         ms = cuda_ms(lambda: flash_attention_fwd_normalized(
             q, k, v, mask, sm, out_dtype, ot))
         k1_ms = cuda_ms(lambda: flash_attention_fwd(
@@ -2246,21 +2276,24 @@ def check_normalized_k1(dev, gen):
                 f"{m} {reading[m]['unflagged_rel_l2']:.2e}"
                 for m in SOFTMAX_MODES[:2])
             + f"; normalisation skipped {fault:.3f}; kernel {ms:.4f} ms"
-            + (f" (two-pass path {reading['two_pass_ms']:.4f} ms, rel L2 "
-               f"{reading['two_pass_rel_l2']:.2e})"
-               if path != "two_pass" else "")
+            + (f" ({alt.replace('_', '-')} path "
+               f"{reading[f'{alt}_ms']:.4f} ms, rel L2 "
+               f"{reading[f'{alt}_rel_l2']:.2e}, normalisation skipped "
+               f"{reading[f'{alt}_fault_rel_l2']:.3f})"
+               if alt is not None else "")
             + f", plain K1 {k1_ms:.4f} ms, plain {plain:.4f} ms, library "
             f"(SDPA, bf16 out) {lib:.4f} ms, bound {bms:.4f} ms ({by})")
         del q, k, v, qc, kc, vc, o, ot, got, ref, swapped
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
     vit = out["shapes"]["vit"]
     out.update({k: vit[k] for k in keys})
-    # the split kernel's own row, and the two-pass kernel's: ViT-L/14 at
-    # 336 px, 577 tokens
-    long = out["shapes"]["vit_336"]
-    out["split"] = {k: long[k] for k in keys}
-    out["split"]["max_abs_err"] = max(long[m]["max_abs_err"]
-                                      for m in SOFTMAX_MODES[:2])
+    # the split kernel's own row (ViT-L/14 at 336 px, 577 tokens), the
+    # cluster kernel's and the two-pass kernel's (504 px, 1,297 tokens)
+    for path, shape in (("split", "vit_336"), ("cluster", "vit_504")):
+        long = out["shapes"][shape]
+        out[path] = {k: long[k] for k in keys}
+        out[path]["max_abs_err"] = max(long[m]["max_abs_err"]
+                                       for m in SOFTMAX_MODES[:2])
     out["two_pass"] = {**{k: long[k] for k in keys[1:]},
                        "ms": long["two_pass_ms"],
                        "max_abs_err": long["two_pass_max_abs_err"]}
@@ -2634,33 +2667,55 @@ def phase_tower(dev, n_img=8):
     torch.cuda.empty_cache()
     return {"rel_l2": dev_rel, "taps": per_tap, "fault_rel_l2": fault_rel,
             "bound": TOWER_REL_L2, "softmax_modes": modes,
-            "tower_336": tower_336(dev)}
+            "tower_336": tower_336(dev), "tower_504": tower_504(dev)}
 
 
-def tower_336(dev, n_img=4):
-    """ViT-L/14 at 336 px (577 tokens: the normalize-first attention's
-    split path) and the perceiver over its 576 image tokens a group, from
-    seeded weights: the fused W8A8 tower against its plain version (every
-    block through the plain kernels) within TOWER_REL_L2, finite features
-    of the expected shape, the launches of each normalize-first path in one
-    fused call (22 split, no other), and the bench's three tower cells at
-    B 64 (images/s, ViT + perceiver)."""
+def tower_336(dev):
+    """ViT-L/14 at 336 px: `tower_at`, the split path's rows."""
+    return tower_at(dev, 336, "flash_attention_fwd_normalized_split")
+
+
+def tower_504(dev):
+    """ViT-L/14 at 504 px (GeoChat's geometry): `tower_at`, the cluster
+    path's rows."""
+    return tower_at(dev, 504, "flash_attention_fwd_normalized_cluster")
+
+
+def vlm_at(size, base=None):
+    """`base` (the default VLM configuration if None) with ViT-L/14 at
+    `size` px and the perceiver over its image tokens a group."""
     import dataclasses
+
+    from lhrs_bot_tpu_torch.models import VLMConfig
+
+    base = base or VLMConfig()
+    n = (size // base.vit.patch_size) ** 2
+    return dataclasses.replace(
+        base, vit=dataclasses.replace(base.vit, image_size=size),
+        pooler=dataclasses.replace(base.pooler, split_part=(n,) * 3))
+
+
+def tower_at(dev, size, wrapper, n_img=4):
+    """ViT-L/14 at `size` px (336: 577 tokens, the normalize-first
+    attention's split path; 504: 1,297 tokens, its cluster path) and the
+    perceiver over its image tokens a group, from seeded weights: the fused
+    W8A8 tower against its plain version (every block through the plain
+    kernels) within TOWER_REL_L2, finite features of the expected shape,
+    the launches of each normalize-first path in one fused call (22 on
+    `wrapper`'s path, none on another), and the bench's three tower cells
+    at B 64 (images/s, ViT + perceiver)."""
     import functools
 
     import torch
 
     import lhrs_bot_tpu_torch.models.vit as vit_mod
     from lhrs_bot_tpu_torch import bench
-    from lhrs_bot_tpu_torch.models import VLMConfig
     from lhrs_bot_tpu_torch.models.vit import vit_encode_fused
     from lhrs_bot_tpu_torch.ops.vit_block import (pack_vit_layers_fused,
                                                   vit_layer_fused)
 
-    base = VLMConfig()
-    cfg = dataclasses.replace(
-        base, vit=dataclasses.replace(base.vit, image_size=336),
-        pooler=dataclasses.replace(base.pooler, split_part=(576,) * 3))
+    cfg = vlm_at(size)
+    n_tok = cfg.vit.num_patches
     n_layers = cfg.vit.extract_stages[-1]
     gen = torch.Generator(device=dev).manual_seed(8)
     layers = vit_layers(dev, n_layers, seed=6)
@@ -2675,10 +2730,11 @@ def tower_336(dev, n_img=4):
                        "bias": torch.zeros(VIT_W, device=dev)}}
     packed = pack_vit_layers_fused(layers)
     del layers
-    images = torch.randint(0, 256, (n_img, 336, 336, 3), generator=gen,
+    images = torch.randint(0, 256, (n_img, size, size, 3), generator=gen,
                            device=dev, dtype=torch.uint8)
     names = ("flash_attention_fwd_normalized",
              "flash_attention_fwd_normalized_split",
+             "flash_attention_fwd_normalized_cluster",
              "flash_attention_fwd_normalized_two_pass")
     wrappers = kernel_wrappers()
     before = [wrappers[n].launches for n in names]
@@ -2689,23 +2745,25 @@ def tower_336(dev, n_img=4):
             vit_layer_fused, plain=True)):
         plain = vit_encode_fused(bf16, packed, images, cfg.vit).float()
     torch.cuda.synchronize()
-    if got.shape != (n_img, 3 * 576, VIT_W) or not bool(
+    if got.shape != (n_img, 3 * n_tok, VIT_W) or not bool(
             got.isfinite().all()):
-        raise AssertionError(f"336-px tower: bad features {tuple(got.shape)}")
+        raise AssertionError(f"{size}-px tower: bad features "
+                             f"{tuple(got.shape)}")
     rel = float((got - plain).norm() / plain.norm())
-    want = {names[0]: 0, names[1]: n_layers, names[2]: 0}
+    want = {n: n_layers if n == wrapper else 0 for n in names}
     if launches != want:
-        raise AssertionError(f"336-px tower: launches {launches}, not {want}")
+        raise AssertionError(f"{size}-px tower: launches {launches}, not "
+                             f"{want}")
     if rel > TOWER_REL_L2:
-        raise AssertionError(f"336-px tower vs its plain version: rel L2 "
+        raise AssertionError(f"{size}-px tower vs its plain version: rel L2 "
                              f"{rel:.4f} > {TOWER_REL_L2}")
     del got, plain, packed, bf16
     torch.cuda.empty_cache()
     cells = bench.bench_prefill(cfg, device=dev, iters=5)
-    log(f"  fused W8A8 tower at 336 px ({n_img} images, {n_layers} blocks, "
-        f"577 tokens): vs its plain version rel L2 {rel:.4f} (bound "
-        f"{TOWER_REL_L2}); launches {launches}; bench prefill cells at B 64 "
-        "(ViT + perceiver, images/s) " + ", ".join(
+    log(f"  fused W8A8 tower at {size} px ({n_img} images, {n_layers} "
+        f"blocks, {cfg.vit.seq_len} tokens): vs its plain version rel L2 "
+        f"{rel:.4f} (bound {TOWER_REL_L2}); launches {launches}; bench "
+        "prefill cells at B 64 (ViT + perceiver, images/s) " + ", ".join(
             f"{k} {v:.2f}" for k, v in cells.items()))
     torch.cuda.empty_cache()
     return {"rel_l2_vs_plain": rel, "launches": launches, **cells}
@@ -3749,7 +3807,8 @@ def kernel_wrappers():
     """Each kernel's wrapper, whose `launches` counts its launches."""
     from lhrs_bot_tpu_torch.ops.attention import (
         flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_attention_fwd,
-        flash_attention_fwd_normalized, flash_attention_fwd_normalized_split,
+        flash_attention_fwd_normalized, flash_attention_fwd_normalized_cluster,
+        flash_attention_fwd_normalized_split,
         flash_attention_fwd_normalized_two_pass)
     from lhrs_bot_tpu_torch.benchmarks.hbm_peak_probe import hbm_read_kernel
     from lhrs_bot_tpu_torch.benchmarks.int8_probe import int8_chain_kernel
@@ -3767,6 +3826,8 @@ def kernel_wrappers():
             "flash_attention_fwd_normalized": flash_attention_fwd_normalized,
             "flash_attention_fwd_normalized_split":
                 flash_attention_fwd_normalized_split,
+            "flash_attention_fwd_normalized_cluster":
+                flash_attention_fwd_normalized_cluster,
             "flash_attention_fwd_normalized_two_pass":
                 flash_attention_fwd_normalized_two_pass,
             "fused_decode_attention": fused_decode_attention_kernel,
@@ -3966,6 +4027,137 @@ def phase_slice(dev):
             out[f"sessions_{name}"] = phase(
                 "sessions", phase_sessions, engine, cfg, dev, name,
                 images[0], long)
+        del engine
+        torch.cuda.empty_cache()
+    return out
+
+
+# One greedy request at 504 px (GeoChat's geometry: ViT-L/14 over 1,297
+# tokens, the perceiver over 1,296 image tokens a group) through
+# `GenerationEngine.generate` with the W4A8 + int8 lm_head + int8 KV recipe
+# and the fused W8A8 tower, at full width with the decoder cut to
+# REQUEST_504_LAYERS layers: its prefill logits against the same request
+# with every kernel routed to its plain version, within REQUEST_504_REL_L2
+# (the normalisation skipped in the tower's attention must exceed it), the
+# tower's 22 cluster-path launches, and its time to the first token beside
+# the same recipe's at 224 px. The logits read 0.0165 from the plain
+# kernels on an H100 (in two runs); the bound leaves three times that, well
+# inside the W4A8 recipe's CONSISTENCY_REL_L2_W4A8. It catches a gross
+# fault of the request's path; the kernels' own hold is
+# `check_normalized_k1` (plain K1 in the cluster path's place, a 2e-3
+# fault at the attention, is read and reported here, not held).
+REQUEST_504_LAYERS = 4
+REQUEST_504_REL_L2 = 0.05
+
+
+def phase_request_504(dev):
+    import dataclasses
+    import functools
+
+    import torch
+
+    import lhrs_bot_tpu_torch.models.vit as vit_mod
+    import lhrs_bot_tpu_torch.ops.quant as quant
+    import lhrs_bot_tpu_torch.ops.vit_block as vit_block_mod
+    from lhrs_bot_tpu_torch.core import build_engine, eval_config
+    from lhrs_bot_tpu_torch.models import VLMConfig, init_vlm_params
+    from lhrs_bot_tpu_torch.ops.attention import _flash_fwd_norm, norm_path
+    from lhrs_bot_tpu_torch.ops.int8_gemm import int8_gemm_plain
+    from lhrs_bot_tpu_torch.ops.vit_block import vit_layer_fused
+    from lhrs_bot_tpu_torch.serve.engine import GenerationConfig
+
+    def skipped_norm(q, k, v, kv_mask, sm_scale, out_dtype=torch.float32,
+                     out=None):
+        return _flash_fwd_norm(q, k, v, kv_mask, sm_scale, out_dtype, out,
+                               path=norm_path(k.shape[2], q.shape[3],
+                                              q.shape[2]),
+                               fault=1)
+
+    config = eval_config()
+    knobs = {"bits": 4, "quant_type": "int4h", "kv_bits": 8,
+             "lm_head_bits": 8, "vision_w8a8": True}
+    wrappers = kernel_wrappers()
+    rng = np.random.default_rng(24)
+    out = {"layers": REQUEST_504_LAYERS, "bound": REQUEST_504_REL_L2}
+    for size in (224, 504):
+        base = VLMConfig.from_config_dict(config)
+        cfg = vlm_at(size, base)
+        cfg = dataclasses.replace(cfg, llama=dataclasses.replace(
+            cfg.llama, num_hidden_layers=REQUEST_504_LAYERS))
+        params = init_vlm_params(cfg, seed=0, dtype=torch.bfloat16,
+                                 device=dev)
+        engine = build_engine(cfg, params, {**config, **knobs}, dev)
+        del params
+        if engine._vision_packed is None:
+            raise AssertionError(f"{size} px: the fused tower is off")
+        ids = rng.integers(3, cfg.llama.vocab_size, (1, 40)).astype(np.int32)
+        ids[0, 0], ids[0, 1] = cfg.llama.bos_token_id, -200
+        lens = np.asarray([40], np.int32)
+        image = rng.integers(0, 256, (1, size, size, 3)).astype(np.uint8)
+        one, new = (GenerationConfig(max_new_tokens=n) for n in (1, 16))
+        engine.generate(ids, lens, images=image, gen_cfg=one)  # warm-up
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine.generate(ids, lens, images=image, gen_cfg=one)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        for w in wrappers.values():
+            w.launches = 0
+        tokens = engine.generate(ids, lens, images=image, gen_cfg=new)[0]
+        torch.cuda.synchronize()
+        launches = {k: w.launches for k, w in wrappers.items()
+                    if w.launches}
+        if not (0 < len(tokens) <= 16 and all(
+                0 <= t < cfg.llama.vocab_size for t in tokens)):
+            raise AssertionError(f"{size} px: bad greedy ids {tokens}")
+        row = {"ttft_ms": sorted(times)[1], "ttft_ms_all": times,
+               "tokens": tokens, "launches": launches}
+        if size == 504:
+            want = {k: 22 if k.endswith("_cluster") else 0
+                    for k in ("flash_attention_fwd_normalized",
+                              "flash_attention_fwd_normalized_split",
+                              "flash_attention_fwd_normalized_cluster",
+                              "flash_attention_fwd_normalized_two_pass")}
+            got = {k: launches.get(k, 0) for k in want}
+            if got != want:
+                raise AssertionError(f"504 px: normalize-first launches "
+                                     f"{got}, not {want}")
+            logits = engine._start(ids, lens, image, one)[0].float()
+            with plain_kernels(), patched(
+                    quant, int8_gemm=int8_gemm_plain), patched(
+                    vit_mod, vit_layer_fused=functools.partial(
+                        vit_layer_fused, plain=True)):
+                plain = engine._start(ids, lens, image, one)[0].float()
+            with patched(vit_block_mod,
+                         flash_attention_fwd_normalized=skipped_norm):
+                faulty = engine._start(ids, lens, image, one)[0].float()
+            with patched(vit_block_mod,
+                         flash_attention_fwd_normalized=unflagged_k1):
+                swapped = engine._start(ids, lens, image, one)[0].float()
+            torch.cuda.synchronize()
+            rel = rel_l2(logits, plain)[0]
+            fault = rel_l2(faulty, plain)[0]
+            row.update({"vs_plain_rel_l2": rel, "fault_rel_l2": fault,
+                        "unflagged_rel_l2": rel_l2(swapped, plain)[0],
+                        "finite": bool(logits.isfinite().all())})
+            if not (row["finite"] and rel <= REQUEST_504_REL_L2):
+                raise AssertionError(f"504 px: prefill logits vs plain "
+                                     f"kernels rel L2 {rel:.4f} > "
+                                     f"{REQUEST_504_REL_L2}")
+            if fault <= REQUEST_504_REL_L2:
+                raise AssertionError("504 px: the skipped normalisation "
+                                     f"passes ({fault:.4f})")
+        out[f"{size}px"] = row
+        log(f"  [w4a8 + fused tower, {REQUEST_504_LAYERS} decoder layers] "
+            f"{size} px ({cfg.vit.seq_len} tokens): TTFT "
+            f"{row['ttft_ms']:.1f} ms (of {[round(t, 1) for t in times]}); "
+            f"greedy ids {tokens[:8]}...; launches {launches}"
+            + (f"; prefill logits vs plain kernels rel L2 {rel:.4f} (bound "
+               f"{REQUEST_504_REL_L2}), normalisation skipped {fault:.4f}, "
+               f"plain K1 in its place {row['unflagged_rel_l2']:.4f} (read, "
+               "not held)" if size == 504 else ""))
         del engine
         torch.cuda.empty_cache()
     return out
@@ -5480,8 +5672,9 @@ CKPT_SWAP_LAYER = 3  # the layer whose q_proj / k_proj a fault swaps
 CKPT_CUT_LAYERS = 4
 # the decoder's depth of the phase's main artifacts, stages 2 and 3 and the
 # eval load (LLaMA-2-7B has 32): cut to keep the whole script's time, with
-# phase 8's context parallelism and the 336-px vision checks, inside 1,080 s
-CKPT_DEPTH = 12
+# phase 8's context parallelism and the 336- and 504-px vision checks,
+# inside the card's 1,200 s
+CKPT_DEPTH = 8
 CKPT_STEPS_STAGE2, CKPT_STEPS_STAGE3 = 6, 2
 CKPT_NEW_TOKENS = 8
 
@@ -9515,6 +9708,7 @@ def main():
 
     log("[4/9 serving slices at full width]")
     paths = phase("slice", phase_slice, dev)
+    request_504 = phase("request_504", phase_request_504, dev)
     bf16, w4a8 = paths["bf16"]["launches"], paths["w4a8"]["launches"]
     int8 = paths["int8"]["launches"]
 
@@ -9593,14 +9787,34 @@ def main():
         "px, B64 H16 S577 D64; no model of the main path (224 px) has such "
         "rows; the 336-px fused tower's launches "
         f"{tower['tower_336']['launches']}")
+    cluster_row = row("flash_attention_fwd_normalized_cluster",
+                      "flash_fwd_norm.cu", norm_replaces, int8,
+                      norm["cluster"])
+    cluster_row["note"] = (
+        "the normalize-first attention's cluster path, for rows of 641-2,560 "
+        "keys at D64 under more than one Q tile of 64 (ViT-L/14 at 504 px: "
+        "1,297 tokens, the block's 1,312; the perceiver's 64 queries over "
+        "1,360 keys take the two-pass path, where the cluster path reads "
+        f"{norm['shapes']['perceiver_504']['cluster_ms']:.4f} ms against "
+        f"{norm['shapes']['perceiver_504']['ms']:.4f}): a thread-block "
+        "cluster per (batch, head), "
+        "each CTA holding a slice of its K and V, Q multicast, the row stats "
+        "and the partial outputs exchanged through distributed shared "
+        "memory; times at ViT-L/14 504 px, B64 H16 S1297 D64; no model of "
+        "the main path (224 px) has such rows; the 504-px fused tower's "
+        f"launches {tower['tower_504']['launches']}, the 504-px W4A8 "
+        "request's "
+        f"{request_504['504px']['launches'].get(cluster_row['name'], 0)}")
     two_pass_row = row("flash_attention_fwd_normalized_two_pass",
                        "flash_fwd_norm.cu", norm_replaces, int8,
                        norm["two_pass"])
     two_pass_row["note"] = (
-        "the normalize-first attention's two-pass path, for rows past 640 "
-        "keys at D64 and 256 at D128 (K1's tiles: a first pass of Q K^T for "
-        "each row's max and sum, then P V); times at ViT-L/14 336 px, B64 "
-        "H16 S577 D64, called on that path; no model has such rows")
+        "the normalize-first attention's two-pass path, for rows past 2,560 "
+        "keys at D64 and 256 at D128, and past 640 keys at D64 with one Q "
+        "tile a head (the 504-px perceiver's fused block: 64 x 1,360, "
+        "no launch on the main path) (K1's tiles: a first pass of Q K^T for "
+        "each row's max and sum, then P V); times at ViT-L/14 504 px, B64 "
+        "H16 S1297 D64, called on that path")
     kernels = [
         fwd_row,
         row("fused_decode_attention", "fused_decode.cu",
@@ -9690,12 +9904,13 @@ def main():
                 "the backward, a rank's launches a causal ring call "
                 f"{[c[k['name']] for c in cp_launches]} (rank r: r + 1)")
     # after the notes set by position
-    kernels[1:1] = [norm_row, split_row, two_pass_row]
+    kernels[1:1] = [norm_row, split_row, cluster_row, two_pass_row]
     log(json.dumps({"w4a8_shapes": k3["shapes"],
                     "ln_quant_shapes": vision["A"]["shapes"]}))
     log(json.dumps({"int8_gemm_shapes": vision["B"]["shapes"],
                     "vision_blocks": vision["blocks"], "tower": tower}))
-    log(json.dumps({"paths": paths, "paged_kernels": paged}))
+    log(json.dumps({"paths": paths, "paged_kernels": paged,
+                    "request_504": request_504}))
     log(json.dumps({"train_kernels": train_k, "train": train}))
     log(json.dumps({"bench_kernels": bench_k,
                     "bench_launches": bench["launches"]}))

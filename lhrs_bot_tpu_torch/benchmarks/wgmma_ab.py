@@ -26,7 +26,12 @@ change, parent). Parts:
       also at ViT-L/14 336 px (B64 H16 S577, strided, float32 output) and
       the 336-px perceiver's three groups under their masks (B192 H16
       64 x 640): its split path, or its two-pass path where the checkout
-      has no split path; each
+      has no split path; and at ViT-L/14 504 px (B64 H16 S1297, strided,
+      float32 and bf16 output; the block's 1,312 keys under its pad mask:
+      its cluster path, or its two-pass path where the checkout has no
+      cluster path) and the 504-px perceiver's three groups (B192 H16 64 x
+      1360, one Q tile a head: the path `flash_attention_fwd_normalized`
+      takes, the two-pass path since the cluster path exists); each
       beside one PyTorch call of the same function (`torch._int_mm` for
       the product alone, SDPA) and its bound; K1's registers and spills
       (and the normalize-first kernels') from the checkout's build log. The
@@ -78,7 +83,8 @@ change, parent). Parts:
       batch and on the caption batch (host clock), each with the card's
       busy time and the flash forward's and backward's shares of it under
       torch.profiler. With --towers-only N: only the three tower cells
-      (224 and 336 px), N times, and the fused ViT-L block (B8) and the
+      (224, 336 and 504 px, keys ending in `_336` and `_504`), N times,
+      and the fused ViT-L block (B8) and the
       fused perceiver
       block, N times each: run the two checkouts in turns (parent, change,
       change, parent, ...) for five or more readings a side.
@@ -227,6 +233,40 @@ def _kernels(dev):
                         tuple(n + 576 for n in (64, 48, 32)), dev)
         am = mask[:, None, None, :]
         attn_row("norm_perceiver336_b192", q, k, v,
+                 lambda: norm(q, k, v, mask, 0.125, torch.float32),
+                 lambda: F.scaled_dot_product_attention(q, k, v,
+                                                        attn_mask=am),
+                 64 * int(mask.sum()), 4 * 3 * b * 16 * 64 * 64)
+        del q, k, v
+        # ViT-L/14 at 504 px (1,297 tokens; the block's 1,312 under its pad
+        # mask; a bf16 output: the cluster path, the two-pass path in a
+        # checkout without one) and its perceiver's three groups over 64 +
+        # 1,296 keys (one Q tile a head: the two-pass path)
+        for name, s, valid, dtype in (
+                ("norm_vit504_b64", 1297, 1297, torch.float32),
+                ("norm_vit504_block_b64", 1312, 1297, torch.float32),
+                ("norm_vit504_bf16_b64", 1297, 1297, torch.bfloat16)):
+            qkv = randn(b, s, 3 * 1024)
+            q, k, v = qkv.view(b, s, 3, 16, 64).permute(2, 0, 3, 1,
+                                                        4).unbind(0)
+            o = torch.empty(b, s, 16, 64, device=dev, dtype=dtype)
+            mask = None if valid == s else (
+                torch.arange(s, device=dev) < valid).expand(b,
+                                                            s).contiguous()
+            am = None if mask is None else mask[:, None, None, :]
+            attn_row(name, q, k, v,
+                     lambda: norm(q, k, v, mask, 0.125, dtype,
+                                  o.transpose(1, 2)),
+                     lambda: F.scaled_dot_product_attention(
+                         q, k, v, attn_mask=am),
+                     b * s * valid, o.element_size() * b * s * 1024)
+            del qkv, q, k, v, o
+        q = randn(3 * b, 16, 64, 64)
+        k, v = randn(3 * b, 16, 1360, 64), randn(3 * b, 16, 1360, 64)
+        mask = _kv_mask(b, 64, 1360, (64, 48, 32),
+                        tuple(n + 1296 for n in (64, 48, 32)), dev)
+        am = mask[:, None, None, :]
+        attn_row("norm_perceiver504_b192", q, k, v,
                  lambda: norm(q, k, v, mask, 0.125, torch.float32),
                  lambda: F.scaled_dot_product_attention(q, k, v,
                                                         attn_mask=am),
@@ -940,14 +980,27 @@ def _e2e(dev, train=True):
 def vlm_336():
     """The VLM configuration with ViT-L/14 at 336 px (577 tokens) and the
     perceiver over its 576 image tokens a group."""
+    return vlm_at(336)
+
+
+def vlm_504():
+    """The VLM configuration with ViT-L/14 at 504 px (1,297 tokens) and the
+    perceiver over its 1,296 image tokens a group."""
+    return vlm_at(504)
+
+
+def vlm_at(size):
+    """The VLM configuration with ViT-L/14 at `size` px and the perceiver
+    over its image tokens a group."""
     import dataclasses
 
     from lhrs_bot_tpu_torch.models import VLMConfig
 
     base = VLMConfig()
+    n = (size // base.vit.patch_size) ** 2
     return dataclasses.replace(
-        base, vit=dataclasses.replace(base.vit, image_size=336),
-        pooler=dataclasses.replace(base.pooler, split_part=(576,) * 3))
+        base, vit=dataclasses.replace(base.vit, image_size=size),
+        pooler=dataclasses.replace(base.pooler, split_part=(n,) * 3))
 
 
 def _towers(dev, repeats):
@@ -973,6 +1026,10 @@ def _towers(dev, repeats):
         torch.cuda.empty_cache()
         for key, value in bench.bench_prefill(vlm_336(), device=dev).items():
             out.setdefault(f"{key}_336", []).append(value)
+        torch.cuda.empty_cache()
+        for key, value in bench.bench_prefill(vlm_504(), device=dev,
+                                              iters=5).items():
+            out.setdefault(f"{key}_504", []).append(value)
         torch.cuda.empty_cache()
     # the blocks' inputs as phase_vision_kernels builds them (an older
     # checkout's chip_smoke.py has no helper to share)

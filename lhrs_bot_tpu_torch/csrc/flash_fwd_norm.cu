@@ -67,12 +67,42 @@
 // an SM no other CTA's work fills that time; the designs measured beside
 // it are in PERF.md.
 //
-// Two-pass design (longer rows, and D128 past 256 keys: no vision model
-// has them): K1's CTA (flash_tiles.cuh: one per (batch * head, 64-row Q
-// tile), two-stage K and V rings), whose consumer makes a first pass over
-// the K tiles for each row's max and sum (online, exact at the end) and a
-// second that computes P = exp2(s - m) / l, rounds it and accumulates P V;
-// the producer loads every K tile twice and V once.
+// Cluster design (rows of 641 to 2,560 keys at D64: ViT-L/14 at 504 px has
+// 1,297 tokens, as GeoChat runs it; its block pads them to 1,312; the host
+// sends it only rows with more than one Q tile of 64, so not its
+// perceiver's 64 queries over 64 + 1,296 keys): one thread-block cluster
+// of C CTAs per (batch, head), each CTA one warpgroup over N = ceil(tiles / C)
+// key-tile slots of a contiguous slice (C = 6, N = 4 at 21 and 22 tiles;
+// up to 8 CTAs of 5 slots, the portable cluster limit), two CTAs an SM at
+// N = 4. Each CTA loads its K and V slice once by TMA, so a head's K and V
+// leave device memory once; rank 0 multicasts each Q tile into every CTA
+// (`.multicast::cluster`) once all have handed its slot back. A CTA runs
+// the split path's warpgroup walk on its slots (Q K^T once, each slot's
+// exponentials against the running max while the next slot's product
+// runs), sends its rows' max and sum to every rank by st.async, forms each
+// row's final max and sum from all C in rank order, normalises, rounds and
+// packs P into P V over its V slots, and sends each unit of its float32
+// partial output (4 floats a thread) to the rank that owns it, which sums
+// the C units in rank order and writes them token-major. No cluster
+// barrier runs inside the loop: a CTA's stores into a peer for a Q tile
+// follow the peers' row stats of that tile, which each sends only after
+// reading what it received for the tile before. Every CTA of a launch runs
+// the same code (CTAs of different slot counts on one SM ran slower), so
+// a short rank's last slot is a masked dummy and, without a kv_mask, only
+// a CTA's last slot is masked. What bounds it on the H100: per Q tile a
+// CTA waits twice on its peers and runs the exponentials, the float32
+// rescale and the bf16 packing of its slots, with one other CTA an SM to
+// overlap: PERF.md has the designs measured. With one Q tile a head
+// nothing hides a CTA's slice load and the cluster's barriers, and the
+// two-pass path is faster there (the 504-px perceiver's rows).
+//
+// Two-pass design (D128 past 256 keys; D64 past the cluster's 2,560 keys,
+// which no vision model has, and past 640 keys with one Q tile a head):
+// K1's CTA (flash_tiles.cuh: one per (batch * head, 64-row Q tile),
+// two-stage K and V rings), whose consumer makes a
+// first pass over the K tiles for each row's max and sum (online, exact at
+// the end) and a second that computes P = exp2(s - m) / l, rounds it and
+// accumulates P V; the producer loads every K tile twice and V once.
 //
 // fault = 1 skips the normalisation (P = exp2(s - m) rounded): a planted
 // fault for the card's checks.
@@ -791,6 +821,475 @@ int dispatch_split(const CUtensorMap* maps, const NormParams& p, int B,
               : launch_split<0, false>(maps, p, B, stream);
 }
 
+// ---- cluster path -------------------------------------------------------------
+
+// Rows of 641 to 2,560 keys at D64: the head's nt key tiles split over a
+// cluster of C CTAs (2 <= C <= 8, the portable limit), each CTA N =
+// ceil(nt / C) tile slots, 3 <= N <= 5 (at most the resident path's 160
+// scores a thread). The first C N - nt ranks hold N - 1 tiles and a masked
+// dummy slot (the next rank's first tile: finite values), the others N
+// tiles; so without a kv_mask a CTA masks its last slot only (the row's
+// last tile, whose rows past Skv arrive as zeros, or its dummy), and every
+// CTA of a launch runs the same code (one walk instance a kernel).
+constexpr int kClusterTiles = 5;
+constexpr int kMaxCluster = 8;
+constexpr int cluster_keys = kMaxCluster * kClusterTiles * 64;
+
+__host__ __device__ constexpr int ceil_div(int a, int b) {
+  return (a + b - 1) / b;
+}
+
+// The first tile and the tiles (N or N - 1) of rank r of C over nt tiles.
+__host__ __device__ inline void cluster_slice(int nt, int C, int r, int& c0,
+                                              int& n) {
+  const int N = ceil_div(nt, C), short_ranks = C * N - nt;
+  n = r < short_ranks ? N - 1 : N;
+  c0 = r < short_ranks ? r * (N - 1)
+                       : short_ranks * (N - 1) + (r - short_ranks) * N;
+}
+
+struct Clu {
+  static constexpr int kThreads = 128;
+  static constexpr int kTileBytes = 64 * 64 * 2;  // a Q, K or V tile
+  // A thread's 32 partial-output floats are 8 units of 4 (columns 8 j +
+  // 2 t, + 1 of its two rows); each of the CTA's 32 (warp, j) units
+  // belongs to one rank, which receives it from each of the C - 1 others:
+  // at most (C - 1) * ceil(32 / C) * 32 lanes * 16 bytes, 15,360 at C = 6
+  // or 7
+  static constexpr int kXBytes = 30 * 32 * 16;
+  // (m, l) of each row from every rank, two Q tiles deep
+  static constexpr int kStatBytes = 2 * kMaxCluster * 32 * 16;
+  // 114,944 B: two CTAs an SM
+  static constexpr int kSmem = 1024 + kTileBytes + 2 * kClusterTiles *
+                               kTileBytes + kXBytes + kStatBytes +
+                               4 * kClusterTiles * 2 + 4 * kMaxCluster * 4 +
+                               (kClusterTiles + 6) * 8;
+};
+
+// Shared memory of a cluster CTA, at the same offsets in every CTA (a
+// multicast Q tile and the peers' stores land at this CTA's offsets): one Q
+// tile, this CTA's K and V tiles, the partial outputs it receives, every
+// rank's row maxima and sums, its key bits, the Q tile's release words
+// (rank 0) and the barriers (one a K tile; V; the Q tile; the Q tile's
+// release, on rank 0; the row stats, one a Q-tile parity; the partial
+// outputs).
+struct CluSmem {
+  uint8_t* q;
+  uint8_t* k;
+  uint8_t* v;
+  float4* xo;     // [sender (C - 1)][unit slot ceil(32 / C)][lane]
+  float4* stats;  // [parity][rank][warp * 8 + g]: m, l of rows g, g + 8
+  uint16_t* okw;  // [t][slot]: bit 2 j + h: key 64 tile + 8 j + 2 t + h
+  uint32_t* qrel;  // [rank][warp]
+  uint64_t* k_full;  // (kClusterTiles)
+  uint64_t* v_full;
+  uint64_t* q_full;
+  uint64_t* q_empty;
+  uint64_t* stat_full;  // (2)
+  uint64_t* x_full;
+
+  __device__ explicit CluSmem(uint8_t* raw) {
+    constexpr int kTile = Clu::kTileBytes;
+    q = reinterpret_cast<uint8_t*>(
+        (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
+    k = q + kTile;
+    v = k + kClusterTiles * kTile;
+    xo = reinterpret_cast<float4*>(v + kClusterTiles * kTile);
+    stats = reinterpret_cast<float4*>(reinterpret_cast<uint8_t*>(xo) +
+                                      Clu::kXBytes);
+    okw = reinterpret_cast<uint16_t*>(reinterpret_cast<uint8_t*>(stats) +
+                                      Clu::kStatBytes);
+    qrel = reinterpret_cast<uint32_t*>(okw + 4 * kClusterTiles);
+    k_full = reinterpret_cast<uint64_t*>(qrel + 4 * kMaxCluster);
+    v_full = k_full + kClusterTiles;
+    q_full = v_full + 1;
+    q_empty = q_full + 1;
+    stat_full = q_empty + 1;
+    x_full = stat_full + 2;
+  }
+};
+
+// Rows g and g + 8 of the warp's 16, columns 8 j + 2 t, + 1: one unit of
+// the output.
+__device__ __forceinline__ void store_unit(const NormParams& p, float4 v,
+                                           int b, int hd, const int (&qrow)[2],
+                                           int j, int t) {
+  const size_t ob = b * p.os.b + hd * p.os.h;
+  const float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (qrow[r] >= p.Sq) continue;
+    const size_t i = ob + (size_t)qrow[r] * p.os.s + 8 * j + 2 * t;
+    if (p.out_f32)
+      *reinterpret_cast<float2*>(static_cast<float*>(p.o) + i) =
+          make_float2(e[2 * r], e[2 * r + 1]);
+    else
+      *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(p.o) + i) =
+          pack_bf16(e[2 * r], e[2 * r + 1]);
+  }
+}
+
+// The CTA's walk over the head's Q tiles on its N key-tile slots (kMask: a
+// kv_mask, every slot masked by its key bits; else only the last slot,
+// when `last_masked`). For a Q tile it runs the split path's warpgroup
+// walk: Q K^T of each slot issued before the previous slot's exponentials,
+// taken against the running row max (each slot keeps its base). Once the
+// products are done each warp hands the Q tile's slot back to rank 0 by a
+// 4-byte st.async completing on rank 0's barrier (the products' reads of
+// the slot are over; nothing else needs ordering), and rank 0 multicasts
+// the next Q tile once every warp of the cluster has. The
+// CTA's row max and sum go to every rank by st.async, and each rank forms
+// the row's from all C in rank order (the same sum in every CTA). P,
+// scaled by 2^(slot base - row base) / sum and rounded to bf16, runs P V
+// over the CTA's V tiles; each unit of the float32 partial output goes to
+// its owner by st.async, and the owner sums the C units in rank order and
+// writes them. A CTA's stores of a Q tile follow its receipt of every
+// peer's row stats of that tile, which each peer sends only after it has
+// read all it received for the tile before: that ordering alone keeps a
+// buffer from being overwritten while it is read (the stats, sent before
+// the partial outputs are read, are two Q tiles deep).
+template <int N, bool kMask>
+__device__ __forceinline__ void cluster_walk(const NormParams& p,
+                                             const CluSmem& sm,
+                                             const CUtensorMap* tm_q, int b,
+                                             int hd, int nq, int rank,
+                                             int csize, bool last_masked) {
+  constexpr int kBN = 64;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const float sl = p.scale_log2;
+  const int row0 = 16 * warp + g;
+  // bit 16 c + 2 j + h: the key 64 (c0 + c) + 8 j + 2 t + h attends
+  uint32_t ok[(N * 16 + 31) / 32];
+#pragma unroll
+  for (int w = 0; w < (N * 16 + 31) / 32; ++w) ok[w] = 0;
+#pragma unroll
+  for (int c = 0; c < N; ++c)
+    ok[c / 2] |= uint32_t(sm.okw[t * kClusterTiles + c]) << (16 * (c % 2));
+  const uint64_t dq = sm90::desc_sw128(sm.q, 16, 1024);
+  const uint64_t dk = sm90::desc_sw128(sm.k, 16, 1024);
+  const uint64_t dv = sm90::desc_sw128(sm.v, 64 * 128, 1024);
+  // unit j of warp w belongs to rank (j + w) % C, so that every warp owns
+  // units of every rank (at most ceil(8 / C) a thread); its slot there
+  // counts that rank's units of the warps before and its own before it.
+  // The owner and slot of each of this thread's 8 units, 4 bits each; the
+  // bytes the peers send this CTA a Q tile
+  const auto units = [&](int w, int r) {  // rank r's units in warp w
+    return ceil_div(8 - (r - w + csize) % csize, csize);
+  };
+  uint32_t owner = 0, oslot = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int r = (j + warp) % csize;
+    int before = j / csize;
+    for (int w = 0; w < warp; ++w) before += units(w, r);
+    owner |= uint32_t(r) << (4 * j);
+    oslot |= uint32_t(before) << (4 * j);
+  }
+  int n_own = 0;
+  for (int w = 0; w < 4; ++w) n_own += units(w, rank);
+  const int slots = ceil_div(32, csize);
+  const uint32_t x_bytes = (csize - 1) * n_own * 512;
+  const uint16_t all = (uint16_t)((1u << csize) - 1);
+
+  float sc[N][kBN / 2];
+  uint32_t pf[N][kBN / 16][4];
+  float acc[32];
+#pragma unroll
+  for (int c = 0; c < N; ++c)
+#pragma unroll
+    for (int e = 0; e < kBN / 2; ++e) sc[c][e] = 0.f;
+  for (int i = 0; i < nq; ++i) {
+    const int par = i & 1;
+    if (tid == 0) {  // this tile's row stats, partial outputs and release
+      sm90::mbar_arrive_tx(&sm.stat_full[par], csize * 512);
+      sm90::mbar_arrive_tx(sm.x_full, x_bytes);
+      if (rank == 0 && i + 1 < nq)
+        sm90::mbar_arrive_tx(sm.q_empty, csize * 4 * 4);
+    }
+    sm90::mbar_wait(sm.q_full, i & 1);
+
+    float mr[2] = {kNegInf, kNegInf}, bb[2] = {0.f, 0.f}, l[2] = {0.f, 0.f};
+    float bt[N][2];
+    split_qk<false>(sc[0], dq, dk, 0, sm.k_full);
+    auto tile = [&](auto ci) {
+      constexpr int c = decltype(ci)::value;
+      if constexpr (c + 1 < N) {
+        split_qk<false>(sc[c + 1], dq, dk, c + 1, sm.k_full);
+        sm90::wgmma_wait<1>();
+      } else {
+        sm90::wgmma_wait<0>();
+        // every product of the Q tile is done: its slot goes back to rank
+        // 0, after this CTA announces the next tile's bytes
+        if (i + 1 < nq) {
+          __syncwarp();
+          if (lane == 0) {
+            if (warp == 0) sm90::mbar_arrive_tx(sm.q_full, Clu::kTileBytes);
+            sm90::st_async_b32(&sm.qrel[rank * 4 + warp], 1u, sm.q_empty, 0);
+          }
+          __syncwarp();
+        }
+      }
+      sm90::fence_regs(sc[c]);
+      const bool need = kMask || (c == N - 1 && last_masked);
+      float mx[2] = {mr[0], mr[1]};
+#pragma unroll
+      for (int e = 0; e < kBN / 2; ++e) {
+        const int bit = 16 * c + 2 * (e >> 2) + (e & 1);
+        if (need && !((ok[bit >> 5] >> (bit & 31)) & 1u)) sc[c][e] = kNegInf;
+        mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], sc[c][e]);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float nb = mx[r] == kNegInf ? 0.f : mx[r] * sl;
+        l[r] *= ex2(fminf(bb[r] - nb, 0.f));
+        bb[r] = bt[c][r] = nb;
+        mr[r] = mx[r];
+      }
+#pragma unroll
+      for (int e = 0; e < kBN / 2; ++e) {
+        sc[c][e] = ex2(fmaf(sc[c][e], sl, -bb[(e >> 1) & 1]));
+        l[(e >> 1) & 1] += sc[c][e];
+      }
+    };
+    Unrolled<0, N>::run(tile);
+
+    // the CTA's row max and sum, to every rank (lane t to ranks t, t + 4)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float m = fmaxf(mr[r], __shfl_xor_sync(0xffffffffu, mr[r], 1));
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+      const float bq = m == kNegInf ? 0.f : m * sl;
+      l[r] *= ex2(fminf(bb[r] - bq, 0.f));
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      mr[r] = m;
+      bb[r] = bq;
+    }
+    {
+      const float4 st = make_float4(mr[0], l[0], mr[1], l[1]);
+      float4* dst = sm.stats + (par * kMaxCluster + rank) * 32 + warp * 8 + g;
+      for (int to = t; to < csize; to += 4)
+        sm90::st_async_v4(dst, *reinterpret_cast<const uint4*>(&st),
+                          &sm.stat_full[par], to);
+    }
+    // rank 0: the next Q tile into every CTA once all have read this one
+    if (rank == 0 && tid == 0 && i + 1 < nq) {
+      sm90::mbar_wait(sm.q_empty, i & 1);
+      sm90::tma_load_4d_multicast(sm.q, tm_q, sm.q_full, all, 0,
+                                  (i + 1) * 64, hd, b);
+    }
+    sm90::mbar_wait(&sm.stat_full[par], (i >> 1) & 1);
+    __syncwarp();  // the warp converges before its wgmmas
+    float base[2], inv[2];
+    {
+      const float4* in = sm.stats + par * kMaxCluster * 32 + warp * 8 + g;
+      float m[2] = {kNegInf, kNegInf};
+      for (int s = 0; s < csize; ++s) {
+        const float4 x = in[s * 32];
+        m[0] = fmaxf(m[0], x.x);
+        m[1] = fmaxf(m[1], x.z);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        // a row with no valid key: its masked scores gave exp 0
+        base[r] = m[r] == kNegInf ? 0.f : m[r] * sl;
+      float sum[2] = {0.f, 0.f};
+      for (int s = 0; s < csize; ++s) {
+        const float4 x = in[s * 32];
+        const float b0 = x.x == kNegInf ? 0.f : x.x * sl;
+        const float b1 = x.z == kNegInf ? 0.f : x.z * sl;
+        sum[0] += x.y * ex2(fminf(b0 - base[0], 0.f));
+        sum[1] += x.w * ex2(fminf(b1 - base[1], 0.f));
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        inv[r] = p.fault ? 1.f : sum[r] > 0.f ? 1.f / sum[r] : 0.f;
+    }
+
+    // O = P V over the CTA's V tiles, a tile's as soon as it is packed
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[e] = 0.f;
+    sm90::mbar_wait(sm.v_full, 0);
+#pragma unroll
+    for (int c = 0; c < N; ++c) {
+      float f[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        f[r] = ex2(fminf(bt[c][r] - base[r], 0.f)) * inv[r];
+#pragma unroll
+      for (int e = 0; e < kBN / 2; ++e) sc[c][e] *= f[(e >> 1) & 1];
+      pack_p<kBN / 2>(pf[c], sc[c]);
+      sm90::fence_regs(pf[c]);
+      if (c == 0) sm90::fence_regs(acc);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int j2 = 0; j2 < 4; ++j2)
+        sm90::wgmma_bf16_rs_m64n64k16(
+            acc, pf[c][j2],
+            dv + ((c * Clu::kTileBytes + j2 * 16 * 128) >> 4));
+      sm90::wgmma_commit();
+    }
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(acc);
+
+    // each unit to its owner; the owner sums the C units in rank order
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int to = (owner >> (4 * j)) & 15;
+      if (to == rank) continue;
+      const int from = rank < to ? rank : rank - 1;
+      const float4 x = make_float4(acc[4 * j], acc[4 * j + 1],
+                                   acc[4 * j + 2], acc[4 * j + 3]);
+      sm90::st_async_v4(
+          sm.xo + (from * slots + ((oslot >> (4 * j)) & 15)) * 32 + lane,
+          *reinterpret_cast<const uint4*>(&x), sm.x_full, to);
+    }
+    sm90::mbar_wait(sm.x_full, i & 1);
+    const int qrow[2] = {i * 64 + row0, i * 64 + row0 + 8};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (((owner >> (4 * j)) & 15) != (uint32_t)rank) continue;
+      const float4* in = sm.xo + ((oslot >> (4 * j)) & 15) * 32 + lane;
+      float4 tot = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int s = 0; s < csize; ++s) {
+        float4 x;
+        if (s == rank)
+          x = make_float4(acc[4 * j], acc[4 * j + 1], acc[4 * j + 2],
+                          acc[4 * j + 3]);
+        else
+          x = in[(s < rank ? s : s - 1) * slots * 32];
+        tot.x += x.x;
+        tot.y += x.y;
+        tot.z += x.z;
+        tot.w += x.w;
+      }
+      store_unit(p, tot, b, hd, qrow, j, t);
+    }
+  }
+}
+
+// One cluster of C CTAs a (batch, head), grid (C, H, B); a CTA of one
+// warpgroup and no producer warp, two an SM. Thread 0 loads the CTA's K
+// and V slots once by TMA before the cluster's first barrier; rank 0
+// multicasts each Q tile to every CTA after it.
+template <int N, bool kMask>
+__global__ void __launch_bounds__(128, 2)
+    flash_norm_cluster_kernel(const __grid_constant__ CUtensorMap tm_q,
+                              const __grid_constant__ CUtensorMap tm_k,
+                              const __grid_constant__ CUtensorMap tm_v,
+                              const NormParams p) {
+  constexpr int kBN = 64;
+  extern __shared__ uint8_t smem_raw[];
+  const CluSmem sm(smem_raw);
+  const int rank = (int)sm90::cluster_rank();
+  const int csize = (int)sm90::cluster_size();
+  const int hd = blockIdx.y, b = blockIdx.z;
+  const int nq = ceil_div(p.Sq, 64), nt = ceil_div(p.Skv, kBN);
+  int c0, n;
+  cluster_slice(nt, csize, rank, c0, n);
+  if (threadIdx.x == 0) {  // the loads go out first
+    for (int c = 0; c < N; ++c) sm90::mbar_init(&sm.k_full[c], 1);
+    sm90::mbar_init(sm.v_full, 1);
+    sm90::mbar_init(sm.q_full, 1);
+    sm90::mbar_init(sm.q_empty, 1);
+    sm90::mbar_init(&sm.stat_full[0], 1);
+    sm90::mbar_init(&sm.stat_full[1], 1);
+    sm90::mbar_init(sm.x_full, 1);
+    sm90::mbar_fence_init();
+    // N slots: a short rank's last is the next rank's first tile, masked
+    for (int c = 0; c < N; ++c) {
+      sm90::mbar_arrive_tx(&sm.k_full[c], Clu::kTileBytes);
+      sm90::tma_load_4d(sm.k + c * Clu::kTileBytes, &tm_k, &sm.k_full[c], 0,
+                        (c0 + c) * kBN, hd, b);
+    }
+    sm90::mbar_arrive_tx(sm.v_full, N * Clu::kTileBytes);
+    for (int c = 0; c < N; ++c)
+      sm90::tma_load_4d(sm.v + c * Clu::kTileBytes, &tm_v, sm.v_full, 0,
+                        (c0 + c) * kBN, hd, b);
+    sm90::mbar_arrive_tx(sm.q_full, Clu::kTileBytes);  // Q tile 0
+  }
+  if (threadIdx.x < 4 * N) {  // the key bits (okw)
+    const int tt = threadIdx.x / N, cc = threadIdx.x % N;
+    uint32_t bits = 0;
+    for (int j = 0; j < 8; ++j)
+      for (int h = 0; h < 2; ++h) {
+        const int key = kBN * (c0 + cc) + 8 * j + 2 * tt + h;
+        if (cc < n && key < p.Skv &&
+            (!kMask || p.kv_mask[(size_t)b * p.Skv + key]))
+          bits |= 1u << (2 * j + h);
+      }
+    sm.okw[tt * kClusterTiles + cc] = (uint16_t)bits;
+  }
+  // every CTA's barriers exist before a peer's store or multicast reaches
+  // them; the key bits are written
+  sm90::cluster_arrive();
+  sm90::cluster_wait();
+  if (rank == 0 && threadIdx.x == 0)
+    sm90::tma_load_4d_multicast(sm.q, &tm_q, sm.q_full,
+                                (uint16_t)((1u << csize) - 1), 0, 0, hd, b);
+  bool last_masked = false;
+  for (int tt = 0; tt < 4; ++tt)
+    last_masked |= sm.okw[tt * kClusterTiles + N - 1] != 0xFFFFu;
+  cluster_walk<N, kMask>(p, sm, &tm_q, b, hd, nq, rank, csize, last_masked);
+  // no CTA leaves while a peer may still reach its shared memory
+  sm90::cluster_arrive();
+  sm90::cluster_wait();
+}
+
+// Launch on clusters of C CTAs. A cluster that cannot be resident (no
+// cluster of C fits: cudaOccupancyMaxActiveClusters, asked once a C) is an
+// error.
+template <int N, bool kMask>
+int launch_cluster(const CUtensorMap* maps, const NormParams& p, int B, int C,
+                   cudaStream_t stream) {
+  auto* kernel = flash_norm_cluster_kernel<N, kMask>;
+  static bool sized = false;
+  static int fits[kMaxCluster + 1] = {};  // per C; 0: not asked yet
+  if (!sized) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        Clu::kSmem);
+    if (err != cudaSuccess) return (int)err;
+    sized = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C, p.H, B);
+  cfg.blockDim = dim3(Clu::kThreads);
+  cfg.dynamicSmemBytes = Clu::kSmem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (fits[C] == 0) {
+    int fit = 0;
+    const cudaError_t err =
+        cudaOccupancyMaxActiveClusters(&fit, (const void*)kernel, &cfg);
+    if (err != cudaSuccess) return (int)err;
+    fits[C] = fit > 0 ? fit : -1;
+  }
+  if (fits[C] < 0) return (int)cudaErrorInvalidConfiguration;
+  const cudaError_t err =
+      cudaLaunchKernelEx(&cfg, kernel, maps[0], maps[1], maps[2], p);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
+// The kernel of N = ceil(tiles / C) slots.
+template <bool kMask>
+int dispatch_cluster(const CUtensorMap* maps, const NormParams& p, int B,
+                     int C, cudaStream_t stream) {
+  switch (ceil_div(ceil_div(p.Skv, 64), C)) {
+    case 4: return launch_cluster<4, kMask>(maps, p, B, C, stream);
+    case 5: return launch_cluster<5, kMask>(maps, p, B, C, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 // ---- two-pass path ------------------------------------------------------------
 
 // The normalised probabilities of one tile, in place, from each row's final
@@ -980,6 +1479,12 @@ int launch_two_pass(const CUtensorMap* maps, const NormParams& p, int B,
   return (int)cudaGetLastError();
 }
 
+// Whether C CTAs take rows of nt key tiles: 4 or 5 slots each.
+bool cluster_plan_ok(int nt, int C) {
+  return C >= 2 && C <= kMaxCluster && ceil_div(nt, C) >= 4 &&
+         ceil_div(nt, C) <= kClusterTiles;
+}
+
 }  // namespace
 
 // q (B,H,Sq,D), k/v (B,H,Skv,D), o (B,H,Sq,D): bf16 (o float32 when
@@ -987,18 +1492,23 @@ int launch_two_pass(const CUtensorMap* maps, const NormParams& p, int B,
 // `strides` (12 element strides: batch, head, row of q, k, v, o; multiples
 // of 8, 16-byte aligned bases). kv_mask: (B,Skv) bytes (0 = masked) or
 // null. path 0 takes the resident path (Skv <= 320 at D64, 256 at D128), 1
-// the two-pass path (any Skv), 2 the split path (D64, 320 < Skv <= 640).
-// fault 1 skips the normalisation (a planted fault for checks). Returns
-// cudaError_t.
+// the two-pass path (any Skv), 2 the split path (D64, 320 < Skv <= 640), 3
+// the cluster path (D64, 640 < Skv <= 2560) on clusters of `clusters` CTAs
+// (each over 4 or 5 key tiles; a cluster that cannot be resident is
+// cudaErrorInvalidConfiguration). fault 1 skips the normalisation (a
+// planted fault for checks). Returns cudaError_t.
 extern "C" int lhrs_flash_fwd_norm(const void* q, const void* k,
                                    const void* v, const void* kv_mask,
                                    void* o, int B, int H, int Sq, int Skv,
                                    int D, float sm_scale, const void* strides,
                                    int out_f32, int path, int fault,
-                                   void* stream) {
+                                   int clusters, void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0 || Skv <= 0 || (D != 64 && D != 128) ||
-      path < 0 || path > 2 || (path == 0 && Skv > res_keys(D)) ||
-      (path == 2 && (D != 64 || Skv <= res_keys(D) || Skv > split_keys)))
+      path < 0 || path > 3 || (path == 0 && Skv > res_keys(D)) ||
+      (path == 2 && (D != 64 || Skv <= res_keys(D) || Skv > split_keys)) ||
+      (path == 3 && (D != 64 || Skv <= split_keys || Skv > cluster_keys ||
+                     !cluster_plan_ok(ceil_div(Skv, 64), clusters) ||
+                     H > 65535 || B > 65535)))
     return (int)cudaErrorInvalidValue;
   if (path == 1 && (Sq + 63) / 64 > 65535) return (int)cudaErrorInvalidValue;
   const auto* st = static_cast<const long long*>(strides);
@@ -1026,6 +1536,10 @@ extern "C" int lhrs_flash_fwd_norm(const void* q, const void* k,
     return D == 128 ? launch_two_pass<128>(maps, p, B, cs)
                     : launch_two_pass<64>(maps, p, B, cs);
   if (path == 2) return dispatch_split(maps, p, B, cs);
+  if (path == 3)
+    return p.kv_mask != nullptr
+               ? dispatch_cluster<true>(maps, p, B, clusters, cs)
+               : dispatch_cluster<false>(maps, p, B, clusters, cs);
   return D == 128 ? dispatch_resident<128>(maps, p, B, cs)
                   : dispatch_resident<64>(maps, p, B, cs);
 }

@@ -1,12 +1,12 @@
 // Hopper (sm_90a) building blocks shared by the wgmma kernels
 // (int8_gemm.cu, flash_fwd.cu, flash_fwd_norm.cu, flash_bwd.cu,
 // int8_probe.cu) and the split decode kernels (decode_split.cuh):
-// mbarriers, TMA tile loads, 1-D bulk
-// copies (global or a CTA's shared memory to a peer's), the wgmma shared
-// memory descriptor for 128-byte swizzled tiles, the wgmma instructions the
-// kernels issue (inline PTX, generated from a list of operands), and the
-// host side encoder of TMA tensor maps, fetched from the driver at first
-// use so that the library needs no -lcuda.
+// mbarriers, TMA tile loads (multicast to a cluster too),
+// 1-D bulk copies (global or a CTA's shared memory to a peer's), the wgmma
+// shared memory descriptor for 128-byte swizzled tiles, the wgmma
+// instructions the kernels issue (inline PTX, generated from a list of
+// operands), and the host side encoder of TMA tensor maps, fetched from the
+// driver at first use so that the library needs no -lcuda.
 //
 // Tiles are copied by TMA with CU_TENSOR_MAP_SWIZZLE_128B: each tile row is
 // 128 bytes (128 int8 or 64 bf16), and the 16-byte chunk c of row r lands at
@@ -147,6 +147,13 @@ __device__ __forceinline__ uint32_t cluster_rank() {
   return r;
 }
 
+// The CTAs of this CTA's cluster.
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return n;
+}
+
 // ---- cluster barriers ---------------------------------------------------------
 
 // Arrival at the cluster's barrier with no memory ordering: says only that
@@ -187,6 +194,24 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// tma_load_4d into every CTA of the cluster whose bit is set in `mask`: the
+// box lands at the offset of `dst` in each, completing as transaction bytes
+// on the barrier at the offset of `bar` in each (each announces them on its
+// own barrier).
+__device__ __forceinline__ void tma_load_4d_multicast(void* dst,
+                                                      const CUtensorMap* map,
+                                                      uint64_t* bar,
+                                                      uint16_t mask, int c0,
+                                                      int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%4, %5, %6, %7}], [%2], %3;\n"
+      ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "h"(mask),
+      "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 

@@ -31,7 +31,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -257,21 +257,60 @@ flash_attention_fwd.launches = 0
 # kernel's resident path (csrc/flash_fwd_norm.cu: a head's K and V in shared
 # memory, a Q tile's scores in registers); longer rows of at most
 # NORM_SPLIT_KEYS[D] keys its split path (the same, a Q tile's keys split
-# between two warpgroups); longer rows still its two-pass path
+# between two warpgroups); longer rows of at most NORM_CLUSTER_KEYS[D] keys
+# its cluster path (a head's key tiles split over a thread-block cluster,
+# at most NORM_CLUSTER_TILES tiles of 64 keys a CTA and NORM_MAX_CLUSTER
+# CTAs) where a head has more than one Q tile of 64 rows; longer rows
+# still, and the cluster's rows of one Q tile (the 504-px perceiver's 64
+# queries: no Q tile after the first hides a cluster's loads and
+# barriers, and the two-pass path runs them faster), its two-pass path
 NORM_RESIDENT_KEYS = {64: 320, 128: 256}
 NORM_SPLIT_KEYS = {64: 640}
+NORM_CLUSTER_TILES = 5
+NORM_MAX_CLUSTER = 8
+NORM_CLUSTER_KEYS = {64: NORM_MAX_CLUSTER * NORM_CLUSTER_TILES * 64}
 # the C entry's path argument
-_NORM_PATHS = {"resident": 0, "two_pass": 1, "split": 2}
+_NORM_PATHS = {"resident": 0, "two_pass": 1, "split": 2, "cluster": 3}
 
 
-def norm_path(skv: int, d: int) -> str:
-    """The normalize-first forward's path for rows of `skv` keys at head
-    dim `d`: "resident", "split" or "two_pass"."""
+def norm_keys_path(skv: int, d: int) -> str:
+    """The normalize-first kernel that takes rows of `skv` keys at head dim
+    `d`: "resident", "split", "cluster" or "two_pass" (which takes any)."""
     if skv <= NORM_RESIDENT_KEYS.get(d, 0):
         return "resident"
     if skv <= NORM_SPLIT_KEYS.get(d, 0):
         return "split"
+    if skv <= NORM_CLUSTER_KEYS.get(d, 0):
+        return "cluster"
     return "two_pass"
+
+
+def norm_path(skv: int, d: int, sq: int) -> str:
+    """The normalize-first forward's path for `sq` query rows over rows of
+    `skv` keys at head dim `d`: `norm_keys_path`, but the cluster's rows
+    with one Q tile (sq <= 64) take the two-pass path."""
+    path = norm_keys_path(skv, d)
+    return "two_pass" if path == "cluster" and sq <= 64 else path
+
+
+def norm_cluster_plan(skv: int) -> Tuple[int, List[Tuple[int, int]]]:
+    """The cluster path's split of rows of `skv` keys: (C, [(first tile,
+    tiles) of each rank]). C is the fewest CTAs of at most 4 tiles of 64
+    keys each (two CTAs an SM), or of NORM_CLUSTER_TILES past 4
+    NORM_MAX_CLUSTER tiles; every CTA runs N = ceil(tiles / C) slots (4 or
+    5), the first C N - tiles ranks one tile fewer (their last slot a
+    masked dummy), as csrc/flash_fwd_norm.cu's `cluster_slice`. Raises for
+    rows the cluster path does not take."""
+    if norm_keys_path(skv, 64) != "cluster":
+        raise ValueError(f"the cluster path takes rows of "
+                         f"{NORM_SPLIT_KEYS[64] + 1} to "
+                         f"{NORM_CLUSTER_KEYS[64]} keys, not {skv}")
+    nt = -(-skv // 64)
+    c = -(-nt // (4 if nt <= 4 * NORM_MAX_CLUSTER else NORM_CLUSTER_TILES))
+    n = -(-nt // c)
+    short = c * n - nt
+    return c, [(r * (n - 1), n - 1) if r < short else
+               (short * (n - 1) + (r - short) * n, n) for r in range(c)]
 
 
 def flash_attention_fwd_normalized(q: torch.Tensor, k: torch.Tensor,
@@ -289,13 +328,19 @@ def flash_attention_fwd_normalized(q: torch.Tensor, k: torch.Tensor,
     `flash_attention_fwd` takes but segments and the LSE. Rows of at most
     `NORM_RESIDENT_KEYS[D]` keys launch the resident kernel, counted in
     `flash_attention_fwd_normalized.launches`; longer rows go to
-    `flash_attention_fwd_normalized_split` (to `NORM_SPLIT_KEYS[D]` keys)
-    or `flash_attention_fwd_normalized_two_pass`, which count their own.
+    `flash_attention_fwd_normalized_split` (to `NORM_SPLIT_KEYS[D]` keys),
+    `flash_attention_fwd_normalized_cluster` (to `NORM_CLUSTER_KEYS[D]`,
+    more than 64 query rows) or `flash_attention_fwd_normalized_two_pass`
+    (`norm_path`), which count their own.
     Its plain version is `mha_reference`."""
-    path = norm_path(k.shape[2], q.shape[3])
+    path = norm_path(k.shape[2], q.shape[3], q.shape[2])
     if path == "split":
         return flash_attention_fwd_normalized_split(q, k, v, kv_mask,
                                                     sm_scale, out_dtype, out)
+    if path == "cluster":
+        return flash_attention_fwd_normalized_cluster(q, k, v, kv_mask,
+                                                      sm_scale, out_dtype,
+                                                      out)
     if path == "two_pass":
         return flash_attention_fwd_normalized_two_pass(q, k, v, kv_mask,
                                                        sm_scale, out_dtype,
@@ -328,6 +373,29 @@ def flash_attention_fwd_normalized_split(
 flash_attention_fwd_normalized_split.launches = 0
 
 
+def flash_attention_fwd_normalized_cluster(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+        kv_mask: Optional[torch.Tensor], sm_scale: float,
+        out_dtype=torch.float32, out: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """The normalize-first forward's cluster kernel, for rows past
+    `NORM_SPLIT_KEYS[64]` keys up to `NORM_CLUSTER_KEYS[64]` at D64
+    (ViT-L/14 at 504 px: 1,297 tokens): a thread-block cluster a head, each
+    CTA holding its slice of the head's K and V (`norm_cluster_plan`), the
+    row stats and partial outputs exchanged through distributed shared
+    memory. A cluster that does not fit on the card raises.
+    `flash_attention_fwd_normalized` takes it for such rows where the
+    queries fill more than one tile of 64. Counts its launches in
+    `flash_attention_fwd_normalized_cluster.launches`."""
+    out = _flash_fwd_norm(q, k, v, kv_mask, sm_scale, out_dtype, out,
+                          path="cluster")
+    flash_attention_fwd_normalized_cluster.launches += 1
+    return out
+
+
+flash_attention_fwd_normalized_cluster.launches = 0
+
+
 def flash_attention_fwd_normalized_two_pass(
         q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         kv_mask: Optional[torch.Tensor], sm_scale: float,
@@ -336,8 +404,9 @@ def flash_attention_fwd_normalized_two_pass(
     """The normalize-first forward's two-pass kernel at any row length
     (K1's tiles: a first pass of Q K^T for each row's max and sum, then P V),
     which `flash_attention_fwd_normalized` takes for rows past
-    `NORM_SPLIT_KEYS[D]` keys (past `NORM_RESIDENT_KEYS[D]` where D has no
-    split path). Counts its launches in
+    `NORM_CLUSTER_KEYS[D]` keys (past `NORM_RESIDENT_KEYS[D]` where D has no
+    split or cluster path) and for the cluster's rows with one Q tile (the
+    504-px perceiver's 64 x 1,360). Counts its launches in
     `flash_attention_fwd_normalized_two_pass.launches`."""
     out = _flash_fwd_norm(q, k, v, kv_mask, sm_scale, out_dtype, out,
                           path="two_pass")
@@ -374,15 +443,17 @@ def _fwd_out_and_strides(q, k, v, out, out_dtype):
 def _flash_fwd_norm(q, k, v, kv_mask, sm_scale, out_dtype, out, *,
                     path="resident", fault=0):
     """The checks and the launch of the normalize-first kernel on `path`
-    ("resident", "split" or "two_pass"), counted by the public wrappers
-    above. `fault=1` skips the normalisation: a planted fault, for the
-    card's checks."""
+    ("resident", "split", "cluster" or "two_pass"), counted by the public
+    wrappers above. `fault=1` skips the normalisation: a planted fault, for
+    the card's checks."""
     _check_qkv(q, k, v, "flash_attention_fwd_normalized")
     b, h, sq, d = q.shape
     skv = k.shape[2]
-    if path != "two_pass" and norm_path(skv, d) != path:
+    if path != "two_pass" and norm_keys_path(skv, d) != path:
         raise ValueError(f"rows of {skv} keys at D {d} take the "
-                         f"{norm_path(skv, d)} path, not the {path} path")
+                         f"{norm_keys_path(skv, d)} path, not the {path} "
+                         "path")
+    c = norm_cluster_plan(skv)[0] if path == "cluster" else 0
     out, strides = _fwd_out_and_strides(q, k, v, out, out_dtype)
     _check_masks(kv_mask, None, b, sq, skv, q.device,
                  "flash_attention_fwd_normalized")
@@ -393,7 +464,7 @@ def _flash_fwd_norm(q, k, v, kv_mask, sm_scale, out_dtype, out, *,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_mask),
             out.data_ptr(), b, h, sq, skv, d, float(sm_scale), strides,
             int(out_dtype == torch.float32), _NORM_PATHS[path], int(fault),
-            stream)
+            c, stream)
     cuda_lib.check(err, "flash_attention_fwd_normalized")
     return out
 

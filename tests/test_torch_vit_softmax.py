@@ -101,8 +101,11 @@ def _group_mask(nq, image_tokens=256):
 # 64 query rows (past each group's count too) over its 320 keys under each
 # group's mask; ViT-L/14 at 336 px (577 tokens, one past nine 64-key tiles;
 # the block's 592 padded keys, 577 valid) and its perceiver's 64 + 576 = 640
-# keys under each group's mask, the rows of the split path. The larger
-# cases scale q by the block's 1 / sqrt(64).
+# keys under each group's mask, the rows of the split path; ViT-L/14 at 504
+# px (1,297 tokens, 17 past twenty tiles; the block's 1,312 padded keys,
+# 1,297 valid) and its perceiver's 64 + 1,296 = 1,360 keys under each
+# group's mask, the rows of the cluster path. The larger cases scale q by
+# the block's 1 / sqrt(64).
 ATTN_CASES = {
     "s16_valid11": (16, 16, (torch.arange(16) < 11)[None], 1.0),
     "vit_s257": (257, 257, None, 0.125),
@@ -114,6 +117,12 @@ ATTN_CASES = {
     "perceiver336_g0": (64, 640, _group_mask(64, 576), 0.125),
     "perceiver336_g1": (64, 640, _group_mask(48, 576), 0.125),
     "perceiver336_g2": (64, 640, _group_mask(32, 576), 0.125),
+    "vit504_s1297": (1297, 1297, None, 0.125),
+    "vit504_block_s1312": (1312, 1312, (torch.arange(1312) < 1297)[None],
+                           0.125),
+    "perceiver504_g0": (64, 1360, _group_mask(64, 1296), 0.125),
+    "perceiver504_g1": (64, 1360, _group_mask(48, 1296), 0.125),
+    "perceiver504_g2": (64, 1360, _group_mask(32, 1296), 0.125),
 }
 
 
@@ -168,30 +177,52 @@ def test_attention_plain_matches_jax_probs_and_norm(mode, case):
                                atol=1e-5 * float(np.abs(want).max()))
 
 
-@pytest.mark.parametrize("d, skv, path",
-                         [(64, 197, "resident"), (64, 257, "resident"),
-                          (64, 320, "resident"), (64, 321, "split"),
-                          (64, 577, "split"), (64, 592, "split"),
-                          (64, 640, "split"), (64, 641, "two_pass"),
-                          (128, 256, "resident"), (128, 257, "two_pass")])
-def test_normalized_forward_path_by_row_length(monkeypatch, d, skv, path):
+# (D, keys, path) at two Q tiles of queries; (D, query rows, keys, path)
+# where the query rows decide
+_BY_LENGTH = [(64, 197, "resident"), (64, 257, "resident"),
+              (64, 320, "resident"), (64, 321, "split"), (64, 577, "split"),
+              (64, 592, "split"), (64, 640, "split"), (64, 641, "cluster"),
+              (64, 1297, "cluster"), (64, 1312, "cluster"),
+              (64, 1360, "cluster"), (64, 2560, "cluster"),
+              (64, 2561, "two_pass"), (128, 256, "resident"),
+              (128, 257, "two_pass")]
+_BY_QUERIES = [(64, 64, 1360, "two_pass"), (64, 1, 641, "two_pass"),
+               (64, 64, 2560, "two_pass"), (64, 65, 641, "cluster"),
+               (64, 65, 1360, "cluster"), (64, 64, 640, "split"),
+               (64, 64, 320, "resident")]
+
+
+@pytest.mark.parametrize(
+    "d, sq, skv, path",
+    [pytest.param(d, 128, skv, path, id=f"{d}-{skv}-{path}")
+     for d, skv, path in _BY_LENGTH]
+    + [pytest.param(d, sq, skv, path, id=f"{d}-{sq}x{skv}-{path}")
+       for d, sq, skv, path in _BY_QUERIES])
+def test_normalized_forward_path_by_row_length(monkeypatch, d, sq, skv,
+                                               path):
     """`flash_attention_fwd_normalized` launches the resident kernel for
     rows of at most NORM_RESIDENT_KEYS[D] keys (320 at D64, 256 at D128),
     hands rows of up to NORM_SPLIT_KEYS[D] keys (640, D64 only) to the split
-    wrapper and longer rows to the two-pass wrapper; each counts its own
-    launches. The launch itself is recorded (no kernel runs on the CPU)."""
+    wrapper, rows of up to NORM_CLUSTER_KEYS[D] (2,560, D64 only: eight CTAs
+    of five 64-key tiles) to the cluster wrapper where the queries fill
+    more than one Q tile of 64 (the 504-px perceiver's 64 queries over
+    1,360 keys go to the two-pass wrapper), and longer rows to the two-pass
+    wrapper; each counts its own launches. The launch itself is recorded
+    (no kernel runs on the CPU)."""
     assert t_att.NORM_RESIDENT_KEYS == {64: 320, 128: 256}
     assert t_att.NORM_SPLIT_KEYS == {64: 640}
-    assert t_att.norm_path(skv, d) == path
+    assert t_att.NORM_CLUSTER_KEYS == {64: 2560}
+    assert t_att.norm_path(skv, d, sq) == path
     taken = []
     monkeypatch.setattr(t_att, "_flash_fwd_norm",
                         lambda *a, path="resident", **kw: taken.append(path))
     wrappers = {"resident": t_att.flash_attention_fwd_normalized,
                 "split": t_att.flash_attention_fwd_normalized_split,
+                "cluster": t_att.flash_attention_fwd_normalized_cluster,
                 "two_pass": t_att.flash_attention_fwd_normalized_two_pass}
     for fn in wrappers.values():
         monkeypatch.setattr(fn, "launches", 0)
-    q = torch.zeros(1, 2, 16, d, dtype=torch.bfloat16)
+    q = torch.zeros(1, 2, sq, d, dtype=torch.bfloat16)
     kv = torch.zeros(1, 2, skv, d, dtype=torch.bfloat16)
     t_att.flash_attention_fwd_normalized(q, kv, kv, None, 0.125)
     assert taken == [path]
@@ -205,12 +236,47 @@ def test_normalized_forward_rejects_cpu_tensors():
     x = torch.zeros(1, 2, 8, 64, dtype=torch.bfloat16)
     wrappers = (t_att.flash_attention_fwd_normalized,
                 t_att.flash_attention_fwd_normalized_split,
+                t_att.flash_attention_fwd_normalized_cluster,
                 t_att.flash_attention_fwd_normalized_two_pass)
     before = [fn.launches for fn in wrappers]
     for fn in wrappers:
         with pytest.raises(ValueError, match="CUDA"):
             fn(x, x, x, None, 0.125)
     assert [fn.launches for fn in wrappers] == before
+
+
+def test_norm_cluster_plan():
+    """The cluster path's split of a row's 64-key tiles over the cluster's
+    CTAs: the fewest CTAs of at most four tiles (two CTAs an SM; six at
+    ViT-L/14 504 px's 21 tiles), of five past 32 tiles, every CTA N =
+    ceil(tiles / C) slots (4 or 5), contiguous slices covering every tile
+    once, the first C N - tiles ranks one tile short (their last slot a
+    masked dummy, so that every CTA runs the same code), no plan past
+    eight CTAs (the portable cluster size); rows the path does not take
+    raise."""
+    assert t_att.norm_cluster_plan(1297) == (
+        6, [(0, 3), (3, 3), (6, 3), (9, 4), (13, 4), (17, 4)])
+    assert t_att.norm_cluster_plan(1312) == t_att.norm_cluster_plan(1297)
+    assert t_att.norm_cluster_plan(1360) == (
+        6, [(0, 3), (3, 3), (6, 4), (10, 4), (14, 4), (18, 4)])
+    assert t_att.norm_cluster_plan(641) == (3, [(0, 3), (3, 4), (7, 4)])
+    assert t_att.norm_cluster_plan(2560) == (
+        8, [(5 * r, 5) for r in range(8)])
+    for skv in range(641, 2561, 7):
+        nt = -(-skv // 64)
+        c, slices = t_att.norm_cluster_plan(skv)
+        n = -(-nt // c)
+        assert c == -(-nt // (4 if nt <= 32 else 5)) and len(slices) == c
+        assert c <= 8 and 4 <= n <= 5
+        assert [c0 for c0, _ in slices] == list(np.cumsum(
+            [0] + [k for _, k in slices[:-1]]))
+        assert sum(k for _, k in slices) == nt
+        assert all(k in (n - 1, n) for _, k in slices)
+        assert slices[-1][1] == n  # the row's last tile in a full CTA
+        assert [k for _, k in slices] == sorted(k for _, k in slices)
+    for skv in (320, 640, 2561, 4096):
+        with pytest.raises(ValueError, match="cluster"):
+            t_att.norm_cluster_plan(skv)
 
 
 @functools.lru_cache(maxsize=None)
@@ -234,6 +300,28 @@ def test_fused_vit_block_matches_jax_in_each_mode(mode):
     got = t_vb.fused_vit_block(tx, tlp, **kw)
     assert torch.equal(got, t_vb.fused_vit_block_plain(tx, tlp, **kw))
     _close(got, np.asarray(want, np.float32), BLOCK_TOL, f"mode {mode}")
+
+
+@pytest.mark.parametrize("mode", ["jnn"], indirect=True)
+def test_fused_vit_block_504_matches_jax(mode):
+    """The fused ViT block at ViT-L/14 504 px's token count (1,297 tokens
+    padded to 1,312, one image, the narrow ViT's two heads of 64): on the
+    card its attention takes the cluster path; here the plain version,
+    against JAX's kernel in interpret mode, within the block bound."""
+    jlp, tlp = _packed(t_vb.pack_vit_layers_fused, _vit_params)
+    rng = np.random.default_rng(24)
+    s_valid, s_pad = 1297, 1312
+    x = np.zeros((1, s_pad, VIT.width), np.float32)
+    x[:, :s_valid] = rng.standard_normal((1, s_valid, VIT.width)) * 0.5
+    jx = jnp.asarray(x, jnp.bfloat16)
+    tx = _t(np.asarray(jx.astype(jnp.float32))).to(torch.bfloat16)
+    assert t_att.norm_path(s_pad, VIT.width // VIT.heads,
+                           s_pad) == "cluster"
+    kw = dict(heads=VIT.heads, s_valid=s_valid, quick_gelu=True)
+    want = j_vb.fused_vit_block(jx, jlp, interpret=True, **kw)
+    got = t_vb.fused_vit_block(tx, tlp, **kw)
+    _close(got[:, :s_valid], np.asarray(want, np.float32)[:, :s_valid],
+           BLOCK_TOL, "1,297 tokens")
 
 
 # the default mode's case is tests/test_torch_vision.py's
