@@ -40,8 +40,9 @@ Phases, one or more lines each:
      fault, and in each softmax mode against its plain version, with the
      bench's prefill cells in each mode; the normalize-first attention's
      paths by row length (resident, split, cluster, two-pass) at the
-     224-, 336- and 504-px shapes (NORM_K1_SHAPES) and the fused tower at
-     336 px (split path) and 504 px (cluster path) with their launches;
+     224-, 336- and 504-px shapes and D128 at 577 keys (NORM_K1_SHAPES)
+     and the fused tower at 336 px (split path) and 504 px (the path
+     `norm_path` gives its 1,297-token rows) with their launches;
      the paged decode pair (bf16 and int8 pools) at L32 H32 D128, pages of
      128 and 16 (int8, split across a cluster: also 48, at the plan's C and
      at 1, 2, 4, 8, bit for bit K4 at the same C on the gathered rows, a
@@ -2071,9 +2072,11 @@ PLAIN_K1_VISION_REL_L2 = 1e-2
 # padded keys under its pad mask; a bf16 output; its perceiver's three
 # groups over 64 + 576 keys: the split path), ViT-L/14 at 504 px (1,297
 # tokens; the block's 1,312 padded keys under its pad mask; a bf16 output:
-# the cluster path; its perceiver's three groups over 64 + 1,296 keys, one
-# Q tile a head: the two-pass path, the cluster path held beside it) and a
-# head dim of 128 (197 tokens), 64 images each
+# the path `norm_path` gives them; its perceiver's three groups over 64 +
+# 1,296 keys, one Q tile a head: the two-pass path, the cluster path held
+# beside it), a head dim of 128 (197 tokens) and a head dim of 128 at 577
+# tokens (no split or cluster path: the two-pass path, K streamed through
+# its ring twice), 64 images each
 NORM_K1_SHAPES = (
     ("vit", 64, 16, 257, 257, 64, None, "float32"),
     ("perceiver_g0", 64, 16, 64, 320, 64, None, "float32"),
@@ -2089,7 +2092,17 @@ NORM_K1_SHAPES = (
     ("vit_504_bf16", 64, 16, 1297, 1297, 64, None, "bfloat16"),
     ("perceiver_504", 64 * 3, 16, 64, 1360, 64, "perceiver", "float32"),
     ("d128", 64, 8, 197, 197, 128, None, "float32"),
+    ("d128_577", 64, 8, 577, 577, 128, None, "float32"),
 )
+# the shapes at which the two-pass kernel, after its checks, runs back to
+# back for about NORM_SOAK_MS of device time (at least NORM_SOAK_MIN
+# launches), each launch's output bit for bit the first's (the kernel sums
+# in a fixed order), the first held to the bound: its own rows (the 504-px
+# perceiver's, D128 at 577 keys, ViT-L/14 504 px's and its block's, whose
+# odd last Q tile a CTA takes alone) and ViT-L/14's at 336 px
+NORM_SOAK = ("vit_336", "vit_504", "vit_504_block", "perceiver_504",
+             "d128_577")
+NORM_SOAK_MS, NORM_SOAK_MIN = 3000.0, 200
 # the valid tokens of a block's padded rows (336 and 504 px)
 VIT_PAD_VALID = {592: 577, 1312: 1297}
 SOFTMAX_MODES = ("jnn", "exp2_pre", "exp2_post")
@@ -2114,15 +2127,19 @@ def check_normalized_k1(dev, gen):
     within NORM_K1_REL_L2 (NORM_K1_BF16_REL_L2 for a bf16 output),
     launching the kernel's path for the rows (`norm_path`: resident up to
     NORM_RESIDENT_KEYS[D] keys, split up to NORM_SPLIT_KEYS[D], cluster up
-    to NORM_CLUSTER_KEYS[D] with more than one Q tile, else two-pass) for
+    to NORM_CLUSTER_KEYS[D] with more than one Q tile outside
+    NORM_TWO_PASS_TILES[D] key tiles, else two-pass) for
     "jnn" and "exp2_pre" only, and no other; the planted faults (plain K1
     in its place, in those two modes; the normalisation skipped) past the
     bound; its time beside plain K1's, the plain version's, SDPA's and the
     bound; and the other kernel that takes the rows, held to the same bound
     with the same skipped-normalisation fault and timed: the two-pass path
     at the resident, split and cluster shapes, the cluster path at the
-    504-px perceiver's (one Q tile a head: `norm_path` gives the two-pass
-    path)."""
+    two-pass path's shapes in its range. Where the two-pass kernel takes
+    or is held at the rows, it then runs back to back for about
+    NORM_SOAK_MS of device time (at least NORM_SOAK_MIN launches) at the
+    shapes of NORM_SOAK: every launch's output equal bit for bit to the
+    first's, which is held to the same bound."""
     import torch
     import torch.nn.functional as F
 
@@ -2253,6 +2270,29 @@ def check_normalized_k1(dev, gen):
         am = None if mask is None else mask[:, None, None, :]
         lib = cuda_ms(lambda: F.scaled_dot_product_attention(
             qc, kc, vc, attn_mask=am, scale=sm))
+        soak = ""
+        if name in NORM_SOAK:  # the two-pass kernel back to back
+            n = max(NORM_SOAK_MIN, int(NORM_SOAK_MS / (
+                ms if path == "two_pass" else reading["two_pass_ms"])))
+            _flash_fwd_norm(q, k, v, mask, sm, out_dtype, ot,
+                            path="two_pass")
+            first = ot.clone()
+            differ = torch.zeros((), dtype=torch.int64, device=dev)
+            for _ in range(n):
+                _flash_fwd_norm(q, k, v, mask, sm, out_dtype, ot,
+                                path="two_pass")
+                differ += (ot != first).any()
+            r, differ = rel(first, ref), int(differ)
+            reading["two_pass_soak"] = {"launches": n, "rel_l2": r,
+                                        "differ": differ}
+            if differ or not r <= limit_norm:
+                raise AssertionError(f"normalize-first {name}: the two-pass "
+                                     f"path back to back: {differ} of {n} "
+                                     "launches differ from the first, whose "
+                                     f"rel L2 is {r:.3e} (bound {limit_norm})")
+            del first
+            soak = (f"; two-pass path {n} launches back to back, each equal "
+                    f"to the first, rel L2 {r:.2e}")
         # q read once, the keys' K and V rows that are attended (and the
         # mask) read once, the output written once; Q K^T and P V over
         # every (query, attended key) pair
@@ -2282,21 +2322,26 @@ def check_normalized_k1(dev, gen):
                f"{reading[f'{alt}_fault_rel_l2']:.3f})"
                if alt is not None else "")
             + f", plain K1 {k1_ms:.4f} ms, plain {plain:.4f} ms, library "
-            f"(SDPA, bf16 out) {lib:.4f} ms, bound {bms:.4f} ms ({by})")
+            f"(SDPA, bf16 out) {lib:.4f} ms, bound {bms:.4f} ms ({by})"
+            + soak)
         del q, k, v, qc, kc, vc, o, ot, got, ref, swapped
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
     vit = out["shapes"]["vit"]
     out.update({k: vit[k] for k in keys})
-    # the split kernel's own row (ViT-L/14 at 336 px, 577 tokens), the
-    # cluster kernel's and the two-pass kernel's (504 px, 1,297 tokens)
-    for path, shape in (("split", "vit_336"), ("cluster", "vit_504")):
-        long = out["shapes"][shape]
-        out[path] = {k: long[k] for k in keys}
-        out[path]["max_abs_err"] = max(long[m]["max_abs_err"]
-                                       for m in SOFTMAX_MODES[:2])
-    out["two_pass"] = {**{k: long[k] for k in keys[1:]},
-                       "ms": long["two_pass_ms"],
-                       "max_abs_err": long["two_pass_max_abs_err"]}
+    # the split kernel's row at ViT-L/14 336 px (577 tokens), the cluster
+    # kernel's at 504 px (1,297 tokens) and the two-pass kernel's at the
+    # 504-px perceiver's 64 x 1,360: each path's own reading, or its
+    # reading as the other kernel of those rows
+    for path, shape in (("split", "vit_336"), ("cluster", "vit_504"),
+                        ("two_pass", "perceiver_504")):
+        r = out["shapes"][shape]
+        out[path] = {k: r[k] for k in keys}
+        if r["path"] == path:
+            out[path]["max_abs_err"] = max(r[m]["max_abs_err"]
+                                           for m in SOFTMAX_MODES[:2])
+        else:
+            out[path].update(ms=r[f"{path}_ms"],
+                             max_abs_err=r[f"{path}_max_abs_err"])
     return out
 
 
@@ -2676,9 +2721,20 @@ def tower_336(dev):
 
 
 def tower_504(dev):
-    """ViT-L/14 at 504 px (GeoChat's geometry): `tower_at`, the cluster
-    path's rows."""
-    return tower_at(dev, 504, "flash_attention_fwd_normalized_cluster")
+    """ViT-L/14 at 504 px (GeoChat's geometry): `tower_at`, its 1,297-token
+    rows on the path `norm_path` gives them."""
+    return tower_at(dev, 504, norm_wrapper(1297, 64, 1297))
+
+
+def norm_wrapper(skv, d, sq):
+    """The name of the normalize-first wrapper that counts the launches of
+    `norm_path`'s kernel for `sq` query rows over `skv` keys at head dim
+    `d`."""
+    from lhrs_bot_tpu_torch.ops.attention import norm_path
+
+    path = norm_path(skv, d, sq)
+    return "flash_attention_fwd_normalized" + (
+        "" if path == "resident" else f"_{path}")
 
 
 def vlm_at(size, base=None):
@@ -2697,7 +2753,7 @@ def vlm_at(size, base=None):
 
 def tower_at(dev, size, wrapper, n_img=4):
     """ViT-L/14 at `size` px (336: 577 tokens, the normalize-first
-    attention's split path; 504: 1,297 tokens, its cluster path) and the
+    attention's split path; 504: 1,297 tokens, `norm_path`'s) and the
     perceiver over its image tokens a group, from seeded weights: the fused
     W8A8 tower against its plain version (every block through the plain
     kernels) within TOWER_REL_L2, finite features of the expected shape,
@@ -4115,7 +4171,7 @@ def phase_request_504(dev):
         row = {"ttft_ms": sorted(times)[1], "ttft_ms_all": times,
                "tokens": tokens, "launches": launches}
         if size == 504:
-            want = {k: 22 if k.endswith("_cluster") else 0
+            want = {k: 22 if k == norm_wrapper(1297, 64, 1297) else 0
                     for k in ("flash_attention_fwd_normalized",
                               "flash_attention_fwd_normalized_split",
                               "flash_attention_fwd_normalized_cluster",
@@ -9792,15 +9848,18 @@ def main():
                       norm["cluster"])
     cluster_row["note"] = (
         "the normalize-first attention's cluster path, for rows of 641-2,560 "
-        "keys at D64 under more than one Q tile of 64 (ViT-L/14 at 504 px: "
-        "1,297 tokens, the block's 1,312; the perceiver's 64 queries over "
-        "1,360 keys take the two-pass path, where the cluster path reads "
+        "keys at D64 under more than one Q tile of 64 but those of 17, 21 "
+        "and 26 key tiles (ViT-L/14 at 504 px: 1,297 tokens, the block's "
+        "1,312, 21 tiles; the two-pass path runs them faster) and the "
+        "perceiver's 64 queries over "
+        "1,360 keys (the two-pass path, where the cluster path reads "
         f"{norm['shapes']['perceiver_504']['cluster_ms']:.4f} ms against "
         f"{norm['shapes']['perceiver_504']['ms']:.4f}): a thread-block "
         "cluster per (batch, head), "
         "each CTA holding a slice of its K and V, Q multicast, the row stats "
         "and the partial outputs exchanged through distributed shared "
-        "memory; times at ViT-L/14 504 px, B64 H16 S1297 D64; no model of "
+        "memory; times at ViT-L/14 504 px, B64 H16 S1297 D64, called on "
+        "this path; no model of "
         "the main path (224 px) has such rows; the 504-px fused tower's "
         f"launches {tower['tower_504']['launches']}, the 504-px W4A8 "
         "request's "
@@ -9808,13 +9867,23 @@ def main():
     two_pass_row = row("flash_attention_fwd_normalized_two_pass",
                        "flash_fwd_norm.cu", norm_replaces, int8,
                        norm["two_pass"])
+    d128 = norm["shapes"]["d128_577"]
     two_pass_row["note"] = (
         "the normalize-first attention's two-pass path, for rows past 2,560 "
-        "keys at D64 and 256 at D128, and past 640 keys at D64 with one Q "
-        "tile a head (the 504-px perceiver's fused block: 64 x 1,360, "
-        "no launch on the main path) (K1's tiles: a first pass of Q K^T for "
-        "each row's max and sum, then P V); times at ViT-L/14 504 px, B64 "
-        "H16 S1297 D64, called on that path")
+        "keys at D64 and 256 at D128, of 17, 21 and 26 key tiles at D64 "
+        "(ViT-L/14 at 504 px: 1,297 tokens, the block's 1,312, 21 tiles; "
+        f"{norm['shapes']['vit_504']['ms']:.4f} ms, the cluster path "
+        f"{norm['shapes']['vit_504']['cluster_ms']:.4f}; the 504-px fused "
+        "tower's and W4A8 request's launches), and past 640 keys at D64 "
+        "with one Q tile a head (the 504-px perceiver's fused block: 64 x "
+        "1,360); no launch on the main path (224 px): two consumer "
+        "warpgroups and a "
+        "producer warp a CTA, two Q tiles of a head (a head's odd "
+        "last tile and one-tile heads on a CTA whose warpgroups split the "
+        "keys), K resident between the passes where it fits, a first pass "
+        "for each row's max and sum, then P V; times at the 504-px "
+        "perceiver's three groups, B192 H16 64 x 1,360 D64; D128 at 577 "
+        f"keys {d128['ms']:.4f} ms (SDPA {d128['library_ms']:.4f})")
     kernels = [
         fwd_row,
         row("fused_decode_attention", "fused_decode.cu",

@@ -44,6 +44,14 @@ change, parent). Parts:
       `chip_smoke.attention_bound` and, where the checkout has the skip
       rule, the time of its run table, each kernel's time given the table,
       and the 64 x 64 tile pairs run and skipped.
+  norm: the normalize-first forward at `NORM_ROWS` (the 504-px
+      perceiver's groups, ViT-L/14 at 504 px and its block and bf16
+      forms, rows of 704 to 2,560 keys, ViT-L/14 at 336 px, D128 at 577
+      keys):
+      each path that takes the rows timed on its own (the two-pass path
+      everywhere, the split or cluster path in its range), the dispatch
+      and its path, SDPA, the bound, the kernels' registers and spills;
+      the readings `norm_path`'s thresholds rest on.
   quant: kernel A through `ln_quant` at every shape a path gives it
       (`A_SHAPES`: the tower's four calls a layer and the perceiver's five
       at B = 64, the int8 cache's K/V rows at decode B = 1, 2, 7 and at the
@@ -277,6 +285,98 @@ def _kernels(dev):
     out["registers"] = _build_usage(cuda_lib.build(), ("flash_fwd_kernel",
                                                        "flash_norm"))
     out.update(_backward(dev, gen))
+    return out
+
+
+# (name, B, H, Sq, Skv, D, mask, output dtype) of `--part norm`: the
+# 504-px perceiver's three groups, ViT-L/14 at 504 px (its 1,297 tokens,
+# the block's 1,312 under its pad mask, a bf16 output), more row lengths
+# of the cluster path's range (704 to 2,560 keys: where `norm_path` gives
+# them to the cluster or the two-pass path), ViT-L/14 at 336 px (the
+# split path's rows) and a head dim of 128 at 577 keys
+NORM_ROWS = (
+    ("perceiver504_b192", 192, 16, 64, 1360, 64, "perceiver", "float32"),
+    ("vit504_b64", 64, 16, 1297, 1297, 64, None, "float32"),
+    ("vit504_block_b64", 64, 16, 1312, 1312, 64, "pad", "float32"),
+    ("vit504_bf16_b64", 64, 16, 1297, 1297, 64, None, "bfloat16"),
+    ("s704_b64", 64, 16, 704, 704, 64, None, "float32"),
+    ("s832_b64", 64, 16, 832, 832, 64, None, "float32"),
+    ("s960_b64", 64, 16, 960, 960, 64, None, "float32"),
+    ("s1088_b64", 64, 16, 1088, 1088, 64, None, "float32"),
+    ("s1216_b64", 64, 16, 1216, 1216, 64, None, "float32"),
+    ("s1408_b64", 64, 16, 1408, 1408, 64, None, "float32"),
+    ("s1536_b64", 64, 16, 1536, 1536, 64, None, "float32"),
+    ("s1664_b64", 64, 16, 1664, 1664, 64, None, "float32"),
+    ("s1792_b64", 64, 16, 1792, 1792, 64, None, "float32"),
+    ("s2048_b64", 64, 16, 2048, 2048, 64, None, "float32"),
+    ("s2560_b64", 64, 16, 2560, 2560, 64, None, "float32"),
+    ("vit336_b64", 64, 16, 577, 577, 64, None, "float32"),
+    ("d128_577_b64", 64, 8, 577, 577, 128, None, "float32"),
+)
+
+
+def _norm(dev):
+    """The normalize-first forward's paths at NORM_ROWS: the time of each
+    path that takes the rows (`_flash_fwd_norm(path=...)`: the two-pass
+    path at any length, the split and cluster paths in their ranges),
+    the dispatch (`flash_attention_fwd_normalized`) and the path it
+    takes, SDPA and the bound; and the registers and spills of the
+    normalize-first kernels from the checkout's build log."""
+    import torch
+    import torch.nn.functional as F
+
+    import chip_smoke as c
+    from lhrs_bot_tpu_torch.ops import attention, cuda_lib
+    from lhrs_bot_tpu_torch.ops.perceiver_block import _kv_mask
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    norm = attention.flash_attention_fwd_normalized
+    out = {}
+    for name, b, h, sq, skv, d, mask_kind, dtype in NORM_ROWS:
+        dtype = getattr(torch, dtype)
+        w = h * d
+        if sq == skv:  # strided views of one projection, as the ViT block
+            qkv = torch.randn(b, sq, 3 * w, generator=gen, device=dev,
+                              dtype=torch.bfloat16)
+            q, k, v = qkv.view(b, sq, 3, h, d).permute(2, 0, 3, 1,
+                                                       4).unbind(0)
+        else:
+            q = torch.randn(b, h, sq, d, generator=gen, device=dev,
+                            dtype=torch.bfloat16)
+            k, v = (torch.randn(b, h, skv, d, generator=gen, device=dev,
+                                dtype=torch.bfloat16) for _ in range(2))
+        mask = None
+        if mask_kind == "perceiver":
+            mask = _kv_mask(b // 3, sq, skv, (64, 48, 32),
+                            tuple(n + skv - 64 for n in (64, 48, 32)), dev)
+        elif mask_kind == "pad":
+            mask = (torch.arange(skv, device=dev) < 1297).expand(
+                b, skv).contiguous()
+        o = torch.empty(b, sq, h, d, device=dev, dtype=dtype)
+        ot = o.transpose(1, 2)
+        sm = d ** -0.5
+        paths = ["two_pass"]
+        keys_path = attention.norm_keys_path(skv, d)
+        if keys_path != "two_pass":
+            paths.append(keys_path)
+        row = {"path": attention.norm_path(skv, d, sq)}
+        for path in paths:
+            row[f"{path}_ms"] = c.cuda_ms(lambda: attention._flash_fwd_norm(
+                q, k, v, mask, sm, dtype, ot, path=path))
+        row["dispatch_ms"] = c.cuda_ms(lambda: norm(q, k, v, mask, sm, dtype,
+                                                    ot))
+        qc, kc, vc = (t.contiguous() for t in (q, k, v))
+        am = None if mask is None else mask[:, None, None, :]
+        row["library_ms"] = c.cuda_ms(lambda: F.scaled_dot_product_attention(
+            qc, kc, vc, attn_mask=am, scale=sm))
+        keys = b * skv if mask is None else int(mask.sum())
+        row["bound_ms"], row["bound_by"] = c.bound(
+            h * d * (2 * b * sq + 4 * keys + o.element_size() * b * sq)
+            + (0 if mask is None else b * skv), 4.0 * h * sq * keys * d)
+        out[name] = row
+        del q, k, v, qc, kc, vc, o, ot
+        torch.cuda.empty_cache()
+    out["registers"] = _build_usage(cuda_lib.build(), ("flash_norm",))
     return out
 
 
@@ -1067,8 +1167,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", required=True,
                     help="checkout whose lhrs_bot_tpu_torch is measured")
-    ap.add_argument("--part", choices=("kernels", "quant", "decode", "e2e",
-                                       "probes"),
+    ap.add_argument("--part", choices=("kernels", "norm", "quant", "decode",
+                                       "e2e", "probes"),
                     required=True)
     ap.add_argument("--no-train", action="store_true",
                     help="e2e: leave out the prefill and the training steps")
@@ -1092,6 +1192,8 @@ def main(argv=None):
     t0 = time.time()
     if args.part == "kernels":
         res = _kernels(dev)
+    elif args.part == "norm":
+        res = _norm(dev)
     elif args.part == "quant":
         res = _quant(dev)
     elif args.part == "decode":

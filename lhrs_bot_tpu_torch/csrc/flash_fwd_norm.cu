@@ -67,14 +67,16 @@
 // an SM no other CTA's work fills that time; the designs measured beside
 // it are in PERF.md.
 //
-// Cluster design (rows of 641 to 2,560 keys at D64: ViT-L/14 at 504 px has
-// 1,297 tokens, as GeoChat runs it; its block pads them to 1,312; the host
-// sends it only rows with more than one Q tile of 64, so not its
-// perceiver's 64 queries over 64 + 1,296 keys): one thread-block cluster
-// of C CTAs per (batch, head), each CTA one warpgroup over N = ceil(tiles / C)
-// key-tile slots of a contiguous slice (C = 6, N = 4 at 21 and 22 tiles;
-// up to 8 CTAs of 5 slots, the portable cluster limit), two CTAs an SM at
-// N = 4. Each CTA loads its K and V slice once by TMA, so a head's K and V
+// Cluster design (rows of 641 to 2,560 keys at D64, designed for ViT-L/14
+// at 504 px: 1,297 tokens, as GeoChat runs it, its block pads them to
+// 1,312; the host sends it only rows with more than one Q tile of 64, so
+// not its perceiver's 64 queries over 64 + 1,296 keys, and not rows of
+// 17, 21 or 26 key tiles, 504 px's among them, which the two-pass path
+// runs faster): one thread-block cluster of C CTAs per (batch, head), each
+// CTA one warpgroup over N = ceil(tiles / C) key-tile slots of a
+// contiguous slice (C = 6, N = 4 at 21 and 22 tiles; up to 8 CTAs of 5
+// slots, the portable cluster limit), two CTAs an SM at N = 4. Each CTA
+// loads its K and V slice once by TMA, so a head's K and V
 // leave device memory once; rank 0 multicasts each Q tile into every CTA
 // (`.multicast::cluster`) once all have handed its slot back. A CTA runs
 // the split path's warpgroup walk on its slots (Q K^T once, each slot's
@@ -96,13 +98,49 @@
 // nothing hides a CTA's slice load and the cluster's barriers, and the
 // two-pass path is faster there (the 504-px perceiver's rows).
 //
-// Two-pass design (D128 past 256 keys; D64 past the cluster's 2,560 keys,
-// which no vision model has, and past 640 keys with one Q tile a head):
-// K1's CTA (flash_tiles.cuh: one per (batch * head, 64-row Q tile),
-// two-stage K and V rings), whose consumer makes a
-// first pass over the K tiles for each row's max and sum (online, exact at
-// the end) and a second that computes P = exp2(s - m) / l, rounds it and
-// accumulates P V; the producer loads every K tile twice and V once.
+// Two-pass design (every row the other paths are not given: D128 past 256
+// keys, D64 past the cluster's 2,560 keys, D64 past 640 keys with one Q
+// tile a head: the 504-px perceiver's 64 x 1,360, and rows of 17, 21 and
+// 26 key tiles, ViT-L/14 at 504 px's 21 among them, where it reads faster
+// than the cluster path; at the cluster's other rows it reads slower,
+// PERF.md). What bounds
+// it on the H100: each score takes two exponentials (pass 1 for the row's
+// max and sum, pass 2 for P), and with a 64-key tile the float32 work around
+// them (max, mask, sum, packing) costs more issue slots than the MUFU's exp2
+// rate allows for: the walk is bound by instruction issue and by the latency
+// a warpgroup waits on its products, then by the MUFU (3.9 T exp2/s: 0.95 ms
+// at ViT-L/14 504 px), not by bytes (one Q tile a head aside: the 504-px
+// perceiver's 64 x 1,360 is bound by its K and V). The design: a 288-thread
+// CTA, one an SM, of two consumer warpgroups and a producer warp (its first
+// thread issues every TMA load; ptxas still allots 168 registers a thread,
+// as for 384 threads, so a step holds two score tiles at most). A CTA
+// takes a pair of a head's Q tiles, one a warpgroup; both read every K and
+// V tile of shared rings and take turns to issue (named barriers), so that
+// one's exponentials run under the other's products. A head's odd last Q
+// tile, and every Q tile of a head of one, takes a CTA whose warpgroups
+// split its key tiles (ceil(tiles / 2) each, the last of an odd count a
+// masked dummy), exchange each row's max and sum once after pass 1 and sum
+// their float32 partial outputs once after pass 2. K stays in shared memory
+// between the passes where the row's key tiles fit beside the V ring (each
+// K tile loaded once; at D64 rows to 1,408 keys: the 504-px ViT and its
+// perceiver), else it passes through a ring twice, from L2 the second
+// time; the host plans the slots (ops/attention.py's `norm_two_pass_plan`)
+// and the launch checks them. A launch with split CTAs takes rings of an
+// even size: a split CTA's warpgroups take alternate positions of a ring,
+// and in a ring of an odd size a slot would pass from one to the other at
+// every phase, so that a warpgroup waiting on its phase could take the
+// other's, still in flight, for it (a barrier's wait tells phases apart by
+// parity alone): an H100 read stale V tiles so at ViT-L/14 504 px, rarely.
+// A warpgroup walks two tiles a step: both Q K^T issued at once, the first
+// tile's exponentials under the second's product and, in pass 2, the
+// second's under the first's P V, the mask from
+// key bits read from device memory once a head (only on tiles that hold
+// keys that do not attend), P = 2^(s scale_log2 - max - log2 sum) rounded
+// straight into P V's A fragments. No product stays in flight across a
+// branch or the loop's back edge, and no branch surrounds code that writes
+// the scores (the mask is a select): either made ptxas serialise every
+// wgmma (C7517, C7518). Every named barrier and product is preceded by a
+// __syncwarp (they are .aligned: a warp's lanes must reach them together).
 //
 // fault = 1 skips the normalisation (P = exp2(s - m) rounded): a planted
 // fault for the card's checks.
@@ -1292,191 +1330,570 @@ int dispatch_cluster(const CUtensorMap* maps, const NormParams& p, int B,
 
 // ---- two-pass path ------------------------------------------------------------
 
-// The normalised probabilities of one tile, in place, from each row's final
-// max (`base`, in units of log2; 0 for a row with no valid key) and the
-// reciprocal of its sum (`inv`, 0 for such a row): masked scores give 0.
-template <int N>
-__device__ __forceinline__ void normalized_probs(
-    float (&sc)[N], const int* key, bool need_mask, float scale_log2, int t,
-    const float (&base)[2], const float (&inv)[2]) {
-#pragma unroll
-  for (int j = 0; j < N / 4; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = e >> 1;
-      float x = sc[4 * j + e] * scale_log2;
-      if (need_mask && key[8 * j + 2 * t + (e & 1)] < 0) x = kNegInf;
-      sc[4 * j + e] = ex2(x - base[r]) * inv[r];
-    }
-  }
+// A CTA of two consumer warpgroups (threads 0-255) and a producer warp
+// (256-287, its first thread issues every load), one CTA an SM.
+constexpr int kTwoThreads = 288;
+constexpr int kTwoMinStages = 3;  // of the K ring (streamed) and the V ring
+constexpr int kTwoMaxV = 8;
+constexpr int kTwoHead = 2048;  // the split CTAs' row stats (1 KB), barriers
+
+// A launch's plan: Q tiles taken in pairs, one a consumer warpgroup (a
+// head's odd last tile alone: its warpgroups split its keys), Q slots (2,
+// or 1 when every head has one Q tile), K slots (each key tile a slot of
+// its own, loaded once, when they fit: "resident"; else a ring the K tiles
+// pass through twice), V slots and the dynamic shared memory.
+// The host chooses the K and V slots (ops/attention.py's
+// `norm_two_pass_plan`); the rest follows from the shape.
+struct TwoPlan {
+  int pairs, qslots, kslots, vslots, smem;
+};
+
+// The key bits of tiles 0 .. nt (the last a split CTA's masked dummy).
+inline int two_pass_okw_bytes(int nt) { return ((nt + 1) * 8 + 15) & ~15; }
+
+// The plan of Sq query rows over Skv keys at head dim D with the host's K
+// and V slots: false where the slots are not ones the walk takes (at least
+// three V slots and at most kTwoMaxV; one K slot a key tile, or a ring of
+// at least three; where the launch has split CTAs, an odd Q-tile count,
+// rings of an even size). A plan past the card's shared memory is refused
+// by the launch; the barriers take 16 bytes a slot after the row stats.
+bool two_pass_plan(int Sq, int Skv, int D, int kslots, int vslots,
+                   TwoPlan& pl) {
+  const int tile = 64 * D * 2;
+  const int nq = ceil_div(Sq, 64), nt = ceil_div(Skv, 64);
+  const bool even = nq % 2;
+  if (vslots < kTwoMinStages || vslots > kTwoMaxV || kslots > nt ||
+      (kslots < nt && kslots < kTwoMinStages) ||
+      (even && (vslots % 2 || (kslots < nt && kslots % 2))) ||
+      16 * (kslots + vslots + 1) > kTwoHead - 1024)
+    return false;
+  pl.pairs = ceil_div(nq, 2);
+  pl.qslots = nq > 1 ? 2 : 1;
+  pl.kslots = kslots;
+  pl.vslots = vslots;
+  const long long smem = 1024 + (long long)(pl.qslots + kslots + vslots) *
+                                    tile + kTwoHead + two_pass_okw_bytes(nt);
+  if (smem > 0x7fffffffLL) return false;
+  pl.smem = (int)smem;
+  return true;
 }
 
-// The consumer warpgroup: q rows [q0, q0 + 64). A first pass over the K
-// ring takes each row's max and sum; the second issues tile i's S = Q K^T
-// with tile i-1's P V, and normalises tile i while P V retires.
-template <int D>
-__device__ __forceinline__ void two_pass_consume(const NormParams& p,
-                                                 const Smem<D>& sm, int b,
-                                                 int hd, int q0, int n_tiles,
-                                                 int warp, int lane) {
-  constexpr int kBN = Cfg<D>::kBN;
-  const int g = lane >> 2, t = lane & 3;
-  const int row0 = q0 + 16 * warp + g;
-  const int qrow[2] = {row0, row0 + 8};
-  const int segq[2] = {0, 0};
-  float acc[D / 2];
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-  float m[2] = {kNegInf, kNegInf};  // running max, in units of log2
-  float l[2] = {0.f, 0.f};          // per-thread partial row sums
-  float sc[kBN / 2], alpha[2];
-  uint32_t pf[kBN / 16][4];
-  const auto need_mask = [&](int kv0) {
-    return p.kv_mask != nullptr || kv0 + kBN > p.Skv;
-  };
-  sm90::mbar_wait(sm.q_full, 0);
+// Shared memory of a two-pass CTA: the Q slots, the V ring, the K slots,
+// the row stats, the barriers and the key bits.
+struct TwoSmem {
+  uint8_t* q;
+  uint8_t* v;
+  uint8_t* k;
+  float* stats;  // (2, 2, 64): [warpgroup][max, sum][row] (split CTAs)
+  uint64_t* full_k;  // (kslots)
+  uint64_t* empty_k;
+  uint64_t* full_v;  // (vslots)
+  uint64_t* empty_v;
+  uint64_t* q_full;  // (2)
+  uint16_t* okw;  // (nt + 1, 4): [tile][t] bit 2 j + h: key 64 tile + 8 j
+                  // + 2 t + h attends
 
-  for (int i = 0; i < n_tiles; ++i) {
-    const int s = i % kStages, kv0 = i * kBN;
-    sm90::mbar_wait(&sm.full_k[s], (i / kStages) & 1);
-    issue_qk<D>(sc, sm.q, sm.k(s));
-    sm90::wgmma_wait<0>();
-    sm90::fence_regs(sc);
-    online_softmax<kBN / 2, false>(sc, sm.keys + s * kBN, kv0, need_mask(kv0),
-                                   0, qrow, segq, p.scale_log2, t, m, l,
-                                   alpha);
-    warp_arrive(&sm.empty_k[s], lane);
+  __device__ TwoSmem(uint8_t* raw, int tile, const TwoPlan& pl) {
+    q = reinterpret_cast<uint8_t*>(
+        (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
+    v = q + pl.qslots * tile;
+    k = v + pl.vslots * tile;
+    stats = reinterpret_cast<float*>(k + pl.kslots * tile);
+    full_k = reinterpret_cast<uint64_t*>(stats + 256);
+    empty_k = full_k + pl.kslots;
+    full_v = empty_k + pl.kslots;
+    empty_v = full_v + pl.vslots;
+    q_full = empty_v + pl.vslots;
+    okw = reinterpret_cast<uint16_t*>(stats) + kTwoHead / 2;
   }
-  float base[2], inv[2];
+};
+
+// One 64-row tile of a (B, H, S, D) operand into `dst`, completing on `bar`.
+template <int D>
+__device__ __forceinline__ void two_pass_load(uint8_t* dst,
+                                              const CUtensorMap* tm,
+                                              uint64_t* bar, int tile, int hd,
+                                              int b) {
+  sm90::mbar_arrive_tx(bar, 64 * D * 2);
+  for (int cb = 0; cb < D / 64; ++cb)
+    sm90::tma_load_4d(dst + cb * 64 * 128, tm, bar, cb * 64, tile * 64, hd,
+                      b);
+}
+
+// The key tile at index j of a CTA's stream of L a pass: j itself where
+// both warpgroups read every tile; for a split CTA the tiles alternate
+// between its warpgroups (warpgroup 0 the first L / 2, warpgroup 1 the
+// rest), and a dummy past the row's last tile (odd nt) loads that tile
+// again, masked whole.
+__device__ __forceinline__ int two_pass_tile(int j, bool split, int L,
+                                             int nt) {
+  if (!split) return j;
+  const int tile = (j & 1) * (L >> 1) + (j >> 1);
+  return tile < nt ? tile : nt - 1;
+}
+
+// The producer (one thread): every K tile of the CTA's stream twice
+// through the K ring (resident: nothing, the prologue loaded each tile
+// once), and each V tile as soon as its slot has been released. Streamed,
+// the first V tiles go out beside pass 1's K tiles (V tile j after K tile
+// j, while a V slot is free), the others in pass 2 after the K tile of the
+// second pass's index j - vslots + 2: a consumer frees V tile j - vslots
+// only once it has issued the Q K^T of the tile after it (a step's two
+// tiles; in a split CTA the stream's tile two on).
+template <int D>
+__device__ __forceinline__ void two_pass_produce(const TwoSmem& sm,
+                                                 const TwoPlan& pl,
+                                                 const CUtensorMap* tm_k,
+                                                 const CUtensorMap* tm_v,
+                                                 int b, int hd, int nt,
+                                                 bool split, int L,
+                                                 bool resident) {
+  constexpr int kTile = 64 * D * 2;
+  int jv = 0;  // the next V tile
+  const auto load_v = [&] {
+    const int s = jv % pl.vslots;
+    sm90::mbar_wait(&sm.empty_v[s], ((jv / pl.vslots) & 1) ^ 1);
+    two_pass_load<D>(sm.v + s * kTile, tm_v, &sm.full_v[s],
+                     two_pass_tile(jv, split, L, nt), hd, b);
+    ++jv;
+  };
+  if (!resident)
+    for (int pos = 0; pos < 2 * L; ++pos) {
+      const int s = pos % pl.kslots;
+      sm90::mbar_wait(&sm.empty_k[s], ((pos / pl.kslots) & 1) ^ 1);
+      two_pass_load<D>(sm.k + s * kTile, tm_k, &sm.full_k[s],
+                       two_pass_tile(pos % L, split, L, nt), hd, b);
+      const int last = pos < L ? (pos < pl.vslots ? pos : -1)
+                               : pos - L + pl.vslots - 2;
+      while (jv < L && jv <= last) load_v();
+    }
+  while (jv < L) load_v();
+}
+
+// A position in a ring of `size` slots that a walk steps through `step`
+// slots at a time, with the parity of the slot's barrier phase.
+struct TwoCursor {
+  int slot, size, step;
+  uint32_t par;
+  __device__ void next() {
+    slot += step;
+    if (slot >= size) {
+      slot -= size;
+      par ^= 1u;
+    }
+  }
+};
+
+// Consumer warpgroup w's walk: over every key tile of its own Q tile (a
+// pair CTA), or over its half of the key tiles of the CTA's one Q tile (a
+// split CTA), twice, two tiles a step. Pass 1 keeps each thread's running
+// max and sum; pass 2 computes P = 2^(s scale_log2 - base - log2 l) from
+// each row's final max (base) and sum l, rounds it into P V's A fragments
+// and accumulates P V. In a step both tiles' Q K^T are issued at once, the
+// first tile's exponentials run while the second's product does, and in
+// pass 2 the second's while the first's P V does; no product is in flight
+// across a branch or the loop's back edge (ptxas then serialises every
+// wgmma: C7517 / C7518). The warpgroups of a pair CTA take turns to issue
+// (named barriers 1 and 2), so that one's exponentials run under the
+// other's products. A split CTA's warpgroups exchange each row's max and
+// sum once after pass 1 and sum their float32 partial outputs (through the
+// V ring) after pass 2, each writing half of the columns.
+template <int D, bool kMask>
+__device__ __forceinline__ void two_pass_walk(const NormParams& p,
+                                              const TwoSmem& sm,
+                                              const TwoPlan& pl, int b,
+                                              int hd, int qt, int nt,
+                                              bool split, int L,
+                                              bool resident, int w) {
+  constexpr int kTile = 64 * D * 2;
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const float sl = p.scale_log2;
+  const int row0 = 16 * warp + g;
+  const int n = split ? L / 2 : L;  // tiles a pass
+  const int step = split ? 2 : 1, off = split ? w : 0;
+  const int tile0 = split ? w * n : 0;
+  // the first tile with keys that do not attend: without a kv_mask, the
+  // row's last when Skv is not a multiple of 64, and a split CTA's dummy
+  const int first_masked = kMask ? 0 : (p.Skv % 64 ? nt - 1 : nt);
+  const int R = pl.kslots, VR = pl.vslots;
+  const uint8_t* sq = sm.q + (split ? 0 : w) * kTile;
+  const bool turns = !split;
+
+  // the slot and parity of the walk's next K tile (resident: the slot is
+  // the tile's, the dummy reading the last tile's, and pass 2 reads pass
+  // 1's slots again; streamed, the stream runs on through both passes) and
+  // of its next V tile
+  const TwoCursor k_first = resident ? TwoCursor{tile0, 1 << 30, 1, 0u}
+                                     : TwoCursor{off, R, step, 0u};
+  TwoCursor kc = k_first;
+  TwoCursor vc{off, VR, step, 0u};
+  // the wgmma descriptors of the Q tile and of the first K and V slots: a
+  // slot is kTile bytes on, a k16 step of Q K^T 32 bytes, a 64-column
+  // block 8 KB, a k16 step of P V 2 KB (the address field counts 16 bytes)
+  const uint64_t dq = sm90::desc_sw128(sq, 16, 1024);
+  const uint64_t dk = sm90::desc_sw128(sm.k, 16, 1024);
+  const uint64_t dv = sm90::desc_sw128(sm.v, 64 * 128, 1024);
+  const auto qk = [&](float (&sc)[32], const TwoCursor& at) {
+    const int slot = resident ? min(at.slot, nt - 1) : at.slot;
+    sm90::mbar_wait(&sm.full_k[slot], at.par);
+    const uint64_t dks = dk + slot * (kTile >> 4);
+    sm90::fence_regs(sc);
+    __syncwarp();
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int o = (kk / 4) * 512 + (kk % 4) * 2;
+      sm90::wgmma_bf16_ss_m64n64k16(sc, dq + o, dks + o, kk > 0);
+    }
+    sm90::wgmma_commit();
+  };
+  const auto pv = [&](float (&acc)[D / 2], uint32_t (&pf)[4][4],
+                      const TwoCursor& at) {
+    sm90::mbar_wait(&sm.full_v[at.slot], at.par);
+    const uint64_t dvs = dv + at.slot * (kTile >> 4);
+    sm90::fence_regs(pf);
+    sm90::fence_regs(acc);
+    __syncwarp();
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int j2 = 0; j2 < 4; ++j2) {
+      if constexpr (D == 64)
+        sm90::wgmma_bf16_rs_m64n64k16(acc, pf[j2], dvs + j2 * 128);
+      else
+        sm90::wgmma_bf16_rs_m64n128k16(acc, pf[j2], dvs + j2 * 128);
+    }
+    sm90::wgmma_commit();
+  };
+  const auto free_k = [&](const TwoCursor& at) {
+    if (!resident) warp_arrive(&sm.empty_k[at.slot], lane);
+  };
+  const auto free_v = [&](const TwoCursor& at) {
+    warp_arrive(&sm.empty_v[at.slot], lane);
+  };
+  // scores of keys that do not attend to kNegInf, by selects: a branch
+  // around code that writes the scores makes ptxas serialise the walk's
+  // wgmmas (C7518)
+  const auto mask = [&](float (&sc)[32], int k) {
+    const int tl = tile0 + k;
+    const uint32_t bits =
+        kMask || tl >= first_masked ? uint32_t(sm.okw[tl * 4 + t]) : 0xFFFFu;
+#pragma unroll
+    for (int e = 0; e < 32; ++e)
+      sc[e] = (bits >> (2 * (e >> 2) + (e & 1))) & 1u ? sc[e] : kNegInf;
+  };
+  // The named barriers, like wgmma, are .aligned: a warp's lanes must reach
+  // them together, and a lane may leave mbar_wait's spin an iteration after
+  // another, so a __syncwarp goes first
+  const auto sync_bar = [](int id) {
+    __syncwarp();
+    sm90::bar_sync(id, 256);
+  };
+  const auto arrive_bar = [](int id) {
+    __syncwarp();
+    sm90::bar_arrive(id, 256);
+  };
+  // a pair CTA's turns: warpgroup w waits on barrier 1 + w, then signals
+  // the other's
+  const auto take_turn = [&] {
+    if (turns) sync_bar(1 + w);
+  };
+  const auto give_turn = [&] {
+    if (turns) arrive_bar(2 - w);
+  };
+
+  float sc[2][32];
+  uint32_t pf[4][4];
+  float acc[D / 2];
+  // each thread's running max (raw scores; kNegInf while every key so far
+  // is masked), the base of the exponentials (units of log2; 0 while so)
+  // and the sum against it
+  float mt[2] = {kNegInf, kNegInf}, bb[2] = {0.f, 0.f}, l[2] = {0.f, 0.f};
+  const auto stats = [&](float (&s)[32], int k) {
+    mask(s, k);
+    float mx[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {  // a tree over the row's 16 scores
+      float a[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        a[i] = fmaxf(s[4 * i + 2 * r], s[4 * i + 2 * r + 1]);
+#pragma unroll
+      for (int h = 4; h > 0; h >>= 1)
+#pragma unroll
+        for (int i = 0; i < h; ++i) a[i] = fmaxf(a[i], a[i + h]);
+      mx[r] = fmaxf(mt[r], a[0]);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float nb = mx[r] == kNegInf ? 0.f : mx[r] * sl;
+      // a base only rises once a key is valid (from 0 it may fall: l is 0
+      // then)
+      l[r] *= ex2(fminf(bb[r] - nb, 0.f));
+      bb[r] = nb;
+      mt[r] = mx[r];
+    }
+#pragma unroll
+    for (int e = 0; e < 32; ++e)
+      l[(e >> 1) & 1] += ex2(fmaf(s[e], sl, -bb[(e >> 1) & 1]));
+  };
+  sm90::mbar_wait(&sm.q_full[split ? 0 : w], 0);
+  if (turns && w == 1) arrive_bar(1);  // warpgroup 0 goes first
+
+  // pass 1: two tiles a step
+  int k = 0;
+  for (; k + 1 < n; k += 2) {
+    const TwoCursor k0 = kc;
+    kc.next();
+    const TwoCursor k1 = kc;
+    kc.next();
+    take_turn();
+    qk(sc[0], k0);
+    qk(sc[1], k1);
+    give_turn();
+    sm90::wgmma_wait<1>();
+    sm90::fence_regs(sc[0]);
+    free_k(k0);
+    stats(sc[0], k);
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(sc[1]);
+    free_k(k1);
+    stats(sc[1], k + 1);
+  }
+  if (k < n) {
+    take_turn();
+    qk(sc[0], kc);
+    give_turn();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(sc[0]);
+    free_k(kc);
+    stats(sc[0], k);
+    kc.next();
+  }
+
+  // each row's max and sum over the warpgroup's keys, then (split) over
+  // both warpgroups'; base2 = base + log2 l folds the division into the
+  // exponent (a row with no valid key: its masked scores give 0)
+  float base2[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
+    float m = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+    const float bq = m == kNegInf ? 0.f : m * sl;
+    l[r] *= ex2(fminf(bb[r] - bq, 0.f));
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    inv[r] = p.fault ? 1.f : l[r] > 0.f ? 1.f / l[r] : 0.f;
-    base[r] = m[r] == kNegInf ? 0.f : m[r];
+    mt[r] = m;
+    bb[r] = bq;
   }
+  if (split) {
+    if (t == 0)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        sm.stats[(2 * w) * 64 + row0 + 8 * r] = mt[r];
+        sm.stats[(2 * w + 1) * 64 + row0 + 8 * r] = l[r];
+      }
+    sync_bar(3);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float mo = sm.stats[(2 * (1 - w)) * 64 + row0 + 8 * r];
+      const float lo = sm.stats[(2 * (1 - w) + 1) * 64 + row0 + 8 * r];
+      const float m = fmaxf(mt[r], mo);
+      const float base = m == kNegInf ? 0.f : m * sl;
+      const float bo = mo == kNegInf ? 0.f : mo * sl;
+      // the same sum in both warpgroups (addition commutes)
+      l[r] = l[r] * ex2(fminf(bb[r] - base, 0.f)) +
+             lo * ex2(fminf(bo - base, 0.f));
+      bb[r] = base;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    base2[r] = bb[r] + (p.fault || !(l[r] > 0.f) ? 0.f : __log2f(l[r]));
+  // the normalised probabilities of a tile, in place
+  const auto probs = [&](float (&s)[32], int k) {
+    mask(s, k);
+#pragma unroll
+    for (int e = 0; e < 32; ++e)
+      s[e] = ex2(fmaf(s[e], sl, -base2[(e >> 1) & 1]));
+  };
 
-  const int s0 = n_tiles % kStages;
-  sm90::mbar_wait(&sm.full_k[s0], (n_tiles / kStages) & 1);
-  issue_qk<D>(sc, sm.q, sm.k(s0));
-  sm90::wgmma_wait<0>();
-  sm90::fence_regs(sc);
-  normalized_probs<kBN / 2>(sc, sm.keys + s0 * kBN, need_mask(0),
-                            p.scale_log2, t, base, inv);
-  warp_arrive(&sm.empty_k[s0], lane);
-  pack_p(pf, sc);
-  for (int i = 1; i < n_tiles; ++i) {
-    const int it = n_tiles + i, s = it % kStages, sp = (i - 1) % kStages;
-    sm90::mbar_wait(&sm.full_k[s], (it / kStages) & 1);
-    issue_qk<D>(sc, sm.q, sm.k(s));
-    sm90::mbar_wait(&sm.full_v[sp], ((i - 1) / kStages) & 1);
-    issue_pv<D>(acc, pf, sm.v(sp));
-    sm90::wgmma_wait<1>();  // S of tile i is done; P V of tile i-1 runs on
-    sm90::fence_regs(sc);
-    normalized_probs<kBN / 2>(sc, sm.keys + s * kBN, need_mask(i * kBN),
-                              p.scale_log2, t, base, inv);
-    warp_arrive(&sm.empty_k[s], lane);
+  // pass 2
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
+  if (resident) kc = k_first;
+  for (k = 0; k + 1 < n; k += 2) {
+    const TwoCursor k0 = kc;
+    kc.next();
+    const TwoCursor k1 = kc;
+    kc.next();
+    const TwoCursor v0 = vc;
+    vc.next();
+    const TwoCursor v1 = vc;
+    vc.next();
+    take_turn();
+    qk(sc[0], k0);
+    qk(sc[1], k1);
+    give_turn();
+    sm90::wgmma_wait<1>();
+    sm90::fence_regs(sc[0]);
+    free_k(k0);
+    probs(sc[0], k);
+    pack_p<32>(pf, sc[0]);
+    take_turn();
+    pv(acc, pf, v0);
+    give_turn();
+    sm90::wgmma_wait<1>();  // the second Q K^T; the first P V runs on
+    sm90::fence_regs(sc[1]);
+    free_k(k1);
+    probs(sc[1], k + 1);
     sm90::wgmma_wait<0>();
     sm90::fence_regs(acc);
-    warp_arrive(&sm.empty_v[sp], lane);
-    pack_p(pf, sc);
+    free_v(v0);
+    pack_p<32>(pf, sc[1]);
+    take_turn();
+    pv(acc, pf, v1);
+    give_turn();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(acc);
+    free_v(v1);
   }
-  const int last = (n_tiles - 1) % kStages;
-  sm90::mbar_wait(&sm.full_v[last], ((n_tiles - 1) / kStages) & 1);
-  issue_pv<D>(acc, pf, sm.v(last));
-  sm90::wgmma_wait<0>();
-  sm90::fence_regs(acc);
-  store_rows<D>(p, acc, b, hd, qrow, t);
+  if (k < n) {
+    take_turn();
+    qk(sc[0], kc);
+    give_turn();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(sc[0]);
+    free_k(kc);
+    probs(sc[0], k);
+    pack_p<32>(pf, sc[0]);
+    take_turn();
+    pv(acc, pf, vc);
+    give_turn();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(acc);
+    free_v(vc);
+  }
+  // warpgroup 0 takes the turn warpgroup 1 gave last (every bar_arrive
+  // meets a bar_sync)
+  if (turns && w == 0) sync_bar(1);
+
+  const int q0 = qt * 64;
+  const int qrow[2] = {q0 + row0, q0 + row0 + 8};
+  if (!split) {
+    store_rows<D>(p, acc, b, hd, qrow, t);
+    return;
+  }
+  // a split CTA: each warpgroup hands the other the half of its partial
+  // output that the other writes (the V ring is free once both are done)
+  constexpr int kHalf = D / 4;  // floats a thread hands over
+  const auto finish = [&](auto wc) {
+    constexpr int W = decltype(wc)::value;
+    float* give = reinterpret_cast<float*>(sm.v) + (1 - W) * kHalf * 128;
+    const float* take =
+        reinterpret_cast<const float*>(sm.v) + W * kHalf * 128;
+    sync_bar(3);
+#pragma unroll
+    for (int e = 0; e < kHalf; ++e)
+      give[e * 128 + tid] = acc[kHalf * (1 - W) + e];
+    sync_bar(3);
+#pragma unroll
+    for (int e = 0; e < kHalf; ++e) acc[kHalf * W + e] += take[e * 128 + tid];
+    store_rows<D, W * D / 16, D / 16>(p, acc, b, hd, qrow, t);
+  };
+  if (w == 0)
+    finish(std::integral_constant<int, 0>());
+  else
+    finish(std::integral_constant<int, 1>());
 }
 
-// The producer warp: Q once, then every K tile (and its keys) through the K
-// ring twice, V through the V ring in the second pass, each stage as soon
-// as the consumers have released it.
-template <int D>
-__device__ __forceinline__ void two_pass_produce(
-    const NormParams& p, const Smem<D>& sm, const CUtensorMap* tm_q,
-    const CUtensorMap* tm_k, const CUtensorMap* tm_v, int b, int hd, int q0,
-    int n_tiles, int lane) {
-  using C = Cfg<D>;
-  if (lane == 0) {
-    sm90::mbar_arrive_tx(sm.q_full, C::kQBytes);
-    for (int cb = 0; cb < D / 64; ++cb)
-      sm90::tma_load_4d(sm.q + cb * C::kBQ * 128, tm_q, sm.q_full, cb * 64,
-                        q0, hd, b);
-  }
-  for (int it = 0; it < 2 * n_tiles; ++it) {
-    const int s = it % kStages, kv0 = (it % n_tiles) * C::kBN;
-    sm90::mbar_wait(&sm.empty_k[s], ((it / kStages) & 1) ^ 1);
-    for (int c = lane; c < C::kBN; c += 32) {
-      const int kv = kv0 + c;
-      sm.keys[s * C::kBN + c] =
-          kv < p.Skv && (p.kv_mask == nullptr ||
-                         p.kv_mask[(size_t)b * p.Skv + kv])
-              ? 0
-              : -1;
-    }
-    if (lane == 0) {  // its arrival also counts the tile's bytes
-      sm90::mbar_arrive_tx(&sm.full_k[s], C::kTileBytes);
-      for (int cb = 0; cb < D / 64; ++cb)
-        sm90::tma_load_4d(sm.k(s) + cb * C::kBN * 128, tm_k, &sm.full_k[s],
-                          cb * 64, kv0, hd, b);
-    } else {
-      sm90::mbar_arrive(&sm.full_k[s]);  // releases this lane's keys
-    }
-    if (lane == 0 && it >= n_tiles) {
-      const int iv = it - n_tiles, sv = iv % kStages;
-      sm90::mbar_wait(&sm.empty_v[sv], ((iv / kStages) & 1) ^ 1);
-      sm90::mbar_arrive_tx(&sm.full_v[sv], C::kTileBytes);
-      for (int cb = 0; cb < D / 64; ++cb)
-        sm90::tma_load_4d(sm.v(sv) + cb * C::kBN * 128, tm_v, &sm.full_v[sv],
-                          cb * 64, kv0, hd, b);
-    }
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(Cfg<D>::kThreads, Cfg<D>::kMinBlocks)
+// One CTA a pair of a head's Q tiles (grid: B * H * pairs, a head's pairs
+// adjacent, so that they find its K and V in L2). The producer warp's first
+// thread loads the Q tiles and, when K is resident, every K tile once; the
+// key bits of every tile are written meanwhile.
+template <int D, bool kMask>
+__global__ void __launch_bounds__(kTwoThreads, 1)
     flash_norm_two_pass_kernel(const __grid_constant__ CUtensorMap tm_q,
                                const __grid_constant__ CUtensorMap tm_k,
                                const __grid_constant__ CUtensorMap tm_v,
-                               const NormParams p) {
-  using C = Cfg<D>;
-  constexpr int kConsumerWarps = 4;
+                               const NormParams p, const TwoPlan pl) {
+  constexpr int kTile = 64 * D * 2;
   extern __shared__ uint8_t smem_raw[];
-  const Smem<D> sm(smem_raw);
-  const int b = blockIdx.x / p.H, hd = blockIdx.x % p.H;
-  const int q0 = blockIdx.y * C::kBQ;
-  const int n_tiles = (p.Skv + C::kBN - 1) / C::kBN;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
-      sm90::mbar_init(&sm.full_k[s], 32);
-      sm90::mbar_init(&sm.full_v[s], 1);
-      sm90::mbar_init(&sm.empty_k[s], kConsumerWarps);
-      sm90::mbar_init(&sm.empty_v[s], kConsumerWarps);
+  const TwoSmem sm(smem_raw, kTile, pl);
+  const int nq = ceil_div(p.Sq, 64), nt = ceil_div(p.Skv, 64);
+  const int bh = blockIdx.x / pl.pairs, pair = blockIdx.x % pl.pairs;
+  const int b = bh / p.H, hd = bh % p.H;
+  // a head's odd last Q tile: its warpgroups split the keys
+  const bool split = 2 * pair + 1 == nq;
+  const int L = split ? 2 * ceil_div(nt, 2) : nt;
+  const bool resident = nt <= pl.kslots;
+  const int producer = 256;  // the producer warp's first thread
+  if (threadIdx.x == producer) {
+    const int warps = split ? 4 : 8;  // the warps that read each slot
+    for (int s = 0; s < (resident ? nt : pl.kslots); ++s) {
+      sm90::mbar_init(&sm.full_k[s], 1);
+      sm90::mbar_init(&sm.empty_k[s], warps);
     }
-    sm90::mbar_init(sm.q_full, 1);
+    for (int s = 0; s < pl.vslots; ++s) {
+      sm90::mbar_init(&sm.full_v[s], 1);
+      sm90::mbar_init(&sm.empty_v[s], warps);
+    }
+    sm90::mbar_init(&sm.q_full[0], 1);
+    sm90::mbar_init(&sm.q_full[1], 1);
     sm90::mbar_fence_init();
+    for (int w = 0; w < (split ? 1 : 2); ++w)
+      two_pass_load<D>(sm.q + w * kTile, &tm_q, &sm.q_full[w], 2 * pair + w,
+                       hd, b);
+    if (resident)
+      for (int j = 0; j < nt; ++j)
+        two_pass_load<D>(sm.k + j * kTile, &tm_k, &sm.full_k[j], j, hd, b);
   }
-  __syncthreads();
-  if (warp == kConsumerWarps)
-    two_pass_produce<D>(p, sm, &tm_q, &tm_k, &tm_v, b, hd, q0, n_tiles, lane);
-  else
-    two_pass_consume<D>(p, sm, b, hd, q0, n_tiles, warp, lane);
+  for (int i = threadIdx.x; i < 4 * (nt + 1); i += kTwoThreads) {
+    const int c = i >> 2, tt = i & 3;
+    uint32_t bits = 0;
+    for (int j = 0; j < 8; ++j)
+      for (int h = 0; h < 2; ++h) {
+        const int key = 64 * c + 8 * j + 2 * tt + h;
+        if (key < p.Skv && (!kMask || p.kv_mask[(size_t)b * p.Skv + key]))
+          bits |= 1u << (2 * j + h);
+      }
+    sm.okw[i] = (uint16_t)bits;
+  }
+  __syncthreads();  // the barriers' initialisation and the key bits
+  if (threadIdx.x >= producer) {
+    if (threadIdx.x == producer)
+      two_pass_produce<D>(sm, pl, &tm_k, &tm_v, b, hd, nt, split, L,
+                          resident);
+    return;
+  }
+  const int w = threadIdx.x >> 7;
+  two_pass_walk<D, kMask>(p, sm, pl, b, hd, 2 * pair + (split ? 0 : w), nt,
+                          split, L, resident, w);
+}
+
+template <int D, bool kMask>
+int launch_two_pass(const CUtensorMap* maps, const NormParams& p,
+                    const TwoPlan& pl, long long ctas, cudaStream_t stream) {
+  auto kernel = flash_norm_two_pass_kernel<D, kMask>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, pl.smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)ctas, kTwoThreads, pl.smem, stream>>>(maps[0], maps[1],
+                                                          maps[2], p, pl);
+  return (int)cudaGetLastError();
 }
 
 template <int D>
-int launch_two_pass(const CUtensorMap* maps, const NormParams& p, int B,
-                    cudaStream_t stream) {
-  using C = Cfg<D>;
-  auto kernel = flash_norm_two_pass_kernel<D>;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(B * p.H, (p.Sq + C::kBQ - 1) / C::kBQ);
-  kernel<<<grid, C::kThreads, C::kSmem, stream>>>(maps[0], maps[1], maps[2],
-                                                  p);
-  return (int)cudaGetLastError();
+int dispatch_two_pass(const CUtensorMap* maps, const NormParams& p, int B,
+                      int kslots, int vslots, cudaStream_t stream) {
+  TwoPlan pl;
+  if (!two_pass_plan(p.Sq, p.Skv, D, kslots, vslots, pl))
+    return (int)cudaErrorInvalidValue;
+  const long long ctas = (long long)B * p.H * pl.pairs;
+  if (ctas > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  return p.kv_mask != nullptr
+             ? launch_two_pass<D, true>(maps, p, pl, ctas, stream)
+             : launch_two_pass<D, false>(maps, p, pl, ctas, stream);
 }
 
 // Whether C CTAs take rows of nt key tiles: 4 or 5 slots each.
@@ -1495,14 +1912,17 @@ bool cluster_plan_ok(int nt, int C) {
 // the two-pass path (any Skv), 2 the split path (D64, 320 < Skv <= 640), 3
 // the cluster path (D64, 640 < Skv <= 2560) on clusters of `clusters` CTAs
 // (each over 4 or 5 key tiles; a cluster that cannot be resident is
-// cudaErrorInvalidConfiguration). fault 1 skips the normalisation (a
-// planted fault for checks). Returns cudaError_t.
+// cudaErrorInvalidConfiguration). The two-pass path takes the host's plan
+// of `k_slots` K and `v_slots` V slots (`two_pass_plan` says which it
+// takes). fault 1 skips the normalisation (a planted fault for checks).
+// Returns cudaError_t.
 extern "C" int lhrs_flash_fwd_norm(const void* q, const void* k,
                                    const void* v, const void* kv_mask,
                                    void* o, int B, int H, int Sq, int Skv,
                                    int D, float sm_scale, const void* strides,
                                    int out_f32, int path, int fault,
-                                   int clusters, void* stream) {
+                                   int clusters, int k_slots, int v_slots,
+                                   void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0 || Skv <= 0 || (D != 64 && D != 128) ||
       path < 0 || path > 3 || (path == 0 && Skv > res_keys(D)) ||
       (path == 2 && (D != 64 || Skv <= res_keys(D) || Skv > split_keys)) ||
@@ -1510,7 +1930,6 @@ extern "C" int lhrs_flash_fwd_norm(const void* q, const void* k,
                      !cluster_plan_ok(ceil_div(Skv, 64), clusters) ||
                      H > 65535 || B > 65535)))
     return (int)cudaErrorInvalidValue;
-  if (path == 1 && (Sq + 63) / 64 > 65535) return (int)cudaErrorInvalidValue;
   const auto* st = static_cast<const long long*>(strides);
   CUtensorMap maps[5];
   // Q, K and V in 64-row boxes; the resident and split paths' last key
@@ -1533,8 +1952,8 @@ extern "C" int lhrs_flash_fwd_norm(const void* q, const void* k,
   p.os = Strides{st[9], st[10], st[11]};
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
   if (path == 1)
-    return D == 128 ? launch_two_pass<128>(maps, p, B, cs)
-                    : launch_two_pass<64>(maps, p, B, cs);
+    return D == 128 ? dispatch_two_pass<128>(maps, p, B, k_slots, v_slots, cs)
+                    : dispatch_two_pass<64>(maps, p, B, k_slots, v_slots, cs);
   if (path == 2) return dispatch_split(maps, p, B, cs);
   if (path == 3)
     return p.kv_mask != nullptr

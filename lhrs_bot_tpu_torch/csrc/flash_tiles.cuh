@@ -1,12 +1,12 @@
-// K1's tiles, shared by the flash-attention forward (flash_fwd.cu) and the
-// normalize-first variant's two-pass path (flash_fwd_norm.cu): the CTA
-// geometry (one consumer warpgroup over 64 q rows, 64-row kv tiles, a
-// producer warp), its shared memory (a Q tile, two-stage K and V rings, the
-// keys of each K stage), the two wgmma products of a tile (S = Q K^T from
-// shared memory; O += P V with P from registers), the online softmax of one
-// tile of scores, the packing of probabilities into bf16 A fragments, and
-// the TMA map of a (B, H, S, D) operand read through element strides.
-// flash_fwd.cu's header has the design and what bounds it.
+// K1's tiles (flash_fwd.cu): the CTA geometry (one consumer warpgroup over
+// 64 q rows, 64-row kv tiles, a producer warp), its shared memory (a Q
+// tile, two-stage K and V rings, the keys of each K stage), the two wgmma
+// products of a tile (S = Q K^T from shared memory; O += P V with P from
+// registers) and the online softmax of one tile of scores; and what the
+// normalize-first kernels (flash_fwd_norm.cu) share with it: the packing
+// of probabilities into bf16 A fragments, exp2, the barrier arrival of a
+// warp and the TMA map of a (B, H, S, D) operand read through element
+// strides. flash_fwd.cu's header has K1's design and what bounds it.
 
 #pragma once
 

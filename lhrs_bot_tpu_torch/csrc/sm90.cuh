@@ -280,9 +280,13 @@ __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
-// Named barrier over the first `n` threads of the block (a multiple of 32).
+// Named barrier over `n` threads of the block (a multiple of 32): bar_sync
+// arrives and waits, bar_arrive arrives only (a signal to the waiters).
 __device__ __forceinline__ void bar_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
 // d[64] += A (64 x 32 s8, smem, K-major) B (128 x 32 s8, smem, K-major)^T;

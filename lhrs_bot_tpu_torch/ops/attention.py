@@ -260,15 +260,23 @@ flash_attention_fwd.launches = 0
 # between two warpgroups); longer rows of at most NORM_CLUSTER_KEYS[D] keys
 # its cluster path (a head's key tiles split over a thread-block cluster,
 # at most NORM_CLUSTER_TILES tiles of 64 keys a CTA and NORM_MAX_CLUSTER
-# CTAs) where a head has more than one Q tile of 64 rows; longer rows
-# still, and the cluster's rows of one Q tile (the 504-px perceiver's 64
-# queries: no Q tile after the first hides a cluster's loads and
-# barriers, and the two-pass path runs them faster), its two-pass path
+# CTAs) where a head has more than one Q tile of 64 rows, but the rows of
+# NORM_TWO_PASS_TILES[D] tiles of 64 keys; every other row (longer rows,
+# D128 past 256 keys, those rows, the cluster's rows of one Q tile: the
+# 504-px perceiver's 64 queries) its two-pass path. The readings on an
+# H100 (`benchmarks/wgmma_ab.py --part norm`, PERF.md §6), over B64
+# H16: the two-pass path is the faster at 1,088 keys (17 tiles), 1,297 and
+# 1,312 (21: ViT-L/14 at 504 px and its block) and 1,664 (26), where the
+# cluster's CTAs of four slots leave two or three slots empty; the cluster
+# path at 704, 832, 960, 1,216, 1,408 (a tie), 1,536, 1,792, 2,048 and
+# 2,560 keys, and at the tile counts not measured; at 64 x 1,360 the
+# two-pass path.
 NORM_RESIDENT_KEYS = {64: 320, 128: 256}
 NORM_SPLIT_KEYS = {64: 640}
 NORM_CLUSTER_TILES = 5
 NORM_MAX_CLUSTER = 8
 NORM_CLUSTER_KEYS = {64: NORM_MAX_CLUSTER * NORM_CLUSTER_TILES * 64}
+NORM_TWO_PASS_TILES = {64: (17, 21, 26)}
 # the C entry's path argument
 _NORM_PATHS = {"resident": 0, "two_pass": 1, "split": 2, "cluster": 3}
 
@@ -288,9 +296,13 @@ def norm_keys_path(skv: int, d: int) -> str:
 def norm_path(skv: int, d: int, sq: int) -> str:
     """The normalize-first forward's path for `sq` query rows over rows of
     `skv` keys at head dim `d`: `norm_keys_path`, but the cluster's rows
-    with one Q tile (sq <= 64) take the two-pass path."""
+    with one Q tile (sq <= 64) and its rows of NORM_TWO_PASS_TILES[d] tiles
+    of 64 keys take the two-pass path."""
     path = norm_keys_path(skv, d)
-    return "two_pass" if path == "cluster" and sq <= 64 else path
+    if path == "cluster" and (sq <= 64 or -(-skv // 64)
+                              in NORM_TWO_PASS_TILES.get(d, ())):
+        return "two_pass"
+    return path
 
 
 def norm_cluster_plan(skv: int) -> Tuple[int, List[Tuple[int, int]]]:
@@ -313,6 +325,58 @@ def norm_cluster_plan(skv: int) -> Tuple[int, List[Tuple[int, int]]]:
                (short * (n - 1) + (r - short) * n, n) for r in range(c)]
 
 
+# the two-pass kernel's CTA (csrc/flash_fwd_norm.cu's `two_pass_plan`, which
+# checks the slots it is given): K and V slots in the H100's 232,448 bytes
+# of shared memory a block, beside 2,048 bytes of row stats and barriers,
+# at least 3 slots in a ring and at most 8 V slots
+_TWO_PASS_SMEM = 232448
+_TWO_PASS_HEAD = 2048
+_TWO_PASS_MIN_STAGES = 3
+_TWO_PASS_MAX_V = 8
+
+
+def norm_two_pass_plan(sq: int, skv: int, d: int) -> dict:
+    """The two-pass kernel's plan for `sq` query rows over rows of `skv`
+    keys at head dim `d`, whose K and V slots the launch passes to the
+    kernel: a CTA takes a pair of a head's 64-row Q tiles, one for each
+    consumer warpgroup (`pairs` a head); a head's odd last Q tile takes a
+    CTA alone, whose warpgroups split its key tiles (ceil(tiles / 2) each,
+    the second's last a masked dummy when the count is odd). K stays in
+    shared memory between the passes ("resident": each key tile loaded
+    once, the dummy reading the last) where the row's key tiles fit beside
+    the V ring; else K passes through a ring twice. A launch with split
+    CTAs (an odd Q-tile count) takes rings of an even size, at least four:
+    its warpgroups take alternate positions of a ring, and an odd ring
+    would hand a slot from one to the other at every phase, which a
+    barrier's parity cannot tell apart. Keys: pairs, q_slots, k_slots,
+    v_slots, smem (bytes), resident (the pair CTAs', the split CTAs' or
+    None where the launch has none). Raises where no plan fits."""
+    tile = 64 * d * 2
+    nq, nt = -(-sq // 64), -(-skv // 64)
+    q_slots = 2 if nq > 1 else 1
+    even = nq % 2 == 1
+    least = _TWO_PASS_MIN_STAGES + even  # the fewest slots of a ring
+    okw = ((nt + 1) * 8 + 15) & ~15
+    fixed = 1024 + q_slots * tile + _TWO_PASS_HEAD + okw
+    avail = (_TWO_PASS_SMEM - fixed) // tile
+    if avail < 2 * least:
+        raise ValueError(f"the two-pass kernel has no plan for rows of {skv} "
+                         f"keys at D {d}")
+    if nt + least <= avail:
+        k_slots, v_slots = nt, min(avail - nt, _TWO_PASS_MAX_V)
+    else:
+        k_slots, v_slots = avail - least, least
+    if even:
+        v_slots -= v_slots % 2
+        if k_slots < nt:
+            k_slots -= k_slots % 2
+    pairs = -(-nq // 2)
+    return {"pairs": pairs, "q_slots": q_slots, "k_slots": k_slots,
+            "v_slots": v_slots, "smem": fixed + (k_slots + v_slots) * tile,
+            "resident": (nt <= k_slots if nq > 1 else None,
+                         nt <= k_slots if even else None)}
+
+
 def flash_attention_fwd_normalized(q: torch.Tensor, k: torch.Tensor,
                                    v: torch.Tensor,
                                    kv_mask: Optional[torch.Tensor],
@@ -330,8 +394,9 @@ def flash_attention_fwd_normalized(q: torch.Tensor, k: torch.Tensor,
     `flash_attention_fwd_normalized.launches`; longer rows go to
     `flash_attention_fwd_normalized_split` (to `NORM_SPLIT_KEYS[D]` keys),
     `flash_attention_fwd_normalized_cluster` (to `NORM_CLUSTER_KEYS[D]`,
-    more than 64 query rows) or `flash_attention_fwd_normalized_two_pass`
-    (`norm_path`), which count their own.
+    more than 64 query rows, but rows of `NORM_TWO_PASS_TILES[D]` key
+    tiles) or `flash_attention_fwd_normalized_two_pass` (`norm_path`),
+    which count their own.
     Its plain version is `mha_reference`."""
     path = norm_path(k.shape[2], q.shape[3], q.shape[2])
     if path == "split":
@@ -379,13 +444,15 @@ def flash_attention_fwd_normalized_cluster(
         out_dtype=torch.float32, out: Optional[torch.Tensor] = None
 ) -> torch.Tensor:
     """The normalize-first forward's cluster kernel, for rows past
-    `NORM_SPLIT_KEYS[64]` keys up to `NORM_CLUSTER_KEYS[64]` at D64
-    (ViT-L/14 at 504 px: 1,297 tokens): a thread-block cluster a head, each
-    CTA holding its slice of the head's K and V (`norm_cluster_plan`), the
-    row stats and partial outputs exchanged through distributed shared
-    memory. A cluster that does not fit on the card raises.
-    `flash_attention_fwd_normalized` takes it for such rows where the
-    queries fill more than one tile of 64. Counts its launches in
+    `NORM_SPLIT_KEYS[64]` keys up to `NORM_CLUSTER_KEYS[64]` at D64: a
+    thread-block cluster a head, each CTA holding its slice of the head's
+    K and V (`norm_cluster_plan`), the row stats and partial outputs
+    exchanged through distributed shared memory. A cluster that does not
+    fit on the card raises. `flash_attention_fwd_normalized` takes it for
+    such rows where the queries fill more than one tile of 64, but those
+    of `NORM_TWO_PASS_TILES[64]` tiles of 64 keys (ViT-L/14 at 504 px:
+    1,297 tokens, the block's 1,312), which the two-pass kernel runs
+    faster. Counts its launches in
     `flash_attention_fwd_normalized_cluster.launches`."""
     out = _flash_fwd_norm(q, k, v, kv_mask, sm_scale, out_dtype, out,
                           path="cluster")
@@ -401,11 +468,15 @@ def flash_attention_fwd_normalized_two_pass(
         kv_mask: Optional[torch.Tensor], sm_scale: float,
         out_dtype=torch.float32, out: Optional[torch.Tensor] = None
 ) -> torch.Tensor:
-    """The normalize-first forward's two-pass kernel at any row length
-    (K1's tiles: a first pass of Q K^T for each row's max and sum, then P V),
-    which `flash_attention_fwd_normalized` takes for rows past
+    """The normalize-first forward's two-pass kernel at any row length (a
+    first pass of Q K^T for each row's max and sum, then Q K^T again and
+    P V; two consumer warpgroups a CTA over two Q tiles of a head, or over
+    the halves of a lone Q tile's keys, with K kept in shared memory
+    between the passes where `norm_two_pass_plan` fits it), which
+    `flash_attention_fwd_normalized` takes for rows past
     `NORM_CLUSTER_KEYS[D]` keys (past `NORM_RESIDENT_KEYS[D]` where D has no
-    split or cluster path) and for the cluster's rows with one Q tile (the
+    split or cluster path), for the rows of `NORM_TWO_PASS_TILES[D]` key
+    tiles (ViT-L/14 at 504 px) and for the cluster's rows with one Q tile (the
     504-px perceiver's 64 x 1,360). Counts its launches in
     `flash_attention_fwd_normalized_two_pass.launches`."""
     out = _flash_fwd_norm(q, k, v, kv_mask, sm_scale, out_dtype, out,
@@ -454,6 +525,8 @@ def _flash_fwd_norm(q, k, v, kv_mask, sm_scale, out_dtype, out, *,
                          f"{norm_keys_path(skv, d)} path, not the {path} "
                          "path")
     c = norm_cluster_plan(skv)[0] if path == "cluster" else 0
+    plan = (norm_two_pass_plan(sq, skv, d) if path == "two_pass"
+            else {"k_slots": 0, "v_slots": 0})
     out, strides = _fwd_out_and_strides(q, k, v, out, out_dtype)
     _check_masks(kv_mask, None, b, sq, skv, q.device,
                  "flash_attention_fwd_normalized")
@@ -464,7 +537,7 @@ def _flash_fwd_norm(q, k, v, kv_mask, sm_scale, out_dtype, out, *,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_mask),
             out.data_ptr(), b, h, sq, skv, d, float(sm_scale), strides,
             int(out_dtype == torch.float32), _NORM_PATHS[path], int(fault),
-            c, stream)
+            c, plan["k_slots"], plan["v_slots"], stream)
     cuda_lib.check(err, "flash_attention_fwd_normalized")
     return out
 

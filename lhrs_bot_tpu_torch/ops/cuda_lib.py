@@ -41,9 +41,10 @@ _ENTRIES = {
     "lhrs_flash_fwd": [_P] * 7 + [_I] * 6 + [ctypes.c_float, _P, _I, _P],
     # q, k, v, kv_mask, o, B, H, Sq, Skv, D, sm_scale, strides (as above),
     # out_f32, path (0 resident, 1 two-pass, 2 split, 3 cluster), fault,
-    # clusters (path 3's CTAs a cluster), stream (csrc/flash_fwd_norm.cu)
-    "lhrs_flash_fwd_norm": [_P] * 5 + [_I] * 5 + [ctypes.c_float, _P, _I, _I,
-                                                  _I, _I, _P],
+    # clusters (path 3's CTAs a cluster), k_slots, v_slots (path 1's plan),
+    # stream (csrc/flash_fwd_norm.cu)
+    "lhrs_flash_fwd_norm": [_P] * 5 + [_I] * 5 + [ctypes.c_float, _P] +
+                           [_I] * 6 + [_P],
     # q, k, v, dout, lse, delta, kv_mask, seg, runs, dq, B, H, Sq, Skv, D,
     # causal, sm_scale, stream
     "lhrs_flash_bwd_dq": [_P] * 10 + [_I] * 6 + [ctypes.c_float, _P],

@@ -182,14 +182,23 @@ def test_attention_plain_matches_jax_probs_and_norm(mode, case):
 _BY_LENGTH = [(64, 197, "resident"), (64, 257, "resident"),
               (64, 320, "resident"), (64, 321, "split"), (64, 577, "split"),
               (64, 592, "split"), (64, 640, "split"), (64, 641, "cluster"),
-              (64, 1297, "cluster"), (64, 1312, "cluster"),
+              (64, 704, "cluster"), (64, 1024, "cluster"),
+              (64, 1025, "two_pass"), (64, 1088, "two_pass"),
+              (64, 1089, "cluster"), (64, 1280, "cluster"),
+              (64, 1281, "two_pass"), (64, 1297, "two_pass"),
+              (64, 1312, "two_pass"), (64, 1344, "two_pass"),
+              (64, 1345, "cluster"), (64, 1600, "cluster"),
+              (64, 1601, "two_pass"), (64, 1664, "two_pass"),
+              (64, 1665, "cluster"),
               (64, 1360, "cluster"), (64, 2560, "cluster"),
               (64, 2561, "two_pass"), (128, 256, "resident"),
-              (128, 257, "two_pass")]
+              (128, 257, "two_pass"), (128, 577, "two_pass"),
+              (128, 2560, "two_pass")]
 _BY_QUERIES = [(64, 64, 1360, "two_pass"), (64, 1, 641, "two_pass"),
                (64, 64, 2560, "two_pass"), (64, 65, 641, "cluster"),
                (64, 65, 1360, "cluster"), (64, 64, 640, "split"),
-               (64, 64, 320, "resident")]
+               (64, 64, 320, "resident"), (64, 65, 2560, "cluster"),
+               (64, 1297, 1297, "two_pass"), (128, 577, 577, "two_pass")]
 
 
 @pytest.mark.parametrize(
@@ -205,13 +214,16 @@ def test_normalized_forward_path_by_row_length(monkeypatch, d, sq, skv,
     hands rows of up to NORM_SPLIT_KEYS[D] keys (640, D64 only) to the split
     wrapper, rows of up to NORM_CLUSTER_KEYS[D] (2,560, D64 only: eight CTAs
     of five 64-key tiles) to the cluster wrapper where the queries fill
-    more than one Q tile of 64 (the 504-px perceiver's 64 queries over
-    1,360 keys go to the two-pass wrapper), and longer rows to the two-pass
-    wrapper; each counts its own launches. The launch itself is recorded
-    (no kernel runs on the CPU)."""
+    more than one Q tile of 64, but rows of NORM_TWO_PASS_TILES[D] tiles
+    of 64 keys (17, 21 and 26: 21 at ViT-L/14 504 px) and the 504-px
+    perceiver's 64 queries over 1,360 keys go to the two-pass wrapper, as
+    do longer rows
+    (D128 past 256 keys: 577 too); each counts its own launches. The
+    launch itself is recorded (no kernel runs on the CPU)."""
     assert t_att.NORM_RESIDENT_KEYS == {64: 320, 128: 256}
     assert t_att.NORM_SPLIT_KEYS == {64: 640}
     assert t_att.NORM_CLUSTER_KEYS == {64: 2560}
+    assert t_att.NORM_TWO_PASS_TILES == {64: (17, 21, 26)}
     assert t_att.norm_path(skv, d, sq) == path
     taken = []
     monkeypatch.setattr(t_att, "_flash_fwd_norm",
@@ -279,6 +291,70 @@ def test_norm_cluster_plan():
             t_att.norm_cluster_plan(skv)
 
 
+@pytest.mark.parametrize("sq, skv, d, want", [
+    # the 504-px perceiver's 64 x 1,360: one Q tile a head, its warpgroups
+    # split 22 key tiles, K resident beside four V slots
+    (64, 1360, 64, (1, 1, 22, 4, 224448, (None, True))),
+    # ViT-L/14 at 504 px: ten Q-tile pairs and an odd last tile a head,
+    # 21 key tiles resident (the split CTA's dummy reads the last) beside
+    # four V slots (even: the launch has split CTAs)
+    (1297, 1297, 64, (11, 2, 21, 4, 224432, (True, True))),
+    (1312, 1312, 64, (11, 2, 21, 4, 224432, (True, True))),
+    # ViT-L/14 at 336 px: five pairs, ten key tiles beside eight V slots
+    (577, 577, 64, (5, 2, 10, 8, 167008, (True, None))),
+    # D128 at 577 keys: ten 16 KB key tiles do not fit beside three V
+    # slots, so K passes through an eight-slot ring twice
+    (577, 577, 128, (5, 2, 8, 3, 216160, (False, None))),
+    # streamed with split CTAs: K and V rings of even sizes (25 slots fit:
+    # one goes unused)
+    (64, 2561, 64, (1, 1, 22, 4, 224592, (None, False))),
+    (2561, 2561, 64, (21, 2, 20, 4, 216400, (False, False))),
+    (704, 704, 64, (6, 2, 11, 8, 175200, (True, True))),
+    (1, 17, 64, (1, 1, 1, 8, 85008, (None, True))),
+])
+def test_norm_two_pass_plan(sq, skv, d, want):
+    """The two-pass kernel's plan (`norm_two_pass_plan`, whose K and V
+    slots the launch passes to csrc/flash_fwd_norm.cu, where
+    `two_pass_plan` checks them): Q-tile pairs a head, Q, K and V slots, the
+    shared memory, and whether the pair CTAs' and the split CTAs' K stays
+    resident; every plan within the block's 232,448 bytes, with at least
+    three V slots and, where K is streamed, three K slots; where the launch
+    has split CTAs (an odd Q-tile count), rings of an even size."""
+    plan = t_att.norm_two_pass_plan(sq, skv, d)
+    assert (plan["pairs"], plan["q_slots"], plan["k_slots"], plan["v_slots"],
+            plan["smem"], plan["resident"]) == want
+    nt = -(-skv // 64)
+    assert plan["smem"] <= 232448 and plan["v_slots"] >= 3
+    assert plan["k_slots"] == nt or plan["k_slots"] >= 3
+    if -(-sq // 64) % 2:
+        assert plan["v_slots"] % 2 == 0
+        assert plan["k_slots"] == nt or plan["k_slots"] % 2 == 0
+
+
+def test_norm_two_pass_plan_bounds():
+    """Every row length up to 8,192 keys has a plan at both head dims, K
+    resident exactly while the row's key tiles fit beside the V ring, the
+    slots filling the shared memory a tile short at most (two where a
+    launch with split CTAs rounds its rings to even sizes), those rings
+    even; a row too long for its key bits beside six slots raises."""
+    for d in (64, 128):
+        tile = 128 * d
+        for skv in range(1, 8193, 37):
+            for sq in (64, 128, 192):
+                plan = t_att.norm_two_pass_plan(sq, skv, d)
+                odd = -(-sq // 64) % 2
+                assert 232448 - (1 + odd) * tile < plan["smem"] <= 232448 or (
+                    plan["v_slots"] >= 8 - odd)
+                assert all(r is None or r == (plan["k_slots"] == -(-skv // 64))
+                           for r in plan["resident"])
+                if odd:
+                    assert plan["v_slots"] % 2 == 0 and plan["v_slots"] >= 4
+                    assert plan["resident"][1] or (
+                        plan["k_slots"] % 2 == 0 and plan["k_slots"] >= 4)
+    with pytest.raises(ValueError, match="two-pass"):
+        t_att.norm_two_pass_plan(64, 64 * 20000, 128)
+
+
 @functools.lru_cache(maxsize=None)
 def _packed(pack, params):
     """Layer 0 of `params()`'s layers packed by the port's `pack`, and the
@@ -306,7 +382,7 @@ def test_fused_vit_block_matches_jax_in_each_mode(mode):
 def test_fused_vit_block_504_matches_jax(mode):
     """The fused ViT block at ViT-L/14 504 px's token count (1,297 tokens
     padded to 1,312, one image, the narrow ViT's two heads of 64): on the
-    card its attention takes the cluster path; here the plain version,
+    card its attention takes the two-pass path; here the plain version,
     against JAX's kernel in interpret mode, within the block bound."""
     jlp, tlp = _packed(t_vb.pack_vit_layers_fused, _vit_params)
     rng = np.random.default_rng(24)
@@ -316,7 +392,7 @@ def test_fused_vit_block_504_matches_jax(mode):
     jx = jnp.asarray(x, jnp.bfloat16)
     tx = _t(np.asarray(jx.astype(jnp.float32))).to(torch.bfloat16)
     assert t_att.norm_path(s_pad, VIT.width // VIT.heads,
-                           s_pad) == "cluster"
+                           s_pad) == "two_pass"
     kw = dict(heads=VIT.heads, s_valid=s_valid, quick_gelu=True)
     want = j_vb.fused_vit_block(jx, jlp, interpret=True, **kw)
     got = t_vb.fused_vit_block(tx, tlp, **kw)
